@@ -1,0 +1,41 @@
+"""The port stands alone: no module of odil_torch/, nor chip_smoke.py,
+imports jax or anything of the JAX package (odil_tpu, odil).  Checked by
+scanning the import statements of each source file."""
+
+import ast
+import os
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "odil_tpu", "odil")
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, files in os.walk(os.path.join(ROOT, "odil_torch")):
+        out += [os.path.join(base, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_roots(path):
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), filename=path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_port_sources_found():
+    names = {os.path.relpath(p, ROOT) for p in _sources()}
+    assert {"chip_smoke.py", "odil_torch/__init__.py", "odil_torch/ops/rowwise_mg.py"} <= names
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_imports(path):
+    bad = _imported_roots(path) & set(FORBIDDEN)
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {sorted(bad)}"
