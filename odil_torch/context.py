@@ -4,11 +4,13 @@ PyTorch counterpart of ``odil_tpu/context.py``: ``ctx.field(key, *shift,
 loc=..., frozen=...)`` flattens a MultigridField to its fine grid, converts
 the staggered location by pad/trim, applies the periodic shift with
 ``roll`` and caches the sample; ``frozen=True`` detaches it from autograd.
-The ``rowwise_terms`` service belongs to the generic row-wise kernels, which
-are a later slice of the port.
+``ctx.rowwise_terms`` runs a row function over named fields through the
+row-wise kernels (``ops/rowwise.py``), eagerly or deferred for the one-pass
+loss+grad route of ``Problem.make_loss_grad_fn``.
 """
 
 from .fields import Array, Field, MultigridField
+from .ops.rowwise import rowwise_loss_terms
 
 __all__ = ["Context"]
 
@@ -30,6 +32,11 @@ class Context:
         self.mod = domain.mod
         # Filled by Problem when mg_partial=True: key -> (term0, factor0, P).
         self.mg_partials = {}
+        # Row-wise kernel calls: their declarations, and the deferred mode of
+        # the one-pass route (calls recorded, placeholders returned).
+        self.rowwise_calls = []
+        self.rowwise_defer = False
+        self.rowwise_deferred = []
         self.desc_to_array = dict()
         self.step = domain.step
         self.size = domain.size
@@ -74,3 +81,44 @@ class Context:
             array = self._resolve_sample(field, shift, loc)
             self.desc_to_array[desc] = array
         return array.detach() if frozen else array
+
+    def rowwise_terms(
+        self, row_fn, keys, params=(), data=(), consts=(), nterms=1, hist=1, halox=1, block_rows=None,
+        stream=False,
+    ):
+        """Per-term mean-squared losses of ``row_fn`` over the named grid
+        fields through the row-wise kernels, as a list of ``Context.Raw``
+        terms: ``rowwise_loss_terms(row_fn, [ctx.field(k) for k in keys],
+        ...)``.  ``hist`` and ``halox`` declare the row function's reach along
+        t and x.  With ``rowwise_defer`` set (the one-pass route of
+        ``Problem.make_loss_grad_fn``) the call is recorded in
+        ``rowwise_deferred`` and the terms are placeholders carrying
+        ``deferred = (call index, term index)``."""
+        fields = tuple(self.field(k) for k in keys)
+        self.rowwise_calls.append({"keys": tuple(keys), "hist": hist, "halox": halox, "nterms": nterms})
+        if self.rowwise_defer:
+            idx = len(self.rowwise_deferred)
+            self.rowwise_deferred.append(
+                dict(
+                    row_fn=row_fn, keys=tuple(keys), fields=fields, params=tuple(params), data=tuple(data),
+                    consts=tuple(consts), nterms=nterms, hist=hist, halox=halox, block_rows=block_rows,
+                    stream=stream,
+                )
+            )
+            out = []
+            for t in range(nterms):
+                r = Context.Raw(None)
+                r.from_rowwise = True
+                r.deferred = (idx, t)
+                out.append(r)
+            return out
+        terms = rowwise_loss_terms(
+            row_fn, fields, params=params, data=data, consts=consts, nterms=nterms, hist=hist, halox=halox,
+            block_rows=block_rows, stream=stream,
+        )
+        out = []
+        for t in terms:
+            r = Context.Raw(t)
+            r.from_rowwise = True
+            out.append(r)
+        return out

@@ -41,6 +41,9 @@
 //   * dP: a third kernel reads dt0 back and applies the transposed t-blend and
 //     x/y prolongation per coarse cell (a tile staged in shared memory).
 //     That extra full-size read is the first thing a later design removes.
+//   * The row model's residuals, their adjoint, the ring-1 staging and the
+//     partial-sum reduction are device code of veltracer_row.cuh, shared with
+//     the generic row kernels of rowwise.cu.
 //
 // Bound on the H100 (3.35 TB/s HBM): at the flagship shapes (65,256,256) x3
 // the backward must read t0 (51.1 MB) and P (6.5 MB) and write dt0 and dP
@@ -48,22 +51,12 @@
 // arithmetic (a few hundred fp32 operations per cell) is far below the
 // memory time, so both are bound by bytes.
 
-#include <cuda_runtime.h>
+#include "veltracer_row.cuh"
 
 namespace {
 
-constexpr int NF = 3;  // fields u, vx, vy
-constexpr int TILE_X = 8;
-constexpr int TILE_Y = 32;
-constexpr int HALO = 2;
-constexpr int HX = TILE_X + 2 * HALO;
-constexpr int HY = TILE_Y + 2 * HALO;
-constexpr int NTHREADS = TILE_X * TILE_Y;
-constexpr int MAXTERMS = 6;
 constexpr int CT = 16;            // coarse tile of the dP kernel
 constexpr int FW = 2 * CT + 4;    // fine window covering a coarse tile's taps
-
-enum { MODE_SUMS = 1, MODE_GRADS = 2 };
 
 }  // namespace
 
@@ -92,11 +85,6 @@ struct MgArgs {
 
 namespace {
 
-// Any v wrapped into [0, n): the periodic halo of a tile, which reaches
-// TILE + HALO cells past the tile's origin and so past 2n on planes narrower
-// than a tile.
-__device__ __forceinline__ int pmod(int v, int n) { return ((v % n) + n) % n; }
-
 // The two coarse taps (index, weight) of fine index x along a cell axis with
 // n coarse cells: fine[2i] = (c[i-1] + 3c[i])/4, fine[2i+1] = (3c[i] + c[i+1])/4,
 // linear-extrapolation ghosts at both ends (transfer._interp_axis).
@@ -118,8 +106,6 @@ __device__ __forceinline__ float tap_weight(int x, int a, int n) {
   taps(x, n, a0, w0, a1, w1);
   return (a0 == a ? w0 : 0.0f) + (a1 == a ? w1 : 0.0f);
 }
-
-typedef float Plane[HX][HY];
 
 // The blended coarse window a tile's fine rows read: coarse x indices
 // ax0 .. ax0+WX-1 and y indices by0 .. by0+WY-1 (periodic), with
@@ -241,53 +227,14 @@ __device__ void build_row(Plane* F, RowStage& S, const MgArgs& A, const RowLoads
   __syncthreads();
 }
 
-__device__ __forceinline__ float upwind(float um, float uc, float up, float v) {
-  return v > 0.0f ? uc - um : (v < 0.0f ? up - uc : (up - um) * 0.5f);
-}
-
-// Transposes of the upwind switch (frozen velocity: the masks carry no
-// gradient), as in models/veltracer._make_row_vjp.adv_adjoint.
-__device__ __forceinline__ float guc(float v) { return v > 0.0f ? 1.0f : (v < 0.0f ? -1.0f : 0.0f); }
-__device__ __forceinline__ float gum(float v) { return v > 0.0f ? -1.0f : (v < 0.0f ? 0.0f : -0.5f); }
-__device__ __forceinline__ float gup(float v) { return v > 0.0f ? 0.0f : (v < 0.0f ? 1.0f : 0.5f); }
-
-struct Fu {
-  float res, dux, duy;
-};
-
-// Advection residual of row `it` at tile position (i, j): Uc/Vx/Vy are row it,
-// Up is row it-1 (periodic).
-__device__ __forceinline__ Fu fu_at(const MgArgs& A, int it, const Plane& Uc, const Plane& Up,
-                                    const Plane& Vx, const Plane& Vy, const Plane& U0, int i, int j) {
-  const float uprev = Up[i][j];
-  const float vx = Vx[i][j], vy = Vy[i][j];
-  const float dux = upwind(Up[i - 1][j], uprev, Up[i + 1][j], vx);
-  const float duy = upwind(Up[i][j - 1], uprev, Up[i][j + 1], vy);
-  const float u0 = U0[i][j];
-  const float um = (it == 1) ? u0 : uprev;
-  float r = (Uc[i][j] - um) * A.inv_dt + vx * dux * A.inv_dx + vy * duy * A.inv_dy;
-  if (it == 0) r = (Uc[i][j] - u0) * A.inv_dx;
-  return {r, dux, duy};
-}
-
-__device__ __forceinline__ float lap(const MgArgs& A, const Plane& Q, int i, int j) {
-  const float q = Q[i][j];
-  return (Q[i + 1][j] - 2.0f * q + Q[i - 1][j]) * A.inv_dx2 + (Q[i][j + 1] - 2.0f * q + Q[i][j - 1]) * A.inv_dy2;
-}
-
-// Ring-1 region around the tile: the residual-row quantities that several
-// owned cells read are computed once per row into shared memory.
-constexpr int RX = TILE_X + 2, RY = TILE_Y + 2;
-
+// At least 4 blocks per SM: without the bound the compiler spends 75
+// registers on the backward+sums form (3 blocks per SM) and the kernel runs
+// 8% slower than with 64.
 template <int MODE>
-__global__ void __launch_bounds__(NTHREADS) mg_rows_kernel(const MgArgs A) {
+__global__ void __launch_bounds__(NTHREADS, 4) mg_rows_kernel(const MgArgs A) {
   __shared__ float F[3][NF][HX][HY];  // ring of fine rows; slot of row r is (r - ts + 1) % 3
   __shared__ float U0[HX][HY];
-  __shared__ float B0n[RX][RY];       // b0 of residual row t+1
-  __shared__ float CXn[RX][RY];       // b0 * vx / dx of residual row t+1
-  __shared__ float CYn[RX][RY];       // b0 * vy / dy of residual row t+1
-  __shared__ float LXc[RX][RY];       // Laplacian terms (res2, res3) of residual row t
-  __shared__ float LYc[RX][RY];
+  __shared__ Ring1 R;
   __shared__ double red[NTHREADS];
   __shared__ RowStage S;
 
@@ -300,7 +247,6 @@ __global__ void __launch_bounds__(NTHREADS) mg_rows_kernel(const MgArgs A) {
   const bool own = x < A.X && y < A.Y;
   constexpr bool grads = (MODE & MODE_GRADS) != 0;
   constexpr bool sums = (MODE & MODE_SUMS) != 0;
-  const int ix = 2, it_ = 2 + (A.has_x ? 2 : 0);  // term positions
 
   for (int idx = tid; idx < HX * HY; idx += NTHREADS) {
     const int hx = idx / HY, hy = idx % HY;
@@ -329,137 +275,25 @@ __global__ void __launch_bounds__(NTHREADS) mg_rows_kernel(const MgArgs A) {
     const int sm = (t - ts) % 3, sc = (t - ts + 1) % 3, sp = (t - ts + 2) % 3;
     build_row(F[grads ? sp : sc], S, A, L);
     if (t + 1 < te) fetch_row(L, S, A, t + 1 + ahead, x0, y0);  // in flight during this row's work
-    const Plane& Um = F[sm][0];
-    const Plane& Uc = F[sc][0];
-    const Plane& VXm = F[sm][1];
-    const Plane& VXc = F[sc][1];
-    const Plane& VYm = F[sm][2];
-    const Plane& VYc = F[sc][2];
-    const Plane& Un = F[sp][0];
-    const Plane& VXn = F[sp][1];
-    const Plane& VYn = F[sp][2];
+    const RowPlanes P{F[sm][0], F[sc][0], F[sp][0], F[sm][1], F[sc][1], F[sp][1], F[sm][2], F[sc][2], F[sp][2], U0};
     const int it1 = t + 1 < T ? t + 1 : 0;  // residual row t+1 (row 0 after T-1)
 
-    if (grads) {
-      for (int idx = tid; idx < RX * RY; idx += NTHREADS) {
-        const int ri = idx / RY, rj = idx % RY;
-        const int qi = ri + HALO - 1, qj = rj + HALO - 1;
-        // Residual row t+1 reads row t as its previous row.
-        const Fu n = fu_at(A, it1, Un, Uc, VXn, VYn, U0, qi, qj);
-        const float bq = it1 == 0 ? 0.0f : g2[0] * n.res;
-        B0n[ri][rj] = bq;
-        CXn[ri][rj] = bq * VXn[qi][qj] * A.inv_dx;
-        CYn[ri][rj] = bq * VYn[qi][qj] * A.inv_dy;
-        if (A.has_x) {
-          LXc[ri][rj] = lap(A, VXc, qi, qj) * A.kxreg;
-          LYc[ri][rj] = lap(A, VYc, qi, qj) * A.kxreg;
-        }
-      }
-      __syncthreads();
-    }
-
+    if (grads) stage_ring1(A, P, it1, g2, R);
     if (own) {
-      const int ri = i - HALO + 1, rj = j - HALO + 1;  // position in the ring-1 arrays
-      const size_t cell = ((size_t)t * A.X + x) * A.Y + y;
       const float u1 = __ldg(A.u_final + (size_t)x * A.Y + y);
-
-      // Residual row t at the owned cell.
-      const Fu c = fu_at(A, t, Uc, Um, VXc, VYc, U0, i, j);
-      const float res0 = c.res;
-      const float res1 = (t == T - 2 ? (Uc[i][j] - u1) * A.inv_dx : 0.0f) * A.kimp;
-      float res2 = 0.0f, res3 = 0.0f, res4 = 0.0f, res5 = 0.0f;
-      if (A.has_x) {
-        res2 = grads ? LXc[ri][rj] : lap(A, VXc, i, j) * A.kxreg;
-        res3 = grads ? LYc[ri][rj] : lap(A, VYc, i, j) * A.kxreg;
-      }
-      if (A.has_t) {
-        res4 = t == 0 ? 0.0f : (VXc[i][j] - VXm[i][j]) * A.kt;
-        res5 = t == 0 ? 0.0f : (VYc[i][j] - VYm[i][j]) * A.kt;
-      }
-      if (sums) {
-        s[0] += res0 * res0;
-        s[1] += res1 * res1;
-        if (A.has_x) {
-          s[ix] += res2 * res2;
-          s[ix + 1] += res3 * res3;
-        }
-        if (A.has_t) {
-          s[it_] += res4 * res4;
-          s[it_ + 1] += res5 * res5;
-        }
-      }
-
+      float d[NF];
+      cell_terms<grads, sums>(A, P, R, t, it1, i, j, u1, g2, s, d);
       if (grads) {
-        // "cur" adjoint of residual row t (targets row t).
-        const float w0 = g2[0] * res0, w1 = g2[1] * res1;
-        float du = (t == 0 ? w0 * A.inv_dx : w0 * A.inv_dt) + (t == T - 2 ? w1 * A.kimp_dx : 0.0f);
-        const float b0 = t == 0 ? 0.0f : w0;
-        float dvx = b0 * c.dux * A.inv_dx;
-        float dvy = b0 * c.duy * A.inv_dy;
-        if (A.has_x) {
-          // The periodic Laplacian is self-adjoint: lap of the weights.
-          const float gx = g2[ix], gy = g2[ix + 1];
-          const float wx = gx * LXc[ri][rj], wy = gy * LYc[ri][rj];
-          dvx = dvx + ((gx * LXc[ri + 1][rj] - 2.0f * wx + gx * LXc[ri - 1][rj]) * A.inv_dx2 +
-                       (gx * LXc[ri][rj + 1] - 2.0f * wx + gx * LXc[ri][rj - 1]) * A.inv_dy2) * A.kxreg;
-          dvy = dvy + ((gy * LYc[ri + 1][rj] - 2.0f * wy + gy * LYc[ri - 1][rj]) * A.inv_dx2 +
-                       (gy * LYc[ri][rj + 1] - 2.0f * wy + gy * LYc[ri][rj - 1]) * A.inv_dy2) * A.kxreg;
-        }
-        if (A.has_t) {
-          dvx = dvx + (t == 0 ? 0.0f : g2[it_] * res4) * A.kt;
-          dvy = dvy + (t == 0 ? 0.0f : g2[it_ + 1] * res5) * A.kt;
-        }
-
-        // "prev" adjoint of residual row t+1, which reads row t.
-        float dup = -(B0n[ri][rj] * A.inv_dt) * (it1 == 1 ? 0.0f : 1.0f);
-        dup = dup + (CXn[ri][rj] * guc(VXn[i][j]) + CXn[ri + 1][rj] * gum(VXn[i + 1][j]) +
-                     CXn[ri - 1][rj] * gup(VXn[i - 1][j]));
-        dup = dup + (CYn[ri][rj] * guc(VYn[i][j]) + CYn[ri][rj + 1] * gum(VYn[i][j + 1]) +
-                     CYn[ri][rj - 1] * gup(VYn[i][j - 1]));
-        float dvxp = 0.0f, dvyp = 0.0f;
-        if (A.has_t && it1 != 0) {
-          dvxp = -((g2[it_] * ((VXn[i][j] - VXc[i][j]) * A.kt)) * A.kt);
-          dvyp = -((g2[it_ + 1] * ((VYn[i][j] - VYc[i][j]) * A.kt)) * A.kt);
-        }
-        A.dt0[0][cell] = A.f0[0] * (du + dup);
-        A.dt0[1][cell] = A.f0[1] * (dvx + dvxp);
-        A.dt0[2][cell] = A.f0[2] * (dvy + dvyp);
+        const size_t cell = ((size_t)t * A.X + x) * A.Y + y;
+        A.dt0[0][cell] = A.f0[0] * d[0];
+        A.dt0[1][cell] = A.f0[1] * d[1];
+        A.dt0[2][cell] = A.f0[2] * d[2];
       }
     }
     __syncthreads();
   }
 
-  if (sums) {
-    const int blk = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
-    for (int k = 0; k < A.nterms; ++k) {
-      red[tid] = s[k];
-      __syncthreads();
-      for (int w = NTHREADS / 2; w > 0; w >>= 1) {
-        if (tid < w) red[tid] += red[tid + w];
-        __syncthreads();
-      }
-      if (tid == 0) A.partials[(size_t)blk * MAXTERMS + k] = red[0];
-      __syncthreads();
-    }
-  }
-}
-
-// Fixed-order reduction of the per-block partial sums (one block).
-__global__ void __launch_bounds__(NTHREADS) reduce_sums_kernel(const MgArgs A, int nblocks) {
-  __shared__ double red[NTHREADS];
-  const int tid = threadIdx.x;
-  for (int k = 0; k < A.nterms; ++k) {
-    double acc = 0.0;
-    for (int b = tid; b < nblocks; b += NTHREADS) acc += A.partials[(size_t)b * MAXTERMS + k];
-    red[tid] = acc;
-    __syncthreads();
-    for (int w = NTHREADS / 2; w > 0; w >>= 1) {
-      if (tid < w) red[tid] += red[tid + w];
-      __syncthreads();
-    }
-    if (tid == 0) A.sums[k] = (float)red[0];
-    __syncthreads();
-  }
+  if (sums) write_partials(A, s, red);
 }
 
 // dP[f][c] = Wx^T (0.5 d[2c-1] + d[2c] + 0.5 d[2c+1]) Wy with d = dt0[f] / f0[f]:
@@ -530,7 +364,7 @@ int odil_mg_forward(const MgArgs* a, void* stream) {
   mg_rows_kernel<MODE_SUMS><<<grid, dim3(TILE_Y, TILE_X), 0, s>>>(A);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  reduce_sums_kernel<<<1, NTHREADS, 0, s>>>(A, (int)(grid.x * grid.y * grid.z));
+  reduce_sums_kernel<MgArgs><<<1, NTHREADS, 0, s>>>(A, (int)(grid.x * grid.y * grid.z));
   return (int)cudaGetLastError();
 }
 
@@ -544,7 +378,7 @@ int odil_mg_backward(const MgArgs* a, int with_sums, void* stream) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (with_sums) {
-    reduce_sums_kernel<<<1, NTHREADS, 0, s>>>(A, (int)(grid.x * grid.y * grid.z));
+    reduce_sums_kernel<MgArgs><<<1, NTHREADS, 0, s>>>(A, (int)(grid.x * grid.y * grid.z));
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

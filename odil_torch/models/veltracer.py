@@ -4,9 +4,11 @@ images at the initial and final time (the flagship ODIL case).
 PyTorch counterpart of ``odil_tpu/models/veltracer.py``.  First-order upwind
 advection on a (t, x, y) space-time grid with frozen-velocity switching,
 imposed tracer endpoints, Laplacian and time-derivative velocity
-regularization.  Two operators:
+regularization.  Three operators:
 
 - ``operator(ctx)``: the plain path through ``ctx.field`` stencils;
+- ``operator_fused(ctx)``: the same residuals through the row-wise kernels
+  over the fine fields (``ctx.rowwise_terms``, ops/rowwise.py);
 - ``operator_fused_mg(ctx)``: the same residuals through the MG-fused row
   kernel (ops/rowwise_mg.py), with ``loss_and_grads`` for the training step.
 """
@@ -19,9 +21,11 @@ import torch
 from ..context import Context
 from ..fields import Field, State
 from ..grid import Domain
+from ..ops.rowwise import RowModel
+from ..ops.rowwise_mg import rowwise_loss_terms_mg, rowwise_mg_loss_and_grads
 from ..problem import Problem
 
-__all__ = ["tracer_blob", "operator", "operator_fused_mg", "build"]
+__all__ = ["tracer_blob", "operator", "operator_fused", "operator_fused_mg", "build"]
 
 
 def tracer_blob(x, y, t):
@@ -211,8 +215,6 @@ def _make_row_vjp(dt, dx, dy, kimp, kxreg, ktreg):
 def _row_model(ctx):
     """The veltracer row model: plain row_fn/row_vjp and the CUDA kernel's
     scalars.  Returns (model, nterms)."""
-    from ..ops.rowwise_mg import RowModel
-
     args = ctx.extra.args
     dt, dx, dy = map(float, ctx.step())
     kimp, kxreg, ktreg = float(args.kimp), float(args.kxreg), float(args.ktreg)
@@ -229,22 +231,44 @@ def _row_model(ctx):
 _KEYS = ("u", "vx", "vy")
 
 
+def _kernel_decl(ctx):
+    """The row-wise kernel declaration of ``operator_fused``: the row model,
+    field keys, const planes, term count and declared stencil reaches."""
+    model, nterms = _row_model(ctx)
+    return dict(
+        row_fn=model, keys=_KEYS, consts=(ctx.extra.u_init, ctx.extra.u_final), nterms=nterms, hist=1, halox=1
+    )
+
+
+def operator_fused(ctx):
+    """``operator`` through the row-wise kernels over the fine fields: the
+    loss terms come back as ``Context.Raw`` means."""
+    d = _kernel_decl(ctx)
+    return ctx.rowwise_terms(
+        d["row_fn"], d["keys"], consts=d["consts"], nterms=d["nterms"], hist=d["hist"], halox=d["halox"]
+    )
+
+
 def operator_fused_mg(ctx):
     """``operator`` with the finest multigrid Horner step fused into the row
     kernel: fine rows are rebuilt from the level-0 terms plus the level-1
-    partial.  Needs ``ctx.mg_partials`` (``Problem(mg_partial=True)``)."""
+    partial (``ctx.mg_partials``, from ``Problem(mg_partial=True)``).  Falls
+    back to ``operator_fused`` as the JAX package does: without partials
+    (plain-Field states, paths that flatten fully), for 64-bit fields on the
+    card (the mg kernel takes float32) and for shapes the mg kernel does not
+    take."""
     parts = ctx.mg_partials
     if not all(k in parts for k in _KEYS):
-        raise NotImplementedError(
-            "operator_fused_mg needs multigrid partials; the fallback to the generic "
-            "row kernel (operator_fused) belongs to the generic-kernel slice of the port"
-        )
-    from ..ops.rowwise_mg import rowwise_loss_terms_mg
-
+        return operator_fused(ctx)
+    t0s = tuple(parts[k][0] for k in _KEYS)
+    if (t0s[0].is_cuda and t0s[0].element_size() > 4) or not _mg_supported(
+        tuple(tuple(t.shape) for t in t0s), ctx.dtype
+    ):
+        return operator_fused(ctx)
     model, nterms = _row_model(ctx)
     terms = rowwise_loss_terms_mg(
         model,
-        t0s=tuple(parts[k][0] for k in _KEYS),
+        t0s=t0s,
         coarse=tuple(parts[k][2] for k in _KEYS),
         factors0=tuple(parts[k][1] for k in _KEYS),
         consts=(ctx.extra.u_init, ctx.extra.u_final),
@@ -257,8 +281,6 @@ def operator_fused_mg(ctx):
 def _mg_loss_and_grads(ctx):
     """Fused one-pass loss+gradients for the training step
     (Problem.make_loss_grad_fn).  Returns (terms, {key: (d_t0, d_coarse)})."""
-    from ..ops.rowwise_mg import rowwise_mg_loss_and_grads
-
     parts = ctx.mg_partials
     model, nterms = _row_model(ctx)
     terms, (dt0, dcoarse, _) = rowwise_mg_loss_and_grads(
@@ -304,10 +326,11 @@ def build(
 ):
     """Builds the velocity-from-tracer problem: (problem, state, extra).
 
-    kernel: "pallas_mg" (the MG-fused kernel, names kept from the JAX
-    package) or "xla" (the plain operator)."""
-    if kernel not in ("pallas_mg", "xla"):
-        raise ValueError(f"kernel={kernel!r}: the port has 'pallas_mg' and 'xla'")
+    kernel: "pallas_mg" (the MG-fused kernel), "pallas" (the row-wise
+    kernels over the fine fields) or "xla" (the plain operator); the names
+    are the JAX package's."""
+    if kernel not in ("pallas_mg", "pallas", "xla"):
+        raise ValueError(f"kernel={kernel!r}: the port has 'pallas_mg', 'pallas' and 'xla'")
     if args is None:
         args = argparse.Namespace(kxreg=kxreg, ktreg=ktreg, kimp=kimp)
     domain = Domain(
@@ -341,6 +364,8 @@ def build(
     )
     if kernel == "pallas_mg":
         op, mg_partial = operator_fused_mg, bool(multigrid)
+    elif kernel == "pallas":
+        op, mg_partial = operator_fused, False
     else:
         op, mg_partial = operator, False
     return Problem(op, domain, extra, mg_partial=mg_partial), state, extra

@@ -2,8 +2,9 @@
 
 Each source under ``odil_torch/csrc/`` compiles on first use, for
 ``sm_90a``, into ``build/odil_torch/`` at the root of the checkout (listed
-in ``.gitignore``); the library name carries a hash of the source, so an
-edited source rebuilds.  Nothing here runs at import time: the CPU tests
+in ``.gitignore``); the library name carries a hash of the source and of
+the headers it includes (``source_digest``), so an edited source or header
+rebuilds.  Nothing here runs at import time: the CPU tests
 import every module and have no nvcc.
 """
 
@@ -11,11 +12,12 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 
-__all__ = ["build_dir", "compile_source", "load"]
+__all__ = ["build_dir", "compile_source", "load", "source_digest"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -23,6 +25,30 @@ _CSRC = os.path.join(_PKG, "csrc")
 
 def build_dir():
     return os.path.join(os.path.dirname(_PKG), "build", "odil_torch")
+
+
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def source_digest(src):
+    """A hash of the source file ``src`` and of every header it includes with
+    ``#include "..."`` (resolved beside the including file), recursively."""
+    h = hashlib.sha256()
+    seen = set()
+
+    def add(path):
+        path = os.path.normpath(path)
+        if path in seen:
+            return
+        seen.add(path)
+        with open(path, "rb") as fh:
+            data = fh.read()
+        h.update(os.path.basename(path).encode() + b"\0" + data + b"\0")
+        for name in _INCLUDE.findall(data):
+            add(os.path.join(os.path.dirname(path), name.decode()))
+
+    add(src)
+    return h.hexdigest()[:16]
 
 
 def _nvcc():
@@ -40,8 +66,7 @@ def compile_source(name):
     """Compiles ``csrc/<name>.cu`` to a shared library unless it is already
     built; returns (path, seconds spent, nvcc's ptxas report)."""
     src = os.path.join(_CSRC, name + ".cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+    digest = source_digest(src)
     out_dir = build_dir()
     os.makedirs(out_dir, exist_ok=True)
     lib = os.path.join(out_dir, f"lib{name}_{digest}.so")

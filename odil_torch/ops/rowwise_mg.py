@@ -22,12 +22,9 @@ launches the hand-written kernel of ``csrc/rowwise_mg.cu`` (which exists for
 row models that carry a CUDA counterpart, and raises otherwise), a CPU
 tensor runs the plain PyTorch version beside it.
 
-Row functions take whole stacks of rows: ``row_fn(it, T, rows, data_rows,
-params, consts)`` gets ``it`` as an integer tensor broadcastable against the
-rows (shape (R, 1, 1)), ``rows[f][m]`` as the (R, X, Y) stack of field f at
-rows it - m (periodic in t), and returns the tuple of residual stacks; the
-plane axes are the last two.  ``row_vjp(it, T, rows, data_rows, params,
-consts, cots)`` returns (flat row cotangents in (field, m) order, ()).
+Row functions and row models are those of ``ops/rowwise.py`` (whole stacks
+of rows, plane axes last); the plain versions here rebuild the fine fields
+and run the plain versions there.
 """
 
 import ctypes
@@ -37,28 +34,21 @@ import torch
 
 from ..transfer import _interp_matrix
 from . import _build
-from .rowwise import _sumsq_vec, _weights_of
+from .rowwise import (
+    _MAXTERMS,
+    RowModel,
+    _as_model,
+    _backward_plain,
+    _check_cuda_tensors,
+    _check_veltracer_model,
+    _contig,
+    _forward_plain,
+    _raise_on,
+    _slab,
+    _veltracer_scalars,
+)
 
 __all__ = ["RowModel", "rowwise_loss_terms_mg", "rowwise_mg_loss_and_grads"]
-
-
-class RowModel:
-    """A residual row function with its adjoint and, optionally, the id and
-    scalars of its CUDA counterpart (``csrc/rowwise_mg.cu``).
-
-    row_fn/row_vjp: the plain torch versions (row_vjp may be None: autograd).
-    cuda_model: the name of the CUDA row model ("veltracer") or None.
-    scalars: the CUDA model's parameters (dt, dx, dy, kimp, kxreg, ktreg)."""
-
-    def __init__(self, row_fn, row_vjp=None, cuda_model=None, scalars=None):
-        self.row_fn = row_fn
-        self.row_vjp = row_vjp
-        self.cuda_model = cuda_model
-        self.scalars = dict(scalars or {})
-
-
-def _as_model(row_fn):
-    return row_fn if isinstance(row_fn, RowModel) else RowModel(row_fn)
 
 
 # -- Shared setup --------------------------------------------------------------
@@ -108,75 +98,35 @@ def _down_rows(dfine, Wx, Wy, Tc):
     return torch.matmul(Wx.T, torch.matmul(d, Wy))
 
 
-def _row_stacks(fines, hist):
-    """rows[f][m] = fine_f at rows it - m (periodic in t)."""
-    return tuple(tuple(torch.roll(fine, m, 0) for m in range(hist + 1)) for fine in fines)
-
-
 # -- Plain PyTorch versions ----------------------------------------------------
+
+
+def _fines(t0s, coarse, f0s):
+    """The fine fields rebuilt from (t0s, coarse), and (Wx, Wy)."""
+    T = t0s[0].shape[0]
+    Wx, Wy = _interp_matrices(*coarse[0].shape[1:], t0s[0].dtype, t0s[0].device)
+    return [_recon_rows(t, c, range(T), Wx, Wy, f) for t, c, f in zip(t0s, coarse, f0s)], Wx, Wy
 
 
 def _forward_mg_plain(model, nterms, hist, f0s, t0s, coarse, consts):
     """Plain version of the forward kernel: (nterms,) sums of squares."""
-    T = t0s[0].shape[0]
-    Wx, Wy = _interp_matrices(*coarse[0].shape[1:], t0s[0].dtype, t0s[0].device)
-    fines = [_recon_rows(t, c, range(T), Wx, Wy, f) for t, c, f in zip(t0s, coarse, f0s)]
-    it = torch.arange(T, device=t0s[0].device).view(T, 1, 1)
-    res = model.row_fn(it, T, _row_stacks(fines, hist), (), (), tuple(consts))
-    assert len(res) == nterms, (len(res), nterms)
-    return _sumsq_vec(res)
+    fines, _, _ = _fines(t0s, coarse, f0s)
+    return _forward_plain(model, nterms, hist, fines, (), (), consts)
 
 
 def _backward_mg_plain(model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums):
     """Plain version of the backward kernel: gradients of sum_k g[k] * S[k]
     w.r.t. (t0s, coarse), and the sums S when ``with_sums``."""
-    T = t0s[0].shape[0]
-    Wx, Wy = _interp_matrices(*coarse[0].shape[1:], t0s[0].dtype, t0s[0].device)
-    Tc = coarse[0].shape[0]
-    nf = len(t0s)
     with torch.no_grad():
-        fines = [_recon_rows(t, c, range(T), Wx, Wy, f) for t, c, f in zip(t0s, coarse, f0s)]
-    it = torch.arange(T, device=t0s[0].device).view(T, 1, 1)
-    rows = _row_stacks(fines, hist)
-    consts = tuple(consts)
-    if model.row_vjp is not None:
-        with torch.no_grad():
-            res = model.row_fn(it, T, rows, (), (), consts)
-            w = _weights_of(g, res, nterms)
-            dflat, _ = model.row_vjp(it, T, rows, (), (), consts, w)
-    else:
-        flat = [r.detach().requires_grad_(True) for fr in rows for r in fr]
-        leaves = tuple(tuple(flat[f * (hist + 1) + m] for m in range(hist + 1)) for f in range(nf))
-        with torch.enable_grad():
-            res = model.row_fn(it, T, leaves, (), (), consts)
-            w = _weights_of(g, res, nterms)
-            dflat = torch.autograd.grad(res, flat, grad_outputs=w, allow_unused=True)
-        dflat = [torch.zeros_like(r) if d is None else d for r, d in zip(flat, dflat)]
-        res = tuple(r.detach() for r in res)
-    assert len(res) == nterms, (len(res), nterms)
-    dt0, dP = [], []
+        fines, Wx, Wy = _fines(t0s, coarse, f0s)
+    dfines, _, sums = _backward_plain(model, nterms, hist, fines, (), (), consts, g, with_sums)
     with torch.no_grad():
-        for f in range(nf):
-            # Cotangent m of residual row i targets fine row i - m.
-            dfine = dflat[f * (hist + 1)]
-            for m in range(1, hist + 1):
-                dfine = dfine + torch.roll(dflat[f * (hist + 1) + m], -m, 0)
-            dt0.append(f0s[f] * dfine)
-            dP.append(_down_rows(dfine, Wx, Wy, Tc))
-        sums = _sumsq_vec(res) if with_sums else None
-    return tuple(dt0), tuple(dP), sums
+        dt0 = tuple(f * d for f, d in zip(f0s, dfines))
+        dP = tuple(_down_rows(d, Wx, Wy, coarse[0].shape[0]) for d in dfines)
+    return dt0, dP, sums
 
 
 # -- CUDA kernels --------------------------------------------------------------
-
-_MAXTERMS = 6
-
-
-def _slab(T):
-    """Fine rows per block of the row kernel: about 16, balanced over T."""
-    n = -(-T // 16)
-    return -(-T // n)
-
 
 class _MgArgs(ctypes.Structure):
     """Mirror of ``struct MgArgs`` in csrc/rowwise_mg.cu."""
@@ -221,18 +171,13 @@ def _library():
 
 
 def _check_cuda_inputs(model, t0s, coarse, consts, hist):
-    if model.cuda_model != "veltracer":
-        raise NotImplementedError(
-            f"row model {model.cuda_model!r} has no CUDA kernel; only 'veltracer' does"
-        )
-    if len(t0s) != 3 or len(consts) != 2 or hist != 1:
-        raise ValueError("the veltracer CUDA kernel takes 3 fields, 2 const planes and hist=1")
+    _check_veltracer_model(model, hist)
+    if len(t0s) != 3 or len(consts) != 2:
+        raise ValueError("the veltracer CUDA kernel takes 3 fields and 2 const planes")
     T, X, Y = t0s[0].shape
     if T % 2 == 0 or T < 3 or X % 2 or Y % 2 or X < 4 or Y < 4:
         raise ValueError(f"the CUDA mg kernels take odd T >= 3 and even X, Y >= 4, got {(T, X, Y)}")
-    for t in tuple(t0s) + tuple(coarse) + tuple(consts):
-        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
-            raise TypeError(f"the CUDA mg kernels take contiguous float32 CUDA tensors, got {t.dtype} on {t.device}")
+    _check_cuda_tensors(tuple(t0s) + tuple(coarse) + tuple(consts), "mg")
     want = [(T, X, Y)] * 3 + [(T // 2 + 1, X // 2, Y // 2)] * 3 + [(X, Y)] * 2
     got = [tuple(t.shape) for t in tuple(t0s) + tuple(coarse) + tuple(consts)]
     if got != want:
@@ -240,28 +185,16 @@ def _check_cuda_inputs(model, t0s, coarse, consts, hist):
 
 
 def _launch_args(model, f0s, t0s, coarse, consts, g, dt0, dP, partials, sums, nterms):
-    s = model.scalars
-    has_x, has_t = bool(s["kxreg"]), bool(s["ktreg"])
-    if nterms != 2 + 2 * has_x + 2 * has_t:
-        raise ValueError(f"nterms={nterms} does not match the veltracer flags")
     T, X, Y = t0s[0].shape
     Tc, CX, CY = coarse[0].shape
     ptr = lambda ts: (ctypes.c_void_p * 3)(*[t.data_ptr() for t in ts] if ts else [])
     return _MgArgs(
         t0=ptr(t0s), P=ptr(coarse), u_init=consts[0].data_ptr(), u_final=consts[1].data_ptr(),
         g=g.data_ptr() if g is not None else None, dt0=ptr(dt0), dP=ptr(dP),
-        partials=partials.data_ptr(), sums=sums.data_ptr(),
-        T=T, X=X, Y=Y, Tc=Tc, CX=CX, CY=CY, slab=_slab(T), nterms=nterms, has_x=has_x, has_t=has_t,
+        partials=partials.data_ptr(), sums=sums.data_ptr(), T=T, X=X, Y=Y, Tc=Tc, CX=CX, CY=CY, slab=_slab(T),
         f0=(ctypes.c_float * 3)(*f0s), inv_f0=(ctypes.c_float * 3)(*[1.0 / f for f in f0s]),
-        inv_dt=1 / s["dt"], inv_dx=1 / s["dx"], inv_dy=1 / s["dy"], inv_dx2=1 / s["dx"] ** 2,
-        inv_dy2=1 / s["dy"] ** 2, kimp=s["kimp"], kimp_dx=s["kimp"] / s["dx"], kxreg=s["kxreg"],
-        kt=s["ktreg"] / s["dt"],
+        **_veltracer_scalars(model, nterms),
     )
-
-
-def _raise_on(lib, err, what):
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} ({lib.odil_cuda_error_string(err).decode()})")
 
 
 def _scratch(lib, t0s):
@@ -315,10 +248,6 @@ backward_mg_cuda.launches = 0
 
 
 # -- Dispatch ------------------------------------------------------------------
-
-
-def _contig(ts):
-    return tuple(t.contiguous() for t in ts)
 
 
 def _forward_mg(model, nterms, hist, f0s, t0s, coarse, consts):

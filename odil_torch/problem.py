@@ -2,10 +2,10 @@
 
 PyTorch counterpart of the parts of ``odil_tpu/problem.py`` on the flagship
 path: ``loss_terms`` (:271), ``make_loss_fn`` (:293), the multigrid Horner
-ladder (:49) with the level-1 partial (:129, ``partial_depth=1``), and the
-fused multigrid route of ``make_loss_grad_fn`` (:360-425).  The generic
-one-pass route (:427+) is a later slice: where only it would apply,
-``make_loss_grad_fn`` returns None and the caller differentiates
+ladder (:49) with the level-1 partial (:129, ``partial_depth=1``), and both
+routes of ``make_loss_grad_fn`` (:316-358): the fused multigrid route
+(:360-425) and the generic one-pass route (:427-569).  Where neither
+applies, ``make_loss_grad_fn`` returns None and the caller differentiates
 ``make_loss_fn`` with autograd, as ``bench.py:111`` does in JAX.
 """
 
@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 from .context import Context
-from .fields import Field, MultigridField, State, field_arrays, state_from_arrays
+from .fields import Array, Field, MultigridField, State, field_arrays, state_from_arrays
+from .ops.rowwise import onepass_supported, rowwise_loss_and_grads
 from .transfer import interp_to_finer
 
 __all__ = ["Problem"]
@@ -144,13 +145,18 @@ class Problem:
         return loss_fn, arrays0
 
     def make_loss_grad_fn(self, state):
-        """``fn(arrays, tracers) -> ((loss, (terms, norms)), grads)`` through
-        the operator's fused multigrid pass (``operator.loss_and_grads``),
-        or None when that route does not apply (no fused hook, no multigrid
-        partials, a shape the hook declines, or a dtype wider than 32 bits,
-        which the kernel does not take).  Callers then use autograd of
-        ``make_loss_fn``."""
-        return self._make_mg_loss_grad_fn(state)
+        """``fn(arrays, tracers) -> ((loss, (terms, norms)), grads)``, the
+        most fused route first: (1) the operator's fused multigrid pass
+        (``operator.loss_and_grads`` on the level-1 partials); (2) the
+        generic one-pass route for any operator whose kernel terms come
+        through ``ctx.rowwise_terms``.  None when neither applies (no fused
+        hook or no partials, no kernel call, a streaming call, or a dtype
+        wider than 32 bits, which the kernels do not take); callers then use
+        autograd of ``make_loss_fn``."""
+        fn = self._make_mg_loss_grad_fn(state)
+        if fn is not None:
+            return fn
+        return self._make_onepass_loss_grad_fn(state)
 
     def _make_mg_loss_grad_fn(self, state):
         fused = getattr(self.operator, "loss_and_grads", None)
@@ -213,15 +219,132 @@ class Problem:
 
         return loss_grad_fn
 
+    def _fine_state(self, arrays):
+        """The state of ``arrays`` with every multigrid field flattened to
+        its fine grid (the full Horner ladder)."""
+        st = self._flatten_multigrid_batched(self.state_from_arrays(arrays))
+        fields = {
+            k: Field(self.domain.get_regular_array(f), loc=f.loc) if isinstance(f, MultigridField) else f
+            for k, f in st.fields.items()
+        }
+        return State(fields=fields, initialized=True)
+
+    def _run_deferred(self, state, tracers):
+        """The operator on ``state`` with its row-wise kernel calls deferred:
+        (values, recorded calls)."""
+        ctx = Context(self.domain, state, extra=self.extra, tracers=tracers)
+        ctx.rowwise_defer = True
+        _, values = self._run_operator(ctx)
+        return values, ctx.rowwise_deferred
+
+    def _make_onepass_loss_grad_fn(self, state):
+        """Generic one-pass loss+grad for any operator whose kernel terms
+        come through ``ctx.rowwise_terms``.  The full multigrid flatten and
+        the operator run under autograd with the kernel calls deferred
+        (placeholders for their terms); each recorded call then runs the
+        backward kernel with the sums on (``rowwise_loss_and_grads``: the
+        terms and the cotangents of its fields and params in one sweep, no
+        forward kernel), and one ``torch.autograd.grad`` folds every
+        cotangent back onto the arrays: the kernels' ones, ``2 v / numel``
+        for a squared non-kernel term and ``1 / numel`` for a ``Raw`` one.
+        Valid because ``loss_terms`` always composes the loss as the sum of
+        per-term means with fixed weights.
+
+        On the card, when the state holds multigrid fields and no ``Array``,
+        the flatten and its vjp run as two CUDA graphs (``_GraphedPrologue``
+        with every array live) and the autograd step covers the operator
+        alone, from the fine fields.
+
+        Returns None when no kernel call is recorded, a call streams, or a
+        call falls outside ``onepass_supported`` (64-bit dtypes)."""
+        if np.dtype(self.domain.dtype).itemsize > 4:
+            return None
+        self._capture_structure(state)
+        arrays0 = self.domain.arrays_from_state(state)
+        with torch.no_grad():
+            _, probe = self._run_deferred(self._fine_state(arrays0), self.tracers)
+        if not probe or any(r["stream"] for r in probe):
+            return None
+        for r in probe:
+            if not onepass_supported(r["fields"], r["params"], r["data"], r["consts"], r["nterms"], r["hist"],
+                                     halox=r["halox"]):
+                return None
+        fields = self._template.fields
+        keys = list(fields)
+        graphable = any(isinstance(f, MultigridField) for f in fields.values()) and not any(
+            isinstance(f, Array) for f in fields.values()
+        )
+
+        def prologue(*arrs):
+            st = self._fine_state(arrs)
+            return tuple(st.fields[k].array for k in keys)
+
+        graphed = []  # the flatten's CUDA graphs, captured at the first call on the card
+
+        def loss_grad_fn(arrays, tracers):
+            use_graph = graphable and arrays[0].is_cuda
+            if use_graph:
+                if not graphed:
+                    graphed.append(_GraphedPrologue(prologue, arrays, list(range(len(arrays)))))
+                leaves = [f.requires_grad_(True) for f in graphed[0].forward(arrays)]
+                st = State({k: Field(a, loc=fields[k].loc) for k, a in zip(keys, leaves)}, initialized=True)
+            else:
+                leaves = [a.detach().requires_grad_(True) for a in arrays]
+                with torch.enable_grad():
+                    st = self._fine_state(leaves)
+            with torch.enable_grad():
+                values, recs = self._run_deferred(st, tracers)
+
+            outs, couts, kterms = [], [], {}
+            for idx, r in enumerate(recs):
+                cells = float(r["fields"][0].numel())
+                sums, dfields, dparams = rowwise_loss_and_grads(
+                    r["row_fn"], [x.detach() for x in r["fields"]], params=[x.detach() for x in r["params"]],
+                    data=[x.detach() for x in r["data"]], consts=[x.detach() for x in r["consts"]],
+                    nterms=r["nterms"], hist=r["hist"], block_rows=r["block_rows"], gscale=1.0 / cells,
+                    halox=r["halox"],
+                )
+                means = sums / cells
+                for t in range(r["nterms"]):
+                    kterms[(idx, t)] = means[t]
+                for x, d in zip(r["fields"] + r["params"], tuple(dfields) + tuple(dparams)):
+                    if x.requires_grad:
+                        outs.append(x)
+                        couts.append(d)
+            terms = []
+            for v in values:
+                if isinstance(v, Context.Raw) and getattr(v, "deferred", None) is not None:
+                    terms.append(kterms[v.deferred])
+                    continue
+                if isinstance(v, Context.Raw):
+                    v = v.value
+                    term, cot = v.mean(), torch.full_like(v, 1.0 / v.numel())
+                else:
+                    term, cot = torch.mean(torch.square(v)), 2.0 * v.detach() / v.numel()
+                terms.append(term.detach())
+                if v.requires_grad:
+                    outs.append(v)
+                    couts.append(cot)
+            dleaves = torch.autograd.grad(outs, leaves, couts, allow_unused=True) if outs else [None] * len(leaves)
+            dleaves = [torch.zeros_like(a) if d is None else d for a, d in zip(leaves, dleaves)]
+            grads = graphed[0].backward(dleaves) if use_graph else dleaves
+            grads = [torch.zeros_like(a) if g is None else g for a, g in zip(arrays, grads)]
+            tv = torch.stack(terms)
+            return (tv.sum(), (terms, list(torch.sqrt(torch.clamp(tv, min=0)).unbind()))), grads
+
+        return loss_grad_fn
+
 
 class _GraphedPrologue:
-    """The multigrid prologue (flat arrays -> level-1 partials) and its
-    vjp (``torch.autograd.grad`` of the partials) captured once as two CUDA
-    graphs and replayed: two graph launches per step in place of some
-    hundred small kernels, whose launch cost on the host set the flagship's
-    epoch time.  The graphs read private copies of the arrays the partials
-    depend on (``live``: the coarse levels) and of the partials'
-    cotangents, refreshed by one multi-tensor copy per call."""
+    """A multigrid prologue (flat arrays -> level-1 partials for the fused
+    mg route, or -> fine fields for the one-pass route) and its vjp
+    (``torch.autograd.grad`` of its outputs) captured once as two CUDA graphs
+    and replayed: two graph launches per step in place of some hundred small
+    kernels, whose launch cost on the host set the flagship's epoch time.
+    The graphs read private copies of the arrays the outputs depend on
+    (``live``: the coarse levels for the partials, every array for the fine
+    fields) and of the outputs' cotangents, refreshed by one multi-tensor
+    copy per call."""
 
     def __init__(self, fn, arrays, live):
         self.live = live

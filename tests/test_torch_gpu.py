@@ -8,12 +8,15 @@ machine without them:
 Tolerances: sums rtol 1e-5; gradients rtol 1e-4 with atol 1e-6 * max|ref|
 (fp32, different summation order)."""
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
 
 from odil_torch.convert import arrays_from_numpy
 from odil_torch.models import veltracer as tvt
+from odil_torch.ops import rowwise as trw
 from odil_torch.ops import rowwise_mg as trmg
 
 pytestmark = pytest.mark.gpu
@@ -137,3 +140,157 @@ def test_cuda_route_matches_cpu_route(cuda):
             _close(a, b, 1e-5, 0.0)
         for a, b in zip(ggrads, cgrads):
             _close(a, b, 1e-4, 1e-6)
+
+
+# -- The generic row-wise kernels (csrc/rowwise.cu) -----------------------------
+
+
+def _fields(device, T, X, Y, seed=13):
+    rng = np.random.default_rng(seed)
+    mk = lambda *shape: torch.as_tensor((0.3 * rng.normal(size=shape)).astype(np.float32), device=device)
+    return tuple(mk(T, X, Y) for _ in range(3)), tuple(mk(X, Y) for _ in range(2))
+
+
+@pytest.mark.parametrize("flags", [K, dict(kimp=3.0, kxreg=0.0, ktreg=0.0)], ids=["all_terms", "no_reg"])
+@pytest.mark.parametrize("shape", [(9, 16, 16), (8, 16, 16), (5, 4, 4), (6, 4, 4), (7, 8, 36), (2, 3, 5), (17, 64, 48)])
+def test_generic_kernels_match_plain(cuda, shape, flags):
+    """Forward, backward+sums and backward against their plain versions: T
+    even and odd (down to 2), planes narrower than a tile (the halo wraps
+    more than once) and wider than one."""
+    model = _model(flags)
+    nterms = 2 + (2 if flags["kxreg"] else 0) + (2 if flags["ktreg"] else 0)
+    fields, consts = _fields(cuda, *shape)
+    g = torch.linspace(0.5, 1.5, nterms, device=cuda) / fields[0].numel()
+    for with_sums in (True, False):
+        kd, kp, ks = trw.backward_cuda(model, nterms, 1, fields, (), (), consts, g, with_sums)
+        pd, pp, ps = trw._backward_plain(model, nterms, 1, fields, (), (), consts, g, with_sums)
+        assert kp == pp == ()
+        for a, b in zip(kd, pd):
+            _close(a, b, 1e-4, 1e-6)
+        if with_sums:
+            _close(ks, ps, 1e-5, 0.0)
+        else:
+            assert ks is None
+    _close(trw.forward_cuda(model, nterms, 1, fields, (), (), consts),
+           trw._forward_plain(model, nterms, 1, fields, (), (), consts), 1e-5, 0.0)
+
+
+def test_generic_loss_terms_autograd_match_plain(cuda):
+    """rowwise_loss_terms on the card (forward kernel, backward kernel with
+    the sums off, through autograd) against the same function on the CPU."""
+    model = _model(K)
+    results = []
+    for device in (cuda, torch.device("cpu")):
+        fields, consts = _fields(device, 9, 32, 40, seed=3)
+        leaves = [f.clone().requires_grad_(True) for f in fields]
+        terms = trw.rowwise_loss_terms(model, leaves, consts=consts, nterms=6, hist=1)
+        loss = sum(w * t for w, t in zip((1.0, 0.5, 2.0, 1.0, 0.3, 0.7), terms))
+        results.append((terms, torch.autograd.grad(loss, leaves)))
+    (kt, kg), (pt, pg) = results
+    for a, b in zip(kt, pt):
+        _close(a, b, 1e-5, 0.0)
+    for a, b in zip(kg, pg):
+        _close(a, b, 1e-4, 1e-6)
+
+
+def test_generic_wrappers_refuse_other_models_and_types(cuda):
+    fields, consts = _fields(cuda, 8, 16, 16)
+    with pytest.raises(NotImplementedError):
+        trw.forward_cuda(trw.RowModel(_model(K).row_fn), 6, 1, fields, (), (), consts)
+    with pytest.raises(TypeError):
+        trw.forward_cuda(_model(K), 6, 1, tuple(f.double() for f in fields), (), (), consts)
+    with pytest.raises(TypeError):
+        trw.forward_cuda(_model(K), 6, 1, tuple(f.transpose(1, 2) for f in fields), (), (), consts)
+    with pytest.raises(ValueError):
+        trw.forward_cuda(_model(K), 6, 1, tuple(f[:1].contiguous() for f in fields), (), (), consts)
+
+
+def test_cuda_pallas_route_matches_cpu_route(cuda):
+    """On the card, the one-pass route of kernel='pallas' runs the generic
+    backward kernel once per call behind the graphed multigrid flatten; it
+    gives the CPU route's terms and gradients call after call."""
+    size = dict(nt=8, nx=32, ny=32)
+    cp, cs, _ = tvt.build(kernel="pallas", device="cpu", **size)
+    gp, gs, _ = tvt.build(kernel="pallas", device=cuda, **size)
+    rng = np.random.default_rng(5)
+    shapes = [tuple(a.shape) for a in cp.domain.arrays_from_state(cs)]
+    states = [[(0.3 * rng.normal(size=s)).astype(np.float32) for s in shapes] for _ in range(2)]
+    cfn, gfn = cp.make_loss_grad_fn(cs), gp.make_loss_grad_fn(gs)
+    launches = (trw.backward_cuda.launches, trw.forward_cuda.launches, trmg.backward_mg_cuda.launches)
+    outs = [gfn(arrays_from_numpy(a, device=cuda), gp.tracers) for a in states]
+    assert (trw.backward_cuda.launches, trw.forward_cuda.launches, trmg.backward_mg_cuda.launches) == (
+        launches[0] + 2, launches[1], launches[2]
+    )
+    for arrays, ((_, (gterms, _)), ggrads) in zip(states, outs):
+        (_, (cterms, _)), cgrads = cfn(arrays_from_numpy(arrays, device="cpu"), cp.tracers)
+        for a, b in zip(gterms, cterms):
+            _close(a, b, 1e-5, 0.0)
+        for a, b in zip(ggrads, cgrads):
+            _close(a, b, 1e-4, 1e-6)
+
+
+def test_cuda_fp64_takes_the_plain_route(cuda):
+    """64-bit fields on the card: pallas_mg falls back to operator_fused, whose
+    wrapper takes the plain version (the JAX package's rule); no kernel is
+    launched and the loss and gradients are the CPU's."""
+    size = dict(nt=8, nx=16, ny=16, dtype=np.float64)
+    results = []
+    launches = (trw.backward_cuda.launches, trw.forward_cuda.launches, trmg.backward_mg_cuda.launches,
+                trmg.forward_mg_cuda.launches)
+    rng = np.random.default_rng(8)
+    for device in (cuda, torch.device("cpu")):
+        p, s, _ = tvt.build(kernel="pallas_mg", device=device, **size)
+        assert p.make_loss_grad_fn(s) is None
+        if not results:
+            arrays = [0.3 * rng.normal(size=tuple(a.shape)) for a in p.domain.arrays_from_state(s)]
+        x = [a.requires_grad_(True) for a in arrays_from_numpy(arrays, device=device)]
+        loss_fn, _ = p.make_loss_fn(s)
+        loss, _ = loss_fn(x, p.tracers)
+        results.append((loss, torch.autograd.grad(loss, x)))
+    assert (trw.backward_cuda.launches, trw.forward_cuda.launches, trmg.backward_mg_cuda.launches,
+            trmg.forward_mg_cuda.launches) == launches
+    (kl, kg), (pl, pg) = results
+    _close(kl, pl, 1e-10, 0.0)
+    for a, b in zip(kg, pg):
+        _close(a, b, 1e-10, 1e-12)
+
+
+# -- The mg kernels after the header split ---------------------------------------
+
+# sha256 (first 16 hex digits) of the mg kernels' outputs at the flagship
+# shapes, from csrc/rowwise_mg.cu before its row model moved into
+# veltracer_row.cuh (NVIDIA H100 80GB HBM3): the split changes no bit.
+MG_DIGESTS = {
+    "all_terms": {"backward_sums": "c7cd0b6ada3a103a", "backward": "df90380a98398377", "forward": "bc82c36b273aece4"},
+    "no_reg": {"backward_sums": "b215127635ac6b22", "backward": "3f5af3cb79637a5a", "forward": "1574713d4207f4f8"},
+}
+
+
+def _digest(ts):
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+@pytest.mark.parametrize("flags", [K, dict(kimp=3.0, kxreg=0.0, ktreg=0.0)], ids=["all_terms", "no_reg"])
+def test_mg_kernels_unchanged_by_header_split(cuda, flags):
+    rng = np.random.default_rng(2)
+    mk = lambda *shape, s=0.3: torch.as_tensor((s * rng.normal(size=shape)).astype(np.float32), device=cuda)
+    t0s = tuple(mk(65, 256, 256) for _ in range(3))
+    coarse = tuple(mk(33, 128, 128) for _ in range(3))
+    consts = tuple(mk(256, 256, s=1.0) for _ in range(2))
+    step = (1 / 64, 1 / 256, 1 / 256)
+    model = trmg.RowModel(
+        tvt._make_row_fn(*step, **flags), tvt._make_row_vjp(*step, **flags), cuda_model="veltracer",
+        scalars=dict(dt=step[0], dx=step[1], dy=step[2], **flags),
+    )
+    nterms = 2 + (2 if flags["kxreg"] else 0) + (2 if flags["ktreg"] else 0)
+    f0s = (0.7, 1.1, 0.9)
+    g = torch.linspace(0.5, 1.5, nterms, device=cuda) / t0s[0].numel()
+    want = MG_DIGESTS["all_terms" if flags["kxreg"] else "no_reg"]
+    dt0, dP, sums = trmg.backward_mg_cuda(model, nterms, 1, f0s, t0s, coarse, consts, g, True)
+    assert _digest(list(dt0) + list(dP) + [sums]) == want["backward_sums"]
+    dt0, dP, _ = trmg.backward_mg_cuda(model, nterms, 1, f0s, t0s, coarse, consts, g, False)
+    assert _digest(list(dt0) + list(dP)) == want["backward"]
+    assert _digest([trmg.forward_mg_cuda(model, nterms, 1, f0s, t0s, coarse, consts)]) == want["forward"]

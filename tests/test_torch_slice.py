@@ -15,6 +15,7 @@ import torch
 import odil_torch
 from odil_torch.convert import arrays_from_numpy
 from odil_torch.models import veltracer as tvt
+from odil_torch.ops import rowwise as trw
 from odil_torch.optim import Adam, plan_chunks
 from odil_tpu.models import veltracer as jvt
 from odil_tpu.optim.base import plan_chunks as jplan_chunks
@@ -145,13 +146,15 @@ def test_flagship_multigrid_levels():
 
 
 def test_unported_paths_raise():
+    """What is still to port raises: sharding and the streaming kernels.  The
+    plain operator has no fused route."""
     with pytest.raises(NotImplementedError):
         odil_torch.Domain(cshape=(4, 4), mesh=object(), device="cpu")
     tp, ts, extra = tvt.build(kernel="pallas_mg", multigrid=False, device="cpu", **SIZE)
-    assert tp.make_loss_grad_fn(ts) is None
-    loss_fn, x = tp.make_loss_fn(ts)
-    with pytest.raises(NotImplementedError, match="generic"):
-        loss_fn(x, tp.tracers)
+    fields = tp.domain.arrays_from_state(ts)
+    model = trw.RowModel(lambda it, T, rows, data_rows, params, consts: (rows[0][0] - rows[0][1],))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        trw.rowwise_loss_terms(model, fields[:1], stream=True)
     assert tvt.build(kernel="xla", device="cpu", **SIZE)[0].make_loss_grad_fn(ts) is None
 
 
