@@ -36,10 +36,31 @@ Phases, any failure exits non-zero and prints no result:
    d. ``kernel="pallas_mg"`` and ``kernel="pallas"`` at (64,512,512), 40 epochs
       each, and the loss-only path of ``pallas``: epoch 0 within 1e-5 of the
       plain operator's loss on the zero state, computed on the card.
+   e. heat inverse conductivity at 64^2 (``heat.build(kernel="pallas",
+      infer_k=True, imposed="stripe")``, the converged lane of
+      tests/test_converged.py:63-82): Adam lr 0.001, 1500 epochs from the
+      JAX package's initial conductivity net
+      (``odil_torch/data/heat_inverse_64.json``, written by
+      tests/test_torch_heat.py); epoch 0 within 1e-5 of the JAX package's
+      loss; the min of the last three history rows (every 100 epochs) of
+      loss, error_u and error_k within 1.5, 1.3 and 1.25 times the medians of
+      ``docs/parity_data/ref_heat_seeds.csv``; one generic backward+sums per
+      epoch and no other kernel; its loss-only path.
+   f. heat at 1024^2, 50 epochs: epoch 0 within 1e-5 of the plain operator
+      (``kernel="xla"``) on the card; its loss-only path.
+   g. wave at 64^2, fp32, Adam lr 0.001, 200 epochs, against the plain
+      operator trained the same way on the card: epoch 0 within 1e-5 and
+      every 20-epoch row within 1%; then wave at 1024^2, 40 epochs, epoch 0
+      against the plain operator; their loss-only paths.
+   The heat and wave kernels (forward, backward+sums, backward, with the
+   conductivity net's params and their cotangents) are held first to their
+   plain versions evaluated in fp64 on the same inputs at 64^2 and 1024^2,
+   and at a narrow (7, 5) plane (the periodic wrap).
 4. Timing: ms/epoch of the training loops with a profiler breakdown of the
-   two 256^2 routes, and each kernel's time (a CUDA graph of 50 calls) beside
-   its bound, its plain version's time and its launches on its path, every
-   line tagged with the card's name and power limit.
+   two 256^2 routes and the heat 64^2 route, and each kernel's time (a CUDA
+   graph of 50 calls) beside its bound, its plain version's time and its
+   launches on its path, every line tagged with the card's name and power
+   limit.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -67,10 +88,28 @@ OPS_ROWS_FORWARD = 40
 OPS_ROWS_BACKWARD = OPS_ROWS_FORWARD + 60
 OPS_FORWARD = 3 * 23 + OPS_ROWS_FORWARD
 OPS_BACKWARD = OPS_FORWARD + 60 + 12
+# The heat and wave row models (heat_row.cuh, wave_row.cuh), per residual
+# cell, a tanhf or expf counted as one operation: heat's forward runs the
+# conductivity net at both faces (2 x (70 multiply-adds and products + 11
+# transcendentals + 3)) and the stencil (~30); its backward adds the
+# stencil's adjoint (~30), the net's param adjoint at both faces (2 x 169)
+# and the gather (6).  Wave: the stencil (16) and its adjoint (20).
+OPS_HEAT_FORWARD = 200
+OPS_HEAT_BACKWARD = OPS_HEAT_FORWARD + 30 + 2 * 169 + 6
+OPS_WAVE_FORWARD = 16
+OPS_WAVE_BACKWARD = OPS_WAVE_FORWARD + 20
 DEVICE = "cuda"
 # The grids in cells: the flagship (the whole-plane TPU kernels), 64^3 (the
 # blocked ones) and 512^2 (the x-tiled ones).
 SIZES = {"256": (64, 256, 256), "64": (64, 64, 64), "512": (64, 512, 512)}
+# The 1-D grids (T, N) of the heat and wave paths, and the narrow plane.
+SIZES_1D = {"64": (64, 64), "1024": (1024, 1024)}
+NARROW_1D = (7, 5)
+HEAT_DATA = os.path.join(HERE, "odil_torch", "data", "heat_inverse_64.json")
+HEAT_EPOCHS, HEAT_EVERY = 1500, 100
+# The converged lane's margins on the reference seeds' medians
+# (tests/test_converged.py:81).
+HEAT_MARGINS = {"loss": 1.5, "error_u": 1.3, "error_k": 1.25}
 CHUNK = 10
 TERMS_RTOL, GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-4, 1e-6
 
@@ -204,10 +243,11 @@ def read_ref(name):
         return {int(r["epoch"]): float(r["loss"]) for r in csv.DictReader(fh)}
 
 
-def train(torch, Adam, grad_fn, arrays, epochs):
-    """Adam (lr 0.01) for `epochs` epochs in chunks of CHUNK: (optimizer,
-    losses, host ms/epoch of each chunk)."""
-    opt = Adam(grad_fn, arrays, lr=0.01)
+def train(torch, Adam, grad_fn, arrays, epochs, lr=0.01, on_chunk=None):
+    """Adam for `epochs` epochs in chunks of CHUNK: (optimizer, losses, host
+    ms/epoch of each chunk).  on_chunk(epoch, optimizer) runs after each
+    chunk, outside the timed region."""
+    opt = Adam(grad_fn, arrays, lr=lr)
     losses, chunk_ms = [], []
     torch.cuda.synchronize()
     for _ in range(epochs // CHUNK):
@@ -215,6 +255,8 @@ def train(torch, Adam, grad_fn, arrays, epochs):
         out = opt.run_chunk(CHUNK)
         losses += out.cpu().tolist()  # waits for the card once per chunk
         chunk_ms.append((time.perf_counter() - t_start) * 1e3 / CHUNK)
+        if on_chunk is not None:
+            on_chunk(len(losses), opt)
     if not all(map(lambda v: v == v and abs(v) != float("inf"), losses)):
         fail("non-finite training loss")
     return opt, losses, chunk_ms
@@ -239,6 +281,52 @@ def expect_counts(counts, want, what):
         fail(f"{what}: the launch counters read {counts}, expected {want}")
 
 
+def autograd_loss_grad_fn(torch, problem, state):
+    """The plain route's training step: autograd of make_loss_fn."""
+    loss_fn, _ = problem.make_loss_fn(state)
+
+    def fn(arrays, tracers):
+        x = [a.detach().requires_grad_(True) for a in arrays]
+        loss, aux = loss_fn(x, tracers)
+        return (loss.detach(), aux), torch.autograd.grad(loss, x)
+
+    return fn
+
+
+def row_case_1d(torch, np, th, tw, Context, which, T, N, rand, dev):
+    """(model, nterms, hist, fields, params, data, consts) of the heat (the
+    converged lane's configuration) or wave row model at (T, N): seeded
+    random fields, the build's data and consts, the build's conductivity
+    net plus seeded noise."""
+    if which == "wave":
+        p, s, e = tw.build(nt=T, nx=N, dtype=np.float32, multigrid=False, kernel="pallas", device=dev)
+        model = tw._row_model(Context(p.domain, s, extra=e, tracers=p.tracers))
+        consts = (e.init_u, e.init_ut, torch.arange(N, dtype=torch.float32, device=dev))
+        return model, 1, 2, (rand(T, N),), (), (rand(T, 1), rand(T, 1)), consts
+    p, s, e = th.build(nt=T, nx=N, infer_k=True, imposed="stripe", nimp=200, multigrid=False, kernel="pallas",
+                       device=dev)
+    model, names, params = th._row_model(Context(p.domain, s, extra=e, tracers=p.tracers))
+    params = tuple(q + rand(*q.shape) for q in params)
+    zero = torch.zeros((1, 1), device=dev)
+    u0 = e.init_u
+    consts = (u0, torch.roll(u0, 1, 0), torch.roll(u0, -1, 0), torch.arange(N, dtype=torch.float32, device=dev),
+              zero, zero)
+    return model, len(names), 1, (rand(T, N) + 0.5,), params, (e.imp_mask, e.imp_u + rand(T, N)), consts
+
+
+def heat_errors(torch, th, problem, extra, x):
+    """error_u and error_k of the heat example (examples/heat/heat.py::
+    compute_error) at the flat arrays x."""
+    st = problem.state_from_arrays(x)
+    u = problem.domain.get_regular_array(st.fields["u"])
+    err_u = float(torch.sqrt(torch.mean((u - extra.ref_u) ** 2)))
+    uk = torch.as_tensor(extra.ref_uk, device=u.device)
+    k = th.squash_k(problem.domain.neural_net(st, "k_net")(uk)[0], problem.domain.mod, extra.args.kmax)
+    ref_k = torch.as_tensor(extra.ref_k, device=u.device, dtype=k.dtype)
+    err_k = float(torch.sqrt(torch.mean((k - ref_k) ** 2)) / ref_k.max())
+    return err_u, err_k
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--epochs", type=int, default=400, help="Flagship training epochs (multiple of 10)")
@@ -255,7 +343,9 @@ def main():
     sys.path.insert(0, HERE)
 
     from odil_torch.context import Context
+    from odil_torch.models import heat as th
     from odil_torch.models import veltracer as vt
+    from odil_torch.models import wave as tw
     from odil_torch.ops import _build
     from odil_torch.ops import rowwise as rw
     from odil_torch.ops import rowwise_mg as rmg
@@ -395,6 +485,41 @@ def main():
         fail(f"generic forward kernel + autograd disagrees with plain autograd (loss {ok_l}, grads {ok_lg})")
     del leaves_k, leaves_p, grads_k, grads_p
 
+    # The heat and wave row models (1-D planes) at their paths' shapes and at
+    # a narrow plane, against their plain versions evaluated in fp64 on the
+    # same inputs (the reference's own rounding stays out of the tolerance:
+    # the param cotangents are sums over every cell).
+    cases_1d = {}
+    for which in ("heat", "wave"):
+        for size, (n, x) in list(SIZES_1D.items()) + [("narrow", NARROW_1D)]:
+            case = row_case_1d(torch, np, th, tw, Context, which, n, x, rand, dev)
+            m, nt_, h, fs, ps, ds, cs = case
+            wide = lambda ts: tuple(t.double() for t in ts)
+            gs = torch.full((nt_,), 1.0 / fs[0].numel(), device=dev)
+            kf = rw.forward_cuda(m, nt_, h, fs, ps, ds, cs)
+            kd, kp, ks = rw.backward_cuda(m, nt_, h, fs, ps, ds, cs, gs, True)
+            kd2, kp2, _ = rw.backward_cuda(m, nt_, h, fs, ps, ds, cs, gs, False)
+            pf = rw._forward_plain(m, nt_, h, wide(fs), wide(ps), wide(ds), wide(cs))
+            pd, pp, ps_ = rw._backward_plain(m, nt_, h, wide(fs), wide(ps), wide(ds), wide(cs), gs.double(), True)
+            torch.cuda.synchronize()
+            e_f, ok_f = close(kf.double(), pf, TERMS_RTOL, 0.0)
+            e_s, ok_s = close(ks.double(), ps_, TERMS_RTOL, 0.0)
+            e_g, ok_g = close_all([a.double() for a in kd + kp], list(pd) + list(pp))
+            e_g2, ok_g2 = close_all([a.double() for a in kd2 + kp2], list(pd) + list(pp))
+            e_p = max([float((a.double() - b).abs().max()) for a, b in zip(kp, pp)], default=0.0)
+            print(f"{which} kernels at {tuple(fs[0].shape)}: forward max|d sums| {e_f:.3e} (rel {rel_err(kf, pf):.2e}), "
+                  f"backward+sums max|d sums| {e_s:.3e} max|d (dfields, dparams)| {e_g:.3e} (dparams {e_p:.3e}), "
+                  f"backward {e_g2:.3e} {tag}")
+            if not (ok_f and ok_s and ok_g and ok_g2):
+                fail(f"a {which} kernel disagrees with its plain version at {tuple(fs[0].shape)}: forward {ok_f}, "
+                     f"sums {ok_s}, backward+sums {ok_g}, backward {ok_g2}")
+            if size != "narrow":
+                cases_1d[(which, size)] = case
+                report[f"forward_rows_{which}_{size}"] = e_f
+                report[f"backward_rows_sums_{which}_{size}"] = e_g
+                report[f"backward_rows_{which}_{size}"] = e_g2
+            del kd, kp, kd2, kp2, pd, pp
+
     # -- Phase 3: the paths ----------------------------------------------------
     ref256, ref64 = read_ref("ref_velt_256.csv"), read_ref("ref_velt_64.csv")
     launches = {}  # kernel name -> launches on its path
@@ -500,7 +625,7 @@ def main():
     launches["backward_rows_sums_64"] = counters.read()["backward_rows"]
     rows, rel = check_rows(losses, ref64, "training (pallas, 64^3)", gate_all=False, gated=(50,))
     print("  rows after epoch 50 (not gated): " + ", ".join(
-        f"{e}: {rows[e]:.6g} vs {ref64[e]:.6g}" for e in sorted(ref64) if e > 50 and e in rows))
+        f"{e}: {rows[e]:.6g} vs {ref64[e]:.6g}" for e in sorted(ref64) if e > 50 and e in rows) + f" {tag}")
     counts = loss_only(problem64, state64, opt64.x, grad64, "pallas 64^3",
                        dict(none, forward_rows=1, backward_rows=1))
     launches["forward_rows_64"], launches["backward_rows_64"] = counts["forward_rows"], counts["backward_rows"]
@@ -534,6 +659,133 @@ def main():
         loops[route] = (opt5, (ms, n))
         del opt5, grad5, problem5, state5
 
+    # e. heat 64^2: the converged lane from the JAX package's initial net.
+    with open(HEAT_DATA) as fh:
+        heat_ref = json.load(fh)
+    lane = heat_ref["config"]
+    problem_h, state_h, extra_h = th.build(
+        nt=lane["nt"], nx=lane["nx"], infer_k=lane["infer_k"], imposed=lane["imposed"], nimp=lane["nimp"],
+        seed=lane["seed"], kernel="pallas", device=dev,
+    )
+    net = state_h.fields["k_net"]
+    net.weights = [torch.tensor(w, dtype=torch.float32, device=dev) for w in heat_ref["weights"]]
+    net.biases = [torch.tensor(b, dtype=torch.float32, device=dev) for b in heat_ref["biases"]]
+    grad_h = problem_h.make_loss_grad_fn(state_h)
+    if grad_h is None:
+        fail("make_loss_grad_fn declined heat kernel='pallas': the one-pass route did not apply")
+    history = {}
+
+    def heat_row(epoch, o):
+        if epoch % HEAT_EVERY == 0:
+            history[epoch] = heat_errors(torch, th, problem_h, extra_h, o.x)
+
+    counters.zero()
+    opt_h, losses, chunk_ms = train(torch, Adam, grad_h, problem_h.domain.arrays_from_state(state_h), HEAT_EPOCHS,
+                                    lr=1e-3, on_chunk=heat_row)
+    expect_counts(counters.read(), dict(none, backward_rows=len(losses)), "heat training at 64^2")
+    launches["backward_rows_sums_heat_64"] = counters.read()["backward_rows"]
+    rel0 = abs(losses[0] - heat_ref["epoch0_loss"]) / abs(heat_ref["epoch0_loss"])
+    rows = {e: (losses[e - 1],) + history[e] for e in sorted(history)}
+    with open(os.path.join(PARITY, "ref_heat_seeds.csv")) as fh:
+        seeds = list(csv.DictReader(fh))
+    medians = {k: statistics.median(float(r[k]) for r in seeds) for k in HEAT_MARGINS}
+    last = sorted(rows)[-3:]
+    finals = {k: min(rows[e][i] for e in last) for i, k in enumerate(HEAT_MARGINS)}
+    print(f"training (heat 64^2, pallas): {len(losses)} epochs, epoch-0 loss {losses[0]!r} (JAX package "
+          f"{heat_ref['epoch0_loss']!r}, rel {rel0:.2e}); min of epochs {last}: " + ", ".join(
+              f"{k} {finals[k]:.6g} ({finals[k] / medians[k]:.3f}x the seed median {medians[k]:.6g}, limit "
+              f"{HEAT_MARGINS[k]}x)" for k in HEAT_MARGINS) + f" {tag}")
+    print("  rows (epoch: loss, error_u, error_k; not gated): " + "; ".join(
+        f"{e}: {r[0]:.6g}, {r[1]:.6g}, {r[2]:.6g}" for e, r in rows.items()) + f" {tag}")
+    if rel0 > 1e-5:
+        fail(f"heat 64^2: epoch-0 loss {losses[0]} differs from the JAX package's {heat_ref['epoch0_loss']} "
+             f"by {rel0:.2e} (limit 1e-5)")
+    for k, margin in HEAT_MARGINS.items():
+        if finals[k] > margin * medians[k]:
+            fail(f"heat 64^2: final {k} {finals[k]} exceeds {margin} x the reference seeds' median {medians[k]}")
+    counts = loss_only(problem_h, state_h, opt_h.x, grad_h, "heat 64^2", dict(none, forward_rows=1, backward_rows=1))
+    launches["forward_rows_heat_64"], launches["backward_rows_heat_64"] = counts["forward_rows"], counts["backward_rows"]
+    loops["heat 64"] = (opt_h, steady_ms(chunk_ms))
+
+    # f. heat 1024^2, 50 epochs; epoch 0 against the plain operator.  Both
+    # builds draw the same initial net (the same seed).
+    def zero_state_loss(problem, state):
+        loss_fn, _ = problem.make_loss_fn(state)
+        with torch.no_grad():
+            return float(loss_fn(problem.domain.arrays_from_state(state), problem.tracers)[0])
+
+    big = dict(zip(("nt", "nx"), SIZES_1D["1024"]))
+    heat_big = dict(infer_k=True, imposed="stripe", nimp=lane["nimp"], seed=lane["seed"], device=dev, **big)
+    plain_loss = zero_state_loss(*th.build(kernel="xla", **heat_big)[:2])
+    problem_hb, state_hb, _ = th.build(kernel="pallas", **heat_big)
+    grad_hb = problem_hb.make_loss_grad_fn(state_hb)
+    counters.zero()
+    opt_hb, losses, chunk_ms = train(torch, Adam, grad_hb, problem_hb.domain.arrays_from_state(state_hb), 50, lr=1e-3)
+    expect_counts(counters.read(), dict(none, backward_rows=len(losses)), "heat training at 1024^2")
+    launches["backward_rows_sums_heat_1024"] = len(losses)
+    rel0 = abs(losses[0] - plain_loss) / abs(plain_loss)
+    ms, n = steady_ms(chunk_ms)
+    print(f"training (heat 1024^2, pallas): {len(losses)} epochs, epoch-0 loss {losses[0]!r} vs the plain "
+          f"operator's {plain_loss!r} (rel {rel0:.2e}); final {losses[-1]!r}; {ms:.4f} ms/epoch {tag}")
+    if rel0 > 1e-5:
+        fail(f"heat 1024^2: epoch-0 loss {losses[0]} differs from the plain operator's {plain_loss} (limit 1e-5)")
+    counts = loss_only(problem_hb, state_hb, opt_hb.x, grad_hb, "heat 1024^2",
+                       dict(none, forward_rows=1, backward_rows=1))
+    launches["forward_rows_heat_1024"], launches["backward_rows_heat_1024"] = (
+        counts["forward_rows"], counts["backward_rows"])
+    loops["heat 1024"] = (opt_hb, (ms, n))
+    del opt_hb, grad_hb, problem_hb, state_hb
+
+    # g. wave 64^2 against the plain route trained the same way, then 1024^2.
+    wave64 = dict(zip(("nt", "nx"), SIZES_1D["64"]), dtype=np.float32, device=dev)
+    problem_w, state_w, _ = tw.build(kernel="pallas", **wave64)
+    grad_w = problem_w.make_loss_grad_fn(state_w)
+    if grad_w is None:
+        fail("make_loss_grad_fn declined wave kernel='pallas': the one-pass route did not apply")
+    counters.zero()
+    opt_w, losses_w, chunk_ms = train(torch, Adam, grad_w, problem_w.domain.arrays_from_state(state_w), 200, lr=1e-3)
+    expect_counts(counters.read(), dict(none, backward_rows=len(losses_w)), "wave training at 64^2")
+    launches["backward_rows_sums_wave_64"] = len(losses_w)
+    loops["wave 64"] = (opt_w, steady_ms(chunk_ms))
+    problem_wx, state_wx, _ = tw.build(kernel="xla", **wave64)
+    counters.zero()
+    _, losses_x, chunk_ms = train(torch, Adam, autograd_loss_grad_fn(torch, problem_wx, state_wx),
+                                  problem_wx.domain.arrays_from_state(state_wx), 200, lr=1e-3)
+    expect_counts(counters.read(), none, "wave training at 64^2 on the plain route")
+    loops["wave 64 plain route"] = (None, steady_ms(chunk_ms))
+    rel = {e: abs(losses_w[max(e - 1, 0)] - losses_x[max(e - 1, 0)]) / abs(losses_x[max(e - 1, 0)])
+           for e in range(0, len(losses_w) + 1, 20)}
+    worst = max(rel, key=rel.get)
+    print(f"training (wave 64^2, pallas vs the plain route): epoch-0 loss {losses_w[0]!r} vs {losses_x[0]!r} "
+          f"(rel {rel[0]:.2e}); worst 20-epoch row epoch {worst} ({100 * rel[worst]:.4f}%); final "
+          f"{losses_w[-1]!r} vs {losses_x[-1]!r} {tag}")
+    if rel[0] > 1e-5 or rel[worst] > 0.01:
+        fail(f"wave 64^2: the kernel route leaves the plain route (epoch 0 rel {rel[0]:.2e}, limit 1e-5; "
+             f"epoch {worst} {100 * rel[worst]:.3f}%, limit 1%)")
+    counts = loss_only(problem_w, state_w, opt_w.x, grad_w, "wave 64^2", dict(none, forward_rows=1, backward_rows=1))
+    launches["forward_rows_wave_64"], launches["backward_rows_wave_64"] = counts["forward_rows"], counts["backward_rows"]
+
+    wave_big = dict(big, dtype=np.float32, device=dev)
+    plain_loss = zero_state_loss(*tw.build(kernel="xla", **wave_big)[:2])
+    problem_wb, state_wb, _ = tw.build(kernel="pallas", **wave_big)
+    grad_wb = problem_wb.make_loss_grad_fn(state_wb)
+    counters.zero()
+    opt_wb, losses, chunk_ms = train(torch, Adam, grad_wb, problem_wb.domain.arrays_from_state(state_wb), 40, lr=1e-3)
+    expect_counts(counters.read(), dict(none, backward_rows=len(losses)), "wave training at 1024^2")
+    launches["backward_rows_sums_wave_1024"] = len(losses)
+    rel0 = abs(losses[0] - plain_loss) / abs(plain_loss)
+    ms, n = steady_ms(chunk_ms)
+    print(f"training (wave 1024^2, pallas): {len(losses)} epochs, epoch-0 loss {losses[0]!r} vs the plain "
+          f"operator's {plain_loss!r} (rel {rel0:.2e}); final {losses[-1]!r}; {ms:.4f} ms/epoch {tag}")
+    if rel0 > 1e-5:
+        fail(f"wave 1024^2: epoch-0 loss {losses[0]} differs from the plain operator's {plain_loss} (limit 1e-5)")
+    counts = loss_only(problem_wb, state_wb, opt_wb.x, grad_wb, "wave 1024^2",
+                       dict(none, forward_rows=1, backward_rows=1))
+    launches["forward_rows_wave_1024"], launches["backward_rows_wave_1024"] = (
+        counts["forward_rows"], counts["backward_rows"])
+    loops["wave 1024"] = (opt_wb, (ms, n))
+    del opt_wb, grad_wb, problem_wb, state_wb
+
     idle = [name for name in report if launches.get(name, 0) < 1]
     if idle:
         fail(f"kernels not launched on their paths: {idle}")
@@ -542,7 +794,7 @@ def main():
     for route, (o, (ms, n)) in loops.items():
         print(f"training loop ({route}): {ms:.4f} ms/epoch (median of {n} chunks of {CHUNK} epochs "
               f"after the first) {tag}")
-    for route in ("pallas_mg 256", "pallas 256"):
+    for route in ("pallas_mg 256", "pallas 256", "heat 64"):
         o, (ms, _) = loops[route]
         profile_epochs(torch, o, ms, f"({route}) {tag}")
 
@@ -595,6 +847,25 @@ def main():
                 f_in + nbytes(fs) + 4 * nt_ * (2 if sums else 1), OPS_ROWS_BACKWARD * n_cells, replaces[size][1],
                 rows_src,
             )
+    ops_1d = {"heat": (OPS_HEAT_FORWARD, OPS_HEAT_BACKWARD), "wave": (OPS_WAVE_FORWARD, OPS_WAVE_BACKWARD)}
+    for (which, size), (m, nt_, h, fs, ps, ds, cs) in cases_1d.items():
+        gs = torch.full((nt_,), 1.0 / fs[0].numel(), device=dev)
+        n_cells, f_in = fs[0].numel(), nbytes(fs + ps + ds + cs)
+        ops_f, ops_b = ops_1d[which]
+        timed[f"forward_rows_{which}_{size}"] = (
+            lambda m=m, nt_=nt_, h=h, fs=fs, ps=ps, ds=ds, cs=cs: rw.forward_cuda(m, nt_, h, fs, ps, ds, cs),
+            lambda m=m, nt_=nt_, h=h, fs=fs, ps=ps, ds=ds, cs=cs: rw._forward_plain(m, nt_, h, fs, ps, ds, cs),
+            f_in + 4 * nt_, ops_f * n_cells, "odil_tpu/ops/rowwise.py:385", rows_src,
+        )
+        for sums, name in ((True, f"backward_rows_sums_{which}_{size}"), (False, f"backward_rows_{which}_{size}")):
+            timed[name] = (
+                lambda m=m, nt_=nt_, h=h, fs=fs, ps=ps, ds=ds, cs=cs, gs=gs, s=sums: rw.backward_cuda(
+                    m, nt_, h, fs, ps, ds, cs, gs, s),
+                lambda m=m, nt_=nt_, h=h, fs=fs, ps=ps, ds=ds, cs=cs, gs=gs, s=sums: rw._backward_plain(
+                    m, nt_, h, fs, ps, ds, cs, gs, s),
+                f_in + nbytes(fs + ps) + 4 * nt_ * (2 if sums else 1), ops_b * n_cells, "odil_tpu/ops/rowwise.py:549",
+                rows_src,
+            )
     kernels = []
     for name, (kfn, pfn, nbyte, ops, replaced, source) in timed.items():
         ms = kernel_ms(torch, kfn, 50)
@@ -602,7 +873,7 @@ def main():
         t_bytes = nbyte / HBM_BYTES_PER_S * 1e3
         t_ops = ops / FP32_FLOPS * 1e3
         bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-        print(f"kernel {name}: {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
+        print(f"kernel {name}: {ms:.4f} ms, bound {bound_ms:.4g} ms ({bound_by}), plain {plain_ms:.4f} ms, "
               f"{launches[name]} launches on its path {tag}")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaced,

@@ -7,7 +7,7 @@ PyTorch versions.
 """
 
 from . import runtime
-from .core import Array, Context, Domain, Field, MultigridField, Problem, State
+from .core import Array, Context, Domain, Field, MultigridField, NeuralNet, Problem, State
 from .transfer import interp_to_finer, restrict_to_coarser
 
 __all__ = [
@@ -16,6 +16,7 @@ __all__ = [
     "Domain",
     "Field",
     "MultigridField",
+    "NeuralNet",
     "Problem",
     "State",
     "interp_to_finer",

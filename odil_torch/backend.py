@@ -29,6 +29,7 @@ class ModTorch:
         self.is_tensor = torch.is_tensor
         for name in ("abs", "cos", "exp", "log", "sin", "sqrt", "square", "tanh", "maximum", "minimum"):
             setattr(self, name, getattr(torch, name))
+        self.sigmoid = lambda x: 1 / (1 + torch.exp(-x))
 
     def where(self, cond, a, b):
         ref = a if torch.is_tensor(a) else b

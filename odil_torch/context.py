@@ -4,12 +4,14 @@ PyTorch counterpart of ``odil_tpu/context.py``: ``ctx.field(key, *shift,
 loc=..., frozen=...)`` flattens a MultigridField to its fine grid, converts
 the staggered location by pad/trim, applies the periodic shift with
 ``roll`` and caches the sample; ``frozen=True`` detaches it from autograd.
+``ctx.neural_net(key, frozen=...)`` evaluates a NeuralNet field pointwise.
 ``ctx.rowwise_terms`` runs a row function over named fields through the
 row-wise kernels (``ops/rowwise.py``), eagerly or deferred for the one-pass
 loss+grad route of ``Problem.make_loss_grad_fn``.
 """
 
-from .fields import Array, Field, MultigridField
+from .fields import Array, Field, MultigridField, NeuralNet
+from .nn import eval_neural_net
 from .ops.rowwise import rowwise_loss_terms
 
 __all__ = ["Context"]
@@ -122,3 +124,11 @@ class Context:
             r.from_rowwise = True
             out.append(r)
         return out
+
+    def neural_net(self, key, frozen=False):
+        """The NeuralNet field `key` as a function of its inputs; ``frozen``
+        detaches its weights from autograd (``odil_tpu/context.py:234-255``)."""
+        net = self.state.fields[key]
+        if not isinstance(net, NeuralNet):
+            raise TypeError(f"Expected NeuralNet, got {type(net).__name__} for '{key}'")
+        return lambda *inputs: eval_neural_net(net, inputs, frozen=frozen)

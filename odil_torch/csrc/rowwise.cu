@@ -1,5 +1,8 @@
-// Row-wise residual kernels for Hopper (sm_90a) over the fine fields, for
-// the velocity-from-tracer row model (veltracer_row.cuh).
+// Row-wise residual kernels for Hopper (sm_90a) over the fine fields, one
+// instantiation per row model: velocity-from-tracer on (T, X, Y) planes
+// (veltracer_row.cuh, the kernel below), and heat and wave on (T, N) planes
+// (heat_row.cuh, wave_row.cuh through the generic 1-D kernel of rows1d.cuh,
+// exported at the end as odil_rows1d_*).
 //
 // Replaces the TPU kernels of odil_tpu/ops/rowwise.py that the flagship's
 // `--kernel pallas` route takes:
@@ -15,7 +18,7 @@
 // VMEM or not; a Hopper block never holds a whole plane, so one tiled design
 // serves every plane size and every B.
 //
-// What they compute.  Three fields f = u, vx, vy on a (T, X, Y) grid, any
+// What the veltracer instantiation computes.  Three fields f = u, vx, vy on a (T, X, Y) grid, any
 // T >= 2, X, Y >= 1 (periodic in t, x and y).  Residual row t reads rows t and
 // t-1 (row 0 reads row T-1).  The forward pass gives the per-term sums of
 // squares S[k] over all T rows; the backward pass gives d(sum_k g[k] S[k]) /
@@ -39,9 +42,13 @@
 // must read the fields (51.1 MB) and the two const planes (0.5 MB) and write
 // dfields (51.1 MB), ~30.7 us; the forward reads ~51.6 MB, ~15.4 us.  The
 // arithmetic (about 150 fp32 operations per cell) is far below the memory
-// time, so both are bound by bytes.
+// time, so both are bound by bytes.  The heat and wave instantiations and
+// their bounds are described in rows1d.cuh, heat_row.cuh and wave_row.cuh:
+// heat (two network passes per cell) is bound by arithmetic, wave by bytes.
 
 #include "veltracer_row.cuh"
+#include "heat_row.cuh"
+#include "wave_row.cuh"
 
 // Mirrored by odil_torch/ops/rowwise.py::_RowArgs (ctypes); the Python side
 // checks sizeof through odil_rows_args_size().
@@ -211,6 +218,31 @@ int odil_rows_backward(const RowArgs* a, int with_sums, void* stream) {
   if (err != cudaSuccess || !with_sums) return (int)err;
   reduce_sums_kernel<RowArgs><<<1, NTHREADS, 0, s>>>(A, (int)(grid.x * grid.y * grid.z));
   return (int)cudaGetLastError();
+}
+
+// The 1-D row models, by id: 0 heat, 1 wave (odil_torch/ops/rowwise.py).
+int odil_rows1d_args_size() { return (int)sizeof(rows1d::Rows1DArgs); }
+
+int odil_rows1d_num_blocks(int T, int N, int slab) {
+  return ((N + rows1d::TILE - 1) / rows1d::TILE) * ((T + slab - 1) / slab);
+}
+
+int odil_rows1d_forward(int model, const rows1d::Rows1DArgs* a, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (model) {
+    case 0: return rows1d::forward<rows1d::HeatRow>(*a, s);
+    case 1: return rows1d::forward<rows1d::WaveRow>(*a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int odil_rows1d_backward(int model, const rows1d::Rows1DArgs* a, int with_sums, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (model) {
+    case 0: return rows1d::backward<rows1d::HeatRow>(*a, with_sums, s);
+    case 1: return rows1d::backward<rows1d::WaveRow>(*a, with_sums, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

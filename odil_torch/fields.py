@@ -1,4 +1,4 @@
-"""State containers: Field, MultigridField, Array, State.
+"""State containers: Field, MultigridField, NeuralNet, Array, State.
 
 PyTorch counterpart of ``odil_tpu/fields.py:21-80``.  JAX registers these as
 pytrees; here the flat order is explicit: ``field_arrays`` lists a field's
@@ -6,7 +6,7 @@ tensors and ``state_from_arrays`` rebuilds a state from a flat list in the
 same order, which is the order of ``Domain.arrays_from_state``.
 """
 
-__all__ = ["Field", "MultigridField", "Array", "State", "field_arrays", "state_from_arrays"]
+__all__ = ["Field", "MultigridField", "NeuralNet", "Array", "State", "field_arrays", "state_from_arrays"]
 
 
 def _norm_shape(shape):
@@ -43,6 +43,19 @@ class MultigridField:
         return f"MultigridField(nterms={len(self.terms or [])}, loc='{self.loc}')"
 
 
+class NeuralNet:
+    """A fully-connected tanh network: weights are (n_out, n_in) matrices,
+    biases length n_out (``odil_tpu/fields.py:54-66``, default activation,
+    no input or output maps)."""
+
+    def __init__(self, weights, biases):
+        self.weights = weights
+        self.biases = biases
+
+    def __repr__(self):
+        return f"NeuralNet(layers={[tuple(w.shape) for w in self.weights]})"
+
+
 class Array:
     """A non-grid vector of unknowns (e.g. inferred scalar coefficients)."""
 
@@ -66,11 +79,15 @@ class State:
 
 
 def field_arrays(field):
-    """Lists the data tensors of a field object in the canonical flat order."""
+    """Lists the data tensors of a field object in the canonical flat order
+    (a NeuralNet's weights first, then its biases, as in
+    ``odil_tpu/fields.py:173-174``)."""
     if isinstance(field, (Field, Array)):
         return [field.array]
     if isinstance(field, MultigridField):
         return [t.array for t in field.terms]
+    if isinstance(field, NeuralNet):
+        return list(field.weights) + list(field.biases)
     raise TypeError(f"Unknown field type '{type(field).__name__}'")
 
 
@@ -85,6 +102,9 @@ def _rebuild(field, arrays):
         terms = [Field(a, loc=t.loc, cshape=t.cshape) for a, t in zip(arrays[:n], field.terms)]
         mg = MultigridField(terms, loc=field.loc, factors=field.factors, axes=field.axes, method=field.method)
         return mg, n
+    if isinstance(field, NeuralNet):
+        nw, n = len(field.weights), len(field.weights) + len(field.biases)
+        return NeuralNet(list(arrays[:nw]), list(arrays[nw:n])), n
     raise TypeError(f"Unknown field type '{type(field).__name__}'")
 
 

@@ -1,7 +1,7 @@
 """Structured-grid Domain: geometry, staggered locations, multigrid hierarchy,
 state initialization and the flat array order.
 
-PyTorch counterpart of ``odil_tpu/grid.py:52-430``.  Every tensor the
+PyTorch counterpart of ``odil_tpu/grid.py:52-473``.  Every tensor the
 domain creates lives on ``device`` (default ``cuda``; the CPU tests pass
 ``device="cpu"``).  Sharding is not part of the port yet: ``mesh`` and
 ``partition`` raise.
@@ -14,7 +14,8 @@ import torch
 
 from . import runtime
 from .backend import ModTorch
-from .fields import Array, Field, MultigridField, State, field_arrays
+from .fields import Array, Field, MultigridField, NeuralNet, State, field_arrays
+from .nn import eval_neural_net, make_neural_net
 from .transfer import interp_to_finer
 
 __all__ = ["Domain"]
@@ -218,6 +219,8 @@ class Domain:
                 axes=field.axes,
                 method=field.method,
             )
+        if isinstance(field, NeuralNet):
+            return NeuralNet([self.cast(w) for w in field.weights], [self.cast(b) for b in field.biases])
         if isinstance(field, list):
             return self.init_field(Array(self.cast(np.asarray(field)), shape=(len(field),)))
         if isinstance(field, Array):
@@ -234,10 +237,13 @@ class Domain:
         fields = dict()
         for key, spec in state.fields.items():
             field = self.init_field(spec)
-            if self.multigrid and self.mg_convert_all and not isinstance(field, (MultigridField, Array)):
+            if self.multigrid and self.mg_convert_all and not isinstance(field, (MultigridField, NeuralNet, Array)):
                 field = self.regular_to_multigrid(spec)
             fields[key] = field
         return State(fields=fields, initialized=True)
+
+    def arrays_from_field(self, field):
+        return field_arrays(field)
 
     def arrays_from_state(self, state):
         """The state's tensors in the canonical flat order."""
@@ -245,3 +251,17 @@ class Domain:
         for key in state.fields:
             res += field_arrays(state.fields[key])
         return res
+
+    # -- Neural nets -------------------------------------------------------
+
+    def make_neural_net(self, layers, generator):
+        """A NeuralNet on this domain's device and dtype, its weights drawn
+        from `generator` (a CPU ``torch.Generator``)."""
+        return make_neural_net(layers, self.dtype, self.device, generator)
+
+    def neural_net(self, state, key):
+        """The network `key` of `state` as a function of its inputs."""
+        net = state.fields[key]
+        if not isinstance(net, NeuralNet):
+            raise TypeError(f"Expected NeuralNet, got {type(net).__name__} for '{key}'")
+        return lambda *inputs: eval_neural_net(net, inputs)

@@ -1,5 +1,6 @@
-"""Model operators of the port (the flagship velocity_from_tracer so far)."""
+"""Model operators of the port: the flagship velocity_from_tracer, heat
+inverse conductivity (the ODIL solver) and wave data assimilation."""
 
-from . import veltracer
+from . import heat, veltracer, wave
 
-__all__ = ["veltracer"]
+__all__ = ["heat", "veltracer", "wave"]

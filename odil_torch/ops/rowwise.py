@@ -26,8 +26,9 @@ param cotangents summed over the stack).
 
 Each entry point dispatches on the device of its tensors: a CUDA tensor
 launches the hand-written kernel of ``csrc/rowwise.cu`` (which exists for row
-models that carry a CUDA counterpart, and raises otherwise), a CPU tensor
-runs the plain PyTorch version beside it.  64-bit fields take the plain
+models that carry a CUDA counterpart -- veltracer on (T, X, Y) planes, heat
+and wave on (T, N) planes -- and raises otherwise), a CPU tensor runs the
+plain PyTorch version beside it.  64-bit fields take the plain
 version on every device, by the JAX package's own rule (Mosaic cannot lower
 64-bit kernels, ``odil_tpu/ops/rowwise.py:968-969``): ``rowwise_loss_terms``
 differentiates it by autograd and ``rowwise_loss_and_grads`` returns None.
@@ -51,13 +52,16 @@ __all__ = [
 
 
 class RowModel:
-    """A residual row function with its adjoint and, optionally, the id and
-    scalars of its CUDA counterpart (``csrc/veltracer_row.cuh``), shared by
-    the generic kernels here and the multigrid-fused ones of rowwise_mg.py.
+    """A residual row function with its adjoint and, optionally, the name
+    and scalars of its CUDA counterpart, shared by the generic kernels here
+    and (veltracer) the multigrid-fused ones of rowwise_mg.py.
 
     row_fn/row_vjp: the plain torch versions (row_vjp may be None: autograd).
-    cuda_model: the name of the CUDA row model ("veltracer") or None.
-    scalars: the CUDA model's parameters (dt, dx, dy, kimp, kxreg, ktreg)."""
+    cuda_model: the name of the CUDA row model or None: "veltracer"
+        (``csrc/veltracer_row.cuh``), "heat" (``csrc/heat_row.cuh``) or
+        "wave" (``csrc/wave_row.cuh``); each packs its own kernel arguments
+        (``_CUDA_MODELS``).
+    scalars: the CUDA model's parameters (steps, weights, flags)."""
 
     def __init__(self, row_fn, row_vjp=None, cuda_model=None, scalars=None):
         self.row_fn = row_fn
@@ -154,7 +158,7 @@ def _backward_plain(model, nterms, hist, fields, params, data, consts, g, with_s
 
 # -- CUDA kernels --------------------------------------------------------------
 
-_MAXTERMS = 6
+_MAXTERMS = 6  # the veltracer row model's terms (MAXTERMS of csrc/veltracer_row.cuh)
 
 
 def _slab(T):
@@ -185,7 +189,7 @@ def _raise_on(lib, err, what):
 
 def _check_veltracer_model(model, hist):
     if model.cuda_model != "veltracer":
-        raise NotImplementedError(f"row model {model.cuda_model!r} has no CUDA kernel; only 'veltracer' does")
+        raise NotImplementedError(f"row model {model.cuda_model!r} has no CUDA mg kernel; only 'veltracer' does")
     if hist != 1:
         raise ValueError("the veltracer CUDA kernels take hist=1")
 
@@ -196,8 +200,18 @@ def _check_cuda_tensors(ts, what):
             raise TypeError(f"the CUDA {what} kernels take contiguous float32 CUDA tensors, got {t.dtype} on {t.device}")
 
 
+def _check_shapes(got, want, what):
+    got = [tuple(t.shape) for t in got]
+    if got != [tuple(w) for w in want]:
+        raise ValueError(f"the CUDA {what} row kernels take shapes {want}, got {got}")
+
+
+def _ptrs(ts, n):
+    return (ctypes.c_void_p * n)(*[t.data_ptr() for t in ts])
+
+
 class _RowArgs(ctypes.Structure):
-    """Mirror of ``struct RowArgs`` in csrc/rowwise.cu."""
+    """Mirror of ``struct RowArgs`` in csrc/rowwise.cu (the veltracer model)."""
 
     _fields_ = [
         ("f", ctypes.c_void_p * 3),
@@ -213,6 +227,184 @@ class _RowArgs(ctypes.Structure):
     ]
 
 
+_MAXF, _MAXD, _MAXC, _NSCALARS = 2, 2, 6, 8
+
+
+class _Rows1DArgs(ctypes.Structure):
+    """Mirror of ``struct Rows1DArgs`` in csrc/rows1d.cuh (the row models on
+    1-D planes: heat, wave)."""
+
+    _fields_ = [
+        ("f", ctypes.c_void_p * _MAXF),
+        ("data", ctypes.c_void_p * _MAXD),
+        ("consts", ctypes.c_void_p * _MAXC),
+        ("params", ctypes.c_void_p),
+        ("g", ctypes.c_void_p),
+        ("df", ctypes.c_void_p * _MAXF),
+        ("dparams", ctypes.c_void_p),
+        ("partials", ctypes.c_void_p),
+        ("sums", ctypes.c_void_p),
+        ("data_stride", ctypes.c_int * _MAXD),
+    ] + [(n, ctypes.c_int) for n in ("T", "N", "slab", "nterms", "nparams", "stride", "flags")] + [
+        ("s", ctypes.c_float * _NSCALARS)
+    ]
+
+
+class _Launch:
+    """What one launch of a row kernel needs: the argument struct, the
+    outputs it writes (dfields, dparams views, sums) and the tensors the
+    struct points to, kept alive until the launch is enqueued."""
+
+    def __init__(self, args, dfields, dparams, sums, keep):
+        self.args, self.dfields, self.dparams, self.sums, self.keep = args, dfields, dparams, sums, keep
+
+
+class _VeltracerCuda:
+    """The veltracer row model on (T, X, Y) planes: 3 fields, 2 const planes
+    (u_init, u_final), no params, no data, hist=1 (``csrc/veltracer_row.cuh``)."""
+
+    forward, backward = "odil_rows_forward", "odil_rows_backward"
+
+    def check(self, model, nterms, hist, fields, params, data, consts):
+        _check_veltracer_model(model, hist)
+        if len(fields) != 3 or len(consts) != 2 or params or data:
+            raise ValueError("the veltracer CUDA kernels take 3 fields, 2 const planes, no params and no data")
+        _check_cuda_tensors(tuple(fields) + tuple(consts), "row-wise")
+        shape = tuple(fields[0].shape)
+        if len(shape) != 3 or shape[0] < 2:
+            raise ValueError(f"the CUDA row-wise kernels take (T, X, Y) fields with T >= 2, got {shape}")
+        _check_shapes(tuple(fields) + tuple(consts), [shape] * 3 + [shape[1:]] * 2, "veltracer")
+
+    def pack(self, lib, model, nterms, fields, params, data, consts, g, grads):
+        T, X, Y = fields[0].shape
+        dev = fields[0].device
+        nblocks = lib.odil_rows_num_blocks(T, X, Y, _slab(T))
+        partials = torch.empty((nblocks, _MAXTERMS), dtype=torch.float64, device=dev)
+        sums = torch.empty((_MAXTERMS,), dtype=torch.float32, device=dev)
+        dfields = tuple(torch.empty_like(f) for f in fields) if grads else ()
+        args = _RowArgs(
+            f=_ptrs(fields, 3), u_init=consts[0].data_ptr(), u_final=consts[1].data_ptr(),
+            g=g.data_ptr() if g is not None else None, df=_ptrs(dfields, 3) if grads else (ctypes.c_void_p * 3)(),
+            partials=partials.data_ptr(), sums=sums.data_ptr(), T=T, X=X, Y=Y, slab=_slab(T),
+            **_veltracer_scalars(model, nterms),
+        )
+        return _Launch(args, dfields, (), sums, (partials,))
+
+
+class _Rows1DCuda:
+    """A row model on 1-D planes (T, N) of ``csrc/rows1d.cuh``: its id in
+    the C interface, its hist, field/data/const counts and its own packing
+    of flags and scalars (``flags_scalars``)."""
+
+    forward, backward = "odil_rows1d_forward", "odil_rows1d_backward"
+
+    def __init__(self, model_id, hist, nfields, ndata, consts, flags_scalars, check_params):
+        self.model_id, self.hist, self.nfields, self.ndata = model_id, hist, nfields, ndata
+        self.consts = consts  # the const shapes, "N" standing for the plane
+        self.flags_scalars = flags_scalars
+        self.check_params = check_params
+
+    def check(self, model, nterms, hist, fields, params, data, consts):
+        if hist != self.hist:
+            raise ValueError(f"the {model.cuda_model} CUDA row kernels take hist={self.hist}, got {hist}")
+        if len(fields) != self.nfields or len(consts) != len(self.consts) or len(data) not in self.ndata:
+            raise ValueError(
+                f"the {model.cuda_model} CUDA row kernels take {self.nfields} fields, data {self.ndata} and "
+                f"{len(self.consts)} consts, got {len(fields)}, {len(data)}, {len(consts)}"
+            )
+        _check_cuda_tensors(tuple(fields) + tuple(params) + tuple(data) + tuple(consts), "row-wise")
+        shape = tuple(fields[0].shape)
+        if len(shape) != 2 or shape[0] < 2:
+            raise ValueError(f"the CUDA 1-D row kernels take (T, N) fields with T >= 2, got {shape}")
+        T, N = shape
+        _check_shapes(fields, [shape] * len(fields), model.cuda_model)
+        for d in data:
+            if tuple(d.shape) not in ((T, N), (T, 1)):
+                raise ValueError(f"the CUDA 1-D row kernels take data of shape (T, N) or (T, 1), got {tuple(d.shape)}")
+        _check_shapes(consts, [tuple(N if n == "N" else n for n in c) for c in self.consts], model.cuda_model)
+        self.check_params(model, nterms, params)
+
+    def pack(self, lib, model, nterms, fields, params, data, consts, g, grads):
+        T, N = fields[0].shape
+        dev = fields[0].device
+        nparams = sum(p.numel() for p in params)
+        stride = nterms + nparams
+        slab = _slab(T)
+        partials = torch.empty((lib.odil_rows1d_num_blocks(T, N, slab), max(stride, 1)), dtype=torch.float64,
+                               device=dev)
+        out = torch.empty((max(stride, 1),), dtype=torch.float32, device=dev)  # sums, then dparams
+        flat = torch.cat([p.reshape(-1) for p in params]) if params else out
+        dfields = tuple(torch.empty_like(f) for f in fields) if grads else ()
+        dparams, pos = [], nterms
+        for p in params:
+            dparams.append(out[pos : pos + p.numel()].view(p.shape))
+            pos += p.numel()
+        flags, scalars = self.flags_scalars(model, nterms, N)
+        args = _Rows1DArgs(
+            f=_ptrs(fields, _MAXF), data=_ptrs(data, _MAXD), consts=_ptrs(consts, _MAXC), params=flat.data_ptr(),
+            g=g.data_ptr() if g is not None else None, df=_ptrs(dfields, _MAXF), dparams=out.data_ptr() + 4 * nterms,
+            partials=partials.data_ptr(), sums=out.data_ptr(),
+            data_stride=(ctypes.c_int * _MAXD)(*[d.shape[1] for d in data]), T=T, N=N, slab=slab, nterms=nterms,
+            nparams=nparams, stride=stride, flags=flags,
+            s=(ctypes.c_float * _NSCALARS)(*(list(scalars) + [0.0] * (_NSCALARS - len(scalars)))),
+        )
+        return _Launch(args, dfields, tuple(dparams), out, (partials, flat))
+
+
+# The conductivity net the heat CUDA model carries: [1, 5, 5, 1], tanh.
+_HEAT_LAYERS = ((5, 1), (5, 5), (1, 5))
+
+
+def _heat_flags_scalars(model, nterms, N):
+    s = model.scalars
+    has_imp, has_x, has_t, infer_k = (bool(s[k]) for k in ("has_imp", "has_x", "has_t", "infer_k"))
+    if nterms != 1 + has_imp + has_x + has_t:
+        raise ValueError(f"nterms={nterms} does not match the heat flags")
+    flags = has_imp | has_x << 1 | has_t << 2 | infer_k << 3
+    dt, dx = s["dt"], s["dx"]
+    return flags, (1 / dt, 1 / dx, 1 / (2 * dx), s["imp_weight"], s["kmax"])
+
+
+def _heat_check_params(model, nterms, params):
+    s = model.scalars
+    want = tuple(_HEAT_LAYERS) + tuple((n,) for n, _ in _HEAT_LAYERS) if s["infer_k"] else ()
+    if tuple(tuple(p.shape) for p in params) != want or (s["infer_k"] and tuple(s["layers"]) != _HEAT_LAYERS):
+        raise NotImplementedError(
+            f"the heat CUDA row model takes the [1, 5, 5, 1] conductivity net (params {want}), "
+            f"got {[tuple(p.shape) for p in params]}"
+        )
+
+
+def _wave_flags_scalars(model, nterms, N):
+    s = model.scalars
+    if nterms != 1:
+        raise ValueError(f"nterms={nterms}: the wave row model has one term")
+    dt, dx = s["dt"], s["dx"]
+    return 0, (1 / dt, 1 / dx**2, s["kimp"], 0.5 * dt)
+
+
+def _wave_check_params(model, nterms, params):
+    if params:
+        raise ValueError("the wave CUDA row model takes no params")
+
+
+_CUDA_MODELS = {
+    "veltracer": _VeltracerCuda(),
+    "heat": _Rows1DCuda(0, 1, 1, (0, 2), ("N", "N", "N", "N", (1, 1), (1, 1)), _heat_flags_scalars,
+                        _heat_check_params),
+    "wave": _Rows1DCuda(1, 2, 1, (2,), ("N", "N", "N"), _wave_flags_scalars, _wave_check_params),
+}
+
+
+def _cuda_model(model):
+    spec = _CUDA_MODELS.get(model.cuda_model)
+    if spec is None:
+        raise NotImplementedError(
+            f"row model {model.cuda_model!r} has no CUDA kernel; these do: {sorted(_CUDA_MODELS)}"
+        )
+    return spec
+
+
 def _library():
     lib = _build.load("rowwise")
     if not getattr(lib, "_odil_typed", False):
@@ -220,65 +412,49 @@ def _library():
         lib.odil_rows_args_size.restype = ctypes.c_int
         lib.odil_rows_num_blocks.argtypes = [ctypes.c_int] * 4
         lib.odil_rows_num_blocks.restype = ctypes.c_int
+        lib.odil_rows1d_args_size.argtypes = []
+        lib.odil_rows1d_args_size.restype = ctypes.c_int
+        lib.odil_rows1d_num_blocks.argtypes = [ctypes.c_int] * 3
+        lib.odil_rows1d_num_blocks.restype = ctypes.c_int
         lib.odil_cuda_error_string.argtypes = [ctypes.c_int]
         lib.odil_cuda_error_string.restype = ctypes.c_char_p
         lib.odil_rows_forward.argtypes = [ctypes.POINTER(_RowArgs), ctypes.c_void_p]
         lib.odil_rows_forward.restype = ctypes.c_int
         lib.odil_rows_backward.argtypes = [ctypes.POINTER(_RowArgs), ctypes.c_int, ctypes.c_void_p]
         lib.odil_rows_backward.restype = ctypes.c_int
-        size = lib.odil_rows_args_size()
-        if size != ctypes.sizeof(_RowArgs):
-            raise RuntimeError(f"RowArgs layout mismatch: C {size} vs ctypes {ctypes.sizeof(_RowArgs)} bytes")
+        lib.odil_rows1d_forward.argtypes = [ctypes.c_int, ctypes.POINTER(_Rows1DArgs), ctypes.c_void_p]
+        lib.odil_rows1d_forward.restype = ctypes.c_int
+        lib.odil_rows1d_backward.argtypes = [ctypes.c_int, ctypes.POINTER(_Rows1DArgs), ctypes.c_int, ctypes.c_void_p]
+        lib.odil_rows1d_backward.restype = ctypes.c_int
+        for name, struct in (("odil_rows_args_size", _RowArgs), ("odil_rows1d_args_size", _Rows1DArgs)):
+            size = getattr(lib, name)()
+            if size != ctypes.sizeof(struct):
+                raise RuntimeError(f"{struct.__name__} layout mismatch: C {size} vs ctypes {ctypes.sizeof(struct)} bytes")
         lib._odil_typed = True
     return lib
-
-
-def _check_cuda_inputs(model, hist, fields, params, data, consts):
-    _check_veltracer_model(model, hist)
-    if len(fields) != 3 or len(consts) != 2 or params or data:
-        raise ValueError("the veltracer CUDA kernels take 3 fields, 2 const planes, no params and no data")
-    _check_cuda_tensors(tuple(fields) + tuple(consts), "row-wise")
-    shape = tuple(fields[0].shape)
-    if len(shape) != 3 or shape[0] < 2:
-        raise ValueError(f"the CUDA row-wise kernels take (T, X, Y) fields with T >= 2, got {shape}")
-    want = [shape] * 3 + [shape[1:]] * 2
-    got = [tuple(t.shape) for t in tuple(fields) + tuple(consts)]
-    if got != want:
-        raise ValueError(f"the CUDA row-wise kernels take shapes {want}, got {got}")
-
-
-def _scratch(lib, fields):
-    T, X, Y = fields[0].shape
-    dev = fields[0].device
-    partials = torch.empty((lib.odil_rows_num_blocks(T, X, Y, _slab(T)), _MAXTERMS), dtype=torch.float64, device=dev)
-    return partials, torch.empty((_MAXTERMS,), dtype=torch.float32, device=dev)
-
-
-def _launch_args(model, nterms, fields, consts, g, dfields, partials, sums):
-    T, X, Y = fields[0].shape
-    ptr = lambda ts: (ctypes.c_void_p * 3)(*[t.data_ptr() for t in ts] if ts else [])
-    return _RowArgs(
-        f=ptr(fields), u_init=consts[0].data_ptr(), u_final=consts[1].data_ptr(),
-        g=g.data_ptr() if g is not None else None, df=ptr(dfields), partials=partials.data_ptr(),
-        sums=sums.data_ptr(), T=T, X=X, Y=Y, slab=_slab(T), **_veltracer_scalars(model, nterms),
-    )
 
 
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _call(lib, spec, name, launch, *extra):
+    head = (spec.model_id,) if isinstance(spec, _Rows1DCuda) else ()
+    fn = getattr(lib, name)
+    _raise_on(lib, fn(*head, ctypes.byref(launch.args), *extra), name)
+
+
 def forward_cuda(model, nterms, hist, fields, params, data, consts):
     """CUDA forward kernel (replaces ``_forward``, ``_forward_blocked`` and
     the non-padded ``_forward_tiled``): (nterms,) sums of squares of the
     residual rows, on the current stream."""
-    _check_cuda_inputs(model, hist, fields, params, data, consts)
+    spec = _cuda_model(model)
+    spec.check(model, nterms, hist, fields, params, data, consts)
     lib = _library()
-    partials, sums = _scratch(lib, fields)
-    args = _launch_args(model, nterms, fields, consts, None, None, partials, sums)
-    _raise_on(lib, lib.odil_rows_forward(ctypes.byref(args), _stream(fields[0])), "odil_rows_forward")
+    launch = spec.pack(lib, model, nterms, fields, params, data, consts, None, grads=False)
+    _call(lib, spec, spec.forward, launch, _stream(fields[0]))
     forward_cuda.launches += 1
-    return sums[:nterms]
+    return launch.sums[:nterms]
 
 
 forward_cuda.launches = 0
@@ -286,20 +462,18 @@ forward_cuda.launches = 0
 
 def backward_cuda(model, nterms, hist, fields, params, data, consts, g, with_sums):
     """CUDA backward kernel (replaces ``_backward``, ``_backward_blocked`` and
-    the non-padded ``_backward_tiled``): (dfields, (), sums or None) for the
-    loss sum_k g[k] * S[k], on the current stream."""
-    _check_cuda_inputs(model, hist, fields, params, data, consts)
+    the non-padded ``_backward_tiled``): (dfields, dparams, sums or None) for
+    the loss sum_k g[k] * S[k], on the current stream."""
+    spec = _cuda_model(model)
+    spec.check(model, nterms, hist, fields, params, data, consts)
     g = g.to(torch.float32).contiguous()
     if not g.is_cuda or g.numel() < nterms:
         raise ValueError("g must hold nterms weights on the card")
     lib = _library()
-    partials, sums = _scratch(lib, fields)
-    dfields = tuple(torch.empty_like(f) for f in fields)
-    args = _launch_args(model, nterms, fields, consts, g, dfields, partials, sums)
-    err = lib.odil_rows_backward(ctypes.byref(args), int(bool(with_sums)), _stream(fields[0]))
-    _raise_on(lib, err, "odil_rows_backward")
+    launch = spec.pack(lib, model, nterms, fields, params, data, consts, g, grads=True)
+    _call(lib, spec, spec.backward, launch, int(bool(with_sums)), _stream(fields[0]))
     backward_cuda.launches += 1
-    return dfields, (), (sums[:nterms] if with_sums else None)
+    return launch.dfields, launch.dparams, (launch.sums[:nterms] if with_sums else None)
 
 
 backward_cuda.launches = 0
@@ -314,13 +488,15 @@ def _contig(ts):
 
 def _forward(model, nterms, hist, fields, params, data, consts):
     if fields[0].is_cuda:
-        return forward_cuda(model, nterms, hist, _contig(fields), params, data, _contig(consts))
+        return forward_cuda(model, nterms, hist, _contig(fields), _contig(params), _contig(data), _contig(consts))
     return _forward_plain(model, nterms, hist, fields, params, data, consts)
 
 
 def _backward(model, nterms, hist, fields, params, data, consts, g, with_sums=False):
     if fields[0].is_cuda:
-        return backward_cuda(model, nterms, hist, _contig(fields), params, data, _contig(consts), g, with_sums)
+        return backward_cuda(
+            model, nterms, hist, _contig(fields), _contig(params), _contig(data), _contig(consts), g, with_sums
+        )
     return _backward_plain(model, nterms, hist, fields, params, data, consts, g, with_sums)
 
 

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from .context import Context
-from .fields import Array, Field, MultigridField, State, field_arrays, state_from_arrays
+from .fields import Field, MultigridField, State, _rebuild, field_arrays, state_from_arrays
 from .ops.rowwise import onepass_supported, rowwise_loss_and_grads
 from .transfer import interp_to_finer
 
@@ -250,10 +250,14 @@ class Problem:
         Valid because ``loss_terms`` always composes the loss as the sum of
         per-term means with fixed weights.
 
-        On the card, when the state holds multigrid fields and no ``Array``,
-        the flatten and its vjp run as two CUDA graphs (``_GraphedPrologue``
-        with every array live) and the autograd step covers the operator
-        alone, from the fine fields.
+        On the card, when the state holds multigrid fields, the flatten and
+        its vjp run as two CUDA graphs (``_GraphedPrologue`` over the
+        multigrid arrays) and the autograd step covers the operator alone,
+        from the fine fields and the other fields' arrays (a NeuralNet's
+        weights, an ``Array``) as they are.  Kernel params that are such
+        arrays (the heat model's conductivity net) take their cotangents from
+        the kernel's dparams; the epoch tracer stays outside the graphs, so
+        terms annealed by it change from call to call.
 
         Returns None when no kernel call is recorded, a call streams, or a
         call falls outside ``onepass_supported`` (64-bit dtypes)."""
@@ -270,24 +274,36 @@ class Problem:
                                      halox=r["halox"]):
                 return None
         fields = self._template.fields
-        keys = list(fields)
-        graphable = any(isinstance(f, MultigridField) for f in fields.values()) and not any(
-            isinstance(f, Array) for f in fields.values()
-        )
+        spans, pos = {}, 0  # the flat indices of each field's arrays
+        for k, f in fields.items():
+            spans[k] = range(pos, pos + len(field_arrays(f)))
+            pos += len(spans[k])
+        mg_keys = [k for k, f in fields.items() if isinstance(f, MultigridField)]
+        live = [i for k in mg_keys for i in spans[k]]  # what the flatten reads
+        direct = [i for i in range(pos) if i not in live]  # the operator's own leaves (nets, arrays)
 
         def prologue(*arrs):
             st = self._fine_state(arrs)
-            return tuple(st.fields[k].array for k in keys)
+            return tuple(st.fields[k].array for k in mg_keys)
 
         graphed = []  # the flatten's CUDA graphs, captured at the first call on the card
 
         def loss_grad_fn(arrays, tracers):
-            use_graph = graphable and arrays[0].is_cuda
+            use_graph = bool(mg_keys) and arrays[0].is_cuda
             if use_graph:
                 if not graphed:
-                    graphed.append(_GraphedPrologue(prologue, arrays, list(range(len(arrays)))))
-                leaves = [f.requires_grad_(True) for f in graphed[0].forward(arrays)]
-                st = State({k: Field(a, loc=fields[k].loc) for k, a in zip(keys, leaves)}, initialized=True)
+                    graphed.append(_GraphedPrologue(prologue, arrays, live))
+                fine = [f.requires_grad_(True) for f in graphed[0].forward(arrays)]
+                own = {i: arrays[i].detach().requires_grad_(True) for i in direct}
+                leaves = fine + [own[i] for i in direct]
+                fine_of = dict(zip(mg_keys, fine))
+                st = State(
+                    {
+                        k: Field(fine_of[k], loc=f.loc) if k in fine_of else _rebuild(f, [own[i] for i in spans[k]])[0]
+                        for k, f in fields.items()
+                    },
+                    initialized=True,
+                )
             else:
                 leaves = [a.detach().requires_grad_(True) for a in arrays]
                 with torch.enable_grad():
@@ -327,7 +343,12 @@ class Problem:
                     couts.append(cot)
             dleaves = torch.autograd.grad(outs, leaves, couts, allow_unused=True) if outs else [None] * len(leaves)
             dleaves = [torch.zeros_like(a) if d is None else d for a, d in zip(leaves, dleaves)]
-            grads = graphed[0].backward(dleaves) if use_graph else dleaves
+            if use_graph:
+                grads = graphed[0].backward(dleaves[: len(mg_keys)])
+                for i, d in zip(direct, dleaves[len(mg_keys) :]):
+                    grads[i] = d
+            else:
+                grads = dleaves
             grads = [torch.zeros_like(a) if g is None else g for a, g in zip(arrays, grads)]
             tv = torch.stack(terms)
             return (tv.sum(), (terms, list(torch.sqrt(torch.clamp(tv, min=0)).unbind()))), grads

@@ -14,8 +14,11 @@ import numpy as np
 import pytest
 import torch
 
+from odil_torch.context import Context
 from odil_torch.convert import arrays_from_numpy
+from odil_torch.models import heat as tht
 from odil_torch.models import veltracer as tvt
+from odil_torch.models import wave as twv
 from odil_torch.ops import rowwise as trw
 from odil_torch.ops import rowwise_mg as trmg
 
@@ -294,3 +297,105 @@ def test_mg_kernels_unchanged_by_header_split(cuda, flags):
     dt0, dP, _ = trmg.backward_mg_cuda(model, nterms, 1, f0s, t0s, coarse, consts, g, False)
     assert _digest(list(dt0) + list(dP)) == want["backward"]
     assert _digest([trmg.forward_mg_cuda(model, nterms, 1, f0s, t0s, coarse, consts)]) == want["forward"]
+
+
+# -- The 1-D row models of the generic kernels (heat, wave) ---------------------
+
+HEAT_CASES = {
+    "heat": dict(infer_k=True, imposed="random", nimp=40, kxreg=0.3, ktreg=0.2),
+    "heat_lane": dict(infer_k=True, imposed="stripe", nimp=200),
+    "heat_true_k": dict(infer_k=False, ktreg=0.5),
+}
+
+
+def _row_case(name, device, T, N, seed=17):
+    """(model, nterms, hist, fields, params, data, consts) of a heat or wave
+    row model at (T, N), with seeded random fields, params and consts."""
+    rng = np.random.default_rng(seed)
+    mk = lambda *shape: torch.as_tensor((0.3 * rng.normal(size=shape)).astype(np.float32), device=device)
+    ix = torch.arange(N, dtype=torch.float32, device=device)
+    if name == "wave":
+        p, s, e = twv.build(nt=T, nx=N, dtype=np.float32, multigrid=False, kernel="pallas", device=device)
+        model = twv._row_model(Context(p.domain, s, extra=e, tracers=p.tracers))
+        return model, 1, 2, (mk(T, N),), (), (mk(T, 1), mk(T, 1)), (mk(N), mk(N), ix)
+    p, s, e = tht.build(nt=T, nx=N, dtype=np.float32, multigrid=False, kernel="pallas", device=device,
+                        **HEAT_CASES[name])
+    model, names, params = tht._row_model(Context(p.domain, s, extra=e, tracers=p.tracers))
+    params = tuple(3 * mk(*q.shape) for q in params)
+    data = (e.imp_mask, mk(T, N)) if e.imp_size else ()
+    consts = (mk(N), mk(N), mk(N), ix, mk(1, 1), mk(1, 1))
+    return model, len(names), 1, (mk(T, N) + 0.5,), params, data, consts
+
+
+@pytest.mark.parametrize("name", ["heat", "heat_lane", "heat_true_k", "wave"])
+@pytest.mark.parametrize("shape", [(64, 64), (7, 5), (5, 1), (2, 3), (40, 300), (33, 257)])
+def test_1d_kernels_match_plain(cuda, name, shape):
+    """Forward, backward+sums and backward of the heat and wave row models
+    (1-D planes; params and their cotangents; per-row data; hist 1 and 2)
+    against their plain versions: planes narrower than a tile (the wrap),
+    several tiles and slabs, T down to 2."""
+    model, nterms, hist, fields, params, data, consts = _row_case(name, cuda, *shape)
+    g = torch.linspace(0.5, 1.5, nterms, device=cuda) / fields[0].numel()
+    for with_sums in (True, False):
+        kd, kp, ks = trw.backward_cuda(model, nterms, hist, fields, params, data, consts, g, with_sums)
+        pd, pp, ps = trw._backward_plain(model, nterms, hist, fields, params, data, consts, g, with_sums)
+        assert len(kp) == len(pp) == len(params)
+        for a, b in zip(list(kd) + list(kp), list(pd) + list(pp)):
+            _close(a, b, 1e-4, 1e-6)
+        if with_sums:
+            _close(ks, ps, 1e-5, 0.0)
+        else:
+            assert ks is None
+    _close(trw.forward_cuda(model, nterms, hist, fields, params, data, consts),
+           trw._forward_plain(model, nterms, hist, fields, params, data, consts), 1e-5, 0.0)
+
+
+def test_1d_kernels_repeat_their_bits(cuda):
+    """No atomics: the heat backward+sums (dfields, dparams, sums) gives the
+    same bits call after call."""
+    model, nterms, hist, fields, params, data, consts = _row_case("heat", cuda, 256, 512)
+    g = torch.full((nterms,), 1.0 / fields[0].numel(), device=cuda)
+    outs = []
+    for _ in range(3):
+        kd, kp, ks = trw.backward_cuda(model, nterms, hist, fields, params, data, consts, g, True)
+        outs.append(_digest(list(kd) + list(kp) + [ks]))
+    assert outs[0] == outs[1] == outs[2]
+
+
+def test_1d_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    model, nterms, hist, fields, params, data, consts = _row_case("heat", cuda, 8, 16)
+    with pytest.raises(ValueError):
+        trw.forward_cuda(model, nterms, 2, fields, params, data, consts)
+    with pytest.raises(NotImplementedError):
+        trw.forward_cuda(model, nterms, hist, fields, params[:3] + tuple(p[:1] for p in params[3:]), data, consts)
+    with pytest.raises(ValueError):
+        trw.forward_cuda(model, nterms, hist, fields, params, data, consts[:5])
+    wmodel, wn, wh, wf, _, wd, wc = _row_case("wave", cuda, 8, 16)
+    with pytest.raises(ValueError):
+        trw.forward_cuda(wmodel, wn, wh, wf, (), (wd[0][:, :1][:4],) * 2, wc)
+
+
+@pytest.mark.parametrize("which", ["heat", "wave"])
+def test_cuda_1d_route_matches_cpu_route(cuda, which):
+    """The one-pass route of heat (conductivity net as kernel params, its
+    gradient from dparams) and wave on the card: one generic backward+sums
+    per call and no other row-wise kernel, behind the graphed multigrid
+    flatten; the CPU route's terms and gradients call after call."""
+    size = dict(nt=16, nx=16)
+    build = (lambda d: tht.build(kernel="pallas", device=d, kxreg=0.1, **HEAT_CASES["heat_lane"], **size)) if (
+        which == "heat") else (lambda d: twv.build(kernel="pallas", dtype=np.float32, device=d, **size))
+    cp, cs, _ = build("cpu")
+    gp, gs, _ = build(cuda)
+    rng = np.random.default_rng(5)
+    shapes = [tuple(a.shape) for a in cp.domain.arrays_from_state(cs)]
+    states = [[(0.3 * rng.normal(size=s)).astype(np.float32) for s in shapes] for _ in range(2)]
+    cfn, gfn = cp.make_loss_grad_fn(cs), gp.make_loss_grad_fn(gs)
+    launches = (trw.backward_cuda.launches, trw.forward_cuda.launches)
+    outs = [gfn(arrays_from_numpy(a, device=cuda), dict(gp.tracers, epoch=e)) for e, a in enumerate(states)]
+    assert (trw.backward_cuda.launches, trw.forward_cuda.launches) == (launches[0] + 2, launches[1])
+    for e, (arrays, ((_, (gterms, _)), ggrads)) in enumerate(zip(states, outs)):
+        (_, (cterms, _)), cgrads = cfn(arrays_from_numpy(arrays, device="cpu"), dict(cp.tracers, epoch=e))
+        for a, b in zip(gterms, cterms):
+            _close(a, b, 1e-5, 0.0)
+        for a, b in zip(ggrads, cgrads):
+            _close(a, b, 1e-4, 1e-6)

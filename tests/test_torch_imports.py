@@ -32,7 +32,38 @@ def _imported_roots(path):
 
 def test_port_sources_found():
     names = {os.path.relpath(p, ROOT) for p in _sources()}
-    assert {"chip_smoke.py", "odil_torch/__init__.py", "odil_torch/ops/rowwise_mg.py"} <= names
+    assert {
+        "chip_smoke.py",
+        "odil_torch/__init__.py",
+        "odil_torch/ops/rowwise_mg.py",
+        "odil_torch/models/heat.py",
+        "odil_torch/models/wave.py",
+        "odil_torch/nn.py",
+        "odil_torch/stencil.py",
+    } <= names
+
+
+@pytest.mark.parametrize(
+    "name",
+    ["odil_torch.models.heat", "odil_torch.models.wave", "odil_torch.nn", "odil_torch.stencil", "odil_torch.problem"],
+)
+def test_new_modules_import_without_jax(name):
+    """Each module imports in a fresh interpreter that cannot import jax or
+    the JAX package (a meta-path hook refuses them)."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys\n"
+        "class Refuse:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in %r:\n"
+        "            raise ImportError('refused: ' + name)\n"
+        "sys.meta_path.insert(0, Refuse())\n"
+        "import %s\n" % (FORBIDDEN, name)
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
