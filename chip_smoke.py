@@ -56,11 +56,38 @@ Phases, any failure exits non-zero and prints no result:
    conductivity net's params and their cotangents) are held first to their
    plain versions evaluated in fp64 on the same inputs at 64^2 and 1024^2,
    and at a narrow (7, 5) plane (the periodic wrap).
+   h. The streaming pair (``stream=True``; autograd of the loss, since
+      make_loss_grad_fn declines a streaming call): velocity_from_tracer at
+      (64,256,256) with an operator calling
+      ``ctx.rowwise_terms(**_kernel_decl(ctx), stream=True)``, against
+      ``ref_velt_256.csv`` as in a.; at 64^3, 50 epochs, epoch 0 within 1e-5
+      and epoch 50 within 15% of ``ref_velt_64.csv``; wave at 64^2, 200
+      epochs, every 20-epoch row within 1% of g.'s slabbed route, and at
+      1024^2, 40 epochs, epoch 0 within 1e-5 of the plain operator; heat with
+      its kernel calls streaming at 64^2, 100 epochs from e.'s initial net,
+      every 20-epoch row within 1% of e.'s slabbed route, and at 1024^2, 10
+      epochs, epoch 0 within 1e-5 of the plain operator.  One stream forward
+      and one stream backward (sums off) per epoch, and no other kernel.
+   i. Two-level fusion: ``kernel="pallas_mg"`` at (64,256,256) with the
+      veltracer hook ``_mg_loss_and_grads.partial_depth`` set to 2, against
+      ``ref_velt_256.csv`` as in a. (the worst row printed beside a.'s); the
+      one-pass gradients at a seeded random state within rtol 1e-5, atol
+      1e-6 * max of depth 1's; one two-level backward+sums per epoch and no
+      other kernel; then ms/epoch of depth 1 and depth 2 in turns.
+   The streaming kernels (veltracer at (65,256,256) and (65,64,64), heat and
+   wave at 64^2 and 1024^2) and the two-level kernel (t0 (65,256,256),
+   t1 (33,128,128), P2 (17,64,64), x3) are held first to their plain
+   versions, as above, and each repeats its bits call after call.
 4. Timing: ms/epoch of the training loops with a profiler breakdown of the
    two 256^2 routes and the heat 64^2 route, and each kernel's time (a CUDA
    graph of 50 calls) beside its bound, its plain version's time and its
    launches on its path, every line tagged with the card's name and power
-   limit.
+   limit; each streaming kernel's time beside the slabbed launch's on the
+   same inputs.  Two variants that no path of the JAX package runs (the
+   streaming backward with the sums, which the TPU's ``_backward_stream``
+   lacks, and the two-level backward without the sums, which its one
+   caller never asks for) are held to their plain versions and timed but
+   are not in the kernel table.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -98,6 +125,10 @@ OPS_HEAT_FORWARD = 200
 OPS_HEAT_BACKWARD = OPS_HEAT_FORWARD + 30 + 2 * 169 + 6
 OPS_WAVE_FORWARD = 16
 OPS_WAVE_BACKWARD = OPS_WAVE_FORWARD + 20
+# The two-level backward adds, per level-1 cell, the rebuild of the level-1
+# value (23 per field) and the transposed prolongation one level down and
+# the f1 scaling (5 per field).
+OPS_LVL2_PER_COARSE = 3 * (23 + 5)
 DEVICE = "cuda"
 # The grids in cells: the flagship (the whole-plane TPU kernels), 64^3 (the
 # blocked ones) and 512^2 (the x-tiled ones).
@@ -112,6 +143,10 @@ HEAT_EPOCHS, HEAT_EVERY = 1500, 100
 HEAT_MARGINS = {"loss": 1.5, "error_u": 1.3, "error_k": 1.25}
 CHUNK = 10
 TERMS_RTOL, GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-4, 1e-6
+# The streaming paths' lengths: veltracer 64^3, heat 64^2 and 1024^2.
+STREAM_EPOCHS_64, HEAT_STREAM_EPOCHS, HEAT_STREAM_EPOCHS_BIG = 50, 100, 10
+# Depth 1 and depth 2 timed in turns: rounds of TURN_EPOCHS epochs each.
+TURNS, TURN_EPOCHS = 8, 100
 
 
 def fail(msg):
@@ -222,12 +257,14 @@ def build_all(_build):
 
 
 class Counters:
-    """The launch counters of the four kernel wrappers."""
+    """The launch counters of the kernel wrappers."""
 
     def __init__(self, rmg, rw):
         self.wrappers = {
             "backward_mg": rmg.backward_mg_cuda, "forward_mg": rmg.forward_mg_cuda,
+            "backward_mg2": rmg.backward_mg2_cuda,
             "backward_rows": rw.backward_cuda, "forward_rows": rw.forward_cuda,
+            "backward_stream": rw.backward_stream_cuda, "forward_stream": rw.forward_stream_cuda,
         }
 
     def zero(self):
@@ -291,6 +328,27 @@ def autograd_loss_grad_fn(torch, problem, state):
         return (loss.detach(), aux), torch.autograd.grad(loss, x)
 
     return fn
+
+
+def streaming(problem):
+    """The problem with every ``ctx.rowwise_terms`` call of its operator
+    streaming (``stream=True``)."""
+    base = problem.operator
+
+    def operator(ctx):
+        call = ctx.rowwise_terms
+        ctx.rowwise_terms = lambda *a, **k: call(*a, **dict(k, stream=True))
+        return base(ctx)
+
+    problem.operator = operator
+    return problem
+
+
+def same_bits(torch, first, again):
+    """Whether two calls' outputs (nested tuples of tensors or None) are
+    bitwise equal."""
+    flat = lambda xs: [t for x in xs for t in (flat(x) if isinstance(x, (tuple, list)) else [x]) if t is not None]
+    return all(torch.equal(a, b) for a, b in zip(flat(first), flat(again)))
 
 
 def row_case_1d(torch, np, th, tw, Context, which, T, N, rand, dev):
@@ -366,6 +424,35 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     rand = lambda *shape: 0.3 * torch.randn(shape, generator=gen, device=dev)
     report = {}  # kernel name -> max abs error against its plain version
+    off_path = {}  # the same for the variants that no path runs (see the docstring)
+
+    def check_stream(key, m, nt_, h, fs, ps, ds, cs, gs, pf, pgrads, psums):
+        """The streaming kernels at one case against the plain versions
+        already computed there for the slabbed ones (pf: sums; pgrads:
+        dfields and dparams; psums: the backward's sums), and their bits call
+        after call."""
+        calls = (
+            lambda: rw.forward_stream_cuda(m, nt_, h, fs, ps, ds, cs),
+            lambda: rw.backward_stream_cuda(m, nt_, h, fs, ps, ds, cs, gs, True),
+            lambda: rw.backward_stream_cuda(m, nt_, h, fs, ps, ds, cs, gs, False),
+        )
+        kf, (kd, kp, ks), (kd2, kp2, _) = first = [c() for c in calls]
+        again = [c() for c in calls]
+        torch.cuda.synchronize()
+        bits = same_bits(torch, first, again)
+        e_f, ok_f = close(kf.double(), pf.double(), TERMS_RTOL, 0.0)
+        e_s, ok_s = close(ks.double(), psums.double(), TERMS_RTOL, 0.0)
+        e_g, ok_g = close_all([a.double() for a in kd + kp], [b.double() for b in pgrads])
+        e_g2, ok_g2 = close_all([a.double() for a in kd2 + kp2], [b.double() for b in pgrads])
+        print(f"stream kernels at {tuple(fs[0].shape)} ({key}): forward max|d sums| {e_f:.3e} (rel "
+              f"{rel_err(kf, pf):.2e}), backward max|d grads| {e_g2:.3e}, backward+sums max|d sums| {e_s:.3e} "
+              f"max|d grads| {e_g:.3e}; the same bits call after call: {bits} {tag}")
+        if not (ok_f and ok_s and ok_g and ok_g2 and bits):
+            fail(f"a streaming kernel disagrees with its plain version or its own bits at {key}: forward {ok_f}, "
+                 f"sums {ok_s}, backward+sums {ok_g}, backward {ok_g2}, bits {bits}")
+        report[f"forward_stream_{key}"] = e_f
+        report[f"backward_stream_{key}"] = e_g2
+        off_path[f"backward_stream_sums_{key}"] = e_g
     problems = {s: vt.build(nt=n, nx=x, ny=y, kernel="pallas_mg", device=dev) for s, (n, x, y) in SIZES.items()}
 
     def row_model(size):
@@ -421,6 +508,32 @@ def main():
     report["backward_mg"] = e_lg
     del leaves_k, leaves_p, grads_k, grads_p, fines
 
+    # The two-level backward at the flagship shapes: t1 (33,128,128), P2
+    # (17,64,64), against the plain lvl2 backward with the split of dP1.
+    t1s = tuple(rand(Tc, X // 2, Y // 2) for _ in range(3))
+    P2s = tuple(rand(Tc // 2 + 1, X // 4, Y // 4) for _ in range(3))
+    f1s = (1.0, 1.0, 1.0)
+    W1x, W1y = rmg._interp_matrices(X // 4, Y // 4, torch.float32, dev)
+
+    def lvl2_plain(with_sums):
+        d0, dP1, sums = rmg._backward_mg_plain(model, nterms, 1, f0s, t0s, P2s, consts, g, with_sums, lvl2=(t1s, f1s))
+        return (d0,) + rmg._split_dp1(dP1, f1s, W1x, W1y) + (sums,)
+
+    for with_sums, name in ((True, "backward_mg2_sums"), (False, "backward_mg2")):
+        call = lambda: rmg.backward_mg2_cuda(model, nterms, 1, f0s, f1s, t0s, t1s, P2s, consts, g, with_sums)
+        k, k2, p = call(), call(), lvl2_plain(with_sums)
+        torch.cuda.synchronize()
+        bits = same_bits(torch, k, k2)
+        e_g, ok_g = close_all(k[0] + k[1] + k[2], p[0] + p[1] + p[2])
+        e_s, ok_s = close(k[3].double(), p[3].double(), TERMS_RTOL, 0.0) if with_sums else (0.0, True)
+        print(f"two-level backward{'+sums' if with_sums else ''}: max|d sums| {e_s:.3e}, max|d(dt0,dt1,dP2)| "
+              f"{e_g:.3e}; the same bits call after call: {bits} {tag}")
+        if not (ok_g and ok_s and bits):
+            fail(f"the two-level backward{'+sums' if with_sums else ''} disagrees with its plain version or its own "
+                 f"bits (grads {ok_g}, sums {ok_s}, bits {bits})")
+        (report if with_sums else off_path)[name] = e_g
+        del k, k2, p
+
     # The mg backward+sums at 512^2: the shapes of the TPU's x-tiled one-pass.
     model512, nterms512, consts512 = row_model("512")
     n, x, y = SIZES["512"]
@@ -467,6 +580,8 @@ def main():
         report[f"forward_rows_{size}"] = e_f
         report[f"backward_rows_sums_{size}"] = e_g
         report[f"backward_rows_{size}"] = e_g2
+        if size in ("256", "64"):
+            check_stream(size, m, nt_, 1, fs, (), (), cs, gs, pf, pd, ps)
         del kd, pd, kd2
 
     fs = fields["256"]
@@ -518,6 +633,7 @@ def main():
                 report[f"forward_rows_{which}_{size}"] = e_f
                 report[f"backward_rows_sums_{which}_{size}"] = e_g
                 report[f"backward_rows_{which}_{size}"] = e_g2
+                check_stream(f"{which}_{size}", m, nt_, h, fs, ps, ds, cs, gs, pf, list(pd) + list(pp), ps_)
             del kd, kp, kd2, kp2, pd, pp
 
     # -- Phase 3: the paths ----------------------------------------------------
@@ -558,7 +674,7 @@ def main():
             fail(f"{what}: the loss-only path and the one-pass route disagree")
         return counts
 
-    none = {"backward_mg": 0, "forward_mg": 0, "backward_rows": 0, "forward_rows": 0}
+    none = {name: 0 for name in counters.wrappers}
 
     # a. pallas_mg at 256^2 (the flagship's fused route).
     problem, state, _ = problems["256"]
@@ -569,7 +685,7 @@ def main():
     opt, losses, chunk_ms = train(torch, Adam, grad_mg, problem.domain.arrays_from_state(state), args.epochs)
     expect_counts(counters.read(), dict(none, backward_mg=len(losses)), "pallas_mg training at 256^2")
     launches["backward_mg_sums"] = counters.read()["backward_mg"]
-    check_rows(losses, ref256, "training (pallas_mg)")
+    _, rel_depth1 = check_rows(losses, ref256, "training (pallas_mg)")
     counts = loss_only(problem, state, opt.x, grad_mg, "pallas_mg", dict(none, forward_mg=1, backward_mg=1))
     launches["forward_mg"], launches["backward_mg"] = counts["forward_mg"], counts["backward_mg"]
     loops["pallas_mg 256"] = (opt, steady_ms(chunk_ms))
@@ -684,6 +800,7 @@ def main():
                                     lr=1e-3, on_chunk=heat_row)
     expect_counts(counters.read(), dict(none, backward_rows=len(losses)), "heat training at 64^2")
     launches["backward_rows_sums_heat_64"] = counters.read()["backward_rows"]
+    heat_losses = losses
     rel0 = abs(losses[0] - heat_ref["epoch0_loss"]) / abs(heat_ref["epoch0_loss"])
     rows = {e: (losses[e - 1],) + history[e] for e in sorted(history)}
     with open(os.path.join(PARITY, "ref_heat_seeds.csv")) as fh:
@@ -716,7 +833,7 @@ def main():
 
     big = dict(zip(("nt", "nx"), SIZES_1D["1024"]))
     heat_big = dict(infer_k=True, imposed="stripe", nimp=lane["nimp"], seed=lane["seed"], device=dev, **big)
-    plain_loss = zero_state_loss(*th.build(kernel="xla", **heat_big)[:2])
+    plain_loss = heat_plain_big = zero_state_loss(*th.build(kernel="xla", **heat_big)[:2])
     problem_hb, state_hb, _ = th.build(kernel="pallas", **heat_big)
     grad_hb = problem_hb.make_loss_grad_fn(state_hb)
     counters.zero()
@@ -766,7 +883,7 @@ def main():
     launches["forward_rows_wave_64"], launches["backward_rows_wave_64"] = counts["forward_rows"], counts["backward_rows"]
 
     wave_big = dict(big, dtype=np.float32, device=dev)
-    plain_loss = zero_state_loss(*tw.build(kernel="xla", **wave_big)[:2])
+    plain_loss = wave_plain_big = zero_state_loss(*tw.build(kernel="xla", **wave_big)[:2])
     problem_wb, state_wb, _ = tw.build(kernel="pallas", **wave_big)
     grad_wb = problem_wb.make_loss_grad_fn(state_wb)
     counters.zero()
@@ -786,6 +903,117 @@ def main():
     loops["wave 1024"] = (opt_wb, (ms, n))
     del opt_wb, grad_wb, problem_wb, state_wb
 
+    # h. The streaming pair, through autograd of the loss.
+    def stream_path(problem, state, epochs, lr, what, keys):
+        """Trains with autograd of the loss (make_loss_grad_fn must decline
+        the streaming call); one stream forward and one stream backward an
+        epoch and no other kernel."""
+        if problem.make_loss_grad_fn(state) is not None:
+            fail(f"{what}: make_loss_grad_fn took a streaming call")
+        counters.zero()
+        opt, losses, chunk_ms = train(torch, Adam, autograd_loss_grad_fn(torch, problem, state),
+                                      problem.domain.arrays_from_state(state), epochs, lr=lr)
+        n = len(losses)
+        expect_counts(counters.read(), dict(none, forward_stream=n, backward_stream=n), what)
+        for key in keys:
+            launches[f"forward_stream_{key}"] = launches[f"backward_stream_{key}"] = n
+        loops[what] = (opt, steady_ms(chunk_ms))
+        return losses
+
+    def against_route(losses, base, what, every=20):
+        """Every `every`-epoch row within 1% of another route's losses,
+        epoch 0 within 1e-5."""
+        rel = {e: abs(losses[max(e - 1, 0)] - base[max(e - 1, 0)]) / abs(base[max(e - 1, 0)])
+               for e in range(0, len(losses) + 1, every)}
+        worst = max(rel, key=rel.get)
+        print(f"{what}: epoch-0 loss {losses[0]!r} vs {base[0]!r} (rel {rel[0]:.2e}); worst {every}-epoch row epoch "
+              f"{worst} ({100 * rel[worst]:.4f}%); final {losses[-1]!r} vs {base[len(losses) - 1]!r} {tag}")
+        if rel[0] > 1e-5 or rel[worst] > 0.01:
+            fail(f"{what}: epoch 0 rel {rel[0]:.2e} (limit 1e-5), epoch {worst} {100 * rel[worst]:.3f}% (limit 1%)")
+
+    def against_plain(losses, plain, what):
+        rel0 = abs(losses[0] - plain) / abs(plain)
+        print(f"{what}: {len(losses)} epochs, epoch-0 loss {losses[0]!r} vs the plain operator's {plain!r} "
+              f"(rel {rel0:.2e}); final {losses[-1]!r} {tag}")
+        if rel0 > 1e-5:
+            fail(f"{what}: epoch-0 loss {losses[0]} differs from the plain operator's {plain} (limit 1e-5)")
+
+    stream_op = lambda ctx: ctx.rowwise_terms(**vt._kernel_decl(ctx), stream=True)
+    problem_s, state_s, _ = vt.build(*SIZES["256"], kernel="pallas", device=dev)
+    problem_s.operator = stream_op
+    losses = stream_path(problem_s, state_s, args.epochs, 0.01, "stream 256", ["256"])
+    check_rows(losses, ref256, "training (stream, 256^2)")
+    del problem_s, state_s
+    problem_s, state_s, _ = vt.build(*SIZES["64"], kernel="pallas", device=dev)
+    problem_s.operator = stream_op
+    losses = stream_path(problem_s, state_s, STREAM_EPOCHS_64, 0.01, "stream 64", ["64"])
+    check_rows(losses, ref64, "training (stream, 64^3)", gate_all=False, gated=(50,))
+    del problem_s, state_s
+
+    problem_s, state_s, _ = tw.build(kernel="pallas", **wave64)
+    losses = stream_path(streaming(problem_s), state_s, len(losses_w), 1e-3, "stream wave 64", ["wave_64"])
+    against_route(losses, losses_w, "training (stream wave 64^2 vs the slabbed route)")
+    problem_s, state_s, _ = tw.build(kernel="pallas", **wave_big)
+    losses = stream_path(streaming(problem_s), state_s, 40, 1e-3, "stream wave 1024", ["wave_1024"])
+    against_plain(losses, wave_plain_big, "training (stream wave 1024^2)")
+
+    problem_s, state_s, _ = th.build(
+        nt=lane["nt"], nx=lane["nx"], infer_k=lane["infer_k"], imposed=lane["imposed"], nimp=lane["nimp"],
+        seed=lane["seed"], kernel="pallas", device=dev,
+    )
+    net = state_s.fields["k_net"]
+    net.weights = [torch.tensor(w, dtype=torch.float32, device=dev) for w in heat_ref["weights"]]
+    net.biases = [torch.tensor(b, dtype=torch.float32, device=dev) for b in heat_ref["biases"]]
+    losses = stream_path(streaming(problem_s), state_s, HEAT_STREAM_EPOCHS, 1e-3, "stream heat 64", ["heat_64"])
+    against_route(losses, heat_losses, "training (stream heat 64^2 vs the slabbed route)")
+    problem_s, state_s, _ = th.build(kernel="pallas", **heat_big)
+    losses = stream_path(streaming(problem_s), state_s, HEAT_STREAM_EPOCHS_BIG, 1e-3, "stream heat 1024",
+                         ["heat_1024"])
+    against_plain(losses, heat_plain_big, "training (stream heat 1024^2)")
+    del problem_s, state_s
+
+    # i. Two-level fusion: the flagship with the hook at depth 2.
+    problem2, state2, _ = vt.build(*SIZES["256"], kernel="pallas_mg", device=dev)
+    hook = vt._mg_loss_and_grads.partial_depth
+    vt._mg_loss_and_grads.partial_depth = lambda t0_shapes, dtype: 2
+    try:
+        grad_mg2 = problem2.make_loss_grad_fn(state2)
+    finally:
+        vt._mg_loss_and_grads.partial_depth = hook
+    x0 = problem2.domain.arrays_from_state(state2)
+    counters.zero()
+    opt2, losses, chunk_ms = train(torch, Adam, grad_mg2, x0, args.epochs)
+    expect_counts(counters.read(), dict(none, backward_mg2=len(losses)), "pallas_mg depth-2 training at 256^2")
+    launches["backward_mg2_sums"] = len(losses)
+    loops["pallas_mg depth 2 256"] = (opt2, steady_ms(chunk_ms))
+    _, rel_depth2 = check_rows(losses, ref256, "training (pallas_mg, depth 2)")
+    w1, w2 = max(rel_depth1, key=rel_depth1.get), max(rel_depth2, key=rel_depth2.get)
+    print(f"worst rows against ref_velt_256.csv: depth 1 epoch {w1} ({100 * rel_depth1[w1]:.2f}%), depth 2 epoch "
+          f"{w2} ({100 * rel_depth2[w2]:.2f}%) {tag}")
+    x_r = [rand(*a.shape) / 3 for a in x0]
+    (l1, _), g1 = grad_mg(x_r, problem.tracers)
+    g1 = [a.clone() for a in g1]
+    (l2, _), g2 = grad_mg2(x_r, problem2.tracers)
+    errs = [close(a, b, 1e-5, GRAD_ATOL) for a, b in zip(g2, g1)]
+    print(f"depth 2 vs depth 1 at a random state: loss {float(l2)!r} vs {float(l1)!r}, max|dgrad| "
+          f"{max(e for e, _ in errs):.3e} {tag}")
+    if abs(float(l2) - float(l1)) > TERMS_RTOL * abs(float(l1)) or not all(ok for _, ok in errs):
+        fail("the depth-2 one-pass gradients leave depth 1's (rtol 1e-5, atol 1e-6 * max)")
+    del g1, g2, x_r
+    turns = {1: [], 2: []}
+    opts = {1: Adam(grad_mg, x0, lr=0.01), 2: Adam(grad_mg2, x0, lr=0.01)}
+    for _ in range(TURNS):
+        for depth, o in opts.items():
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+            o.run_chunk(TURN_EPOCHS)
+            torch.cuda.synchronize()
+            turns[depth].append((time.perf_counter() - t_start) * 1e3 / TURN_EPOCHS)
+    print("pallas_mg 256^2 in turns, ms/epoch: " + "; ".join(
+        f"depth {d}: " + ", ".join(f"{t:.4f}" for t in ts) + f" (median {statistics.median(ts):.4f})"
+        for d, ts in turns.items()) + f" {tag}")
+    del opts, opt2, grad_mg2, problem2, state2
+
     idle = [name for name in report if launches.get(name, 0) < 1]
     if idle:
         fail(f"kernels not launched on their paths: {idle}")
@@ -794,7 +1022,7 @@ def main():
     for route, (o, (ms, n)) in loops.items():
         print(f"training loop ({route}): {ms:.4f} ms/epoch (median of {n} chunks of {CHUNK} epochs "
               f"after the first) {tag}")
-    for route in ("pallas_mg 256", "pallas 256", "heat 64"):
+    for route in ("pallas_mg 256", "pallas 256", "heat 64", "stream 256", "pallas_mg depth 2 256"):
         o, (ms, _) = loops[route]
         profile_epochs(torch, o, ms, f"({route}) {tag}")
 
@@ -866,14 +1094,52 @@ def main():
                 f_in + nbytes(fs + ps) + 4 * nt_ * (2 if sums else 1), ops_b * n_cells, "odil_tpu/ops/rowwise.py:549",
                 rows_src,
             )
+    # The streaming kernels, each beside the slabbed launch on the same
+    # inputs, and the two-level backward.
+    slabbed, unlisted = {}, {}
+    stream_cases = {size: (*row_model(size)[:2], 1, fields[size], (), (), row_model(size)[2]) for size in ("256", "64")}
+    stream_cases.update({f"{w}_{size}": c for (w, size), c in cases_1d.items()})
+    for key, (m, nt_, h, fs, ps, ds, cs) in stream_cases.items():
+        gs = torch.full((nt_,), 1.0 / fs[0].numel(), device=dev)
+        n_cells, f_in = fs[0].numel(), nbytes(fs + ps + ds + cs)
+        ops_f, ops_b = ops_1d[key.split("_")[0]] if "_" in key else (OPS_ROWS_FORWARD, OPS_ROWS_BACKWARD)
+        args_ = (m, nt_, h, fs, ps, ds, cs)
+        timed[f"forward_stream_{key}"] = (
+            lambda a=args_: rw.forward_stream_cuda(*a), lambda a=args_: rw._forward_plain(*a),
+            f_in + 4 * nt_, ops_f * n_cells, "odil_tpu/ops/rowwise.py:676", rows_src,
+        )
+        slabbed[f"forward_stream_{key}"] = lambda a=args_: rw.forward_cuda(*a)
+        for sums, name in ((False, f"backward_stream_{key}"), (True, f"backward_stream_sums_{key}")):
+            entry = (
+                lambda a=args_, gs=gs, s=sums: rw.backward_stream_cuda(*a, gs, s),
+                lambda a=args_, gs=gs, s=sums: rw._backward_plain(*a, gs, s),
+                f_in + nbytes(fs + ps) + 4 * nt_ * (2 if sums else 1), ops_b * n_cells, "odil_tpu/ops/rowwise.py:811",
+                rows_src,
+            )
+            (unlisted if sums else timed)[name] = entry
+            slabbed[name] = lambda a=args_, gs=gs, s=sums: rw.backward_cuda(*a, gs, s)
+    lvl2_in, lvl2_out = nbytes(t0s + t1s + P2s + consts), nbytes(t0s + t1s + P2s)
+    for sums, name in ((True, "backward_mg2_sums"), (False, "backward_mg2")):
+        (timed if sums else unlisted)[name] = (
+            lambda s=sums: rmg.backward_mg2_cuda(model, nterms, 1, f0s, f1s, t0s, t1s, P2s, consts, g, s),
+            lambda s=sums: lvl2_plain(s),
+            lvl2_in + lvl2_out + 4 * nterms * (2 if sums else 1),
+            OPS_BACKWARD * cells + OPS_LVL2_PER_COARSE * t1s[0].numel(), "odil_tpu/ops/rowwise_mg.py:766", mg_src,
+        )
+
     kernels = []
-    for name, (kfn, pfn, nbyte, ops, replaced, source) in timed.items():
+    for name, (kfn, pfn, nbyte, ops, replaced, source) in list(timed.items()) + list(unlisted.items()):
         ms = kernel_ms(torch, kfn, 50)
         plain_ms = time_ms(torch, pfn, 3)
         t_bytes = nbyte / HBM_BYTES_PER_S * 1e3
         t_ops = ops / FP32_FLOPS * 1e3
         bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-        print(f"kernel {name}: {ms:.4f} ms, bound {bound_ms:.4g} ms ({bound_by}), plain {plain_ms:.4f} ms, "
+        beside = f", slabbed launch {kernel_ms(torch, slabbed[name], 50):.4f} ms" if name in slabbed else ""
+        if name in unlisted:
+            print(f"kernel {name} (no path runs it): {ms:.4f} ms{beside}, bound {bound_ms:.4g} ms ({bound_by}), "
+                  f"plain {plain_ms:.4f} ms, max|d| {off_path[name]:.3e} {tag}")
+            continue
+        print(f"kernel {name}: {ms:.4f} ms{beside}, bound {bound_ms:.4g} ms ({bound_by}), plain {plain_ms:.4f} ms, "
               f"{launches[name]} launches on its path {tag}")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaced,

@@ -11,7 +11,7 @@
 // with the sums on, S.  Field row i collects the cotangents of residual rows
 // i, i+1, ..., i+HIST (mod T), as the TPU kernels' `(i + o) % T` does.
 //
-// Design.  A block owns a tile of TILE cells of a slab of `slab` rows and
+// Design.  A block owns a tile of TW cells of a slab of `slab` rows and
 // walks its rows with a ring of HIST+1 field rows (the tile plus two cells on
 // each side) in shared memory.  For every residual row the model gives, at
 // each cell of the tile plus one on each side, the cotangents D[m][f][s] of
@@ -23,6 +23,18 @@
 // sums and param cotangents leave each block as fp64 partials that a second
 // kernel reduces in a fixed order (one block per column), so the bits repeat
 // run to run.
+//
+// Two launches of the one kernel body (template parameters TW, the tile, and
+// NTH, the threads of a block):
+//   * slabbed (_forward/_backward and the blocked pair): TILE = 256 cells,
+//     256 threads, slabs of about 16 rows, so (1024, 1024) gives 4 x 64
+//     blocks;
+//   * streaming (_forward_stream/_backward_stream): one slab of all T rows,
+//     so each field row is read once, the wrap rows at the start and the HIST
+//     wrapped targets recomputed past the end, as the TPU's tail programs do.
+//     Fewer rows in flight, so the tile is narrow: STREAM_TILE = 30 cells in
+//     one warp (the tile plus its ring of one cell is 32 residual cells, one
+//     per lane), which gives (1024, 1024) 35 blocks in place of 4.
 //
 // Row model interface (struct M):
 //   static constexpr int NF, HIST, MAXT, NP;  // fields, rows back, terms, params
@@ -59,11 +71,10 @@ struct Rows1DArgs {
   float s[NSCALARS];          // the row model's scalars
 };
 
-constexpr int TILE = 256;
+constexpr int TILE = 256;         // the slabbed launch: cells of a tile, and its threads
 constexpr int NTHREADS = 256;
-constexpr int NWARPS = NTHREADS / 32;
-constexpr int FW = TILE + 4;  // field cells of a row: the tile and two on each side
-constexpr int RW = TILE + 2;  // residual cells: the tile and one on each side
+constexpr int STREAM_TILE = 30;   // the streaming launch: cells of a tile, in one warp
+constexpr int STREAM_THREADS = 32;
 
 enum { MODE_SUMS = 1, MODE_GRADS = 2 };
 
@@ -84,10 +95,13 @@ __device__ __forceinline__ float pick(const float* a, int k) {
   return v;
 }
 
-template <class M, int MODE>
-__global__ void __launch_bounds__(NTHREADS) rows1d_kernel(const Rows1DArgs A) {
+template <class M, int MODE, int TW, int NTH>
+__global__ void __launch_bounds__(NTH) rows1d_kernel(const Rows1DArgs A) {
   constexpr int H = M::HIST, NF = M::NF, NT = M::MAXT;
   constexpr int NP = M::NP > 0 ? M::NP : 1;
+  constexpr int FW = TW + 4;  // field cells of a row: the tile and two on each side
+  constexpr int RW = TW + 2;  // residual cells: the tile and one on each side
+  constexpr int NWARPS = NTH / 32;
   constexpr bool grads = (MODE & MODE_GRADS) != 0;
   constexpr bool sums = (MODE & MODE_SUMS) != 0;
   __shared__ float F[H + 1][NF][FW];                  // field row q in slot q mod (H+1)
@@ -97,12 +111,12 @@ __global__ void __launch_bounds__(NTHREADS) rows1d_kernel(const Rows1DArgs A) {
   __shared__ double red[NWARPS][NT + NP];
 
   const int tid = threadIdx.x;
-  const int x0 = blockIdx.x * TILE;
+  const int x0 = blockIdx.x * TW;
   const int T = A.T, N = A.N;
   const int ts = blockIdx.y * A.slab, te = min(ts + A.slab, T);
 
-  for (int i = tid; i < FW; i += NTHREADS) xi[i] = pmod(x0 - 2 + i, N);
-  for (int k = tid; k < A.nparams; k += NTHREADS) P[k] = __ldg(A.params + k);
+  for (int i = tid; i < FW; i += NTH) xi[i] = pmod(x0 - 2 + i, N);
+  for (int k = tid; k < A.nparams; k += NTH) P[k] = __ldg(A.params + k);
   float g2[NT], s[NT], pacc[NP];
 #pragma unroll
   for (int k = 0; k < NT; ++k) {
@@ -117,7 +131,7 @@ __global__ void __launch_bounds__(NTHREADS) rows1d_kernel(const Rows1DArgs A) {
   auto load = [&](int q) {
     const int slot = pmod(q, H + 1);
     const size_t row = (size_t)pmod(q, T) * N;
-    for (int i = tid; i < FW; i += NTHREADS) {
+    for (int i = tid; i < FW; i += NTH) {
 #pragma unroll
       for (int f = 0; f < NF; ++f) F[slot][f][i] = __ldg(A.f[f] + row + xi[i]);
     }
@@ -131,8 +145,8 @@ __global__ void __launch_bounds__(NTHREADS) rows1d_kernel(const Rows1DArgs A) {
     __syncthreads();
     const int it = r < T ? r : r - T;
     const bool row_own = r < te;
-    for (int i = tid; i < RW; i += NTHREADS) {
-      const bool own = i >= 1 && i <= TILE && x0 + i - 1 < N;
+    for (int i = tid; i < RW; i += NTH) {
+      const bool own = i >= 1 && i <= TW && x0 + i - 1 < N;
       if (!grads && !own) continue;
       float v[H + 1][NF][3];
 #pragma unroll
@@ -166,7 +180,7 @@ __global__ void __launch_bounds__(NTHREADS) rows1d_kernel(const Rows1DArgs A) {
     // Field row t = r - HIST has the D of all the residual rows that read it.
     const int t = r - H;
     const int x = x0 + tid;
-    if (grads && t >= ts && tid < TILE && x < N) {
+    if (grads && t >= ts && tid < TW && x < N) {
 #pragma unroll
       for (int f = 0; f < NF; ++f) {
         float acc = 0.0f;
@@ -194,7 +208,7 @@ __global__ void __launch_bounds__(NTHREADS) rows1d_kernel(const Rows1DArgs A) {
     }
     __syncthreads();
     const int blk = blockIdx.x + gridDim.x * blockIdx.y;
-    for (int k = tid; k < A.stride; k += NTHREADS) {
+    for (int k = tid; k < A.stride; k += NTH) {
       const int kk = k < A.nterms ? k : NT + (k - A.nterms);
       double acc = 0.0;
       for (int w = 0; w < NWARPS; ++w) acc += red[w][kk];
@@ -223,12 +237,25 @@ __global__ void __launch_bounds__(NTHREADS) rows1d_reduce_kernel(const Rows1DArg
   }
 }
 
-inline dim3 grid_of(const Rows1DArgs& A) { return dim3((A.N + TILE - 1) / TILE, (A.T + A.slab - 1) / A.slab); }
+inline int tile_of(bool stream) { return stream ? STREAM_TILE : TILE; }
 
+// The grid of a launch: tiles by slabs, or tiles alone when streaming.
+inline dim3 grid_of(const Rows1DArgs& A, bool stream) {
+  const int tw = tile_of(stream);
+  return dim3((A.N + tw - 1) / tw, stream ? 1 : (A.T + A.slab - 1) / A.slab);
+}
+
+template <class M, int MODE>
+void launch(const Rows1DArgs& A, bool stream, dim3 grid, cudaStream_t s) {
+  if (stream) rows1d_kernel<M, MODE, STREAM_TILE, STREAM_THREADS><<<grid, STREAM_THREADS, 0, s>>>(A);
+  else rows1d_kernel<M, MODE, TILE, NTHREADS><<<grid, NTHREADS, 0, s>>>(A);
+}
+
+// `stream`: the streaming launch (A.slab must be A.T).
 template <class M>
-int forward(const Rows1DArgs& A, cudaStream_t s) {
-  const dim3 grid = grid_of(A);
-  rows1d_kernel<M, MODE_SUMS><<<grid, NTHREADS, 0, s>>>(A);
+int forward(const Rows1DArgs& A, bool stream, cudaStream_t s) {
+  const dim3 grid = grid_of(A, stream);
+  launch<M, MODE_SUMS>(A, stream, grid, s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   rows1d_reduce_kernel<<<A.nterms, NTHREADS, 0, s>>>(A, (int)(grid.x * grid.y), 0);
@@ -236,10 +263,10 @@ int forward(const Rows1DArgs& A, cudaStream_t s) {
 }
 
 template <class M>
-int backward(const Rows1DArgs& A, int with_sums, cudaStream_t s) {
-  const dim3 grid = grid_of(A);
-  if (with_sums) rows1d_kernel<M, MODE_SUMS | MODE_GRADS><<<grid, NTHREADS, 0, s>>>(A);
-  else rows1d_kernel<M, MODE_GRADS><<<grid, NTHREADS, 0, s>>>(A);
+int backward(const Rows1DArgs& A, int with_sums, bool stream, cudaStream_t s) {
+  const dim3 grid = grid_of(A, stream);
+  if (with_sums) launch<M, MODE_SUMS | MODE_GRADS>(A, stream, grid, s);
+  else launch<M, MODE_GRADS>(A, stream, grid, s);
   cudaError_t err = cudaGetLastError();
   const int k0 = with_sums ? 0 : A.nterms;
   if (err != cudaSuccess || k0 == A.stride) return (int)err;

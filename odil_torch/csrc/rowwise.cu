@@ -18,6 +18,19 @@
 // VMEM or not; a Hopper block never holds a whole plane, so one tiled design
 // serves every plane size and every B.
 //
+// The streaming pair of odil_tpu/ops/rowwise.py (each field row read from HBM
+// once, a ring of `hist` rows carried across the sequential grid, the wrap
+// rows resident, `hist` residual rows recomputed at the tail for the wrapped
+// targets):
+//   _forward_stream  (:616, pallas_call at :676);
+//   _backward_stream (:690, pallas_call at :811);
+// is what these kernels do when one slab spans all T rows: the block walks
+// every row of its tile once, reads the wrap rows at the start and
+// recomputes the wrapped targets past the end.  The odil_rows*_stream_*
+// entry points launch the same kernel bodies that way, one block per plane
+// tile (the 1-D kernel on a narrower tile, rows1d.cuh); the rows that the
+// slabbed launch reads twice at slab edges are read once.
+//
 // What the veltracer instantiation computes.  Three fields f = u, vx, vy on a (T, X, Y) grid, any
 // T >= 2, X, Y >= 1 (periodic in t, x and y).  Residual row t reads rows t and
 // t-1 (row 0 reads row T-1).  The forward pass gives the per-term sums of
@@ -220,29 +233,61 @@ int odil_rows_backward(const RowArgs* a, int with_sums, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// The 1-D row models, by id: 0 heat, 1 wave (odil_torch/ops/rowwise.py).
+// The streaming pair (_forward_stream, _backward_stream): the same passes
+// with one slab of all T rows (A->slab must be A->T).
+int odil_rows_stream_forward(const RowArgs* a, void* stream) {
+  if (a->slab != a->T) return (int)cudaErrorInvalidValue;
+  return odil_rows_forward(a, stream);
+}
+
+int odil_rows_stream_backward(const RowArgs* a, int with_sums, void* stream) {
+  if (a->slab != a->T) return (int)cudaErrorInvalidValue;
+  return odil_rows_backward(a, with_sums, stream);
+}
+
+// The 1-D row models, by id: 0 heat, 1 wave (odil_torch/ops/rowwise.py);
+// `stream` selects the streaming launch (A->slab must then be A->T).
 int odil_rows1d_args_size() { return (int)sizeof(rows1d::Rows1DArgs); }
 
-int odil_rows1d_num_blocks(int T, int N, int slab) {
-  return ((N + rows1d::TILE - 1) / rows1d::TILE) * ((T + slab - 1) / slab);
+int odil_rows1d_num_blocks(int T, int N, int slab, int stream) {
+  const int tw = rows1d::tile_of(stream != 0);
+  return ((N + tw - 1) / tw) * (stream ? 1 : (T + slab - 1) / slab);
+}
+
+static int rows1d_forward(int model, const rows1d::Rows1DArgs* a, bool stream, void* cs) {
+  cudaStream_t s = (cudaStream_t)cs;
+  if (stream && a->slab != a->T) return (int)cudaErrorInvalidValue;
+  switch (model) {
+    case 0: return rows1d::forward<rows1d::HeatRow>(*a, stream, s);
+    case 1: return rows1d::forward<rows1d::WaveRow>(*a, stream, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+static int rows1d_backward(int model, const rows1d::Rows1DArgs* a, int with_sums, bool stream, void* cs) {
+  cudaStream_t s = (cudaStream_t)cs;
+  if (stream && a->slab != a->T) return (int)cudaErrorInvalidValue;
+  switch (model) {
+    case 0: return rows1d::backward<rows1d::HeatRow>(*a, with_sums, stream, s);
+    case 1: return rows1d::backward<rows1d::WaveRow>(*a, with_sums, stream, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 int odil_rows1d_forward(int model, const rows1d::Rows1DArgs* a, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (model) {
-    case 0: return rows1d::forward<rows1d::HeatRow>(*a, s);
-    case 1: return rows1d::forward<rows1d::WaveRow>(*a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return rows1d_forward(model, a, false, stream);
 }
 
 int odil_rows1d_backward(int model, const rows1d::Rows1DArgs* a, int with_sums, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (model) {
-    case 0: return rows1d::backward<rows1d::HeatRow>(*a, with_sums, s);
-    case 1: return rows1d::backward<rows1d::WaveRow>(*a, with_sums, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return rows1d_backward(model, a, with_sums, false, stream);
+}
+
+int odil_rows1d_stream_forward(int model, const rows1d::Rows1DArgs* a, void* stream) {
+  return rows1d_forward(model, a, true, stream);
+}
+
+int odil_rows1d_stream_backward(int model, const rows1d::Rows1DArgs* a, int with_sums, void* stream) {
+  return rows1d_backward(model, a, with_sums, true, stream);
 }
 
 }  // extern "C"

@@ -2,7 +2,9 @@
 // to the velocity-from-tracer row model.
 //
 // Replaces the TPU kernels of odil_tpu/ops/rowwise_mg.py:
-//   _backward_mg (:350, pallas_call at :766), with and without the sums;
+//   _backward_mg (:350, pallas_call at :766), with and without the sums, with
+//                lvl2=None (mg_rows_kernel<MODE, false>) and with lvl2, the
+//                two-level fusion (mg_rows_kernel<MODE, true>, below);
 //   _forward_mg  (:257, pallas_call at :336).
 //
 // What they compute.  Three fields f = u, vx, vy live on a (T, X, Y) grid
@@ -50,6 +52,24 @@
 // (57.6 MB): ~115 MB, ~35 us.  The forward reads half of that, ~17 us.  The
 // arithmetic (a few hundred fp32 operations per cell) is far below the
 // memory time, so both are bound by bytes.
+//
+// Two-level fusion (odil_mg_backward2; lvl2 = (t1s, f1s, W1x, W1y) of the
+// TPU kernel).  P is then the level-2 Horner partial P2 (Tc2, X/4, Y/4) and
+// the level-1 term t1 (Tc, X/2, Y/2) is an input: the level-1 rows
+//   P1[c] = f1 * t1[c] + W1x . blend_t(P2[c/2], P2[c/2+1]) . W1y^T
+// are rebuilt per block over the coarse window its fine rows read (8 x 20
+// level-1 cells from a staged 6 x 12 window of t-blended level-2 values),
+// into a two-slot ring in shared memory: fine row r reads P1 rows r/2 and
+// r/2+1, so the walk rebuilds one P1 row every two fine rows (two at the
+// slab start; the slab-edge recompute stands in for the TPU kernel's
+// XLA-built head and wrap residents).  The dP output then holds the level-1
+// cotangent dP1, formed as at depth 1, and mg_coarse_grad_kernel runs once
+// more one level down for dP2 = W1x^T (0.5 dP1[2c-1] + dP1[2c] +
+// 0.5 dP1[2c+1]) W1y; the caller scales dP1 by f1 for dt1 (the TPU kernel's
+// caller does both in XLA, odil_tpu/ops/rowwise_mg.py:947-959).  The P1
+// rebuild loads its window directly (no register prefetch): a first design.
+
+#include <type_traits>
 
 #include "veltracer_row.cuh"
 
@@ -81,6 +101,18 @@ struct MgArgs {
   // JAX package's division.
   float inv_dt, inv_dx, inv_dy, inv_dx2, inv_dy2;
   float kimp, kimp_dx, kxreg, kt;  // kimp_dx = kimp/dx, kt = ktreg/dt
+};
+
+// The arguments of the two-level fusion (odil_mg_backward2): P holds the
+// level-2 partial (Tc2, CX2, CY2) and dP receives dP1; t1 holds the level-1
+// terms (Tc, CX, CY) with factors f1.  A struct of its own, so that the
+// depth-1 kernels keep their argument block.  Mirrored by
+// odil_torch/ops/rowwise_mg.py::_Mg2Args (checked through odil_mg2_args_size()).
+struct Mg2Args : MgArgs {
+  const float* t1[NF];
+  float* dP2[NF];  // the level-2 cotangent
+  int Tc2, CX2, CY2;
+  float f1[NF];
 };
 
 namespace {
@@ -151,9 +183,80 @@ __device__ void init_taps(RowStage& S, const MgArgs& A, int x0, int y0) {
   }
 }
 
+// Two-level fusion: the level-2 window that the level-1 window's taps read,
+// x indices (ax0 >> 1) - 1 .. + WX2-1 and y likewise (periodic); every tap of
+// the level-1 window, edge extrapolation included, lies in it.
+constexpr int WX2 = WX / 2 + 2, WY2 = WY / 2 + 2;
+
+struct Lvl2Stage {
+  float P1[2][NF][WX][WY];  // level-1 rows over the coarse window; row c in slot c & 1
+  float CB2[NF][WX2][WY2];  // blend_t of P2's two rows over the level-2 window
+  int ta[WX][2];            // level-2 taps of each level-1 window row and column
+  float tw[WX][2];
+  int tb[WY][2];
+  float sw[WY][2];
+};
+
+struct NoStage {};
+
+// The level-1 window's taps into the level-2 window (once per block).
+__device__ void init_taps2(Lvl2Stage& S2, const Mg2Args& A, int x0, int y0) {
+  const int ax0 = (x0 >> 1) - 2, by0 = (y0 >> 1) - 2;
+  const int ax2 = (ax0 >> 1) - 1, by2 = (by0 >> 1) - 1;
+  for (int idx = threadIdx.y * TILE_Y + threadIdx.x; idx < WX + WY; idx += NTHREADS) {
+    int a0, a1;
+    float w0, w1;
+    if (idx < WX) {
+      taps(pmod(ax0 + idx, A.CX), A.CX2, a0, w0, a1, w1);
+      S2.ta[idx][0] = win(a0, ax2, A.CX2);
+      S2.ta[idx][1] = win(a1, ax2, A.CX2);
+      S2.tw[idx][0] = w0;
+      S2.tw[idx][1] = w1;
+    } else {
+      const int k = idx - WX;
+      taps(pmod(by0 + k, A.CY), A.CY2, a0, w0, a1, w1);
+      S2.tb[k][0] = win(a0, by2, A.CY2);
+      S2.tb[k][1] = win(a1, by2, A.CY2);
+      S2.sw[k][0] = w0;
+      S2.sw[k][1] = w1;
+    }
+  }
+}
+
+// Rebuilds level-1 row c over the coarse window into its ring slot:
+// P1[c] = f1 * t1[c] + W1x . blend_t(P2[c/2], P2[c/2+1]) . W1y^T, in the
+// order of the depth-1 fine rebuild.  Every thread of the block calls it; it
+// ends with a barrier.
+__device__ void build_p1(Lvl2Stage& S2, const Mg2Args& A, int c, int x0, int y0) {
+  const int tid = threadIdx.y * TILE_Y + threadIdx.x;
+  const int ax0 = (x0 >> 1) - 2, by0 = (y0 >> 1) - 2;
+  const int ax2 = (ax0 >> 1) - 1, by2 = (by0 >> 1) - 1;
+  const int c0 = c >> 1, c1 = min(c0 + 1, A.Tc2 - 1);
+  const float w = (c & 1) ? 0.5f : 0.0f;
+  const size_t plane2 = (size_t)A.CX2 * A.CY2;
+  for (int idx = tid; idx < NF * WX2 * WY2; idx += NTHREADS) {
+    const int f = idx / (WX2 * WY2), la = (idx / WY2) % WX2, lb = idx % WY2;
+    const size_t o = (size_t)pmod(ax2 + la, A.CX2) * A.CY2 + pmod(by2 + lb, A.CY2);
+    S2.CB2[f][la][lb] = (1.0f - w) * __ldg(A.P[f] + c0 * plane2 + o) + w * __ldg(A.P[f] + c1 * plane2 + o);
+  }
+  __syncthreads();
+  const size_t plane1 = (size_t)A.CX * A.CY;
+  float(*out)[WX][WY] = S2.P1[c & 1];
+  for (int idx = tid; idx < NF * WX * WY; idx += NTHREADS) {
+    const int f = idx / (WX * WY), la = (idx / WY) % WX, lb = idx % WY;
+    const size_t o = (size_t)pmod(ax0 + la, A.CX) * A.CY + pmod(by0 + lb, A.CY);
+    const int a0 = S2.ta[la][0], a1 = S2.ta[la][1], b0 = S2.tb[lb][0], b1 = S2.tb[lb][1];
+    const float in0 = S2.CB2[f][a0][b0] * S2.sw[lb][0] + S2.CB2[f][a0][b1] * S2.sw[lb][1];
+    const float in1 = S2.CB2[f][a1][b0] * S2.sw[lb][0] + S2.CB2[f][a1][b1] * S2.sw[lb][1];
+    out[f][la][lb] = A.f1[f] * __ldg(A.t1[f] + c * plane1 + o) + (S2.tw[la][0] * in0 + S2.tw[la][1] * in1);
+  }
+  __syncthreads();
+}
+
 // The global loads of one fine row, held in registers so that they are in
 // flight while the block works on the previous row: this thread's share of
-// the coarse window (two coarse rows) and of the tile's t0 values.
+// the coarse window (two coarse rows; at depth 2 the coarse rows come from
+// the P1 ring instead) and of the tile's t0 values.
 constexpr int NCB = (NF * WX * WY + NTHREADS - 1) / NTHREADS;
 constexpr int NPOS = (HX * HY + NTHREADS - 1) / NTHREADS;
 
@@ -164,23 +267,26 @@ struct RowLoads {
 };
 
 // Issues the loads of fine row r (periodic in t).
+template <bool LVL2>
 __device__ __forceinline__ void fetch_row(RowLoads& L, const RowStage& S, const MgArgs& A, int r, int x0, int y0) {
   const int tid = threadIdx.y * TILE_Y + threadIdx.x;
   const int rr = r < 0 ? r + A.T : (r >= A.T ? r - A.T : r);
   L.rr = rr;
-  const int c0 = rr >> 1;
-  const int c1 = min(c0 + 1, A.Tc - 1);
-  const int ax0 = (x0 >> 1) - 2, by0 = (y0 >> 1) - 2;
-  const size_t cplane = (size_t)A.CX * A.CY;
+  if constexpr (!LVL2) {
+    const int c0 = rr >> 1;
+    const int c1 = min(c0 + 1, A.Tc - 1);
+    const int ax0 = (x0 >> 1) - 2, by0 = (y0 >> 1) - 2;
+    const size_t cplane = (size_t)A.CX * A.CY;
 #pragma unroll
-  for (int k = 0; k < NCB; ++k) {
-    const int idx = tid + k * NTHREADS;
-    if (idx < NF * WX * WY) {
-      const int f = idx / (WX * WY), la = (idx / WY) % WX, lb = idx % WY;
-      const int a = pmod(ax0 + la, A.CX), b = pmod(by0 + lb, A.CY);
-      const size_t o = (size_t)a * A.CY + b;
-      L.p0[k] = __ldg(A.P[f] + c0 * cplane + o);
-      L.p1[k] = __ldg(A.P[f] + c1 * cplane + o);
+    for (int k = 0; k < NCB; ++k) {
+      const int idx = tid + k * NTHREADS;
+      if (idx < NF * WX * WY) {
+        const int f = idx / (WX * WY), la = (idx / WY) % WX, lb = idx % WY;
+        const int a = pmod(ax0 + la, A.CX), b = pmod(by0 + lb, A.CY);
+        const size_t o = (size_t)a * A.CY + b;
+        L.p0[k] = __ldg(A.P[f] + c0 * cplane + o);
+        L.p1[k] = __ldg(A.P[f] + c1 * cplane + o);
+      }
     }
   }
 #pragma unroll
@@ -191,6 +297,26 @@ __device__ __forceinline__ void fetch_row(RowLoads& L, const RowStage& S, const 
       const size_t fine = ((size_t)rr * A.X + S.xi[hx]) * A.Y + S.yi[hy];
 #pragma unroll
       for (int f = 0; f < NF; ++f) L.t0[k][f] = __ldg(A.t0[f] + fine);
+    }
+  }
+}
+
+// The fine rows from the staged blended coarse window: see build_row.
+__device__ __forceinline__ void rebuild_fine(Plane* F, const RowStage& S, const MgArgs& A, const RowLoads& L) {
+  const int tid = threadIdx.y * TILE_Y + threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < NPOS; ++k) {
+    const int idx = tid + k * NTHREADS;
+    if (idx < HX * HY) {
+      const int hx = idx / HY, hy = idx % HY;
+      const int a0 = S.ta[hx][0], a1 = S.ta[hx][1], b0 = S.tb[hy][0], b1 = S.tb[hy][1];
+      const float wa0 = S.tw[hx][0], wa1 = S.tw[hx][1], wb0 = S.sw[hy][0], wb1 = S.sw[hy][1];
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        const float in0 = S.CB[f][a0][b0] * wb0 + S.CB[f][a0][b1] * wb1;
+        const float in1 = S.CB[f][a1][b0] * wb0 + S.CB[f][a1][b1] * wb1;
+        F[f][hx][hy] = A.f0[f] * L.t0[k][f] + (wa0 * in0 + wa1 * in1);
+      }
     }
   }
 }
@@ -209,34 +335,59 @@ __device__ void build_row(Plane* F, RowStage& S, const MgArgs& A, const RowLoads
     if (idx < NF * WX * WY) (&S.CB[0][0][0])[idx] = (1.0f - w) * L.p0[k] + w * L.p1[k];
   }
   __syncthreads();
-#pragma unroll
-  for (int k = 0; k < NPOS; ++k) {
-    const int idx = tid + k * NTHREADS;
-    if (idx < HX * HY) {
-      const int hx = idx / HY, hy = idx % HY;
-      const int a0 = S.ta[hx][0], a1 = S.ta[hx][1], b0 = S.tb[hy][0], b1 = S.tb[hy][1];
-      const float wa0 = S.tw[hx][0], wa1 = S.tw[hx][1], wb0 = S.sw[hy][0], wb1 = S.sw[hy][1];
-#pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        const float in0 = S.CB[f][a0][b0] * wb0 + S.CB[f][a0][b1] * wb1;
-        const float in1 = S.CB[f][a1][b0] * wb0 + S.CB[f][a1][b1] * wb1;
-        F[f][hx][hy] = A.f0[f] * L.t0[k][f] + (wa0 * in0 + wa1 * in1);
-      }
-    }
-  }
+  rebuild_fine(F, S, A, L);
   __syncthreads();
+}
+
+// build_row at depth 2: the two coarse rows are level-1 rows of the P1 ring,
+// rebuilt first where the ring does not hold them (p1_rows: the rows in its
+// slots, the same in every thread).
+__device__ void build_row2(Plane* F, RowStage& S, Lvl2Stage& S2, const Mg2Args& A, const RowLoads& L,
+                           int (&p1_rows)[2], int x0, int y0) {
+  const int tid = threadIdx.y * TILE_Y + threadIdx.x;
+  const float w = (L.rr & 1) ? 0.5f : 0.0f;
+  const int c0 = L.rr >> 1, c1 = min(c0 + 1, A.Tc - 1);
+  if (p1_rows[c0 & 1] != c0) {
+    build_p1(S2, A, c0, x0, y0);
+    p1_rows[c0 & 1] = c0;
+  }
+  if (p1_rows[c1 & 1] != c1) {
+    build_p1(S2, A, c1, x0, y0);
+    p1_rows[c1 & 1] = c1;
+  }
+  const float* q0 = &S2.P1[c0 & 1][0][0][0];
+  const float* q1 = &S2.P1[c1 & 1][0][0][0];
+  for (int idx = tid; idx < NF * WX * WY; idx += NTHREADS) (&S.CB[0][0][0])[idx] = (1.0f - w) * q0[idx] + w * q1[idx];
+  __syncthreads();
+  rebuild_fine(F, S, A, L);
+  __syncthreads();
+}
+
+// The ring's next fine row: build_row, or build_row2 at depth 2 (Args is
+// then Mg2Args).
+template <bool LVL2, class Stage2, class Args>
+__device__ __forceinline__ void next_row(Plane* F, RowStage& S, Stage2& S2, const Args& A, const RowLoads& L,
+                                         int (&p1_rows)[2], int x0, int y0) {
+  if constexpr (LVL2) build_row2(F, S, S2, A, L, p1_rows, x0, y0);
+  else build_row(F, S, A, L);
 }
 
 // At least 4 blocks per SM: without the bound the compiler spends 75
 // registers on the backward+sums form (3 blocks per SM) and the kernel runs
-// 8% slower than with 64.
-template <int MODE>
-__global__ void __launch_bounds__(NTHREADS, 4) mg_rows_kernel(const MgArgs A) {
+// 8% slower than with 64.  LVL2: the two-level fusion (the code of the
+// depth-1 instantiation is unchanged by it).
+// Args: MgArgs, or Mg2Args at depth 2.
+template <int MODE, bool LVL2, class Args>
+__global__ void __launch_bounds__(NTHREADS, 4) mg_rows_kernel(const Args A) {
+  static_assert(std::is_same<Args, typename std::conditional<LVL2, Mg2Args, MgArgs>::type>::value,
+                "mg_rows_kernel: Mg2Args goes with LVL2");
   __shared__ float F[3][NF][HX][HY];  // ring of fine rows; slot of row r is (r - ts + 1) % 3
   __shared__ float U0[HX][HY];
   __shared__ Ring1 R;
   __shared__ double red[NTHREADS];
   __shared__ RowStage S;
+  __shared__ typename std::conditional<LVL2, Lvl2Stage, NoStage>::type S2;
+  int p1_rows[2] = {-1, -1};  // the level-1 rows in the P1 ring's slots (depth 2)
 
   const int tid = threadIdx.y * TILE_Y + threadIdx.x;
   const int x0 = blockIdx.y * TILE_X, y0 = blockIdx.x * TILE_Y;
@@ -260,21 +411,22 @@ __global__ void __launch_bounds__(NTHREADS, 4) mg_rows_kernel(const MgArgs A) {
   for (int k = 0; k < MAXTERMS; ++k) s[k] = 0.0f;
 
   init_taps(S, A, x0, y0);
+  if constexpr (LVL2) init_taps2(S2, A, x0, y0);
   __syncthreads();
   RowLoads L;
-  fetch_row(L, S, A, ts - 1, x0, y0);
-  build_row(F[0], S, A, L);
+  fetch_row<LVL2>(L, S, A, ts - 1, x0, y0);
+  next_row<LVL2>(F[0], S, S2, A, L, p1_rows, x0, y0);
   if (grads) {
-    fetch_row(L, S, A, ts, x0, y0);
-    build_row(F[1], S, A, L);
+    fetch_row<LVL2>(L, S, A, ts, x0, y0);
+    next_row<LVL2>(F[1], S, S2, A, L, p1_rows, x0, y0);
   }
   // The row each iteration adds to the ring: t+1 for the gradients, t else.
   const int ahead = grads ? 1 : 0;
-  fetch_row(L, S, A, ts + ahead, x0, y0);
+  fetch_row<LVL2>(L, S, A, ts + ahead, x0, y0);
   for (int t = ts; t < te; ++t) {
     const int sm = (t - ts) % 3, sc = (t - ts + 1) % 3, sp = (t - ts + 2) % 3;
-    build_row(F[grads ? sp : sc], S, A, L);
-    if (t + 1 < te) fetch_row(L, S, A, t + 1 + ahead, x0, y0);  // in flight during this row's work
+    next_row<LVL2>(F[grads ? sp : sc], S, S2, A, L, p1_rows, x0, y0);
+    if (t + 1 < te) fetch_row<LVL2>(L, S, A, t + 1 + ahead, x0, y0);  // in flight during this row's work
     const RowPlanes P{F[sm][0], F[sc][0], F[sp][0], F[sm][1], F[sc][1], F[sp][1], F[sm][2], F[sc][2], F[sp][2], U0};
     const int it1 = t + 1 < T ? t + 1 : 0;  // residual row t+1 (row 0 after T-1)
 
@@ -344,11 +496,32 @@ dim3 rows_grid(const MgArgs& A) {
   return dim3((A.Y + TILE_Y - 1) / TILE_Y, (A.X + TILE_X - 1) / TILE_X, (A.T + A.slab - 1) / A.slab);
 }
 
+// The gradient pass; Args is MgArgs, or Mg2Args for the two-level kernel.
+template <bool LVL2, class Args>
+int mg_backward(const Args& A, int with_sums, cudaStream_t s) {
+  const dim3 grid = rows_grid(A);
+  if (with_sums) mg_rows_kernel<MODE_SUMS | MODE_GRADS, LVL2><<<grid, dim3(TILE_Y, TILE_X), 0, s>>>(A);
+  else mg_rows_kernel<MODE_GRADS, LVL2><<<grid, dim3(TILE_Y, TILE_X), 0, s>>>(A);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const MgArgs& base = A;  // the depth-1 arguments, for the kernels that take only those
+  if (with_sums) {
+    reduce_sums_kernel<MgArgs><<<1, NTHREADS, 0, s>>>(base, (int)(grid.x * grid.y * grid.z));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 cgrid((A.CY + CT - 1) / CT, (A.CX + CT - 1) / CT, A.Tc * NF);
+  mg_coarse_grad_kernel<<<cgrid, dim3(CT, CT), 0, s>>>(base);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 int odil_mg_args_size() { return (int)sizeof(MgArgs); }
+
+int odil_mg2_args_size() { return (int)sizeof(Mg2Args); }
 
 int odil_mg_num_blocks(int T, int X, int Y, int slab) {
   return ((Y + TILE_Y - 1) / TILE_Y) * ((X + TILE_X - 1) / TILE_X) * ((T + slab - 1) / slab);
@@ -361,7 +534,7 @@ int odil_mg_forward(const MgArgs* a, void* stream) {
   const MgArgs A = *a;
   cudaStream_t s = (cudaStream_t)stream;
   const dim3 grid = rows_grid(A);
-  mg_rows_kernel<MODE_SUMS><<<grid, dim3(TILE_Y, TILE_X), 0, s>>>(A);
+  mg_rows_kernel<MODE_SUMS, false><<<grid, dim3(TILE_Y, TILE_X), 0, s>>>(A);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   reduce_sums_kernel<MgArgs><<<1, NTHREADS, 0, s>>>(A, (int)(grid.x * grid.y * grid.z));
@@ -370,20 +543,26 @@ int odil_mg_forward(const MgArgs* a, void* stream) {
 
 // Gradient pass (_backward_mg): dt0 and dP, plus the sums when with_sums.
 int odil_mg_backward(const MgArgs* a, int with_sums, void* stream) {
-  const MgArgs A = *a;
+  return mg_backward<false>(*a, with_sums, (cudaStream_t)stream);
+}
+
+// Two-level gradient pass (_backward_mg with lvl2): dt0 and dP1 (in dP), plus
+// the sums when with_sums, then dP2 from dP1 by the same transposed
+// prolongation one level down (the kernel's d = dP1 * 1).
+int odil_mg_backward2(const Mg2Args* a, int with_sums, void* stream) {
+  const Mg2Args A = *a;
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid = rows_grid(A);
-  if (with_sums) mg_rows_kernel<MODE_SUMS | MODE_GRADS><<<grid, dim3(TILE_Y, TILE_X), 0, s>>>(A);
-  else mg_rows_kernel<MODE_GRADS><<<grid, dim3(TILE_Y, TILE_X), 0, s>>>(A);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (with_sums) {
-    reduce_sums_kernel<MgArgs><<<1, NTHREADS, 0, s>>>(A, (int)(grid.x * grid.y * grid.z));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+  const int err = mg_backward<true>(A, with_sums, s);
+  if (err != (int)cudaSuccess) return err;
+  MgArgs B = A;
+  for (int f = 0; f < NF; ++f) {
+    B.dt0[f] = A.dP[f];
+    B.dP[f] = A.dP2[f];
+    B.inv_f0[f] = 1.0f;
   }
-  const dim3 cgrid((A.CY + CT - 1) / CT, (A.CX + CT - 1) / CT, A.Tc * NF);
-  mg_coarse_grad_kernel<<<cgrid, dim3(CT, CT), 0, s>>>(A);
+  B.T = A.Tc, B.X = A.CX, B.Y = A.CY, B.Tc = A.Tc2, B.CX = A.CX2, B.CY = A.CY2;
+  const dim3 cgrid((B.CY + CT - 1) / CT, (B.CX + CT - 1) / CT, B.Tc * NF);
+  mg_coarse_grad_kernel<<<cgrid, dim3(CT, CT), 0, s>>>(B);
   return (int)cudaGetLastError();
 }
 

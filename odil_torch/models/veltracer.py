@@ -280,9 +280,24 @@ def operator_fused_mg(ctx):
 
 def _mg_loss_and_grads(ctx):
     """Fused one-pass loss+gradients for the training step
-    (Problem.make_loss_grad_fn).  Returns (terms, {key: (d_t0, d_coarse)})."""
+    (Problem.make_loss_grad_fn).  Returns (terms, {key: (d_t0, d_coarse)}),
+    or at two levels (partials (t0, f0, t1, f1, P2)) (terms, {key: (d_t0,
+    d_t1, d_P2)})."""
     parts = ctx.mg_partials
     model, nterms = _row_model(ctx)
+    if len(parts[_KEYS[0]]) == 5:
+        terms, (dt0, dt1, dP2, _) = rowwise_mg_loss_and_grads(
+            model,
+            t0s=tuple(parts[k][0] for k in _KEYS),
+            coarse=tuple(parts[k][4] for k in _KEYS),
+            factors0=tuple(parts[k][1] for k in _KEYS),
+            consts=(ctx.extra.u_init, ctx.extra.u_final),
+            nterms=nterms,
+            hist=1,
+            t1s=tuple(parts[k][2] for k in _KEYS),
+            factors1=tuple(parts[k][3] for k in _KEYS),
+        )
+        return list(terms), {k: (dt0[i], dt1[i], dP2[i]) for i, k in enumerate(_KEYS)}
     terms, (dt0, dcoarse, _) = rowwise_mg_loss_and_grads(
         model,
         t0s=tuple(parts[k][0] for k in _KEYS),
@@ -304,8 +319,19 @@ def _mg_supported(t0_shapes, dtype):
     return T % 2 == 1 and T > 2 and X % 2 == 0 and Y % 2 == 0 and X >= 4 and Y >= 4
 
 
+def _mg_partial_depth(t0_shapes, dtype):
+    """Single-level fusion by default, as the JAX package chose on its chip
+    (``odil_tpu/models/veltracer.py:396-412``); two levels stay available
+    through the ``partial_depth`` hook, and only where the mg kernel takes
+    the shapes."""
+    depth = 1
+    if depth >= 2 and not _mg_supported(t0_shapes, dtype):
+        return 1
+    return depth
+
+
 _mg_loss_and_grads.supported = _mg_supported
-_mg_loss_and_grads.partial_depth = lambda t0_shapes, dtype: 1
+_mg_loss_and_grads.partial_depth = _mg_partial_depth
 operator_fused_mg.loss_and_grads = _mg_loss_and_grads
 
 

@@ -33,7 +33,16 @@ version on every device, by the JAX package's own rule (Mosaic cannot lower
 64-bit kernels, ``odil_tpu/ops/rowwise.py:968-969``): ``rowwise_loss_terms``
 differentiates it by autograd and ``rowwise_loss_and_grads`` returns None.
 One CUDA design serves every plane size, so ``block_rows`` and ``halox``
-select nothing here; the streaming form (``stream=True``) is not ported.
+select nothing here.
+
+``stream=True`` with ``hist >= 1`` (``odil_tpu/ops/rowwise.py:992``) takes
+the streaming pair (``_forward_stream``/``_backward_stream``): on the card
+the same kernels launched with one slab of all T rows, so that each field
+row is read once (``forward_stream_cuda``/``backward_stream_cuda``); 1-D
+planes stay 1-D.  The pair computes the same function as the slabbed one,
+so its plain versions are ``_forward_plain``/``_backward_plain``.  With
+``hist=0`` a streaming call takes the ordinary kernels, as in the JAX
+package.
 """
 
 import ctypes
@@ -264,6 +273,7 @@ class _VeltracerCuda:
     (u_init, u_final), no params, no data, hist=1 (``csrc/veltracer_row.cuh``)."""
 
     forward, backward = "odil_rows_forward", "odil_rows_backward"
+    stream_forward, stream_backward = "odil_rows_stream_forward", "odil_rows_stream_backward"
 
     def check(self, model, nterms, hist, fields, params, data, consts):
         _check_veltracer_model(model, hist)
@@ -275,17 +285,18 @@ class _VeltracerCuda:
             raise ValueError(f"the CUDA row-wise kernels take (T, X, Y) fields with T >= 2, got {shape}")
         _check_shapes(tuple(fields) + tuple(consts), [shape] * 3 + [shape[1:]] * 2, "veltracer")
 
-    def pack(self, lib, model, nterms, fields, params, data, consts, g, grads):
+    def pack(self, lib, model, nterms, fields, params, data, consts, g, grads, stream):
         T, X, Y = fields[0].shape
         dev = fields[0].device
-        nblocks = lib.odil_rows_num_blocks(T, X, Y, _slab(T))
+        slab = T if stream else _slab(T)
+        nblocks = lib.odil_rows_num_blocks(T, X, Y, slab)
         partials = torch.empty((nblocks, _MAXTERMS), dtype=torch.float64, device=dev)
         sums = torch.empty((_MAXTERMS,), dtype=torch.float32, device=dev)
         dfields = tuple(torch.empty_like(f) for f in fields) if grads else ()
         args = _RowArgs(
             f=_ptrs(fields, 3), u_init=consts[0].data_ptr(), u_final=consts[1].data_ptr(),
             g=g.data_ptr() if g is not None else None, df=_ptrs(dfields, 3) if grads else (ctypes.c_void_p * 3)(),
-            partials=partials.data_ptr(), sums=sums.data_ptr(), T=T, X=X, Y=Y, slab=_slab(T),
+            partials=partials.data_ptr(), sums=sums.data_ptr(), T=T, X=X, Y=Y, slab=slab,
             **_veltracer_scalars(model, nterms),
         )
         return _Launch(args, dfields, (), sums, (partials,))
@@ -297,6 +308,7 @@ class _Rows1DCuda:
     of flags and scalars (``flags_scalars``)."""
 
     forward, backward = "odil_rows1d_forward", "odil_rows1d_backward"
+    stream_forward, stream_backward = "odil_rows1d_stream_forward", "odil_rows1d_stream_backward"
 
     def __init__(self, model_id, hist, nfields, ndata, consts, flags_scalars, check_params):
         self.model_id, self.hist, self.nfields, self.ndata = model_id, hist, nfields, ndata
@@ -324,14 +336,14 @@ class _Rows1DCuda:
         _check_shapes(consts, [tuple(N if n == "N" else n for n in c) for c in self.consts], model.cuda_model)
         self.check_params(model, nterms, params)
 
-    def pack(self, lib, model, nterms, fields, params, data, consts, g, grads):
+    def pack(self, lib, model, nterms, fields, params, data, consts, g, grads, stream):
         T, N = fields[0].shape
         dev = fields[0].device
         nparams = sum(p.numel() for p in params)
         stride = nterms + nparams
-        slab = _slab(T)
-        partials = torch.empty((lib.odil_rows1d_num_blocks(T, N, slab), max(stride, 1)), dtype=torch.float64,
-                               device=dev)
+        slab = T if stream else _slab(T)
+        partials = torch.empty((lib.odil_rows1d_num_blocks(T, N, slab, int(stream)), max(stride, 1)),
+                               dtype=torch.float64, device=dev)
         out = torch.empty((max(stride, 1),), dtype=torch.float32, device=dev)  # sums, then dparams
         flat = torch.cat([p.reshape(-1) for p in params]) if params else out
         dfields = tuple(torch.empty_like(f) for f in fields) if grads else ()
@@ -414,18 +426,20 @@ def _library():
         lib.odil_rows_num_blocks.restype = ctypes.c_int
         lib.odil_rows1d_args_size.argtypes = []
         lib.odil_rows1d_args_size.restype = ctypes.c_int
-        lib.odil_rows1d_num_blocks.argtypes = [ctypes.c_int] * 3
+        lib.odil_rows1d_num_blocks.argtypes = [ctypes.c_int] * 4
         lib.odil_rows1d_num_blocks.restype = ctypes.c_int
         lib.odil_cuda_error_string.argtypes = [ctypes.c_int]
         lib.odil_cuda_error_string.restype = ctypes.c_char_p
-        lib.odil_rows_forward.argtypes = [ctypes.POINTER(_RowArgs), ctypes.c_void_p]
-        lib.odil_rows_forward.restype = ctypes.c_int
-        lib.odil_rows_backward.argtypes = [ctypes.POINTER(_RowArgs), ctypes.c_int, ctypes.c_void_p]
-        lib.odil_rows_backward.restype = ctypes.c_int
-        lib.odil_rows1d_forward.argtypes = [ctypes.c_int, ctypes.POINTER(_Rows1DArgs), ctypes.c_void_p]
-        lib.odil_rows1d_forward.restype = ctypes.c_int
-        lib.odil_rows1d_backward.argtypes = [ctypes.c_int, ctypes.POINTER(_Rows1DArgs), ctypes.c_int, ctypes.c_void_p]
-        lib.odil_rows1d_backward.restype = ctypes.c_int
+        for pre in ("odil_rows", "odil_rows_stream"):
+            getattr(lib, pre + "_forward").argtypes = [ctypes.POINTER(_RowArgs), ctypes.c_void_p]
+            getattr(lib, pre + "_backward").argtypes = [ctypes.POINTER(_RowArgs), ctypes.c_int, ctypes.c_void_p]
+        for pre in ("odil_rows1d", "odil_rows1d_stream"):
+            getattr(lib, pre + "_forward").argtypes = [ctypes.c_int, ctypes.POINTER(_Rows1DArgs), ctypes.c_void_p]
+            getattr(lib, pre + "_backward").argtypes = [
+                ctypes.c_int, ctypes.POINTER(_Rows1DArgs), ctypes.c_int, ctypes.c_void_p]
+        for pre in ("odil_rows", "odil_rows_stream", "odil_rows1d", "odil_rows1d_stream"):
+            getattr(lib, pre + "_forward").restype = ctypes.c_int
+            getattr(lib, pre + "_backward").restype = ctypes.c_int
         for name, struct in (("odil_rows_args_size", _RowArgs), ("odil_rows1d_args_size", _Rows1DArgs)):
             size = getattr(lib, name)()
             if size != ctypes.sizeof(struct):
@@ -434,7 +448,7 @@ def _library():
     return lib
 
 
-def _stream(t):
+def _cuda_stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
@@ -444,17 +458,35 @@ def _call(lib, spec, name, launch, *extra):
     _raise_on(lib, fn(*head, ctypes.byref(launch.args), *extra), name)
 
 
+def _launch_forward(model, nterms, hist, fields, params, data, consts, stream):
+    spec = _cuda_model(model)
+    spec.check(model, nterms, hist, fields, params, data, consts)
+    lib = _library()
+    launch = spec.pack(lib, model, nterms, fields, params, data, consts, None, grads=False, stream=stream)
+    _call(lib, spec, spec.stream_forward if stream else spec.forward, launch, _cuda_stream(fields[0]))
+    return launch.sums[:nterms]
+
+
+def _launch_backward(model, nterms, hist, fields, params, data, consts, g, with_sums, stream):
+    spec = _cuda_model(model)
+    spec.check(model, nterms, hist, fields, params, data, consts)
+    g = g.to(torch.float32).contiguous()
+    if not g.is_cuda or g.numel() < nterms:
+        raise ValueError("g must hold nterms weights on the card")
+    lib = _library()
+    launch = spec.pack(lib, model, nterms, fields, params, data, consts, g, grads=True, stream=stream)
+    _call(lib, spec, spec.stream_backward if stream else spec.backward, launch, int(bool(with_sums)),
+          _cuda_stream(fields[0]))
+    return launch.dfields, launch.dparams, (launch.sums[:nterms] if with_sums else None)
+
+
 def forward_cuda(model, nterms, hist, fields, params, data, consts):
     """CUDA forward kernel (replaces ``_forward``, ``_forward_blocked`` and
     the non-padded ``_forward_tiled``): (nterms,) sums of squares of the
     residual rows, on the current stream."""
-    spec = _cuda_model(model)
-    spec.check(model, nterms, hist, fields, params, data, consts)
-    lib = _library()
-    launch = spec.pack(lib, model, nterms, fields, params, data, consts, None, grads=False)
-    _call(lib, spec, spec.forward, launch, _stream(fields[0]))
+    sums = _launch_forward(model, nterms, hist, fields, params, data, consts, stream=False)
     forward_cuda.launches += 1
-    return launch.sums[:nterms]
+    return sums
 
 
 forward_cuda.launches = 0
@@ -464,19 +496,35 @@ def backward_cuda(model, nterms, hist, fields, params, data, consts, g, with_sum
     """CUDA backward kernel (replaces ``_backward``, ``_backward_blocked`` and
     the non-padded ``_backward_tiled``): (dfields, dparams, sums or None) for
     the loss sum_k g[k] * S[k], on the current stream."""
-    spec = _cuda_model(model)
-    spec.check(model, nterms, hist, fields, params, data, consts)
-    g = g.to(torch.float32).contiguous()
-    if not g.is_cuda or g.numel() < nterms:
-        raise ValueError("g must hold nterms weights on the card")
-    lib = _library()
-    launch = spec.pack(lib, model, nterms, fields, params, data, consts, g, grads=True)
-    _call(lib, spec, spec.backward, launch, int(bool(with_sums)), _stream(fields[0]))
+    out = _launch_backward(model, nterms, hist, fields, params, data, consts, g, with_sums, stream=False)
     backward_cuda.launches += 1
-    return launch.dfields, launch.dparams, (launch.sums[:nterms] if with_sums else None)
+    return out
 
 
 backward_cuda.launches = 0
+
+
+def forward_stream_cuda(model, nterms, hist, fields, params, data, consts):
+    """CUDA streaming forward kernel (replaces ``_forward_stream``): the
+    forward kernel with one slab of all T rows, each field row read once."""
+    sums = _launch_forward(model, nterms, hist, fields, params, data, consts, stream=True)
+    forward_stream_cuda.launches += 1
+    return sums
+
+
+forward_stream_cuda.launches = 0
+
+
+def backward_stream_cuda(model, nterms, hist, fields, params, data, consts, g, with_sums):
+    """CUDA streaming backward kernel (replaces ``_backward_stream``): the
+    backward kernel with one slab of all T rows; the wrapped targets are
+    recomputed past the end as the TPU's tail programs do."""
+    out = _launch_backward(model, nterms, hist, fields, params, data, consts, g, with_sums, stream=True)
+    backward_stream_cuda.launches += 1
+    return out
+
+
+backward_stream_cuda.launches = 0
 
 
 # -- Dispatch ------------------------------------------------------------------
@@ -486,41 +534,44 @@ def _contig(ts):
     return tuple(t.contiguous() for t in ts)
 
 
-def _forward(model, nterms, hist, fields, params, data, consts):
+def _forward(model, nterms, hist, fields, params, data, consts, stream=False):
     if fields[0].is_cuda:
-        return forward_cuda(model, nterms, hist, _contig(fields), _contig(params), _contig(data), _contig(consts))
+        kernel = forward_stream_cuda if stream else forward_cuda
+        return kernel(model, nterms, hist, _contig(fields), _contig(params), _contig(data), _contig(consts))
     return _forward_plain(model, nterms, hist, fields, params, data, consts)
 
 
-def _backward(model, nterms, hist, fields, params, data, consts, g, with_sums=False):
+def _backward(model, nterms, hist, fields, params, data, consts, g, with_sums=False, stream=False):
     if fields[0].is_cuda:
-        return backward_cuda(
+        kernel = backward_stream_cuda if stream else backward_cuda
+        return kernel(
             model, nterms, hist, _contig(fields), _contig(params), _contig(data), _contig(consts), g, with_sums
         )
     return _backward_plain(model, nterms, hist, fields, params, data, consts, g, with_sums)
 
 
 class _RowwiseSumsq(torch.autograd.Function):
-    """Per-term sums of squares (the forward kernel); the backward runs the
-    backward kernel with the sums off.  data and consts get no gradient
-    (``rowwise_sumsq``'s custom_vjp, ``odil_tpu/ops/rowwise.py:852-870``)."""
+    """Per-term sums of squares (the forward kernel, or the streaming one);
+    the backward runs the matching backward kernel with the sums off.  data
+    and consts get no gradient (the custom_vjps of ``rowwise_sumsq`` and
+    ``rowwise_sumsq_stream``, ``odil_tpu/ops/rowwise.py:827-870``)."""
 
     @staticmethod
     def forward(ctx, cfg, *tensors):
-        model, nterms, hist, nf, np_, nd = cfg
+        model, nterms, hist, nf, np_, nd, stream = cfg
         fields, params = tensors[:nf], tensors[nf : nf + np_]
         data, consts = tensors[nf + np_ : nf + np_ + nd], tensors[nf + np_ + nd :]
         ctx.cfg = cfg
         ctx.save_for_backward(*tensors)
-        return _forward(model, nterms, hist, fields, params, data, consts)
+        return _forward(model, nterms, hist, fields, params, data, consts, stream)
 
     @staticmethod
     def backward(ctx, grad_sums):
-        model, nterms, hist, nf, np_, nd = ctx.cfg
+        model, nterms, hist, nf, np_, nd, stream = ctx.cfg
         tensors = ctx.saved_tensors
         fields, params = tensors[:nf], tensors[nf : nf + np_]
         data, consts = tensors[nf + np_ : nf + np_ + nd], tensors[nf + np_ + nd :]
-        dfields, dparams, _ = _backward(model, nterms, hist, fields, params, data, consts, grad_sums)
+        dfields, dparams, _ = _backward(model, nterms, hist, fields, params, data, consts, grad_sums, False, stream)
         return (None,) + tuple(dfields) + tuple(dparams) + (None,) * (len(data) + len(consts))
 
 
@@ -530,13 +581,6 @@ class _RowwiseSumsq(torch.autograd.Function):
 def _wide(fields):
     """64-bit fields: the plain route, by the JAX package's rule."""
     return fields[0].element_size() > 4
-
-
-def _refuse_stream(stream):
-    if stream:
-        raise NotImplementedError(
-            "stream=True: the streaming kernels (_forward_stream/_backward_stream) are not ported yet (ROADMAP §2)"
-        )
 
 
 def rowwise_loss_terms(
@@ -549,15 +593,15 @@ def rowwise_loss_terms(
     the sums off).  ``block_rows`` and ``halox`` are accepted for the JAX
     package's signature: one CUDA design serves every block size and plane
     width, so they change nothing.  64-bit fields take the plain version,
-    differentiated by autograd.  ``stream=True`` raises (not ported)."""
-    _refuse_stream(stream)
+    differentiated by autograd.  ``stream=True`` with ``hist >= 1`` takes the
+    streaming pair."""
     model = _as_model(row_fn)
     fields, params, data, consts = tuple(fields), tuple(params), tuple(data), tuple(consts)
     denom = 1.0 if _sums else float(fields[0].numel())
     if _wide(fields):
         sums = _forward_plain(model, nterms, hist, fields, params, data, consts)
     else:
-        cfg = (model, nterms, hist, len(fields), len(params), len(data))
+        cfg = (model, nterms, hist, len(fields), len(params), len(data), bool(stream and hist >= 1))
         sums = _RowwiseSumsq.apply(cfg, *fields, *params, *data, *consts)
     return [sums[k] / denom for k in range(nterms)]
 

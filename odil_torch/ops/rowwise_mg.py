@@ -17,6 +17,17 @@ the cotangents (dt0, dP) by linearity of the reconstruction:
   dt0[i] = factor0 * dfine[i]
   dP[c]  = Wx^T @ (dfine[2c] + .5 dfine[2c-1] + .5 dfine[2c+1]) @ Wy
 
+Two-level fusion (``t1s``/``factors1`` of ``rowwise_mg_loss_and_grads``,
+the ``lvl2`` form of the JAX package's ``_backward_mg``): ``coarse`` is then
+the level-2 partial P2 (Tc2, X//4, Y//4), and the level-1 rows
+
+  P1[c] = factor1 * t1[c] + W1x @ blend_t(P2[c//2], P2[c//2+1]) @ W1y^T
+
+are rebuilt inside the kernel as well.  The kernel's coarse cotangent is
+then dP1, split by linearity into dt1 = factor1 * dP1 and dP2 (the same
+transposed t-blend and prolongation one level down): ``_split_dp1`` in the
+plain version, ``mg_coarse_grad_kernel`` run once more on the card.
+
 Each entry point dispatches on the device of its tensors: a CUDA tensor
 launches the hand-written kernel of ``csrc/rowwise_mg.cu`` (which exists for
 row models that carry a CUDA counterpart, and raises otherwise), a CPU
@@ -88,6 +99,34 @@ def _recon_rows(t0, P, rows, Wx, Wy, f0):
     return f0 * t0[r] + torch.matmul(Wx, torch.matmul(c, Wy.T))
 
 
+def _recon_p1(t1, P2, rows, W1x, W1y, f1):
+    """Level-1 rows ``rows`` rebuilt from (t1, P2), in the operation order of
+    ``odil_tpu/ops/rowwise_mg._recon_p1_xla``."""
+    return _recon_rows(t1, P2, rows, W1x, W1y, f1)
+
+
+def _recon_rows_2(t0, t1, P2, rows, Wx, Wy, W1x, W1y, f0, f1):
+    """Fine rows rebuilt from (t0, t1, P2) through the level-1 rows (levels
+    2 -> 1 -> 0), in the operation order of ``_recon_rows_xla_2``."""
+    P1 = _recon_p1(t1, P2, range(t1.shape[0]), W1x, W1y, f1)
+    return _recon_rows(t0, P1, rows, Wx, Wy, f0)
+
+
+def _split_dp1(dP1s, f1s, W1x, W1y):
+    """(dt1, dP2) from the level-1 cotangent by linearity of the level-1
+    rebuild: dt1 = f1 * dP1, dP2 = the transposed t-blend of W1x^T @ dP1 @ W1y
+    (the epilogue of ``odil_tpu/ops/rowwise_mg.rowwise_mg_loss_and_grads``,
+    :947-959, in its operation order)."""
+    dt1 = tuple(f * d for f, d in zip(f1s, dP1s))
+    dP2 = []
+    for d in dP1s:
+        dd = torch.einsum("xa,txy,yb->tab", W1x, d, W1y)
+        ev, odd = dd[0::2], dd[1::2]
+        zeros = torch.zeros((1,) + tuple(dd.shape[1:]), dtype=dd.dtype, device=dd.device)
+        dP2.append(ev + 0.5 * torch.cat([zeros, odd], 0) + 0.5 * torch.cat([odd, zeros], 0))
+    return dt1, tuple(dP2)
+
+
 def _down_rows(dfine, Wx, Wy, Tc):
     """dP[c] = Wx^T @ (0.5 dfine[2c-1] + dfine[2c] + 0.5 dfine[2c+1]) @ Wy."""
     d = dfine[0::2].clone()
@@ -101,11 +140,21 @@ def _down_rows(dfine, Wx, Wy, Tc):
 # -- Plain PyTorch versions ----------------------------------------------------
 
 
-def _fines(t0s, coarse, f0s):
-    """The fine fields rebuilt from (t0s, coarse), and (Wx, Wy)."""
+def _fines(t0s, coarse, f0s, lvl2=None):
+    """The fine fields rebuilt from (t0s, coarse) -- or at two levels from
+    (t0s, t1s, P2 = coarse) with lvl2 = (t1s, f1s) -- and (Wx, Wy)."""
     T = t0s[0].shape[0]
-    Wx, Wy = _interp_matrices(*coarse[0].shape[1:], t0s[0].dtype, t0s[0].device)
-    return [_recon_rows(t, c, range(T), Wx, Wy, f) for t, c, f in zip(t0s, coarse, f0s)], Wx, Wy
+    if lvl2 is None:
+        Wx, Wy = _interp_matrices(*coarse[0].shape[1:], t0s[0].dtype, t0s[0].device)
+        return [_recon_rows(t, c, range(T), Wx, Wy, f) for t, c, f in zip(t0s, coarse, f0s)], Wx, Wy
+    t1s, f1s = lvl2
+    Wx, Wy = _interp_matrices(*t1s[0].shape[1:], t0s[0].dtype, t0s[0].device)
+    W1x, W1y = _interp_matrices(*coarse[0].shape[1:], t0s[0].dtype, t0s[0].device)
+    fines = [
+        _recon_rows_2(t0, t1, P2, range(T), Wx, Wy, W1x, W1y, f0, f1)
+        for t0, t1, P2, f0, f1 in zip(t0s, t1s, coarse, f0s, f1s)
+    ]
+    return fines, Wx, Wy
 
 
 def _forward_mg_plain(model, nterms, hist, f0s, t0s, coarse, consts):
@@ -114,15 +163,18 @@ def _forward_mg_plain(model, nterms, hist, f0s, t0s, coarse, consts):
     return _forward_plain(model, nterms, hist, fines, (), (), consts)
 
 
-def _backward_mg_plain(model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums):
+def _backward_mg_plain(model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums, lvl2=None):
     """Plain version of the backward kernel: gradients of sum_k g[k] * S[k]
-    w.r.t. (t0s, coarse), and the sums S when ``with_sums``."""
+    w.r.t. (t0s, coarse), and the sums S when ``with_sums``.  With lvl2 =
+    (t1s, f1s), ``coarse`` is the level-2 partial and the coarse cotangent
+    returned is the level-1 one, dP1 (the TPU kernel's ``dc`` output)."""
     with torch.no_grad():
-        fines, Wx, Wy = _fines(t0s, coarse, f0s)
+        fines, Wx, Wy = _fines(t0s, coarse, f0s, lvl2)
     dfines, _, sums = _backward_plain(model, nterms, hist, fines, (), (), consts, g, with_sums)
+    Tc = (fines[0].shape[0] - 1) // 2 + 1
     with torch.no_grad():
         dt0 = tuple(f * d for f, d in zip(f0s, dfines))
-        dP = tuple(_down_rows(d, Wx, Wy, coarse[0].shape[0]) for d in dfines)
+        dP = tuple(_down_rows(d, Wx, Wy, Tc) for d in dfines)
     return dt0, dP, sums
 
 
@@ -150,22 +202,33 @@ class _MgArgs(ctypes.Structure):
     ]
 
 
+class _Mg2Args(ctypes.Structure):
+    """Mirror of ``struct Mg2Args`` in csrc/rowwise_mg.cu (the two-level
+    kernel's arguments)."""
+
+    _fields_ = [("base", _MgArgs), ("t1", ctypes.c_void_p * 3), ("dP2", ctypes.c_void_p * 3)] + [
+        (n, ctypes.c_int) for n in ("Tc2", "CX2", "CY2")
+    ] + [("f1", ctypes.c_float * 3)]
+
+
 def _library():
     lib = _build.load("rowwise_mg")
     if not getattr(lib, "_odil_typed", False):
-        lib.odil_mg_args_size.argtypes = []
-        lib.odil_mg_args_size.restype = ctypes.c_int
         lib.odil_mg_num_blocks.argtypes = [ctypes.c_int] * 4
         lib.odil_mg_num_blocks.restype = ctypes.c_int
         lib.odil_cuda_error_string.argtypes = [ctypes.c_int]
         lib.odil_cuda_error_string.restype = ctypes.c_char_p
         lib.odil_mg_forward.argtypes = [ctypes.POINTER(_MgArgs), ctypes.c_void_p]
         lib.odil_mg_forward.restype = ctypes.c_int
-        lib.odil_mg_backward.argtypes = [ctypes.POINTER(_MgArgs), ctypes.c_int, ctypes.c_void_p]
-        lib.odil_mg_backward.restype = ctypes.c_int
-        size = lib.odil_mg_args_size()
-        if size != ctypes.sizeof(_MgArgs):
-            raise RuntimeError(f"MgArgs layout mismatch: C {size} vs ctypes {ctypes.sizeof(_MgArgs)} bytes")
+        for name, struct in (("odil_mg_backward", _MgArgs), ("odil_mg_backward2", _Mg2Args)):
+            getattr(lib, name).argtypes = [ctypes.POINTER(struct), ctypes.c_int, ctypes.c_void_p]
+            getattr(lib, name).restype = ctypes.c_int
+        for name, struct in (("odil_mg_args_size", _MgArgs), ("odil_mg2_args_size", _Mg2Args)):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
+            size = getattr(lib, name)()
+            if size != ctypes.sizeof(struct):
+                raise RuntimeError(f"{struct.__name__} layout mismatch: C {size} vs ctypes {ctypes.sizeof(struct)} bytes")
         lib._odil_typed = True
     return lib
 
@@ -184,17 +247,25 @@ def _check_cuda_inputs(model, t0s, coarse, consts, hist):
         raise ValueError(f"the CUDA mg kernels take shapes {want}, got {got}")
 
 
-def _launch_args(model, f0s, t0s, coarse, consts, g, dt0, dP, partials, sums, nterms):
+def _launch_args(model, f0s, t0s, coarse, consts, g, dt0, dP, partials, sums, nterms, lvl2=None):
+    """The kernel's argument struct; with lvl2 = (t1s, f1s, dP2) the
+    two-level kernel's (``_Mg2Args``), whose ``coarse`` is P2 and ``dP``
+    receives dP1."""
     T, X, Y = t0s[0].shape
-    Tc, CX, CY = coarse[0].shape
     ptr = lambda ts: (ctypes.c_void_p * 3)(*[t.data_ptr() for t in ts] if ts else [])
-    return _MgArgs(
+    Tc, CX, CY = (coarse if lvl2 is None else lvl2[0])[0].shape
+    args = _MgArgs(
         t0=ptr(t0s), P=ptr(coarse), u_init=consts[0].data_ptr(), u_final=consts[1].data_ptr(),
         g=g.data_ptr() if g is not None else None, dt0=ptr(dt0), dP=ptr(dP),
         partials=partials.data_ptr(), sums=sums.data_ptr(), T=T, X=X, Y=Y, Tc=Tc, CX=CX, CY=CY, slab=_slab(T),
         f0=(ctypes.c_float * 3)(*f0s), inv_f0=(ctypes.c_float * 3)(*[1.0 / f for f in f0s]),
         **_veltracer_scalars(model, nterms),
     )
+    if lvl2 is None:
+        return args
+    t1s, f1s, dP2 = lvl2
+    Tc2, CX2, CY2 = coarse[0].shape
+    return _Mg2Args(base=args, t1=ptr(t1s), dP2=ptr(dP2), Tc2=Tc2, CX2=CX2, CY2=CY2, f1=(ctypes.c_float * 3)(*f1s))
 
 
 def _scratch(lib, t0s):
@@ -247,6 +318,50 @@ def backward_mg_cuda(model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums
 backward_mg_cuda.launches = 0
 
 
+def _check_cuda_inputs2(model, t0s, t1s, P2, consts, hist):
+    _check_veltracer_model(model, hist)
+    if len(t0s) != 3 or len(t1s) != 3 or len(P2) != 3 or len(consts) != 2:
+        raise ValueError("the veltracer CUDA kernel takes 3 fields and 2 const planes")
+    T, X, Y = t0s[0].shape
+    if T % 4 != 1 or T < 5 or X % 4 or Y % 4 or X < 8 or Y < 8:
+        raise ValueError(f"the two-level CUDA mg kernel takes T = 4k+1 >= 5 and X, Y divisible by 4 and >= 8, "
+                         f"got {(T, X, Y)}")
+    _check_cuda_tensors(tuple(t0s) + tuple(t1s) + tuple(P2) + tuple(consts), "mg")
+    Tc = T // 2 + 1
+    want = [(T, X, Y)] * 3 + [(Tc, X // 2, Y // 2)] * 3 + [(Tc // 2 + 1, X // 4, Y // 4)] * 3 + [(X, Y)] * 2
+    got = [tuple(t.shape) for t in tuple(t0s) + tuple(t1s) + tuple(P2) + tuple(consts)]
+    if got != want:
+        raise ValueError(f"the two-level CUDA mg kernel takes shapes {want}, got {got}")
+
+
+def backward_mg2_cuda(model, nterms, hist, f0s, f1s, t0s, t1s, P2, consts, g, with_sums):
+    """CUDA two-level backward kernel (replaces ``_backward_mg`` with
+    ``lvl2``, and the split of its dP1 output): (dt0, dt1, dP2, sums or None)
+    for the loss sum_k g[k] * S[k], on the current stream."""
+    _check_cuda_inputs2(model, t0s, t1s, P2, consts, hist)
+    if any(f == 0.0 for f in f0s):
+        raise ValueError("the CUDA mg kernel needs nonzero level-0 factors")
+    g = g.to(torch.float32).contiguous()
+    if not g.is_cuda or g.numel() < nterms:
+        raise ValueError("g must hold nterms weights on the card")
+    lib = _library()
+    partials, sums = _scratch(lib, t0s)
+    dt0 = tuple(torch.empty_like(t) for t in t0s)
+    dP1 = tuple(torch.empty_like(t) for t in t1s)
+    dP2 = tuple(torch.empty_like(c) for c in P2)
+    args = _launch_args(model, f0s, t0s, P2, consts, g, dt0, dP1, partials, sums, nterms, lvl2=(t1s, f1s, dP2))
+    err = lib.odil_mg_backward2(
+        ctypes.byref(args), int(bool(with_sums)), torch.cuda.current_stream(t0s[0].device).cuda_stream
+    )
+    _raise_on(lib, err, "odil_mg_backward2")
+    backward_mg2_cuda.launches += 1
+    dt1 = tuple(f * d for f, d in zip(f1s, dP1))
+    return dt0, dt1, dP2, (sums[:nterms] if with_sums else None)
+
+
+backward_mg2_cuda.launches = 0
+
+
 # -- Dispatch ------------------------------------------------------------------
 
 
@@ -262,6 +377,19 @@ def _backward_mg(model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums=Fal
             model, nterms, hist, f0s, _contig(t0s), _contig(coarse), _contig(consts), g, with_sums
         )
     return _backward_mg_plain(model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums)
+
+
+def _backward_mg2(model, nterms, hist, f0s, f1s, t0s, t1s, P2, consts, g, with_sums=False):
+    """(dt0, dt1, dP2, sums or None) of the two-level fusion."""
+    if t0s[0].is_cuda:
+        return backward_mg2_cuda(
+            model, nterms, hist, f0s, f1s, _contig(t0s), _contig(t1s), _contig(P2), _contig(consts), g, with_sums
+        )
+    dt0, dP1, sums = _backward_mg_plain(model, nterms, hist, f0s, t0s, P2, consts, g, with_sums, lvl2=(t1s, f1s))
+    with torch.no_grad():
+        W1x, W1y = _interp_matrices(*P2[0].shape[1:], P2[0].dtype, P2[0].device)
+        dt1, dP2 = _split_dp1(dP1, f1s, W1x, W1y)
+    return dt0, dt1, dP2, sums
 
 
 class _SumsqMG(torch.autograd.Function):
@@ -288,13 +416,28 @@ class _SumsqMG(torch.autograd.Function):
 # -- Entry points --------------------------------------------------------------
 
 
-def rowwise_mg_loss_and_grads(row_fn, t0s, coarse, factors0, consts=(), nterms=1, hist=1):
+def rowwise_mg_loss_and_grads(row_fn, t0s, coarse, factors0, consts=(), nterms=1, hist=1, t1s=None, factors1=None):
     """One-pass fused loss AND gradients for the training step.
 
     Returns (terms, (dt0, dcoarse, ())) where terms[k] = mean(residual_k^2)
     and the gradients are of ``sum_k terms[k]``.  Not differentiable (it IS
-    the gradient); for a differentiable loss use ``rowwise_loss_terms_mg``."""
+    the gradient); for a differentiable loss use ``rowwise_loss_terms_mg``.
+
+    t1s/factors1 (with ``coarse`` the level-2 partial P2) switch on the
+    two-level fusion: returns (terms, (dt0, dt1, dP2, ()))."""
     model = _as_model(row_fn)
+    if t1s is not None:
+        t0s, t1s, P2 = tuple(t0s), tuple(t1s), tuple(coarse)
+        T, X, Y = t0s[0].shape
+        Tc1, CX1, CY1 = t1s[0].shape
+        Tc2, CX2, CY2 = P2[0].shape
+        assert T == 2 * (Tc1 - 1) + 1 and Tc1 == 2 * (Tc2 - 1) + 1, (T, Tc1, Tc2)
+        assert (CX1, CY1) == (X // 2, Y // 2) and (CX2, CY2) == (CX1 // 2, CY1 // 2)
+        assert T > 2 * hist
+        f0s, f1s, cells = tuple(float(f) for f in factors0), tuple(float(f) for f in factors1), T * X * Y
+        g = torch.full((nterms,), 1.0 / cells, dtype=t0s[0].dtype, device=t0s[0].device)
+        dt0, dt1, dP2, sums = _backward_mg2(model, nterms, hist, f0s, f1s, t0s, t1s, P2, consts, g, with_sums=True)
+        return tuple((sums / cells).unbind()), (dt0, dt1, dP2, ())
     t0s, coarse, f0s, cells = _prepare_mg(t0s, coarse, factors0, hist)
     g = torch.full((nterms,), 1.0 / cells, dtype=t0s[0].dtype, device=t0s[0].device)
     dt0, dcoarse, sums = _backward_mg(model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums=True)

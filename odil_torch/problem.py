@@ -2,9 +2,10 @@
 
 PyTorch counterpart of the parts of ``odil_tpu/problem.py`` on the flagship
 path: ``loss_terms`` (:271), ``make_loss_fn`` (:293), the multigrid Horner
-ladder (:49) with the level-1 partial (:129, ``partial_depth=1``), and both
-routes of ``make_loss_grad_fn`` (:316-358): the fused multigrid route
-(:360-425) and the generic one-pass route (:427-569).  Where neither
+ladder (:49) with the level-1 partial (:129, ``partial_depth=1``) or the
+level-2 one (``partial_depth=2``), and both routes of ``make_loss_grad_fn``
+(:316-358): the fused multigrid route (:360-425) and the generic one-pass
+route (:427-569).  Where neither
 applies, ``make_loss_grad_fn`` returns None and the caller differentiates
 ``make_loss_fn`` with autograd, as ``bench.py:111`` does in JAX.
 """
@@ -72,15 +73,18 @@ class Problem:
         self._names = names
         return names, [f[1] if isinstance(f, tuple) else f for f in ff]
 
-    def _flatten_multigrid_batched(self, state, partial_out=None):
+    def _flatten_multigrid_batched(self, state, partial_out=None, partial_depth=1):
         """Flattens groups of identically-shaped MultigridFields to regular
         Fields, running the levels >= 1 of each group as ONE stacked ladder
         (fewer, larger kernel launches) and the finest step per field.
 
         partial_out: optional dict; when given, the ladder stops at level 1
         and partial_out[key] = (term0, factor0, P) with P the level-1
-        partial sum -- the input contract of the MG-fused kernel.  The
-        returned state then keeps those keys as MultigridFields."""
+        partial sum -- the input contract of the MG-fused kernel.  With
+        ``partial_depth=2`` and at least three levels it stops at level 2:
+        partial_out[key] = (term0, factor0, term1, factor1, P2), the input of
+        the two-level fusion (``odil_tpu/problem.py:192``).  The returned
+        state then keeps those keys as MultigridFields."""
         domain = self.domain
         groups = defaultdict(list)
         for key, f in state.fields.items():
@@ -109,11 +113,13 @@ class Problem:
                 for f, k in zip(fs, keys):
                     new_fields[k] = Field(f.terms[0].array * factors[0], loc=f0.loc)
                 continue
-            stacked = [torch.stack([f.terms[lvl].array for f in fs]) for lvl in range(1, nlvl)]
-            acc = _horner_ladder(stacked, factors[1:], "." + loc_field, method)
+            stop = 2 if (partial_out is not None and partial_depth >= 2 and nlvl >= 3) else 1
+            stacked = [torch.stack([f.terms[lvl].array for f in fs]) for lvl in range(stop, nlvl)]
+            acc = _horner_ladder(stacked, factors[stop:], "." + loc_field, method)
             for i, (f, k) in enumerate(zip(fs, keys)):
                 if partial_out is not None:
-                    partial_out[k] = (f.terms[0].array, factors[0], acc[i])
+                    head = sum(((f.terms[lvl].array, factors[lvl]) for lvl in range(stop)), ())
+                    partial_out[k] = head + (acc[i],)
                 else:
                     fine = f.terms[0].array * factors[0] + interp_to_finer(acc[i], loc_field, method)
                     new_fields[k] = Field(fine, loc=f0.loc)
@@ -147,7 +153,8 @@ class Problem:
     def make_loss_grad_fn(self, state):
         """``fn(arrays, tracers) -> ((loss, (terms, norms)), grads)``, the
         most fused route first: (1) the operator's fused multigrid pass
-        (``operator.loss_and_grads`` on the level-1 partials); (2) the
+        (``operator.loss_and_grads`` on the level-1 partials, or the level-2
+        ones where its ``partial_depth`` asks for two levels); (2) the
         generic one-pass route for any operator whose kernel terms come
         through ``ctx.rowwise_terms``.  None when neither applies (no fused
         hook or no partials, no kernel call, a streaming call, or a dtype
@@ -173,23 +180,31 @@ class Problem:
             tuple(tuple(v[0].shape) for v in probe.values()), self.domain.dtype
         ):
             return None
+        # Fusion depth: the operator may fuse two Horner steps (a callable
+        # decides per shapes and dtype); fewer than three levels give the
+        # depth-1 tuples all the same (odil_tpu/problem.py:379-394).
         depth = getattr(fused, "partial_depth", 1)
         if callable(depth):
             depth = depth(tuple(tuple(v[0].shape) for v in probe.values()), self.domain.dtype)
-        if depth != 1:
-            raise NotImplementedError("odil_torch: only partial_depth=1 is ported")
+        if depth >= 2:
+            probe = {}
+            self._flatten_multigrid_batched(self.state_from_arrays(arrays0), partial_out=probe, partial_depth=2)
         keys = list(probe)
-        factors = {k: v[1] for k, v in probe.items()}
+        factors = {k: v[1:-1:2] for k, v in probe.items()}  # (f0,) or (f0, f1)
         first, pos = {}, 0  # flat index of each field's level-0 term
         for k, f in self._template.fields.items():
             first[k] = pos
             pos += len(field_arrays(f))
-        coarse = [i for i in range(pos) if i not in first.values()]  # what the partials read
+        # The levels that join the kernel as direct inputs, and what the
+        # partials read.
+        direct = {k: [first[k] + lvl for lvl in range(len(factors[k]))] for k in keys}
+        taken = {i for ids in direct.values() for i in ids} | set(first.values())
+        coarse = [i for i in range(pos) if i not in taken]
 
         def prologue(*arrs):
             partials = {}
-            self._flatten_multigrid_batched(self.state_from_arrays(arrs), partial_out=partials)
-            return tuple(partials[k][2] for k in keys)
+            self._flatten_multigrid_batched(self.state_from_arrays(arrs), partial_out=partials, partial_depth=depth)
+            return tuple(partials[k][-1] for k in keys)
 
         graphed = []  # the prologue's CUDA graphs, captured at the first call on the card
 
@@ -203,17 +218,21 @@ class Problem:
                 with torch.enable_grad():
                     Ps = prologue(*leaves)
             ctx = Context(self.domain, self.state_from_arrays(arrays), extra=self.extra, tracers=tracers)
-            ctx.mg_partials = {k: (arrays[first[k]].detach(), factors[k], P.detach()) for k, P in zip(keys, Ps)}
-            terms, dparts = fused(ctx)
+            ctx.mg_partials = {
+                k: sum(((arrays[i].detach(), f) for i, f in zip(direct[k], factors[k])), ()) + (P.detach(),)
+                for k, P in zip(keys, Ps)
+            }
+            terms, dparts = fused(ctx)  # dparts[k] = (dt0, dP) or (dt0, dt1, dP2)
             tv = torch.stack(list(terms))
             loss, norms = tv.sum(), list(torch.sqrt(tv).unbind())
-            dP = [dparts[k][1] for k in keys]
+            dP = [dparts[k][-1] for k in keys]
             if graphed:
                 grads = graphed[0].backward(dP)
             else:
                 grads = list(torch.autograd.grad(Ps, leaves, grad_outputs=dP, allow_unused=True))
             for k in keys:
-                grads[first[k]] = dparts[k][0]
+                for i, d in zip(direct[k], dparts[k][:-1]):
+                    grads[i] = d
             grads = [torch.zeros_like(a) if g is None else g for a, g in zip(arrays, grads)]
             return (loss, (list(terms), norms)), grads
 

@@ -399,3 +399,194 @@ def test_cuda_1d_route_matches_cpu_route(cuda, which):
             _close(a, b, 1e-5, 0.0)
         for a, b in zip(ggrads, cgrads):
             _close(a, b, 1e-4, 1e-6)
+
+
+# -- The streaming pair (stream=True) ---------------------------------------------
+
+
+def _counts():
+    return dict(fwd=trw.forward_cuda.launches, bwd=trw.backward_cuda.launches,
+                sfwd=trw.forward_stream_cuda.launches, sbwd=trw.backward_stream_cuda.launches)
+
+
+def _check_kernels(fwd, bwd, plain_fwd, plain_bwd, nterms, nparams):
+    """A forward and a backward (sums on and off) against their plain versions."""
+    for with_sums in (True, False):
+        kd, kp, ks = bwd(with_sums)
+        pd, pp, ps = plain_bwd(with_sums)
+        assert len(kp) == len(pp) == nparams
+        for a, b in zip(list(kd) + list(kp), list(pd) + list(pp)):
+            _close(a, b, 1e-4, 1e-6)
+        if with_sums:
+            _close(ks, ps, 1e-5, 0.0)
+        else:
+            assert ks is None
+    _close(fwd(), plain_fwd(), 1e-5, 0.0)
+
+
+@pytest.mark.parametrize("shape", [(9, 16, 16), (8, 16, 16), (5, 4, 4), (2, 3, 5), (7, 8, 36), (65, 64, 64)])
+def test_stream_kernels_match_plain(cuda, shape):
+    """The veltracer streaming kernels (one slab of all T rows) against their
+    plain versions: T even and odd down to 2, narrow and wide planes."""
+    model = _model(K)
+    fields, consts = _fields(cuda, *shape)
+    g = torch.linspace(0.5, 1.5, 6, device=cuda) / fields[0].numel()
+    before = _counts()
+    _check_kernels(
+        lambda: trw.forward_stream_cuda(model, 6, 1, fields, (), (), consts),
+        lambda s: trw.backward_stream_cuda(model, 6, 1, fields, (), (), consts, g, s),
+        lambda: trw._forward_plain(model, 6, 1, fields, (), (), consts),
+        lambda s: trw._backward_plain(model, 6, 1, fields, (), (), consts, g, s), 6, 0,
+    )
+    after = _counts()
+    assert (after["sfwd"] - before["sfwd"], after["sbwd"] - before["sbwd"]) == (1, 2)
+    assert (after["fwd"], after["bwd"]) == (before["fwd"], before["bwd"])
+
+
+@pytest.mark.parametrize("name", ["heat", "heat_lane", "heat_true_k", "wave"])
+@pytest.mark.parametrize("shape", [(64, 64), (7, 5), (2, 3), (40, 300), (33, 257)])
+def test_1d_stream_kernels_match_plain(cuda, name, shape):
+    """The heat and wave streaming kernels (30-cell tiles in one warp, one
+    slab of all T rows) against their plain versions."""
+    model, nterms, hist, fields, params, data, consts = _row_case(name, cuda, *shape)
+    g = torch.linspace(0.5, 1.5, nterms, device=cuda) / fields[0].numel()
+    _check_kernels(
+        lambda: trw.forward_stream_cuda(model, nterms, hist, fields, params, data, consts),
+        lambda s: trw.backward_stream_cuda(model, nterms, hist, fields, params, data, consts, g, s),
+        lambda: trw._forward_plain(model, nterms, hist, fields, params, data, consts),
+        lambda s: trw._backward_plain(model, nterms, hist, fields, params, data, consts, g, s), nterms, len(params),
+    )
+
+
+def test_stream_kernels_repeat_their_bits(cuda):
+    """No atomics: the streaming backward+sums of veltracer and heat give the
+    same bits call after call."""
+    fields, consts = _fields(cuda, 33, 64, 96)
+    g = torch.full((6,), 1.0 / fields[0].numel(), device=cuda)
+    hm, hn, hh, hf, hp, hd, hc = _row_case("heat", cuda, 256, 512)
+    hg = torch.full((hn,), 1.0 / hf[0].numel(), device=cuda)
+    outs = []
+    for _ in range(3):
+        kd, _, ks = trw.backward_stream_cuda(_model(K), 6, 1, fields, (), (), consts, g, True)
+        hd_, hp_, hs = trw.backward_stream_cuda(hm, hn, hh, hf, hp, hd, hc, hg, True)
+        outs.append(_digest(list(kd) + [ks] + list(hd_) + list(hp_) + [hs]))
+    assert outs[0] == outs[1] == outs[2]
+
+
+@pytest.mark.parametrize("which", ["veltracer", "heat", "wave"])
+def test_cuda_stream_route_matches_cpu_route(cuda, which):
+    """rowwise_loss_terms(stream=True) through autograd on the card: one
+    stream forward and one stream backward (sums off), no slabbed row
+    kernel; the CPU route's terms and gradients."""
+    results = []
+    for device in (cuda, torch.device("cpu")):
+        if which == "veltracer":
+            model, nterms, hist, (fields, consts), params, data = _model(K), 6, 1, _fields(device, 17, 32, 40), (), ()
+        else:
+            model, nterms, hist, fields, params, data, consts = _row_case(which, device, 48, 70)
+        leaves = [t.clone().requires_grad_(True) for t in tuple(fields) + tuple(params)]
+        before = _counts()
+        terms = trw.rowwise_loss_terms(model, leaves[: len(fields)], params=leaves[len(fields):], data=data,
+                                       consts=consts, nterms=nterms, hist=hist, stream=True)
+        grads = torch.autograd.grad(sum(terms), leaves)
+        after = _counts()
+        want = (1, 1) if device.type == "cuda" else (0, 0)
+        assert (after["sfwd"] - before["sfwd"], after["sbwd"] - before["sbwd"]) == want
+        assert (after["fwd"], after["bwd"]) == (before["fwd"], before["bwd"])
+        results.append((terms, grads))
+    (kt, kg), (pt, pg) = results
+    for a, b in zip(kt, pt):
+        _close(a, b, 1e-5, 0.0)
+    for a, b in zip(kg, pg):
+        _close(a, b, 1e-4, 1e-6)
+
+
+# -- Two-level fusion (the lvl2 form of _backward_mg) ------------------------------
+
+
+def _inputs2(device, T=17, X=64, Y=48, seed=19):
+    rng = np.random.default_rng(seed)
+    mk = lambda *shape: torch.as_tensor((0.3 * rng.normal(size=shape)).astype(np.float32), device=device)
+    Tc = T // 2 + 1
+    t0s = tuple(mk(T, X, Y) for _ in range(3))
+    t1s = tuple(mk(Tc, X // 2, Y // 2) for _ in range(3))
+    P2 = tuple(mk(Tc // 2 + 1, X // 4, Y // 4) for _ in range(3))
+    consts = tuple(mk(X, Y) for _ in range(2))
+    return t0s, t1s, P2, consts
+
+
+F1 = (1.3, 0.6, 0.8)
+
+
+@pytest.mark.parametrize("flags", [K, dict(kimp=3.0, kxreg=0.0, ktreg=0.0)], ids=["all_terms", "no_reg"])
+@pytest.mark.parametrize("shape", [(17, 64, 48), (9, 16, 16), (5, 8, 8), (9, 8, 36), (13, 16, 40), (65, 256, 256)])
+def test_lvl2_kernel_matches_plain(cuda, shape, flags):
+    """The two-level backward (with and without the sums; dt0, dt1 and dP2)
+    against the plain lvl2 backward with the split of dP1, on planes down to
+    8 x 8 (two level-2 cells: every tap is an edge extrapolation) and at the
+    flagship shapes."""
+    model = _model(flags)
+    nterms = 2 + (2 if flags["kxreg"] else 0) + (2 if flags["ktreg"] else 0)
+    t0s, t1s, P2, consts = _inputs2(cuda, *shape)
+    f0s = (0.7, 1.1, 0.9)
+    g = torch.linspace(0.5, 1.5, nterms, device=cuda) / t0s[0].numel()
+    for with_sums in (True, False):
+        before = (trmg.backward_mg2_cuda.launches, trmg.backward_mg_cuda.launches)
+        k = trmg.backward_mg2_cuda(model, nterms, 1, f0s, F1, t0s, t1s, P2, consts, g, with_sums)
+        assert (trmg.backward_mg2_cuda.launches, trmg.backward_mg_cuda.launches) == (before[0] + 1, before[1])
+        d0, dP1, ps = trmg._backward_mg_plain(model, nterms, 1, f0s, t0s, P2, consts, g, with_sums, lvl2=(t1s, F1))
+        W1x, W1y = trmg._interp_matrices(shape[1] // 4, shape[2] // 4, torch.float32, cuda)
+        d1, d2 = trmg._split_dp1(dP1, F1, W1x, W1y)
+        for a, b in zip(k[0] + k[1] + k[2], d0 + d1 + d2):
+            _close(a, b, 1e-4, 1e-6)
+        if with_sums:
+            _close(k[3], ps, 1e-5, 0.0)
+        else:
+            assert k[3] is None
+
+
+def test_lvl2_kernel_repeats_its_bits(cuda):
+    t0s, t1s, P2, consts = _inputs2(cuda, 33, 128, 96)
+    g = torch.full((6,), 1.0 / t0s[0].numel(), device=cuda)
+    outs = []
+    for _ in range(3):
+        d0, d1, d2, s = trmg.backward_mg2_cuda(_model(K), 6, 1, (0.7, 1.1, 0.9), F1, t0s, t1s, P2, consts, g, True)
+        outs.append(_digest(list(d0) + list(d1) + list(d2) + [s]))
+    assert outs[0] == outs[1] == outs[2]
+
+
+def test_lvl2_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    t0s, t1s, P2, consts = _inputs2(cuda, 9, 16, 16)
+    g = torch.ones(6, device=cuda)
+    with pytest.raises(ValueError):
+        trmg.backward_mg2_cuda(_model(K), 6, 1, (0.7,) * 3, F1, t0s, t1s, P2[:2], consts, g, True)
+    with pytest.raises(ValueError):
+        trmg.backward_mg2_cuda(_model(K), 6, 1, (0.7,) * 3, F1, t0s, t1s, tuple(p[:-1] for p in P2), consts, g, True)
+    with pytest.raises(TypeError):
+        trmg.backward_mg2_cuda(_model(K), 6, 1, (0.7,) * 3, F1, t0s, tuple(t.double() for t in t1s), P2, consts, g,
+                               True)
+    with pytest.raises(NotImplementedError):
+        trmg.backward_mg2_cuda(trmg.RowModel(_model(K).row_fn), 6, 1, (0.7,) * 3, F1, t0s, t1s, P2, consts, g, True)
+
+
+def test_cuda_depth2_route_matches_cpu_route(cuda, monkeypatch):
+    """make_loss_grad_fn with the veltracer hook at depth 2 on the card: the
+    two-level kernel once per call behind the graphed level-2 prologue, no
+    depth-1 kernel; the CPU route's terms and gradients call after call."""
+    monkeypatch.setattr(tvt._mg_loss_and_grads, "partial_depth", lambda *a: 2)
+    size = dict(nt=16, nx=32, ny=32)
+    cp, cs, _ = tvt.build(kernel="pallas_mg", device="cpu", **size)
+    gp, gs, _ = tvt.build(kernel="pallas_mg", device=cuda, **size)
+    rng = np.random.default_rng(6)
+    shapes = [tuple(a.shape) for a in cp.domain.arrays_from_state(cs)]
+    states = [[(0.3 * rng.normal(size=s)).astype(np.float32) for s in shapes] for _ in range(2)]
+    cfn, gfn = cp.make_loss_grad_fn(cs), gp.make_loss_grad_fn(gs)
+    before = (trmg.backward_mg2_cuda.launches, trmg.backward_mg_cuda.launches)
+    outs = [gfn(arrays_from_numpy(a, device=cuda), gp.tracers) for a in states]
+    assert (trmg.backward_mg2_cuda.launches, trmg.backward_mg_cuda.launches) == (before[0] + 2, before[1])
+    for arrays, ((_, (gterms, _)), ggrads) in zip(states, outs):
+        (_, (cterms, _)), cgrads = cfn(arrays_from_numpy(arrays, device="cpu"), cp.tracers)
+        for a, b in zip(gterms, cterms):
+            _close(a, b, 1e-5, 0.0)
+        for a, b in zip(ggrads, cgrads):
+            _close(a, b, 1e-4, 1e-6)

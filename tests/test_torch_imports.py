@@ -45,7 +45,10 @@ def test_port_sources_found():
 
 @pytest.mark.parametrize(
     "name",
-    ["odil_torch.models.heat", "odil_torch.models.wave", "odil_torch.nn", "odil_torch.stencil", "odil_torch.problem"],
+    [
+        "odil_torch.models.heat", "odil_torch.models.wave", "odil_torch.nn", "odil_torch.stencil", "odil_torch.problem",
+        "odil_torch.ops.rowwise", "odil_torch.ops.rowwise_mg", "odil_torch.models.veltracer",
+    ],
 )
 def test_new_modules_import_without_jax(name):
     """Each module imports in a fresh interpreter that cannot import jax or

@@ -151,18 +151,21 @@ def test_rowwise_terms_defers_and_records():
 
 def test_streaming_call_raises_and_declines_onepass():
     """An operator asking for the streaming kernels: make_loss_grad_fn
-    declines (as the JAX package does) and the loss raises (not ported)."""
+    declines (as the JAX package does) and the loss, which raised before the
+    streaming pair was ported, runs and equals the ordinary route's."""
     tp, ts, _ = tvt.build(kernel="pallas", device="cpu", **SIZE)
+    loss_fn, x = tp.make_loss_fn(ts)
+    rng = np.random.default_rng(4)
+    x = [torch.as_tensor(0.3 * rng.normal(size=tuple(a.shape)), dtype=a.dtype) for a in x]
+    want, _ = loss_fn(x, tp.tracers)
 
     def op(ctx):
-        d = tvt._kernel_decl(ctx)
-        return ctx.rowwise_terms(d["row_fn"], d["keys"], consts=d["consts"], nterms=d["nterms"], stream=True)
+        return ctx.rowwise_terms(**tvt._kernel_decl(ctx), stream=True)
 
     tp.operator = op
     assert tp.make_loss_grad_fn(ts) is None
-    loss_fn, x = tp.make_loss_fn(ts)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loss_fn(x, tp.tracers)
+    got, _ = loss_fn(x, tp.tracers)
+    assert float(got) == float(want)
 
 
 def test_onepass_folds_non_kernel_terms():
