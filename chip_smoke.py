@@ -74,10 +74,35 @@ Phases, any failure exits non-zero and prints no result:
       one-pass gradients at a seeded random state within rtol 1e-5, atol
       1e-6 * max of depth 1's; one two-level backward+sums per epoch and no
       other kernel; then ms/epoch of depth 1 and depth 2 in turns.
+   j. The halo (per-shard) path: velocity_from_tracer at (64,256,256) on the
+      mesh t:2,x:2 of four shards of the card (``parallel.mesh_from_spec``
+      with the card four times), ``make_loss_grad_fn(halo=True)`` with
+      ``halo_fuse="generic"`` and ``"mg"`` (the route asserted: a None or
+      another route fails), each against ``ref_velt_256.csv`` as in a. and
+      with epoch 0 within 1e-5 of a.'s unsharded run (the largest row
+      difference from it printed); one masked per-shard backward+sums (or
+      one local-block mg backward) a shard and epoch and no other kernel; at
+      a seeded random state each route's loss and gradients against the
+      unsharded one-pass of the same kernel family (``pallas`` for the
+      generic route, ``pallas_mg`` for the mg one) within rtol 1e-5, atol
+      1e-6 * max.  The mg route also at (64,512,512), 40 epochs, epoch 0
+      within 1e-5 of the plain operator (shards of the shapes where the TPU
+      takes its local-tiled kernel).
+   k. Loss-only and autograd through ``make_halo_loss_fn`` (one masked
+      forward and one masked backward a shard and epoch), 20 epochs, every
+      row within 1% of j.'s generic run, and its gradients at the trained
+      state against the generic route's.
    The streaming kernels (veltracer at (65,256,256) and (65,64,64), heat and
    wave at 64^2 and 1024^2) and the two-level kernel (t0 (65,256,256),
    t1 (33,128,128), P2 (17,64,64), x3) are held first to their plain
-   versions, as above, and each repeats its bits call after call.
+   versions, as above, and each repeats its bits call after call; so are the
+   per-shard kernels at the shapes of j.'s four shards (their gradients held
+   to the plain version in fp64 within the tolerance plus 4 times the fp32
+   plain version's own distance from it, cell by cell: ``close_floor``): the masked forward,
+   backward+sums and backward on (34,130,256) x3 blocks with a (130,256)
+   mask, and the local-block mg backward on t0 (33,130,256) x3, coarse
+   windows (17,128,128) x3 and heads (1,130,256) x3, for each shard's row
+   offset, own rows and first global column.
 4. Timing: ms/epoch of the training loops with a profiler breakdown of the
    two 256^2 routes and the heat 64^2 route, and each kernel's time (a CUDA
    graph of 50 calls) beside its bound, its plain version's time and its
@@ -147,6 +172,10 @@ TERMS_RTOL, GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-4, 1e-6
 STREAM_EPOCHS_64, HEAT_STREAM_EPOCHS, HEAT_STREAM_EPOCHS_BIG = 50, 100, 10
 # Depth 1 and depth 2 timed in turns: rounds of TURN_EPOCHS epochs each.
 TURNS, TURN_EPOCHS = 8, 100
+# The halo path: four shards of the card on the mesh t:2,x:2; the loss-only
+# route's epochs and the 512^2 mg route's.
+HALO_SPEC, HALO_PART, HALO_SHARDS = "t:2,x:2", {"t": "t", "x": "x"}, 4
+HALO_LOSS_EPOCHS, HALO_EPOCHS_512 = 20, 40
 
 
 def fail(msg):
@@ -175,6 +204,36 @@ def close_all(got, want):
     """(max |a-b|, all within the gradient tolerance) over pairs of tensors."""
     errs = [close(a, b, GRAD_RTOL, GRAD_ATOL) for a, b in zip(got, want)]
     return max(e for e, _ in errs), all(ok for _, ok in errs)
+
+
+def close_floor(got, want, want64):
+    """(max |got-want| over pairs, all within the gradient tolerance of the
+    fp64 plain version plus 4 times the fp32 plain version's own distance
+    from it, cell by cell, and the reading at the worst cell).  The per-shard
+    kernels' random inputs put a few cells of a million where the gradient
+    is a cancellation that fp32 resolves to 0.3% only (the fp32 plain version
+    is as far from fp64 there); the floor admits those and nothing else.  The
+    worst cell is the one where the kernel's distance from fp64 is largest
+    against the tolerance without the floor: (that distance, the fp32 plain
+    version's distance there, their ratio to the tolerance)."""
+    errs, oks, worst = [], [], (0.0, 0.0, -1.0)
+    for a, b, c in zip(got, want, want64):
+        a, b, c = a.detach().double(), b.detach().double(), c.detach()
+        floor = (b - c).abs()
+        base = GRAD_RTOL * c.abs() + GRAD_ATOL * float(c.abs().max())
+        dist = (a - c).abs()
+        errs.append(float((a - b).abs().max()))
+        oks.append(bool((dist <= base + 4 * floor).all()))
+        r = (dist / base.clamp(min=1e-300)).reshape(-1)
+        i = int(r.argmax())
+        if float(r[i]) > worst[2]:
+            worst = (float(dist.reshape(-1)[i]), float(floor.reshape(-1)[i]), float(r[i]))
+    return max(errs), all(oks), worst
+
+
+def worst_text(w):
+    """The worst cell of close_floor as text."""
+    return f"worst cell vs fp64: kernel {w[0]:.3e}, fp32 plain {w[1]:.3e} ({w[2]:.2f}x the tolerance without the floor)"
 
 
 def rel_err(a, b):
@@ -265,6 +324,8 @@ class Counters:
             "backward_mg2": rmg.backward_mg2_cuda,
             "backward_rows": rw.backward_cuda, "forward_rows": rw.forward_cuda,
             "backward_stream": rw.backward_stream_cuda, "forward_stream": rw.forward_stream_cuda,
+            "backward_halo": rw.backward_halo_cuda, "forward_halo": rw.forward_halo_cuda,
+            "backward_mg_local": rmg.backward_mg_local_cuda,
         }
 
     def zero(self):
@@ -318,9 +379,10 @@ def expect_counts(counts, want, what):
         fail(f"{what}: the launch counters read {counts}, expected {want}")
 
 
-def autograd_loss_grad_fn(torch, problem, state):
-    """The plain route's training step: autograd of make_loss_fn."""
-    loss_fn, _ = problem.make_loss_fn(state)
+def autograd_loss_grad_fn(torch, problem, state, halo=False):
+    """The plain route's training step: autograd of make_loss_fn (per shard
+    with the halo exchange when `halo`)."""
+    loss_fn, _ = problem.make_loss_fn(state, halo=halo)
 
     def fn(arrays, tracers):
         x = [a.detach().requires_grad_(True) for a in arrays]
@@ -328,6 +390,44 @@ def autograd_loss_grad_fn(torch, problem, state):
         return (loss.detach(), aux), torch.autograd.grad(loss, x)
 
     return fn
+
+
+def halo_metas(size):
+    """Per shard of the t:2,x:2 mesh at `size` = (nt, nx, ny) cells: the
+    masked generic block's row offset and own rows, and the local mg block's
+    first global column x0, first global row g0 and own rows, as halo.py
+    derives them for velocity_from_tracer (hist = halox = 1; the generic
+    block is (nt/2 + 2, nx/2 + 2, ny), the mg block (nt/2 + 1, nx/2 + 2, ny))."""
+    nt, nx, _ = size
+    B, XB = nt // 2, nx // 2
+    return [
+        dict(shard=(i_t, i_x), off=i_t * B - 1, r_lo=1 + (i_t > 0), r_hi=B + 2, x0=i_x * XB - 1, g0=i_t * B,
+             mg_r_lo=int(i_t > 0), xs=i_x * XB)
+        for i_t in range(2) for i_x in range(2)
+    ]
+
+
+def halo_inputs(torch, rw, rmg, model, consts, size, rand, dev):
+    """Seeded random per-shard kernel inputs at the shapes of the t:2,x:2
+    shards of `size`, for each shard: (its meta, the masked generic model,
+    blocks and const planes; the local mg model, t0 blocks, coarse window,
+    heads)."""
+    nt, nx, ny = size
+    B, XB = nt // 2, nx // 2
+    mask = torch.ones((XB + 2, ny), device=dev)
+    mask[0] = 0
+    mask[-1] = 0
+    out = []
+    for meta in halo_metas(size):
+        cs = tuple(torch.nn.functional.pad(c[meta["xs"] : meta["xs"] + XB], (0, 0, 1, 1)) for c in consts)
+        hm = rw.halo_model(model, mask, meta["off"], nt + 1, meta["r_lo"], meta["r_hi"])
+        fs = tuple(rand(B + 2, XB + 2, ny) for _ in range(3))
+        mm = rw.halo_model(model, mask, meta["g0"], nt + 1, meta["mg_r_lo"], B + 1)
+        t0 = tuple(rand(B + 1, XB + 2, ny) for _ in range(3))
+        P = tuple(rand(B // 2 + 1, nx // 2, ny // 2) for _ in range(3))
+        heads = tuple(rand(1, XB + 2, ny) for _ in range(3))
+        out.append((meta, hm, fs, cs, mm, t0, P, heads))
+    return mask, out
 
 
 def streaming(problem):
@@ -534,6 +634,74 @@ def main():
         (report if with_sums else off_path)[name] = e_g
         del k, k2, p
 
+    # The per-shard kernels at the shapes of the flagship's t:2,x:2 shards,
+    # each shard's meta; the local mg backward also at a 512^2 shard (the
+    # shapes where the TPU takes its local-tiled kernel).
+    hmask, halo_cases = halo_inputs(torch, rw, rmg, model, consts, SIZES["256"], rand, dev)
+    errs = {"forward_halo": 0.0, "backward_halo_sums": 0.0, "backward_halo": 0.0, "backward_mg_local_sums": 0.0}
+    for meta, hm, hfs, hcs, mm, mt0, mP, mh in halo_cases:
+        calls = (
+            lambda: rw.forward_halo_cuda(hm, nterms, 1, hfs, (), (), hcs),
+            lambda: rw.backward_halo_cuda(hm, nterms, 1, hfs, (), (), hcs, g, True),
+            lambda: rw.backward_halo_cuda(hm, nterms, 1, hfs, (), (), hcs, g, False),
+            lambda: rmg.backward_mg_local_cuda(mm, nterms, 1, f0s, mt0, mP, mh, meta["x0"], hcs, g),
+        )
+        first = [c() for c in calls]
+        again = [c() for c in calls]
+        kf, (kd, _, ks), (kd2, _, _), km = first
+        pf = rw._forward_plain(hm, nterms, 1, hfs, (), (), hcs)
+        pd, _, ps = rw._backward_plain(hm, nterms, 1, hfs, (), (), hcs, g, True)
+        pm = rmg._backward_mg_local_plain(mm, nterms, 1, f0s, mt0, mP, mh, meta["x0"], hcs, g)
+        wide = lambda ts: tuple(t.double() for t in ts)
+        hm64 = rw.halo_model(hm.inner, hmask.double(), *hm.halo[1:])
+        mm64 = rw.halo_model(mm.inner, hmask.double(), *mm.halo[1:])
+        qd, _, _ = rw._backward_plain(hm64, nterms, 1, wide(hfs), (), (), wide(hcs), g.double(), False)
+        qm = rmg._backward_mg_local_plain(mm64, nterms, 1, f0s, wide(mt0), wide(mP), wide(mh), meta["x0"], wide(hcs),
+                                          g.double())
+        torch.cuda.synchronize()
+        bits = same_bits(torch, first, again)
+        checks = {
+            "forward_halo": close(kf.double(), pf.double(), TERMS_RTOL, 0.0),
+            "backward_halo_sums": close_floor(kd, pd, qd),
+            "backward_halo": close_floor(kd2, pd, qd),
+            "backward_mg_local_sums": close_floor(km[0] + km[1] + km[2], pm[0] + pm[1] + pm[2], qm[0] + qm[1] + qm[2]),
+        }
+        e_s, ok_s = close(ks.double(), ps.double(), TERMS_RTOL, 0.0)
+        e_ms, ok_ms = close(km[3].double(), pm[3].double(), TERMS_RTOL, 0.0)
+        print(f"per-shard kernels, shard {meta['shard']} (row offset {meta['off']}, own rows {meta['r_lo']}.."
+              f"{meta['r_hi'] - 1}, x0 {meta['x0']}): masked forward max|d sums| {checks['forward_halo'][0]:.3e}, "
+              f"backward+sums max|d sums| {e_s:.3e} max|d dfields| {checks['backward_halo_sums'][0]:.3e}, backward "
+              f"{checks['backward_halo'][0]:.3e}; local mg backward max|d sums| {e_ms:.3e} max|d (dt0, dP, dheads)| "
+              f"{checks['backward_mg_local_sums'][0]:.3e}; the same bits call after call: {bits} {tag}")
+        for k in ("backward_halo_sums", "backward_halo", "backward_mg_local_sums"):
+            print(f"  {k} at shard {meta['shard']}: {worst_text(checks[k][2])}")
+        if not (all(c[1] for c in checks.values()) and ok_s and ok_ms and bits):
+            fail(f"a per-shard kernel disagrees with its plain version or its own bits at shard {meta['shard']}: "
+                 f"{ {k: c[1] for k, c in checks.items()} }, sums {ok_s}/{ok_ms}, bits {bits}")
+        for k, (e, *_) in checks.items():
+            errs[k] = max(errs[k], e)
+        del first, again, pd, pm, qd, qm
+    report.update(errs)
+    _, cases512 = halo_inputs(torch, rw, rmg, row_model("512")[0], row_model("512")[2], SIZES["512"], rand, dev)
+    meta, _, _, hcs512, mm512, mt512, mP512, mh512 = cases512[3]
+    x0_512 = meta["x0"]
+    g512h = torch.full((nterms,), 1.0 / ((SIZES["512"][0] + 1) * SIZES["512"][1] * SIZES["512"][2]), device=dev)
+    k = rmg.backward_mg_local_cuda(mm512, nterms, 1, f0s, mt512, mP512, mh512, meta["x0"], hcs512, g512h)
+    p = rmg._backward_mg_local_plain(mm512, nterms, 1, f0s, mt512, mP512, mh512, meta["x0"], hcs512, g512h)
+    wide = lambda ts: tuple(t.double() for t in ts)
+    q = rmg._backward_mg_local_plain(rw.halo_model(mm512.inner, mm512.halo[0].double(), *mm512.halo[1:]), nterms, 1,
+                                     f0s, wide(mt512), wide(mP512), wide(mh512), meta["x0"], wide(hcs512),
+                                     g512h.double())
+    torch.cuda.synchronize()
+    e_g, ok_g, w_g = close_floor(k[0] + k[1] + k[2], p[0] + p[1] + p[2], q[0] + q[1] + q[2])
+    e_s, ok_s = close(k[3].double(), p[3].double(), TERMS_RTOL, 0.0)
+    print(f"local mg backward at {tuple(mt512[0].shape)}, shard {meta['shard']}: max|d sums| {e_s:.3e}, "
+          f"max|d (dt0, dP, dheads)| {e_g:.3e}; {worst_text(w_g)} {tag}")
+    if not (ok_g and ok_s):
+        fail(f"the local mg backward disagrees with its plain version at {tuple(mt512[0].shape)}")
+    report["backward_mg_local_sums_512"] = e_g
+    del k, p, q, cases512
+
     # The mg backward+sums at 512^2: the shapes of the TPU's x-tiled one-pass.
     model512, nterms512, consts512 = row_model("512")
     n, x, y = SIZES["512"]
@@ -685,6 +853,7 @@ def main():
     opt, losses, chunk_ms = train(torch, Adam, grad_mg, problem.domain.arrays_from_state(state), args.epochs)
     expect_counts(counters.read(), dict(none, backward_mg=len(losses)), "pallas_mg training at 256^2")
     launches["backward_mg_sums"] = counters.read()["backward_mg"]
+    losses_unsharded = losses
     _, rel_depth1 = check_rows(losses, ref256, "training (pallas_mg)")
     counts = loss_only(problem, state, opt.x, grad_mg, "pallas_mg", dict(none, forward_mg=1, backward_mg=1))
     launches["forward_mg"], launches["backward_mg"] = counts["forward_mg"], counts["backward_mg"]
@@ -1014,6 +1183,84 @@ def main():
         for d, ts in turns.items()) + f" {tag}")
     del opts, opt2, grad_mg2, problem2, state2
 
+    # j. The halo path on t:2,x:2: four shards of the card.
+    from odil_torch import parallel
+
+    mesh = parallel.mesh_from_spec(HALO_SPEC, devices=[dev] * HALO_SHARDS)
+    halo_losses = {}
+    for fuse, key, base in (("generic", "backward_halo", grad_p), ("mg", "backward_mg_local", grad_mg)):
+        problem_q, state_q, _ = vt.build(*SIZES["256"], kernel="pallas_mg", device=dev, mesh=mesh, partition=HALO_PART)
+        grad_q = problem_q.make_loss_grad_fn(state_q, halo=True, halo_fuse=fuse)
+        if grad_q is None or grad_q.route != fuse:
+            fail(f"make_loss_grad_fn(halo=True, halo_fuse={fuse!r}) gave route "
+                 f"{None if grad_q is None else grad_q.route!r}")
+        x0 = problem_q.domain.arrays_from_state(state_q)
+        counters.zero()
+        opt_q, losses, chunk_ms = train(torch, Adam, grad_q, x0, args.epochs)
+        expect_counts(counters.read(), dict(none, **{key: HALO_SHARDS * len(losses)}), f"halo {fuse} training")
+        launches[f"{key}_sums" if key == "backward_halo" else "backward_mg_local_sums"] = counters.read()[key]
+        rows, rel = check_rows(losses, ref256, f"training (halo {fuse}, {HALO_SPEC}, {HALO_SHARDS} shards)")
+        ref_rows = trajectory_rows(losses_unsharded)
+        diff = {e: abs(rows[e] - ref_rows[e]) / abs(ref_rows[e]) for e in rows if e in ref_rows}
+        worst = max(diff, key=diff.get)
+        print(f"  halo {fuse} vs the unsharded pallas_mg run: epoch 0 {rows[0]!r} vs {ref_rows[0]!r} (rel "
+              f"{diff[0]:.2e}); largest row difference epoch {worst}: {rows[worst]!r} vs {ref_rows[worst]!r} "
+              f"({100 * diff[worst]:.4f}%) {tag}")
+        if diff[0] > 1e-5:
+            fail(f"halo {fuse}: epoch-0 loss {rows[0]} differs from the unsharded route's {ref_rows[0]} (limit 1e-5)")
+        x_r = [rand(*a.shape) / 3 for a in x0]
+        (l_q, _), g_q = grad_q(x_r, problem_q.tracers)
+        g_q = [a.clone() for a in g_q]
+        (l_u, _), g_u = base(x_r, problem.tracers)
+        errs = [close(a, b, 1e-5, GRAD_ATOL) for a, b in zip(g_q, g_u)]
+        print(f"  halo {fuse} vs the unsharded {'pallas' if fuse == 'generic' else 'pallas_mg'} one-pass at a random "
+              f"state: loss {float(l_q)!r} vs {float(l_u)!r}, max|dgrad| {max(e for e, _ in errs):.3e} {tag}")
+        if abs(float(l_q) - float(l_u)) > TERMS_RTOL * abs(float(l_u)) or not all(ok for _, ok in errs):
+            fail(f"halo {fuse}: the one-pass loss and gradients leave the unsharded route's (rtol 1e-5, "
+                 f"atol 1e-6 * max)")
+        loops[f"halo {fuse} 256"] = (opt_q, steady_ms(chunk_ms))
+        halo_losses[fuse] = (losses, grad_q)
+        del g_q, g_u, x_r
+
+    problem_q, state_q, _ = vt.build(*SIZES["512"], kernel="pallas_mg", device=dev, mesh=mesh, partition=HALO_PART)
+    grad_q = problem_q.make_loss_grad_fn(state_q, halo=True, halo_fuse="mg")
+    if grad_q is None or grad_q.route != "mg":
+        fail("make_loss_grad_fn(halo=True, halo_fuse='mg') declined at 512^2")
+    counters.zero()
+    opt_q, losses, chunk_ms = train(torch, Adam, grad_q, problem_q.domain.arrays_from_state(state_q), HALO_EPOCHS_512)
+    expect_counts(counters.read(), dict(none, backward_mg_local=HALO_SHARDS * len(losses)), "halo mg 512")
+    launches["backward_mg_local_sums_512"] = counters.read()["backward_mg_local"]
+    rel0 = abs(losses[0] - zero_loss) / abs(zero_loss)
+    ms, n = steady_ms(chunk_ms)
+    print(f"training (halo mg 512, {HALO_SPEC}): {len(losses)} epochs, epoch-0 loss {losses[0]!r} vs the plain "
+          f"operator's {zero_loss!r} (rel {rel0:.2e}); final {losses[-1]!r}; {ms:.4f} ms/epoch {tag}")
+    if rel0 > 1e-5:
+        fail(f"halo mg 512: epoch-0 loss {losses[0]} differs from the plain operator's {zero_loss} (limit 1e-5)")
+    loops["halo mg 512"] = (opt_q, (ms, n))
+    del opt_q, grad_q, problem_q, state_q
+
+    # k. The halo loss-only route: autograd of make_halo_loss_fn.
+    problem_q, state_q, _ = vt.build(*SIZES["256"], kernel="pallas_mg", device=dev, mesh=mesh, partition=HALO_PART)
+    counters.zero()
+    opt_q, losses, chunk_ms = train(torch, Adam, autograd_loss_grad_fn(torch, problem_q, state_q, halo=True),
+                                    problem_q.domain.arrays_from_state(state_q), HALO_LOSS_EPOCHS)
+    n = HALO_SHARDS * len(losses)
+    expect_counts(counters.read(), dict(none, forward_halo=n, backward_halo=n), "halo loss-only training")
+    launches["forward_halo"], launches["backward_halo"] = n, n
+    against_route(losses, halo_losses["generic"][0], "training (halo loss-only vs the halo generic route)", every=10)
+    grad_q = halo_losses["generic"][1]
+    x = [a.detach().clone().requires_grad_(True) for a in opt_q.x]
+    loss_e, _ = problem_q.make_loss_fn(state_q, halo=True)[0](x, problem_q.tracers)
+    grads_e = torch.autograd.grad(loss_e, x)
+    (loss_t, _), grads_t = grad_q(opt_q.x, problem_q.tracers)
+    e, ok = close_all(grads_e, grads_t)
+    print(f"halo loss-only vs the halo generic route at the trained state: loss {float(loss_e)!r} vs "
+          f"{float(loss_t)!r}, max|dgrad| {e:.3e} {tag}")
+    if abs(float(loss_e) - float(loss_t)) > TERMS_RTOL * abs(float(loss_t)) or not ok:
+        fail("the halo loss-only route and the halo generic route disagree")
+    loops["halo loss-only 256"] = (opt_q, steady_ms(chunk_ms))
+    del opt_q, problem_q, state_q, grads_e, grads_t, x
+
     idle = [name for name in report if launches.get(name, 0) < 1]
     if idle:
         fail(f"kernels not launched on their paths: {idle}")
@@ -1022,7 +1269,8 @@ def main():
     for route, (o, (ms, n)) in loops.items():
         print(f"training loop ({route}): {ms:.4f} ms/epoch (median of {n} chunks of {CHUNK} epochs "
               f"after the first) {tag}")
-    for route in ("pallas_mg 256", "pallas 256", "heat 64", "stream 256", "pallas_mg depth 2 256"):
+    for route in ("pallas_mg 256", "pallas 256", "heat 64", "stream 256", "pallas_mg depth 2 256", "halo generic 256",
+                  "halo mg 256"):
         o, (ms, _) = loops[route]
         profile_epochs(torch, o, ms, f"({route}) {tag}")
 
@@ -1125,6 +1373,35 @@ def main():
             lambda s=sums: lvl2_plain(s),
             lvl2_in + lvl2_out + 4 * nterms * (2 if sums else 1),
             OPS_BACKWARD * cells + OPS_LVL2_PER_COARSE * t1s[0].numel(), "odil_tpu/ops/rowwise_mg.py:766", mg_src,
+        )
+
+    # The per-shard kernels at shard (1, 1)'s inputs, and the local mg
+    # backward at the 512^2 shard.
+    meta, hm, hfs, hcs, mm, mt0, mP, mh = halo_cases[3]
+    n_h, h_in = hfs[0].numel(), nbytes(hfs + hcs + (hmask,))
+    timed["forward_halo"] = (
+        lambda: rw.forward_halo_cuda(hm, nterms, 1, hfs, (), (), hcs),
+        lambda: rw._forward_plain(hm, nterms, 1, hfs, (), (), hcs),
+        h_in + 4 * nterms, OPS_ROWS_FORWARD * n_h, "odil_tpu/ops/rowwise_tiled.py:272", rows_src,
+    )
+    for sums, name in ((True, "backward_halo_sums"), (False, "backward_halo")):
+        timed[name] = (
+            lambda s=sums: rw.backward_halo_cuda(hm, nterms, 1, hfs, (), (), hcs, g, s),
+            lambda s=sums: rw._backward_plain(hm, nterms, 1, hfs, (), (), hcs, g, s),
+            h_in + nbytes(hfs) + 4 * nterms * (2 if sums else 1), OPS_ROWS_BACKWARD * n_h,
+            "odil_tpu/ops/rowwise_tiled.py:447", rows_src,
+        )
+    for name, args_, replaced in (
+        ("backward_mg_local_sums", (mm, mt0, mP, mh, meta["x0"], hcs, g), "odil_tpu/ops/rowwise_mg.py:766"),
+        ("backward_mg_local_sums_512", (mm512, mt512, mP512, mh512, x0_512, hcs512, g512h),
+         "odil_tpu/ops/rowwise_mg_local_tiled.py:565"),
+    ):
+        m_, t0_, P_, h_, x0_, cs_, g_ = args_
+        timed[name] = (
+            lambda a=args_: rmg.backward_mg_local_cuda(a[0], nterms, 1, f0s, *a[1:]),
+            lambda a=args_: rmg._backward_mg_local_plain(a[0], nterms, 1, f0s, *a[1:]),
+            nbytes(t0_ + P_ + h_ + cs_ + (m_.halo[0],)) + nbytes(t0_ + P_ + h_) + 8 * nterms,
+            OPS_BACKWARD * t0_[0].numel(), replaced, mg_src,
         )
 
     kernels = []

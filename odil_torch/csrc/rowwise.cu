@@ -51,6 +51,20 @@
 //   * Sums: fp64 partial sums per block, reduced by a second kernel in a
 //     fixed order -- the same bits run to run.
 //
+// The masked per-shard pair (odil_rows_halo_*; rows_kernel<MODE, true>) is
+// the port of the x-tiled pair on an edge-padded extent, the form the halo
+// path (odil_tpu/halo.py:894-899, xpad_masked) runs per device shard:
+//   _forward_tiled  with xpad (:187, pallas_call at :272; _apply_xpad :157-177);
+//   _backward_tiled with xpad (:283, pallas_call at :447).
+// The block is one shard's halo-extended piece of the grid (its own periodic
+// wrap lands only in masked rows and columns), each residual is multiplied by
+// the 0/1 plane mask and the row mask of its row, and the row conditions use
+// global rows (RowHaloArgs: the row offset, the global T, the own rows).  The
+// TPU pads the extended x extent (130 = 128 + 2 for the flagship's x:2
+// shards) up to its tile; here the grid is a ceiling division over the 8x32
+// tiles and every cell is guarded (`own`), so the kernel runs on the
+// unpadded extent and the mask alone does what the padding's mask does.
+//
 // Bound on the H100 (3.35 TB/s HBM): at (65,256,256) x3 fp32 the backward
 // must read the fields (51.1 MB) and the two const planes (0.5 MB) and write
 // dfields (51.1 MB), ~30.7 us; the forward reads ~51.6 MB, ~15.4 us.  The
@@ -58,6 +72,8 @@
 // time, so both are bound by bytes.  The heat and wave instantiations and
 // their bounds are described in rows1d.cuh, heat_row.cuh and wave_row.cuh:
 // heat (two network passes per cell) is bound by arithmetic, wave by bytes.
+
+#include <type_traits>
 
 #include "veltracer_row.cuh"
 #include "heat_row.cuh"
@@ -79,6 +95,17 @@ struct RowArgs {
   // multiply by them.
   float inv_dt, inv_dx, inv_dy, inv_dx2, inv_dy2;
   float kimp, kimp_dx, kxreg, kt;  // kimp_dx = kimp/dx, kt = ktreg/dt
+};
+
+// The masked per-shard launch (odil_rows_halo_*): RowArgs over the shard's
+// halo-extended block plus the halo layer.  Mirrored by
+// odil_torch/ops/rowwise.py::_RowHaloArgs (checked through
+// odil_rows_halo_args_size()).
+struct RowHaloArgs : RowArgs {
+  const float* mask;  // (X, Y) 0/1 plane: zero on halo columns
+  int off;            // global row of local row 0 (may be negative)
+  int Tg;             // the global row count
+  int r_lo, r_hi;     // the block's own residual rows [r_lo, r_hi)
 };
 
 namespace {
@@ -124,13 +151,28 @@ __device__ __forceinline__ void store_row(Plane* F, const RowLoads& L) {
   __syncthreads();
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(NTHREADS) rows_kernel(const RowArgs A) {
+// The halo layer of residual rows t and it1 (local rows) and the global row
+// of local row 0: none for a plain launch, the mask tile, the own rows and
+// the offset for a masked one.
+__device__ __forceinline__ NoHalo row_layer(const RowArgs&, const NoMask&, int, int) { return {}; }
+__device__ __forceinline__ HaloRow row_layer(const RowHaloArgs& A, const MaskTile& MT, int t, int it1) {
+  return {&MT.M, (t >= A.r_lo && t < A.r_hi) ? 1.0f : 0.0f, (it1 >= A.r_lo && it1 < A.r_hi) ? 1.0f : 0.0f, A.Tg};
+}
+__device__ __forceinline__ int row_off(const RowArgs&) { return 0; }
+__device__ __forceinline__ int row_off(const RowHaloArgs& A) { return A.off; }
+
+// MASKED: the masked per-shard form (RowHaloArgs: global rows for the row
+// conditions, masked residuals); the code of the plain instantiation is
+// unchanged by it.
+template <int MODE, bool MASKED = false>
+__global__ void __launch_bounds__(NTHREADS)
+    rows_kernel(const typename std::conditional<MASKED, RowHaloArgs, RowArgs>::type A) {
   __shared__ float F[3][NF][HX][HY];  // ring of fine rows; slot of row r is (r - ts + 1) % 3
   __shared__ float U0[HX][HY];
   __shared__ Ring1 R;
   __shared__ double red[NTHREADS];
   __shared__ int xi[HX], yi[HY];
+  __shared__ typename std::conditional<MASKED, MaskTile, NoMask>::type MT;
 
   const int tid = threadIdx.y * TILE_Y + threadIdx.x;
   const int x0 = blockIdx.y * TILE_X, y0 = blockIdx.x * TILE_Y;
@@ -139,6 +181,7 @@ __global__ void __launch_bounds__(NTHREADS) rows_kernel(const RowArgs A) {
   const int T = A.T;
   const int ts = blockIdx.z * A.slab, te = min(ts + A.slab, T);
   const bool own = x < A.X && y < A.Y;
+  const int off = row_off(A);
   constexpr bool grads = (MODE & MODE_GRADS) != 0;
   constexpr bool sums = (MODE & MODE_SUMS) != 0;
 
@@ -150,6 +193,7 @@ __global__ void __launch_bounds__(NTHREADS) rows_kernel(const RowArgs A) {
   for (int idx = tid; idx < HX * HY; idx += NTHREADS) {
     const int hx = idx / HY, hy = idx % HY;
     U0[hx][hy] = __ldg(A.u_init + (size_t)xi[hx] * A.Y + yi[hy]);
+    if constexpr (MASKED) MT.M[hx][hy] = __ldg(A.mask + (size_t)xi[hx] * A.Y + yi[hy]);
   }
   float g2[MAXTERMS];
 #pragma unroll
@@ -174,12 +218,13 @@ __global__ void __launch_bounds__(NTHREADS) rows_kernel(const RowArgs A) {
     if (t + 1 < te) fetch_row(L, xi, yi, A, t + 1 + ahead);  // in flight during this row's work
     const RowPlanes P{F[sm][0], F[sc][0], F[sp][0], F[sm][1], F[sc][1], F[sp][1], F[sm][2], F[sc][2], F[sp][2], U0};
     const int it1 = t + 1 < T ? t + 1 : 0;  // residual row t+1 (row 0 after T-1)
+    const auto H = row_layer(A, MT, t, it1);
 
-    if (grads) stage_ring1(A, P, it1, g2, R);
+    if (grads) stage_ring1(A, P, it1 + off, g2, R, H);
     if (own) {
       const float u1 = __ldg(A.u_final + (size_t)x * A.Y + y);
       float d[NF];
-      cell_terms<grads, sums>(A, P, R, t, it1, i, j, u1, g2, s, d);
+      cell_terms<grads, sums>(A, P, R, t + off, it1 + off, i, j, u1, g2, s, d, H);
       if (grads) {
         const size_t cell = ((size_t)t * A.X + x) * A.Y + y;
 #pragma unroll
@@ -243,6 +288,32 @@ int odil_rows_stream_forward(const RowArgs* a, void* stream) {
 int odil_rows_stream_backward(const RowArgs* a, int with_sums, void* stream) {
   if (a->slab != a->T) return (int)cudaErrorInvalidValue;
   return odil_rows_backward(a, with_sums, stream);
+}
+
+// The masked per-shard pair (_forward_tiled / _backward_tiled with xpad).
+int odil_rows_halo_args_size() { return (int)sizeof(RowHaloArgs); }
+
+int odil_rows_halo_forward(const RowHaloArgs* a, void* stream) {
+  const RowHaloArgs A = *a;
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid = rows_grid(A);
+  rows_kernel<MODE_SUMS, true><<<grid, dim3(TILE_Y, TILE_X), 0, s>>>(A);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  reduce_sums_kernel<RowArgs><<<1, NTHREADS, 0, s>>>(A, (int)(grid.x * grid.y * grid.z));
+  return (int)cudaGetLastError();
+}
+
+int odil_rows_halo_backward(const RowHaloArgs* a, int with_sums, void* stream) {
+  const RowHaloArgs A = *a;
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid = rows_grid(A);
+  if (with_sums) rows_kernel<MODE_SUMS | MODE_GRADS, true><<<grid, dim3(TILE_Y, TILE_X), 0, s>>>(A);
+  else rows_kernel<MODE_GRADS, true><<<grid, dim3(TILE_Y, TILE_X), 0, s>>>(A);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !with_sums) return (int)err;
+  reduce_sums_kernel<RowArgs><<<1, NTHREADS, 0, s>>>(A, (int)(grid.x * grid.y * grid.z));
+  return (int)cudaGetLastError();
 }
 
 // The 1-D row models, by id: 0 heat, 1 wave (odil_torch/ops/rowwise.py);

@@ -68,6 +68,30 @@
 // 0.5 dP1[2c+1]) W1y; the caller scales dP1 by f1 for dt1 (the TPU kernel's
 // caller does both in XLA, odil_tpu/ops/rowwise_mg.py:947-959).  The P1
 // rebuild loads its window directly (no register prefetch): a first design.
+//
+// Local-block form (odil_mg_backward_local: mg_rows_kernel and
+// mg_coarse_grad_kernel on MgLocalArgs): the per-shard kernel of the halo
+// path.  Replaces
+//   _backward_mg with wraps_in / emit_dwraps (odil_tpu/ops/rowwise_mg.py:350-365,
+//       pallas_call at :766), with the sums, and
+//   rowwise_mg_local_tiled._loss_and_grads_local_tiled (:259, pallas_call at
+//       :565), the same function for blocks beyond the TPU's VMEM -- one
+//       tiled design serves every block here.
+// The block is one shard's level-0 term (Tl, Xe, Y), x-halo-extended, with
+// the time window of the level-1 partial (Tcw = (Tl-1)/2 + 1 rows, window
+// row 0 at global row g0/2, the whole coarse plane) and the `hist` (= 1)
+// fine row before local row 0 (`heads`) in place of the block's own
+// periodic wrap.  The walk runs over the stack [heads; rebuilt rows
+// 0..Tl-1]: stack row 0 is the head, loaded as it is; its cotangent (the
+// "prev" adjoint of residual row 0) leaves as dheads instead of being folded
+// into the last rows.  Local column c is global column (x0 + c) mod Xg: its
+// 2-tap prolongation weights and coarse window are those of the global
+// column (the TPU kernel takes the gathered rows of the x prolongation
+// matrix).  Residuals carry the halo layer of veltracer_row.cuh (global rows,
+// plane mask, the block's own rows).  dP over the window maps each global
+// fine column of a coarse cell's taps back to its local column (or to none).
+// Bound: the bytes of the block, its window and heads in, dt0, dP and dheads
+// out; ~28.8 MB at the flagship's t:2,x:2 shards, ~8.6 us at 3.35 TB/s.
 
 #include <type_traits>
 
@@ -115,6 +139,21 @@ struct Mg2Args : MgArgs {
   float f1[NF];
 };
 
+// The local-block kernel's arguments (odil_mg_backward_local): MgArgs over
+// the block (T = Tl rows of t0, X = Xe, Tc = Tcw window rows, CX, CY the
+// global coarse plane, slab over the Tl + 1 rows of the stack) plus the head
+// row, its cotangent and the halo layer.  Mirrored by
+// odil_torch/ops/rowwise_mg.py::_MgLocalArgs (checked through
+// odil_mg_local_args_size()).
+struct MgLocalArgs : MgArgs {
+  const float* heads[NF];  // (1, Xe, Y): the fine row before local row 0
+  float* dheads[NF];
+  const float* mask;       // (Xe, Y) 0/1 plane: zero on halo columns
+  int x0, Xg;              // global column of local column 0 (may be < 0); the global X
+  int off, Tg;             // global row of local row 0; the global row count
+  int r_lo, r_hi;          // the block's own residual rows [r_lo, r_hi), local
+};
+
 namespace {
 
 // The two coarse taps (index, weight) of fine index x along a cell axis with
@@ -157,16 +196,36 @@ struct RowStage {
 // Window index of coarse index a (0 <= a < n) for a window starting at a0.
 __device__ __forceinline__ int win(int a, int a0, int n) { return pmod(a - a0, n); }
 
+// The fine x columns as the prolongation sees them: a whole plane's are its
+// own; a local block's column c is global column (x0 + c) mod Xg.
+// first_col: the global column of column 0; fine_cols: the global X;
+// local_col: the block's column of global column x (0 <= x < Xg), or -1.
+__device__ __forceinline__ int first_col(const MgArgs&) { return 0; }
+__device__ __forceinline__ int first_col(const MgLocalArgs& A) { return A.x0; }
+__device__ __forceinline__ int fine_cols(const MgArgs& A) { return A.X; }
+__device__ __forceinline__ int fine_cols(const MgLocalArgs& A) { return A.Xg; }
+__device__ __forceinline__ int local_col(const MgArgs&, int x) { return x; }
+__device__ __forceinline__ int local_col(const MgLocalArgs& A, int x) {
+  const int xl = pmod(x - A.x0, A.Xg);
+  return xl < A.X ? xl : -1;
+}
+
+template <class Args>
+constexpr bool is_local = std::is_same<Args, MgLocalArgs>::value;
+
 // The plane indices of the tile's fine rows and columns and their taps, as
-// window indices (once per block).
-__device__ void init_taps(RowStage& S, const MgArgs& A, int x0, int y0) {
-  const int ax0 = (x0 >> 1) - 2, by0 = (y0 >> 1) - 2;
+// window indices (once per block).  x0: the tile's first (local) column; the
+// taps are those of the global columns.
+template <class Args>
+__device__ void init_taps(RowStage& S, const Args& A, int x0, int y0) {
+  const int xg0 = x0 + first_col(A);
+  const int ax0 = (xg0 >> 1) - 2, by0 = (y0 >> 1) - 2;
   for (int idx = threadIdx.y * TILE_Y + threadIdx.x; idx < HX + HY; idx += NTHREADS) {
     int a0, a1;
     float w0, w1;
     if (idx < HX) {
       S.xi[idx] = pmod(x0 + idx - HALO, A.X);
-      taps(S.xi[idx], A.CX, a0, w0, a1, w1);
+      taps(pmod(xg0 + idx - HALO, fine_cols(A)), A.CX, a0, w0, a1, w1);
       S.ta[idx][0] = win(a0, ax0, A.CX);
       S.ta[idx][1] = win(a1, ax0, A.CX);
       S.tw[idx][0] = w0;
@@ -266,11 +325,35 @@ struct RowLoads {
   float t0[NPOS][NF];
 };
 
-// Issues the loads of fine row r (periodic in t).
-template <bool LVL2>
-__device__ __forceinline__ void fetch_row(RowLoads& L, const RowStage& S, const MgArgs& A, int r, int x0, int y0) {
+// Issues the loads of fine row r (periodic in t; x0: the tile's first global
+// column).  A local block walks the stack [heads; block] of A.T + 1 rows:
+// stack row 0 is the head row (L.rr = -1, loaded as it is), stack row r > 0
+// is fine row r - 1.
+template <bool LVL2, class Args>
+__device__ __forceinline__ void fetch_row(RowLoads& L, const RowStage& S, const Args& A, int r, int x0, int y0) {
   const int tid = threadIdx.y * TILE_Y + threadIdx.x;
-  const int rr = r < 0 ? r + A.T : (r >= A.T ? r - A.T : r);
+  int rr;
+  if constexpr (is_local<Args>) {
+    const int Tq = A.T + 1;
+    const int q = r < 0 ? r + Tq : (r >= Tq ? r - Tq : r);
+    if (q == 0) {
+      L.rr = -1;
+#pragma unroll
+      for (int k = 0; k < NPOS; ++k) {
+        const int idx = tid + k * NTHREADS;
+        if (idx < HX * HY) {
+          const int hx = idx / HY, hy = idx % HY;
+          const size_t o = (size_t)S.xi[hx] * A.Y + S.yi[hy];
+#pragma unroll
+          for (int f = 0; f < NF; ++f) L.t0[k][f] = __ldg(A.heads[f] + o);
+        }
+      }
+      return;
+    }
+    rr = q - 1;
+  } else {
+    rr = r < 0 ? r + A.T : (r >= A.T ? r - A.T : r);
+  }
   L.rr = rr;
   if constexpr (!LVL2) {
     const int c0 = rr >> 1;
@@ -363,23 +446,59 @@ __device__ void build_row2(Plane* F, RowStage& S, Lvl2Stage& S2, const Mg2Args& 
   __syncthreads();
 }
 
-// The ring's next fine row: build_row, or build_row2 at depth 2 (Args is
-// then Mg2Args).
+// The head row of a local block's stack into F[0..NF), as it is.  Every
+// thread of the block calls it; it ends with a barrier.
+__device__ void store_head(Plane* F, const RowLoads& L) {
+  const int tid = threadIdx.y * TILE_Y + threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < NPOS; ++k) {
+    const int idx = tid + k * NTHREADS;
+    if (idx < HX * HY) {
+      const int hx = idx / HY, hy = idx % HY;
+#pragma unroll
+      for (int f = 0; f < NF; ++f) F[f][hx][hy] = L.t0[k][f];
+    }
+  }
+  __syncthreads();
+}
+
+// The ring's next fine row: build_row, build_row2 at depth 2 (Args is then
+// Mg2Args), or a local block's head row.
 template <bool LVL2, class Stage2, class Args>
 __device__ __forceinline__ void next_row(Plane* F, RowStage& S, Stage2& S2, const Args& A, const RowLoads& L,
                                          int (&p1_rows)[2], int x0, int y0) {
   if constexpr (LVL2) build_row2(F, S, S2, A, L, p1_rows, x0, y0);
-  else build_row(F, S, A, L);
+  else if constexpr (is_local<Args>) {
+    if (L.rr < 0) store_head(F, L);
+    else build_row(F, S, A, L);
+  } else build_row(F, S, A, L);
+}
+
+// The global row of walked row 0: 0 for a whole plane, the row before a
+// local block's first for its stack.
+__device__ __forceinline__ int walk_off(const MgArgs&) { return 0; }
+__device__ __forceinline__ int walk_off(const MgLocalArgs& A) { return A.off - 1; }
+
+// The halo layer of stack rows t and it1 of a local block (local rows t - 1
+// and it1 - 1), or none.
+__device__ __forceinline__ NoHalo row_layer(const MgArgs&, const NoMask&, int, int) { return {}; }
+__device__ __forceinline__ HaloRow row_layer(const MgLocalArgs& A, const MaskTile& MT, int t, int it1) {
+  return {&MT.M, (t - 1 >= A.r_lo && t - 1 < A.r_hi) ? 1.0f : 0.0f,
+          (it1 - 1 >= A.r_lo && it1 - 1 < A.r_hi) ? 1.0f : 0.0f, A.Tg};
 }
 
 // At least 4 blocks per SM: without the bound the compiler spends 75
 // registers on the backward+sums form (3 blocks per SM) and the kernel runs
 // 8% slower than with 64.  LVL2: the two-level fusion (the code of the
 // depth-1 instantiation is unchanged by it).
-// Args: MgArgs, or Mg2Args at depth 2.
+// Args: MgArgs; Mg2Args at depth 2; MgLocalArgs for a local block, which
+// walks the stack [heads; block] (stack row t is local row t - 1), takes
+// global rows and the halo layer in the residuals, and writes the cotangent
+// of stack row 0 to dheads.
 template <int MODE, bool LVL2, class Args>
 __global__ void __launch_bounds__(NTHREADS, 4) mg_rows_kernel(const Args A) {
-  static_assert(std::is_same<Args, typename std::conditional<LVL2, Mg2Args, MgArgs>::type>::value,
+  constexpr bool LOCAL = is_local<Args>;
+  static_assert(std::is_same<Args, typename std::conditional<LVL2, Mg2Args, MgArgs>::type>::value || (LOCAL && !LVL2),
                 "mg_rows_kernel: Mg2Args goes with LVL2");
   __shared__ float F[3][NF][HX][HY];  // ring of fine rows; slot of row r is (r - ts + 1) % 3
   __shared__ float U0[HX][HY];
@@ -387,21 +506,31 @@ __global__ void __launch_bounds__(NTHREADS, 4) mg_rows_kernel(const Args A) {
   __shared__ double red[NTHREADS];
   __shared__ RowStage S;
   __shared__ typename std::conditional<LVL2, Lvl2Stage, NoStage>::type S2;
+  __shared__ typename std::conditional<LOCAL, MaskTile, NoMask>::type MT;
   int p1_rows[2] = {-1, -1};  // the level-1 rows in the P1 ring's slots (depth 2)
 
   const int tid = threadIdx.y * TILE_Y + threadIdx.x;
-  const int x0 = blockIdx.y * TILE_X, y0 = blockIdx.x * TILE_Y;
+  // A local block's tiles start at even global columns (shifted by one local
+  // column when A.x0 is odd), so that the coarse window covers every tap, the
+  // extrapolation taps at the global seam included.
+  int x0 = blockIdx.y * TILE_X;
+  if constexpr (LOCAL) x0 -= A.x0 & 1;
+  const int y0 = blockIdx.x * TILE_Y;
+  const int xg0 = x0 + first_col(A);
   const int x = x0 + threadIdx.y, y = y0 + threadIdx.x;
   const int i = threadIdx.y + HALO, j = threadIdx.x + HALO;
-  const int T = A.T;
+  const int T = LOCAL ? A.T + 1 : A.T;  // the rows walked
   const int ts = blockIdx.z * A.slab, te = min(ts + A.slab, T);
-  const bool own = x < A.X && y < A.Y;
+  const bool own = (!LOCAL || x >= 0) && x < A.X && y < A.Y;
+  const int off = walk_off(A);  // the global row of walked row 0
   constexpr bool grads = (MODE & MODE_GRADS) != 0;
   constexpr bool sums = (MODE & MODE_SUMS) != 0;
 
   for (int idx = tid; idx < HX * HY; idx += NTHREADS) {
     const int hx = idx / HY, hy = idx % HY;
-    U0[hx][hy] = __ldg(A.u_init + (size_t)pmod(x0 + hx - HALO, A.X) * A.Y + pmod(y0 + hy - HALO, A.Y));
+    const size_t o = (size_t)pmod(x0 + hx - HALO, A.X) * A.Y + pmod(y0 + hy - HALO, A.Y);
+    U0[hx][hy] = __ldg(A.u_init + o);
+    if constexpr (LOCAL) MT.M[hx][hy] = __ldg(A.mask + o);
   }
   float g2[MAXTERMS];
 #pragma unroll
@@ -414,32 +543,43 @@ __global__ void __launch_bounds__(NTHREADS, 4) mg_rows_kernel(const Args A) {
   if constexpr (LVL2) init_taps2(S2, A, x0, y0);
   __syncthreads();
   RowLoads L;
-  fetch_row<LVL2>(L, S, A, ts - 1, x0, y0);
+  fetch_row<LVL2>(L, S, A, ts - 1, xg0, y0);
   next_row<LVL2>(F[0], S, S2, A, L, p1_rows, x0, y0);
   if (grads) {
-    fetch_row<LVL2>(L, S, A, ts, x0, y0);
+    fetch_row<LVL2>(L, S, A, ts, xg0, y0);
     next_row<LVL2>(F[1], S, S2, A, L, p1_rows, x0, y0);
   }
   // The row each iteration adds to the ring: t+1 for the gradients, t else.
   const int ahead = grads ? 1 : 0;
-  fetch_row<LVL2>(L, S, A, ts + ahead, x0, y0);
+  fetch_row<LVL2>(L, S, A, ts + ahead, xg0, y0);
   for (int t = ts; t < te; ++t) {
     const int sm = (t - ts) % 3, sc = (t - ts + 1) % 3, sp = (t - ts + 2) % 3;
     next_row<LVL2>(F[grads ? sp : sc], S, S2, A, L, p1_rows, x0, y0);
-    if (t + 1 < te) fetch_row<LVL2>(L, S, A, t + 1 + ahead, x0, y0);  // in flight during this row's work
+    if (t + 1 < te) fetch_row<LVL2>(L, S, A, t + 1 + ahead, xg0, y0);  // in flight during this row's work
     const RowPlanes P{F[sm][0], F[sc][0], F[sp][0], F[sm][1], F[sc][1], F[sp][1], F[sm][2], F[sc][2], F[sp][2], U0};
     const int it1 = t + 1 < T ? t + 1 : 0;  // residual row t+1 (row 0 after T-1)
+    const auto H = row_layer(A, MT, t, it1);
 
-    if (grads) stage_ring1(A, P, it1, g2, R);
+    if (grads) stage_ring1(A, P, it1 + off, g2, R, H);
     if (own) {
       const float u1 = __ldg(A.u_final + (size_t)x * A.Y + y);
       float d[NF];
-      cell_terms<grads, sums>(A, P, R, t, it1, i, j, u1, g2, s, d);
+      cell_terms<grads, sums>(A, P, R, t + off, it1 + off, i, j, u1, g2, s, d, H);
       if (grads) {
-        const size_t cell = ((size_t)t * A.X + x) * A.Y + y;
-        A.dt0[0][cell] = A.f0[0] * d[0];
-        A.dt0[1][cell] = A.f0[1] * d[1];
-        A.dt0[2][cell] = A.f0[2] * d[2];
+        const size_t cell = ((size_t)(LOCAL ? t - 1 : t) * A.X + x) * A.Y + y;
+        bool head = false;
+        if constexpr (LOCAL) {
+          head = t == 0;
+          if (head) {
+#pragma unroll
+            for (int f = 0; f < NF; ++f) A.dheads[f][(size_t)x * A.Y + y] = d[f];
+          }
+        }
+        if (!head) {
+          A.dt0[0][cell] = A.f0[0] * d[0];
+          A.dt0[1][cell] = A.f0[1] * d[1];
+          A.dt0[2][cell] = A.f0[2] * d[2];
+        }
       }
     }
     __syncthreads();
@@ -449,8 +589,12 @@ __global__ void __launch_bounds__(NTHREADS, 4) mg_rows_kernel(const Args A) {
 }
 
 // dP[f][c] = Wx^T (0.5 d[2c-1] + d[2c] + 0.5 d[2c+1]) Wy with d = dt0[f] / f0[f]:
-// the transposed t-blend and x/y prolongation, gathered per coarse cell.
-__global__ void __launch_bounds__(CT * CT) mg_coarse_grad_kernel(const MgArgs A) {
+// the transposed t-blend and x/y prolongation, gathered per coarse cell.  For
+// a local block (MgLocalArgs) c runs over the coarse window and the global
+// fine columns of each coarse cell's taps map to the block's columns
+// (local_col; none outside the block).
+template <class Args>
+__global__ void __launch_bounds__(CT * CT) mg_coarse_grad_kernel(const Args A) {
   __shared__ float S1[FW][FW + 1];
   __shared__ float S2[FW][CT + 1];
   const int f = blockIdx.z % NF, c = blockIdx.z / NF;
@@ -460,13 +604,15 @@ __global__ void __launch_bounds__(CT * CT) mg_coarse_grad_kernel(const MgArgs A)
   const float* d = A.dt0[f];
   const float inv = A.inv_f0[f];
   const size_t plane = (size_t)A.X * A.Y;
+  const int X = fine_cols(A);
 
   for (int idx = tid; idx < FW * FW; idx += CT * CT) {
     const int i = idx / FW, j = idx % FW;
     const int x = xs + i, y = ys + j;
     float v = 0.0f;
-    if (x >= 0 && x < A.X && y >= 0 && y < A.Y) {
-      const size_t o = (size_t)x * A.Y + y;
+    const int xl = x >= 0 && x < X ? local_col(A, x) : -1;
+    if (xl >= 0 && y >= 0 && y < A.Y) {
+      const size_t o = (size_t)xl * A.Y + y;
       const int r = 2 * c;
       v = (c >= 1 ? 0.5f * (d[(size_t)(r - 1) * plane + o] * inv) : 0.0f) + d[(size_t)r * plane + o] * inv;
       if (r + 1 < A.T) v = v + 0.5f * (d[(size_t)(r + 1) * plane + o] * inv);
@@ -487,7 +633,7 @@ __global__ void __launch_bounds__(CT * CT) mg_coarse_grad_kernel(const MgArgs A)
   const int a = a0 + threadIdx.y, b = b0 + threadIdx.x;
   if (a < A.CX && b < A.CY) {
     float acc = 0.0f;
-    for (int x = max(2 * a - 2, 0); x <= min(2 * a + 3, A.X - 1); ++x) acc += tap_weight(x, a, A.CX) * S2[x - xs][threadIdx.x];
+    for (int x = max(2 * a - 2, 0); x <= min(2 * a + 3, X - 1); ++x) acc += tap_weight(x, a, A.CX) * S2[x - xs][threadIdx.x];
     A.dP[f][((size_t)c * A.CX + a) * A.CY + b] = acc;
   }
 }
@@ -511,7 +657,7 @@ int mg_backward(const Args& A, int with_sums, cudaStream_t s) {
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 cgrid((A.CY + CT - 1) / CT, (A.CX + CT - 1) / CT, A.Tc * NF);
-  mg_coarse_grad_kernel<<<cgrid, dim3(CT, CT), 0, s>>>(base);
+  mg_coarse_grad_kernel<MgArgs><<<cgrid, dim3(CT, CT), 0, s>>>(base);
   return (int)cudaGetLastError();
 }
 
@@ -522,6 +668,8 @@ extern "C" {
 int odil_mg_args_size() { return (int)sizeof(MgArgs); }
 
 int odil_mg2_args_size() { return (int)sizeof(Mg2Args); }
+
+int odil_mg_local_args_size() { return (int)sizeof(MgLocalArgs); }
 
 int odil_mg_num_blocks(int T, int X, int Y, int slab) {
   return ((Y + TILE_Y - 1) / TILE_Y) * ((X + TILE_X - 1) / TILE_X) * ((T + slab - 1) / slab);
@@ -562,7 +710,26 @@ int odil_mg_backward2(const Mg2Args* a, int with_sums, void* stream) {
   }
   B.T = A.Tc, B.X = A.CX, B.Y = A.CY, B.Tc = A.Tc2, B.CX = A.CX2, B.CY = A.CY2;
   const dim3 cgrid((B.CY + CT - 1) / CT, (B.CX + CT - 1) / CT, B.Tc * NF);
-  mg_coarse_grad_kernel<<<cgrid, dim3(CT, CT), 0, s>>>(B);
+  mg_coarse_grad_kernel<MgArgs><<<cgrid, dim3(CT, CT), 0, s>>>(B);
+  return (int)cudaGetLastError();
+}
+
+// The local-block gradient pass (_backward_mg with wraps_in/emit_dwraps, with
+// the sums; the only form its caller asks for): dt0, dP over the window,
+// dheads and the sums.  A->slab slabs the Tl + 1 rows of the stack.
+int odil_mg_backward_local(const MgLocalArgs* a, int with_sums, void* stream) {
+  if (!with_sums) return (int)cudaErrorInvalidValue;
+  const MgLocalArgs A = *a;
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid((A.Y + TILE_Y - 1) / TILE_Y, (A.X + (A.x0 & 1) + TILE_X - 1) / TILE_X, (A.T + 1 + A.slab - 1) / A.slab);
+  mg_rows_kernel<MODE_SUMS | MODE_GRADS, false><<<grid, dim3(TILE_Y, TILE_X), 0, s>>>(A);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  reduce_sums_kernel<MgArgs><<<1, NTHREADS, 0, s>>>(A, (int)(grid.x * grid.y * grid.z));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 cgrid((A.CY + CT - 1) / CT, (A.CX + CT - 1) / CT, A.Tc * NF);
+  mg_coarse_grad_kernel<MgLocalArgs><<<cgrid, dim3(CT, CT), 0, s>>>(A);
   return (int)cudaGetLastError();
 }
 

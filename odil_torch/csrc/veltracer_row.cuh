@@ -20,6 +20,15 @@
 // both argument structs carry T, has_x, has_t and the scalars inv_dt, inv_dx,
 // inv_dy, inv_dx2, inv_dy2, kimp, kimp_dx, kxreg, kt, plus nterms, partials and
 // sums for the partial-sum reduction.
+//
+// The halo layer (a Layer of type HaloRow; NoHalo leaves the code as it was):
+// a per-shard launch (odil_torch/halo.py) runs on one shard's halo-extended
+// block.  The caller passes GLOBAL row indices for the row conditions (the
+// initial rows 0 and 1, the imposed-final row T-2 of the global T) and every
+// residual is multiplied by the 0/1 plane mask (zero on halo columns) and the
+// row mask of its residual row (zero on halo rows and on a ghost node the
+// left shard owns), as the wrapped row function of odil_tpu/halo.py:873-885
+// does; the adjoint then sees masked weights.
 
 #pragma once
 
@@ -44,6 +53,30 @@ enum { MODE_SUMS = 1, MODE_GRADS = 2 };
 __device__ __forceinline__ int pmod(int v, int n) { return ((v % n) + n) % n; }
 
 typedef float Plane[HX][HY];
+
+// The halo layer of a per-shard launch (see the head of this file).
+struct NoHalo {
+  static constexpr bool on = false;
+};
+
+struct HaloRow {
+  static constexpr bool on = true;
+  const Plane* M;  // the 0/1 plane mask over the tile and its halo (shared memory)
+  float mt, mt1;   // 1 if residual row t (t+1) is one of the block's own rows, else 0
+  int T;           // the global row count
+};
+
+// The mask tile of a per-shard launch, or nothing.
+struct MaskTile {
+  Plane M;
+};
+struct NoMask {};
+
+template <class Args, class Layer>
+__device__ __forceinline__ int rows_T(const Args& A, const Layer& H) {
+  if constexpr (Layer::on) return H.T;
+  else return A.T;
+}
 
 __device__ __forceinline__ float upwind(float um, float uc, float up, float v) {
   return v > 0.0f ? uc - um : (v < 0.0f ? up - uc : (up - um) * 0.5f);
@@ -101,22 +134,31 @@ struct RowPlanes {
 
 // Stages the ring-1 quantities of residual row t+1 (`it1`, row 0 after T-1)
 // and the Laplacian terms of row t.  Every thread of the block calls it; it
-// ends with a barrier.
-template <class Args>
-__device__ __forceinline__ void stage_ring1(const Args& A, const RowPlanes& P, int it1, const float* g2, Ring1& R) {
+// ends with a barrier.  With the halo layer the staged residuals are masked.
+template <class Args, class Layer = NoHalo>
+__device__ __forceinline__ void stage_ring1(const Args& A, const RowPlanes& P, int it1, const float* g2, Ring1& R,
+                                            const Layer& H = Layer()) {
   const int tid = threadIdx.y * TILE_Y + threadIdx.x;
   for (int idx = tid; idx < RX * RY; idx += NTHREADS) {
     const int ri = idx / RY, rj = idx % RY;
     const int qi = ri + HALO - 1, qj = rj + HALO - 1;
     // Residual row t+1 reads row t as its previous row.
     const Fu n = fu_at(A, it1, P.Un, P.Uc, P.VXn, P.VYn, P.U0, qi, qj);
-    const float bq = it1 == 0 ? 0.0f : g2[0] * n.res;
+    float res = n.res;
+    if constexpr (Layer::on) res = res * ((*H.M)[qi][qj] * H.mt1);
+    const float bq = it1 == 0 ? 0.0f : g2[0] * res;
     R.B0n[ri][rj] = bq;
     R.CXn[ri][rj] = bq * P.VXn[qi][qj] * A.inv_dx;
     R.CYn[ri][rj] = bq * P.VYn[qi][qj] * A.inv_dy;
     if (A.has_x) {
-      R.LXc[ri][rj] = lap(A, P.VXc, qi, qj) * A.kxreg;
-      R.LYc[ri][rj] = lap(A, P.VYc, qi, qj) * A.kxreg;
+      if constexpr (Layer::on) {
+        const float m = (*H.M)[qi][qj] * H.mt;
+        R.LXc[ri][rj] = (lap(A, P.VXc, qi, qj) * A.kxreg) * m;
+        R.LYc[ri][rj] = (lap(A, P.VYc, qi, qj) * A.kxreg) * m;
+      } else {
+        R.LXc[ri][rj] = lap(A, P.VXc, qi, qj) * A.kxreg;
+        R.LYc[ri][rj] = lap(A, P.VYc, qi, qj) * A.kxreg;
+      }
     }
   }
   __syncthreads();
@@ -126,18 +168,20 @@ __device__ __forceinline__ void stage_ring1(const Args& A, const RowPlanes& P, i
 // value there).  With SUMS, adds the squares of its terms to s; with GRADS,
 // writes to d[f] the cell's cotangent of sum_k g[k] S[k] for field f: the "cur"
 // adjoint of residual row t plus the "prev" adjoint of residual row t+1, from
-// the ring-1 values that stage_ring1 left in R.  g2[k] = 2 g[k].
-template <bool GRADS, bool SUMS, class Args>
+// the ring-1 values that stage_ring1 left in R.  g2[k] = 2 g[k].  With the
+// halo layer, t and it1 are global rows and the residuals are masked.
+template <bool GRADS, bool SUMS, class Args, class Layer = NoHalo>
 __device__ __forceinline__ void cell_terms(const Args& A, const RowPlanes& P, const Ring1& R, int t, int it1, int i,
-                                           int j, float u1, const float* g2, float* s, float* d) {
-  const int T = A.T;
+                                           int j, float u1, const float* g2, float* s, float* d,
+                                           const Layer& H = Layer()) {
+  const int T = rows_T(A, H);
   const int ix = 2, it_ = 2 + (A.has_x ? 2 : 0);  // term positions
   const int ri = i - HALO + 1, rj = j - HALO + 1;  // position in the ring-1 arrays
   const Plane &Uc = P.Uc, &VXm = P.VXm, &VXc = P.VXc, &VXn = P.VXn, &VYm = P.VYm, &VYc = P.VYc, &VYn = P.VYn;
 
   const Fu c = fu_at(A, t, Uc, P.Um, VXc, VYc, P.U0, i, j);
-  const float res0 = c.res;
-  const float res1 = (t == T - 2 ? (Uc[i][j] - u1) * A.inv_dx : 0.0f) * A.kimp;
+  float res0 = c.res;
+  float res1 = (t == T - 2 ? (Uc[i][j] - u1) * A.inv_dx : 0.0f) * A.kimp;
   float res2 = 0.0f, res3 = 0.0f, res4 = 0.0f, res5 = 0.0f;
   if (A.has_x) {
     res2 = GRADS ? R.LXc[ri][rj] : lap(A, VXc, i, j) * A.kxreg;
@@ -146,6 +190,18 @@ __device__ __forceinline__ void cell_terms(const Args& A, const RowPlanes& P, co
   if (A.has_t) {
     res4 = t == 0 ? 0.0f : (VXc[i][j] - VXm[i][j]) * A.kt;
     res5 = t == 0 ? 0.0f : (VYc[i][j] - VYm[i][j]) * A.kt;
+  }
+  if constexpr (Layer::on) {
+    // The staged Laplacian terms (GRADS) are masked already.
+    const float m = (*H.M)[i][j] * H.mt;
+    res0 = res0 * m;
+    res1 = res1 * m;
+    if (!GRADS) {
+      res2 = res2 * m;
+      res3 = res3 * m;
+    }
+    res4 = res4 * m;
+    res5 = res5 * m;
   }
   if (SUMS) {
     s[0] += res0 * res0;
@@ -189,8 +245,14 @@ __device__ __forceinline__ void cell_terms(const Args& A, const RowPlanes& P, co
                  R.CYn[ri][rj - 1] * gup(VYn[i][j - 1]));
     float dvxp = 0.0f, dvyp = 0.0f;
     if (A.has_t && it1 != 0) {
-      dvxp = -((g2[it_] * ((VXn[i][j] - VXc[i][j]) * A.kt)) * A.kt);
-      dvyp = -((g2[it_ + 1] * ((VYn[i][j] - VYc[i][j]) * A.kt)) * A.kt);
+      if constexpr (Layer::on) {
+        const float m1 = (*H.M)[i][j] * H.mt1;
+        dvxp = -((g2[it_] * (((VXn[i][j] - VXc[i][j]) * A.kt) * m1)) * A.kt);
+        dvyp = -((g2[it_ + 1] * (((VYn[i][j] - VYc[i][j]) * A.kt) * m1)) * A.kt);
+      } else {
+        dvxp = -((g2[it_] * ((VXn[i][j] - VXc[i][j]) * A.kt)) * A.kt);
+        dvyp = -((g2[it_ + 1] * ((VYn[i][j] - VYc[i][j]) * A.kt)) * A.kt);
+      }
     }
     d[0] = du + dup;
     d[1] = dvx + dvxp;

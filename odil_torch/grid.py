@@ -3,8 +3,10 @@ state initialization and the flat array order.
 
 PyTorch counterpart of ``odil_tpu/grid.py:52-473``.  Every tensor the
 domain creates lives on ``device`` (default ``cuda``; the CPU tests pass
-``device="cpu"``).  Sharding is not part of the port yet: ``mesh`` and
-``partition`` raise.
+``device="cpu"``).  ``mesh`` (``parallel.Mesh``) and ``partition`` (grid
+dimension name -> mesh axis name) describe the shards of the halo path
+(``halo.py``, ``Problem.make_loss_fn(state, halo=True)``); the arrays stay
+whole on ``device``.
 """
 
 import math
@@ -30,6 +32,9 @@ class Domain:
     multigrid: build the coarsening hierarchy for multigrid decomposition.
     mg_*: hierarchy options (levels, per-level factors, active axes, interp).
     device: where the domain's tensors live (default ``cuda``).
+    mesh, partition: optional ``parallel.Mesh`` and dict mapping dimension
+        names to mesh axis names, for the halo path; each partitioned cell
+        count must divide its mesh axis (``odil_tpu/halo.py:31-33``).
     """
 
     def __init__(
@@ -49,8 +54,6 @@ class Domain:
         mesh=None,
         partition=None,
     ):
-        if mesh is not None or partition:
-            raise NotImplementedError("odil_torch.Domain: sharding (mesh/partition) is not ported yet")
         runtime.pin_fp32()
         cshape = tuple(int(n) for n in cshape)
         ndim = len(cshape)
@@ -58,6 +61,25 @@ class Domain:
         self.cshape = cshape
         self.dimnames = list(dimnames) if dimnames else ["x", "y", "z", "w", "v", "u"][:ndim]
         assert len(self.dimnames) == ndim, f"dimnames={self.dimnames} vs cshape={cshape}"
+        self.mesh = mesh
+        self.partition = dict(partition) if partition else None
+        if mesh is not None and not partition:
+            raise NotImplementedError(
+                "odil_torch.Domain: a mesh without a partition replicates every array (the JAX package's GSPMD "
+                "route), which is not ported; give partition= and evaluate with halo=True"
+            )
+        if partition and mesh is None:
+            raise ValueError("Domain: partition needs a mesh")
+        if mesh is not None:
+            sizes = mesh.shape
+            for name, axis in self.partition.items():
+                if name not in self.dimnames or axis not in sizes:
+                    raise ValueError(f"Domain: partition {name!r} -> {axis!r} names no grid dimension or mesh axis")
+                n = cshape[self.dimnames.index(name)]
+                if n % sizes[axis]:
+                    raise ValueError(
+                        f"Domain: {n} cells along '{name}' do not divide mesh axis '{axis}' ({sizes[axis]} shards)"
+                    )
         self.device = torch.device(device)
         self.mod = ModTorch(self.device)
         self.dtype = np.dtype(dtype) if dtype is not None else runtime.default_dtype()

@@ -333,6 +333,10 @@ def _mg_partial_depth(t0_shapes, dtype):
 _mg_loss_and_grads.supported = _mg_supported
 _mg_loss_and_grads.partial_depth = _mg_partial_depth
 operator_fused_mg.loss_and_grads = _mg_loss_and_grads
+# The halo one-pass builder rebuilds the kernel call from this declaration
+# and runs it per shard (halo._make_halo_mg_loss_grad_fn), where ctx.extra
+# holds the shard's const planes.
+operator_fused_mg.kernel_decl = _kernel_decl
 
 
 def build(
@@ -348,13 +352,16 @@ def build(
     mg_nlvl=None,
     kernel="xla",
     device="cuda",
+    mesh=None,
+    partition=None,
     args=None,
 ):
     """Builds the velocity-from-tracer problem: (problem, state, extra).
 
     kernel: "pallas_mg" (the MG-fused kernel), "pallas" (the row-wise
     kernels over the fine fields) or "xla" (the plain operator); the names
-    are the JAX package's."""
+    are the JAX package's.  mesh/partition: the shards of the halo path
+    (``parallel.Mesh``; evaluate with ``halo=True``)."""
     if kernel not in ("pallas_mg", "pallas", "xla"):
         raise ValueError(f"kernel={kernel!r}: the port has 'pallas_mg', 'pallas' and 'xla'")
     if args is None:
@@ -369,6 +376,8 @@ def build(
         mg_interp=mg_interp,
         mg_nlvl=mg_nlvl,
         device=device,
+        mesh=mesh,
+        partition=partition,
     )
     x, y = (p.cpu().numpy() for p in domain.points("x", "y", loc=".cc"))
     u_init = tracer_blob(x, y, 0)

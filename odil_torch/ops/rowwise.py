@@ -43,6 +43,20 @@ planes stay 1-D.  The pair computes the same function as the slabbed one,
 so its plain versions are ``_forward_plain``/``_backward_plain``.  With
 ``hist=0`` a streaming call takes the ordinary kernels, as in the JAX
 package.
+
+Per-shard (halo) evaluation (``halo.py``): ``halo_model`` wraps a row model
+for one shard's halo-extended block -- global row offset, the global T, a 0/1
+plane mask zeroing halo columns and a range of the block's own rows -- as the
+JAX package's ``_HaloContext.rowwise_terms`` wraps its row function
+(``odil_tpu/halo.py:873-885``).  On the card a wrapped veltracer model
+launches the masked kernels of ``csrc/rowwise.cu`` (``odil_rows_halo_*``:
+``forward_halo_cuda``/``backward_halo_cuda``), the port of the TPU's x-tiled
+pair on an edge-padded extent (``_forward_tiled``/``_backward_tiled`` with
+``xpad``, ``odil_tpu/ops/rowwise_tiled.py:157-177``).  The CUDA grid is a
+ceiling division over its 8x32 tiles with every cell guarded, so it runs on
+the unpadded extended extent (130 = 128 + 2 x-rows for the flagship's
+``x:2`` shards) and the mask alone does what ``_apply_xpad`` does there:
+``xpad_masked`` is accepted and changes nothing.
 """
 
 import ctypes
@@ -53,6 +67,7 @@ from . import _build
 
 __all__ = [
     "RowModel",
+    "halo_model",
     "rowwise_loss_terms",
     "rowwise_loss_sums",
     "rowwise_loss_and_grads",
@@ -77,10 +92,43 @@ class RowModel:
         self.row_vjp = row_vjp
         self.cuda_model = cuda_model
         self.scalars = dict(scalars or {})
+        self.halo = None  # (mask, off, T, r_lo, r_hi) of a per-shard model (halo_model)
 
 
 def _as_model(row_fn):
     return row_fn if isinstance(row_fn, RowModel) else RowModel(row_fn)
+
+
+def halo_model(row_fn, mask, off, T, r_lo, r_hi):
+    """``row_fn`` wrapped for one shard's halo-extended block (the wrapped
+    row function of ``odil_tpu/halo.py:873-885``): row ``it`` of the block is
+    global row ``it + off`` of a grid of ``T`` rows, and every residual is
+    multiplied by ``mask`` (a 0/1 plane, zero on halo columns) and by
+    ``r_lo <= it < r_hi`` (the block's own rows: halo rows and a ghost node
+    owned by the left shard are out).  The adjoint scales the cotangents by
+    the same mask.  The result carries ``halo = (mask, off, T, r_lo, r_hi)``
+    for the masked CUDA kernels."""
+    inner = _as_model(row_fn)
+
+    def row_mask(it):
+        return mask * ((it >= r_lo) & (it < r_hi)).to(mask.dtype)
+
+    def wrapped(it, _T, rows, data_rows, params, consts):
+        res = inner.row_fn(it + off, T, rows, data_rows, params, consts)
+        m = row_mask(it)
+        return tuple(r * m for r in res)
+
+    wrapped_vjp = None
+    if inner.row_vjp is not None:
+
+        def wrapped_vjp(it, _T, rows, data_rows, params, consts, cots):
+            m = row_mask(it)
+            return inner.row_vjp(it + off, T, rows, data_rows, params, consts, tuple(c * m for c in cots))
+
+    model = RowModel(wrapped, wrapped_vjp, cuda_model=inner.cuda_model, scalars=inner.scalars)
+    model.halo = (mask, int(off), int(T), int(r_lo), int(r_hi))
+    model.inner = inner
+    return model
 
 
 def _sumsq_vec(res):
@@ -259,6 +307,15 @@ class _Rows1DArgs(ctypes.Structure):
     ]
 
 
+class _RowHaloArgs(ctypes.Structure):
+    """Mirror of ``struct RowHaloArgs`` in csrc/rowwise.cu (the masked
+    per-shard kernels): RowArgs plus the halo layer."""
+
+    _fields_ = [("base", _RowArgs), ("mask", ctypes.c_void_p)] + [
+        (n, ctypes.c_int) for n in ("off", "Tg", "r_lo", "r_hi")
+    ]
+
+
 class _Launch:
     """What one launch of a row kernel needs: the argument struct, the
     outputs it writes (dfields, dparams views, sums) and the tensors the
@@ -275,15 +332,24 @@ class _VeltracerCuda:
     forward, backward = "odil_rows_forward", "odil_rows_backward"
     stream_forward, stream_backward = "odil_rows_stream_forward", "odil_rows_stream_backward"
 
+    def names(self, model, stream):
+        """The (forward, backward) entry points for this model and launch."""
+        if model.halo is not None:
+            if stream:
+                raise NotImplementedError("the masked per-shard kernels have no streaming form")
+            return "odil_rows_halo_forward", "odil_rows_halo_backward"
+        return (self.stream_forward, self.stream_backward) if stream else (self.forward, self.backward)
+
     def check(self, model, nterms, hist, fields, params, data, consts):
         _check_veltracer_model(model, hist)
         if len(fields) != 3 or len(consts) != 2 or params or data:
             raise ValueError("the veltracer CUDA kernels take 3 fields, 2 const planes, no params and no data")
-        _check_cuda_tensors(tuple(fields) + tuple(consts), "row-wise")
+        halo = (model.halo[0],) if model.halo is not None else ()
+        _check_cuda_tensors(tuple(fields) + tuple(consts) + halo, "row-wise")
         shape = tuple(fields[0].shape)
         if len(shape) != 3 or shape[0] < 2:
             raise ValueError(f"the CUDA row-wise kernels take (T, X, Y) fields with T >= 2, got {shape}")
-        _check_shapes(tuple(fields) + tuple(consts), [shape] * 3 + [shape[1:]] * 2, "veltracer")
+        _check_shapes(tuple(fields) + tuple(consts) + halo, [shape] * 3 + [shape[1:]] * (2 + len(halo)), "veltracer")
 
     def pack(self, lib, model, nterms, fields, params, data, consts, g, grads, stream):
         T, X, Y = fields[0].shape
@@ -299,6 +365,9 @@ class _VeltracerCuda:
             partials=partials.data_ptr(), sums=sums.data_ptr(), T=T, X=X, Y=Y, slab=slab,
             **_veltracer_scalars(model, nterms),
         )
+        if model.halo is not None:
+            mask, off, Tg, r_lo, r_hi = model.halo
+            args = _RowHaloArgs(base=args, mask=mask.data_ptr(), off=off, Tg=Tg, r_lo=r_lo, r_hi=r_hi)
         return _Launch(args, dfields, (), sums, (partials,))
 
 
@@ -309,6 +378,11 @@ class _Rows1DCuda:
 
     forward, backward = "odil_rows1d_forward", "odil_rows1d_backward"
     stream_forward, stream_backward = "odil_rows1d_stream_forward", "odil_rows1d_stream_backward"
+
+    def names(self, model, stream):
+        if model.halo is not None:
+            raise NotImplementedError(f"the {model.cuda_model} CUDA row model has no per-shard (halo) form")
+        return (self.stream_forward, self.stream_backward) if stream else (self.forward, self.backward)
 
     def __init__(self, model_id, hist, nfields, ndata, consts, flags_scalars, check_params):
         self.model_id, self.hist, self.nfields, self.ndata = model_id, hist, nfields, ndata
@@ -420,8 +494,9 @@ def _cuda_model(model):
 def _library():
     lib = _build.load("rowwise")
     if not getattr(lib, "_odil_typed", False):
-        lib.odil_rows_args_size.argtypes = []
-        lib.odil_rows_args_size.restype = ctypes.c_int
+        for name in ("odil_rows_args_size", "odil_rows_halo_args_size"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
         lib.odil_rows_num_blocks.argtypes = [ctypes.c_int] * 4
         lib.odil_rows_num_blocks.restype = ctypes.c_int
         lib.odil_rows1d_args_size.argtypes = []
@@ -430,17 +505,20 @@ def _library():
         lib.odil_rows1d_num_blocks.restype = ctypes.c_int
         lib.odil_cuda_error_string.argtypes = [ctypes.c_int]
         lib.odil_cuda_error_string.restype = ctypes.c_char_p
-        for pre in ("odil_rows", "odil_rows_stream"):
-            getattr(lib, pre + "_forward").argtypes = [ctypes.POINTER(_RowArgs), ctypes.c_void_p]
-            getattr(lib, pre + "_backward").argtypes = [ctypes.POINTER(_RowArgs), ctypes.c_int, ctypes.c_void_p]
+        for pre, struct in (("odil_rows", _RowArgs), ("odil_rows_stream", _RowArgs), ("odil_rows_halo", _RowHaloArgs)):
+            getattr(lib, pre + "_forward").argtypes = [ctypes.POINTER(struct), ctypes.c_void_p]
+            getattr(lib, pre + "_backward").argtypes = [ctypes.POINTER(struct), ctypes.c_int, ctypes.c_void_p]
         for pre in ("odil_rows1d", "odil_rows1d_stream"):
             getattr(lib, pre + "_forward").argtypes = [ctypes.c_int, ctypes.POINTER(_Rows1DArgs), ctypes.c_void_p]
             getattr(lib, pre + "_backward").argtypes = [
                 ctypes.c_int, ctypes.POINTER(_Rows1DArgs), ctypes.c_int, ctypes.c_void_p]
-        for pre in ("odil_rows", "odil_rows_stream", "odil_rows1d", "odil_rows1d_stream"):
+        for pre in ("odil_rows", "odil_rows_stream", "odil_rows_halo", "odil_rows1d", "odil_rows1d_stream"):
             getattr(lib, pre + "_forward").restype = ctypes.c_int
             getattr(lib, pre + "_backward").restype = ctypes.c_int
-        for name, struct in (("odil_rows_args_size", _RowArgs), ("odil_rows1d_args_size", _Rows1DArgs)):
+        for name, struct in (
+            ("odil_rows_args_size", _RowArgs), ("odil_rows_halo_args_size", _RowHaloArgs),
+            ("odil_rows1d_args_size", _Rows1DArgs),
+        ):
             size = getattr(lib, name)()
             if size != ctypes.sizeof(struct):
                 raise RuntimeError(f"{struct.__name__} layout mismatch: C {size} vs ctypes {ctypes.sizeof(struct)} bytes")
@@ -463,7 +541,7 @@ def _launch_forward(model, nterms, hist, fields, params, data, consts, stream):
     spec.check(model, nterms, hist, fields, params, data, consts)
     lib = _library()
     launch = spec.pack(lib, model, nterms, fields, params, data, consts, None, grads=False, stream=stream)
-    _call(lib, spec, spec.stream_forward if stream else spec.forward, launch, _cuda_stream(fields[0]))
+    _call(lib, spec, spec.names(model, stream)[0], launch, _cuda_stream(fields[0]))
     return launch.sums[:nterms]
 
 
@@ -475,8 +553,7 @@ def _launch_backward(model, nterms, hist, fields, params, data, consts, g, with_
         raise ValueError("g must hold nterms weights on the card")
     lib = _library()
     launch = spec.pack(lib, model, nterms, fields, params, data, consts, g, grads=True, stream=stream)
-    _call(lib, spec, spec.stream_backward if stream else spec.backward, launch, int(bool(with_sums)),
-          _cuda_stream(fields[0]))
+    _call(lib, spec, spec.names(model, stream)[1], launch, int(bool(with_sums)), _cuda_stream(fields[0]))
     return launch.dfields, launch.dparams, (launch.sums[:nterms] if with_sums else None)
 
 
@@ -527,6 +604,30 @@ def backward_stream_cuda(model, nterms, hist, fields, params, data, consts, g, w
 backward_stream_cuda.launches = 0
 
 
+def forward_halo_cuda(model, nterms, hist, fields, params, data, consts):
+    """CUDA masked per-shard forward kernel (replaces ``_forward_tiled`` with
+    ``xpad``, ``odil_tpu/ops/rowwise_tiled.py:187``): (nterms,) sums of
+    squares of the masked residual rows of a ``halo_model``."""
+    sums = _launch_forward(model, nterms, hist, fields, params, data, consts, stream=False)
+    forward_halo_cuda.launches += 1
+    return sums
+
+
+forward_halo_cuda.launches = 0
+
+
+def backward_halo_cuda(model, nterms, hist, fields, params, data, consts, g, with_sums):
+    """CUDA masked per-shard backward kernel (replaces ``_backward_tiled``
+    with ``xpad``, ``odil_tpu/ops/rowwise_tiled.py:283``): (dfields, dparams,
+    sums or None) of a ``halo_model``."""
+    out = _launch_backward(model, nterms, hist, fields, params, data, consts, g, with_sums, stream=False)
+    backward_halo_cuda.launches += 1
+    return out
+
+
+backward_halo_cuda.launches = 0
+
+
 # -- Dispatch ------------------------------------------------------------------
 
 
@@ -536,14 +637,14 @@ def _contig(ts):
 
 def _forward(model, nterms, hist, fields, params, data, consts, stream=False):
     if fields[0].is_cuda:
-        kernel = forward_stream_cuda if stream else forward_cuda
+        kernel = forward_halo_cuda if model.halo is not None else forward_stream_cuda if stream else forward_cuda
         return kernel(model, nterms, hist, _contig(fields), _contig(params), _contig(data), _contig(consts))
     return _forward_plain(model, nterms, hist, fields, params, data, consts)
 
 
 def _backward(model, nterms, hist, fields, params, data, consts, g, with_sums=False, stream=False):
     if fields[0].is_cuda:
-        kernel = backward_stream_cuda if stream else backward_cuda
+        kernel = backward_halo_cuda if model.halo is not None else backward_stream_cuda if stream else backward_cuda
         return kernel(
             model, nterms, hist, _contig(fields), _contig(params), _contig(data), _contig(consts), g, with_sums
         )
@@ -607,24 +708,28 @@ def rowwise_loss_terms(
 
 
 def rowwise_loss_sums(
-    row_fn, fields, params=(), data=(), consts=(), nterms=1, hist=1, block_rows=None, stream=False, halox=None
+    row_fn, fields, params=(), data=(), consts=(), nterms=1, hist=1, block_rows=None, stream=False, halox=None,
+    xpad_masked=False,
 ):
     """``rowwise_loss_terms`` returning per-term SUMS of squares instead of
-    means."""
+    means: the per-shard form of ``halo.py`` sums them over the shards and
+    divides by the global count.  ``xpad_masked`` changes nothing (see the
+    module docstring)."""
     return rowwise_loss_terms(
         row_fn, fields, params=params, data=data, consts=consts, nterms=nterms, hist=hist,
         block_rows=block_rows, stream=stream, halox=halox, _sums=True,
     )
 
 
-def onepass_supported(fields, params, data, consts, nterms, hist, halox=None):
+def onepass_supported(fields, params, data, consts, nterms, hist, halox=None, xpad_masked=False):
     """Whether ``rowwise_loss_and_grads`` runs for these inputs: fields of at
     most 32 bits (the build-time gate of Problem's one-pass route)."""
     return not _wide(tuple(fields))
 
 
 def rowwise_loss_and_grads(
-    row_fn, fields, params=(), data=(), consts=(), nterms=1, hist=1, block_rows=None, gscale=None, halox=None
+    row_fn, fields, params=(), data=(), consts=(), nterms=1, hist=1, block_rows=None, gscale=None, halox=None,
+    xpad_masked=False,
 ):
     """One-pass fused loss sums AND gradients: the backward kernel with the
     sums on gives the per-term sums of squares and the cotangents of
@@ -634,12 +739,20 @@ def rowwise_loss_and_grads(
 
     Returns (sums, dfields, dparams), or None for 64-bit fields (the JAX
     package's rule), where callers differentiate the usual loss instead.
-    data/consts are not differentiated.  ``block_rows`` and ``halox`` change
-    nothing (see ``rowwise_loss_terms``).  Not itself differentiable."""
+    data/consts are not differentiated.  ``block_rows``, ``halox`` and
+    ``xpad_masked`` change nothing (see ``rowwise_loss_terms`` and the module
+    docstring).  Not itself differentiable."""
+    if _wide(tuple(fields)):
+        return None
+    return _loss_and_grads(row_fn, fields, params, data, consts, nterms, hist, gscale)
+
+
+def _loss_and_grads(row_fn, fields, params=(), data=(), consts=(), nterms=1, hist=1, gscale=None):
+    """``rowwise_loss_and_grads`` in any dtype: 64-bit CPU tensors run the
+    plain version (the halo path's counterpart of the JAX package's
+    interpret mode on the CPU mesh); on the card the kernels take float32."""
     model = _as_model(row_fn)
     fields, params, data, consts = tuple(fields), tuple(params), tuple(data), tuple(consts)
-    if _wide(fields):
-        return None
     if gscale is None:
         gscale = 1.0 / fields[0].numel()
     g = torch.full((nterms,), gscale, dtype=fields[0].dtype, device=fields[0].device)

@@ -33,6 +33,19 @@ launches the hand-written kernel of ``csrc/rowwise_mg.cu`` (which exists for
 row models that carry a CUDA counterpart, and raises otherwise), a CPU
 tensor runs the plain PyTorch version beside it.
 
+Local-block form (``rowwise_mg_local_loss_and_grads``, the ``--halo``
+per-shard route of ``halo.py``; the JAX package's ``_backward_mg`` with
+``wraps_in``/``emit_dwraps``, ``odil_tpu/ops/rowwise_mg.py:350-365``, and its
+beyond-VMEM twin ``rowwise_mg_local_tiled``): one shard's level-0 block
+(Tl, Xe, Y), x-halo-extended, the time window of the level-1 partial
+(Tcw, X//2, Y//2) with window row 0 at global row g0/2, and the ``hist``
+fine rows that precede the block (``heads``) in place of its own periodic
+wrap.  Local column c is global column (x0 + c) mod X, whose 2-tap
+prolongation it takes.  The cotangents of the heads leave as ``dheads``.
+The row model is a ``rowwise.halo_model`` over the block's rows.  On the
+card one kernel serves every block size (the TPU's VMEM gate has no
+counterpart): ``backward_mg_local_cuda``.
+
 Row functions and row models are those of ``ops/rowwise.py`` (whole stacks
 of rows, plane axes last); the plain versions here rebuild the fine fields
 and run the plain versions there.
@@ -57,9 +70,10 @@ from .rowwise import (
     _raise_on,
     _slab,
     _veltracer_scalars,
+    halo_model,
 )
 
-__all__ = ["RowModel", "rowwise_loss_terms_mg", "rowwise_mg_loss_and_grads"]
+__all__ = ["RowModel", "rowwise_loss_terms_mg", "rowwise_mg_loss_and_grads", "rowwise_mg_local_loss_and_grads"]
 
 
 # -- Shared setup --------------------------------------------------------------
@@ -178,6 +192,37 @@ def _backward_mg_plain(model, nterms, hist, f0s, t0s, coarse, consts, g, with_su
     return dt0, dP, sums
 
 
+def _local_wx(CX, Xe, x0, dtype, device):
+    """The (Xe, CX) rows of the x prolongation matrix at the block's global
+    columns (x0 + c) mod 2*CX (the JAX caller's gathered ``Wxl``)."""
+    Wx, _ = _interp_matrices(CX, CX, dtype, device)
+    return Wx[(x0 + torch.arange(Xe, device=device)) % (2 * CX)]
+
+
+def _stacked_model(model, hist):
+    """The halo model over the stack [heads; block]: row q of the stack is
+    block row q - hist, and the heads' own residual rows are out."""
+    mask, off, T, r_lo, r_hi = model.halo
+    return halo_model(model.inner, mask, off - hist, T, max(r_lo, 0) + hist, r_hi + hist)
+
+
+def _backward_mg_local_plain(model, nterms, hist, f0s, t0s, coarse, heads, x0, consts, g):
+    """Plain version of the local-block backward kernel: (dt0, dP, dheads,
+    sums) of sum_k g[k] * S[k] over the block's masked residual rows."""
+    Tl, Xe, _ = t0s[0].shape
+    Tcw, CX, CY = coarse[0].shape
+    with torch.no_grad():
+        Wx = _local_wx(CX, Xe, x0, t0s[0].dtype, t0s[0].device)
+        _, Wy = _interp_matrices(CY, CY, t0s[0].dtype, t0s[0].device)
+        rows = [torch.cat([h, _recon_rows(t, c, range(Tl), Wx, Wy, f)]) for t, c, h, f in zip(t0s, coarse, heads, f0s)]
+    d, _, sums = _backward_plain(_stacked_model(model, hist), nterms, hist, rows, (), (), consts, g, True)
+    with torch.no_grad():
+        dt0 = tuple(f * x[hist:] for f, x in zip(f0s, d))
+        dP = tuple(_down_rows(x[hist:], Wx, Wy, Tcw) for x in d)
+        dheads = tuple(x[:hist].clone() for x in d)
+    return dt0, dP, dheads, sums
+
+
 # -- CUDA kernels --------------------------------------------------------------
 
 class _MgArgs(ctypes.Structure):
@@ -211,6 +256,15 @@ class _Mg2Args(ctypes.Structure):
     ] + [("f1", ctypes.c_float * 3)]
 
 
+class _MgLocalArgs(ctypes.Structure):
+    """Mirror of ``struct MgLocalArgs`` in csrc/rowwise_mg.cu (the
+    local-block kernel's arguments): MgArgs over the block (T = Tl, X = Xe,
+    Tc = Tcw) plus the heads, their cotangents and the halo layer."""
+
+    _fields_ = [("base", _MgArgs), ("heads", ctypes.c_void_p * 3), ("dheads", ctypes.c_void_p * 3),
+                ("mask", ctypes.c_void_p)] + [(n, ctypes.c_int) for n in ("x0", "Xg", "off", "Tg", "r_lo", "r_hi")]
+
+
 def _library():
     lib = _build.load("rowwise_mg")
     if not getattr(lib, "_odil_typed", False):
@@ -220,10 +274,14 @@ def _library():
         lib.odil_cuda_error_string.restype = ctypes.c_char_p
         lib.odil_mg_forward.argtypes = [ctypes.POINTER(_MgArgs), ctypes.c_void_p]
         lib.odil_mg_forward.restype = ctypes.c_int
-        for name, struct in (("odil_mg_backward", _MgArgs), ("odil_mg_backward2", _Mg2Args)):
+        for name, struct in (
+            ("odil_mg_backward", _MgArgs), ("odil_mg_backward2", _Mg2Args), ("odil_mg_backward_local", _MgLocalArgs)
+        ):
             getattr(lib, name).argtypes = [ctypes.POINTER(struct), ctypes.c_int, ctypes.c_void_p]
             getattr(lib, name).restype = ctypes.c_int
-        for name, struct in (("odil_mg_args_size", _MgArgs), ("odil_mg2_args_size", _Mg2Args)):
+        for name, struct in (
+            ("odil_mg_args_size", _MgArgs), ("odil_mg2_args_size", _Mg2Args), ("odil_mg_local_args_size", _MgLocalArgs)
+        ):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
             size = getattr(lib, name)()
@@ -362,6 +420,64 @@ def backward_mg2_cuda(model, nterms, hist, f0s, f1s, t0s, t1s, P2, consts, g, wi
 backward_mg2_cuda.launches = 0
 
 
+def _check_local_inputs(model, t0s, coarse, heads, consts, hist):
+    _check_veltracer_model(model, hist)
+    if model.halo is None:
+        raise ValueError("the local-block mg kernel takes a halo_model")
+    if len(t0s) != 3 or len(coarse) != 3 or len(heads) != 3 or len(consts) != 2:
+        raise ValueError("the veltracer CUDA kernel takes 3 fields, 3 heads and 2 const planes")
+    Tl, Xe, Y = t0s[0].shape
+    Tcw, CX, CY = coarse[0].shape
+    if Tl % 2 == 0 or Tl < 3 or Xe < 4 or Xe > 2 * CX or Y % 2 or Y < 4 or CY != Y // 2:
+        raise ValueError(f"the local-block mg kernel takes odd Tl >= 3, 4 <= Xe <= X and even Y >= 4, got "
+                         f"{(Tl, Xe, Y)} with coarse {(Tcw, CX, CY)}")
+    mask = model.halo[0]
+    _check_cuda_tensors(tuple(t0s) + tuple(coarse) + tuple(heads) + tuple(consts) + (mask,), "mg")
+    want = [(Tl, Xe, Y)] * 3 + [((Tl - 1) // 2 + 1, CX, CY)] * 3 + [(hist, Xe, Y)] * 3 + [(Xe, Y)] * 3
+    got = [tuple(t.shape) for t in tuple(t0s) + tuple(coarse) + tuple(heads) + tuple(consts) + (mask,)]
+    if got != want:
+        raise ValueError(f"the local-block mg kernel takes shapes {want}, got {got}")
+
+
+def backward_mg_local_cuda(model, nterms, hist, f0s, t0s, coarse, heads, x0, consts, g):
+    """CUDA local-block backward kernel with the sums (replaces
+    ``_backward_mg`` with ``wraps_in``/``emit_dwraps``, and serves
+    ``rowwise_mg_local_tiled._loss_and_grads_local_tiled``): (dt0, dP,
+    dheads, sums) for the loss sum_k g[k] * S[k] of a ``halo_model``, on the
+    current stream."""
+    _check_local_inputs(model, t0s, coarse, heads, consts, hist)
+    if any(f == 0.0 for f in f0s):
+        raise ValueError("the CUDA mg kernel needs nonzero level-0 factors")
+    g = g.to(torch.float32).contiguous()
+    if not g.is_cuda or g.numel() < nterms:
+        raise ValueError("g must hold nterms weights on the card")
+    lib = _library()
+    Tl, Xe, Y = t0s[0].shape
+    dev = t0s[0].device
+    slab = _slab(Tl + hist)
+    # Xe + 1: the kernel's tiles start at even global columns (one more tile
+    # row when x0 is odd).
+    partials = torch.empty((lib.odil_mg_num_blocks(Tl + hist, Xe + 1, Y, slab), _MAXTERMS), dtype=torch.float64,
+                           device=dev)
+    sums = torch.empty((_MAXTERMS,), dtype=torch.float32, device=dev)
+    dt0 = tuple(torch.empty_like(t) for t in t0s)
+    dP = tuple(torch.empty_like(c) for c in coarse)
+    dheads = tuple(torch.empty_like(h) for h in heads)
+    base = _launch_args(model, f0s, t0s, coarse, consts, g, dt0, dP, partials, sums, nterms)
+    base.slab = slab
+    mask, off, Tg, r_lo, r_hi = model.halo
+    ptr = lambda ts: (ctypes.c_void_p * 3)(*[t.data_ptr() for t in ts])
+    args = _MgLocalArgs(base=base, heads=ptr(heads), dheads=ptr(dheads), mask=mask.data_ptr(), x0=int(x0),
+                        Xg=2 * coarse[0].shape[1], off=off, Tg=Tg, r_lo=max(r_lo, 0), r_hi=r_hi)
+    err = lib.odil_mg_backward_local(ctypes.byref(args), 1, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "odil_mg_backward_local")
+    backward_mg_local_cuda.launches += 1
+    return dt0, dP, dheads, sums[:nterms]
+
+
+backward_mg_local_cuda.launches = 0
+
+
 # -- Dispatch ------------------------------------------------------------------
 
 
@@ -390,6 +506,14 @@ def _backward_mg2(model, nterms, hist, f0s, f1s, t0s, t1s, P2, consts, g, with_s
         W1x, W1y = _interp_matrices(*P2[0].shape[1:], P2[0].dtype, P2[0].device)
         dt1, dP2 = _split_dp1(dP1, f1s, W1x, W1y)
     return dt0, dt1, dP2, sums
+
+
+def _backward_mg_local(model, nterms, hist, f0s, t0s, coarse, heads, x0, consts, g):
+    if t0s[0].is_cuda:
+        return backward_mg_local_cuda(
+            model, nterms, hist, f0s, _contig(t0s), _contig(coarse), _contig(heads), x0, _contig(consts), g
+        )
+    return _backward_mg_local_plain(model, nterms, hist, f0s, t0s, coarse, heads, x0, consts, g)
 
 
 class _SumsqMG(torch.autograd.Function):
@@ -452,3 +576,39 @@ def rowwise_loss_terms_mg(row_fn, t0s, coarse, factors0, consts=(), nterms=1, hi
     cfg = (model, nterms, hist, f0s, len(t0s))
     sums = _SumsqMG.apply(cfg, *t0s, *coarse, *consts)
     return tuple((sums / cells).unbind())
+
+
+def rowwise_mg_local_loss_and_grads(row_fn, t0s, coarse, factors0, heads, x0=0, consts=(), nterms=1, hist=1,
+                                    gscale=1.0):
+    """One-pass fused loss sums AND gradients on ONE shard's local block --
+    the ``--halo`` form of ``rowwise_mg_loss_and_grads`` (``halo.py`` builds
+    the localization around it; ``odil_tpu/ops/rowwise_mg.py:965``).
+
+    row_fn: a ``rowwise.halo_model`` whose rows are the block's (global row
+            offset, global T, plane mask, the block's own rows).
+    t0s:    per-field level-0 term blocks (Tl, Xe, Y), Tl odd.
+    coarse: per-field time windows of the level-1 partial, (Tcw, X//2, Y//2),
+            Tcw = (Tl-1)//2 + 1, window row 0 at global row g0/2 (g0 even).
+    heads:  per-field (hist, Xe, Y) fine rows preceding local row 0.
+    x0:     the global column of local column 0 (periodic in X); the JAX
+            package passes the gathered rows ``Wx`` of the prolongation
+            matrix instead, and ``Wy`` whole -- both follow from x0 and the
+            coarse shape.
+    gscale: the 1/cells_global loss weight.
+
+    Returns ``(sums, (dt0, dcoarse, dheads, dparams))``: local per-term sums
+    of squares (sum them over the shards) and the cotangents of the local
+    inputs."""
+    model = _as_model(row_fn)
+    t0s, coarse, heads = tuple(t0s), tuple(coarse), tuple(heads)
+    Tl = t0s[0].shape[0]
+    Tcw = coarse[0].shape[0]
+    assert t0s[0].ndim == 3, "mg-fused kernel supports 3D (t, x, y) fields"
+    assert Tl % 2 == 1 and Tcw == (Tl - 1) // 2 + 1, (Tl, Tcw)
+    assert Tl > 2 * hist and hist >= 1, (Tl, hist)
+    for h in heads:
+        assert tuple(h.shape) == (hist,) + tuple(t0s[0].shape[1:]), (tuple(h.shape),)
+    f0s = tuple(float(f) for f in factors0)
+    g = torch.full((nterms,), gscale, dtype=t0s[0].dtype, device=t0s[0].device)
+    dt0, dP, dheads, sums = _backward_mg_local(model, nterms, hist, f0s, t0s, coarse, heads, x0, tuple(consts), g)
+    return sums, (dt0, dP, dheads, ())

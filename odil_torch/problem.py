@@ -138,9 +138,24 @@ class Problem:
         norms = [torch.sqrt(torch.clamp(t, min=0)) for t in terms]
         return loss, terms, norms
 
-    def make_loss_fn(self, state):
+    def _check_mesh(self, halo):
+        if self.domain.mesh is not None and not halo:
+            raise NotImplementedError(
+                "a Domain with a mesh evaluates per shard (halo=True); the JAX package's GSPMD route is not ported"
+            )
+
+    def make_loss_fn(self, state, halo=False, extra_partition=None):
         """(loss_fn, arrays0): loss_fn(arrays, tracers) -> (loss, (terms,
-        norms)), differentiable by autograd with respect to ``arrays``."""
+        norms)), differentiable by autograd with respect to ``arrays``.
+
+        halo=True evaluates per shard of the domain's mesh with the halo
+        exchange (``halo.make_halo_loss_fn``); requires Domain(mesh=...,
+        partition=...)."""
+        if halo:
+            from .halo import make_halo_loss_fn
+
+            return make_halo_loss_fn(self, state, extra_partition=extra_partition)
+        self._check_mesh(halo)
         self._capture_structure(state)
         arrays0 = self.domain.arrays_from_state(state)
 
@@ -150,7 +165,7 @@ class Problem:
 
         return loss_fn, arrays0
 
-    def make_loss_grad_fn(self, state):
+    def make_loss_grad_fn(self, state, halo=False, halo_fuse=None, extra_partition=None):
         """``fn(arrays, tracers) -> ((loss, (terms, norms)), grads)``, the
         most fused route first: (1) the operator's fused multigrid pass
         (``operator.loss_and_grads`` on the level-1 partials, or the level-2
@@ -159,7 +174,17 @@ class Problem:
         through ``ctx.rowwise_terms``.  None when neither applies (no fused
         hook or no partials, no kernel call, a streaming call, or a dtype
         wider than 32 bits, which the kernels do not take); callers then use
-        autograd of ``make_loss_fn``."""
+        autograd of ``make_loss_fn``.
+
+        halo=True builds the per-shard form (``halo.make_halo_loss_grad_fn``,
+        ``odil_tpu/problem.py:316-340``): the generic one-pass route or, with
+        ``halo_fuse="mg"`` first, the MG-fused per-shard kernel; the result
+        carries the route as ``fn.route``."""
+        if halo:
+            from .halo import make_halo_loss_grad_fn
+
+            return make_halo_loss_grad_fn(self, state, extra_partition=extra_partition, fuse=halo_fuse)
+        self._check_mesh(halo)
         fn = self._make_mg_loss_grad_fn(state)
         if fn is not None:
             return fn

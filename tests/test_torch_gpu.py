@@ -6,7 +6,9 @@ machine without them:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 
 Tolerances: sums rtol 1e-5; gradients rtol 1e-4 with atol 1e-6 * max|ref|
-(fp32, different summation order)."""
+(fp32, different summation order); the per-shard kernels' gradients against
+the fp64 plain version within that plus 4 times the fp32 plain version's
+own distance from it (``_close_floor``)."""
 
 import hashlib
 
@@ -38,6 +40,23 @@ def cuda():
 def _close(got, want, rtol, atol_frac):
     got, want = got.detach().cpu().numpy(), want.detach().cpu().numpy()
     np.testing.assert_allclose(got, want, rtol=rtol, atol=atol_frac * max(1.0, float(np.abs(want).max())))
+
+
+def _close_floor(got, want, want64, rtol=1e-4, atol_frac=1e-6):
+    """got within the tolerance of the fp64 plain version plus 4 times the
+    fp32 plain version's own distance from it, cell by cell: random inputs
+    put a few cells of a million where a gradient is a cancellation that
+    fp32 resolves to 0.3% only."""
+    got, want, want64 = got.detach().double(), want.detach().double(), want64.detach()
+    floor = (want - want64).abs()
+    tol = rtol * want64.abs() + atol_frac * max(1.0, float(want64.abs().max())) + 4 * floor
+    dist = (got - want64).abs()
+    i = int((dist - tol).reshape(-1).argmax())
+    assert bool((dist <= tol).all()), (float(dist.reshape(-1)[i]), float(floor.reshape(-1)[i]))
+
+
+def _wide(ts):
+    return tuple(t.double() for t in ts)
 
 
 def _model(flags):
@@ -590,3 +609,235 @@ def test_cuda_depth2_route_matches_cpu_route(cuda, monkeypatch):
             _close(a, b, 1e-5, 0.0)
         for a, b in zip(ggrads, cgrads):
             _close(a, b, 1e-4, 1e-6)
+
+
+# -- The per-shard (halo) kernels ---------------------------------------------------
+
+# (T, X, Y) of the block, global row offset, global T, own rows, x halo: a
+# t-partitioned first shard (owner of its first row), a later shard (its
+# first row is the left shard's ghost node), an x-only shard, and the
+# flagship's t:2,x:2 shard shapes (ragged last x tile: 130 = 16 * 8 + 2).
+HALO_CASES = {
+    "t_first": ((10, 18, 16), -1, 17, 1, 10, 1),
+    "t_later": ((10, 18, 16), 7, 17, 2, 10, 1),
+    "x_only": ((9, 18, 40), 0, 9, 0, 9, 1),
+    "flagship": ((34, 130, 256), 31, 65, 2, 34, 1),
+}
+
+
+def _halo_case(device, name, seed=12):
+    (T, X, Y), off, Tg, r_lo, r_hi, hx = HALO_CASES[name]
+    rng = np.random.default_rng(seed)
+    mk = lambda *shape: torch.as_tensor((0.3 * rng.normal(size=shape)).astype(np.float32), device=device)
+    fields = tuple(mk(T, X, Y) for _ in range(3))
+    consts = tuple(mk(X, Y) for _ in range(2))
+    mask = torch.ones((X, Y), device=device)
+    mask[:hx] = 0
+    mask[X - hx :] = 0
+    return trw.halo_model(_model(K), mask, off, Tg, r_lo, r_hi), fields, consts
+
+
+@pytest.mark.parametrize("name", list(HALO_CASES))
+def test_halo_kernels_match_plain(cuda, name):
+    model, fields, consts = _halo_case(cuda, name)
+    g = torch.linspace(0.5, 1.5, 6, device=cuda) / fields[0].numel()
+    before = (trw.forward_halo_cuda.launches, trw.backward_halo_cuda.launches, trw.backward_cuda.launches)
+    m64 = trw.halo_model(model.inner, model.halo[0].double(), *model.halo[1:])
+    qd, _, _ = trw._backward_plain(m64, 6, 1, _wide(fields), (), (), _wide(consts), g.double(), False)
+    for with_sums in (True, False):
+        kd, _, ks = trw.backward_halo_cuda(model, 6, 1, fields, (), (), consts, g, with_sums)
+        pd, _, ps = trw._backward_plain(model, 6, 1, fields, (), (), consts, g, with_sums)
+        for a, b, c in zip(kd, pd, qd):
+            _close_floor(a, b, c)
+        if with_sums:
+            _close(ks, ps, 1e-5, 0.0)
+    _close(trw.forward_halo_cuda(model, 6, 1, fields, (), (), consts), trw._forward_plain(model, 6, 1, fields, (), (),
+           consts), 1e-5, 0.0)
+    assert (trw.forward_halo_cuda.launches, trw.backward_halo_cuda.launches, trw.backward_cuda.launches) == (
+        before[0] + 1, before[1] + 2, before[2])
+
+
+# Stack of the local-block mg kernel: (Tl, Xe, Y) of the block, global X, its
+# first global column x0, first global row g0, global T, own rows from r_lo:
+# odd and even x0 (tiles start at even global columns), the global seam, an
+# x-unpartitioned block, and the flagship's t:2,x:2 shard shapes.
+MG_LOCAL_CASES = {
+    "seam_first": ((9, 18, 16), 32, -1, 0, 17, 0),
+    "odd_later": ((9, 18, 16), 32, 15, 8, 17, 1),
+    "even_x0": ((9, 20, 16), 32, 6, 8, 17, 1),
+    "x_whole": ((17, 32, 16), 32, 0, 0, 17, 0),
+    "flagship": ((33, 130, 256), 256, 127, 32, 65, 1),
+}
+
+
+def _mg_local_case(device, name, seed=13):
+    (Tl, Xe, Y), X, x0, g0, Tg, r_lo = MG_LOCAL_CASES[name]
+    rng = np.random.default_rng(seed)
+    mk = lambda *shape: torch.as_tensor((0.3 * rng.normal(size=shape)).astype(np.float32), device=device)
+    t0s = tuple(mk(Tl, Xe, Y) for _ in range(3))
+    coarse = tuple(mk((Tl - 1) // 2 + 1, X // 2, Y // 2) for _ in range(3))
+    heads = tuple(mk(1, Xe, Y) for _ in range(3))
+    consts = tuple(mk(Xe, Y) for _ in range(2))
+    mask = torch.ones((Xe, Y), device=device)
+    if Xe < X:
+        mask[:1] = 0
+        mask[Xe - 1 :] = 0
+    return trw.halo_model(_model(K), mask, g0, Tg, r_lo, Tl), t0s, coarse, heads, consts, x0
+
+
+@pytest.mark.parametrize("name", list(MG_LOCAL_CASES))
+def test_mg_local_kernel_matches_plain(cuda, name):
+    model, t0s, coarse, heads, consts, x0 = _mg_local_case(cuda, name)
+    f0s = (0.7, 1.1, 0.9)
+    g = torch.linspace(0.5, 1.5, 6, device=cuda) / t0s[0].numel()
+    before = (trmg.backward_mg_local_cuda.launches, trmg.backward_mg_cuda.launches)
+    k = trmg.backward_mg_local_cuda(model, 6, 1, f0s, t0s, coarse, heads, x0, consts, g)
+    p = trmg._backward_mg_local_plain(model, 6, 1, f0s, t0s, coarse, heads, x0, consts, g)
+    m64 = trw.halo_model(model.inner, model.halo[0].double(), *model.halo[1:])
+    q = trmg._backward_mg_local_plain(m64, 6, 1, f0s, _wide(t0s), _wide(coarse), _wide(heads), x0, _wide(consts),
+                                      g.double())
+    for a, b, c in zip(k[0] + k[1] + k[2], p[0] + p[1] + p[2], q[0] + q[1] + q[2]):
+        _close_floor(a, b, c)
+    _close(k[3], p[3], 1e-5, 0.0)
+    assert (trmg.backward_mg_local_cuda.launches, trmg.backward_mg_cuda.launches) == (before[0] + 1, before[1])
+
+
+def test_halo_kernels_repeat_their_bits(cuda):
+    model, fields, consts = _halo_case(cuda, "flagship")
+    g = torch.linspace(0.5, 1.5, 6, device=cuda) / fields[0].numel()
+    outs = []
+    for _ in range(3):
+        d, _, s = trw.backward_halo_cuda(model, 6, 1, fields, (), (), consts, g, True)
+        outs.append(_digest(list(d) + [s, trw.forward_halo_cuda(model, 6, 1, fields, (), (), consts)]))
+    model, t0s, coarse, heads, consts, x0 = _mg_local_case(cuda, "flagship")
+    for _ in range(3):
+        outs.append(_digest(trmg.backward_mg_local_cuda(model, 6, 1, (0.7, 1.1, 0.9), t0s, coarse, heads, x0, consts,
+                                                          g)[1]))
+    assert outs[0] == outs[1] == outs[2] and outs[3] == outs[4] == outs[5]
+
+
+def test_halo_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    model, fields, consts = _halo_case(cuda, "t_first")
+    g = torch.ones(6, device=cuda)
+    with pytest.raises(ValueError):
+        trw.backward_halo_cuda(model, 6, 1, fields, (), (), tuple(c[:-1] for c in consts), g, True)
+    with pytest.raises(NotImplementedError):
+        trw.backward_stream_cuda(model, 6, 1, fields, (), (), consts, g, False)
+    model, t0s, coarse, heads, consts, x0 = _mg_local_case(cuda, "odd_later")
+    with pytest.raises(ValueError):
+        trmg.backward_mg_local_cuda(model, 6, 1, (0.7,) * 3, t0s, coarse, tuple(h[:, 1:] for h in heads), x0, consts, g)
+    with pytest.raises(ValueError):
+        trmg.backward_mg_local_cuda(model.inner, 6, 1, (0.7,) * 3, t0s, coarse, heads, x0, consts, g)
+
+
+@pytest.mark.parametrize("route", ["generic", "mg"])
+def test_cuda_halo_route_matches_cpu_route(cuda, route):
+    """make_loss_grad_fn(halo=True) on a t:2,x:2 mesh of four shards of the
+    card against the same mesh of CPU devices (the plain versions): the
+    route asked for, one per-shard kernel launch a shard and call, the same
+    terms and gradients call after call; and the loss-only route."""
+    from odil_torch import parallel
+
+    size = dict(nt=16, nx=32, ny=32)
+    part = {"t": "t", "x": "x"}
+    runs = {}
+    for device in ("cpu", cuda):
+        mesh = parallel.mesh_from_spec("t:2,x:2", devices=[torch.device(device)] * 4)
+        runs[str(device)] = tvt.build(kernel="pallas_mg", device=device, mesh=mesh, partition=part, **size)
+    cp, cs, _ = runs["cpu"]
+    gp, gs, _ = runs[str(cuda)]
+    rng = np.random.default_rng(7)
+    shapes = [tuple(a.shape) for a in cp.domain.arrays_from_state(cs)]
+    states = [[(0.3 * rng.normal(size=s)).astype(np.float32) for s in shapes] for _ in range(2)]
+    cfn = cp.make_loss_grad_fn(cs, halo=True, halo_fuse=route)
+    gfn = gp.make_loss_grad_fn(gs, halo=True, halo_fuse=route)
+    assert cfn.route == gfn.route == route
+    counter = trw.backward_halo_cuda if route == "generic" else trmg.backward_mg_local_cuda
+    before = counter.launches
+    outs = [gfn(arrays_from_numpy(a, device=cuda), gp.tracers) for a in states]
+    assert counter.launches == before + 2 * 4
+    for arrays, ((_, (gterms, _)), ggrads) in zip(states, outs):
+        (_, (cterms, _)), cgrads = cfn(arrays_from_numpy(arrays, device="cpu"), cp.tracers)
+        for a, b in zip(gterms, cterms):
+            _close(a, b, 1e-5, 0.0)
+        for a, b in zip(ggrads, cgrads):
+            _close(a, b, 1e-4, 1e-6)
+    loss_fn, _ = gp.make_loss_fn(gs, halo=True)
+    x = [a.requires_grad_(True) for a in arrays_from_numpy(states[0], device=cuda)]
+    loss, _ = loss_fn(x, gp.tracers)
+    grads = torch.autograd.grad(loss, x)
+    for a, b in zip(grads, outs[0][1]):
+        _close(a, b, 1e-4, 1e-6)
+
+
+# sha256 (first 16 hex digits) of the generic veltracer kernels' outputs at
+# the flagship shapes, from csrc/rowwise.cu before the per-shard (halo) layer
+# was added to it and to veltracer_row.cuh (NVIDIA H100 80GB HBM3): the layer
+# changes no bit of the plain launches.
+GEN_DIGESTS = {
+    "all_terms": {"backward_sums": "37a1d9aae39fbc53", "backward": "629470acdfd3fcc5", "forward": "9dad241e6ba40afc"},
+    "no_reg": {"backward_sums": "d563f202143ad5d1", "backward": "26c01e3c095541b1", "forward": "76de9486e41a2697"},
+}
+
+
+def _generic_digests(device, flags):
+    rng = np.random.default_rng(3)
+    mk = lambda *shape, s=0.3: torch.as_tensor((s * rng.normal(size=shape)).astype(np.float32), device=device)
+    fields = tuple(mk(65, 256, 256) for _ in range(3))
+    consts = tuple(mk(256, 256, s=1.0) for _ in range(2))
+    step = (1 / 64, 1 / 256, 1 / 256)
+    model = trw.RowModel(
+        tvt._make_row_fn(*step, **flags), tvt._make_row_vjp(*step, **flags), cuda_model="veltracer",
+        scalars=dict(dt=step[0], dx=step[1], dy=step[2], **flags),
+    )
+    nterms = 2 + (2 if flags["kxreg"] else 0) + (2 if flags["ktreg"] else 0)
+    g = torch.linspace(0.5, 1.5, nterms, device=device) / fields[0].numel()
+    d, _, s = trw.backward_cuda(model, nterms, 1, fields, (), (), consts, g, True)
+    out = {"backward_sums": _digest(list(d) + [s])}
+    d, _, _ = trw.backward_cuda(model, nterms, 1, fields, (), (), consts, g, False)
+    out["backward"] = _digest(list(d))
+    out["forward"] = _digest([trw.forward_cuda(model, nterms, 1, fields, (), (), consts)])
+    return out
+
+
+@pytest.mark.parametrize("flags", [K, dict(kimp=3.0, kxreg=0.0, ktreg=0.0)], ids=["all_terms", "no_reg"])
+def test_generic_kernels_unchanged_by_halo_layer(cuda, flags):
+    assert _generic_digests(cuda, flags) == GEN_DIGESTS["all_terms" if flags["kxreg"] else "no_reg"]
+
+
+# sha256 (first 16 hex digits) of the per-shard kernels' outputs on the
+# inputs of _halo_case (backward with the sums, without, forward) and
+# _mg_local_case (dt0, dP, dheads, sums), from the masked kernels and the
+# local mg kernel as first written, each its own kernel (NVIDIA H100 80GB
+# HBM3): sharing the bodies of the plain launches changes no bit.
+HALO_DIGESTS = {
+    "t_first": ("028de90c9452042d", "2d181f485cceb152", "d7cb031959649772"),
+    "t_later": ("7e391e2e4b059287", "e9c7f10fee2fe5ea", "2066b9dc12f19794"),
+    "x_only": ("e67fdd675c3a22d8", "4b09510e25daca31", "4ca8ff3bd0829ea5"),
+    "flagship": ("8a67a3fc809a62a1", "f7b36100df68bef8", "b9567af5c45b490c"),
+}
+MG_LOCAL_DIGESTS = {
+    "seam_first": "5555d61ef9585f57",
+    "odd_later": "fe623dfe6dd6e76c",
+    "even_x0": "2a03a4a4c92adb98",
+    "x_whole": "930959fc33e1d585",
+    "flagship": "ee5feb2a6ad80635",
+}
+
+
+@pytest.mark.parametrize("name", list(HALO_CASES))
+def test_halo_kernels_keep_their_bits(cuda, name):
+    model, fields, consts = _halo_case(cuda, name)
+    g = torch.linspace(0.5, 1.5, 6, device=cuda) / fields[0].numel()
+    d, _, s = trw.backward_halo_cuda(model, 6, 1, fields, (), (), consts, g, True)
+    d2, _, _ = trw.backward_halo_cuda(model, 6, 1, fields, (), (), consts, g, False)
+    f = trw.forward_halo_cuda(model, 6, 1, fields, (), (), consts)
+    assert (_digest(list(d) + [s]), _digest(list(d2)), _digest([f])) == HALO_DIGESTS[name]
+
+
+@pytest.mark.parametrize("name", list(MG_LOCAL_CASES))
+def test_mg_local_kernel_keeps_its_bits(cuda, name):
+    model, t0s, coarse, heads, consts, x0 = _mg_local_case(cuda, name)
+    g = torch.linspace(0.5, 1.5, 6, device=cuda) / t0s[0].numel()
+    k = trmg.backward_mg_local_cuda(model, 6, 1, (0.7, 1.1, 0.9), t0s, coarse, heads, x0, consts, g)
+    assert _digest(list(k[0]) + list(k[1]) + list(k[2]) + [k[3]]) == MG_LOCAL_DIGESTS[name]

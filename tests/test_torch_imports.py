@@ -40,6 +40,8 @@ def test_port_sources_found():
         "odil_torch/models/wave.py",
         "odil_torch/nn.py",
         "odil_torch/stencil.py",
+        "odil_torch/parallel.py",
+        "odil_torch/halo.py",
     } <= names
 
 
@@ -48,6 +50,7 @@ def test_port_sources_found():
     [
         "odil_torch.models.heat", "odil_torch.models.wave", "odil_torch.nn", "odil_torch.stencil", "odil_torch.problem",
         "odil_torch.ops.rowwise", "odil_torch.ops.rowwise_mg", "odil_torch.models.veltracer",
+        "odil_torch.parallel", "odil_torch.halo",
     ],
 )
 def test_new_modules_import_without_jax(name):
