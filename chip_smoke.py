@@ -92,6 +92,12 @@ Phases, any failure exits non-zero and prints no result:
       forward and one masked backward a shard and epoch), 20 epochs, every
       row within 1% of j.'s generic run, and its gradients at the trained
       state against the generic route's.
+   l. A row model without a CUDA counterpart: heat 64^2 with ``keep_init=0``
+      (no hand adjoint, so ``cuda_model=None``) trained 50 epochs on the card
+      through the one-pass route, whose row-wise call runs the plain version
+      on the card (``rowwise.plain_on_card``, once an epoch, and no kernel);
+      epoch 0 within 1e-5 and every 10-epoch row within 1% of the plain
+      operator (``kernel="xla"``) trained the same way by autograd.
    The streaming kernels (veltracer at (65,256,256) and (65,64,64), heat and
    wave at 64^2 and 1024^2) and the two-level kernel (t0 (65,256,256),
    t1 (33,128,128), P2 (17,64,64), x3) are held first to their plain
@@ -104,7 +110,10 @@ Phases, any failure exits non-zero and prints no result:
    windows (17,128,128) x3 and heads (1,130,256) x3, for each shard's row
    offset, own rows and first global column.
 4. Timing: ms/epoch of the training loops with a profiler breakdown of the
-   two 256^2 routes and the heat 64^2 route, and each kernel's time (a CUDA
+   two 256^2 routes and the heat 64^2 route; the mg kernels' time by kernel
+   name (the row walk, the dP gather, the level-2 dP pass), where the
+   depth-1 and local-block forms must launch no separate dP pass
+   (``mg_coarse_grad_kernel``); and each kernel's time (a CUDA
    graph of 50 calls) beside its bound, its plain version's time and its
    launches on its path, every line tagged with the card's name and power
    limit; each streaming kernel's time beside the slabbed launch's on the
@@ -303,9 +312,39 @@ def profile_epochs(torch, opt, epoch_ms, tag, n=5):
         print(f"  {t / n:.4f} ms/epoch in {c / n:.0f} launches: {name[:100]}")
 
 
-def build_all(_build):
-    """Compiles every CUDA source, one nvcc each, all started together."""
-    names = ("rowwise_mg", "rowwise")
+def short_name(name):
+    """A kernel's demangled name without its namespace and argument list."""
+    for junk in ("void ", "(anonymous namespace)::", "<unnamed>::", "(int)", "(bool)"):
+        name = name.replace(junk, "")
+    return name[: name.rfind("(")] if name.endswith(")") else name
+
+
+def sass_counts(path):
+    """{kernel: SASS instructions} of a built library (cuobjdump), or {} where
+    the toolkit has no cuobjdump."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    out = subprocess.run([tool, "-sass", path], capture_output=True, text=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name is not None and line.strip().startswith("/*") and "*/" in line and line.split("*/", 1)[1].strip():
+            counts[name] += 1
+    filt = os.path.join(os.path.dirname(tool), "cu++filt")
+    if counts and os.path.exists(filt):
+        names = subprocess.run([filt], input="\n".join(counts), capture_output=True, text=True).stdout.splitlines()
+        if len(names) == len(counts):
+            counts = {short_name(n): c for n, c in zip(names, counts.values())}
+    return counts
+
+
+def build_all(_build, names=("rowwise_mg", "rowwise")):
+    """Compiles every CUDA source, one nvcc each, all started together, and
+    prints ptxas's register and shared-memory report and each kernel's SASS
+    instruction count."""
     with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
         results = dict(zip(names, ex.map(_build.compile_source, names)))
     for name, (path, seconds, log) in results.items():
@@ -313,6 +352,34 @@ def build_all(_build):
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print("  ptxas:", line.strip())
+        for kernel, n in sass_counts(path).items():
+            print(f"  sass: {n} instructions in {kernel}")
+
+
+def kernel_split(torch, fn, reps=50):
+    """{kernel name: device ms per call of fn} over `reps` calls after a
+    warm-up (torch.profiler), and the calls' total."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = short_name(e.name)
+            split[name] = split.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    return split, sum(split.values())
+
+
+def print_split(torch, fn, what, tag):
+    split, total = kernel_split(torch, fn)
+    print(f"split of {what}: {total:.4f} ms of kernels per call: " + ", ".join(
+        f"{name} {ms:.4f}" for name, ms in sorted(split.items(), key=lambda kv: -kv[1])) + f" {tag}")
+    return split
 
 
 class Counters:
@@ -325,7 +392,7 @@ class Counters:
             "backward_rows": rw.backward_cuda, "forward_rows": rw.forward_cuda,
             "backward_stream": rw.backward_stream_cuda, "forward_stream": rw.forward_stream_cuda,
             "backward_halo": rw.backward_halo_cuda, "forward_halo": rw.forward_halo_cuda,
-            "backward_mg_local": rmg.backward_mg_local_cuda,
+            "backward_mg_local": rmg.backward_mg_local_cuda, "plain_on_card": rw.plain_on_card,
         }
 
     def zero(self):
@@ -719,6 +786,38 @@ def main():
         fail(f"the mg backward+sums kernel disagrees with its plain version at {tuple(t0s512[0].shape)}")
     report["backward_mg_sums_512"] = e_g
     del k, p
+
+    # The mg backward's time by kernel name: the row walk, the dP pass or
+    # gather, the sums (256^2, depth 2, a 256^2 shard and a 512^2 one).
+    shard = halo_cases[3]
+    mg_calls = {
+        "backward_mg_sums": lambda: rmg.backward_mg_cuda(model, nterms, 1, f0s, t0s, coarse, consts, g, True),
+        "backward_mg": lambda: rmg.backward_mg_cuda(model, nterms, 1, f0s, t0s, coarse, consts, g, False),
+        "forward_mg": lambda: rmg.forward_mg_cuda(model, nterms, 1, f0s, t0s, coarse, consts),
+        "backward_mg_sums_512": lambda: rmg.backward_mg_cuda(model512, nterms512, 1, f0s, t0s512, coarse512,
+                                                             consts512, g512, True),
+        "backward_mg2_sums": lambda: rmg.backward_mg2_cuda(model, nterms, 1, f0s, f1s, t0s, t1s, P2s, consts, g,
+                                                           True),
+        "backward_mg_local_sums": lambda: rmg.backward_mg_local_cuda(shard[4], nterms, 1, f0s, shard[5], shard[6],
+                                                                     shard[7], shard[0]["x0"], shard[3], g),
+        "backward_mg_local_sums_512": lambda: rmg.backward_mg_local_cuda(mm512, nterms, 1, f0s, mt512, mP512,
+                                                                         mh512, x0_512, hcs512, g512h),
+    }
+
+    def print_mg_splits():
+        lib = rmg._library()
+        for what, (T_, X_, Y_) in (("256^2", (NT + 1, X, Y)), ("512^2", tuple(t0s512[0].shape)),
+                                   ("a 256^2 shard", (shard[5][0].shape[0] + 1, shard[5][0].shape[1] + 1,
+                                                      shard[5][0].shape[2]))):
+            slab = rmg._mg_slab(T_, X_, Y_, lib._odil_resident)
+            grid = (-(-Y_ // lib.odil_mg_tile(1)), -(-X_ // lib.odil_mg_tile(0)), -(-T_ // slab))
+            print(f"mg walk launch at {what}: {T_} walked rows in slabs of {slab}, grid {grid} = "
+                  f"{grid[0] * grid[1] * grid[2]} blocks of 256 threads, {lib._odil_resident} resident at "
+                  f"once {tag}")
+        for name, fn in mg_calls.items():
+            split = print_split(torch, fn, name, tag)
+            if name != "backward_mg2_sums" and any(k.startswith("mg_coarse_grad_kernel") for k in split):
+                fail(f"{name} launched a separate dP pass: {sorted(split)}")
 
     # The generic kernels at the shapes where the JAX package takes the
     # whole-plane (256^2), blocked (64^3) and x-tiled (512^2) TPU kernels.
@@ -1261,6 +1360,32 @@ def main():
     loops["halo loss-only 256"] = (opt_q, steady_ms(chunk_ms))
     del opt_q, problem_q, state_q, grads_e, grads_t, x
 
+    # l. heat without its CUDA model: plain torch on the card.
+    heat_plain_args = argparse.Namespace(
+        infer_k=True, imposed="stripe", nimp=lane["nimp"], noise=0.0, seed=lane["seed"], kimp=2.0, kxreg=0.0,
+        kxregdecay=0, ktreg=0.0, ktregdecay=0, kwreg=0.0, kwregdecay=0, kmax=0.1, keep_frozen=1, keep_init=0,
+        solver="odil",
+    )
+    heat64 = dict(nt=lane["nt"], nx=lane["nx"], device=dev, args=heat_plain_args)
+    problem_n, state_n, extra_n = th.build(kernel="pallas", **heat64)
+    if th._row_model(Context(problem_n.domain, state_n, extra=extra_n, tracers=problem_n.tracers))[0].cuda_model:
+        fail("heat with keep_init=0 declares a CUDA model")
+    grad_n = problem_n.make_loss_grad_fn(state_n)
+    if grad_n is None:
+        fail("make_loss_grad_fn declined heat with keep_init=0")
+    counters.zero()
+    _, losses_n, chunk_ms = train(torch, Adam, grad_n, problem_n.domain.arrays_from_state(state_n), 50, lr=1e-3)
+    expect_counts(counters.read(), dict(none, plain_on_card=len(losses_n)), "heat keep_init=0 training on the card")
+    loops["heat 64 keep_init=0 (plain on card)"] = (None, steady_ms(chunk_ms))
+    problem_x, state_x, _ = th.build(kernel="xla", **heat64)
+    counters.zero()
+    _, losses_x, _ = train(torch, Adam, autograd_loss_grad_fn(torch, problem_x, state_x),
+                           problem_x.domain.arrays_from_state(state_x), 50, lr=1e-3)
+    expect_counts(counters.read(), none, "heat keep_init=0 on the plain operator")
+    against_route(losses_n, losses_x, "training (heat 64^2 keep_init=0, plain on card, vs the plain operator)",
+                  every=10)
+    del problem_n, state_n, grad_n, problem_x, state_x
+
     idle = [name for name in report if launches.get(name, 0) < 1]
     if idle:
         fail(f"kernels not launched on their paths: {idle}")
@@ -1404,6 +1529,7 @@ def main():
             OPS_BACKWARD * t0_[0].numel(), replaced, mg_src,
         )
 
+    print_mg_splits()
     kernels = []
     for name, (kfn, pfn, nbyte, ops, replaced, source) in list(timed.items()) + list(unlisted.items()):
         ms = kernel_ms(torch, kfn, 50)

@@ -31,46 +31,66 @@
 //     residual values that neighbouring cells share (the advection weights
 //     of row t+1, the Laplacian terms of row t) are computed once per row on
 //     the tile plus a ring of one cell into shared memory.  No atomics.
-//   * Tiles: a block owns TILE_X x TILE_Y cells of a slab of `slab` rows and
-//     walks its rows with a 3-row ring of rebuilt fine rows (halo 2, periodic
-//     wrap) in shared memory; rows at the slab edges are rebuilt twice.  Each
+//   * Tiles: a block of 8 x 32 threads owns TILE_X x TILE_Y = 16 x 32 cells
+//     (two a thread, rows r and r + 8) of a slab of `slab` rows and walks
+//     its rows with a 3-row ring of rebuilt fine rows (halo 2, periodic
+//     wrap) in shared memory; rows at the slab edges are rebuilt twice.  Two
+//     cells a thread rebuild 1.41 fine cells and stage 1.2 ring-1 cells per
+//     owned cell (1.69 and 1.33 at one cell a thread on 8 x 32) and halve the
+//     barriers per cell.  Each
 //     row is rebuilt from a window of t-blended coarse values staged in
 //     shared memory (two loads per coarse value instead of eight per fine
 //     value), and its global loads are issued into registers one row ahead,
 //     so that they are in flight while the block works on the row before.
-//   * Sums: each block writes its partial sums (fp64) to a buffer that a
-//     second kernel reduces in a fixed order -- deterministic run to run.
-//   * dP: a third kernel reads dt0 back and applies the transposed t-blend and
-//     x/y prolongation per coarse cell (a tile staged in shared memory).
-//     That extra full-size read is the first thing a later design removes.
-//   * The row model's residuals, their adjoint, the ring-1 staging and the
-//     partial-sum reduction are device code of veltracer_row.cuh, shared with
-//     the generic row kernels of rowwise.cu.
+//     The slab length is the host's choice (ops/rowwise_mg.py::_mg_slab):
+//     the fewest row-times in whole waves of the blocks the card holds at
+//     once (odil_mg_resident_blocks), e.g. 3 slabs of 22 rows, 384 blocks
+//     of the 396 the card holds, at 256^2.
+//   * dP inside the walk, as the TPU kernel forms it in its ring: each thread
+//     sums the t-blended cotangent of its own cell for the open coarse row
+//     (before the f0 scaling); when the row closes, the warps apply the
+//     transposed y taps by shuffles into a ring of closed rows, and every
+//     DPR rows the block applies the x taps and stores its coarse window
+//     (the coarse cells its owned cells' taps reach) as its partial of each
+//     row (dp_part).  A gather kernel then adds the at most 2 x 2 x 2
+//     windows (slabs, x tiles, y tiles) that hold a coarse cell, in a fixed
+//     order.  dt0 is never read back and no atomics touch a float.
+//   * Sums: each block reduces its threads' fp32 sums in fp64 by warp
+//     shuffles and then its warps in order, and writes its row of partials;
+//     the last block to finish (an integer ticket) reduces the rows in block
+//     order -- deterministic run to run, no second launch.
+//   * The row model's residuals, their adjoint and the ring-1 staging are
+//     device code of veltracer_row.cuh, shared with the generic row kernels
+//     of rowwise.cu.
 //
 // Bound on the H100 (3.35 TB/s HBM): at the flagship shapes (65,256,256) x3
 // the backward must read t0 (51.1 MB) and P (6.5 MB) and write dt0 and dP
 // (57.6 MB): ~115 MB, ~35 us.  The forward reads half of that, ~17 us.  The
 // arithmetic (a few hundred fp32 operations per cell) is far below the
-// memory time, so both are bound by bytes.
+// memory time, so both are bound by bytes.  The walk runs far above that
+// bound (PERF.md): it issues its per-cell work -- the rebuild of 1.41 fine
+// cells, the ring-1 staging of 1.2 and the residuals and adjoint of one --
+// with 3 blocks of 256 threads an SM (its ~70 KB of dynamic shared memory).
 //
 // Two-level fusion (odil_mg_backward2; lvl2 = (t1s, f1s, W1x, W1y) of the
 // TPU kernel).  P is then the level-2 Horner partial P2 (Tc2, X/4, Y/4) and
 // the level-1 term t1 (Tc, X/2, Y/2) is an input: the level-1 rows
 //   P1[c] = f1 * t1[c] + W1x . blend_t(P2[c/2], P2[c/2+1]) . W1y^T
-// are rebuilt per block over the coarse window its fine rows read (8 x 20
-// level-1 cells from a staged 6 x 12 window of t-blended level-2 values),
+// are rebuilt per block over the coarse window its fine rows read (12 x 20
+// level-1 cells from a staged 8 x 12 window of t-blended level-2 values),
 // into a two-slot ring in shared memory: fine row r reads P1 rows r/2 and
 // r/2+1, so the walk rebuilds one P1 row every two fine rows (two at the
 // slab start; the slab-edge recompute stands in for the TPU kernel's
 // XLA-built head and wrap residents).  The dP output then holds the level-1
 // cotangent dP1, formed as at depth 1, and mg_coarse_grad_kernel runs once
 // more one level down for dP2 = W1x^T (0.5 dP1[2c-1] + dP1[2c] +
-// 0.5 dP1[2c+1]) W1y; the caller scales dP1 by f1 for dt1 (the TPU kernel's
-// caller does both in XLA, odil_tpu/ops/rowwise_mg.py:947-959).  The P1
-// rebuild loads its window directly (no register prefetch): a first design.
+// 0.5 dP1[2c+1]) W1y (1/8 of the walk's bytes); the caller scales dP1 by f1
+// for dt1 (the TPU kernel's caller does both in XLA,
+// odil_tpu/ops/rowwise_mg.py:947-959).  The P1 rebuild loads its window
+// directly (no register prefetch).
 //
 // Local-block form (odil_mg_backward_local: mg_rows_kernel and
-// mg_coarse_grad_kernel on MgLocalArgs): the per-shard kernel of the halo
+// mg_dp_gather_kernel on MgLocalArgs): the per-shard kernel of the halo
 // path.  Replaces
 //   _backward_mg with wraps_in / emit_dwraps (odil_tpu/ops/rowwise_mg.py:350-365,
 //       pallas_call at :766), with the sums, and
@@ -88,19 +108,28 @@
 // 2-tap prolongation weights and coarse window are those of the global
 // column (the TPU kernel takes the gathered rows of the x prolongation
 // matrix).  Residuals carry the halo layer of veltracer_row.cuh (global rows,
-// plane mask, the block's own rows).  dP over the window maps each global
-// fine column of a coarse cell's taps back to its local column (or to none).
+// plane mask, the block's own rows).  The dP windows run over unwrapped
+// global coarse columns (a block may straddle the seam); the gather writes
+// the whole coarse plane of the time window, 0 where no block's taps reach.
 // Bound: the bytes of the block, its window and heads in, dt0, dP and dheads
 // out; ~28.8 MB at the flagship's t:2,x:2 shards, ~8.6 us at 3.35 TB/s.
 
 #include <type_traits>
 
+// The walk's tile: 16 x 32 cells, 8 x 32 threads, two cells a thread.
+#define ODIL_TILE_X 16
+#define ODIL_THREAD_ROWS 8
 #include "veltracer_row.cuh"
 
 namespace {
 
-constexpr int CT = 16;            // coarse tile of the dP kernel
+constexpr int CT = 16;            // coarse tile of the level-2 dP kernel
 constexpr int FW = 2 * CT + 4;    // fine window covering a coarse tile's taps
+constexpr int CELLS = TILE_X / THREAD_ROWS;  // owned cells a thread: rows r and r + THREAD_ROWS
+// The coarse window of one tile's dP partial: the coarse columns and rows
+// that the taps of its TILE_X x TILE_Y owned fine cells reach.
+constexpr int DWA = TILE_X / 2 + 2, DWB = TILE_Y / 2 + 2;
+constexpr int DWIN = NF * DWA * DWB;
 
 }  // namespace
 
@@ -114,12 +143,13 @@ struct MgArgs {
   const float* g;     // (nterms,) loss weights, on the device
   float* dt0[NF];
   float* dP[NF];
-  double* partials;   // (nblocks, MAXTERMS)
+  double* partials;   // (nblocks, MAXTERMS): each block's sums
   float* sums;        // (MAXTERMS,)
+  float* dp_part;     // each block's dP partials (odil_mg_dp_floats floats)
+  unsigned* ticket;   // 0 between launches: the blocks that have written their sums
   int T, X, Y, Tc, CX, CY, slab, nterms;
   int has_x, has_t;
   float f0[NF];
-  float inv_f0[NF];
   // Reciprocals of the steps (1/dt, 1/dx, ..., 1/dy^2): the residuals
   // multiply by them.  For the usual power-of-two steps that is exactly the
   // JAX package's division.
@@ -199,19 +229,197 @@ __device__ __forceinline__ int win(int a, int a0, int n) { return pmod(a - a0, n
 // The fine x columns as the prolongation sees them: a whole plane's are its
 // own; a local block's column c is global column (x0 + c) mod Xg.
 // first_col: the global column of column 0; fine_cols: the global X;
-// local_col: the block's column of global column x (0 <= x < Xg), or -1.
+// tile_shift: the local column of tile 0's first column is -tile_shift (a
+// local block's tiles start at even global columns).
 __device__ __forceinline__ int first_col(const MgArgs&) { return 0; }
 __device__ __forceinline__ int first_col(const MgLocalArgs& A) { return A.x0; }
 __device__ __forceinline__ int fine_cols(const MgArgs& A) { return A.X; }
 __device__ __forceinline__ int fine_cols(const MgLocalArgs& A) { return A.Xg; }
-__device__ __forceinline__ int local_col(const MgArgs&, int x) { return x; }
-__device__ __forceinline__ int local_col(const MgLocalArgs& A, int x) {
-  const int xl = pmod(x - A.x0, A.Xg);
-  return xl < A.X ? xl : -1;
-}
+__host__ __device__ __forceinline__ int tile_shift(const MgArgs&) { return 0; }
+__host__ __device__ __forceinline__ int tile_shift(const MgLocalArgs& A) { return A.x0 & 1; }
 
 template <class Args>
 constexpr bool is_local = std::is_same<Args, MgLocalArgs>::value;
+
+// The rows a block walks (a local block: the stack [heads; block]) and the
+// dP row of walked row 0 (-1: a local block's head row has no dP row).
+template <class Args>
+__host__ __device__ __forceinline__ int walked_rows(const Args& A) { return is_local<Args> ? A.T + 1 : A.T; }
+template <class Args>
+__host__ __device__ __forceinline__ int dp_row0(const Args&) { return is_local<Args> ? -1 : 0; }
+
+// The blocks of the row kernels: y tiles, x tiles, slabs.
+template <class Args>
+__host__ __device__ __forceinline__ dim3 rows_grid(const Args& A) {
+  return dim3((A.Y + TILE_Y - 1) / TILE_Y, (A.X + tile_shift(A) + TILE_X - 1) / TILE_X,
+              (walked_rows(A) + A.slab - 1) / A.slab);
+}
+
+// The coarse rows [c_lo, c_hi] of slab z's dP partials: its dP rows
+// [l0, l1) reach coarse rows l0 >> 1 .. l1 >> 1 (fine row 2c+-1 enters row c
+// with weight 1/2).  dp_slots: the most a slab reaches.
+__host__ __device__ __forceinline__ int dp_slots(int slab) { return slab / 2 + 2; }
+template <class Args>
+__device__ __forceinline__ void dp_rows(const Args& A, int z, int& c_lo, int& c_hi) {
+  const int ts = z * A.slab, te = min(ts + A.slab, walked_rows(A));
+  const int l0 = max(ts + dp_row0(A), 0), l1 = te + dp_row0(A);
+  c_lo = l0 >> 1;
+  c_hi = min(A.Tc - 1, l1 >> 1);
+}
+
+// dP inside the walk.  A thread sums the t-blended cotangent
+// 0.5 d[2c-1] + d[2c] + 0.5 d[2c+1] of its own cell for the coarse row c that
+// is open.  When c closes (after fine row 2c+1, or at the slab's end) each
+// warp -- one tile row of TILE_Y = 32 cells -- applies the transposed y taps
+// by shuffles (cells 2q and 2q+1 share their coarse taps q-1, q, q+1) into a
+// ring of DPR closed rows in shared memory; when the ring is full, or at the
+// slab's end, the block applies the transposed x taps and stores each row's
+// coarse window (DWA x DWB cells per field; window x index wa is unwrapped
+// global coarse column (xg0 >> 1) - 1 + wa, xg0 the tile's first global
+// column, so that a local block's window may straddle the periodic seam;
+// window y index wb is coarse row y0/2 - 1 + wb) as the block's partial of
+// that coarse row.
+constexpr int DPR = 4;
+static_assert(TILE_Y == 32, "the dP y taps take one warp per tile row");
+
+struct DpStage {
+  float acc[NF][TILE_X][TILE_Y];  // each thread's open coarse row (shared memory, not registers: the walk
+                                  // runs at its register bound)
+  float E[DPR][NF][TILE_X][DWB];  // the ring of closed coarse rows after the y taps
+  float yw[TILE_Y][3];            // tap weights of each tile column toward coarse y/2 - 1, y/2, y/2 + 1
+  float xw[TILE_X][3];            // the same for each tile row (unwrapped global columns)
+};
+
+// The dP tap weights of the tile's owned columns and rows (once per block;
+// zero where the tile owns no cell).  x0: the tile's first local column.
+template <class Args>
+__device__ void init_dp_taps(DpStage& Q, const Args& A, int x0, int y0) {
+  const int xg0 = x0 + first_col(A), Xg = fine_cols(A);
+  for (int idx = threadIdx.y * TILE_Y + threadIdx.x; idx < TILE_X + TILE_Y; idx += NTHREADS) {
+    int a[2];
+    float w[2], q[3] = {0.0f, 0.0f, 0.0f};
+    if (idx < TILE_X) {
+      const int xl = x0 + idx, gx = xg0 + idx, gm = pmod(gx, Xg);
+      if (xl >= 0 && xl < A.X) {
+        taps(gm, A.CX, a[0], w[0], a[1], w[1]);
+        for (int k = 0; k < 2; ++k) q[a[k] + (gx - gm) / Xg * A.CX - (gx >> 1) + 1] += w[k];
+      }
+      for (int k = 0; k < 3; ++k) Q.xw[idx][k] = q[k];
+    } else {
+      const int c = idx - TILE_X, y = y0 + c;
+      if (y < A.Y) {
+        taps(y, A.CY, a[0], w[0], a[1], w[1]);
+        for (int k = 0; k < 2; ++k) q[a[k] - (y >> 1) + 1] += w[k];
+      }
+      for (int k = 0; k < 3; ++k) Q.yw[c][k] = q[k];
+    }
+  }
+}
+
+// The closed coarse row's y taps of tile row `row` into ring slot `slot`:
+// lane 2q writes window index q + 1, lane 0 index 0 and lane 31 index
+// DWB - 1.  No barrier.
+__device__ __forceinline__ void close_dp_row(DpStage& Q, const float (&acc)[NF], int slot, int row) {
+  constexpr unsigned FULL = 0xffffffffu;
+  const int lane = threadIdx.x;
+  const float wm = Q.yw[lane][0], wc = Q.yw[lane][1], wp = Q.yw[lane][2];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    float vm = wm * acc[f], vc = wc * acc[f], vp = wp * acc[f];
+    vm += __shfl_xor_sync(FULL, vm, 1);  // the pair's weights toward its q - 1, q, q + 1
+    vc += __shfl_xor_sync(FULL, vc, 1);
+    vp += __shfl_xor_sync(FULL, vp, 1);
+    const float up = __shfl_up_sync(FULL, vp, 2), dn = __shfl_down_sync(FULL, vm, 2);
+    const float e = ((lane >= 2 ? up : 0.0f) + vc) + (lane < 30 ? dn : 0.0f);
+    if ((lane & 1) == 0) Q.E[slot][f][row][(lane >> 1) + 1] = e;
+    if (lane == 0) Q.E[slot][f][row][0] = vm;
+    if (lane == TILE_Y - 1) Q.E[slot][f][row][DWB - 1] = vp;
+  }
+}
+
+// The x taps of the ring's first n rows, stored at out + k * stride for
+// ring slot k (DWIN floats: field, window x, window y).  Every thread of the
+// block calls it; it starts with a barrier, and the row loop's barrier
+// follows before the ring is written again.
+__device__ void flush_dp(const DpStage& Q, int n, float* out, size_t stride) {
+  __syncthreads();
+  out += (size_t)(blockIdx.y * gridDim.x + blockIdx.x) * DWIN;
+  for (int idx = threadIdx.y * TILE_Y + threadIdx.x; idx < n * DWIN; idx += NTHREADS) {
+    const int k = idx / DWIN, rem = idx % DWIN;
+    const int f = rem / (DWA * DWB), wa = (rem / DWB) % DWA, wb = rem % DWB;
+    float v = 0.0f;
+    // Window index wa takes tile rows r = 2 wa - 4 + m (m < 6) with r / 2 in
+    // wa - 2 .. wa: their weight toward coarse r/2 - 1 + (wa - r/2).
+#pragma unroll
+    for (int m = 0; m < 6; ++m) {
+      const int r = 2 * wa - 4 + m;
+      if (r >= 0 && r < TILE_X) v += Q.xw[r][2 - (m >> 1)] * Q.E[k][f][r][wb];
+    }
+    out[k * stride + rem] = v;
+  }
+}
+
+// The block's partials of slab-relative coarse row k (stride: to row k + 1).
+template <class Args>
+__device__ __forceinline__ float* dp_partial(const Args& A, int k, size_t& stride) {
+  stride = (size_t)gridDim.x * gridDim.y * DWIN;
+  return A.dp_part + (blockIdx.z * dp_slots(A.slab) + k) * stride;
+}
+
+// dP row l (the walk's fine row) of this thread's cells, d their cotangents
+// before the level-0 factor (0 for a cell it does not own): an even row adds
+// to the open coarse row l/2; an odd row closes (l-1)/2 (slab-relative k)
+// into the ring, flushes a full ring and opens (l+1)/2.  c_lo: the slab's
+// first coarse row.  Every thread of the block calls it.
+template <class Args>
+__device__ __forceinline__ void dp_step(DpStage& Q, const Args& A, const float (&d)[CELLS][NF], int l, int c_lo) {
+  const int k = ((l - 1) >> 1) - c_lo;
+#pragma unroll
+  for (int c = 0; c < CELLS; ++c) {
+    const int row = threadIdx.y + c * THREAD_ROWS;
+    float closed[NF];
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      float& acc = Q.acc[f][row][threadIdx.x];
+      if ((l & 1) == 0) {
+        acc += d[c][f];
+      } else {
+        closed[f] = acc + 0.5f * d[c][f];
+        acc = 0.5f * d[c][f];
+      }
+    }
+    if (l & 1) close_dp_row(Q, closed, k % DPR, row);
+  }
+  if ((l & 1) && k % DPR == DPR - 1) {
+    size_t stride;
+    float* out = dp_partial(A, k - (DPR - 1), stride);
+    flush_dp(Q, DPR, out, stride);
+  }
+}
+
+// The slab's end: the open coarse row (walk rows end before l1, the next dP
+// row) closes if it is a row of the plane, and the ring's rows flush.
+template <class Args>
+__device__ void dp_finish(DpStage& Q, const Args& A, int l1, int c_lo) {
+  const int open = l1 >> 1, k = open - c_lo;
+  int n = k % DPR;
+  if (open <= A.Tc - 1) {
+#pragma unroll
+    for (int c = 0; c < CELLS; ++c) {
+      const int row = threadIdx.y + c * THREAD_ROWS;
+      float closed[NF];
+#pragma unroll
+      for (int f = 0; f < NF; ++f) closed[f] = Q.acc[f][row][threadIdx.x];
+      close_dp_row(Q, closed, n, row);
+    }
+    ++n;
+  }
+  if (n > 0) {
+    size_t stride;
+    float* out = dp_partial(A, k - k % DPR, stride);
+    flush_dp(Q, n, out, stride);
+  }
+}
 
 // The plane indices of the tile's fine rows and columns and their taps, as
 // window indices (once per block).  x0: the tile's first (local) column; the
@@ -487,44 +695,59 @@ __device__ __forceinline__ HaloRow row_layer(const MgLocalArgs& A, const MaskTil
           (it1 - 1 >= A.r_lo && it1 - 1 < A.r_hi) ? 1.0f : 0.0f, A.Tg};
 }
 
-// At least 4 blocks per SM: without the bound the compiler spends 75
-// registers on the backward+sums form (3 blocks per SM) and the kernel runs
-// 8% slower than with 64.  LVL2: the two-level fusion (the code of the
-// depth-1 instantiation is unchanged by it).
-// Args: MgArgs; Mg2Args at depth 2; MgLocalArgs for a local block, which
-// walks the stack [heads; block] (stack row t is local row t - 1), takes
-// global rows and the halo layer in the residuals, and writes the cotangent
-// of stack row 0 to dheads.
+// The walk's shared memory, dynamic (it exceeds the 48 KB of static shared
+// memory): the ring of fine rows (slot of row r is (r - ts + 1) % 3), the
+// initial tracer plane, the ring-1 staging, the sums' warp partials, the
+// coarse window, and per form the level-1 ring, the mask and the dP stage.
 template <int MODE, bool LVL2, class Args>
-__global__ void __launch_bounds__(NTHREADS, 4) mg_rows_kernel(const Args A) {
+struct WalkSmem {
+  float F[3][NF][HX][HY];
+  float U0[HX][HY];
+  Ring1 R;
+  double red[NWARPS][MAXTERMS];
+  RowStage S;
+  typename std::conditional<LVL2, Lvl2Stage, NoStage>::type S2;
+  typename std::conditional<is_local<Args>, MaskTile, NoMask>::type MT;
+  typename std::conditional<(MODE & MODE_GRADS) != 0, DpStage, NoStage>::type Q;
+};
+
+// 3 blocks of 256 threads an SM (the shared memory of 3 fits the SM's 227
+// KB), so up to 80 registers a thread for its two cells.  LVL2: the
+// two-level fusion.  Args: MgArgs; Mg2Args at depth 2; MgLocalArgs for a
+// local block, which walks the stack [heads; block] (stack row t is local
+// row t - 1), takes global rows and the halo layer in the residuals, and
+// writes the cotangent of stack row 0 to dheads.
+constexpr int WALK_BLOCKS_PER_SM = 3;
+
+template <int MODE, bool LVL2, class Args>
+__global__ void __launch_bounds__(NTHREADS, WALK_BLOCKS_PER_SM) mg_rows_kernel(const Args A) {
   constexpr bool LOCAL = is_local<Args>;
   static_assert(std::is_same<Args, typename std::conditional<LVL2, Mg2Args, MgArgs>::type>::value || (LOCAL && !LVL2),
                 "mg_rows_kernel: Mg2Args goes with LVL2");
-  __shared__ float F[3][NF][HX][HY];  // ring of fine rows; slot of row r is (r - ts + 1) % 3
-  __shared__ float U0[HX][HY];
-  __shared__ Ring1 R;
-  __shared__ double red[NTHREADS];
-  __shared__ RowStage S;
-  __shared__ typename std::conditional<LVL2, Lvl2Stage, NoStage>::type S2;
-  __shared__ typename std::conditional<LOCAL, MaskTile, NoMask>::type MT;
+  constexpr bool grads = (MODE & MODE_GRADS) != 0;
+  constexpr bool sums = (MODE & MODE_SUMS) != 0;
+  extern __shared__ __align__(16) unsigned char walk_smem[];
+  auto& W = *reinterpret_cast<WalkSmem<MODE, LVL2, Args>*>(walk_smem);
+  auto& F = W.F;
+  auto& U0 = W.U0;
+  auto& R = W.R;
+  auto& S = W.S;
+  auto& S2 = W.S2;
+  auto& MT = W.MT;
+  auto& Q = W.Q;
   int p1_rows[2] = {-1, -1};  // the level-1 rows in the P1 ring's slots (depth 2)
 
   const int tid = threadIdx.y * TILE_Y + threadIdx.x;
   // A local block's tiles start at even global columns (shifted by one local
   // column when A.x0 is odd), so that the coarse window covers every tap, the
   // extrapolation taps at the global seam included.
-  int x0 = blockIdx.y * TILE_X;
-  if constexpr (LOCAL) x0 -= A.x0 & 1;
+  const int x0 = blockIdx.y * TILE_X - tile_shift(A);
   const int y0 = blockIdx.x * TILE_Y;
   const int xg0 = x0 + first_col(A);
-  const int x = x0 + threadIdx.y, y = y0 + threadIdx.x;
-  const int i = threadIdx.y + HALO, j = threadIdx.x + HALO;
-  const int T = LOCAL ? A.T + 1 : A.T;  // the rows walked
+  const int y = y0 + threadIdx.x, j = threadIdx.x + HALO;
+  const int T = walked_rows(A);
   const int ts = blockIdx.z * A.slab, te = min(ts + A.slab, T);
-  const bool own = (!LOCAL || x >= 0) && x < A.X && y < A.Y;
   const int off = walk_off(A);  // the global row of walked row 0
-  constexpr bool grads = (MODE & MODE_GRADS) != 0;
-  constexpr bool sums = (MODE & MODE_SUMS) != 0;
 
   for (int idx = tid; idx < HX * HY; idx += NTHREADS) {
     const int hx = idx / HY, hy = idx % HY;
@@ -538,6 +761,17 @@ __global__ void __launch_bounds__(NTHREADS, 4) mg_rows_kernel(const Args A) {
   float s[MAXTERMS];
 #pragma unroll
   for (int k = 0; k < MAXTERMS; ++k) s[k] = 0.0f;
+  int c_lo = 0;  // dP: the slab's first coarse row
+  if constexpr (grads) {
+    int c_hi;
+    dp_rows(A, blockIdx.z, c_lo, c_hi);
+    init_dp_taps(Q, A, x0, y0);
+#pragma unroll
+    for (int c = 0; c < CELLS; ++c) {
+#pragma unroll
+      for (int f = 0; f < NF; ++f) Q.acc[f][threadIdx.y + c * THREAD_ROWS][threadIdx.x] = 0.0f;
+    }
+  }
 
   init_taps(S, A, x0, y0);
   if constexpr (LVL2) init_taps2(S2, A, x0, y0);
@@ -561,10 +795,13 @@ __global__ void __launch_bounds__(NTHREADS, 4) mg_rows_kernel(const Args A) {
     const auto H = row_layer(A, MT, t, it1);
 
     if (grads) stage_ring1(A, P, it1 + off, g2, R, H);
-    if (own) {
+    float d[CELLS][NF] = {};
+#pragma unroll
+    for (int c = 0; c < CELLS; ++c) {
+      const int x = x0 + threadIdx.y + c * THREAD_ROWS, i = threadIdx.y + c * THREAD_ROWS + HALO;
+      if (!((!LOCAL || x >= 0) && x < A.X && y < A.Y)) continue;
       const float u1 = __ldg(A.u_final + (size_t)x * A.Y + y);
-      float d[NF];
-      cell_terms<grads, sums>(A, P, R, t + off, it1 + off, i, j, u1, g2, s, d, H);
+      cell_terms<grads, sums>(A, P, R, t + off, it1 + off, i, j, u1, g2, s, d[c], H);
       if (grads) {
         const size_t cell = ((size_t)(LOCAL ? t - 1 : t) * A.X + x) * A.Y + y;
         bool head = false;
@@ -572,29 +809,81 @@ __global__ void __launch_bounds__(NTHREADS, 4) mg_rows_kernel(const Args A) {
           head = t == 0;
           if (head) {
 #pragma unroll
-            for (int f = 0; f < NF; ++f) A.dheads[f][(size_t)x * A.Y + y] = d[f];
+            for (int f = 0; f < NF; ++f) A.dheads[f][(size_t)x * A.Y + y] = d[c][f];
           }
         }
         if (!head) {
-          A.dt0[0][cell] = A.f0[0] * d[0];
-          A.dt0[1][cell] = A.f0[1] * d[1];
-          A.dt0[2][cell] = A.f0[2] * d[2];
+          A.dt0[0][cell] = A.f0[0] * d[c][0];
+          A.dt0[1][cell] = A.f0[1] * d[c][1];
+          A.dt0[2][cell] = A.f0[2] * d[c][2];
         }
       }
     }
+    if constexpr (grads) {
+      const int l = t + dp_row0(A);  // the dP row (fine row) of walked row t
+      if (l >= 0) dp_step(Q, A, d, l, c_lo);
+    }
     __syncthreads();
   }
-
-  if (sums) write_partials(A, s, red);
+  if constexpr (grads) dp_finish(Q, A, te + dp_row0(A), c_lo);
+  if constexpr (sums) finish_sums(A, s, W.red);
 }
 
-// dP[f][c] = Wx^T (0.5 d[2c-1] + d[2c] + 0.5 d[2c+1]) Wy with d = dt0[f] / f0[f]:
-// the transposed t-blend and x/y prolongation, gathered per coarse cell.  For
-// a local block (MgLocalArgs) c runs over the coarse window and the global
-// fine columns of each coarse cell's taps map to the block's columns
-// (local_col; none outside the block).
+// dP[f][c][a][b] from the blocks' partials: the at most 2 (slabs) x 2 (x
+// tiles) x 2 (y tiles) windows that hold coarse cell (c, a, b), added in the
+// order slab, x tile, y tile -- deterministic, no atomics.  A local block's
+// windows are unwrapped (global coarse column a appears as a + m * CX); the
+// cells no window holds are 0 (the rest of a local block's coarse plane).
+// Grid: (CY / GATHER_B, CX, Tc) blocks of GATHER_B threads along b, each
+// thread all NF fields (independent sums in flight together).
+constexpr int GATHER_B = 128;
+
 template <class Args>
-__global__ void __launch_bounds__(CT * CT) mg_coarse_grad_kernel(const Args A) {
+__global__ void __launch_bounds__(GATHER_B) mg_dp_gather_kernel(const Args A) {
+  const int b = blockIdx.x * GATHER_B + threadIdx.x;
+  if (b >= A.CY) return;
+  const int a = blockIdx.y, c = blockIdx.z;
+  const dim3 grid = rows_grid(A);
+  const int nby = grid.x, nbx = grid.y, nz = grid.z;
+  constexpr int HXT = TILE_X / 2, HYT = TILE_Y / 2;
+  const int u0 = ((first_col(A) - tile_shift(A)) >> 1) - 1;  // unwrapped coarse column of tile 0's window 0
+  const int u_end = u0 + (nbx - 1) * HXT + DWA;
+  const int zc = (2 * c - dp_row0(A)) / A.slab;  // the slab of fine row 2c
+  const int jy = b + 1, by1 = jy / HYT;
+  const size_t tiles = (size_t)nbx * nby;
+  float v[NF] = {0.0f, 0.0f, 0.0f};
+  for (int z = max(zc - 1, 0); z <= min(zc + 1, nz - 1); ++z) {
+    int c_lo, c_hi;
+    dp_rows(A, z, c_lo, c_hi);
+    if (c < c_lo || c > c_hi) continue;
+    const float* row = A.dp_part + (size_t)(z * dp_slots(A.slab) + c - c_lo) * tiles * DWIN;
+    int u = a;
+    while (u - A.CX >= u0) u -= A.CX;
+    while (u < u0) u += A.CX;
+    for (; u < u_end; u += A.CX) {
+      const int jx = u - u0;
+      for (int bx = jx / HXT - 1; bx <= jx / HXT; ++bx) {
+        const int wa = jx - bx * HXT;
+        if (bx < 0 || bx >= nbx || wa >= DWA) continue;
+        for (int by = by1 - 1; by <= by1; ++by) {
+          const int wb = jy - by * HYT;
+          if (by < 0 || by >= nby || wb >= DWB) continue;
+          const float* w = row + ((size_t)bx * nby + by) * DWIN + wa * DWB + wb;
+#pragma unroll
+          for (int f = 0; f < NF; ++f) v[f] += w[f * DWA * DWB];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int f = 0; f < NF; ++f) A.dP[f][((size_t)c * A.CX + a) * A.CY + b] = v[f];
+}
+
+// The two-level fusion's dP2 = W1x^T (0.5 dP1[2c-1] + dP1[2c] + 0.5 dP1[2c+1])
+// W1y, gathered per level-2 cell from dP1 (dt0 here: the level-1 plane, X, Y
+// its size, CX, CY, Tc the level-2 ones; a coarse tile staged in shared
+// memory).  It reads 1/8 of the bytes the row walk reads.
+__global__ void __launch_bounds__(CT * CT) mg_coarse_grad_kernel(const MgArgs A) {
   __shared__ float S1[FW][FW + 1];
   __shared__ float S2[FW][CT + 1];
   const int f = blockIdx.z % NF, c = blockIdx.z / NF;
@@ -602,20 +891,17 @@ __global__ void __launch_bounds__(CT * CT) mg_coarse_grad_kernel(const Args A) {
   const int xs = 2 * a0 - 2, ys = 2 * b0 - 2;
   const int tid = threadIdx.y * CT + threadIdx.x;
   const float* d = A.dt0[f];
-  const float inv = A.inv_f0[f];
   const size_t plane = (size_t)A.X * A.Y;
-  const int X = fine_cols(A);
 
   for (int idx = tid; idx < FW * FW; idx += CT * CT) {
     const int i = idx / FW, j = idx % FW;
     const int x = xs + i, y = ys + j;
     float v = 0.0f;
-    const int xl = x >= 0 && x < X ? local_col(A, x) : -1;
-    if (xl >= 0 && y >= 0 && y < A.Y) {
-      const size_t o = (size_t)xl * A.Y + y;
+    if (x >= 0 && x < A.X && y >= 0 && y < A.Y) {
+      const size_t o = (size_t)x * A.Y + y;
       const int r = 2 * c;
-      v = (c >= 1 ? 0.5f * (d[(size_t)(r - 1) * plane + o] * inv) : 0.0f) + d[(size_t)r * plane + o] * inv;
-      if (r + 1 < A.T) v = v + 0.5f * (d[(size_t)(r + 1) * plane + o] * inv);
+      v = (c >= 1 ? 0.5f * d[(size_t)(r - 1) * plane + o] : 0.0f) + d[(size_t)r * plane + o];
+      if (r + 1 < A.T) v = v + 0.5f * d[(size_t)(r + 1) * plane + o];
     }
     S1[i][j] = v;
   }
@@ -633,32 +919,35 @@ __global__ void __launch_bounds__(CT * CT) mg_coarse_grad_kernel(const Args A) {
   const int a = a0 + threadIdx.y, b = b0 + threadIdx.x;
   if (a < A.CX && b < A.CY) {
     float acc = 0.0f;
-    for (int x = max(2 * a - 2, 0); x <= min(2 * a + 3, X - 1); ++x) acc += tap_weight(x, a, A.CX) * S2[x - xs][threadIdx.x];
+    for (int x = max(2 * a - 2, 0); x <= min(2 * a + 3, A.X - 1); ++x) acc += tap_weight(x, a, A.CX) * S2[x - xs][threadIdx.x];
     A.dP[f][((size_t)c * A.CX + a) * A.CY + b] = acc;
   }
 }
 
-dim3 rows_grid(const MgArgs& A) {
-  return dim3((A.Y + TILE_Y - 1) / TILE_Y, (A.X + TILE_X - 1) / TILE_X, (A.T + A.slab - 1) / A.slab);
+// The row walk (MODE) and, with the gradients, the dP gather.
+// The walk's dynamic shared memory, allowed once per form.
+template <int MODE, bool LVL2, class Args>
+size_t walk_smem() {
+  constexpr size_t bytes = sizeof(WalkSmem<MODE, LVL2, Args>);
+  static const cudaError_t set =
+      cudaFuncSetAttribute(mg_rows_kernel<MODE, LVL2, Args>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  (void)set;  // a refusal shows as the launch's error
+  return bytes;
 }
 
-// The gradient pass; Args is MgArgs, or Mg2Args for the two-level kernel.
+template <int MODE, bool LVL2, class Args>
+int mg_launch(const Args& A, cudaStream_t s) {
+  mg_rows_kernel<MODE, LVL2><<<rows_grid(A), dim3(TILE_Y, THREAD_ROWS), walk_smem<MODE, LVL2, Args>(), s>>>(A);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !(MODE & MODE_GRADS)) return (int)err;
+  const dim3 ggrid((A.CY + GATHER_B - 1) / GATHER_B, A.CX, A.Tc);
+  mg_dp_gather_kernel<Args><<<ggrid, GATHER_B, 0, s>>>(A);
+  return (int)cudaGetLastError();
+}
+
 template <bool LVL2, class Args>
 int mg_backward(const Args& A, int with_sums, cudaStream_t s) {
-  const dim3 grid = rows_grid(A);
-  if (with_sums) mg_rows_kernel<MODE_SUMS | MODE_GRADS, LVL2><<<grid, dim3(TILE_Y, TILE_X), 0, s>>>(A);
-  else mg_rows_kernel<MODE_GRADS, LVL2><<<grid, dim3(TILE_Y, TILE_X), 0, s>>>(A);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const MgArgs& base = A;  // the depth-1 arguments, for the kernels that take only those
-  if (with_sums) {
-    reduce_sums_kernel<MgArgs><<<1, NTHREADS, 0, s>>>(base, (int)(grid.x * grid.y * grid.z));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 cgrid((A.CY + CT - 1) / CT, (A.CX + CT - 1) / CT, A.Tc * NF);
-  mg_coarse_grad_kernel<MgArgs><<<cgrid, dim3(CT, CT), 0, s>>>(base);
-  return (int)cudaGetLastError();
+  return with_sums ? mg_launch<MODE_SUMS | MODE_GRADS, LVL2>(A, s) : mg_launch<MODE_GRADS, LVL2>(A, s);
 }
 
 }  // namespace
@@ -671,22 +960,40 @@ int odil_mg2_args_size() { return (int)sizeof(Mg2Args); }
 
 int odil_mg_local_args_size() { return (int)sizeof(MgLocalArgs); }
 
+// The blocks of a launch over T walked rows and X columns (X + 1 for a local
+// block with odd x0): the rows of A->partials.
 int odil_mg_num_blocks(int T, int X, int Y, int slab) {
   return ((Y + TILE_Y - 1) / TILE_Y) * ((X + TILE_X - 1) / TILE_X) * ((T + slab - 1) / slab);
+}
+
+// The floats of A->dp_part for the same launch.
+long long odil_mg_dp_floats(int T, int X, int Y, int slab) {
+  return (long long)odil_mg_num_blocks(T, X, Y, slab) * dp_slots(slab) * DWIN;
+}
+
+// The walk's tile: its rows (axis 0) or its columns (axis 1), the tile the
+// plain dP route (rowwise_mg._dp_partials) maps the blocks' windows with.
+int odil_mg_tile(int axis) { return axis == 0 ? TILE_X : TILE_Y; }
+
+// The blocks of the backward+sums row walk (MgArgs; the other forms take
+// the same resources within a register or two) that the card holds at once:
+// the waves the Python side sizes the slabs for.
+int odil_mg_resident_blocks() {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
+  const size_t smem = walk_smem<MODE_SUMS | MODE_GRADS, false, MgArgs>();
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mg_rows_kernel<MODE_SUMS | MODE_GRADS, false, MgArgs>,
+                                                    NTHREADS, smem) != cudaSuccess)
+    return 0;
+  return sms * per_sm;
 }
 
 const char* odil_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // Loss-only pass (_forward_mg): per-term sums of squares into A->sums.
 int odil_mg_forward(const MgArgs* a, void* stream) {
-  const MgArgs A = *a;
-  cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid = rows_grid(A);
-  mg_rows_kernel<MODE_SUMS, false><<<grid, dim3(TILE_Y, TILE_X), 0, s>>>(A);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_sums_kernel<MgArgs><<<1, NTHREADS, 0, s>>>(A, (int)(grid.x * grid.y * grid.z));
-  return (int)cudaGetLastError();
+  return mg_launch<MODE_SUMS, false>(*a, (cudaStream_t)stream);
 }
 
 // Gradient pass (_backward_mg): dt0 and dP, plus the sums when with_sums.
@@ -696,7 +1003,7 @@ int odil_mg_backward(const MgArgs* a, int with_sums, void* stream) {
 
 // Two-level gradient pass (_backward_mg with lvl2): dt0 and dP1 (in dP), plus
 // the sums when with_sums, then dP2 from dP1 by the same transposed
-// prolongation one level down (the kernel's d = dP1 * 1).
+// prolongation one level down.
 int odil_mg_backward2(const Mg2Args* a, int with_sums, void* stream) {
   const Mg2Args A = *a;
   cudaStream_t s = (cudaStream_t)stream;
@@ -706,11 +1013,10 @@ int odil_mg_backward2(const Mg2Args* a, int with_sums, void* stream) {
   for (int f = 0; f < NF; ++f) {
     B.dt0[f] = A.dP[f];
     B.dP[f] = A.dP2[f];
-    B.inv_f0[f] = 1.0f;
   }
   B.T = A.Tc, B.X = A.CX, B.Y = A.CY, B.Tc = A.Tc2, B.CX = A.CX2, B.CY = A.CY2;
   const dim3 cgrid((B.CY + CT - 1) / CT, (B.CX + CT - 1) / CT, B.Tc * NF);
-  mg_coarse_grad_kernel<MgArgs><<<cgrid, dim3(CT, CT), 0, s>>>(B);
+  mg_coarse_grad_kernel<<<cgrid, dim3(CT, CT), 0, s>>>(B);
   return (int)cudaGetLastError();
 }
 
@@ -719,18 +1025,7 @@ int odil_mg_backward2(const Mg2Args* a, int with_sums, void* stream) {
 // dheads and the sums.  A->slab slabs the Tl + 1 rows of the stack.
 int odil_mg_backward_local(const MgLocalArgs* a, int with_sums, void* stream) {
   if (!with_sums) return (int)cudaErrorInvalidValue;
-  const MgLocalArgs A = *a;
-  cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid((A.Y + TILE_Y - 1) / TILE_Y, (A.X + (A.x0 & 1) + TILE_X - 1) / TILE_X, (A.T + 1 + A.slab - 1) / A.slab);
-  mg_rows_kernel<MODE_SUMS | MODE_GRADS, false><<<grid, dim3(TILE_Y, TILE_X), 0, s>>>(A);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_sums_kernel<MgArgs><<<1, NTHREADS, 0, s>>>(A, (int)(grid.x * grid.y * grid.z));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 cgrid((A.CY + CT - 1) / CT, (A.CX + CT - 1) / CT, A.Tc * NF);
-  mg_coarse_grad_kernel<MgLocalArgs><<<cgrid, dim3(CT, CT), 0, s>>>(A);
-  return (int)cudaGetLastError();
+  return mg_launch<MODE_SUMS | MODE_GRADS, false>(*a, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -36,13 +36,25 @@
 
 namespace {
 
+// A source may set the tile's rows and its block's thread rows before
+// including this header (rowwise_mg.cu: 16 rows, 8 thread rows, two cells a
+// thread); the generic kernels take 8 and 8.
+#ifndef ODIL_TILE_X
+#define ODIL_TILE_X 8
+#endif
+#ifndef ODIL_THREAD_ROWS
+#define ODIL_THREAD_ROWS ODIL_TILE_X
+#endif
+
 constexpr int NF = 3;  // fields u, vx, vy
-constexpr int TILE_X = 8;
+constexpr int TILE_X = ODIL_TILE_X;
 constexpr int TILE_Y = 32;
 constexpr int HALO = 2;
 constexpr int HX = TILE_X + 2 * HALO;
 constexpr int HY = TILE_Y + 2 * HALO;
-constexpr int NTHREADS = TILE_X * TILE_Y;
+constexpr int THREAD_ROWS = ODIL_THREAD_ROWS;
+constexpr int NTHREADS = THREAD_ROWS * TILE_Y;
+constexpr int NWARPS = NTHREADS / 32;
 constexpr int MAXTERMS = 6;
 
 enum { MODE_SUMS = 1, MODE_GRADS = 2 };
@@ -175,7 +187,10 @@ __device__ __forceinline__ void cell_terms(const Args& A, const RowPlanes& P, co
                                            int j, float u1, const float* g2, float* s, float* d,
                                            const Layer& H = Layer()) {
   const int T = rows_T(A, H);
-  const int ix = 2, it_ = 2 + (A.has_x ? 2 : 0);  // term positions
+  // Term positions: the x terms at 2 and 3, the t terms after them.  The t
+  // terms' slots are chosen by selects, not a computed index, so that s and
+  // g2 stay in registers.
+  constexpr int ix = 2;
   const int ri = i - HALO + 1, rj = j - HALO + 1;  // position in the ring-1 arrays
   const Plane &Uc = P.Uc, &VXm = P.VXm, &VXc = P.VXc, &VXn = P.VXn, &VYm = P.VYm, &VYc = P.VYc, &VYn = P.VYn;
 
@@ -211,8 +226,13 @@ __device__ __forceinline__ void cell_terms(const Args& A, const RowPlanes& P, co
       s[ix + 1] += res3 * res3;
     }
     if (A.has_t) {
-      s[it_] += res4 * res4;
-      s[it_ + 1] += res5 * res5;
+      if (A.has_x) {
+        s[4] += res4 * res4;
+        s[5] += res5 * res5;
+      } else {
+        s[2] += res4 * res4;
+        s[3] += res5 * res5;
+      }
     }
   }
 
@@ -232,9 +252,10 @@ __device__ __forceinline__ void cell_terms(const Args& A, const RowPlanes& P, co
       dvy = dvy + ((gy * R.LYc[ri + 1][rj] - 2.0f * wy + gy * R.LYc[ri - 1][rj]) * A.inv_dx2 +
                    (gy * R.LYc[ri][rj + 1] - 2.0f * wy + gy * R.LYc[ri][rj - 1]) * A.inv_dy2) * A.kxreg;
     }
+    const float gt0 = A.has_x ? g2[4] : g2[2], gt1 = A.has_x ? g2[5] : g2[3];  // the t terms' weights
     if (A.has_t) {
-      dvx = dvx + (t == 0 ? 0.0f : g2[it_] * res4) * A.kt;
-      dvy = dvy + (t == 0 ? 0.0f : g2[it_ + 1] * res5) * A.kt;
+      dvx = dvx + (t == 0 ? 0.0f : gt0 * res4) * A.kt;
+      dvy = dvy + (t == 0 ? 0.0f : gt1 * res5) * A.kt;
     }
 
     // "prev" adjoint of residual row t+1, which reads row t.
@@ -247,17 +268,65 @@ __device__ __forceinline__ void cell_terms(const Args& A, const RowPlanes& P, co
     if (A.has_t && it1 != 0) {
       if constexpr (Layer::on) {
         const float m1 = (*H.M)[i][j] * H.mt1;
-        dvxp = -((g2[it_] * (((VXn[i][j] - VXc[i][j]) * A.kt) * m1)) * A.kt);
-        dvyp = -((g2[it_ + 1] * (((VYn[i][j] - VYc[i][j]) * A.kt) * m1)) * A.kt);
+        dvxp = -((gt0 * (((VXn[i][j] - VXc[i][j]) * A.kt) * m1)) * A.kt);
+        dvyp = -((gt1 * (((VYn[i][j] - VYc[i][j]) * A.kt) * m1)) * A.kt);
       } else {
-        dvxp = -((g2[it_] * ((VXn[i][j] - VXc[i][j]) * A.kt)) * A.kt);
-        dvyp = -((g2[it_ + 1] * ((VYn[i][j] - VYc[i][j]) * A.kt)) * A.kt);
+        dvxp = -((gt0 * ((VXn[i][j] - VXc[i][j]) * A.kt)) * A.kt);
+        dvyp = -((gt1 * ((VYn[i][j] - VYc[i][j]) * A.kt)) * A.kt);
       }
     }
     d[0] = du + dup;
     d[1] = dvx + dvxp;
     d[2] = dvy + dvyp;
   }
+}
+
+// The sums: each thread's s[k] reduced over the block in fp64 (warp shuffles,
+// then the warps in order) into the block's row of A.partials; the last block
+// to finish (an integer ticket; the float order does not depend on which
+// block it is) reduces the rows in block order into A.sums and resets the
+// ticket (Args::ticket).  Every thread of the block calls it, at its end.
+// The mg walk reduces its sums so; the generic kernels of rowwise.cu still
+// take write_partials and a reduce_sums_kernel launch below.
+template <class Args>
+__device__ void finish_sums(const Args& A, const float* s, double (&red)[NWARPS][MAXTERMS]) {
+  __shared__ bool last;
+  const int tid = threadIdx.y * TILE_Y + threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned nblocks = gridDim.x * gridDim.y * gridDim.z;
+  const unsigned blk = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+#pragma unroll
+  for (int k = 0; k < MAXTERMS; ++k) {
+    double v = s[k];
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    if (lane == 0) red[warp][k] = v;
+  }
+  __syncthreads();
+  if (tid < A.nterms) {
+    double v = red[0][tid];
+    for (int w = 1; w < NWARPS; ++w) v += red[w][tid];
+    A.partials[(size_t)blk * MAXTERMS + tid] = v;
+    __threadfence();
+  }
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(A.ticket, 1u) == nblocks - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const volatile double* part = A.partials;
+  for (int k = 0; k < A.nterms; ++k) {
+    double v = 0.0;
+    for (unsigned b = tid; b < nblocks; b += NTHREADS) v += part[(size_t)b * MAXTERMS + k];
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    __syncthreads();  // red's previous term is read
+    if (lane == 0) red[warp][k] = v;
+  }
+  __syncthreads();
+  if (tid < A.nterms) {
+    double v = red[0][tid];
+    for (int w = 1; w < NWARPS; ++w) v += red[w][tid];
+    A.sums[tid] = (float)v;
+  }
+  if (tid == 0) *A.ticket = 0u;
 }
 
 // Block-wide sum of each thread's s[k] in fp64, written to the block's row of

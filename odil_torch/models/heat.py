@@ -26,7 +26,7 @@ import torch
 
 from ..fields import State
 from ..grid import Domain
-from ..ops.rowwise import RowModel
+from ..ops.rowwise import _HEAT_LAYERS, RowModel
 from ..problem import Problem
 from ..stencil import extrap_linear, extrap_quadh
 
@@ -335,10 +335,13 @@ def _row_model(ctx):
         shapes = tuple(tuple(w.shape) for w in net.weights)
     kmax = float(args.kmax)
     hand = bool(args.keep_init) and bool(args.keep_frozen)
+    # The heat CUDA model carries the hand adjoint and the [1, 5, 5, 1] net;
+    # other models run plain torch on the card.
+    kernel_ok = hand and (not infer_k or shapes == _HEAT_LAYERS)
     model = RowModel(
         _make_row_fn(dt, dx, nx, kmax, imp_weight, flags, shapes),
         _make_row_vjp(dt, dx, nx, kmax, imp_weight, flags, shapes) if hand else None,
-        cuda_model="heat" if hand else None,
+        cuda_model="heat" if kernel_ok else None,
         scalars=dict(dt=dt, dx=dx, kmax=kmax, imp_weight=imp_weight, has_imp=flags[0], has_x=flags[1],
                      has_t=flags[2], infer_k=infer_k, layers=shapes),
     )

@@ -24,11 +24,17 @@ last ones, so 1-D planes need no padding.  ``row_vjp(it, T, rows, data_rows,
 params, consts, cots)`` returns (flat row cotangents in (field, m) order,
 param cotangents summed over the stack).
 
-Each entry point dispatches on the device of its tensors: a CUDA tensor
-launches the hand-written kernel of ``csrc/rowwise.cu`` (which exists for row
-models that carry a CUDA counterpart -- veltracer on (T, X, Y) planes, heat
-and wave on (T, N) planes -- and raises otherwise), a CPU tensor runs the
-plain PyTorch version beside it.  64-bit fields take the plain
+Each entry point dispatches on the device of its tensors and on the row
+model's declaration: a CUDA tensor of a model that names a CUDA counterpart
+(``cuda_model``: veltracer on (T, X, Y) planes, heat and wave on (T, N)
+planes) launches the hand-written kernel of ``csrc/rowwise.cu``, and raises
+where that kernel does not take the call; a model that names none
+(``cuda_model is None``: a user row function, heat without its hand adjoint
+or with another conductivity net) runs the plain PyTorch version on the
+card's tensors (``plain_on_card``, with its own launch counter) -- autograd of
+the row function over the row stacks where the model has no ``row_vjp``, the
+counterpart of the TPU kernel's in-kernel ``jax.vjp``; a CPU tensor runs the
+plain version.  No exception selects a route.  64-bit fields take the plain
 version on every device, by the JAX package's own rule (Mosaic cannot lower
 64-bit kernels, ``odil_tpu/ops/rowwise.py:968-969``): ``rowwise_loss_terms``
 differentiates it by autograd and ``rowwise_loss_and_grads`` returns None.
@@ -72,6 +78,7 @@ __all__ = [
     "rowwise_loss_sums",
     "rowwise_loss_and_grads",
     "onepass_supported",
+    "plain_on_card",
 ]
 
 
@@ -635,20 +642,43 @@ def _contig(ts):
     return tuple(t.contiguous() for t in ts)
 
 
+def plain_on_card(plain, *args):
+    """``plain(*args)`` on the card's tensors: the route of a row model that
+    declares no CUDA counterpart (``cuda_model is None``).  Plain torch, not
+    a kernel; its launch counter shows which calls took it."""
+    plain_on_card.launches += 1
+    return plain(*args)
+
+
+plain_on_card.launches = 0
+
+
+def _kernel_route(model, tensor):
+    """Whether a call on ``tensor`` launches a CUDA kernel: a CUDA tensor of a
+    model that names a CUDA counterpart.  Decided from the declaration only."""
+    return tensor.is_cuda and model.cuda_model is not None
+
+
+def _plain(plain, tensor, *args):
+    """The plain version ``plain(*args)``, through ``plain_on_card`` on the
+    card."""
+    return plain_on_card(plain, *args) if tensor.is_cuda else plain(*args)
+
+
 def _forward(model, nterms, hist, fields, params, data, consts, stream=False):
-    if fields[0].is_cuda:
+    if _kernel_route(model, fields[0]):
         kernel = forward_halo_cuda if model.halo is not None else forward_stream_cuda if stream else forward_cuda
         return kernel(model, nterms, hist, _contig(fields), _contig(params), _contig(data), _contig(consts))
-    return _forward_plain(model, nterms, hist, fields, params, data, consts)
+    return _plain(_forward_plain, fields[0], model, nterms, hist, fields, params, data, consts)
 
 
 def _backward(model, nterms, hist, fields, params, data, consts, g, with_sums=False, stream=False):
-    if fields[0].is_cuda:
+    if _kernel_route(model, fields[0]):
         kernel = backward_halo_cuda if model.halo is not None else backward_stream_cuda if stream else backward_cuda
         return kernel(
             model, nterms, hist, _contig(fields), _contig(params), _contig(data), _contig(consts), g, with_sums
         )
-    return _backward_plain(model, nterms, hist, fields, params, data, consts, g, with_sums)
+    return _plain(_backward_plain, fields[0], model, nterms, hist, fields, params, data, consts, g, with_sums)
 
 
 class _RowwiseSumsq(torch.autograd.Function):

@@ -28,10 +28,12 @@ then dP1, split by linearity into dt1 = factor1 * dP1 and dP2 (the same
 transposed t-blend and prolongation one level down): ``_split_dp1`` in the
 plain version, ``mg_coarse_grad_kernel`` run once more on the card.
 
-Each entry point dispatches on the device of its tensors: a CUDA tensor
-launches the hand-written kernel of ``csrc/rowwise_mg.cu`` (which exists for
-row models that carry a CUDA counterpart, and raises otherwise), a CPU
-tensor runs the plain PyTorch version beside it.
+Each entry point dispatches on the device of its tensors and on the row
+model's declaration, by the rule of ``ops/rowwise.py``: a CUDA tensor of a
+model that names a CUDA counterpart launches the hand-written kernel of
+``csrc/rowwise_mg.cu`` (veltracer; another named model raises), one of a
+model that names none runs the plain PyTorch version on the card
+(``rowwise.plain_on_card``), a CPU tensor runs the plain version.
 
 Local-block form (``rowwise_mg_local_loss_and_grads``, the ``--halo``
 per-shard route of ``halo.py``; the JAX package's ``_backward_mg`` with
@@ -67,8 +69,9 @@ from .rowwise import (
     _check_veltracer_model,
     _contig,
     _forward_plain,
+    _kernel_route,
+    _plain,
     _raise_on,
-    _slab,
     _veltracer_scalars,
     halo_model,
 )
@@ -223,6 +226,125 @@ def _backward_mg_local_plain(model, nterms, hist, f0s, t0s, coarse, heads, x0, c
     return dt0, dP, dheads, sums
 
 
+# -- Plain version of the kernels' dP route -------------------------------------
+#
+# The CUDA walk forms dP inside itself: each block (a TILE_X x TILE_Y tile of
+# one slab of walked rows) applies the transposed t-blend and x/y taps of its
+# own cells into a coarse window of DWA x DWB cells per coarse row it
+# reaches, and a gather adds the at most 2 x 2 x 2 windows that hold each
+# coarse cell.  These functions are that route in plain torch, with the
+# kernel's tile, slab and window index maps (csrc/rowwise_mg.cu: dp_rows,
+# init_dp_taps, flush_dp, mg_dp_gather_kernel).
+
+_TILE_X, _TILE_Y = 16, 32  # the mg walk's tile (ODIL_TILE_X of csrc/rowwise_mg.cu, TILE_Y)
+
+
+def _taps(x, n):
+    """The two coarse taps ((index, weight), (index, weight)) of fine index x
+    along an axis of n coarse cells (``taps`` of csrc/rowwise_mg.cu)."""
+    i = x // 2
+    if x % 2 == 0:
+        return ((0, 1.25), (1, -0.25)) if i == 0 else ((i - 1, 0.25), (i, 0.75))
+    return ((n - 1, 1.25), (n - 2, -0.25)) if i == n - 1 else ((i, 0.75), (i + 1, 0.25))
+
+
+def _window_taps(first, shift, count, period, n, tile, dtype, device):
+    """(ntiles, tile, tile // 2 + 2) transposed-tap matrices of the tiles
+    along one axis, and each tile's unwrapped coarse index of window index 0.
+    Tile b covers local indices b * tile - shift + i (owned where in [0,
+    count)), at unwrapped global index first + local (periodic in
+    ``period``); its window starts at unwrapped coarse index
+    (first - shift + b * tile) // 2 - 1."""
+    nt = -(-(count + shift) // tile)
+    M = torch.zeros((nt, tile, tile // 2 + 2), dtype=dtype)
+    base = []
+    for b in range(nt):
+        g0 = first - shift + b * tile
+        u0 = g0 // 2 - 1
+        base.append(u0)
+        for i in range(tile):
+            loc, gx = b * tile - shift + i, g0 + i
+            if not 0 <= loc < count:
+                continue
+            gm = gx % period
+            for a, w in _taps(gm, n):
+                M[b, i, a + (gx - gm) // period * n - u0] += w
+    return M.to(device), base
+
+
+def _dp_slab_rows(z, slab, walked, local, Tc):
+    """(l0, l1, c_lo, c_hi): slab z's dP rows [l0, l1) and the coarse rows
+    they reach (``dp_rows`` of the kernel)."""
+    ts, te = z * slab, min(z * slab + slab, walked)
+    l0, l1 = max(ts - local, 0), te - local
+    return l0, l1, l0 >> 1, min(Tc - 1, l1 >> 1)
+
+
+def _dp_partials(dfine, Tc, slab, x0=0, Xg=None, local=False):
+    """The blocks' dP partials of one field, (nslabs, slab // 2 + 2, ntiles_x,
+    ntiles_y, DWA, DWB) as the kernel lays them out: dfine (L, X, Y) is the
+    fine cotangent before the level-0 factor (L dP rows; a local block's
+    stack walks L + 1 rows, the head first), x0 the global column of local
+    column 0 and Xg the global X (a local block), slab the walked rows a
+    block takes."""
+    L, X, Y = dfine.shape
+    Xg = X if Xg is None else Xg
+    local = int(bool(local))
+    dtype, dev = dfine.dtype, dfine.device
+    shift = x0 & 1 if local else 0
+    Mx, _ = _window_taps(x0, shift, X, Xg, Xg // 2, _TILE_X, dtype, dev)
+    My, _ = _window_taps(0, 0, Y, Y, Y // 2, _TILE_Y, dtype, dev)
+    nbx, nby = Mx.shape[0], My.shape[0]
+    walked = L + local
+    nz = -(-walked // slab)
+    pad = torch.zeros((L, nbx * _TILE_X, nby * _TILE_Y), dtype=dtype, device=dev)
+    pad[:, shift : shift + X, :Y] = dfine
+    tiles = pad.view(L, nbx, _TILE_X, nby, _TILE_Y)
+    out = torch.zeros((nz, slab // 2 + 2, nbx, nby, Mx.shape[2], My.shape[2]), dtype=dtype, device=dev)
+    for z in range(nz):
+        l0, l1, c_lo, c_hi = _dp_slab_rows(z, slab, walked, local, Tc)
+        rows = torch.arange(l0, l1, device=dev)
+        cs = torch.arange(c_lo, c_hi + 1, device=dev)
+        dist = (rows.view(1, -1) - 2 * cs.view(-1, 1)).abs()
+        wt = torch.where(dist == 0, 1.0, torch.where(dist == 1, 0.5, 0.0)).to(dtype)
+        blend = torch.einsum("kl,lxiyj->kxiyj", wt, tiles[l0:l1])
+        out[z, : c_hi - c_lo + 1] = torch.einsum("kxiyj,xia,yjb->kxyab", blend, Mx, My)
+    return out
+
+
+def _dp_gather(part, Tc, CX, CY, X, slab, L, x0=0, local=False):
+    """dP (Tc, CX, CY) of one field from its blocks' partials: each window
+    added where it lies, in the order slab, x tile, y tile (the cells no
+    window holds stay 0)."""
+    nz, _, nbx, nby, DWA, DWB = part.shape
+    local = int(bool(local))
+    shift = x0 & 1 if local else 0
+    u_base = [(x0 - shift + b * _TILE_X) // 2 - 1 for b in range(nbx)]
+    v_base = [b * _TILE_Y // 2 - 1 for b in range(nby)]
+    out = torch.zeros((Tc, CX, CY), dtype=part.dtype, device=part.device)
+    for z in range(nz):
+        _, _, c_lo, c_hi = _dp_slab_rows(z, slab, L + local, local, Tc)
+        for bx in range(nbx):
+            a = torch.tensor([(u_base[bx] + w) % CX for w in range(DWA)], device=part.device)
+            for by in range(nby):
+                bs = [v_base[by] + w for w in range(DWB)]
+                keep = [w for w, b in enumerate(bs) if 0 <= b < CY]
+                win = part[z, : c_hi - c_lo + 1, bx, by][:, :, keep]
+                rows = out[c_lo : c_hi + 1]
+                rows[:, :, [bs[w] for w in keep]] = rows[:, :, [bs[w] for w in keep]].index_add(1, a, win)
+    return out
+
+
+def _dp_fused_plain(dfine, Tc, slab, x0=0, Xg=None, local=False):
+    """dP of one field by the kernel's route: ``_dp_gather`` of
+    ``_dp_partials``.  It equals ``_down_rows`` of the same cotangent up to
+    the order of the float sums."""
+    L, X, Y = dfine.shape
+    Xg = X if Xg is None else Xg
+    part = _dp_partials(dfine, Tc, slab, x0, Xg, local)
+    return _dp_gather(part, Tc, Xg // 2, Y // 2, X, slab, L, x0, local)
+
+
 # -- CUDA kernels --------------------------------------------------------------
 
 class _MgArgs(ctypes.Structure):
@@ -238,9 +360,10 @@ class _MgArgs(ctypes.Structure):
         ("dP", ctypes.c_void_p * 3),
         ("partials", ctypes.c_void_p),
         ("sums", ctypes.c_void_p),
+        ("dp_part", ctypes.c_void_p),
+        ("ticket", ctypes.c_void_p),
     ] + [(n, ctypes.c_int) for n in ("T", "X", "Y", "Tc", "CX", "CY", "slab", "nterms", "has_x", "has_t")] + [
         ("f0", ctypes.c_float * 3),
-        ("inv_f0", ctypes.c_float * 3),
     ] + [
         (n, ctypes.c_float)
         for n in ("inv_dt", "inv_dx", "inv_dy", "inv_dx2", "inv_dy2", "kimp", "kimp_dx", "kxreg", "kt")
@@ -270,6 +393,12 @@ def _library():
     if not getattr(lib, "_odil_typed", False):
         lib.odil_mg_num_blocks.argtypes = [ctypes.c_int] * 4
         lib.odil_mg_num_blocks.restype = ctypes.c_int
+        lib.odil_mg_dp_floats.argtypes = [ctypes.c_int] * 4
+        lib.odil_mg_dp_floats.restype = ctypes.c_longlong
+        lib.odil_mg_resident_blocks.argtypes = []
+        lib.odil_mg_resident_blocks.restype = ctypes.c_int
+        lib.odil_mg_tile.argtypes = [ctypes.c_int]
+        lib.odil_mg_tile.restype = ctypes.c_int
         lib.odil_cuda_error_string.argtypes = [ctypes.c_int]
         lib.odil_cuda_error_string.restype = ctypes.c_char_p
         lib.odil_mg_forward.argtypes = [ctypes.POINTER(_MgArgs), ctypes.c_void_p]
@@ -287,6 +416,10 @@ def _library():
             size = getattr(lib, name)()
             if size != ctypes.sizeof(struct):
                 raise RuntimeError(f"{struct.__name__} layout mismatch: C {size} vs ctypes {ctypes.sizeof(struct)} bytes")
+        tile = (lib.odil_mg_tile(0), lib.odil_mg_tile(1))
+        if tile != (_TILE_X, _TILE_Y):
+            raise RuntimeError(f"the mg walk's tile is {tile} in C and {(_TILE_X, _TILE_Y)} in _dp_partials")
+        lib._odil_resident = max(int(lib.odil_mg_resident_blocks()), 1)
         lib._odil_typed = True
     return lib
 
@@ -305,18 +438,38 @@ def _check_cuda_inputs(model, t0s, coarse, consts, hist):
         raise ValueError(f"the CUDA mg kernels take shapes {want}, got {got}")
 
 
-def _launch_args(model, f0s, t0s, coarse, consts, g, dt0, dP, partials, sums, nterms, lvl2=None):
+@functools.lru_cache(maxsize=64)
+def _mg_slab(T, X, Y, resident):
+    """Rows per block of the mg walk over T walked rows and X, Y columns:
+    the slab that runs the launch in the fewest row-times, counting whole
+    waves of the ``resident`` blocks the card holds at once
+    (``odil_mg_resident_blocks``) and the two rows a block rebuilds before
+    its first."""
+    tiles = -(-X // _TILE_X) * -(-Y // _TILE_Y)
+    best = None
+    for nz in range(1, T + 1):
+        slab = -(-T // nz)
+        if -(-T // slab) != nz:
+            continue
+        cost = -(-nz * tiles // resident) * (slab + 2)
+        if best is None or cost < best[0]:
+            best = (cost, slab)
+    return best[1]
+
+
+def _launch_args(model, f0s, t0s, coarse, consts, g, dt0, dP, scratch, nterms, slab, lvl2=None):
     """The kernel's argument struct; with lvl2 = (t1s, f1s, dP2) the
     two-level kernel's (``_Mg2Args``), whose ``coarse`` is P2 and ``dP``
-    receives dP1."""
+    receives dP1.  slab, scratch: ``_launch_plan``'s."""
     T, X, Y = t0s[0].shape
     ptr = lambda ts: (ctypes.c_void_p * 3)(*[t.data_ptr() for t in ts] if ts else [])
     Tc, CX, CY = (coarse if lvl2 is None else lvl2[0])[0].shape
+    partials, sums, dp_part, ticket = scratch
     args = _MgArgs(
         t0=ptr(t0s), P=ptr(coarse), u_init=consts[0].data_ptr(), u_final=consts[1].data_ptr(),
         g=g.data_ptr() if g is not None else None, dt0=ptr(dt0), dP=ptr(dP),
-        partials=partials.data_ptr(), sums=sums.data_ptr(), T=T, X=X, Y=Y, Tc=Tc, CX=CX, CY=CY, slab=_slab(T),
-        f0=(ctypes.c_float * 3)(*f0s), inv_f0=(ctypes.c_float * 3)(*[1.0 / f for f in f0s]),
+        partials=partials.data_ptr(), sums=sums.data_ptr(), dp_part=dp_part.data_ptr(), ticket=ticket.data_ptr(),
+        T=T, X=X, Y=Y, Tc=Tc, CX=CX, CY=CY, slab=slab, f0=(ctypes.c_float * 3)(*f0s),
         **_veltracer_scalars(model, nterms),
     )
     if lvl2 is None:
@@ -326,13 +479,30 @@ def _launch_args(model, f0s, t0s, coarse, consts, g, dt0, dP, partials, sums, nt
     return _Mg2Args(base=args, t1=ptr(t1s), dP2=ptr(dP2), Tc2=Tc2, CX2=CX2, CY2=CY2, f1=(ctypes.c_float * 3)(*f1s))
 
 
-def _scratch(lib, t0s):
-    T, X, Y = t0s[0].shape
-    nblocks = lib.odil_mg_num_blocks(T, X, Y, _slab(T))
-    dev = t0s[0].device
-    partials = torch.empty((nblocks, _MAXTERMS), dtype=torch.float64, device=dev)
+_TICKETS = {}
+
+
+def _ticket(dev, stream):
+    """The ticket counter of the kernels' sums on the stream (a raw handle)
+    of dev: an int32 that every launch leaves at 0, one per stream, since
+    launches on one stream run one after another."""
+    key = (dev, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros((1,), dtype=torch.int32, device=dev)
+    return _TICKETS[key]
+
+
+def _launch_plan(lib, T, X, Y, dev, grads=True):
+    """(slab, scratch, stream) of a launch over T walked rows and X
+    columns on the current stream of dev: the slab (``_mg_slab``), the
+    (partials, sums, dP partials, ticket) buffers (``odil_mg_num_blocks``)
+    and the stream's raw handle."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    slab = _mg_slab(T, X, Y, lib._odil_resident)
+    partials = torch.empty((lib.odil_mg_num_blocks(T, X, Y, slab), _MAXTERMS), dtype=torch.float64, device=dev)
     sums = torch.empty((_MAXTERMS,), dtype=torch.float32, device=dev)
-    return partials, sums
+    dp_part = torch.empty((lib.odil_mg_dp_floats(T, X, Y, slab) if grads else 1,), dtype=torch.float32, device=dev)
+    return slab, (partials, sums, dp_part, _ticket(dev, stream)), stream
 
 
 def forward_mg_cuda(model, nterms, hist, f0s, t0s, coarse, consts):
@@ -340,12 +510,13 @@ def forward_mg_cuda(model, nterms, hist, f0s, t0s, coarse, consts):
     squares of the residual rows, on the current stream."""
     _check_cuda_inputs(model, t0s, coarse, consts, hist)
     lib = _library()
-    partials, sums = _scratch(lib, t0s)
-    args = _launch_args(model, f0s, t0s, coarse, consts, None, None, None, partials, sums, nterms)
-    err = lib.odil_mg_forward(ctypes.byref(args), torch.cuda.current_stream(t0s[0].device).cuda_stream)
+    T, X, Y = t0s[0].shape
+    slab, scratch, stream = _launch_plan(lib, T, X, Y, t0s[0].device, grads=False)
+    args = _launch_args(model, f0s, t0s, coarse, consts, None, None, None, scratch, nterms, slab)
+    err = lib.odil_mg_forward(ctypes.byref(args), stream)
     _raise_on(lib, err, "odil_mg_forward")
     forward_mg_cuda.launches += 1
-    return sums[:nterms]
+    return scratch[1][:nterms]
 
 
 forward_mg_cuda.launches = 0
@@ -361,16 +532,15 @@ def backward_mg_cuda(model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums
     if not g.is_cuda or g.numel() < nterms:
         raise ValueError("g must hold nterms weights on the card")
     lib = _library()
-    partials, sums = _scratch(lib, t0s)
+    T, X, Y = t0s[0].shape
+    slab, scratch, stream = _launch_plan(lib, T, X, Y, t0s[0].device)
     dt0 = tuple(torch.empty_like(t) for t in t0s)
     dP = tuple(torch.empty_like(c) for c in coarse)
-    args = _launch_args(model, f0s, t0s, coarse, consts, g, dt0, dP, partials, sums, nterms)
-    err = lib.odil_mg_backward(
-        ctypes.byref(args), int(bool(with_sums)), torch.cuda.current_stream(t0s[0].device).cuda_stream
-    )
+    args = _launch_args(model, f0s, t0s, coarse, consts, g, dt0, dP, scratch, nterms, slab)
+    err = lib.odil_mg_backward(ctypes.byref(args), int(bool(with_sums)), stream)
     _raise_on(lib, err, "odil_mg_backward")
     backward_mg_cuda.launches += 1
-    return dt0, dP, (sums[:nterms] if with_sums else None)
+    return dt0, dP, (scratch[1][:nterms] if with_sums else None)
 
 
 backward_mg_cuda.launches = 0
@@ -403,18 +573,17 @@ def backward_mg2_cuda(model, nterms, hist, f0s, f1s, t0s, t1s, P2, consts, g, wi
     if not g.is_cuda or g.numel() < nterms:
         raise ValueError("g must hold nterms weights on the card")
     lib = _library()
-    partials, sums = _scratch(lib, t0s)
+    T, X, Y = t0s[0].shape
+    slab, scratch, stream = _launch_plan(lib, T, X, Y, t0s[0].device)
     dt0 = tuple(torch.empty_like(t) for t in t0s)
     dP1 = tuple(torch.empty_like(t) for t in t1s)
     dP2 = tuple(torch.empty_like(c) for c in P2)
-    args = _launch_args(model, f0s, t0s, P2, consts, g, dt0, dP1, partials, sums, nterms, lvl2=(t1s, f1s, dP2))
-    err = lib.odil_mg_backward2(
-        ctypes.byref(args), int(bool(with_sums)), torch.cuda.current_stream(t0s[0].device).cuda_stream
-    )
+    args = _launch_args(model, f0s, t0s, P2, consts, g, dt0, dP1, scratch, nterms, slab, lvl2=(t1s, f1s, dP2))
+    err = lib.odil_mg_backward2(ctypes.byref(args), int(bool(with_sums)), stream)
     _raise_on(lib, err, "odil_mg_backward2")
     backward_mg2_cuda.launches += 1
     dt1 = tuple(f * d for f, d in zip(f1s, dP1))
-    return dt0, dt1, dP2, (sums[:nterms] if with_sums else None)
+    return dt0, dt1, dP2, (scratch[1][:nterms] if with_sums else None)
 
 
 backward_mg2_cuda.launches = 0
@@ -454,25 +623,21 @@ def backward_mg_local_cuda(model, nterms, hist, f0s, t0s, coarse, heads, x0, con
     lib = _library()
     Tl, Xe, Y = t0s[0].shape
     dev = t0s[0].device
-    slab = _slab(Tl + hist)
-    # Xe + 1: the kernel's tiles start at even global columns (one more tile
-    # row when x0 is odd).
-    partials = torch.empty((lib.odil_mg_num_blocks(Tl + hist, Xe + 1, Y, slab), _MAXTERMS), dtype=torch.float64,
-                           device=dev)
-    sums = torch.empty((_MAXTERMS,), dtype=torch.float32, device=dev)
+    # Xe + (x0 & 1): the kernel's tiles start at even global columns (one
+    # more column when x0 is odd).
+    slab, scratch, stream = _launch_plan(lib, Tl + hist, Xe + (int(x0) & 1), Y, dev)
     dt0 = tuple(torch.empty_like(t) for t in t0s)
     dP = tuple(torch.empty_like(c) for c in coarse)
     dheads = tuple(torch.empty_like(h) for h in heads)
-    base = _launch_args(model, f0s, t0s, coarse, consts, g, dt0, dP, partials, sums, nterms)
-    base.slab = slab
+    base = _launch_args(model, f0s, t0s, coarse, consts, g, dt0, dP, scratch, nterms, slab)
     mask, off, Tg, r_lo, r_hi = model.halo
     ptr = lambda ts: (ctypes.c_void_p * 3)(*[t.data_ptr() for t in ts])
     args = _MgLocalArgs(base=base, heads=ptr(heads), dheads=ptr(dheads), mask=mask.data_ptr(), x0=int(x0),
                         Xg=2 * coarse[0].shape[1], off=off, Tg=Tg, r_lo=max(r_lo, 0), r_hi=r_hi)
-    err = lib.odil_mg_backward_local(ctypes.byref(args), 1, torch.cuda.current_stream(dev).cuda_stream)
+    err = lib.odil_mg_backward_local(ctypes.byref(args), 1, stream)
     _raise_on(lib, err, "odil_mg_backward_local")
     backward_mg_local_cuda.launches += 1
-    return dt0, dP, dheads, sums[:nterms]
+    return dt0, dP, dheads, scratch[1][:nterms]
 
 
 backward_mg_local_cuda.launches = 0
@@ -482,26 +647,27 @@ backward_mg_local_cuda.launches = 0
 
 
 def _forward_mg(model, nterms, hist, f0s, t0s, coarse, consts):
-    if t0s[0].is_cuda:
+    if _kernel_route(model, t0s[0]):
         return forward_mg_cuda(model, nterms, hist, f0s, _contig(t0s), _contig(coarse), _contig(consts))
-    return _forward_mg_plain(model, nterms, hist, f0s, t0s, coarse, consts)
+    return _plain(_forward_mg_plain, t0s[0], model, nterms, hist, f0s, t0s, coarse, consts)
 
 
 def _backward_mg(model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums=False):
-    if t0s[0].is_cuda:
+    if _kernel_route(model, t0s[0]):
         return backward_mg_cuda(
             model, nterms, hist, f0s, _contig(t0s), _contig(coarse), _contig(consts), g, with_sums
         )
-    return _backward_mg_plain(model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums)
+    return _plain(_backward_mg_plain, t0s[0], model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums)
 
 
 def _backward_mg2(model, nterms, hist, f0s, f1s, t0s, t1s, P2, consts, g, with_sums=False):
     """(dt0, dt1, dP2, sums or None) of the two-level fusion."""
-    if t0s[0].is_cuda:
+    if _kernel_route(model, t0s[0]):
         return backward_mg2_cuda(
             model, nterms, hist, f0s, f1s, _contig(t0s), _contig(t1s), _contig(P2), _contig(consts), g, with_sums
         )
-    dt0, dP1, sums = _backward_mg_plain(model, nterms, hist, f0s, t0s, P2, consts, g, with_sums, lvl2=(t1s, f1s))
+    dt0, dP1, sums = _plain(_backward_mg_plain, t0s[0], model, nterms, hist, f0s, t0s, P2, consts, g, with_sums,
+                            (t1s, f1s))
     with torch.no_grad():
         W1x, W1y = _interp_matrices(*P2[0].shape[1:], P2[0].dtype, P2[0].device)
         dt1, dP2 = _split_dp1(dP1, f1s, W1x, W1y)
@@ -509,11 +675,11 @@ def _backward_mg2(model, nterms, hist, f0s, f1s, t0s, t1s, P2, consts, g, with_s
 
 
 def _backward_mg_local(model, nterms, hist, f0s, t0s, coarse, heads, x0, consts, g):
-    if t0s[0].is_cuda:
+    if _kernel_route(model, t0s[0]):
         return backward_mg_local_cuda(
             model, nterms, hist, f0s, _contig(t0s), _contig(coarse), _contig(heads), x0, _contig(consts), g
         )
-    return _backward_mg_local_plain(model, nterms, hist, f0s, t0s, coarse, heads, x0, consts, g)
+    return _plain(_backward_mg_local_plain, t0s[0], model, nterms, hist, f0s, t0s, coarse, heads, x0, consts, g)
 
 
 class _SumsqMG(torch.autograd.Function):

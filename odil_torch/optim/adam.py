@@ -52,6 +52,9 @@ class Adam:
 
     def _update(self, grads):
         self.step += 1
+        # The fused kernel takes gradients of the parameters' layout; autograd
+        # may give a transposed one (a net's square weight).
+        grads = [g.contiguous() for g in grads]
         if self.slot_dtype == self.x[0].dtype:
             self._steps += 1
             torch._fused_adam_(

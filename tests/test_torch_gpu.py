@@ -8,7 +8,9 @@ machine without them:
 Tolerances: sums rtol 1e-5; gradients rtol 1e-4 with atol 1e-6 * max|ref|
 (fp32, different summation order); the per-shard kernels' gradients against
 the fp64 plain version within that plus 4 times the fp32 plain version's
-own distance from it (``_close_floor``)."""
+own distance from it (``_close_floor``).  Row models without a CUDA
+counterpart run their plain versions on the card (``rowwise.plain_on_card``)
+and give the CPU route's numbers."""
 
 import hashlib
 
@@ -280,11 +282,15 @@ def test_cuda_fp64_takes_the_plain_route(cuda):
 # -- The mg kernels after the header split ---------------------------------------
 
 # sha256 (first 16 hex digits) of the mg kernels' outputs at the flagship
-# shapes, from csrc/rowwise_mg.cu before its row model moved into
-# veltracer_row.cuh (NVIDIA H100 80GB HBM3): the split changes no bit.
+# shapes (NVIDIA H100 80GB HBM3).  First pinned when the row model moved
+# into veltracer_row.cuh (the split changed no bit); pinned anew when dP
+# moved into the row walk (the blocks' windows and their gather sum the
+# coarse cotangent in another order), the sums into warp shuffles and the
+# walk to two cells a thread, after the kernel held to its plain version and
+# the trajectory gates.
 MG_DIGESTS = {
-    "all_terms": {"backward_sums": "c7cd0b6ada3a103a", "backward": "df90380a98398377", "forward": "bc82c36b273aece4"},
-    "no_reg": {"backward_sums": "b215127635ac6b22", "backward": "3f5af3cb79637a5a", "forward": "1574713d4207f4f8"},
+    "all_terms": {"backward_sums": "fc6eeae32cd94634", "backward": "dc9f6596a0fb2bc9", "forward": "bc82c36b273aece4"},
+    "no_reg": {"backward_sums": "3efe70e779943e92", "backward": "15c94896b11ad30d", "forward": "1574713d4207f4f8"},
 }
 
 
@@ -809,7 +815,9 @@ def test_generic_kernels_unchanged_by_halo_layer(cuda, flags):
 # inputs of _halo_case (backward with the sums, without, forward) and
 # _mg_local_case (dt0, dP, dheads, sums), from the masked kernels and the
 # local mg kernel as first written, each its own kernel (NVIDIA H100 80GB
-# HBM3): sharing the bodies of the plain launches changes no bit.
+# HBM3): sharing the bodies of the plain launches changes no bit.  The
+# local mg kernel's digests are pinned anew with the depth-1 ones above (dP
+# in the walk: another summation order).
 HALO_DIGESTS = {
     "t_first": ("028de90c9452042d", "2d181f485cceb152", "d7cb031959649772"),
     "t_later": ("7e391e2e4b059287", "e9c7f10fee2fe5ea", "2066b9dc12f19794"),
@@ -817,11 +825,11 @@ HALO_DIGESTS = {
     "flagship": ("8a67a3fc809a62a1", "f7b36100df68bef8", "b9567af5c45b490c"),
 }
 MG_LOCAL_DIGESTS = {
-    "seam_first": "5555d61ef9585f57",
-    "odd_later": "fe623dfe6dd6e76c",
-    "even_x0": "2a03a4a4c92adb98",
-    "x_whole": "930959fc33e1d585",
-    "flagship": "ee5feb2a6ad80635",
+    "seam_first": "25efff8f9a808151",
+    "odd_later": "8aeb990f9b3e8920",
+    "even_x0": "d09a98747b93e54b",
+    "x_whole": "50886bb0d2b9b354",
+    "flagship": "e93ca628a9d47a6c",
 }
 
 
@@ -841,3 +849,148 @@ def test_mg_local_kernel_keeps_its_bits(cuda, name):
     g = torch.linspace(0.5, 1.5, 6, device=cuda) / t0s[0].numel()
     k = trmg.backward_mg_local_cuda(model, 6, 1, (0.7, 1.1, 0.9), t0s, coarse, heads, x0, consts, g)
     assert _digest(list(k[0]) + list(k[1]) + list(k[2]) + [k[3]]) == MG_LOCAL_DIGESTS[name]
+
+
+# -- The mg backward at the main path's shapes: dP inside the walk ----------------
+
+
+def _close_max(got, want, rtol=1e-4, atol_frac=1e-6):
+    """got within rtol * |want| + atol_frac * max|want| (no floor of 1: the
+    gradients of a mean loss are small)."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    tol = rtol * want.abs() + atol_frac * float(want.abs().max())
+    assert bool(((got - want).abs() <= tol).all()), float((got - want).abs().max())
+
+
+def _kernel_names(fn):
+    """The device kernels one call of fn launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("shape", [(65, 256, 256), (65, 512, 512)])
+def test_mg_kernel_matches_plain_at_main_path_shapes(cuda, shape):
+    """The mg backward (with and without the sums) and forward at the
+    flagship's 256^2 and 512^2 shapes against their plain versions; the
+    backward repeats its bits."""
+    model = _model(K)
+    t0s, coarse, consts = _inputs(cuda, *shape, seed=21)
+    f0s = (0.7, 1.1, 0.9)
+    g = torch.linspace(0.5, 1.5, 6, device=cuda) / t0s[0].numel()
+    for with_sums in (True, False):
+        k = trmg.backward_mg_cuda(model, 6, 1, f0s, t0s, coarse, consts, g, with_sums)
+        p = trmg._backward_mg_plain(model, 6, 1, f0s, t0s, coarse, consts, g, with_sums)
+        for a, b in zip(k[0] + k[1], p[0] + p[1]):
+            _close_max(a, b)
+        if with_sums:
+            _close(k[2], p[2], 1e-5, 0.0)
+            again = trmg.backward_mg_cuda(model, 6, 1, f0s, t0s, coarse, consts, g, True)
+            assert _digest(list(k[0]) + list(k[1]) + [k[2]]) == _digest(list(again[0]) + list(again[1]) + [again[2]])
+    _close(trmg.forward_mg_cuda(model, 6, 1, f0s, t0s, coarse, consts),
+           trmg._forward_mg_plain(model, 6, 1, f0s, t0s, coarse, consts), 1e-5, 0.0)
+
+
+# The local blocks of the flagship's four 256^2 t:2,x:2 shards and of one
+# 512^2 shard: ((Tl, Xe, Y), X, x0, g0, Tg, r_lo) as in MG_LOCAL_CASES.
+SHARD_CASES = {
+    f"256_{i_t}{i_x}": ((33, 130, 256), 256, i_x * 128 - 1, i_t * 32, 65, int(i_t > 0))
+    for i_t in range(2) for i_x in range(2)
+}
+SHARD_CASES["512_11"] = ((33, 258, 512), 512, 255, 32, 65, 1)
+
+
+@pytest.mark.parametrize("name", list(SHARD_CASES))
+def test_mg_local_kernel_matches_plain_at_shard_shapes(cuda, name, monkeypatch):
+    monkeypatch.setitem(MG_LOCAL_CASES, name, SHARD_CASES[name])
+    model, t0s, coarse, heads, consts, x0 = _mg_local_case(cuda, name)
+    f0s = (0.7, 1.1, 0.9)
+    g = torch.linspace(0.5, 1.5, 6, device=cuda) / t0s[0].numel()
+    k = trmg.backward_mg_local_cuda(model, 6, 1, f0s, t0s, coarse, heads, x0, consts, g)
+    p = trmg._backward_mg_local_plain(model, 6, 1, f0s, t0s, coarse, heads, x0, consts, g)
+    m64 = trw.halo_model(model.inner, model.halo[0].double(), *model.halo[1:])
+    q = trmg._backward_mg_local_plain(m64, 6, 1, f0s, _wide(t0s), _wide(coarse), _wide(heads), x0, _wide(consts),
+                                      g.double())
+    for a, b, c in zip(k[0] + k[1] + k[2], p[0] + p[1] + p[2], q[0] + q[1] + q[2]):
+        _close_floor(a, b, c)
+    _close(k[3], p[3], 1e-5, 0.0)
+    again = trmg.backward_mg_local_cuda(model, 6, 1, f0s, t0s, coarse, heads, x0, consts, g)
+    assert _digest(list(k[0]) + list(k[1]) + list(k[2]) + [k[3]]) == _digest(
+        list(again[0]) + list(again[1]) + list(again[2]) + [again[3]])
+
+
+def test_mg_backward_forms_dp_in_the_walk(cuda):
+    """The depth-1 and local-block mg backward launch the row walk and the dP
+    gather and no separate dP pass over dt0 (mg_coarse_grad_kernel); the
+    two-level backward keeps that pass one level down, for dP2."""
+    model = _model(K)
+    t0s, coarse, consts = _inputs(cuda, 33, 64, 96)
+    g = torch.full((6,), 1.0 / t0s[0].numel(), device=cuda)
+    f0s = (0.7, 1.1, 0.9)
+    depth1 = _kernel_names(lambda: trmg.backward_mg_cuda(model, 6, 1, f0s, t0s, coarse, consts, g, True))
+    lm, lt0, lc, lh, lcs, x0 = _mg_local_case(cuda, "odd_later")
+    local = _kernel_names(lambda: trmg.backward_mg_local_cuda(lm, 6, 1, f0s, lt0, lc, lh, x0, lcs, g))
+    t0s2, t1s, P2, consts2 = _inputs2(cuda, 33, 64, 96)
+    depth2 = _kernel_names(lambda: trmg.backward_mg2_cuda(model, 6, 1, f0s, F1, t0s2, t1s, P2, consts2, g, True))
+    has = lambda names, k: any(k in n for n in names)
+    for names in (depth1, local, depth2):
+        assert has(names, "mg_rows_kernel") and has(names, "mg_dp_gather_kernel"), names
+        assert not has(names, "reduce_sums_kernel"), names
+    assert not has(depth1, "mg_coarse_grad_kernel") and not has(local, "mg_coarse_grad_kernel")
+    assert has(depth2, "mg_coarse_grad_kernel")
+
+
+# -- Row models without a CUDA counterpart: plain torch on the card --------------
+
+
+def _heat_args(**kw):
+    import argparse
+
+    a = dict(infer_k=True, imposed="stripe", nimp=40, noise=0.0, seed=1000, kimp=2.0, kxreg=0.1, kxregdecay=0,
+             ktreg=0.0, ktregdecay=0, kwreg=0.0, kwregdecay=0, kmax=0.1, keep_frozen=1, keep_init=0, solver="odil")
+    a.update(kw)
+    return argparse.Namespace(**a)
+
+
+def _user_operator(ctx):
+    """The flagship's kernel call with its row function as a user's: no
+    CUDA model, no hand adjoint."""
+    d = tvt._kernel_decl(ctx)
+    return ctx.rowwise_terms(trw.RowModel(d["row_fn"].row_fn), d["keys"], consts=d["consts"], nterms=d["nterms"],
+                             hist=1, halox=1)
+
+
+@pytest.mark.parametrize("which", ["heat_keep_init_0", "user_row_fn"])
+def test_plain_on_card_route_matches_cpu_route(cuda, which):
+    """heat with keep_init=0 and a user row function through
+    ctx.rowwise_terms: the one-pass route runs their plain versions on the
+    card (plain_on_card once a call, no row-wise kernel) and gives the CPU
+    route's terms and gradients."""
+    if which == "heat_keep_init_0":
+        build = lambda d: tht.build(nt=16, nx=16, kernel="pallas", device=d, args=_heat_args())
+    else:
+        def build(d):
+            p, s, e = tvt.build(nt=8, nx=32, ny=32, kernel="pallas", device=d)
+            p.operator = _user_operator
+            return p, s, e
+    cp, cs, _ = build("cpu")
+    gp, gs, _ = build(cuda)
+    rng = np.random.default_rng(9)
+    shapes = [tuple(a.shape) for a in cp.domain.arrays_from_state(cs)]
+    states = [[(0.3 * rng.normal(size=s)).astype(np.float32) for s in shapes] for _ in range(2)]
+    cfn, gfn = cp.make_loss_grad_fn(cs), gp.make_loss_grad_fn(gs)
+    before = (trw.plain_on_card.launches, trw.backward_cuda.launches, trw.forward_cuda.launches)
+    outs = [gfn(arrays_from_numpy(a, device=cuda), dict(gp.tracers, epoch=e)) for e, a in enumerate(states)]
+    assert (trw.plain_on_card.launches, trw.backward_cuda.launches, trw.forward_cuda.launches) == (
+        before[0] + 2, before[1], before[2])
+    for e, (arrays, ((_, (gterms, _)), ggrads)) in enumerate(zip(states, outs)):
+        (_, (cterms, _)), cgrads = cfn(arrays_from_numpy(arrays, device="cpu"), dict(cp.tracers, epoch=e))
+        for a, b in zip(gterms, cterms):
+            _close(a, b, 1e-5, 0.0)
+        for a, b in zip(ggrads, cgrads):
+            _close(a, b, 1e-4, 1e-6)
