@@ -99,25 +99,34 @@ Phases, any failure exits non-zero and prints no result:
       epoch 0 within 1e-5 and every 10-epoch row within 1% of the plain
       operator (``kernel="xla"``) trained the same way by autograd.
    The streaming kernels (veltracer at (65,256,256) and (65,64,64), heat and
-   wave at 64^2 and 1024^2) and the two-level kernel (t0 (65,256,256),
-   t1 (33,128,128), P2 (17,64,64), x3) are held first to their plain
-   versions, as above, and each repeats its bits call after call; so are the
-   per-shard kernels at the shapes of j.'s four shards (their gradients held
-   to the plain version in fp64 within the tolerance plus 4 times the fp32
-   plain version's own distance from it, cell by cell: ``close_floor``): the masked forward,
-   backward+sums and backward on (34,130,256) x3 blocks with a (130,256)
-   mask, and the local-block mg backward on t0 (33,130,256) x3, coarse
-   windows (17,128,128) x3 and heads (1,130,256) x3, for each shard's row
-   offset, own rows and first global column.
+   wave at 64^2 and 1024^2; on the card the slabbed launch, counted apart)
+   and the two-level kernel (t0 (65,256,256), t1 (33,128,128), P2
+   (17,64,64), x3) are held first to their plain versions, as above, and each
+   repeats its bits call after call (the streaming ones also the slabbed
+   launch's bits); so are the per-shard kernels at the shapes of j.'s four
+   shards (their gradients held to the plain version in fp64 within the
+   tolerance plus 4 times the fp32 plain version's own distance from it,
+   cell by cell: ``close_floor``): the masked forward, backward+sums and
+   backward on (34,130,256) x3 blocks with a (130,256) mask, and the
+   local-block mg backward on t0 (33,130,256) x3, coarse windows
+   (17,128,128) x3 and heads (1,130,256) x3, for each shard's row offset,
+   own rows and first global column.  The row kernels print their launch
+   shapes (slabs, tiles, blocks, waves of the resident blocks).
 4. Timing: ms/epoch of the training loops with a profiler breakdown of the
    two 256^2 routes and the heat 64^2 route; the mg kernels' time by kernel
    name (the row walk, the dP gather, the level-2 dP pass), where the
    depth-1 and local-block forms must launch no separate dP pass
-   (``mg_coarse_grad_kernel``); and each kernel's time (a CUDA
+   (``mg_coarse_grad_kernel``), and a row kernel's backward+sums, slabbed
+   or streaming, must launch one kernel (the profiles run after the
+   training loops: a profiler session leaves the host slower); and each
+   kernel's time (a CUDA
    graph of 50 calls) beside its bound, its plain version's time and its
    launches on its path, every line tagged with the card's name and power
    limit; each streaming kernel's time beside the slabbed launch's on the
-   same inputs.  Two variants that no path of the JAX package runs (the
+   same inputs and its bound also with the rows its slabs read again; the
+   launch floor (an empty kernel timed the same way) beside the small
+   planes' rows; the operation counts the bounds use.  Two variants that no
+   path of the JAX package runs (the
    streaming backward with the sums, which the TPU's ``_backward_stream``
    lacks, and the two-level backward without the sums, which its one
    caller never asks for) are held to their plain versions and timed but
@@ -150,13 +159,15 @@ OPS_ROWS_BACKWARD = OPS_ROWS_FORWARD + 60
 OPS_FORWARD = 3 * 23 + OPS_ROWS_FORWARD
 OPS_BACKWARD = OPS_FORWARD + 60 + 12
 # The heat and wave row models (heat_row.cuh, wave_row.cuh), per residual
-# cell, a tanhf or expf counted as one operation: heat's forward runs the
-# conductivity net at both faces (2 x (70 multiply-adds and products + 11
-# transcendentals + 3)) and the stencil (~30); its backward adds the
-# stencil's adjoint (~30), the net's param adjoint at both faces (2 x 169)
-# and the gather (6).  Wave: the stencil (16) and its adjoint (20).
-OPS_HEAT_FORWARD = 200
-OPS_HEAT_BACKWARD = OPS_HEAT_FORWARD + 30 + 2 * 169 + 6
+# cell, a multiply-add counted as two operations and a tanhf or expf as one:
+# heat's conductivity net runs once per face, about one face a cell (35
+# multiply-adds, 11 transcendentals, 3 for the sigmoid and kmax: 84), with
+# its face temperature (3), and the stencil (~25); its backward adds the
+# stencil's adjoint (~30), the net's param adjoint once per face (170) and
+# the gather (6).  Wave: the stencil (16) and its adjoint (20).
+OPS_HEAT_NET, OPS_HEAT_NET_VJP = 84, 170
+OPS_HEAT_FORWARD = OPS_HEAT_NET + 3 + 25
+OPS_HEAT_BACKWARD = OPS_HEAT_FORWARD + 30 + OPS_HEAT_NET_VJP + 6
 OPS_WAVE_FORWARD = 16
 OPS_WAVE_BACKWARD = OPS_WAVE_FORWARD + 20
 # The two-level backward adds, per level-1 cell, the rebuild of the level-1
@@ -358,7 +369,8 @@ def build_all(_build, names=("rowwise_mg", "rowwise")):
 
 def kernel_split(torch, fn, reps=50):
     """{kernel name: device ms per call of fn} over `reps` calls after a
-    warm-up (torch.profiler), and the calls' total."""
+    warm-up (torch.profiler), the calls' total, and {kernel name: launches
+    per call}."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -367,16 +379,17 @@ def kernel_split(torch, fn, reps=50):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    split = {}
+    split, counts = {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             name = short_name(e.name)
             split[name] = split.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
-    return split, sum(split.values())
+            counts[name] = counts.get(name, 0) + 1 / reps
+    return split, sum(split.values()), counts
 
 
 def print_split(torch, fn, what, tag):
-    split, total = kernel_split(torch, fn)
+    split, total, _ = kernel_split(torch, fn)
     print(f"split of {what}: {total:.4f} ms of kernels per call: " + ", ".join(
         f"{name} {ms:.4f}" for name, ms in sorted(split.items(), key=lambda kv: -kv[1])) + f" {tag}")
     return split
@@ -593,11 +606,12 @@ def main():
     report = {}  # kernel name -> max abs error against its plain version
     off_path = {}  # the same for the variants that no path runs (see the docstring)
 
-    def check_stream(key, m, nt_, h, fs, ps, ds, cs, gs, pf, pgrads, psums):
+    def check_stream(key, m, nt_, h, fs, ps, ds, cs, gs, pf, pgrads, psums, slabbed_out):
         """The streaming kernels at one case against the plain versions
         already computed there for the slabbed ones (pf: sums; pgrads:
-        dfields and dparams; psums: the backward's sums), and their bits call
-        after call."""
+        dfields and dparams; psums: the backward's sums), their bits call
+        after call, and the slabbed launch's bits (slabbed_out: its forward,
+        backward+sums and backward): on the card they are one launch."""
         calls = (
             lambda: rw.forward_stream_cuda(m, nt_, h, fs, ps, ds, cs),
             lambda: rw.backward_stream_cuda(m, nt_, h, fs, ps, ds, cs, gs, True),
@@ -606,14 +620,14 @@ def main():
         kf, (kd, kp, ks), (kd2, kp2, _) = first = [c() for c in calls]
         again = [c() for c in calls]
         torch.cuda.synchronize()
-        bits = same_bits(torch, first, again)
+        bits = same_bits(torch, first, again) and same_bits(torch, first, slabbed_out)
         e_f, ok_f = close(kf.double(), pf.double(), TERMS_RTOL, 0.0)
         e_s, ok_s = close(ks.double(), psums.double(), TERMS_RTOL, 0.0)
         e_g, ok_g = close_all([a.double() for a in kd + kp], [b.double() for b in pgrads])
         e_g2, ok_g2 = close_all([a.double() for a in kd2 + kp2], [b.double() for b in pgrads])
         print(f"stream kernels at {tuple(fs[0].shape)} ({key}): forward max|d sums| {e_f:.3e} (rel "
               f"{rel_err(kf, pf):.2e}), backward max|d grads| {e_g2:.3e}, backward+sums max|d sums| {e_s:.3e} "
-              f"max|d grads| {e_g:.3e}; the same bits call after call: {bits} {tag}")
+              f"max|d grads| {e_g:.3e}; the same bits call after call and as the slabbed launch: {bits} {tag}")
         if not (ok_f and ok_s and ok_g and ok_g2 and bits):
             fail(f"a streaming kernel disagrees with its plain version or its own bits at {key}: forward {ok_f}, "
                  f"sums {ok_s}, backward+sums {ok_g}, backward {ok_g2}, bits {bits}")
@@ -848,7 +862,7 @@ def main():
         report[f"backward_rows_sums_{size}"] = e_g
         report[f"backward_rows_{size}"] = e_g2
         if size in ("256", "64"):
-            check_stream(size, m, nt_, 1, fs, (), (), cs, gs, pf, pd, ps)
+            check_stream(size, m, nt_, 1, fs, (), (), cs, gs, pf, pd, ps, [kf, (kd, (), ks), (kd2, (), None)])
         del kd, pd, kd2
 
     fs = fields["256"]
@@ -900,8 +914,21 @@ def main():
                 report[f"forward_rows_{which}_{size}"] = e_f
                 report[f"backward_rows_sums_{which}_{size}"] = e_g
                 report[f"backward_rows_{which}_{size}"] = e_g2
-                check_stream(f"{which}_{size}", m, nt_, h, fs, ps, ds, cs, gs, pf, list(pd) + list(pp), ps_)
+                check_stream(f"{which}_{size}", m, nt_, h, fs, ps, ds, cs, gs, pf, list(pd) + list(pp), ps_,
+                             [kf, (kd, kp, ks), (kd2, kp2, None)])
             del kd, kp, kd2, kp2, pd, pp
+
+    # The row kernels' launch shapes: slabs sized to whole waves of the
+    # resident blocks, the 1-D tiles taken by the blocks in rounds.
+    row_cases = {size: (*row_model(size)[:2], 1, fields[size], (), (), row_model(size)[2]) for size in ("256", "64")}
+    row_cases.update({f"{w}_{size}": c for (w, size), c in cases_1d.items()})
+    for key, (m, nt_, h, fs, ps, ds, cs) in row_cases.items():
+        shapes = []
+        for what, grads, sums in (("forward", False, True), ("backward+sums", True, True), ("backward", True, False)):
+            slab, tiles, blocks, resident = rw.launch_shape(m, fs, grads, sums)
+            shapes.append(f"{what}: slabs of {slab} rows, {tiles} tiles, grid {blocks} blocks of 256 threads, "
+                          f"{-(-tiles // resident)} wave(s) of {resident} resident")
+        print(f"row kernel launches at {tuple(fs[0].shape)} ({key}): " + "; ".join(shapes) + f" {tag}")
 
     # -- Phase 3: the paths ----------------------------------------------------
     ref256, ref64 = read_ref("ref_velt_256.csv"), read_ref("ref_velt_64.csv")
@@ -1472,9 +1499,14 @@ def main():
     slabbed, unlisted = {}, {}
     stream_cases = {size: (*row_model(size)[:2], 1, fields[size], (), (), row_model(size)[2]) for size in ("256", "64")}
     stream_cases.update({f"{w}_{size}": c for (w, size), c in cases_1d.items()})
+    edge = {}  # stream kernel -> the bytes of the rows its slabs read again
     for key, (m, nt_, h, fs, ps, ds, cs) in stream_cases.items():
         gs = torch.full((nt_,), 1.0 / fs[0].numel(), device=dev)
         n_cells, f_in = fs[0].numel(), nbytes(fs + ps + ds + cs)
+        plane = nbytes(fs) // fs[0].shape[0]
+        for name, grads, sums in ((f"forward_stream_{key}", False, True), (f"backward_stream_{key}", True, False)):
+            slab = rw.launch_shape(m, fs, grads, sums)[0]
+            edge[name] = -(-fs[0].shape[0] // slab) * h * (2 if grads else 1) * plane
         ops_f, ops_b = ops_1d[key.split("_")[0]] if "_" in key else (OPS_ROWS_FORWARD, OPS_ROWS_BACKWARD)
         args_ = (m, nt_, h, fs, ps, ds, cs)
         timed[f"forward_stream_{key}"] = (
@@ -1530,6 +1562,27 @@ def main():
         )
 
     print_mg_splits()
+    # A backward+sums of the row kernels, slabbed or streaming, is one launch
+    # (torch.profiler; after the training loops, which a profiler session
+    # leaves slower on the host).
+    for key, (m, nt_, h, fs, ps, ds, cs) in row_cases.items():
+        gs = torch.full((nt_,), 1.0 / fs[0].numel(), device=dev)
+        per_call = {}
+        for route, call in (("slabbed", rw.backward_cuda), ("streaming", rw.backward_stream_cuda)):
+            _, _, counts = kernel_split(torch, lambda: call(m, nt_, h, fs, ps, ds, cs, gs, True), reps=10)
+            per_call[route] = counts
+            if sum(counts.values()) > 1 + 1e-9:
+                fail(f"the {route} backward+sums at {key} launched more than one kernel: {counts}")
+        print(f"kernels per backward+sums call at {tuple(fs[0].shape)} ({key}): " + ", ".join(
+            f"{r} {c}" for r, c in per_call.items()) + f" {tag}")
+    lib_rows = rw._library()
+    floor_ms = kernel_ms(torch, lambda: rw._raise_on(
+        lib_rows, lib_rows.odil_empty_launch(torch.cuda.current_stream().cuda_stream), "odil_empty_launch"), 50)
+    print(f"launch floor: an empty kernel {floor_ms:.4f} ms (a CUDA graph of 50 launches) {tag}")
+    print(f"operations per residual cell in the bounds: OPS_HEAT_FORWARD {OPS_HEAT_FORWARD}, OPS_HEAT_BACKWARD "
+          f"{OPS_HEAT_BACKWARD} (one network pass {OPS_HEAT_NET} and one param adjoint {OPS_HEAT_NET_VJP} a face), "
+          f"OPS_WAVE_FORWARD {OPS_WAVE_FORWARD}, OPS_WAVE_BACKWARD {OPS_WAVE_BACKWARD}, OPS_ROWS_FORWARD "
+          f"{OPS_ROWS_FORWARD}, OPS_ROWS_BACKWARD {OPS_ROWS_BACKWARD} {tag}")
     kernels = []
     for name, (kfn, pfn, nbyte, ops, replaced, source) in list(timed.items()) + list(unlisted.items()):
         ms = kernel_ms(torch, kfn, 50)
@@ -1538,6 +1591,11 @@ def main():
         t_ops = ops / FP32_FLOPS * 1e3
         bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
         beside = f", slabbed launch {kernel_ms(torch, slabbed[name], 50):.4f} ms" if name in slabbed else ""
+        if name in edge:
+            t_edge = max((nbyte + edge[name]) / HBM_BYTES_PER_S * 1e3, t_ops)
+            beside += f", bound with the rows its slabs read again (+{edge[name]} bytes) {t_edge:.4g} ms"
+        if name.endswith("_64"):
+            beside += f", launch floor {floor_ms:.4f} ms"
         if name in unlisted:
             print(f"kernel {name} (no path runs it): {ms:.4f} ms{beside}, bound {bound_ms:.4g} ms ({bound_by}), "
                   f"plain {plain_ms:.4f} ms, max|d| {off_path[name]:.3e} {tag}")

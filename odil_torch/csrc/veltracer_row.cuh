@@ -18,8 +18,8 @@
 //
 // The functions take the kernel's argument struct as a template parameter:
 // both argument structs carry T, has_x, has_t and the scalars inv_dt, inv_dx,
-// inv_dy, inv_dx2, inv_dy2, kimp, kimp_dx, kxreg, kt, plus nterms, partials and
-// sums for the partial-sum reduction.
+// inv_dy, inv_dx2, inv_dy2, kimp, kimp_dx, kxreg, kt, plus nterms, partials,
+// sums and ticket for the reduction of the sums.
 //
 // The halo layer (a Layer of type HaloRow; NoHalo leaves the code as it was):
 // a per-shard launch (odil_torch/halo.py) runs on one shard's halo-extended
@@ -286,8 +286,7 @@ __device__ __forceinline__ void cell_terms(const Args& A, const RowPlanes& P, co
 // to finish (an integer ticket; the float order does not depend on which
 // block it is) reduces the rows in block order into A.sums and resets the
 // ticket (Args::ticket).  Every thread of the block calls it, at its end.
-// The mg walk reduces its sums so; the generic kernels of rowwise.cu still
-// take write_partials and a reduce_sums_kernel launch below.
+// The mg walk and the row kernels of rowwise.cu reduce their sums so.
 template <class Args>
 __device__ void finish_sums(const Args& A, const float* s, double (&red)[NWARPS][MAXTERMS]) {
   __shared__ bool last;
@@ -327,44 +326,6 @@ __device__ void finish_sums(const Args& A, const float* s, double (&red)[NWARPS]
     A.sums[tid] = (float)v;
   }
   if (tid == 0) *A.ticket = 0u;
-}
-
-// Block-wide sum of each thread's s[k] in fp64, written to the block's row of
-// A.partials (nblocks, MAXTERMS).  Every thread of the block calls it.
-template <class Args>
-__device__ __forceinline__ void write_partials(const Args& A, const float* s, double* red) {
-  const int tid = threadIdx.y * TILE_Y + threadIdx.x;
-  const int blk = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
-  for (int k = 0; k < A.nterms; ++k) {
-    red[tid] = s[k];
-    __syncthreads();
-    for (int w = NTHREADS / 2; w > 0; w >>= 1) {
-      if (tid < w) red[tid] += red[tid + w];
-      __syncthreads();
-    }
-    if (tid == 0) A.partials[(size_t)blk * MAXTERMS + k] = red[0];
-    __syncthreads();
-  }
-}
-
-// Fixed-order reduction of the per-block partial sums (one block): the sums
-// repeat run to run.
-template <class Args>
-__global__ void __launch_bounds__(NTHREADS) reduce_sums_kernel(const Args A, int nblocks) {
-  __shared__ double red[NTHREADS];
-  const int tid = threadIdx.x;
-  for (int k = 0; k < A.nterms; ++k) {
-    double acc = 0.0;
-    for (int b = tid; b < nblocks; b += NTHREADS) acc += A.partials[(size_t)b * MAXTERMS + k];
-    red[tid] = acc;
-    __syncthreads();
-    for (int w = NTHREADS / 2; w > 0; w >>= 1) {
-      if (tid < w) red[tid] += red[tid + w];
-      __syncthreads();
-    }
-    if (tid == 0) A.sums[k] = (float)red[0];
-    __syncthreads();
-  }
 }
 
 }  // namespace

@@ -11,7 +11,8 @@
 //
 // Scalars: s[0] = 1/dt, s[1] = 1/dx^2, s[2] = kimp, s[3] = dt/2.  Data: left
 // and right traces at it - 1.  Consts: u0, ut0, ix (unused: the kernel knows
-// x).  About 20 fp32 operations per cell: the kernel is bound by bytes.
+// x).  About 20 fp32 operations per cell: the kernel is bound by bytes.  No
+// faces: the kernel skips its face phases.
 
 #pragma once
 
@@ -21,11 +22,16 @@ namespace rows1d {
 
 struct WaveRow {
   static constexpr int NF = 1, HIST = 2, MAXT = 1, NP = 0;
+  // The samples it reads: row t at x, row t-1 at x-1, x, x+1, row t-2 at x.
+  static constexpr unsigned DUSED = 1u << 1 | 1u << 3 | 1u << 4 | 1u << 5 | 1u << 7;
+  static constexpr int BLOCKS_PER_SM = 4;
+  static constexpr bool FACES = false;
+  struct Face {};
 
   template <bool GRADS>
   __device__ __forceinline__ static void eval(const Rows1DArgs& A, const float* P, int it, int x,
-                                              const float (&v)[3][1][3], const float* g2, bool own, float* res,
-                                              float (&D)[3][1][3], float* pacc) {
+                                              const float (&v)[3][1][3], const Face&, const Face&, const float* g2,
+                                              float* res, float (&D)[3][1][3], float (&)[2]) {
     const float inv_dt = A.s[0], inv_dx2 = A.s[1], kimp = A.s[2], hdt = A.s[3];
     const bool first = it == 0, left = x == 0, right = x == A.N - 1;
     const float cur = v[0][0][1], tm = v[1][0][1], tmm = v[2][0][1];

@@ -243,13 +243,32 @@ def _make_row_fn(dt, dx, nx, kmax, imp_weight, flags, layer_shapes):
     return row_fn
 
 
-def _make_row_vjp(dt, dx, nx, kmax, imp_weight, flags, layer_shapes):
+def _shared_faces(u_right, u_left):
+    """Which faces two cells see alike: face x lies between cells x and x+1,
+    ``u_right`` holds each cell's right-face temperature and ``u_left`` its
+    left-face one (the last axis is x).  The interior faces where both have
+    the same value share one network pass; the wall faces of the periodic
+    seam (the right one of x = nx-1, the left one of x = 0) never do."""
+    shared = torch.zeros(u_right.shape, dtype=torch.bool, device=u_right.device)
+    shared[..., :-1] = u_right[..., :-1] == u_left[..., 1:]
+    return shared
+
+
+def _make_row_vjp(dt, dx, nx, kmax, imp_weight, flags, layer_shapes, faces=False):
     """Closed-form adjoint of ``_make_row_fn`` with keep_init and keep_frozen
     on: ``row_vjp(...) -> ((d_cur, d_prev), dparams)``.  The face
     temperatures are frozen, so d/du does not pass through k; d/dparams does,
     through both faces.  Transposes, in order: the terms, the quadratic-half
     ghosts at ix = nx-1 then ix = 0, the linear extrapolation of the previous
-    row at it = 0, the periodic x-rolls."""
+    row at it = 0, the periodic x-rolls.
+
+    ``faces=True``: the param cotangents in the order of the CUDA kernel's
+    face form (``csrc/heat_row.cuh``), one network pass and one param adjoint
+    a face: where a face's two cells see the same temperature
+    (``_shared_faces``) their conductivity cotangents add, left cell then
+    right, into the left cell's pass; the wall faces and the faces whose two
+    temperatures differ (row 0 with initial temperatures that disagree) keep
+    one pass a cell.  The same function; another summation order."""
     has_imp, has_x, has_t, infer_k, keep_init, keep_frozen = flags
     assert keep_init and keep_frozen, "the hand adjoint takes keep_init=1 and keep_frozen=1"
     net, param_vjp = _make_net(layer_shapes, kmax) if infer_k else (None, None)
@@ -309,8 +328,13 @@ def _make_row_vjp(dt, dx, nx, kmax, imp_weight, flags, layer_shapes):
         d_prev = gp[0] + torch.roll(gp[1], -1, -1) + torch.roll(gp[2], 1, -1)
         dparams = []
         if infer_k:
-            dm = param_vjp(cache_m, w0 * du_m / dx)
-            dp = param_vjp(cache_p, -w0 * du_p / dx)
+            g_km, g_kp = w0 * du_m / dx, -w0 * du_p / dx
+            if faces:
+                shared = _shared_faces((s2 + s0) * 0.25, (s0 + s1) * 0.25)
+                g_kp = g_kp + torch.where(shared, torch.roll(g_km, -1, -1), 0.0)
+                g_km = torch.where(torch.roll(shared, 1, -1), 0.0, g_km)
+            dm = param_vjp(cache_m, g_km)
+            dp = param_vjp(cache_p, g_kp)
             dparams = [a + b for a, b in zip(dm, dp)]
         return (d_cur, d_prev), dparams
 

@@ -42,13 +42,19 @@ One CUDA design serves every plane size, so ``block_rows`` and ``halox``
 select nothing here.
 
 ``stream=True`` with ``hist >= 1`` (``odil_tpu/ops/rowwise.py:992``) takes
-the streaming pair (``_forward_stream``/``_backward_stream``): on the card
-the same kernels launched with one slab of all T rows, so that each field
-row is read once (``forward_stream_cuda``/``backward_stream_cuda``); 1-D
-planes stay 1-D.  The pair computes the same function as the slabbed one,
-so its plain versions are ``_forward_plain``/``_backward_plain``.  With
-``hist=0`` a streaming call takes the ordinary kernels, as in the JAX
-package.
+the streaming pair (``_forward_stream``/``_backward_stream``).  The TPU
+streams (each field row read once, a ring of ``hist`` rows carried across a
+sequential grid) to keep VMEM small; a Hopper block's shared memory does not
+grow with the rows it covers, and one walk of all T rows cannot fill 132
+SMs.  So on the card the streaming pair is the slabbed launch, with slabs
+sized to whole waves of the resident blocks (``_wave_slab``, ``_tile_rows``):
+each field row is read once per slab, the ``hist`` rows above a slab once
+more (``hist/slab`` of the bytes).  ``forward_stream_cuda``/
+``backward_stream_cuda`` launch it with launch counters of their own, so
+that a run shows which route it took; 1-D planes stay 1-D.  The pair
+computes the slabbed pair's function, so its plain versions are
+``_forward_plain``/``_backward_plain``.  With ``hist=0`` a streaming call
+takes the ordinary kernels, as in the JAX package.
 
 Per-shard (halo) evaluation (``halo.py``): ``halo_model`` wraps a row model
 for one shard's halo-extended block -- global row offset, the global T, a 0/1
@@ -66,6 +72,7 @@ the unpadded extended extent (130 = 128 + 2 x-rows for the flagship's
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -225,10 +232,58 @@ def _backward_plain(model, nterms, hist, fields, params, data, consts, g, with_s
 _MAXTERMS = 6  # the veltracer row model's terms (MAXTERMS of csrc/veltracer_row.cuh)
 
 
-def _slab(T):
-    """Rows per block of the row kernels: about 16, balanced over T."""
-    n = -(-T // 16)
-    return -(-T // n)
+@functools.lru_cache(maxsize=64)
+def _wave_slab(T, tiles, resident, lead):
+    """Rows per block of a row walk over T rows and ``tiles`` tiles a slab:
+    the slab that runs the launch in the fewest row-times, counting whole
+    waves of the ``resident`` blocks the card holds at once and the ``lead``
+    rows a block reads (or rebuilds) before its first."""
+    best = None
+    for nz in range(1, T + 1):
+        slab = -(-T // nz)
+        if -(-T // slab) != nz:
+            continue
+        cost = -(-nz * tiles // resident) * (slab + lead)
+        if best is None or cost < best[0]:
+            best = (cost, slab)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=64)
+def _tile_rows(T, N, hist, grads, resident, tile, max_slab, threads):
+    """(slab, blocks) of a 1-D tile launch (``csrc/rows1d.cuh``) over (T, N):
+    tiles of ``slab`` rows by ``tile`` cells, at most ``max_slab`` rows, taken
+    by ``blocks`` blocks of ``threads`` threads in rounds.  The slab runs the
+    launch in the fewest passes of a block's threads over its residual window
+    (``slab + hist`` rows of ``tile + 2`` cells with the gradients, ``slab``
+    rows of ``tile`` without), counting whole waves of the ``resident``
+    blocks; among equals the fewest tiles (the least recompute)."""
+    tiles_x = -(-N // tile)
+    rows, width = (hist, tile + 2) if grads else (0, tile)
+    best = None
+    for nz in range(1, T + 1):
+        slab = -(-T // nz)
+        if slab > max_slab or -(-T // slab) != nz:
+            continue
+        tiles = nz * tiles_x
+        cost = (-(-tiles // resident) * -(-(slab + rows) * width // threads), tiles)
+        if best is None or cost < best[0]:
+            best = (cost, slab, tiles)
+    _, slab, tiles = best
+    return slab, min(tiles, resident)
+
+
+_TICKETS = {}
+
+
+def _ticket(dev, stream):
+    """The ticket counter of the kernels' sums on the stream (a raw handle)
+    of dev: an int32 that every launch leaves at 0, one per stream, since
+    launches on one stream run one after another."""
+    key = (dev, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros((1,), dtype=torch.int32, device=dev)
+    return _TICKETS[key]
 
 
 def _veltracer_scalars(model, nterms):
@@ -285,13 +340,14 @@ class _RowArgs(ctypes.Structure):
         ("df", ctypes.c_void_p * 3),
         ("partials", ctypes.c_void_p),
         ("sums", ctypes.c_void_p),
+        ("ticket", ctypes.c_void_p),
     ] + [(n, ctypes.c_int) for n in ("T", "X", "Y", "slab", "nterms", "has_x", "has_t")] + [
         (n, ctypes.c_float)
         for n in ("inv_dt", "inv_dx", "inv_dy", "inv_dx2", "inv_dy2", "kimp", "kimp_dx", "kxreg", "kt")
     ]
 
 
-_MAXF, _MAXD, _MAXC, _NSCALARS = 2, 2, 6, 8
+_MAXF, _MAXD, _MAXC, _MAXP, _NSCALARS = 2, 2, 6, 6, 8
 
 
 class _Rows1DArgs(ctypes.Structure):
@@ -302,14 +358,16 @@ class _Rows1DArgs(ctypes.Structure):
         ("f", ctypes.c_void_p * _MAXF),
         ("data", ctypes.c_void_p * _MAXD),
         ("consts", ctypes.c_void_p * _MAXC),
-        ("params", ctypes.c_void_p),
+        ("params", ctypes.c_void_p * _MAXP),
         ("g", ctypes.c_void_p),
         ("df", ctypes.c_void_p * _MAXF),
         ("dparams", ctypes.c_void_p),
         ("partials", ctypes.c_void_p),
         ("sums", ctypes.c_void_p),
+        ("ticket", ctypes.c_void_p),
         ("data_stride", ctypes.c_int * _MAXD),
-    ] + [(n, ctypes.c_int) for n in ("T", "N", "slab", "nterms", "nparams", "stride", "flags")] + [
+        ("param_size", ctypes.c_int * _MAXP),
+    ] + [(n, ctypes.c_int) for n in ("T", "N", "slab", "blocks", "nterms", "nparams", "stride", "flags")] + [
         ("s", ctypes.c_float * _NSCALARS)
     ]
 
@@ -336,16 +394,22 @@ class _VeltracerCuda:
     """The veltracer row model on (T, X, Y) planes: 3 fields, 2 const planes
     (u_init, u_final), no params, no data, hist=1 (``csrc/veltracer_row.cuh``)."""
 
-    forward, backward = "odil_rows_forward", "odil_rows_backward"
-    stream_forward, stream_backward = "odil_rows_stream_forward", "odil_rows_stream_backward"
-
     def names(self, model, stream):
-        """The (forward, backward) entry points for this model and launch."""
+        """The (forward, backward) entry points for this model: the streaming
+        pair launches the slabbed ones."""
         if model.halo is not None:
             if stream:
                 raise NotImplementedError("the masked per-shard kernels have no streaming form")
             return "odil_rows_halo_forward", "odil_rows_halo_backward"
-        return (self.stream_forward, self.stream_backward) if stream else (self.forward, self.backward)
+        return "odil_rows_forward", "odil_rows_backward"
+
+    def launch_shape(self, lib, T, shape, grads, sums):
+        """(slab, tiles, blocks, resident blocks) of a launch over T rows of
+        (X, Y) planes: a block a tile."""
+        X, Y = shape
+        slab = _wave_slab(T, lib.odil_rows_num_blocks(T, X, Y, T), lib._odil_resident, 1)
+        blocks = lib.odil_rows_num_blocks(T, X, Y, slab)
+        return slab, blocks, blocks, lib._odil_resident
 
     def check(self, model, nterms, hist, fields, params, data, consts):
         _check_veltracer_model(model, hist)
@@ -358,24 +422,23 @@ class _VeltracerCuda:
             raise ValueError(f"the CUDA row-wise kernels take (T, X, Y) fields with T >= 2, got {shape}")
         _check_shapes(tuple(fields) + tuple(consts) + halo, [shape] * 3 + [shape[1:]] * (2 + len(halo)), "veltracer")
 
-    def pack(self, lib, model, nterms, fields, params, data, consts, g, grads, stream):
+    def pack(self, lib, model, nterms, fields, params, data, consts, g, grads, sums, cs):
         T, X, Y = fields[0].shape
         dev = fields[0].device
-        slab = T if stream else _slab(T)
-        nblocks = lib.odil_rows_num_blocks(T, X, Y, slab)
+        slab, _, nblocks, _ = self.launch_shape(lib, T, (X, Y), grads, sums)
         partials = torch.empty((nblocks, _MAXTERMS), dtype=torch.float64, device=dev)
-        sums = torch.empty((_MAXTERMS,), dtype=torch.float32, device=dev)
+        out = torch.empty((_MAXTERMS,), dtype=torch.float32, device=dev)
         dfields = tuple(torch.empty_like(f) for f in fields) if grads else ()
         args = _RowArgs(
             f=_ptrs(fields, 3), u_init=consts[0].data_ptr(), u_final=consts[1].data_ptr(),
             g=g.data_ptr() if g is not None else None, df=_ptrs(dfields, 3) if grads else (ctypes.c_void_p * 3)(),
-            partials=partials.data_ptr(), sums=sums.data_ptr(), T=T, X=X, Y=Y, slab=slab,
-            **_veltracer_scalars(model, nterms),
+            partials=partials.data_ptr(), sums=out.data_ptr(), ticket=_ticket(dev, cs).data_ptr(), T=T, X=X, Y=Y,
+            slab=slab, **_veltracer_scalars(model, nterms),
         )
         if model.halo is not None:
             mask, off, Tg, r_lo, r_hi = model.halo
             args = _RowHaloArgs(base=args, mask=mask.data_ptr(), off=off, Tg=Tg, r_lo=r_lo, r_hi=r_hi)
-        return _Launch(args, dfields, (), sums, (partials,))
+        return _Launch(args, dfields, (), out, (partials,))
 
 
 class _Rows1DCuda:
@@ -383,13 +446,21 @@ class _Rows1DCuda:
     the C interface, its hist, field/data/const counts and its own packing
     of flags and scalars (``flags_scalars``)."""
 
-    forward, backward = "odil_rows1d_forward", "odil_rows1d_backward"
-    stream_forward, stream_backward = "odil_rows1d_stream_forward", "odil_rows1d_stream_backward"
-
     def names(self, model, stream):
+        """The (forward, backward) entry points: the streaming pair launches
+        the slabbed ones."""
         if model.halo is not None:
             raise NotImplementedError(f"the {model.cuda_model} CUDA row model has no per-shard (halo) form")
-        return (self.stream_forward, self.stream_backward) if stream else (self.forward, self.backward)
+        return "odil_rows1d_forward", "odil_rows1d_backward"
+
+    def launch_shape(self, lib, T, shape, grads, sums):
+        """(slab, tiles, blocks, resident blocks) of a tile launch over (T, N)."""
+        (N,) = shape
+        mode = int(bool(sums)) | 2 * int(bool(grads))  # the kernel's: 1 the sums, 2 the gradients, 3 both
+        resident = lib._odil_rows1d_resident[(self.model_id, mode)]
+        tile, max_slab, threads = lib._odil_rows1d_tile
+        slab, blocks = _tile_rows(T, N, self.hist, bool(grads), resident, tile, max_slab, threads)
+        return slab, -(-T // slab) * -(-N // tile), blocks, resident
 
     def __init__(self, model_id, hist, nfields, ndata, consts, flags_scalars, check_params):
         self.model_id, self.hist, self.nfields, self.ndata = model_id, hist, nfields, ndata
@@ -417,16 +488,14 @@ class _Rows1DCuda:
         _check_shapes(consts, [tuple(N if n == "N" else n for n in c) for c in self.consts], model.cuda_model)
         self.check_params(model, nterms, params)
 
-    def pack(self, lib, model, nterms, fields, params, data, consts, g, grads, stream):
+    def pack(self, lib, model, nterms, fields, params, data, consts, g, grads, sums, cs):
         T, N = fields[0].shape
         dev = fields[0].device
         nparams = sum(p.numel() for p in params)
         stride = nterms + nparams
-        slab = T if stream else _slab(T)
-        partials = torch.empty((lib.odil_rows1d_num_blocks(T, N, slab, int(stream)), max(stride, 1)),
-                               dtype=torch.float64, device=dev)
+        slab, _, blocks, _ = self.launch_shape(lib, T, (N,), grads, sums)
+        partials = torch.empty((max(stride, 1), blocks), dtype=torch.float64, device=dev)
         out = torch.empty((max(stride, 1),), dtype=torch.float32, device=dev)  # sums, then dparams
-        flat = torch.cat([p.reshape(-1) for p in params]) if params else out
         dfields = tuple(torch.empty_like(f) for f in fields) if grads else ()
         dparams, pos = [], nterms
         for p in params:
@@ -434,14 +503,15 @@ class _Rows1DCuda:
             pos += p.numel()
         flags, scalars = self.flags_scalars(model, nterms, N)
         args = _Rows1DArgs(
-            f=_ptrs(fields, _MAXF), data=_ptrs(data, _MAXD), consts=_ptrs(consts, _MAXC), params=flat.data_ptr(),
+            f=_ptrs(fields, _MAXF), data=_ptrs(data, _MAXD), consts=_ptrs(consts, _MAXC), params=_ptrs(params, _MAXP),
             g=g.data_ptr() if g is not None else None, df=_ptrs(dfields, _MAXF), dparams=out.data_ptr() + 4 * nterms,
-            partials=partials.data_ptr(), sums=out.data_ptr(),
-            data_stride=(ctypes.c_int * _MAXD)(*[d.shape[1] for d in data]), T=T, N=N, slab=slab, nterms=nterms,
-            nparams=nparams, stride=stride, flags=flags,
+            partials=partials.data_ptr(), sums=out.data_ptr(), ticket=_ticket(dev, cs).data_ptr(),
+            data_stride=(ctypes.c_int * _MAXD)(*[d.shape[1] for d in data]),
+            param_size=(ctypes.c_int * _MAXP)(*[p.numel() for p in params]), T=T, N=N, slab=slab, blocks=blocks,
+            nterms=nterms, nparams=nparams, stride=stride, flags=flags,
             s=(ctypes.c_float * _NSCALARS)(*(list(scalars) + [0.0] * (_NSCALARS - len(scalars)))),
         )
-        return _Launch(args, dfields, tuple(dparams), out, (partials, flat))
+        return _Launch(args, dfields, tuple(dparams), out, (partials,))
 
 
 # The conductivity net the heat CUDA model carries: [1, 5, 5, 1], tanh.
@@ -501,25 +571,25 @@ def _cuda_model(model):
 def _library():
     lib = _build.load("rowwise")
     if not getattr(lib, "_odil_typed", False):
-        for name in ("odil_rows_args_size", "odil_rows_halo_args_size"):
+        for name in ("odil_rows_args_size", "odil_rows_halo_args_size", "odil_rows1d_args_size",
+                     "odil_rows_resident_blocks"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
         lib.odil_rows_num_blocks.argtypes = [ctypes.c_int] * 4
         lib.odil_rows_num_blocks.restype = ctypes.c_int
-        lib.odil_rows1d_args_size.argtypes = []
-        lib.odil_rows1d_args_size.restype = ctypes.c_int
-        lib.odil_rows1d_num_blocks.argtypes = [ctypes.c_int] * 4
-        lib.odil_rows1d_num_blocks.restype = ctypes.c_int
+        for name, n in (("odil_rows1d_tile", 1), ("odil_rows1d_resident_blocks", 2)):
+            getattr(lib, name).argtypes = [ctypes.c_int] * n
+            getattr(lib, name).restype = ctypes.c_int
         lib.odil_cuda_error_string.argtypes = [ctypes.c_int]
         lib.odil_cuda_error_string.restype = ctypes.c_char_p
-        for pre, struct in (("odil_rows", _RowArgs), ("odil_rows_stream", _RowArgs), ("odil_rows_halo", _RowHaloArgs)):
+        lib.odil_empty_launch.argtypes = [ctypes.c_void_p]
+        lib.odil_empty_launch.restype = ctypes.c_int
+        for pre, struct in (("odil_rows", _RowArgs), ("odil_rows_halo", _RowHaloArgs)):
             getattr(lib, pre + "_forward").argtypes = [ctypes.POINTER(struct), ctypes.c_void_p]
             getattr(lib, pre + "_backward").argtypes = [ctypes.POINTER(struct), ctypes.c_int, ctypes.c_void_p]
-        for pre in ("odil_rows1d", "odil_rows1d_stream"):
-            getattr(lib, pre + "_forward").argtypes = [ctypes.c_int, ctypes.POINTER(_Rows1DArgs), ctypes.c_void_p]
-            getattr(lib, pre + "_backward").argtypes = [
-                ctypes.c_int, ctypes.POINTER(_Rows1DArgs), ctypes.c_int, ctypes.c_void_p]
-        for pre in ("odil_rows", "odil_rows_stream", "odil_rows_halo", "odil_rows1d", "odil_rows1d_stream"):
+        lib.odil_rows1d_forward.argtypes = [ctypes.c_int, ctypes.POINTER(_Rows1DArgs), ctypes.c_void_p]
+        lib.odil_rows1d_backward.argtypes = [ctypes.c_int, ctypes.POINTER(_Rows1DArgs), ctypes.c_int, ctypes.c_void_p]
+        for pre in ("odil_rows", "odil_rows_halo", "odil_rows1d"):
             getattr(lib, pre + "_forward").restype = ctypes.c_int
             getattr(lib, pre + "_backward").restype = ctypes.c_int
         for name, struct in (
@@ -529,6 +599,13 @@ def _library():
             size = getattr(lib, name)()
             if size != ctypes.sizeof(struct):
                 raise RuntimeError(f"{struct.__name__} layout mismatch: C {size} vs ctypes {ctypes.sizeof(struct)} bytes")
+        # Read once: the launch shapes' searches take them (cached by shape).
+        lib._odil_resident = max(int(lib.odil_rows_resident_blocks()), 1)
+        lib._odil_rows1d_tile = tuple(int(lib.odil_rows1d_tile(a)) for a in range(3))
+        lib._odil_rows1d_resident = {
+            (spec.model_id, mode): max(int(lib.odil_rows1d_resident_blocks(spec.model_id, mode)), 1)
+            for spec in _CUDA_MODELS.values() if isinstance(spec, _Rows1DCuda) for mode in (1, 2, 3)
+        }
         lib._odil_typed = True
     return lib
 
@@ -543,32 +620,44 @@ def _call(lib, spec, name, launch, *extra):
     _raise_on(lib, fn(*head, ctypes.byref(launch.args), *extra), name)
 
 
-def _launch_forward(model, nterms, hist, fields, params, data, consts, stream):
+def _launch_forward(model, nterms, hist, fields, params, data, consts, stream=False):
     spec = _cuda_model(model)
     spec.check(model, nterms, hist, fields, params, data, consts)
     lib = _library()
-    launch = spec.pack(lib, model, nterms, fields, params, data, consts, None, grads=False, stream=stream)
-    _call(lib, spec, spec.names(model, stream)[0], launch, _cuda_stream(fields[0]))
+    name = spec.names(model, stream)[0]
+    cs = _cuda_stream(fields[0])
+    launch = spec.pack(lib, model, nterms, fields, params, data, consts, None, False, True, cs)
+    _call(lib, spec, name, launch, cs)
     return launch.sums[:nterms]
 
 
-def _launch_backward(model, nterms, hist, fields, params, data, consts, g, with_sums, stream):
+def _launch_backward(model, nterms, hist, fields, params, data, consts, g, with_sums, stream=False):
     spec = _cuda_model(model)
     spec.check(model, nterms, hist, fields, params, data, consts)
     g = g.to(torch.float32).contiguous()
     if not g.is_cuda or g.numel() < nterms:
         raise ValueError("g must hold nterms weights on the card")
     lib = _library()
-    launch = spec.pack(lib, model, nterms, fields, params, data, consts, g, grads=True, stream=stream)
-    _call(lib, spec, spec.names(model, stream)[1], launch, int(bool(with_sums)), _cuda_stream(fields[0]))
+    name = spec.names(model, stream)[1]
+    cs = _cuda_stream(fields[0])
+    launch = spec.pack(lib, model, nterms, fields, params, data, consts, g, True, with_sums, cs)
+    _call(lib, spec, name, launch, int(bool(with_sums)), cs)
     return launch.dfields, launch.dparams, (launch.sums[:nterms] if with_sums else None)
+
+
+def launch_shape(model, fields, grads, sums):
+    """(slab, tiles, blocks, resident blocks) of the row kernel's launch on
+    ``fields`` (a CUDA model's), the streaming pair's too."""
+    spec = _cuda_model(model)
+    T, *plane = fields[0].shape
+    return spec.launch_shape(_library(), T, tuple(plane), grads, sums)
 
 
 def forward_cuda(model, nterms, hist, fields, params, data, consts):
     """CUDA forward kernel (replaces ``_forward``, ``_forward_blocked`` and
     the non-padded ``_forward_tiled``): (nterms,) sums of squares of the
     residual rows, on the current stream."""
-    sums = _launch_forward(model, nterms, hist, fields, params, data, consts, stream=False)
+    sums = _launch_forward(model, nterms, hist, fields, params, data, consts)
     forward_cuda.launches += 1
     return sums
 
@@ -580,7 +669,7 @@ def backward_cuda(model, nterms, hist, fields, params, data, consts, g, with_sum
     """CUDA backward kernel (replaces ``_backward``, ``_backward_blocked`` and
     the non-padded ``_backward_tiled``): (dfields, dparams, sums or None) for
     the loss sum_k g[k] * S[k], on the current stream."""
-    out = _launch_backward(model, nterms, hist, fields, params, data, consts, g, with_sums, stream=False)
+    out = _launch_backward(model, nterms, hist, fields, params, data, consts, g, with_sums)
     backward_cuda.launches += 1
     return out
 
@@ -590,7 +679,8 @@ backward_cuda.launches = 0
 
 def forward_stream_cuda(model, nterms, hist, fields, params, data, consts):
     """CUDA streaming forward kernel (replaces ``_forward_stream``): the
-    forward kernel with one slab of all T rows, each field row read once."""
+    forward kernel's launch, wave-sized slabs (see the module docstring),
+    counted apart."""
     sums = _launch_forward(model, nterms, hist, fields, params, data, consts, stream=True)
     forward_stream_cuda.launches += 1
     return sums
@@ -601,8 +691,9 @@ forward_stream_cuda.launches = 0
 
 def backward_stream_cuda(model, nterms, hist, fields, params, data, consts, g, with_sums):
     """CUDA streaming backward kernel (replaces ``_backward_stream``): the
-    backward kernel with one slab of all T rows; the wrapped targets are
-    recomputed past the end as the TPU's tail programs do."""
+    backward kernel's launch, wave-sized slabs (see the module docstring),
+    counted apart; each slab recomputes the ``hist`` residual rows past its
+    end, as the TPU's tail programs do for the wrapped targets."""
     out = _launch_backward(model, nterms, hist, fields, params, data, consts, g, with_sums, stream=True)
     backward_stream_cuda.launches += 1
     return out
@@ -615,7 +706,7 @@ def forward_halo_cuda(model, nterms, hist, fields, params, data, consts):
     """CUDA masked per-shard forward kernel (replaces ``_forward_tiled`` with
     ``xpad``, ``odil_tpu/ops/rowwise_tiled.py:187``): (nterms,) sums of
     squares of the masked residual rows of a ``halo_model``."""
-    sums = _launch_forward(model, nterms, hist, fields, params, data, consts, stream=False)
+    sums = _launch_forward(model, nterms, hist, fields, params, data, consts)
     forward_halo_cuda.launches += 1
     return sums
 
@@ -627,7 +718,7 @@ def backward_halo_cuda(model, nterms, hist, fields, params, data, consts, g, wit
     """CUDA masked per-shard backward kernel (replaces ``_backward_tiled``
     with ``xpad``, ``odil_tpu/ops/rowwise_tiled.py:283``): (dfields, dparams,
     sums or None) of a ``halo_model``."""
-    out = _launch_backward(model, nterms, hist, fields, params, data, consts, g, with_sums, stream=False)
+    out = _launch_backward(model, nterms, hist, fields, params, data, consts, g, with_sums)
     backward_halo_cuda.launches += 1
     return out
 

@@ -72,7 +72,9 @@ from .rowwise import (
     _kernel_route,
     _plain,
     _raise_on,
+    _ticket,
     _veltracer_scalars,
+    _wave_slab,
     halo_model,
 )
 
@@ -440,21 +442,11 @@ def _check_cuda_inputs(model, t0s, coarse, consts, hist):
 
 @functools.lru_cache(maxsize=64)
 def _mg_slab(T, X, Y, resident):
-    """Rows per block of the mg walk over T walked rows and X, Y columns:
-    the slab that runs the launch in the fewest row-times, counting whole
-    waves of the ``resident`` blocks the card holds at once
-    (``odil_mg_resident_blocks``) and the two rows a block rebuilds before
-    its first."""
-    tiles = -(-X // _TILE_X) * -(-Y // _TILE_Y)
-    best = None
-    for nz in range(1, T + 1):
-        slab = -(-T // nz)
-        if -(-T // slab) != nz:
-            continue
-        cost = -(-nz * tiles // resident) * (slab + 2)
-        if best is None or cost < best[0]:
-            best = (cost, slab)
-    return best[1]
+    """Rows per block of the mg walk over T walked rows and X, Y columns
+    (``rowwise._wave_slab``): whole waves of the ``resident`` blocks the card
+    holds at once (``odil_mg_resident_blocks``), counting the two rows a
+    block rebuilds before its first."""
+    return _wave_slab(T, -(-X // _TILE_X) * -(-Y // _TILE_Y), resident, 2)
 
 
 def _launch_args(model, f0s, t0s, coarse, consts, g, dt0, dP, scratch, nterms, slab, lvl2=None):
@@ -477,19 +469,6 @@ def _launch_args(model, f0s, t0s, coarse, consts, g, dt0, dP, scratch, nterms, s
     t1s, f1s, dP2 = lvl2
     Tc2, CX2, CY2 = coarse[0].shape
     return _Mg2Args(base=args, t1=ptr(t1s), dP2=ptr(dP2), Tc2=Tc2, CX2=CX2, CY2=CY2, f1=(ctypes.c_float * 3)(*f1s))
-
-
-_TICKETS = {}
-
-
-def _ticket(dev, stream):
-    """The ticket counter of the kernels' sums on the stream (a raw handle)
-    of dev: an int32 that every launch leaves at 0, one per stream, since
-    launches on one stream run one after another."""
-    key = (dev, stream)
-    if key not in _TICKETS:
-        _TICKETS[key] = torch.zeros((1,), dtype=torch.int32, device=dev)
-    return _TICKETS[key]
 
 
 def _launch_plan(lib, T, X, Y, dev, grads=True):

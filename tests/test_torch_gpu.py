@@ -352,18 +352,23 @@ def _row_case(name, device, T, N, seed=17):
     return model, len(names), 1, (mk(T, N) + 0.5,), params, data, consts
 
 
+# Planes narrower than a tile (the wrap), tiles cut unevenly in t and x,
+# T down to 2.
+SHAPES_1D = [(64, 64), (7, 5), (5, 1), (2, 3), (40, 300), (33, 257), (65, 97), (3, 300), (1024, 1024)]
+
+
 @pytest.mark.parametrize("name", ["heat", "heat_lane", "heat_true_k", "wave"])
-@pytest.mark.parametrize("shape", [(64, 64), (7, 5), (5, 1), (2, 3), (40, 300), (33, 257)])
+@pytest.mark.parametrize("shape", SHAPES_1D)
 def test_1d_kernels_match_plain(cuda, name, shape):
     """Forward, backward+sums and backward of the heat and wave row models
     (1-D planes; params and their cotangents; per-row data; hist 1 and 2)
-    against their plain versions: planes narrower than a tile (the wrap),
-    several tiles and slabs, T down to 2."""
+    against their plain versions evaluated in fp64 on the same inputs."""
     model, nterms, hist, fields, params, data, consts = _row_case(name, cuda, *shape)
     g = torch.linspace(0.5, 1.5, nterms, device=cuda) / fields[0].numel()
+    wide = (model, nterms, hist, _wide(fields), _wide(params), _wide(data), _wide(consts))
     for with_sums in (True, False):
         kd, kp, ks = trw.backward_cuda(model, nterms, hist, fields, params, data, consts, g, with_sums)
-        pd, pp, ps = trw._backward_plain(model, nterms, hist, fields, params, data, consts, g, with_sums)
+        pd, pp, ps = trw._backward_plain(*wide, g.double(), with_sums)
         assert len(kp) == len(pp) == len(params)
         for a, b in zip(list(kd) + list(kp), list(pd) + list(pp)):
             _close(a, b, 1e-4, 1e-6)
@@ -371,20 +376,64 @@ def test_1d_kernels_match_plain(cuda, name, shape):
             _close(ks, ps, 1e-5, 0.0)
         else:
             assert ks is None
-    _close(trw.forward_cuda(model, nterms, hist, fields, params, data, consts),
-           trw._forward_plain(model, nterms, hist, fields, params, data, consts), 1e-5, 0.0)
+    _close(trw.forward_cuda(model, nterms, hist, fields, params, data, consts), trw._forward_plain(*wide), 1e-5, 0.0)
 
 
-def test_1d_kernels_repeat_their_bits(cuda):
-    """No atomics: the heat backward+sums (dfields, dparams, sums) gives the
-    same bits call after call."""
-    model, nterms, hist, fields, params, data, consts = _row_case("heat", cuda, 256, 512)
+@pytest.mark.parametrize("name", ["heat", "wave"])
+def test_1d_kernels_repeat_their_bits(cuda, name):
+    """No atomics: the heat and wave backward+sums (dfields, dparams, sums)
+    give the same bits call after call."""
+    model, nterms, hist, fields, params, data, consts = _row_case(name, cuda, 256, 512)
     g = torch.full((nterms,), 1.0 / fields[0].numel(), device=cuda)
     outs = []
     for _ in range(3):
         kd, kp, ks = trw.backward_cuda(model, nterms, hist, fields, params, data, consts, g, True)
         outs.append(_digest(list(kd) + list(kp) + [ks]))
     assert outs[0] == outs[1] == outs[2]
+
+
+def _kernel_count(fn, reps):
+    """The device kernels that `reps` calls of fn launch (torch.profiler), by
+    name with their counts.  A session that follows many others in one
+    process can lose events, the first kernel's or all of them: a session
+    that recorded none is taken again (up to three times)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    counts = {}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                counts[e.name] = counts.get(e.name, 0) + 1
+        if counts:
+            break
+    return counts
+
+
+@pytest.mark.parametrize("name", ["heat", "wave", "veltracer"])
+@pytest.mark.parametrize("stream", [False, True])
+def test_backward_with_sums_is_one_launch(cuda, name, stream):
+    """A backward+sums (heat with its params' cotangents, wave, veltracer),
+    slabbed or streaming, launches one kernel: the blocks reduce the sums
+    and param cotangents themselves, the last one in a fixed order."""
+    if name == "veltracer":
+        model, nterms, hist, params, data = _model(K), 6, 1, (), ()
+        fields, consts = _fields(cuda, 33, 64, 96)
+    else:
+        model, nterms, hist, fields, params, data, consts = _row_case(name, cuda, 256, 512)
+    g = torch.full((nterms,), 1.0 / fields[0].numel(), device=cuda)
+    call = trw.backward_stream_cuda if stream else trw.backward_cuda
+    reps = 5
+    counts = _kernel_count(lambda: call(model, nterms, hist, fields, params, data, consts, g, True), reps)
+    # One kernel name, and never more launches than calls (the profiler may
+    # lose an event, never add one).
+    assert len(counts) == 1 and 1 <= sum(counts.values()) <= reps, counts
+    assert any(k in n for n in counts for k in ("rows1d_kernel", "rows_kernel")), counts
 
 
 def test_1d_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -451,7 +500,7 @@ def _check_kernels(fwd, bwd, plain_fwd, plain_bwd, nterms, nparams):
 
 @pytest.mark.parametrize("shape", [(9, 16, 16), (8, 16, 16), (5, 4, 4), (2, 3, 5), (7, 8, 36), (65, 64, 64)])
 def test_stream_kernels_match_plain(cuda, shape):
-    """The veltracer streaming kernels (one slab of all T rows) against their
+    """The veltracer streaming kernels (the slabbed launch, counted apart) against their
     plain versions: T even and odd down to 2, narrow and wide planes."""
     model = _model(K)
     fields, consts = _fields(cuda, *shape)
@@ -469,32 +518,53 @@ def test_stream_kernels_match_plain(cuda, shape):
 
 
 @pytest.mark.parametrize("name", ["heat", "heat_lane", "heat_true_k", "wave"])
-@pytest.mark.parametrize("shape", [(64, 64), (7, 5), (2, 3), (40, 300), (33, 257)])
+@pytest.mark.parametrize("shape", [(64, 64), (7, 5), (2, 3), (40, 300), (33, 257), (65, 97), (3, 300), (1024, 1024)])
 def test_1d_stream_kernels_match_plain(cuda, name, shape):
-    """The heat and wave streaming kernels (30-cell tiles in one warp, one
-    slab of all T rows) against their plain versions."""
+    """The heat and wave streaming kernels (the slabbed tile launch, counted
+    apart) against their plain versions evaluated in fp64."""
     model, nterms, hist, fields, params, data, consts = _row_case(name, cuda, *shape)
     g = torch.linspace(0.5, 1.5, nterms, device=cuda) / fields[0].numel()
+    wide = (model, nterms, hist, _wide(fields), _wide(params), _wide(data), _wide(consts))
     _check_kernels(
         lambda: trw.forward_stream_cuda(model, nterms, hist, fields, params, data, consts),
         lambda s: trw.backward_stream_cuda(model, nterms, hist, fields, params, data, consts, g, s),
-        lambda: trw._forward_plain(model, nterms, hist, fields, params, data, consts),
-        lambda s: trw._backward_plain(model, nterms, hist, fields, params, data, consts, g, s), nterms, len(params),
+        lambda: trw._forward_plain(*wide),
+        lambda s: trw._backward_plain(*wide, g.double(), s), nterms, len(params),
     )
 
 
+@pytest.mark.parametrize("name", ["heat", "wave", "veltracer"])
+def test_stream_and_slabbed_launches_give_the_same_bits(cuda, name):
+    """The streaming pair is the slabbed launch on the card: forward,
+    backward+sums and backward give the same bits either way."""
+    if name == "veltracer":
+        model, nterms, hist, params, data = _model(K), 6, 1, (), ()
+        fields, consts = _fields(cuda, 65, 64, 96)
+    else:
+        model, nterms, hist, fields, params, data, consts = _row_case(name, cuda, 65, 97)
+    g = torch.linspace(0.5, 1.5, nterms, device=cuda) / fields[0].numel()
+    args = (model, nterms, hist, fields, params, data, consts)
+    slabbed = [trw.forward_cuda(*args)] + [trw.backward_cuda(*args, g, s) for s in (True, False)]
+    streamed = [trw.forward_stream_cuda(*args)] + [trw.backward_stream_cuda(*args, g, s) for s in (True, False)]
+    flat = lambda out: [out[0]] + [t for b in out[1:] for t in list(b[0]) + list(b[1]) + ([b[2]] if b[2] is not None else [])]
+    assert _digest(flat(slabbed)) == _digest(flat(streamed))
+
+
 def test_stream_kernels_repeat_their_bits(cuda):
-    """No atomics: the streaming backward+sums of veltracer and heat give the
-    same bits call after call."""
+    """No atomics: the streaming backward+sums of veltracer, heat and wave
+    give the same bits call after call."""
     fields, consts = _fields(cuda, 33, 64, 96)
     g = torch.full((6,), 1.0 / fields[0].numel(), device=cuda)
-    hm, hn, hh, hf, hp, hd, hc = _row_case("heat", cuda, 256, 512)
-    hg = torch.full((hn,), 1.0 / hf[0].numel(), device=cuda)
+    cases = [_row_case(name, cuda, 256, 512) for name in ("heat", "wave")]
     outs = []
     for _ in range(3):
         kd, _, ks = trw.backward_stream_cuda(_model(K), 6, 1, fields, (), (), consts, g, True)
-        hd_, hp_, hs = trw.backward_stream_cuda(hm, hn, hh, hf, hp, hd, hc, hg, True)
-        outs.append(_digest(list(kd) + [ks] + list(hd_) + list(hp_) + [hs]))
+        out = list(kd) + [ks]
+        for m, n, h, f, p, d, c in cases:
+            gd, gp, gs = trw.backward_stream_cuda(m, n, h, f, p, d, c, torch.full((n,), 1.0 / f[0].numel(), device=cuda),
+                                                  True)
+            out += list(gd) + list(gp) + [gs]
+        outs.append(_digest(out))
     assert outs[0] == outs[1] == outs[2]
 
 
@@ -817,9 +887,15 @@ def test_generic_kernels_unchanged_by_halo_layer(cuda, flags):
 # local mg kernel as first written, each its own kernel (NVIDIA H100 80GB
 # HBM3): sharing the bodies of the plain launches changes no bit.  The
 # local mg kernel's digests are pinned anew with the depth-1 ones above (dP
-# in the walk: another summation order).
+# in the walk: another summation order).  t_first's backward+sums and
+# forward digests are pinned anew once, with the sums reduced inside the
+# row kernel (finish_sums: warp shuffles, then the last block) and the slabs
+# sized to whole waves: the sums' order changed, and its float sums with it;
+# the dfields of every case kept their bits (the no-sums digests, and the
+# dfields of the backward+sums, are the ones pinned before), and so did
+# GEN_DIGESTS and the other cases' sums.
 HALO_DIGESTS = {
-    "t_first": ("028de90c9452042d", "2d181f485cceb152", "d7cb031959649772"),
+    "t_first": ("f2852bbf30f2ffd7", "2d181f485cceb152", "6a79bd659742ef64"),
     "t_later": ("7e391e2e4b059287", "e9c7f10fee2fe5ea", "2066b9dc12f19794"),
     "x_only": ("e67fdd675c3a22d8", "4b09510e25daca31", "4ca8ff3bd0829ea5"),
     "flagship": ("8a67a3fc809a62a1", "f7b36100df68bef8", "b9567af5c45b490c"),
@@ -863,15 +939,9 @@ def _close_max(got, want, rtol=1e-4, atol_frac=1e-6):
 
 
 def _kernel_names(fn):
-    """The device kernels one call of fn launches (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+    """The device kernels that calls of fn launch (``_kernel_count`` over
+    three calls)."""
+    return set(_kernel_count(fn, 3))
 
 
 @pytest.mark.parametrize("shape", [(65, 256, 256), (65, 512, 512)])

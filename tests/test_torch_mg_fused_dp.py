@@ -58,8 +58,9 @@ def test_fused_dp_whole_plane(depth):
     lvl2 = (tt(t1s), F1) if depth == 2 else None
     fines, _, _ = trmg._fines(tt(t0s), tt(coarse), F0, lvl2)
     dfines, _, _ = trw._backward_plain(model, 6, 1, fines, (), (), tt(consts), torch.as_tensor(g), False)
-    fused = [trmg._dp_fused_plain(d, Tc, trw._slab(T)) for d in dfines]
-    assert trmg._dp_partials(dfines[0], Tc, trw._slab(T)).shape[:4] == (2, 6, 2, 2)
+    slab = 9  # two slabs of the 17 rows
+    fused = [trmg._dp_fused_plain(d, Tc, slab) for d in dfines]
+    assert trmg._dp_partials(dfines[0], Tc, slab).shape[:4] == (2, 6, 2, 2)
     _, dP, _ = trmg._backward_mg_plain(model, 6, 1, F0, tt(t0s), tt(coarse), tt(consts), torch.as_tensor(g), False,
                                        lvl2=lvl2)
     for a, b in zip(fused, dP):
@@ -96,7 +97,7 @@ def test_fused_dp_local_block_odd_x0():
     rows = [torch.cat([h, trmg._recon_rows(t, c, range(Tl), Wx, Wy, f)]) for t, c, h, f in
             zip(tt(t0s), tt(coarse), tt(heads), F0)]
     d, _, _ = trw._backward_plain(trmg._stacked_model(hm, 1), 6, 1, rows, (), (), tt(consts), g, True)
-    slab = trw._slab(Tl + 1)
+    slab = 9  # two slabs of the Tl + 1 rows of the stack
     fused = [trmg._dp_fused_plain(x[1:], Tcw, slab, x0, X, local=True) for x in d]
     assert trmg._dp_partials(d[0][1:], Tcw, slab, x0, X, local=True).shape[:4] == (2, 6, 2, 2)
     _, dP, _, _ = trmg._backward_mg_local_plain(hm, 6, 1, F0, tt(t0s), tt(coarse), tt(heads), x0, tt(consts), g)
