@@ -365,6 +365,19 @@ def build_all(_build, names=("rowwise_mg", "rowwise")):
                 print("  ptxas:", line.strip())
         for kernel, n in sass_counts(path).items():
             print(f"  sass: {n} instructions in {kernel}")
+    return results
+
+
+def ptxas_registers(log, kernel):
+    """{mangled entry: registers} of the entries of a ptxas report whose
+    name holds `kernel`."""
+    regs, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            name = line.split("'")[1]
+        elif name and kernel in name and "Used" in line and "registers" in line:
+            regs[name] = int(line.split("Used")[1].split("registers")[0])
+    return regs
 
 
 def kernel_split(torch, fn, reps=50):
@@ -594,7 +607,7 @@ def main():
     print(f"card: {card}")
 
     # -- Phase 1: build --------------------------------------------------------
-    build_all(_build)
+    builds = build_all(_build)
     rmg._library()
     rw._library()
     counters = Counters(rmg, rw)
@@ -920,14 +933,28 @@ def main():
 
     # The row kernels' launch shapes: slabs sized to whole waves of the
     # resident blocks, the 1-D tiles taken by the blocks in rounds.
-    row_cases = {size: (*row_model(size)[:2], 1, fields[size], (), (), row_model(size)[2]) for size in ("256", "64")}
+    row_cases = {size: (*row_model(size)[:2], 1, fields[size], (), (), row_model(size)[2]) for size in SIZES}
+    _, shard_m, shard_fs, shard_cs = halo_cases[0][:4]
+    row_cases["shard"] = (shard_m, nterms, 1, shard_fs, (), (), shard_cs)
     row_cases.update({f"{w}_{size}": c for (w, size), c in cases_1d.items()})
+    # The veltracer row kernel's tile: ptxas's registers of each rows_kernel
+    # form, the dynamic shared memory and the blocks an SM.
+    tile = rw.row_tile()
+    regs = ptxas_registers(builds["rowwise"][2], "rows_kernel")
+    print(f"row kernel tile: {tile['rows']}x{tile['cols']} cells on {tile['threads'] // tile['cols']}x{tile['cols']} "
+          f"threads ({tile['rows'] * tile['cols'] // tile['threads']} cells a thread), dynamic shared memory "
+          f"{tile['smem']} B ({tile['smem_masked']} B masked), {tile['per_sm']} blocks an SM ({tile['per_sm_masked']} "
+          f"masked); registers by form: " + ", ".join(f"{k} {v}" for k, v in sorted(regs.items())) + f" {tag}")
     for key, (m, nt_, h, fs, ps, ds, cs) in row_cases.items():
         shapes = []
         for what, grads, sums in (("forward", False, True), ("backward+sums", True, True), ("backward", True, False)):
             slab, tiles, blocks, resident = rw.launch_shape(m, fs, grads, sums)
             shapes.append(f"{what}: slabs of {slab} rows, {tiles} tiles, grid {blocks} blocks of 256 threads, "
                           f"{-(-tiles // resident)} wave(s) of {resident} resident")
+        if m.cuda_model == "veltracer":
+            X = fs[0].shape[1]
+            idle = 1 - X / (-(-X // tile["rows"]) * tile["rows"])
+            shapes.append(f"{tile['rows']}x{tile['cols']} tiles, {idle:.1%} of the threads own no cell at X = {X}")
         print(f"row kernel launches at {tuple(fs[0].shape)} ({key}): " + "; ".join(shapes) + f" {tag}")
 
     # -- Phase 3: the paths ----------------------------------------------------
@@ -1562,13 +1589,15 @@ def main():
         )
 
     print_mg_splits()
-    # A backward+sums of the row kernels, slabbed or streaming, is one launch
-    # (torch.profiler; after the training loops, which a profiler session
-    # leaves slower on the host).
+    # A backward+sums of the row kernels, slabbed or streaming (the masked
+    # one slabbed), is one launch (torch.profiler; after the training loops,
+    # which a profiler session leaves slower on the host).
     for key, (m, nt_, h, fs, ps, ds, cs) in row_cases.items():
         gs = torch.full((nt_,), 1.0 / fs[0].numel(), device=dev)
         per_call = {}
-        for route, call in (("slabbed", rw.backward_cuda), ("streaming", rw.backward_stream_cuda)):
+        routes = (("slabbed", rw.backward_halo_cuda),) if m.halo is not None else (
+            ("slabbed", rw.backward_cuda), ("streaming", rw.backward_stream_cuda))
+        for route, call in routes:
             _, _, counts = kernel_split(torch, lambda: call(m, nt_, h, fs, ps, ds, cs, gs, True), reps=10)
             per_call[route] = counts
             if sum(counts.values()) > 1 + 1e-9:

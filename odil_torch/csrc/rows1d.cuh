@@ -80,6 +80,8 @@
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace rows1d {
 
 constexpr int MAXF = 2, MAXD = 2, MAXC = 6, MAXP = 6, NSCALARS = 8;
@@ -130,18 +132,6 @@ __device__ __forceinline__ float pick(const float* a, int k) {
   for (int j = 0; j < N; ++j) v = j == k ? a[j] : v;
   return v;
 }
-
-// Asynchronous global -> shared copies (cp.async) and the wait for all of
-// them; `src` must be aligned to the size copied.
-__device__ __forceinline__ void copy4_async(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void copy16_async(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void wait_copies() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
 // One round of warp_sums16: lanes with bit `2 N` set keep the upper half of
 // their 2 N values, the others the lower half, each adding its partner's.

@@ -116,16 +116,17 @@
 
 #include <type_traits>
 
-// The walk's tile: 16 x 32 cells, 8 x 32 threads, two cells a thread.
+// The walk's tile: 16 x 32 cells, 8 x 32 threads, two cells a thread; the
+// tile's first column at plane column 2 (the halo).
 #define ODIL_TILE_X 16
 #define ODIL_THREAD_ROWS 8
+#define ODIL_PLANE_YOFF 2
 #include "veltracer_row.cuh"
 
 namespace {
 
 constexpr int CT = 16;            // coarse tile of the level-2 dP kernel
 constexpr int FW = 2 * CT + 4;    // fine window covering a coarse tile's taps
-constexpr int CELLS = TILE_X / THREAD_ROWS;  // owned cells a thread: rows r and r + THREAD_ROWS
 // The coarse window of one tile's dP partial: the coarse columns and rows
 // that the taps of its TILE_X x TILE_Y owned fine cells reach.
 constexpr int DWA = TILE_X / 2 + 2, DWB = TILE_Y / 2 + 2;

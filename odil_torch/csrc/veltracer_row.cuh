@@ -36,23 +36,26 @@
 
 namespace {
 
-// A source may set the tile's rows and its block's thread rows before
-// including this header (rowwise_mg.cu: 16 rows, 8 thread rows, two cells a
-// thread); the generic kernels take 8 and 8.
-#ifndef ODIL_TILE_X
-#define ODIL_TILE_X 8
-#endif
-#ifndef ODIL_THREAD_ROWS
-#define ODIL_THREAD_ROWS ODIL_TILE_X
+// A source sets the tile's rows and its block's thread rows before including
+// this header (rowwise_mg.cu and rowwise.cu: 16 rows, 8 thread rows, two
+// cells a thread), and the plane column of the tile's first column
+// (rowwise_mg.cu: HALO; rowwise.cu: 4, so that the owned columns of a staged
+// row are 16-byte aligned for cp.async, the halo columns at 2, 3 and 36, 37
+// of a 40-column plane).
+#if !defined(ODIL_TILE_X) || !defined(ODIL_THREAD_ROWS) || !defined(ODIL_PLANE_YOFF)
+#error "veltracer_row.cuh: define ODIL_TILE_X, ODIL_THREAD_ROWS and ODIL_PLANE_YOFF before including it"
 #endif
 
 constexpr int NF = 3;  // fields u, vx, vy
 constexpr int TILE_X = ODIL_TILE_X;
 constexpr int TILE_Y = 32;
 constexpr int HALO = 2;
+constexpr int YOFF = ODIL_PLANE_YOFF;  // plane column of the tile's first column
 constexpr int HX = TILE_X + 2 * HALO;
-constexpr int HY = TILE_Y + 2 * HALO;
+constexpr int HY = TILE_Y + 2 * YOFF;
 constexpr int THREAD_ROWS = ODIL_THREAD_ROWS;
+constexpr int CELLS = TILE_X / THREAD_ROWS;  // owned cells a thread: rows r, r + THREAD_ROWS, ...
+static_assert(YOFF >= HALO && TILE_X % THREAD_ROWS == 0, "veltracer_row.cuh: tile constants");
 constexpr int NTHREADS = THREAD_ROWS * TILE_Y;
 constexpr int NWARPS = NTHREADS / 32;
 constexpr int MAXTERMS = 6;
@@ -144,34 +147,51 @@ struct RowPlanes {
   const Plane &Um, &Uc, &Un, &VXm, &VXc, &VXn, &VYm, &VYc, &VYn, &U0;
 };
 
+// The ring-1 values of position idx of the RX x RY ring -- those of residual
+// row t+1 (`it1`, row 0 after T-1) and the Laplacian terms of row t, masked
+// with the halo layer -- each handed to put(k, ri, rj, value) as it is
+// formed, k the Ring1 array (0 B0n, 1 CXn, 2 CYn, 3 LXc, 4 LYc; 3 and 4 only
+// with has_x).
+template <class Args, class Layer, class Put>
+__device__ __forceinline__ void ring1_at(const Args& A, const RowPlanes& P, int it1, const float* g2, int idx,
+                                         const Layer& H, Put put) {
+  const int ri = idx / RY, rj = idx % RY;
+  const int qi = ri + HALO - 1, qj = rj + YOFF - 1;
+  // Residual row t+1 reads row t as its previous row.
+  const Fu n = fu_at(A, it1, P.Un, P.Uc, P.VXn, P.VYn, P.U0, qi, qj);
+  float res = n.res;
+  if constexpr (Layer::on) res = res * ((*H.M)[qi][qj] * H.mt1);
+  const float bq = it1 == 0 ? 0.0f : g2[0] * res;
+  put(0, ri, rj, bq);
+  put(1, ri, rj, bq * P.VXn[qi][qj] * A.inv_dx);
+  put(2, ri, rj, bq * P.VYn[qi][qj] * A.inv_dy);
+  if (A.has_x) {
+    if constexpr (Layer::on) {
+      const float m = (*H.M)[qi][qj] * H.mt;
+      put(3, ri, rj, (lap(A, P.VXc, qi, qj) * A.kxreg) * m);
+      put(4, ri, rj, (lap(A, P.VYc, qi, qj) * A.kxreg) * m);
+    } else {
+      put(3, ri, rj, lap(A, P.VXc, qi, qj) * A.kxreg);
+      put(4, ri, rj, lap(A, P.VYc, qi, qj) * A.kxreg);
+    }
+  }
+}
+
+// The Ring1 array k (ring1_at's order).
+__device__ __forceinline__ float (&ring1_array(Ring1& R, int k))[RX][RY] {
+  return k == 0 ? R.B0n : k == 1 ? R.CXn : k == 2 ? R.CYn : k == 3 ? R.LXc : R.LYc;
+}
+
 // Stages the ring-1 quantities of residual row t+1 (`it1`, row 0 after T-1)
-// and the Laplacian terms of row t.  Every thread of the block calls it; it
-// ends with a barrier.  With the halo layer the staged residuals are masked.
+// and the Laplacian terms of row t, one position at a time.  Every thread of
+// the block calls it; it ends with a barrier.  With the halo layer the
+// staged residuals are masked.
 template <class Args, class Layer = NoHalo>
 __device__ __forceinline__ void stage_ring1(const Args& A, const RowPlanes& P, int it1, const float* g2, Ring1& R,
                                             const Layer& H = Layer()) {
   const int tid = threadIdx.y * TILE_Y + threadIdx.x;
   for (int idx = tid; idx < RX * RY; idx += NTHREADS) {
-    const int ri = idx / RY, rj = idx % RY;
-    const int qi = ri + HALO - 1, qj = rj + HALO - 1;
-    // Residual row t+1 reads row t as its previous row.
-    const Fu n = fu_at(A, it1, P.Un, P.Uc, P.VXn, P.VYn, P.U0, qi, qj);
-    float res = n.res;
-    if constexpr (Layer::on) res = res * ((*H.M)[qi][qj] * H.mt1);
-    const float bq = it1 == 0 ? 0.0f : g2[0] * res;
-    R.B0n[ri][rj] = bq;
-    R.CXn[ri][rj] = bq * P.VXn[qi][qj] * A.inv_dx;
-    R.CYn[ri][rj] = bq * P.VYn[qi][qj] * A.inv_dy;
-    if (A.has_x) {
-      if constexpr (Layer::on) {
-        const float m = (*H.M)[qi][qj] * H.mt;
-        R.LXc[ri][rj] = (lap(A, P.VXc, qi, qj) * A.kxreg) * m;
-        R.LYc[ri][rj] = (lap(A, P.VYc, qi, qj) * A.kxreg) * m;
-      } else {
-        R.LXc[ri][rj] = lap(A, P.VXc, qi, qj) * A.kxreg;
-        R.LYc[ri][rj] = lap(A, P.VYc, qi, qj) * A.kxreg;
-      }
-    }
+    ring1_at(A, P, it1, g2, idx, H, [&](int k, int ri, int rj, float v) { ring1_array(R, k)[ri][rj] = v; });
   }
   __syncthreads();
 }
@@ -181,17 +201,19 @@ __device__ __forceinline__ void stage_ring1(const Args& A, const RowPlanes& P, i
 // writes to d[f] the cell's cotangent of sum_k g[k] S[k] for field f: the "cur"
 // adjoint of residual row t plus the "prev" adjoint of residual row t+1, from
 // the ring-1 values that stage_ring1 left in R.  g2[k] = 2 g[k].  With the
-// halo layer, t and it1 are global rows and the residuals are masked.
+// halo layer, t and it1 are global rows and the residuals are masked.  A
+// caller that evaluates a tile cell outside the plane (own false: branch-free
+// code for the cells of a thread) adds nothing to s; s + 0 * 0 is s.
 template <bool GRADS, bool SUMS, class Args, class Layer = NoHalo>
 __device__ __forceinline__ void cell_terms(const Args& A, const RowPlanes& P, const Ring1& R, int t, int it1, int i,
                                            int j, float u1, const float* g2, float* s, float* d,
-                                           const Layer& H = Layer()) {
+                                           const Layer& H = Layer(), bool own = true) {
   const int T = rows_T(A, H);
   // Term positions: the x terms at 2 and 3, the t terms after them.  The t
   // terms' slots are chosen by selects, not a computed index, so that s and
   // g2 stay in registers.
   constexpr int ix = 2;
-  const int ri = i - HALO + 1, rj = j - HALO + 1;  // position in the ring-1 arrays
+  const int ri = i - HALO + 1, rj = j - YOFF + 1;  // position in the ring-1 arrays
   const Plane &Uc = P.Uc, &VXm = P.VXm, &VXc = P.VXc, &VXn = P.VXn, &VYm = P.VYm, &VYc = P.VYc, &VYn = P.VYn;
 
   const Fu c = fu_at(A, t, Uc, P.Um, VXc, VYc, P.U0, i, j);
@@ -219,19 +241,21 @@ __device__ __forceinline__ void cell_terms(const Args& A, const RowPlanes& P, co
     res5 = res5 * m;
   }
   if (SUMS) {
-    s[0] += res0 * res0;
-    s[1] += res1 * res1;
+    const float q0 = own ? res0 : 0.0f, q1 = own ? res1 : 0.0f, q2 = own ? res2 : 0.0f, q3 = own ? res3 : 0.0f;
+    const float q4 = own ? res4 : 0.0f, q5 = own ? res5 : 0.0f;
+    s[0] += q0 * q0;
+    s[1] += q1 * q1;
     if (A.has_x) {
-      s[ix] += res2 * res2;
-      s[ix + 1] += res3 * res3;
+      s[ix] += q2 * q2;
+      s[ix + 1] += q3 * q3;
     }
     if (A.has_t) {
       if (A.has_x) {
-        s[4] += res4 * res4;
-        s[5] += res5 * res5;
+        s[4] += q4 * q4;
+        s[5] += q5 * q5;
       } else {
-        s[2] += res4 * res4;
-        s[3] += res5 * res5;
+        s[2] += q4 * q4;
+        s[3] += q5 * q5;
       }
     }
   }
@@ -286,7 +310,11 @@ __device__ __forceinline__ void cell_terms(const Args& A, const RowPlanes& P, co
 // to finish (an integer ticket; the float order does not depend on which
 // block it is) reduces the rows in block order into A.sums and resets the
 // ticket (Args::ticket).  Every thread of the block calls it, at its end.
-// The mg walk and the row kernels of rowwise.cu reduce their sums so.
+// The mg walk and the row kernels of rowwise.cu reduce their sums so.  The
+// last block reads every term of a block's row in one pass (L2 loads,
+// __ldcg): each thread adds the rows tid, tid + NTHREADS, ... in that order
+// for every term, then the same shuffle tree and the warps in order, so
+// each term's float order is that of a pass per term.
 template <class Args>
 __device__ void finish_sums(const Args& A, const float* s, double (&red)[NWARPS][MAXTERMS]) {
   __shared__ bool last;
@@ -311,19 +339,29 @@ __device__ void finish_sums(const Args& A, const float* s, double (&red)[NWARPS]
   __syncthreads();
   if (!last) return;
   __threadfence();
-  const volatile double* part = A.partials;
-  for (int k = 0; k < A.nterms; ++k) {
-    double v = 0.0;
-    for (unsigned b = tid; b < nblocks; b += NTHREADS) v += part[(size_t)b * MAXTERMS + k];
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    __syncthreads();  // red's previous term is read
-    if (lane == 0) red[warp][k] = v;
+  double v[MAXTERMS];
+#pragma unroll
+  for (int k = 0; k < MAXTERMS; ++k) v[k] = 0.0;
+  for (unsigned b = tid; b < nblocks; b += NTHREADS) {
+    const double* row = A.partials + (size_t)b * MAXTERMS;
+#pragma unroll
+    for (int k = 0; k < MAXTERMS; ++k) {
+      if (k < A.nterms) v[k] += __ldcg(row + k);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < MAXTERMS; ++k) {
+    for (int o = 16; o > 0; o >>= 1) v[k] += __shfl_down_sync(0xffffffffu, v[k], o);
+  }
+  if (lane == 0) {  // (the block's own reduction read red before the ticket's barriers)
+#pragma unroll
+    for (int k = 0; k < MAXTERMS; ++k) red[warp][k] = v[k];
   }
   __syncthreads();
   if (tid < A.nterms) {
-    double v = red[0][tid];
-    for (int w = 1; w < NWARPS; ++w) v += red[w][tid];
-    A.sums[tid] = (float)v;
+    double acc = red[0][tid];
+    for (int w = 1; w < NWARPS; ++w) acc += red[w][tid];
+    A.sums[tid] = (float)acc;
   }
   if (tid == 0) *A.ticket = 0u;
 }

@@ -65,7 +65,7 @@ launches the masked kernels of ``csrc/rowwise.cu`` (``odil_rows_halo_*``:
 ``forward_halo_cuda``/``backward_halo_cuda``), the port of the TPU's x-tiled
 pair on an edge-padded extent (``_forward_tiled``/``_backward_tiled`` with
 ``xpad``, ``odil_tpu/ops/rowwise_tiled.py:157-177``).  The CUDA grid is a
-ceiling division over its 8x32 tiles with every cell guarded, so it runs on
+ceiling division over its 16x32 tiles with every cell guarded, so it runs on
 the unpadded extended extent (130 = 128 + 2 x-rows for the flagship's
 ``x:2`` shards) and the mask alone does what ``_apply_xpad`` does there:
 ``xpad_masked`` is accepted and changes nothing.
@@ -577,7 +577,7 @@ def _library():
             getattr(lib, name).restype = ctypes.c_int
         lib.odil_rows_num_blocks.argtypes = [ctypes.c_int] * 4
         lib.odil_rows_num_blocks.restype = ctypes.c_int
-        for name, n in (("odil_rows1d_tile", 1), ("odil_rows1d_resident_blocks", 2)):
+        for name, n in (("odil_rows_tile", 1), ("odil_rows1d_tile", 1), ("odil_rows1d_resident_blocks", 2)):
             getattr(lib, name).argtypes = [ctypes.c_int] * n
             getattr(lib, name).restype = ctypes.c_int
         lib.odil_cuda_error_string.argtypes = [ctypes.c_int]
@@ -651,6 +651,16 @@ def launch_shape(model, fields, grads, sums):
     spec = _cuda_model(model)
     T, *plane = fields[0].shape
     return spec.launch_shape(_library(), T, tuple(plane), grads, sums)
+
+
+def row_tile():
+    """The veltracer row kernel's tile (``odil_rows_tile`` of
+    ``csrc/rowwise.cu``): its rows, columns and threads, the dynamic shared
+    memory of a plain and a masked launch (bytes), and the backward+sums
+    blocks an SM holds, plain and masked."""
+    lib = _library()
+    keys = ("rows", "cols", "threads", "smem", "smem_masked", "per_sm", "per_sm_masked")
+    return {k: int(lib.odil_rows_tile(i)) for i, k in enumerate(keys)}
 
 
 def forward_cuda(model, nterms, hist, fields, params, data, consts):

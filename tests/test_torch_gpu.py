@@ -176,11 +176,14 @@ def _fields(device, T, X, Y, seed=13):
 
 
 @pytest.mark.parametrize("flags", [K, dict(kimp=3.0, kxreg=0.0, ktreg=0.0)], ids=["all_terms", "no_reg"])
-@pytest.mark.parametrize("shape", [(9, 16, 16), (8, 16, 16), (5, 4, 4), (6, 4, 4), (7, 8, 36), (2, 3, 5), (17, 64, 48)])
+@pytest.mark.parametrize("shape", [(9, 16, 16), (8, 16, 16), (5, 4, 4), (6, 4, 4), (7, 8, 36), (2, 3, 5), (17, 64, 48),
+                                   (6, 130, 36), (5, 18, 36), (4, 4, 36)])
 def test_generic_kernels_match_plain(cuda, shape, flags):
     """Forward, backward+sums and backward against their plain versions: T
     even and odd (down to 2), planes narrower than a tile (the halo wraps
-    more than once) and wider than one."""
+    more than once) and wider than one, and 16-row tiles that own only part
+    of their rows (X = 130, 18, 4) beside a y tile that is 16-byte staged and
+    one that is not (Y = 36)."""
     model = _model(flags)
     nterms = 2 + (2 if flags["kxreg"] else 0) + (2 if flags["ktreg"] else 0)
     fields, consts = _fields(cuda, *shape)
@@ -701,8 +704,17 @@ HALO_CASES = {
 }
 
 
+# Blocks whose last 16-row x tile is only partly owned (X = 130, 18, 4), Y = 36
+# (a 16-byte staged y tile and a ragged one): the kernel-vs-plain test only.
+HALO_PARTIAL_CASES = {
+    "x130_y36": ((6, 130, 36), 3, 17, 1, 6, 1),
+    "x18_y36": ((7, 18, 36), 7, 17, 2, 7, 1),
+    "x4_y36": ((5, 4, 36), 0, 5, 0, 5, 1),
+}
+
+
 def _halo_case(device, name, seed=12):
-    (T, X, Y), off, Tg, r_lo, r_hi, hx = HALO_CASES[name]
+    (T, X, Y), off, Tg, r_lo, r_hi, hx = {**HALO_CASES, **HALO_PARTIAL_CASES}[name]
     rng = np.random.default_rng(seed)
     mk = lambda *shape: torch.as_tensor((0.3 * rng.normal(size=shape)).astype(np.float32), device=device)
     fields = tuple(mk(T, X, Y) for _ in range(3))
@@ -713,7 +725,7 @@ def _halo_case(device, name, seed=12):
     return trw.halo_model(_model(K), mask, off, Tg, r_lo, r_hi), fields, consts
 
 
-@pytest.mark.parametrize("name", list(HALO_CASES))
+@pytest.mark.parametrize("name", list(HALO_CASES) + list(HALO_PARTIAL_CASES))
 def test_halo_kernels_match_plain(cuda, name):
     model, fields, consts = _halo_case(cuda, name)
     g = torch.linspace(0.5, 1.5, 6, device=cuda) / fields[0].numel()
@@ -849,7 +861,10 @@ def test_cuda_halo_route_matches_cpu_route(cuda, route):
 # sha256 (first 16 hex digits) of the generic veltracer kernels' outputs at
 # the flagship shapes, from csrc/rowwise.cu before the per-shard (halo) layer
 # was added to it and to veltracer_row.cuh (NVIDIA H100 80GB HBM3): the layer
-# changes no bit of the plain launches.
+# changes no bit of the plain launches.  The row kernel's redesign (16 x 32
+# tiles, two cells a thread, rows staged by cp.async) kept every digest here
+# and in HALO_DIGESTS: the dfields by the same per-cell arithmetic, the sums
+# because their other order of addition rounds to the same fp32 values.
 GEN_DIGESTS = {
     "all_terms": {"backward_sums": "37a1d9aae39fbc53", "backward": "629470acdfd3fcc5", "forward": "9dad241e6ba40afc"},
     "no_reg": {"backward_sums": "d563f202143ad5d1", "backward": "26c01e3c095541b1", "forward": "76de9486e41a2697"},
@@ -917,6 +932,25 @@ def test_halo_kernels_keep_their_bits(cuda, name):
     d2, _, _ = trw.backward_halo_cuda(model, 6, 1, fields, (), (), consts, g, False)
     f = trw.forward_halo_cuda(model, 6, 1, fields, (), (), consts)
     assert (_digest(list(d) + [s]), _digest(list(d2)), _digest([f])) == HALO_DIGESTS[name]
+
+
+@pytest.mark.parametrize("case", ["plain_256", "plain_partial", "masked_flagship", "masked_partial"])
+def test_backward_sums_keep_the_backward_dfields(cuda, case):
+    """The dfields of a backward+sums are the backward's bit for bit, plain
+    and masked, at the flagship's shapes and where a 16-row tile is only
+    partly owned: the sums add to the row walk and change none of its
+    cotangents."""
+    if case.startswith("plain"):
+        model, call = _model(K), trw.backward_cuda
+        fields, consts = _fields(cuda, *((65, 256, 256) if case == "plain_256" else (6, 130, 36)))
+    else:
+        model, fields, consts = _halo_case(cuda, "flagship" if case == "masked_flagship" else "x130_y36")
+        call = trw.backward_halo_cuda
+    g = torch.linspace(0.5, 1.5, 6, device=cuda) / fields[0].numel()
+    d, _, s = call(model, 6, 1, fields, (), (), consts, g, True)
+    d2, _, s2 = call(model, 6, 1, fields, (), (), consts, g, False)
+    assert s is not None and s2 is None
+    assert _digest(list(d)) == _digest(list(d2))
 
 
 @pytest.mark.parametrize("name", list(MG_LOCAL_CASES))
