@@ -98,6 +98,20 @@ Phases, any failure exits non-zero and prints no result:
       on the card (``rowwise.plain_on_card``, once an epoch, and no kernel);
       epoch 0 within 1e-5 and every 10-epoch row within 1% of the plain
       operator (``kernel="xla"``) trained the same way by autograd.
+   m. The training harness: the command-line examples run as a user runs
+      them, through ``util.optimize``, ``make_callback`` and ``History``,
+      each in a new directory under ``build/`` (the working directory and
+      the log sink restored after).  ``odil_torch.examples.veltracer`` at
+      (64,256,256) with ``--kernel pallas_mg`` for ``--epochs`` epochs, a
+      history row every 10: one mg backward with the sums an epoch plus the
+      epoch-0 evaluation's forward and sums-off backward, and no other
+      kernel; its ``train.csv`` against ``ref_velt_256.csv`` as in a., and
+      rows 10 on within 1e-6 of a.'s hand loop (the same kernels and
+      chunks); its ms/epoch (``walltime/epoch`` of its ``train.log``) beside
+      a.'s.  ``odil_torch.examples.wave`` at 64^2 in fp64 with L-BFGS-B,
+      200 epochs (plain torch on the card, no kernel): epoch 0 within 1e-5 of
+      ``ref_wave.csv``, and the min of the last three rows of error_u and
+      loss within 1.3 and 1.6 times its final row (tests/test_converged.py).
    The streaming kernels (veltracer at (65,256,256) and (65,64,64), heat and
    wave at 64^2 and 1024^2; on the card the slabbed launch, counted apart)
    and the two-level kernel (t0 (65,256,256), t1 (33,128,128), P2
@@ -186,6 +200,9 @@ HEAT_EPOCHS, HEAT_EVERY = 1500, 100
 # The converged lane's margins on the reference seeds' medians
 # (tests/test_converged.py:81).
 HEAT_MARGINS = {"loss": 1.5, "error_u": 1.3, "error_k": 1.25}
+# Wave 64^2, L-BFGS-B, fp64, 200 epochs (tests/test_converged.py:53-61): the
+# min of the last three rows within these factors of ref_wave.csv's final.
+WAVE_MARGINS = {"error_u": 1.3, "loss": 1.6}
 CHUNK = 10
 TERMS_RTOL, GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-4, 1e-6
 # The streaming paths' lengths: veltracer 64^3, heat 64^2 and 1024^2.
@@ -421,12 +438,20 @@ class Counters:
             "backward_mg_local": rmg.backward_mg_local_cuda, "plain_on_card": rw.plain_on_card,
         }
 
+        # The mg backward's launches that also formed the sums, counted apart
+        # by its wrapper.
+        self.modes = {"backward_mg_with_sums": (rmg.backward_mg_cuda, "launches_with_sums")}
+
     def zero(self):
         for w in self.wrappers.values():
             w.launches = 0
+        for w, attr in self.modes.values():
+            setattr(w, attr, 0)
 
     def read(self):
-        return {k: w.launches for k, w in self.wrappers.items()}
+        counts = {k: w.launches for k, w in self.wrappers.items()}
+        counts.update({k: getattr(w, attr) for k, (w, attr) in self.modes.items()})
+        return counts
 
 
 def read_ref(name):
@@ -470,6 +495,108 @@ def expect_counts(counts, want, what):
     got = {k: counts[k] for k in want}
     if got != want:
         fail(f"{what}: the launch counters read {counts}, expected {want}")
+
+
+def run_cli(torch, counters, name, argv):
+    """Runs ``odil_torch.examples.<name>.main(argv)`` in a new directory
+    under build/ with the launch counters zeroed just before it and read just
+    after: (train.csv rows, train.log lines, counts).  The working directory
+    and the log sink are restored, and the directory removed."""
+    import importlib
+    import shutil
+    import tempfile
+
+    from odil_torch import util
+
+    cli = importlib.import_module(f"odil_torch.examples.{name}")
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    out = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_", dir=os.path.join(HERE, "build"))
+    cwd, sink = os.getcwd(), util._log_sink.stream
+    try:
+        counters.zero()
+        cli.main(argv + ["--outdir", out])
+        torch.cuda.synchronize()
+        counts = counters.read()
+    finally:
+        os.chdir(cwd)
+        if util._log_sink.stream is not sink:
+            util._log_sink.stream.close()
+            util.set_log_file(sink)
+    try:
+        with open(os.path.join(out, "train.csv")) as fh:
+            rows = list(csv.DictReader(fh))
+        with open(os.path.join(out, "train.log")) as fh:
+            log = fh.read().splitlines()
+    finally:
+        shutil.rmtree(out)
+    return rows, log, counts
+
+
+def log_ms(log):
+    """The median walltime/epoch of a train.log's reports, in ms, leaving out
+    the report of epoch 0 and the first stretch (the CUDA graph capture)."""
+    ms = [float(line.split("walltime/epoch: ")[1].split()[0]) for line in log if "walltime/epoch: " in line]
+    return statistics.median(ms[2:] or ms[1:])
+
+
+def harness_phase(torch, counters, epochs, hand_losses, hand_ms, tag, extra_argv=()):
+    """Phase m: the veltracer CLI at the flagship size against
+    ref_velt_256.csv and against phase a's hand loop (`hand_losses`, its
+    `hand_ms` ms/epoch), then the wave CLI against ref_wave.csv's converged
+    margins.  Returns the launches of the mg kernels on the CLI's path.
+    extra_argv goes to both CLIs (a rehearsal on the CPU passes --device)."""
+    ref256 = read_ref("ref_velt_256.csv")
+    none = dict.fromkeys(counters.read(), 0)
+    cli_rows, cli_log, counts_vt = run_cli(torch, counters, "veltracer", [
+        "--Nt", str(SIZES["256"][0]), "--Nx", str(SIZES["256"][1]), "--Ny", str(SIZES["256"][2]),
+        "--kernel", "pallas_mg", "--epochs", str(epochs), "--history_every", str(CHUNK),
+        "--report_every", str(100 if epochs >= 300 else CHUNK), "--plot_every", "0", *extra_argv,
+    ])
+    # One fused backward (sums on) an epoch, and the epoch-0 evaluation by
+    # autograd of the loss: one forward and one backward with the sums off.
+    expect_counts(counts_vt, dict(none, backward_mg=epochs + 1, backward_mg_with_sums=epochs, forward_mg=1),
+                  "veltracer CLI (pallas_mg)")
+    rows = {int(r["epoch"]): float(r["loss"]) for r in cli_rows}
+    if sorted(rows) != list(range(0, epochs + 1, CHUNK)):
+        fail(f"veltracer CLI: train.csv rows at epochs {sorted(rows)}")
+    rel = {e: abs(rows[e] - ref256[e]) / abs(ref256[e]) for e in rows if e in ref256}
+    worst = max(rel, key=rel.get)
+    hand = trajectory_rows(hand_losses)
+    rel_a = {e: abs(rows[e] - hand[e]) / abs(hand[e]) for e in rows if e}
+    worst_a = max(rel_a, key=rel_a.get)
+    cli_ms = log_ms(cli_log)
+    print(f"veltracer CLI (pallas_mg, {epochs} epochs through util.optimize): epoch-0 loss {rows[0]!r} "
+          f"(reference {ref256[0]!r}, rel {rel[0]:.2e}); worst row vs ref_velt_256.csv epoch {worst} "
+          f"({100 * rel[worst]:.2f}%); worst row vs phase a's hand loop epoch {worst_a} (rel {rel_a[worst_a]:.2e}); "
+          f"final {rows[epochs]!r}; columns {list(cli_rows[0])} {tag}")
+    print(f"veltracer CLI: {cli_ms:.4f} ms/epoch (median walltime/epoch of its train.log reports after the first) "
+          f"against phase a's hand loop {hand_ms:.4f} ms/epoch; launches {counts_vt} {tag}")
+    if rel[0] > 1e-5 or any(r > 0.15 for r in rel.values()):
+        fail(f"veltracer CLI: epoch 0 rel {rel[0]:.2e} (limit 1e-5), epoch {worst} {100 * rel[worst]:.1f}% (limit 15%)")
+    if rel_a[worst_a] > 1e-6:
+        fail(f"veltracer CLI: epoch {worst_a} loss {rows[worst_a]} is {rel_a[worst_a]:.2e} from phase a's "
+             f"{hand[worst_a]} (limit 1e-6)")
+
+    with open(os.path.join(PARITY, "ref_wave.csv")) as fh:
+        ref_wave = list(csv.DictReader(fh))
+    wave_rows, wave_log, counts = run_cli(torch, counters, "wave", [
+        "--Nt", "64", "--Nx", "64", "--double", "1", "--optimizer", "lbfgsb", "--epochs", "200",
+        "--history_every", "20", *extra_argv,
+    ])
+    expect_counts(counts, none, "wave CLI (fp64, plain torch on the card)")
+    if int(wave_rows[-1]["epoch"]) != int(ref_wave[-1]["epoch"]):
+        fail(f"wave CLI: the last row is epoch {wave_rows[-1]['epoch']}, the reference's {ref_wave[-1]['epoch']}")
+    rel0 = abs(float(wave_rows[0]["loss"]) - float(ref_wave[0]["loss"])) / abs(float(ref_wave[0]["loss"]))
+    got = {c: min(abs(float(r[c])) for r in wave_rows[-3:]) for c in WAVE_MARGINS}
+    ratio = {c: got[c] / abs(float(ref_wave[-1][c])) for c in WAVE_MARGINS}
+    print(f"wave CLI (64^2 fp64, L-BFGS-B, 200 epochs): epoch-0 loss {wave_rows[0]['loss']} (reference "
+          f"{ref_wave[0]['loss']}, rel {rel0:.2e}); min of the last three rows " + ", ".join(
+              f"{c} {got[c]!r} ({ratio[c]:.3f}x the reference's final, limit {WAVE_MARGINS[c]})" for c in got)
+          + f"; {log_ms(wave_log):.4f} ms/epoch {tag}")
+    if rel0 > 1e-5 or any(ratio[c] > WAVE_MARGINS[c] for c in ratio):
+        fail(f"wave CLI: epoch 0 rel {rel0:.2e} (limit 1e-5), ratios {ratio} (limits {WAVE_MARGINS})")
+    return {"backward_mg_sums": counts_vt["backward_mg_with_sums"], "forward_mg": counts_vt["forward_mg"],
+            "backward_mg": counts_vt["backward_mg"] - counts_vt["backward_mg_with_sums"]}
 
 
 def autograd_loss_grad_fn(torch, problem, state, halo=False):
@@ -1439,6 +1566,11 @@ def main():
     against_route(losses_n, losses_x, "training (heat 64^2 keep_init=0, plain on card, vs the plain operator)",
                   every=10)
     del problem_n, state_n, grad_n, problem_x, state_x
+
+    # m. The training harness: the two command-line examples through
+    # util.optimize, each in a directory of its own under build/.
+    launches.update(harness_phase(torch, counters, args.epochs, losses_unsharded, loops["pallas_mg 256"][1][0],
+                                  tag))
 
     idle = [name for name in report if launches.get(name, 0) < 1]
     if idle:

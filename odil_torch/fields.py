@@ -6,7 +6,12 @@ tensors and ``state_from_arrays`` rebuilds a state from a flat list in the
 same order, which is the order of ``Domain.arrays_from_state``.
 """
 
-__all__ = ["Field", "MultigridField", "NeuralNet", "Array", "State", "field_arrays", "state_from_arrays"]
+import math
+
+__all__ = [
+    "Field", "MultigridField", "NeuralNet", "Array", "State", "field_arrays", "set_field_arrays", "state_from_arrays",
+    "state_size",
+]
 
 
 def _norm_shape(shape):
@@ -89,6 +94,29 @@ def field_arrays(field):
     if isinstance(field, NeuralNet):
         return list(field.weights) + list(field.biases)
     raise TypeError(f"Unknown field type '{type(field).__name__}'")
+
+
+def set_field_arrays(field, arrays):
+    """Replaces the data tensors of `field` in place from the prefix of
+    `arrays` (``odil_tpu/fields.py:180``); returns the number consumed."""
+    if isinstance(field, (Field, Array)):
+        field.array = arrays[0]
+        return 1
+    if isinstance(field, MultigridField):
+        for t, a in zip(field.terms, arrays):
+            t.array = a
+        return len(field.terms)
+    if isinstance(field, NeuralNet):
+        nw, n = len(field.weights), len(field.weights) + len(field.biases)
+        field.weights[:] = arrays[:nw]
+        field.biases[:] = arrays[nw:n]
+        return n
+    raise TypeError(f"Unknown field type '{type(field).__name__}'")
+
+
+def state_size(state):
+    """Total number of scalar unknowns in the state."""
+    return sum(math.prod(a.shape) for f in state.fields.values() for a in field_arrays(f))
 
 
 def _rebuild(field, arrays):

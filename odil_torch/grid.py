@@ -16,7 +16,7 @@ import torch
 
 from . import runtime
 from .backend import ModTorch
-from .fields import Array, Field, MultigridField, NeuralNet, State, field_arrays
+from .fields import Array, Field, MultigridField, NeuralNet, State, field_arrays, set_field_arrays
 from .nn import eval_neural_net, make_neural_net
 from .transfer import interp_to_finer
 
@@ -172,9 +172,12 @@ class Domain:
         res = [self.cshape[i] + (1 if loc[i] == "n" else 0) for i in idims]
         return res[0] if len(dims) == 1 else res
 
+    def step_by_dim(self, i):
+        return (self.upper[i] - self.lower[i]) / self.cshape[i]
+
     def step(self, *dims):
         idims = self._dim_indices(dims, self.dimnames)
-        res = tuple((self.upper[i] - self.lower[i]) / self.cshape[i] for i in idims)
+        res = tuple(self.step_by_dim(i) for i in idims)
         return res[0] if len(dims) == 1 else res
 
     # -- Multigrid decomposition -------------------------------------------
@@ -274,6 +277,40 @@ class Domain:
             res += field_arrays(state.fields[key])
         return res
 
+    @staticmethod
+    def arrays_to_field(arrays, field):
+        return set_field_arrays(field, arrays)
+
+    @staticmethod
+    def arrays_to_state(arrays, state):
+        """Puts `arrays` (the canonical flat order) into `state` in place;
+        returns the number consumed."""
+        offset = 0
+        for key in state.fields:
+            offset += set_field_arrays(state.fields[key], arrays[offset:])
+        return offset
+
+    def pack_field(self, field):
+        return torch.cat([a.reshape(-1) for a in field_arrays(field)])
+
+    def pack_state(self, state):
+        """The state's tensors flattened into one vector."""
+        return torch.cat([a.reshape(-1) for a in self.arrays_from_state(state)])
+
+    def unpack_field(self, packed, field):
+        arrays = field_arrays(field)
+        sizes = [math.prod(a.shape) for a in arrays]
+        parts = torch.split(packed[: sum(sizes)], sizes)
+        set_field_arrays(field, [p.reshape(a.shape) for p, a in zip(parts, arrays)])
+        return sum(sizes)
+
+    def unpack_state(self, packed, state):
+        """Fills `state` in place from a vector of ``pack_state``'s layout."""
+        offset = 0
+        for key in state.fields:
+            offset += self.unpack_field(packed[offset:], state.fields[key])
+        return offset
+
     # -- Neural nets -------------------------------------------------------
 
     def make_neural_net(self, layers, generator):
@@ -287,3 +324,23 @@ class Domain:
         if not isinstance(net, NeuralNet):
             raise TypeError(f"Expected NeuralNet, got {type(net).__name__} for '{key}'")
         return lambda *inputs: eval_neural_net(net, inputs)
+
+    def field(self, state, key, *shift):
+        """The data tensor of a field on the fine grid (a MultigridField
+        flattened), periodically shifted by `shift` cells."""
+        field = state.fields[key]
+        if not isinstance(field, (Field, MultigridField, Array)):
+            raise TypeError(f"Expected Field or MultigridField, got {type(field).__name__} for '{key}'")
+        if isinstance(field, Array):
+            if len(shift):
+                raise RuntimeError("Array requires an empty shift")
+            return field.array
+        shift = shift or (0,) * self.ndim
+        if len(shift) != self.ndim:
+            raise RuntimeError(f"Expected {self.ndim} shift components, got shift={shift}")
+        return self.mod.roll(self.get_regular_array(field), [-s for s in shift], range(self.ndim))
+
+    def get_context(self, state, extra=None, tracers=None):
+        from .context import Context
+
+        return Context(self, state, extra=extra, tracers=tracers)

@@ -519,10 +519,12 @@ def backward_mg_cuda(model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums
     err = lib.odil_mg_backward(ctypes.byref(args), int(bool(with_sums)), stream)
     _raise_on(lib, err, "odil_mg_backward")
     backward_mg_cuda.launches += 1
+    backward_mg_cuda.launches_with_sums += bool(with_sums)
     return dt0, dP, (scratch[1][:nterms] if with_sums else None)
 
 
 backward_mg_cuda.launches = 0
+backward_mg_cuda.launches_with_sums = 0  # the launches that also formed the sums
 
 
 def _check_cuda_inputs2(model, t0s, t1s, P2, consts, hist):

@@ -7,13 +7,16 @@ level-2 one (``partial_depth=2``), and both routes of ``make_loss_grad_fn``
 (:316-358): the fused multigrid route (:360-425) and the generic one-pass
 route (:427-569).  Where neither
 applies, ``make_loss_grad_fn`` returns None and the caller differentiates
-``make_loss_fn`` with autograd, as ``bench.py:111`` does in JAX.
+``make_loss_fn`` with autograd, as ``bench.py:111`` does in JAX.  The
+training harness's evaluations: ``eval_loss_grad`` (:571, autograd of
+``loss_terms``), ``eval_operator`` (:603) and ``get_context`` (:829).
 """
 
 from collections import defaultdict
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .context import Context
 from .fields import Field, MultigridField, State, _rebuild, field_arrays, state_from_arrays
@@ -35,13 +38,17 @@ def _horner_ladder(terms, factors, loc, method, stop=0):
 
 class Problem:
 
-    def __init__(self, operator, domain, extra=None, tracers=None, mg_partial=False):
+    def __init__(self, operator, domain, extra=None, tracers=None, jit=None, remat=False, mg_partial=False):
         """
         operator: callable(ctx) returning a list of residual fields or
             (name, field) tuples; each field is an equation to drive to zero.
         domain: Domain instance.
         extra: Python payload available as ``ctx.extra``.
         tracers: dict of values visible as ``ctx.tracers``; 'epoch' defaults to 0.
+        jit: accepted for the JAX package's signature and not used: PyTorch
+            runs the operator eagerly either way.
+        remat: recompute the operator in the backward pass of ``loss_terms``
+            (``torch.utils.checkpoint``) instead of keeping its intermediates.
         mg_partial: stop the multigrid Horner flatten one level early and
             expose ``ctx.mg_partials[key] = (term0, factor0, P)`` for the
             MG-fused kernel (ops/rowwise_mg.py).
@@ -49,6 +56,7 @@ class Problem:
         self.domain = domain
         self.operator = operator
         self.extra = extra
+        self.remat = remat
         self.mg_partial = mg_partial
         tracers = dict(tracers) if tracers is not None else dict()
         tracers.setdefault("epoch", 0)
@@ -128,12 +136,16 @@ class Problem:
     def loss_terms(self, arrays, tracers):
         """(arrays, tracers) -> (loss, terms, norms); terms[i] =
         mean(residual_i^2), or the raw mean for Context.Raw."""
-        partials = {} if self.mg_partial else None
-        state = self._flatten_multigrid_batched(self.state_from_arrays(arrays), partial_out=partials)
-        ctx = Context(self.domain, state, extra=self.extra, tracers=tracers)
-        ctx.mg_partials = partials or {}
-        _, values = self._run_operator(ctx)
-        terms = [v.value.mean() if isinstance(v, Context.Raw) else torch.mean(torch.square(v)) for v in values]
+
+        def terms_of(*arrays):
+            partials = {} if self.mg_partial else None
+            state = self._flatten_multigrid_batched(self.state_from_arrays(arrays), partial_out=partials)
+            ctx = Context(self.domain, state, extra=self.extra, tracers=tracers)
+            ctx.mg_partials = partials or {}
+            _, values = self._run_operator(ctx)
+            return [v.value.mean() if isinstance(v, Context.Raw) else torch.mean(torch.square(v)) for v in values]
+
+        terms = checkpoint(terms_of, *arrays, use_reentrant=False) if self.remat else terms_of(*arrays)
         loss = sum(terms)
         norms = [torch.sqrt(torch.clamp(t, min=0)) for t in terms]
         return loss, terms, norms
@@ -164,6 +176,39 @@ class Problem:
             return loss, (terms, norms)
 
         return loss_fn, arrays0
+
+    def eval_loss_grad(self, state):
+        """Loss, gradients and residual norms at `state`, by autograd of
+        ``loss_terms``: (loss, grads, terms, names, norms), the loss, terms
+        and norms as numpy scalars, the grads as tensors on the domain's
+        device in the state's array order."""
+        if not state.initialized:
+            raise RuntimeError("Uninitialized state, use `state = domain.init_state(state)`")
+        self._capture_structure(state)
+        leaves = [a.detach().requires_grad_(True) for a in self.domain.arrays_from_state(state)]
+        with torch.enable_grad():
+            loss, terms, norms = self.loss_terms(leaves, self.tracers)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(a) if g is None else g for a, g in zip(leaves, grads)]
+
+        def host(t):
+            return t.detach().cpu().numpy()
+
+        return host(loss), grads, [host(t) for t in terms], list(self._names), [host(n) for n in norms]
+
+    def eval_operator(self, state):
+        """The residual fields at `state`: (values, names)."""
+        if not state.initialized:
+            raise RuntimeError("Uninitialized state, use `state = domain.init_state(state)`")
+        self._capture_structure(state)
+        with torch.no_grad():
+            st = self._flatten_multigrid_batched(self.state_from_arrays(self.domain.arrays_from_state(state)))
+            ctx = Context(self.domain, st, extra=self.extra, tracers=self.tracers)
+            _, values = self._run_operator(ctx)
+        return [v.value if isinstance(v, Context.Raw) else v for v in values], list(self._names)
+
+    def get_context(self, state):
+        return Context(self.domain, state, extra=self.extra, tracers=self.tracers)
 
     def make_loss_grad_fn(self, state, halo=False, halo_fuse=None, extra_partition=None):
         """``fn(arrays, tracers) -> ((loss, (terms, norms)), grads)``, the

@@ -155,9 +155,10 @@ def test_cuda_route_matches_cpu_route(cuda):
     shapes = [tuple(a.shape) for a in cp.domain.arrays_from_state(cs)]
     states = [[(0.3 * rng.normal(size=s)).astype(np.float32) for s in shapes] for _ in range(2)]
     cfn, gfn = cp.make_loss_grad_fn(cs), gp.make_loss_grad_fn(gs)
-    launches = trmg.backward_mg_cuda.launches
+    launches = trmg.backward_mg_cuda.launches, trmg.backward_mg_cuda.launches_with_sums
     outs = [gfn(arrays_from_numpy(a, device=cuda), gp.tracers) for a in states]
-    assert trmg.backward_mg_cuda.launches == launches + 2
+    assert (trmg.backward_mg_cuda.launches, trmg.backward_mg_cuda.launches_with_sums) == (
+        launches[0] + 2, launches[1] + 2)
     for arrays, ((_, (gterms, _)), ggrads) in zip(states, outs):
         (_, (cterms, _)), cgrads = cfn(arrays_from_numpy(arrays, device="cpu"), cp.tracers)
         for a, b in zip(gterms, cterms):

@@ -42,6 +42,10 @@ def test_port_sources_found():
         "odil_torch/stencil.py",
         "odil_torch/parallel.py",
         "odil_torch/halo.py",
+        "odil_torch/util.py",
+        "odil_torch/optim/lbfgsb.py",
+        "odil_torch/examples/veltracer.py",
+        "odil_torch/examples/wave.py",
     } <= names
 
 
@@ -51,6 +55,8 @@ def test_port_sources_found():
         "odil_torch.models.heat", "odil_torch.models.wave", "odil_torch.nn", "odil_torch.stencil", "odil_torch.problem",
         "odil_torch.ops.rowwise", "odil_torch.ops.rowwise_mg", "odil_torch.models.veltracer",
         "odil_torch.parallel", "odil_torch.halo",
+        # The package itself (util, history, io, cache, checkpoint, linsolver, optim) and the CLIs.
+        "odil_torch", "odil_torch.examples.veltracer", "odil_torch.examples.wave",
     ],
 )
 def test_new_modules_import_without_jax(name):
