@@ -112,6 +112,31 @@ Phases, any failure exits non-zero and prints no result:
       200 epochs (plain torch on the card, no kernel): epoch 0 within 1e-5 of
       ``ref_wave.csv``, and the min of the last three rows of error_u and
       loss within 1.3 and 1.6 times its final row (tests/test_converged.py).
+   n. The remaining command-line examples, run as in m., at the converged
+      lane's configurations (tests/test_converged.py), each gated like it
+      (the min of the last three rows of each column within its margin times
+      the reference's final value) against docs/parity_data: poisson 64^2
+      (``--ref osc --rhs exact``, fp64, Adam, 1000 epochs) against
+      ``ref_poisson.csv`` (error_u 1.25, loss 1.8); heat 64^2 with
+      ``--kernel xla`` and ``--kernel pallas`` (1500 epochs from phase e's
+      initial net, put into the CLI's state by wrapping its
+      ``make_problem``) against the seed medians of ``ref_heat_seeds.csv``
+      (loss 1.5, error_u 1.3, error_k 1.25), the pallas run with one heat
+      row backward+sums an epoch plus the epoch-0 evaluation's forward and
+      sums-off backward, and its rows from epoch 100 on equal to phase e's
+      hand loop's to the bit (epoch 0 within 1e-6: the CLI evaluates it by
+      autograd of the loss); infer_constant 64^2 (fp64, the default
+      ``lbfgs``, 100 epochs) against ``ref_infconst.csv`` (norm_0, c_diff,
+      c_src, c_vel 1.15), and with ``--optimizer lbfgsb`` (1.1); heat_tmax
+      64^2 (``lbfgs``, 4000 epochs) against ``ref_heat_tmax.csv`` (norm_eqn
+      3, norm_imp 3, loss 10); wave 64^2
+      (fp64, ``lbfgs``, 200 epochs) against ``ref_wave.csv`` (error_u 1.3,
+      loss 1.8); fields 8x4 (Adam, 100 epochs) against ``ref_fields.csv``
+      (loss 1.2, the four norms 1.1); and the heat PINN solver 64^2 (200
+      epochs; no archived trajectory: the loss finite and lower at the end).
+      Each prints its ms/epoch (its train.log) and wall time, the L-BFGS runs
+      their loss+grad evaluations and host syncs an iteration, and the
+      device of the L-BFGS iterate and memory (which must be the card's).
    The streaming kernels (veltracer at (65,256,256) and (65,64,64), heat and
    wave at 64^2 and 1024^2; on the card the slabbed launch, counted apart)
    and the two-level kernel (t0 (65,256,256), t1 (33,128,128), P2
@@ -500,8 +525,9 @@ def expect_counts(counts, want, what):
 def run_cli(torch, counters, name, argv):
     """Runs ``odil_torch.examples.<name>.main(argv)`` in a new directory
     under build/ with the launch counters zeroed just before it and read just
-    after: (train.csv rows, train.log lines, counts).  The working directory
-    and the log sink are restored, and the directory removed."""
+    after: (train.csv rows, train.log lines, counts, what main returned, wall
+    seconds).  The working directory and the log sink are restored, and the
+    directory removed."""
     import importlib
     import shutil
     import tempfile
@@ -514,8 +540,10 @@ def run_cli(torch, counters, name, argv):
     cwd, sink = os.getcwd(), util._log_sink.stream
     try:
         counters.zero()
-        cli.main(argv + ["--outdir", out])
+        t_start = time.perf_counter()
+        result = cli.main(argv + ["--outdir", out])
         torch.cuda.synchronize()
+        seconds = time.perf_counter() - t_start
         counts = counters.read()
     finally:
         os.chdir(cwd)
@@ -529,7 +557,7 @@ def run_cli(torch, counters, name, argv):
             log = fh.read().splitlines()
     finally:
         shutil.rmtree(out)
-    return rows, log, counts
+    return rows, log, counts, result, seconds
 
 
 def log_ms(log):
@@ -547,7 +575,7 @@ def harness_phase(torch, counters, epochs, hand_losses, hand_ms, tag, extra_argv
     extra_argv goes to both CLIs (a rehearsal on the CPU passes --device)."""
     ref256 = read_ref("ref_velt_256.csv")
     none = dict.fromkeys(counters.read(), 0)
-    cli_rows, cli_log, counts_vt = run_cli(torch, counters, "veltracer", [
+    cli_rows, cli_log, counts_vt, *_ = run_cli(torch, counters, "veltracer", [
         "--Nt", str(SIZES["256"][0]), "--Nx", str(SIZES["256"][1]), "--Ny", str(SIZES["256"][2]),
         "--kernel", "pallas_mg", "--epochs", str(epochs), "--history_every", str(CHUNK),
         "--report_every", str(100 if epochs >= 300 else CHUNK), "--plot_every", "0", *extra_argv,
@@ -579,7 +607,7 @@ def harness_phase(torch, counters, epochs, hand_losses, hand_ms, tag, extra_argv
 
     with open(os.path.join(PARITY, "ref_wave.csv")) as fh:
         ref_wave = list(csv.DictReader(fh))
-    wave_rows, wave_log, counts = run_cli(torch, counters, "wave", [
+    wave_rows, wave_log, counts, *_ = run_cli(torch, counters, "wave", [
         "--Nt", "64", "--Nx", "64", "--double", "1", "--optimizer", "lbfgsb", "--epochs", "200",
         "--history_every", "20", *extra_argv,
     ])
@@ -597,6 +625,140 @@ def harness_phase(torch, counters, epochs, hand_losses, hand_ms, tag, extra_argv
         fail(f"wave CLI: epoch 0 rel {rel0:.2e} (limit 1e-5), ratios {ratio} (limits {WAVE_MARGINS})")
     return {"backward_mg_sums": counts_vt["backward_mg_with_sums"], "forward_mg": counts_vt["forward_mg"],
             "backward_mg": counts_vt["backward_mg"] - counts_vt["backward_mg_with_sums"]}
+
+
+def read_rows(name):
+    with open(os.path.join(PARITY, name)) as fh:
+        return list(csv.DictReader(fh))
+
+
+def converged_gate(rows, ref_rows, margins, what, tag, median=False, epochs=None):
+    """The converged lane's gate (tests/test_converged.py): the min over the
+    last three rows of each column within its margin times the reference's
+    final value (or, with `median`, the median over the reference's seeds),
+    at the reference's final epoch (or `epochs`).  Returns the ratios."""
+    if median:
+        ref = {c: statistics.median(abs(float(r[c])) for r in ref_rows) for c in margins}
+        want_epoch = epochs
+    else:
+        ref = {c: abs(float(ref_rows[-1][c])) for c in margins}
+        want_epoch = int(float(ref_rows[-1]["epoch"]))
+    if int(float(rows[-1]["epoch"])) != want_epoch:
+        fail(f"{what}: the last row is epoch {rows[-1]['epoch']}, the reference's {want_epoch}")
+    got = {c: min(abs(float(r[c])) for r in rows[-3:]) for c in margins}
+    ratio = {c: got[c] / max(ref[c], 1e-12) for c in margins}
+    print(f"{what}: min of the last three rows " + ", ".join(
+        f"{c} {got[c]!r} ({ratio[c]:.3f}x the reference's {'seed median' if median else 'final'}, limit "
+        f"{margins[c]})" for c in margins) + f" {tag}")
+    if any(not (got[c] == got[c]) or ratio[c] > margins[c] for c in margins):
+        fail(f"{what}: ratios {ratio} (limits {margins})")
+    return ratio
+
+
+def cli_phase(torch, counters, heat_ref, heat_losses, heat_ms, tag, extra_argv=()):
+    """Phase n: the CLIs of poisson, heat (xla, pallas and the PINN solver),
+    infer_constant, heat_tmax, wave with its default optimizer and fields at
+    the converged lane's configurations (tests/test_converged.py), each held
+    to its reference in docs/parity_data.  The heat odil runs start from
+    phase e's initial conductivity net (the JAX package's at seed 1000); the
+    pallas run's rows from epoch 100 on must equal phase e's hand loop's
+    (`heat_losses`) to the bit.  Returns the heat row kernels' launches on
+    the pallas run's path.  extra_argv goes to every CLI (a rehearsal on the
+    CPU passes --device)."""
+    from odil_torch.examples import heat as heat_cli
+
+    none = dict.fromkeys(counters.read(), 0)
+
+    def run(name, argv, what, want_counts=None, lbfgs=False):
+        rows, log, counts, (problem, _), seconds = run_cli(torch, counters, name, argv + list(extra_argv))
+        expect_counts(counts, want_counts or none, what)
+        line = f"{what}: {log_ms(log):.4f} ms/epoch (median walltime/epoch of its train.log reports after the " \
+               f"first), {seconds:.2f} s wall"
+        if lbfgs:
+            opt = problem._active_optimizer
+            if not (opt.x.device.type == opt.memory.s.device.type == problem.domain.device.type):
+                fail(f"{what}: the L-BFGS iterate ({opt.x.device}) or memory ({opt.memory.s.device}) is not on "
+                     f"{problem.domain.device}")
+            line += (f"; {opt.evals} iterations, {opt.grad_evals / opt.evals:.3f} loss+grad evaluations and "
+                     f"{opt.host_syncs / opt.evals:.3f} host syncs an iteration; memory {tuple(opt.memory.s.shape)} "
+                     f"{opt.memory.s.dtype} on {opt.memory.s.device}")
+        print(f"{line}; launches {counts} {tag}")
+        return rows, counts
+
+    rows, _ = run("poisson", ["--N", "64", "--ref", "osc", "--rhs", "exact", "--double", "1", "--epochs", "1000",
+                              "--history_every", "50"], "poisson CLI (64^2 fp64, Adam, 1000 epochs)")
+    converged_gate(rows, read_rows("ref_poisson.csv"), {"error_u": 1.25, "loss": 1.8}, "poisson CLI", tag)
+
+    orig = heat_cli.make_problem
+
+    def make_problem(args):
+        problem, state = orig(args)
+        dtype = torch.float64 if args.double else torch.float32
+        net = state.fields["k_net"]
+        net.weights = [torch.tensor(w, dtype=dtype, device=problem.domain.device) for w in heat_ref["weights"]]
+        net.biases = [torch.tensor(b, dtype=dtype, device=problem.domain.device) for b in heat_ref["biases"]]
+        return problem, state
+
+    lane = heat_ref["config"]
+    heat_argv = ["--Nt", str(lane["nt"]), "--Nx", str(lane["nx"]), "--infer_k", "1", "--imposed", lane["imposed"],
+                 "--nimp", str(lane["nimp"]), "--seed", str(lane["seed"]), "--epochs", str(HEAT_EPOCHS),
+                 "--history_every", str(HEAT_EVERY)]
+    seeds = read_rows("ref_heat_seeds.csv")
+    heat_cli.make_problem = make_problem
+    try:
+        for kernel in ("xla", "pallas"):
+            want = dict(none, backward_rows=HEAT_EPOCHS + 1, forward_rows=1) if kernel == "pallas" else none
+            rows, counts = run("heat", heat_argv + ["--kernel", kernel],
+                               f"heat CLI (64^2, --kernel {kernel}, Adam, {HEAT_EPOCHS} epochs from phase e's net)",
+                               want_counts=want)
+            converged_gate(rows, seeds, HEAT_MARGINS, f"heat CLI --kernel {kernel}", tag, median=True,
+                           epochs=HEAT_EPOCHS)
+            if kernel == "pallas":
+                launches = {"backward_rows_sums_heat_64": HEAT_EPOCHS, "forward_rows_heat_64": counts["forward_rows"],
+                            "backward_rows_heat_64": counts["backward_rows"] - HEAT_EPOCHS}
+                later = [r for r in rows if int(r["epoch"]) >= HEAT_EVERY]
+                differ = [int(r["epoch"]) for r in later if float(r["loss"]) != heat_losses[int(r["epoch"]) - 1]]
+                rel0 = abs(float(rows[0]["loss"]) - heat_losses[0]) / abs(heat_losses[0])
+                print(f"heat CLI --kernel pallas against phase e's hand loop: rows {[int(r['epoch']) for r in later]} "
+                      f"equal to the bit: {not differ}; epoch 0 (the CLI's evaluation by autograd of the loss: one "
+                      f"forward and one sums-off backward) rel {rel0:.2e}; phase e's loop {heat_ms:.4f} ms/epoch "
+                      f"{tag}")
+                if differ or rel0 > 1e-6:
+                    fail(f"heat CLI --kernel pallas: rows {differ} differ from phase e's hand loop, epoch 0 rel "
+                         f"{rel0:.2e} (limit 1e-6)")
+    finally:
+        heat_cli.make_problem = orig
+
+    rows, _ = run("infer_constant", ["--Nt", "64", "--Nx", "64", "--double", "1", "--epochs", "100",
+                                     "--history_every", "20"], "infer_constant CLI (64^2 fp64, lbfgs, 100 epochs)",
+                  lbfgs=True)
+    converged_gate(rows, read_rows("ref_infconst.csv"), dict.fromkeys(("norm_0", "c_diff", "c_src", "c_vel"), 1.15),
+                   "infer_constant CLI", tag)
+    rows, _ = run("infer_constant", ["--Nt", "64", "--Nx", "64", "--double", "1", "--epochs", "100",
+                                     "--history_every", "20", "--optimizer", "lbfgsb"],
+                  "infer_constant CLI (64^2 fp64, L-BFGS-B, 100 epochs)")
+    converged_gate(rows, read_rows("ref_infconst.csv"), dict.fromkeys(("norm_0", "c_diff", "c_src", "c_vel"), 1.1),
+                   "infer_constant CLI (lbfgsb)", tag)
+    rows, _ = run("heat_tmax", ["--Nt", "64", "--Nx", "64", "--epochs", "4000", "--history_every", "200"],
+                  "heat_tmax CLI (64^2 fp64, lbfgs, 4000 epochs)", lbfgs=True)
+    converged_gate(rows, read_rows("ref_heat_tmax.csv"), {"norm_eqn": 3.0, "norm_imp": 3.0, "loss": 10.0},
+                   "heat_tmax CLI", tag)
+    rows, _ = run("wave", ["--Nt", "64", "--Nx", "64", "--double", "1", "--epochs", "200", "--history_every", "20"],
+                  "wave CLI (64^2 fp64, lbfgs, 200 epochs)", lbfgs=True)
+    converged_gate(rows, read_rows("ref_wave.csv"), {"error_u": 1.3, "loss": 1.8}, "wave CLI (lbfgs)", tag)
+    rows, _ = run("fields", ["--plot", "0", "--epochs", "100", "--history_every", "10"],
+                  "fields CLI (8x4, Adam, 100 epochs)")
+    converged_gate(rows, read_rows("ref_fields.csv"), dict({"loss": 1.2}, **dict.fromkeys(
+        ("norm_uc", "norm_un", "norm_ufx", "norm_ufy"), 1.1)), "fields CLI", tag)
+    rows, _ = run("heat", ["--Nt", "64", "--Nx", "64", "--solver", "pinn", "--infer_k", "1", "--imposed", "random",
+                           "--epochs", "200", "--history_every", "100", "--report_every", "100"],
+                  "heat CLI (--solver pinn, 64^2, Adam, 200 epochs)")
+    first, last = float(rows[0]["loss"]), float(rows[-1]["loss"])
+    print(f"heat CLI --solver pinn: loss {first!r} at epoch 0, {last!r} at epoch {rows[-1]['epoch']} (no archived "
+          f"PINN trajectory: finite and lower is the gate) {tag}")
+    if not (last == last and abs(last) != float("inf") and last < first and rows[-1]["epoch"] == "200"):
+        fail(f"heat CLI --solver pinn: loss {first} -> {last} at epoch {rows[-1]['epoch']}")
+    return launches
 
 
 def autograd_loss_grad_fn(torch, problem, state, halo=False):
@@ -1571,6 +1733,11 @@ def main():
     # util.optimize, each in a directory of its own under build/.
     launches.update(harness_phase(torch, counters, args.epochs, losses_unsharded, loops["pallas_mg 256"][1][0],
                                   tag))
+
+    # n. The remaining CLIs at the converged lane's configurations; the heat
+    # row kernels' launches on the heat CLI's path join phase e's.
+    for name, n in cli_phase(torch, counters, heat_ref, heat_losses, loops["heat 64"][1][0], tag).items():
+        launches[name] += n
 
     idle = [name for name in report if launches.get(name, 0) < 1]
     if idle:

@@ -11,14 +11,17 @@ plain PyTorch versions.
 from . import runtime
 from . import backend, cache, linsolver, parallel
 from .core import Array, Context, Domain, Field, MultigridField, NeuralNet, Problem, State
+from .grid import latin_hypercube
 from .history import History
 from .io import parse_raw_xmf, read_raw, read_raw_with_xmf, write_raw_with_xmf, write_raw_xmf, write_vtk_poly
 from .optim import EarlyStopError
+from .stencil import Approx, struct_to_numpy
 from .transfer import interp_to_finer, restrict_to_coarser
 from .util import make_callback, optimize, printlog, set_log_file, setup_outdir
 from . import util
 
 __all__ = [
+    "Approx",
     "Array",
     "Context",
     "Domain",
@@ -32,6 +35,7 @@ __all__ = [
     "backend",
     "cache",
     "interp_to_finer",
+    "latin_hypercube",
     "linsolver",
     "make_callback",
     "optimize",
@@ -44,6 +48,7 @@ __all__ = [
     "runtime",
     "set_log_file",
     "setup_outdir",
+    "struct_to_numpy",
     "util",
     "write_raw_with_xmf",
     "write_raw_xmf",

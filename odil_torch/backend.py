@@ -27,7 +27,7 @@ class ModTorch:
         self.numpy = lambda x: x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
         self.stop_gradient = lambda x: x.detach()
         self.is_tensor = torch.is_tensor
-        for name in ("abs", "cos", "exp", "log", "sin", "sqrt", "square", "tanh", "maximum", "minimum"):
+        for name in ("abs", "cos", "exp", "log", "sin", "sqrt", "square", "tanh", "maximum", "minimum", "ones_like"):
             setattr(self, name, getattr(torch, name))
         self.sigmoid = lambda x: 1 / (1 + torch.exp(-x))
 

@@ -6,10 +6,11 @@ defaults, the physics of ``odil_torch.models.wave``, the ``error_u`` column
 of the history, an early stop of the optimizer logged rather than raised,
 and the ``done`` file at the end.  Plots and their data dumps are not
 written yet (``plot.py`` is not ported); the ``frame`` column still
-advances.  The default optimizer is the JAX package's on-device ``lbfgs``,
-which is not ported yet; pass ``--optimizer lbfgsb`` or ``adam``.
+advances.  The default optimizer is the JAX package's on-device ``lbfgs``
+(``optim/lbfgs.py``); ``--optimizer lbfgsb`` takes scipy's L-BFGS-B on the
+host.
 
-    python -m odil_torch.examples.wave --optimizer lbfgsb --epochs 200 --history_every 20
+    python -m odil_torch.examples.wave --epochs 200 --history_every 20
     python -m odil_torch.examples.wave --Nt 32 --Nx 32 --optimizer lbfgsb --epochs 20 --device cpu
 """
 

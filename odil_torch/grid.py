@@ -20,7 +20,20 @@ from .fields import Array, Field, MultigridField, NeuralNet, State, field_arrays
 from .nn import eval_neural_net, make_neural_net
 from .transfer import interp_to_finer
 
-__all__ = ["Domain"]
+__all__ = ["Domain", "latin_hypercube"]
+
+
+def latin_hypercube(ndim, size, dtype):
+    """Latin-hypercube sample of `size` points from the unit cube, drawn
+    from numpy's global RNG exactly as ``odil_tpu/grid.py:41`` draws them
+    (``setup_outdir`` seeds it), as a numpy array of shape (size, ndim)."""
+    edges = np.linspace(0, 1, size + 1, dtype=dtype)
+    jitter = np.random.rand(size, ndim).astype(dtype)
+    pts = edges[:size, None] + jitter * (edges[1:, None] - edges[:size, None])
+    out = np.empty_like(pts)
+    for j in range(ndim):
+        out[:, j] = pts[np.random.permutation(size), j]
+    return out
 
 
 class Domain:
@@ -179,6 +192,27 @@ class Domain:
         idims = self._dim_indices(dims, self.dimnames)
         res = tuple(self.step_by_dim(i) for i in idims)
         return res[0] if len(dims) == 1 else res
+
+    # -- Random sampling (PINN collocation) --------------------------------
+
+    def random_inner(self, size):
+        """`size` points inside the domain, one numpy array per axis."""
+        pts = latin_hypercube(self.ndim, size, dtype=self.dtype).T
+        for i in range(self.ndim):
+            pts[i] = self.lower[i] + (self.upper[i] - self.lower[i]) * pts[i]
+        return [p for p in pts]
+
+    def random_boundary(self, normal, side, size):
+        """`size` points on the face with the given normal axis and side (0
+        lower, 1 upper), one numpy array per axis."""
+        assert normal < self.ndim
+        assert side in (0, 1)
+        pts = latin_hypercube(self.ndim - 1, size, dtype=self.dtype).T
+        face = np.ones(size, dtype=self.dtype) * side
+        pts = np.vstack((pts[:normal], face, pts[normal:]))
+        for i in range(self.ndim):
+            pts[i] = self.lower[i] + (self.upper[i] - self.lower[i]) * pts[i]
+        return [p for p in pts]
 
     # -- Multigrid decomposition -------------------------------------------
 

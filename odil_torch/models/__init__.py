@@ -1,6 +1,8 @@
 """Model operators of the port: the flagship velocity_from_tracer, heat
-inverse conductivity (the ODIL solver) and wave data assimilation."""
+(inverse conductivity by the ODIL and PINN solvers, and tmax inference),
+wave data assimilation, Poisson source inversion and advection-diffusion
+coefficient inference."""
 
-from . import heat, veltracer, wave
+from . import advection, heat, poisson, veltracer, wave
 
-__all__ = ["heat", "veltracer", "wave"]
+__all__ = ["advection", "heat", "poisson", "veltracer", "wave"]

@@ -1,22 +1,29 @@
-"""Heat conduction, inverse conductivity: infer k(u) as a neural network
-from sparse temperature measurements (the ODIL solver).
+"""Heat-conduction model family.
 
-PyTorch counterpart of the ODIL parts of ``odil_tpu/models/heat.py:38-381``:
-finite-volume discretization with a frozen-field flux linearization,
-imposed measurements with weight rescaling and annealed regularizers
-driven by the epoch tracer.  Two operators:
+PyTorch counterpart of ``odil_tpu/models/heat.py``:
 
-- ``operator_odil(ctx)``: the plain path through ``ctx.field`` stencils and
-  ``ctx.neural_net``;
-- ``operator_odil_fused(ctx)``: the same residuals through the row-wise
-  kernels (``ctx.rowwise_terms``, ops/rowwise.py), the conductivity net's
-  weights as differentiated kernel params, the measurements as per-row
-  data and the annealed weights as (1, 1) const planes.
+1. Inverse conductivity: infer k(u) as a neural network from sparse
+   temperature measurements.  Finite-volume discretization with a
+   frozen-field flux linearization, imposed measurements with weight
+   rescaling and annealed regularizers driven by the epoch tracer.  Three
+   operators:
 
-The fused row function has a hand adjoint (``_make_row_vjp``, through the
-network for the param cotangents), which the JAX package does not have:
-its kernel differentiates the row function with ``jax.vjp``.  The PINN
-solver and ``tmax`` inference are not ported.
+   - ``operator_odil(ctx)``: the plain path through ``ctx.field`` stencils
+     and ``ctx.neural_net``;
+   - ``operator_odil_fused(ctx)``: the same residuals through the row-wise
+     kernels (``ctx.rowwise_terms``, ops/rowwise.py), the conductivity
+     net's weights as differentiated kernel params, the measurements as
+     per-row data and the annealed weights as (1, 1) const planes;
+   - ``operator_pinn(ctx)``: the PINN solver, the temperature a network of
+     (t, x) differentiated at collocation points by forward mode
+     (``torch.func.jvp``, nested for the flux), the loss then by reverse
+     mode with respect to the nets' weights.
+
+   The fused row function has a hand adjoint (``_make_row_vjp``, through
+   the network for the param cotangents), which the JAX package does not
+   have: its kernel differentiates the row function with ``jax.vjp``.
+2. ``tmax`` inference: recover the final time of a diffusion run from one
+   measured value; the scalar unknown rescales dt inside the operator.
 """
 
 import argparse
@@ -24,8 +31,9 @@ import argparse
 import numpy as np
 import torch
 
-from ..fields import State
+from ..fields import Array, Field, State
 from ..grid import Domain
+from ..nn import eval_neural_net
 from ..ops.rowwise import _HEAT_LAYERS, RowModel
 from ..problem import Problem
 from ..stencil import extrap_linear, extrap_quadh
@@ -37,8 +45,15 @@ __all__ = [
     "squash_k",
     "operator_odil",
     "operator_odil_fused",
+    "operator_pinn",
+    "pinn_collocation",
     "pick_imposed",
     "build",
+    "exact_u_tmax",
+    "clamp_initial_row",
+    "operator_tmax",
+    "build_tmax",
+    "eval_u_net",
 ]
 
 
@@ -406,6 +421,83 @@ def operator_odil_fused(ctx):
     return res
 
 
+def operator_pinn(ctx):
+    """PINN variant: the temperature is a neural network of (t, x);
+    derivatives at collocation points by forward mode (``torch.func.jvp``,
+    one nested inside the flux's function as ``jax.jvp`` is in
+    ``odil_tpu/models/heat.py:281-291``).  The nets' weights are captured by
+    closure, so reverse mode of the loss reaches them."""
+    extra = ctx.extra
+    mod = ctx.mod
+    args = extra.args
+    jvp = torch.func.jvp
+
+    u_of = ctx.neural_net("u_net")
+    if args.infer_k:
+        k_net = ctx.neural_net("k_net")
+
+        def k_of(u):
+            return squash_k(k_net(u)[0], mod, args.kmax)
+
+    else:
+
+        def k_of(u):
+            return true_conductivity(u, mod=mod)
+
+    t_in = mod.cast(extra.t_inner, ctx.dtype)
+    x_in = mod.cast(extra.x_inner, ctx.dtype)
+
+    u_t = jvp(lambda t: u_of(t, x_in)[0], (t_in,), (mod.ones_like(t_in),))[1]
+
+    def flux(x):
+        u, u_x = jvp(lambda xx: u_of(t_in, xx)[0], (x,), (mod.ones_like(x),))
+        return k_of(u) * u_x
+
+    q_x = jvp(flux, (x_in,), (mod.ones_like(x_in),))[1]
+
+    res = [("eqn", u_t - q_x)]
+
+    u_bound = u_of(mod.cast(extra.t_bound, ctx.dtype), mod.cast(extra.x_bound, ctx.dtype))[0]
+    res += [("bound", u_bound - extra.u_bound)]
+
+    if args.keep_init:
+        u_init = u_of(mod.cast(extra.t_init, ctx.dtype), mod.cast(extra.x_init, ctx.dtype))[0]
+        res += [("init", u_init - extra.u_init)]
+
+    if extra.imp_size:
+        imp_t, imp_x = mod.cast(extra.imp_points, ctx.dtype).T
+        u_imp_net = u_of(imp_t, imp_x)[0]
+        index = torch.as_tensor(extra.imp_indices, device=ctx.domain.device)
+        u_imp = mod.flatten(mod.cast(extra.imp_u, ctx.dtype))[index]
+        res += [("imp", (u_imp_net - u_imp) * args.kimp)]
+
+    return res
+
+
+def pinn_collocation(domain, args, extra):
+    """Fills `extra` with the PINN's collocation points as the JAX example
+    draws them (``examples/heat/heat.py``: the inner points, the x = 0 and
+    x = 1 boundaries, then the initial row, from numpy's global RNG), the
+    exact temperatures there and the measurements' points and flat indices,
+    each a tensor on the domain's device (so the operator copies nothing to
+    the card an epoch).  Returns the numbers of inner, initial and boundary
+    points."""
+    mod = domain.mod
+    t_inner, x_inner = domain.random_inner(args.Nci)
+    tb0, xb0 = domain.random_boundary(1, 0, args.Ncb)
+    tb1, xb1 = domain.random_boundary(1, 1, args.Ncb)
+    t_bound, x_bound = np.hstack((tb0, tb1)), np.hstack((xb0, xb1))
+    t_init, x_init = domain.random_boundary(0, 0, args.Ncb)
+    for name, value in (("t_inner", t_inner), ("x_inner", x_inner), ("t_bound", t_bound), ("x_bound", x_bound),
+                        ("t_init", t_init), ("x_init", x_init)):
+        setattr(extra, name, domain.cast(value))
+    extra.u_init = initial_temperature(extra.t_init, extra.x_init, mod)
+    extra.u_bound = initial_temperature(extra.t_bound, extra.x_bound, mod)
+    extra.imp_points = domain.cast(extra.imp_points)
+    extra.imp_indices = torch.as_tensor(np.asarray(extra.imp_indices, dtype=np.int64), device=domain.device)
+    return len(t_inner), len(t_init), len(t_bound)
+
+
 def pick_imposed(domain, args):
     """Chooses imposed-measurement cells; returns (mask, points, flat
     indices) as numpy arrays.  The band test runs on the domain's points in
@@ -436,13 +528,15 @@ def pick_imposed(domain, args):
 
 def build(nt=64, nx=64, infer_k=False, imposed="none", nimp=200, noise=0.0, seed=1000, kimp=2.0, kxreg=0.0,
           ktreg=0.0, kwreg=0.0, kmax=0.1, arch_k=(5, 5), dtype=np.float32, multigrid=True, kernel="xla",
-          device="cuda", args=None):
+          device="cuda", ref_u=None, args=None):
     """Builds the (inverse-)conductivity problem with a synthetic reference:
     (problem, state, extra).  The conductivity net's initial weights come
     from ``torch.Generator().manual_seed(seed)``.
 
     kernel: "pallas" (the row-wise kernels) or "xla" (the plain operator);
-    the names are the JAX package's."""
+    the names are the JAX package's.  ref_u: the reference temperature on
+    the grid (numpy; the measurements are taken from it), by default the
+    initial temperature's bump at every time."""
     if kernel not in ("pallas", "xla"):
         raise ValueError(f"kernel={kernel!r}: heat has 'pallas' and 'xla'")
     if args is None:
@@ -456,7 +550,7 @@ def build(nt=64, nx=64, infer_k=False, imposed="none", nimp=200, noise=0.0, seed
     tt, xx = domain.points()
     x1 = domain.points_1d("x")
     init_u = initial_temperature(x1 * 0, mod.cast(x1, dtype), mod)
-    ref_u = initial_temperature(tt, xx, mod)
+    ref_u = initial_temperature(tt, xx, mod) if ref_u is None else domain.cast(ref_u)
 
     imp_u = ref_u.cpu().numpy().copy()
     if args.noise:
@@ -484,3 +578,93 @@ def build(nt=64, nx=64, infer_k=False, imposed="none", nimp=200, noise=0.0, seed
     state = domain.init_state(state)
     op = operator_odil_fused if kernel == "pallas" else operator_odil
     return Problem(op, domain, extra), state, extra
+
+
+# -- tmax inference ---------------------------------------------------------
+
+
+def exact_u_tmax(t, x, tmax_ref):
+    """Solution of u_t = u_xx on [0, pi]: sin(x) exp(-t), time scaled (numpy)."""
+    return np.sin(np.asarray(x)) * np.exp(-np.asarray(t) * tmax_ref)
+
+
+def clamp_initial_row(u, extra, mod):
+    """Replaces the first time row with the exact initial condition."""
+    return mod.concatenate([extra.u_init[None, :], u[1:]], axis=0)
+
+
+def operator_tmax(ctx):
+    mod = ctx.mod
+    dt, dx = ctx.step("t", "x")
+    it, ix = ctx.indices("t", "x", loc="nc")
+    nt, nx = ctx.size("t", "x")
+    coeff = ctx.field("coeff")
+    extra = ctx.extra
+    args = extra.args
+
+    offsets = [(0, 0), (0, -1), (0, 1), (-1, 0), (-1, -1), (-1, 1)]
+
+    def sample(offset):
+        # Shift, clamp the initial row in the unshifted frame, shift back:
+        # ctx.field stays the only source of the stencil's samples.
+        raw = ctx.field("u", *offset)
+        unshifted = mod.roll(raw, offset, (0, 1))
+        clamped = clamp_initial_row(unshifted, extra, mod)
+        return mod.roll(clamped, [-s for s in offset], (0, 1))
+
+    u, uxm, uxp, um, umxm, umxp = [sample(o) for o in offsets]
+
+    # Zero Dirichlet via odd reflection at both walls.
+    uxm = mod.where(ix == 0, -u, uxm)
+    uxp = mod.where(ix == nx - 1, -u, uxp)
+    umxm = mod.where(ix == 0, -um, umxm)
+    umxp = mod.where(ix == nx - 1, -um, umxp)
+
+    dt = dt * coeff[0]  # The inferred tmax stretches the time axis.
+
+    u_t = (u - um) / dt
+    lap_prev = (umxm - 2 * um + umxp) / dx**2
+    lap_here = (uxm - 2 * u + uxp) / dx**2
+    fu = u_t - 0.5 * (lap_here + lap_prev)
+    fu = mod.where(it == 0, ctx.cast(0), fu)
+    res = [("eqn", fu)]
+
+    # One measured value at the center of the final row.
+    ixc = nx // 2
+    res += [("imp", args.kimp * (u[-1, ixc] - extra.u_final[ixc]))]
+    return res
+
+
+def build_tmax(nt=64, nx=64, tmax_ref=4.5, tmax_init=1.0, kimp=1.0, dtype=np.float64, multigrid=True,
+               mg_interp=None, mg_nlvl=None, device="cuda", args=None):
+    """Builds the tmax-inference problem: (problem, state, extra)."""
+    if args is None:
+        args = argparse.Namespace(kimp=kimp, tmax_ref=tmax_ref, tmax_init=tmax_init)
+    domain = Domain(
+        cshape=(nt, nx),
+        dimnames=("t", "x"),
+        lower=(0, 0),
+        upper=(1, np.pi),
+        dtype=dtype,
+        multigrid=multigrid,
+        mg_interp=mg_interp,
+        mg_nlvl=mg_nlvl,
+        device=device,
+    )
+    tt, xx = (p.cpu().numpy() for p in domain.points(loc="nc"))
+    xone = domain.points_1d("x", loc="c").cpu().numpy()
+    ref_u = exact_u_tmax(tt, xx, args.tmax_ref)
+    u_init = exact_u_tmax(np.full_like(xone, domain.lower[0]), xone, args.tmax_ref)
+    u_final = exact_u_tmax(np.full_like(xone, domain.upper[0]), xone, args.tmax_ref)
+
+    state = domain.init_state(
+        State(fields={"u": Field(np.tile(u_init, [nt + 1, 1]), loc="nc"), "coeff": Array([args.tmax_init])})
+    )
+    extra = argparse.Namespace(ref_u=ref_u, u_init=domain.cast(u_init), u_final=domain.cast(u_final), args=args)
+    return Problem(operator_tmax, domain, extra), state, extra
+
+
+def eval_u_net(domain, state):
+    """The PINN temperature net evaluated at the cell centers."""
+    tt, xx = domain.points()
+    return eval_neural_net(state.fields["u_net"], [tt, xx])[0]

@@ -145,17 +145,20 @@ def plan_chunks(epoch_start, epochs, task_epochs, max_chunk=512):
 def make_optimizer(name, dtype=None, mod=None, **kwargs):
     from .adam import AdamOptimizer
     from .gd import GdOptimizer
+    from .lbfgs import LbfgsOptimizer
     from .lbfgsb import LbfgsbOptimizer
 
     if name == "lbfgsb":
         return LbfgsbOptimizer(dtype=dtype, mod=mod, **kwargs)
     if name == "lbfgs":
-        raise NotImplementedError(
-            "optimizer 'lbfgs' (the JAX package's on-device L-BFGS with a zoom line search, "
-            "odil_tpu/optim/lbfgs.py) is not ported yet: ROADMAP.md section 1, item 2; use 'lbfgsb' or 'adam'"
-        )
+        return LbfgsOptimizer(dtype=dtype, mod=mod, **kwargs)
     if name in ("adam", "adamn", "adam_tf"):
         return AdamOptimizer(dtype=dtype, mod=mod, **kwargs)
     if name == "gd":
         return GdOptimizer(dtype=dtype, mod=mod, **kwargs)
+    if name in ("newton", "gn", "newton_mf"):
+        raise NotImplementedError(
+            f"optimizer {name!r} (Newton / Gauss-Newton with the linear solvers) is not ported yet: "
+            "ROADMAP.md section 1, item 5"
+        )
     raise ValueError(f"Unknown optimizer '{name}'")

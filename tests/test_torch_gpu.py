@@ -1099,3 +1099,30 @@ def test_plain_on_card_route_matches_cpu_route(cuda, which):
             _close(a, b, 1e-5, 0.0)
         for a, b in zip(ggrads, cgrads):
             _close(a, b, 1e-4, 1e-6)
+
+
+def test_lbfgs_state_lives_on_the_card(cuda):
+    """make_optimizer("lbfgs") keeps its iterate and its memory (the (s, y)
+    ring and rho) on the card, and takes the CPU run's iterates (fp64, a
+    quadratic, 10 iterations in chunks of 5) within rtol 1e-10."""
+    from odil_torch.optim import make_optimizer
+
+    rng = np.random.default_rng(0)
+    a = rng.normal(size=(8, 8))
+    a, b = a @ a.T + 0.5 * np.eye(8), rng.normal(size=8)
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        a_, b_ = torch.tensor(a, device=dev), torch.tensor(b, device=dev)
+
+        def fn(arrays, tracers, a_=a_, b_=b_):
+            x = arrays[0]
+            loss = 0.5 * torch.dot(x, a_ @ x) - torch.dot(b_, x)
+            return loss, ([loss], [loss])
+
+        opt = make_optimizer("lbfgs", dtype=np.float64)
+        opt.bind(fn, tracers={"epoch": 0}, task_epochs=[5, 10], names=["q"])
+        x, info = opt.run([torch.zeros(8, dtype=torch.float64, device=dev)], epochs=10)
+        assert info.evals == 10 and x[0].device.type == dev.type
+        assert {t.device.type for t in (opt.x, opt.memory.s, opt.memory.y, opt.memory.rho)} == {dev.type}
+        out[dev.type] = x[0].cpu().numpy()
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-10)

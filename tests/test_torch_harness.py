@@ -360,8 +360,15 @@ def test_emit_matches_the_jax_package(nsteps, tasks, last_only):
             np.testing.assert_array_equal(pb[k], pa[k])
 
 
-@pytest.mark.parametrize("what", ["newton", "gn", "newton_mf", "lbfgs", "orbax"])
+@pytest.mark.parametrize("what", ["newton", "gn", "newton_mf", "poisson_mesh", "orbax"])
 def test_unported_parts_raise(what, outdir):
+    if what == "poisson_mesh":  # the JAX package's GSPMD route
+        from odil_torch.examples import poisson
+
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            poisson.main(["--N", "8", "--epochs", "2", "--mesh", "t:2", "--device", "cpu", "--outdir",
+                          str(outdir / what)])
+        return
     args = _vt_args(epochs=2, history_every=1)
     if what == "orbax":
         args.checkpoint_format = "orbax"

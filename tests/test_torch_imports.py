@@ -46,6 +46,14 @@ def test_port_sources_found():
         "odil_torch/optim/lbfgsb.py",
         "odil_torch/examples/veltracer.py",
         "odil_torch/examples/wave.py",
+        "odil_torch/optim/lbfgs.py",
+        "odil_torch/models/poisson.py",
+        "odil_torch/models/advection.py",
+        "odil_torch/examples/poisson.py",
+        "odil_torch/examples/heat.py",
+        "odil_torch/examples/heat_tmax.py",
+        "odil_torch/examples/infer_constant.py",
+        "odil_torch/examples/fields.py",
     } <= names
 
 
@@ -57,6 +65,10 @@ def test_port_sources_found():
         "odil_torch.parallel", "odil_torch.halo",
         # The package itself (util, history, io, cache, checkpoint, linsolver, optim) and the CLIs.
         "odil_torch", "odil_torch.examples.veltracer", "odil_torch.examples.wave",
+        # The optimizer, models and CLIs of the last slice.
+        "odil_torch.optim.lbfgs", "odil_torch.models.poisson", "odil_torch.models.advection",
+        "odil_torch.examples.poisson", "odil_torch.examples.heat", "odil_torch.examples.heat_tmax",
+        "odil_torch.examples.infer_constant", "odil_torch.examples.fields",
     ],
 )
 def test_new_modules_import_without_jax(name):
