@@ -137,6 +137,39 @@ Phases, any failure exits non-zero and prints no result:
       Each prints its ms/epoch (its train.log) and wall time, the L-BFGS runs
       their loss+grad evaluations and host syncs an iteration, and the
       device of the L-BFGS iterate and memory (which must be the card's).
+   o. Newton and Gauss-Newton: the run scripts' cases (examples/*/run) as
+      CLIs, run as in m., against the JAX package's rows in
+      ``odil_torch/data/newton_rows.json`` (written on the CPU by
+      ``python tests/test_torch_newton_cli.py --write-rows``); no kernel
+      on their path.  poisson n and gn (64^2, ``--ref osc --rhs exact
+      --multigrid 0``, 3 epochs, fp64) and wave n (``--multigrid 0``) and
+      gn (64^2, 5 epochs, fp64): every row within rtol 1e-7, or (gn, whose
+      100 CG iterations magnify roundoff in the JAX package too) twice the
+      JAX package's own spread under three one-ulp changes of its CG
+      operator (stored with the rows), or both below 1e-12 of epoch 0's
+      loss (1e-6 of its norms); wave gn again with ``--linsolver_maxiter
+      3``, every row within rtol 1e-7; poisson gn again with ``--linsolver
+      multigrid`` (BPX) and ``vcycle``, the final loss below plain CG's.
+      heat case 0 (256^2,
+      ``newton --multigrid 0``, 50 epochs, fp32, ``--checkpoint_every
+      50``): each row within twice the JAX package's fp32-to-fp64 spread up
+      to its epoch (at least 1e-6).  heat case 2n (64^2, ``--infer_k 1
+      --imposed stripe --kwreg 1``, cut to 5 epochs, fp32) from the JAX package's
+      initial net with ``--ref_path`` at case 0's checkpoint: epoch 0 within
+      1e-5; the JAX package's normal matrix is exactly singular at its first
+      solve and its rows are NaN from epoch 2, and the port's must be NaN
+      at the same epochs.  veltracer gn (64^3, ``--linsolver_maxiter 10``,
+      10 epochs; multigrid fields, so the Jacobi-preconditioned CG with the
+      port's own probes): fp32, epoch 0 within 1e-5 and the rows printed
+      beside the JAX package's, not gated (a zero Hutchinson entry's
+      inverse, 1e30, overflows fp32 in the CG: a zero step or NaN by the
+      probes, in either package); with ``--double 1``, epoch 0 within 1e-5
+      and the last loss within the band of the JAX package's three seeds
+      (1000, 1, 2).  Each prints its ms/epoch and wall
+      time, a Newton epoch's split (the linearization's gradients on the
+      card with their copy to the host, the assembly and the solve on the
+      host, the update), a Gauss-Newton epoch's normal matvecs, CG
+      iterations and host syncs, and the device of the iterate.
    The streaming kernels (veltracer at (65,256,256) and (65,64,64), heat and
    wave at 64^2 and 1024^2; on the card the slabbed launch, counted apart)
    and the two-level kernel (t0 (65,256,256), t1 (33,128,128), P2
@@ -522,12 +555,12 @@ def expect_counts(counts, want, what):
         fail(f"{what}: the launch counters read {counts}, expected {want}")
 
 
-def run_cli(torch, counters, name, argv):
+def run_cli(torch, counters, name, argv, keep=None):
     """Runs ``odil_torch.examples.<name>.main(argv)`` in a new directory
     under build/ with the launch counters zeroed just before it and read just
     after: (train.csv rows, train.log lines, counts, what main returned, wall
     seconds).  The working directory and the log sink are restored, and the
-    directory removed."""
+    directory removed (after ``keep(directory)``, when given)."""
     import importlib
     import shutil
     import tempfile
@@ -555,6 +588,8 @@ def run_cli(torch, counters, name, argv):
             rows = list(csv.DictReader(fh))
         with open(os.path.join(out, "train.log")) as fh:
             log = fh.read().splitlines()
+        if keep is not None:
+            keep(out)
     finally:
         shutil.rmtree(out)
     return rows, log, counts, result, seconds
@@ -759,6 +794,194 @@ def cli_phase(torch, counters, heat_ref, heat_losses, heat_ms, tag, extra_argv=(
     if not (last == last and abs(last) != float("inf") and last < first and rows[-1]["epoch"] == "200"):
         fail(f"heat CLI --solver pinn: loss {first} -> {last} at epoch {rows[-1]['epoch']}")
     return launches
+
+
+NEWTON_DATA = os.path.join(HERE, "odil_torch", "data", "newton_rows.json")
+# The columns of train.csv that carry no number of the run.
+NOT_VALUES = ("epoch", "frame", "walltime", "memory", "gpu_used", "gpu_pool")
+
+
+def value_rows(rows, columns):
+    """[epoch, *values] of each train.csv row, the values of `columns`."""
+    if [c for c in rows[0] if c not in NOT_VALUES] != columns:
+        fail(f"train.csv columns {list(rows[0])}, expected {columns}")
+    return [[int(float(r["epoch"]))] + [float(r[c]) for c in columns] for r in rows]
+
+
+def rows_gate(got, want, columns, what, tag, rtol, spread=None, floor=True, only=None):
+    """Every value within rtol of the JAX row's (`rtol` a number or a list by
+    row), or twice `spread` (the JAX package's own spread by row and column
+    when its CG operator changes by one ulp), or, with `floor`, both below
+    1e-12 of epoch 0's loss (1e-6 of its norms); `only` limits the gate to
+    those epochs.  Returns the largest relative distance; fails on any other
+    value."""
+    if [r[0] for r in got] != [r[0] for r in want]:
+        fail(f"{what}: rows at epochs {[r[0] for r in got]}, the JAX package's at {[r[0] for r in want]}")
+    floors = [1e-12 * abs(v) if c == "loss" else 1e-6 * abs(v) if c.startswith("norm_") else 0.0
+              for c, v in zip(columns, want[0][1:])] if floor else [0.0] * len(columns)
+    worst, bad = 0.0, []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if only is not None and a[0] not in only:
+            continue
+        r = rtol[i] if isinstance(rtol, list) else rtol
+        for j, (x, y) in enumerate(zip(a[1:], b[1:])):
+            if abs(x) < floors[j] and abs(y) < floors[j]:
+                continue
+            limit = max(r * abs(y), 2 * spread[i][j] if spread else 0.0)
+            if not abs(x - y) <= limit:
+                bad.append((a[0], columns[j], x, y, limit))
+            worst = max(worst, abs(x - y) / abs(y) if y else 0.0)
+    print(f"{what}: largest relative distance from the JAX package's rows {worst:.3e} {tag}")
+    if bad:
+        fail(f"{what}: rows off the JAX package's (epoch, column, card, JAX, limit): {bad[:6]}")
+    return worst
+
+
+def newton_phase(torch, counters, tag, extra_argv=()):
+    """Phase o: the run scripts' Newton and Gauss-Newton cases as CLIs
+    through ``util.optimize`` (no kernel on their path), each against the
+    JAX package's rows of ``odil_torch/data/newton_rows.json``.  Prints each
+    case's ms/epoch and wall time, a Newton epoch's split (the
+    linearization's gradients on the card with their copy to the host, the
+    assembly and the solve on the host, the update), a Gauss-Newton epoch's
+    normal matvecs, CG iterations and host syncs, and the device of the
+    iterate.  extra_argv goes to every CLI (a rehearsal on the CPU passes
+    --device)."""
+    import shutil
+
+    from odil_torch.examples import heat as heat_cli
+
+    with open(NEWTON_DATA) as fh:
+        data = json.load(fh)["cases"]
+    none = dict.fromkeys(counters.read(), 0)
+
+    def run(name, what, argv=(), keep=None, case=None):
+        case = case or data[name]
+        csv_rows, log, counts, (problem, state), seconds = run_cli(
+            torch, counters, case["module"], case["argv"] + list(argv) + list(extra_argv), keep=keep)
+        expect_counts(counts, none, what)
+        rows = value_rows(csv_rows, case["columns"])
+        stats = problem.solver_stats
+        devices = {str(a.device) for a in problem.domain.arrays_from_state(state)}
+        if {a.device.type for a in problem.domain.arrays_from_state(state)} != {problem.domain.device.type}:
+            fail(f"{what}: the iterate lies on {devices}, not on {problem.domain.device}")
+        n = stats["epochs"]
+        argv = case["argv"] + list(argv)
+        if n != int(argv[len(argv) - 1 - argv[::-1].index("--epochs") + 1]):
+            fail(f"{what}: {n} epochs run, {argv} asks for another number")
+        if "solve_s" in stats:
+            split = ", ".join(f"{k[:-2]} {stats[k] / n * 1e3:.2f}" for k in ("gradients_s", "assembly_s", "solve_s",
+                                                                               "update_s"))
+            split = f"a Newton epoch in ms: {split} (gradients on the card with their copy to the host)"
+        else:
+            split = (f"a Gauss-Newton epoch: {stats['matvecs'] / n:.1f} normal matvecs, {stats['iterations'] / n:.1f} "
+                     f"CG iterations, {stats['syncs'] / n:.1f} CG host syncs")
+        print(f"{what}: {log_ms(log):.4f} ms/epoch (median walltime/epoch of its train.log reports after the first), "
+              f"{seconds:.2f} s wall; {split}; iterate on {devices.pop()} {tag}")
+        return rows
+
+    def jax_rows(name):
+        return data[name]["rows"]
+
+    # Newton, and wave gn with a CG budget of 3 (roundoff below 1e-12 on the
+    # CPU): rtol 1e-7.
+    for name, what in (("poisson_n", "poisson n CLI (64^2 fp64, Newton, direct)"),
+                       ("wave_n", "wave n CLI (64^2 fp64, Newton, direct)"),
+                       ("wave_gn_cg3", "wave gn CLI (64^2 fp64, multigrid fields, Gauss-Newton, 3 CG iterations)")):
+        rows_gate(run(name, what), jax_rows(name), data[name]["columns"], what, tag, 1e-7)
+    # The run scripts' budget of 100 CG iterations magnifies roundoff in the
+    # JAX package itself: rtol 1e-7 or twice its own spread.
+    gn_final = {}
+    for name, what in (("poisson_gn", "poisson gn CLI (64^2 fp64, Gauss-Newton, plain CG)"),
+                       ("wave_gn", "wave gn CLI (64^2 fp64, multigrid fields, Gauss-Newton, plain CG)")):
+        rows = run(name, what)
+        gn_final[name] = rows[-1][data[name]["columns"].index("loss") + 1]
+        rows_gate(rows, jax_rows(name), data[name]["columns"], what + " (rtol 1e-7 or twice the JAX package's own "
+                  "spread)", tag, 1e-7, spread=data[name]["jax_spread"])
+    # The multilevel preconditioners on the card (no case of the run scripts
+    # takes them): poisson gn with BPX and with the V-cycle, from the port's
+    # own probes; the loss at the end lower than plain CG's.
+    for linsolver in ("multigrid", "vcycle"):
+        what = f"poisson gn CLI (64^2 fp64, --linsolver {linsolver})"
+        rows = run("poisson_gn", what, ["--linsolver", linsolver])
+        final = rows[-1][data["poisson_gn"]["columns"].index("loss") + 1]
+        print(f"{what}: final loss {final!r} against plain CG's {gn_final['poisson_gn']!r} {tag}")
+        if not final < gn_final["poisson_gn"]:
+            fail(f"{what}: final loss {final} not below plain CG's {gn_final['poisson_gn']}")
+
+    # heat case 0 (fp32): each row within twice the JAX package's own
+    # fp32-to-fp64 spread up to its epoch (at least 1e-6).
+    h0 = data["heat0"]
+    spread, rel = 0.0, []
+    loss_col = h0["columns"].index("loss") + 1
+    for a, b in zip(h0["rows"], h0["rows_fp64"]):
+        spread = max(spread, abs(a[loss_col] - b[loss_col]) / abs(b[loss_col]))
+        rel.append(max(2 * spread, 1e-6))
+    build = os.path.join(HERE, "build")
+    ref_path = os.path.join(build, "chip_smoke_heat_ref.pickle")
+
+    def keep_checkpoint(out):
+        shutil.copy(os.path.join(out, "checkpoint_000050.pickle"), ref_path)
+
+    what = "heat case 0 CLI (256^2 fp32, Newton, direct, 50 epochs)"
+    rows = run("heat0", what, keep=keep_checkpoint)
+    rows_gate(rows, h0["rows"], h0["columns"], what + " (twice the JAX package's fp32-to-fp64 spread)", tag, rel)
+
+    # heat case 2n (5 epochs) from the JAX package's initial net, the
+    # reference from case 0's checkpoint: epoch 0 within 1e-5; the JAX
+    # package meets an exactly singular normal matrix at its first solve and
+    # is NaN from epoch 2, and so must the port be.
+    orig = heat_cli.make_problem
+    init = data["heat2n"]["init_net"]
+
+    def make_problem(args):
+        problem, state = orig(args)
+        dt = torch.float64 if args.double else torch.float32
+        net = state.fields["k_net"]
+        net.weights = [torch.tensor(w, dtype=dt, device=problem.domain.device) for w in init["weights"]]
+        net.biases = [torch.tensor(b, dtype=dt, device=problem.domain.device) for b in init["biases"]]
+        return problem, state
+
+    heat_cli.make_problem = make_problem
+    try:
+        what = "heat case 2n CLI (64^2 fp32, Newton, from the JAX package's initial net and case 0's checkpoint)"
+        rows = run("heat2n", what, ["--ref_path", ref_path])
+    finally:
+        heat_cli.make_problem = orig
+        os.remove(ref_path)
+    want = jax_rows("heat2n")
+    loss_col = data["heat2n"]["columns"].index("loss") + 1
+    rows_gate(rows, want, data["heat2n"]["columns"], what + ", epoch 0", tag, 1e-5, floor=False, only=(0,))
+    nan_got = [r[0] for r in rows if any(v != v for v in r[1:])]
+    nan_want = [r[0] for r in want if any(v != v for v in r[1:])]
+    print(f"heat case 2n: epoch 1 loss {rows[1][loss_col]!r} (JAX package {want[1][loss_col]!r}); NaN rows at "
+          f"epochs {nan_got[:3]}...{nan_got[-1:]} (JAX package {nan_want[:3]}...{nan_want[-1:]}) {tag}")
+    if nan_got != nan_want:
+        fail(f"heat case 2n: NaN rows at {nan_got}, the JAX package's at {nan_want}")
+
+    # veltracer gn, 64^3 (multigrid fields: the Jacobi-preconditioned CG,
+    # its probes the port's own): fp32, epoch 0 within 1e-5, the rows
+    # printed beside the JAX package's and not gated (a zero Hutchinson
+    # entry's inverse, 1e30, overflows fp32 in the CG's dot products: a zero
+    # step or NaN by the probes, in either package); fp64, epoch 0 within
+    # 1e-5 and the last row's loss within the band of three JAX seeds.
+    what = "veltracer gn CLI (64^3 fp32, Jacobi CG, 10 iterations)"
+    rows = run("vt_gn", what)
+    vcol = data["vt_gn"]["columns"].index("loss") + 1
+    rows_gate(rows, jax_rows("vt_gn"), data["vt_gn"]["columns"], what + ", epoch 0", tag, 1e-5, floor=False,
+              only=(0,))
+    print(f"{what}: loss by epoch {[r[vcol] for r in rows]} (JAX package, seed 1000: "
+          f"{[r[vcol] for r in jax_rows('vt_gn')]}) {tag}")
+    what = "veltracer gn CLI (64^3 fp64, Jacobi CG, 10 iterations)"
+    rows = run("vt_gn64", what)
+    rows_gate(rows, jax_rows("vt_gn64"), data["vt_gn64"]["columns"], what + ", epoch 0", tag, 1e-5, floor=False,
+              only=(0,))
+    finals = [seed_rows[-1][vcol] for seed_rows in data["vt_gn64"]["seeds"].values()]
+    band = (min(finals), max(finals))
+    print(f"{what}: loss by epoch {[r[vcol] for r in rows]}; last {rows[-1][vcol]!r}, the JAX package's three seeds "
+          f"{finals} (band {band}) {tag}")
+    if not band[0] <= rows[-1][vcol] <= band[1]:
+        fail(f"{what}: last loss {rows[-1][vcol]} outside {band}")
 
 
 def autograd_loss_grad_fn(torch, problem, state, halo=False):
@@ -1738,6 +1961,9 @@ def main():
     # row kernels' launches on the heat CLI's path join phase e's.
     for name, n in cli_phase(torch, counters, heat_ref, heat_losses, loops["heat 64"][1][0], tag).items():
         launches[name] += n
+
+    # o. Newton and Gauss-Newton: the run scripts' cases as CLIs.
+    newton_phase(torch, counters, tag)
 
     idle = [name for name in report if launches.get(name, 0) < 1]
     if idle:

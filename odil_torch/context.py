@@ -8,6 +8,18 @@ the staggered location by pad/trim, applies the periodic shift with
 ``ctx.rowwise_terms`` runs a row function over named fields through the
 row-wise kernels (``ops/rowwise.py``), eagerly or deferred for the one-pass
 loss+grad route of ``Problem.make_loss_grad_fn``.
+
+The two Newton modes of ``odil_tpu/context.py:37-77`` serve
+``Problem.eval_operator_grad``:
+
+- ``distinct_shift=True``: each (key, shift, loc) sample is resolved from a
+  detached source, so every sample is an independent leaf;
+- ``bindings``: a dict of descriptor -> tensor that replaces the samples
+  (and an ``Array``'s array, a NeuralNet's weights and biases), so the
+  operator can be differentiated with respect to them directly.
+
+``key_to_array_jac`` records the ``Array`` and NeuralNet unknowns that need
+a dense Jacobian block.
 """
 
 from .fields import Array, Field, MultigridField, NeuralNet
@@ -25,11 +37,13 @@ class Context:
         def __init__(self, value):
             self.value = value
 
-    def __init__(self, domain, state, extra=None, tracers=None):
+    def __init__(self, domain, state, extra=None, tracers=None, distinct_shift=False, bindings=None):
         self.domain = domain
         self.state = state
         self.extra = extra
         self.tracers = tracers
+        self.distinct_shift = distinct_shift
+        self.bindings = bindings
         self.dtype = domain.dtype
         self.mod = domain.mod
         # Filled by Problem when mg_partial=True: key -> (term0, factor0, P).
@@ -40,6 +54,8 @@ class Context:
         self.rowwise_defer = False
         self.rowwise_deferred = []
         self.desc_to_array = dict()
+        # Descriptors needing a dense Jacobian (Array and NeuralNet unknowns).
+        self.key_to_array_jac = dict()
         self.step = domain.step
         self.size = domain.size
         self.indices = domain.indices
@@ -52,6 +68,9 @@ class Context:
         mod = self.mod
         ndim = self.domain.ndim
         array = self.domain.get_regular_array(field)
+        if self.distinct_shift:
+            # Each shifted sample is an independent leaf: detach the source.
+            array = array.detach()
         # Cell field read at node location: prepend one zero layer.
         pad_width = [(1, 0) if (lf == "c" and l == "n") else (0, 0) for lf, l in zip(field.loc, loc)]
         if any(w != (0, 0) for w in pad_width):
@@ -70,7 +89,11 @@ class Context:
         if isinstance(field, Array):
             if len(shift):
                 raise RuntimeError("Array requires an empty shift")
-            return field.array.detach() if frozen else field.array
+            desc = (key, None, None)
+            bound = self.bindings is not None and desc in self.bindings
+            array = self.bindings[desc] if bound else field.array
+            self.key_to_array_jac[desc] = array
+            return array.detach() if frozen else array
         if not isinstance(field, (Field, MultigridField)):
             raise TypeError(f"Expected Field or MultigridField, got {type(field).__name__} for '{key}'")
         shift = tuple(shift) or (0,) * domain.ndim
@@ -78,6 +101,9 @@ class Context:
             raise RuntimeError(f"Expected {domain.ndim} shift components, got shift={shift}")
         loc = loc or field.loc
         desc = (key, shift, loc)
+        if self.bindings is not None and desc in self.bindings:
+            array = self.desc_to_array[desc] = self.bindings[desc]
+            return array.detach() if frozen else array
         array = self.desc_to_array.get(desc)
         if array is None:
             array = self._resolve_sample(field, shift, loc)
@@ -127,8 +153,17 @@ class Context:
 
     def neural_net(self, key, frozen=False):
         """The NeuralNet field `key` as a function of its inputs; ``frozen``
-        detaches its weights from autograd (``odil_tpu/context.py:234-255``)."""
-        net = self.state.fields[key]
-        if not isinstance(net, NeuralNet):
-            raise TypeError(f"Expected NeuralNet, got {type(net).__name__} for '{key}'")
+        detaches its weights from autograd (``odil_tpu/context.py:234-255``).
+        Under ``bindings`` the weights and biases are the bound list."""
+        field = self.state.fields[key]
+        if not isinstance(field, NeuralNet):
+            raise TypeError(f"Expected NeuralNet, got {type(field).__name__} for '{key}'")
+        desc = (key, None, None)
+        net = field
+        if self.bindings is not None and desc in self.bindings:
+            params = list(self.bindings[desc])
+            n = len(field.weights)
+            net = NeuralNet(params[:n], params[n:])
+        if self.distinct_shift or self.bindings is not None:
+            self.key_to_array_jac[desc] = list(net.weights) + list(net.biases)
         return lambda *inputs: eval_neural_net(net, inputs, frozen=frozen)

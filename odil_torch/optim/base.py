@@ -156,9 +156,5 @@ def make_optimizer(name, dtype=None, mod=None, **kwargs):
         return AdamOptimizer(dtype=dtype, mod=mod, **kwargs)
     if name == "gd":
         return GdOptimizer(dtype=dtype, mod=mod, **kwargs)
-    if name in ("newton", "gn", "newton_mf"):
-        raise NotImplementedError(
-            f"optimizer {name!r} (Newton / Gauss-Newton with the linear solvers) is not ported yet: "
-            "ROADMAP.md section 1, item 5"
-        )
+    # newton, gn and newton_mf are drivers of util.optimize, not registry entries.
     raise ValueError(f"Unknown optimizer '{name}'")

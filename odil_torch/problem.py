@@ -9,9 +9,15 @@ route (:427-569).  Where neither
 applies, ``make_loss_grad_fn`` returns None and the caller differentiates
 ``make_loss_fn`` with autograd, as ``bench.py:111`` does in JAX.  The
 training harness's evaluations: ``eval_loss_grad`` (:571, autograd of
-``loss_terms``), ``eval_operator`` (:603) and ``get_context`` (:829).
+``loss_terms``), ``eval_operator`` (:603) and ``get_context`` (:829).  For
+Newton: ``eval_operator_grad`` and ``linearize`` (:622-777, the sparse
+Jacobian assembled on the host) and ``residual_fn`` (:779, the residual map
+whose ``torch.func`` products the matrix-free Gauss-Newton solves with).
 """
 
+import functools
+import math
+import time
 from collections import defaultdict
 
 import numpy as np
@@ -443,6 +449,244 @@ class Problem:
             return (tv.sum(), (terms, list(torch.sqrt(torch.clamp(tv, min=0)).unbind()))), grads
 
         return loss_grad_fn
+
+    # -- Newton linearization (odil_tpu/problem.py:622-777) -----------------
+
+    def _discover_descriptors(self, state):
+        """Runs the operator once in distinct-shift mode: (names, grid
+        samples, parameter unknowns), the samples as {(key, shift, loc):
+        tensor} without the descriptors of MultigridFields (constants for
+        Newton), the parameters as {(key, None, None): tensor or list}."""
+        ctx = Context(self.domain, state, extra=self.extra, tracers=self.tracers, distinct_shift=True)
+        with torch.no_grad():
+            names, _ = self._run_operator(ctx)
+        grid = {d: a for d, a in ctx.desc_to_array.items() if isinstance(state.fields[d[0]], Field)}
+        return names, grid, dict(ctx.key_to_array_jac)
+
+    def eval_operator_grad(self, state):
+        """The residuals and their gradients with respect to the stencil
+        samples: (values, grads, names).  grads[i] maps each descriptor
+        (key, shift, loc) to the gradient of sum(values[i]) with respect to
+        that sample (None where the term does not read it), and (key, None,
+        None) to the dense Jacobian blocks of an Array or NeuralNet unknown
+        (value shape + parameter shape; a list for a NeuralNet).
+
+        The samples' gradients come from one ``torch.autograd.grad`` per
+        term over the replayed operator; the parameters' blocks from one
+        ``torch.func.jacfwd`` over all parameters (forward mode over the few
+        parameters, where the JAX package takes reverse mode over every
+        residual row)."""
+        if not state.initialized:
+            raise RuntimeError("Uninitialized state, use `state = domain.init_state(state)`")
+        self._capture_structure(state)
+        names, grid_seed, param_seed = self._discover_descriptors(state)
+
+        def replay(grid_bindings, param_bindings):
+            ctx = Context(self.domain, state, extra=self.extra, tracers=self.tracers, distinct_shift=True,
+                          bindings={**grid_bindings, **param_bindings})
+            _, values = self._run_operator(ctx)
+            for v in values:
+                assert not isinstance(v, Context.Raw), "Raw terms are not supported by Newton"
+            return values
+
+        def detached(p):
+            return [a.detach() for a in p] if isinstance(p, (list, tuple)) else p.detach()
+
+        descs = list(grid_seed)
+        leaves = [grid_seed[d].detach().requires_grad_(True) for d in descs]
+        params = {k: detached(p) for k, p in param_seed.items()}
+        with torch.enable_grad():
+            values = replay(dict(zip(descs, leaves)), params)
+            grads = []
+            for v in values:
+                g = [None] * len(leaves)
+                if v.requires_grad:
+                    g = torch.autograd.grad(v.sum(), leaves, retain_graph=True, allow_unused=True)
+                grads.append(dict(zip(descs, g)))
+        values = [v.detach() for v in values]
+        if params:
+            fixed = {d: a.detach() for d, a in grid_seed.items()}
+            keys = list(params)
+            counts = [len(p) if isinstance(p, list) else 1 for p in params.values()]
+            flat = [a for p in params.values() for a in (p if isinstance(p, list) else [p])]
+
+            def of_params(*flat):
+                bound, pos = {}, 0
+                for k, n in zip(keys, counts):
+                    part = list(flat[pos : pos + n])
+                    bound[k] = part if isinstance(params[k], list) else part[0]
+                    pos += n
+                return tuple(replay(fixed, bound))
+
+            jac = torch.func.jacfwd(of_params, argnums=tuple(range(len(flat))))(*flat)
+            for i in range(len(values)):
+                pos = 0
+                for k, n in zip(keys, counts):
+                    blocks = list(jac[i][pos : pos + n])
+                    grads[i][k] = blocks if isinstance(params[k], list) else blocks[0]
+                    pos += n
+        return values, grads, names
+
+    def linearize(self, state, modsp=None):
+        """(V0, M): the residual vector and the global sparse Jacobian of the
+        operator over the packed state vector,
+            operator(V) ~= M @ (V - V0) + operator(V0),
+        both on the host (numpy, scipy CSR in the domain's dtype).  The
+        gradients are computed on the domain's device and copied to the host
+        in one transfer; the assembly is ``odil_tpu/problem.py:688-777``'s."""
+        if not state.initialized:
+            raise RuntimeError("Uninitialized state, use `state = domain.init_state(state)`")
+        if modsp is None:
+            import scipy.sparse as modsp
+
+        domain = self.domain
+        t_start = time.perf_counter()
+        values, grads, names = self.eval_operator_grad(state)
+        values, grads = _to_host(values, grads)
+        t_host = time.perf_counter()
+
+        # Flat-vector offsets per unknown key, in pack order.
+        key_to_offset, key_to_size = dict(), dict()
+        offset = 0
+        for key, field in state.fields.items():
+            size = sum(math.prod(a.shape) for a in field_arrays(field))
+            key_to_offset[key] = offset
+            key_to_size[key] = size
+            offset += size
+        size_all = offset
+
+        def stencil_columns(key, shift, loc, field):
+            """Column indices of a shifted and relocated grid sample: the flat
+            index grid carried along the sample's pad, roll and trim; padded
+            entries get -1 (no unknown)."""
+            cols = key_to_offset[key] + np.arange(key_to_size[key]).reshape(tuple(field.array.shape))
+            pad_width = [(1, 0) if (lf == "c" and l == "n") else (0, 0) for lf, l in zip(field.loc, loc)]
+            if any(w != (0, 0) for w in pad_width):
+                cols = np.pad(cols, pad_width, mode="constant", constant_values=-1)
+            if any(shift):
+                cols = np.roll(cols, [-s for s in shift], range(domain.ndim))
+            trim = [slice(0, -1) if (lf == "n" and l == "c") else slice(None) for lf, l in zip(field.loc, loc)]
+            return cols[tuple(trim)]
+
+        matrices, vectors = [], []
+        for name, value, grad in zip(names, values, grads):
+            nrows = math.prod(value.shape)
+            mshape = (nrows, size_all)
+            matrix = modsp.csr_matrix(mshape, dtype=domain.dtype)
+            for desc, garray in grad.items():
+                key, shift, loc = desc
+                if garray is None:
+                    continue
+                field = state.fields[key]
+                if shift is None:
+                    # Array and NeuralNet unknowns: dense Jacobian blocks.
+                    blocks = garray if isinstance(garray, list) else [garray]
+                    dense = np.concatenate([b.reshape(nrows, -1) for b in blocks], axis=1)
+                    m = modsp.csr_matrix(dense)
+                    matrix = matrix + modsp.csr_matrix((m.data, m.indices + key_to_offset[key], m.indptr), shape=mshape)
+                    continue
+                if not isinstance(field, Field):
+                    raise TypeError(f"Expected Field, got {type(field).__name__} for '{key}'")
+                if not np.any(garray):
+                    continue
+                cols = stencil_columns(key, shift, loc, field)
+                if garray.shape == value.shape:
+                    rows = np.arange(nrows)
+                elif value.shape == ():
+                    rows = np.zeros(cols.size, dtype=int)
+                else:
+                    raise ValueError(
+                        f"Residual '{name}' shape {value.shape} incompatible with sample shape {garray.shape}; "
+                        "Newton requires pointwise terms"
+                    )
+                cols = cols.reshape(-1)
+                data = garray.reshape(-1)
+                valid = cols >= 0
+                m = modsp.csr_matrix((data[valid], (rows.reshape(-1)[valid], cols[valid])), shape=mshape,
+                                     dtype=domain.dtype)
+                matrix = matrix + m
+            matrices.append(matrix)
+            vectors.append(value.reshape(-1))
+        out = np.concatenate(vectors, axis=0), modsp.vstack(matrices).tocsr()
+        # Seconds of the last call: the gradients (on the device, with their
+        # copy to the host) and the assembly (on the host).
+        self.linearize_seconds = (t_host - t_start, time.perf_counter() - t_host)
+        return out
+
+    # -- Matrix-free products (Gauss-Newton) --------------------------------
+
+    def residual_fn(self, state, halo=False):
+        """(f, x0): f(packed) -> the concatenated residual vector as a
+        function of the packed unknowns, differentiable by ``torch.func``
+        (``jvp``, ``vjp``) and autograd; x0 the current packed state.
+        ``f.term_names`` and ``f.term_sizes`` give the terms' names and flat
+        sizes, found by one evaluation.
+
+        halo=True (the per-shard residual map, ``make_halo_residual_fn``,
+        ``odil_tpu/halo.py:1171``) is not ported: ROADMAP.md section 1,
+        item 4."""
+        if halo:
+            raise NotImplementedError(
+                "residual_fn(halo=True), the per-shard residual map of the JAX package's halo route "
+                "(make_halo_residual_fn), is not ported: ROADMAP.md section 1, item 4"
+            )
+        self._check_mesh(halo)
+        self._capture_structure(state)
+        domain = self.domain
+        arrays0 = domain.arrays_from_state(state)
+        shapes = [tuple(a.shape) for a in arrays0]
+        sizes = [math.prod(s) for s in shapes]
+
+        def f_values(x):
+            arrays = [p.reshape(s) for p, s in zip(torch.split(x, sizes), shapes)]
+            st = self._flatten_multigrid_batched(self.state_from_arrays(arrays))
+            ctx = Context(domain, st, extra=self.extra, tracers=self.tracers)
+            _, values = self._run_operator(ctx)
+            return [v.value if isinstance(v, Context.Raw) else v for v in values]
+
+        def f(x):
+            return torch.cat([v.reshape(-1) for v in f_values(x)])
+
+        x0 = torch.cat([a.detach().reshape(-1) for a in arrays0])
+        with torch.no_grad():
+            values = f_values(x0)
+        f.term_names = list(self._names)
+        f.term_sizes = [int(v.numel()) for v in values]
+        return f, x0
+
+
+_NUMPY_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def _to_host(values, grads):
+    """The residuals and gradient blocks of ``eval_operator_grad`` as numpy
+    arrays, copied from the device in one transfer of one flat buffer."""
+    tensors = list(values)
+    for g in grads:
+        for b in g.values():
+            if b is not None:
+                tensors += b if isinstance(b, list) else [b]
+    dtype = functools.reduce(torch.promote_types, [t.dtype for t in tensors])
+    flat = torch.cat([t.detach().reshape(-1).to(dtype) for t in tensors]).cpu().numpy()
+    parts, pos = [], 0
+    for t in tensors:
+        n = t.numel()
+        parts.append(flat[pos : pos + n].reshape(tuple(t.shape)).astype(_NUMPY_DTYPES[t.dtype]))
+        pos += n
+    it = iter(parts)
+    host_values = [next(it) for _ in values]
+    host_grads = []
+    for g in grads:
+        entry = {}
+        for d, b in g.items():
+            if b is None:
+                entry[d] = None
+            elif isinstance(b, list):
+                entry[d] = [next(it) for _ in b]
+            else:
+                entry[d] = next(it)
+        host_grads.append(entry)
+    return host_values, host_grads
 
 
 class _GraphedPrologue:

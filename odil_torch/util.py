@@ -8,9 +8,10 @@ card) and the schedule of "task epochs" (epochs where the callback has
 work), so stretches of epochs run with no host sync in between.  Tensors
 live on the device that ``--device`` names (default ``cuda``); the seeds
 go to ``np.random`` and to one ``torch.Generator`` that ``setup_outdir``
-returns.  Not ported yet: the Newton and Gauss-Newton optimizers
-(``newton``, ``gn``, ``newton_mf``) and the Orbax checkpoint format, which
-raise (ROADMAP.md).
+returns.  ``newton`` runs ``optimize_newton`` (the sparse Jacobian
+solved on the host) and ``gn``/``newton_mf`` the matrix-free Gauss-Newton
+of ``newton.py``.  Not ported yet: the Orbax checkpoint format, which
+raises (ROADMAP.md).
 """
 
 import argparse
@@ -28,8 +29,8 @@ from .optim import make_optimizer
 
 __all__ = [
     "Timer", "add_arguments", "assert_equal", "compute_task_epochs", "get_device_memory_usage_kb", "get_env_config",
-    "get_error", "get_memory_usage_kb", "make_callback", "optimize", "optimize_grad", "printlog", "set_log_file",
-    "setup_outdir",
+    "get_error", "get_memory_usage_kb", "make_callback", "optimize", "optimize_grad", "optimize_newton", "printlog",
+    "set_log_file", "setup_outdir",
 ]
 
 
@@ -310,12 +311,68 @@ def optimize_grad(args, optname, problem, state, callback=None, **kwargs):
     return arrays, optinfo
 
 
+def optimize_newton(args, problem, state, callback=None, **kwargs):
+    """Newton's method (``odil_tpu/util.py:297``): each epoch linearizes the
+    operator (``Problem.linearize``: gradients on the device, the sparse
+    Jacobian assembled on the host), solves for the update on the host in
+    float64 (``linsolver.solve`` with ``--linsolver``) and adds it to the
+    packed state there, in float64, before casting back to the domain's
+    dtype on its device.  See newton.py for the matrix-free Gauss-Newton.
+
+    Sets ``problem.solver_stats``: epochs and the seconds of the
+    linearization's gradients, the assembly, the solve and the update,
+    summed over the run."""
+    from .linsolver import solve
+
+    domain = problem.domain
+
+    def eval_pinfo(state):
+        loss, _, terms, names, norms = problem.eval_loss_grad(state)
+        return _pinfo_from(loss, terms, names, norms)
+
+    printlog("Running Newton optimizer")
+    pinfo = eval_pinfo(state)
+    if callback:
+        callback(state, args.epoch_start, pinfo)
+
+    stats = problem.solver_stats = dict.fromkeys(("epochs", "gradients_s", "assembly_s", "solve_s", "update_s"), 0)
+    evals = 0
+    for epoch in range(args.epoch_start, args.epochs):
+        vector, matrix = problem.linearize(state)
+        evals += 1
+        linstatus = dict()
+        t_start = time.perf_counter()
+        delta = solve(matrix, -vector, args, linstatus, args.linsolver)
+        t_solved = time.perf_counter()
+        if getattr(args, "linsolver_verbose", 0):
+            printlog(linstatus)
+        packed = domain.pack_state(state).detach().cpu().numpy()
+        domain.unpack_state(domain.mod.cast(packed + delta, domain.dtype), state)
+        if domain.device.type == "cuda":
+            torch.cuda.synchronize(domain.device)
+        stats["epochs"] += 1
+        stats["gradients_s"] += problem.linearize_seconds[0]
+        stats["assembly_s"] += problem.linearize_seconds[1]
+        stats["solve_s"] += t_solved - t_start
+        stats["update_s"] += time.perf_counter() - t_solved
+        if callback:
+            pinfo = eval_pinfo(state)
+            pinfo["linsolver"] = linstatus
+            callback(state, epoch + 1, pinfo)
+    arrays = domain.arrays_from_state(state)
+    return arrays, argparse.Namespace(epochs=args.epochs, evals=evals)
+
+
 def optimize(args, optname, problem, state, callback=None, **kwargs):
-    if optname in ("newton", "gn", "newton_mf"):
-        raise NotImplementedError(
-            f"optimizer {optname!r} (Newton / Gauss-Newton with the linear solvers) is not ported yet: "
-            "ROADMAP.md section 1, item 5"
-        )
+    """Runs the optimizer `optname`: ``newton`` (``optimize_newton``),
+    ``gn`` or ``newton_mf`` (``newton.optimize_gauss_newton``), else a
+    gradient-based optimizer of the registry (``optimize_grad``)."""
+    if optname == "newton":
+        return optimize_newton(args, problem, state, callback, **kwargs)
+    if optname in ("gn", "newton_mf"):
+        from .newton import optimize_gauss_newton
+
+        return optimize_gauss_newton(args, problem, state, callback, **kwargs)
     return optimize_grad(args, optname, problem, state, callback, **kwargs)
 
 

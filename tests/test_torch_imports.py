@@ -54,6 +54,9 @@ def test_port_sources_found():
         "odil_torch/examples/heat_tmax.py",
         "odil_torch/examples/infer_constant.py",
         "odil_torch/examples/fields.py",
+        "odil_torch/newton.py",
+        "odil_torch/amg.py",
+        "odil_torch/linsolver.py",
     } <= names
 
 
@@ -69,6 +72,8 @@ def test_port_sources_found():
         "odil_torch.optim.lbfgs", "odil_torch.models.poisson", "odil_torch.models.advection",
         "odil_torch.examples.poisson", "odil_torch.examples.heat", "odil_torch.examples.heat_tmax",
         "odil_torch.examples.infer_constant", "odil_torch.examples.fields",
+        # Newton and the linear solvers.
+        "odil_torch.newton", "odil_torch.amg", "odil_torch.linsolver",
     ],
 )
 def test_new_modules_import_without_jax(name):
