@@ -170,6 +170,46 @@ Phases, any failure exits non-zero and prints no result:
       card with their copy to the host, the assembly and the solve on the
       host, the update), a Gauss-Newton epoch's normal matvecs, CG
       iterations and host syncs, and the device of the iterate.
+   p. Heat and wave under ``--halo`` on the mesh t:4 of four shards of the
+      card, plot epochs, asynchronous checkpoints and ``compare.py``.  The
+      masked per-shard 1-D kernels (the halo layer of ``rows1d.cuh``:
+      forward, backward+sums, backward) on every shard of the 64^2 and
+      1024^2 grids of heat (e.'s configuration) and wave (fp32) at a seeded
+      random state, against the plain version of the wrapped model in fp64
+      (``close_floor``; the sums rtol 1e-5), and repeating their bits.  The
+      heat CLI (64^2, ``--kernel pallas --infer_k 1 --imposed stripe`` from
+      e.'s initial net, 1500 epochs) and the wave CLI (64^2, ``--kernel
+      pallas``, fp32, Adam lr 0.001, 200 epochs) unsharded and with
+      ``--mesh t:4 --halo 1``, each held to the band its phase holds: heat's
+      last rows within e.'s converged margins of the seed medians, and its
+      worst 100-epoch row against the unsharded CLI's within twice the
+      spread that roundoff alone opens there (e.'s hand loop with every
+      gradient entry one ulp up or down every epoch, three seeds: Adam
+      carries the roundoff of the shards' other order of summation into a
+      trajectory that parts by a few percent at some rows and meets
+      again); wave's every
+      20-epoch row within 1% of the unsharded CLI's (g.'s band); epoch 0
+      within 1e-5,
+      both the CLI's row (which
+      ``eval_loss_grad`` evaluates unsharded, as in the JAX package) and the
+      per-shard loss-only path at the CLI's initial state (four masked
+      forwards and sums-off backwards); four per-shard backward+sums an
+      epoch (counted apart) and no other kernel but the epoch-0
+      evaluation's; each CLI's ms/epoch.  The unsharded runs plot at three epochs with
+      ``--dump_data 1`` and a pickle checkpoint at the same epochs: each
+      ``data_*.pickle`` carries the JAX example's keys, its ``state_u`` is
+      the field of the checkpoint of its epoch to the bit, and whether the
+      figures were drawn (they need matplotlib) is printed.  Heat and wave
+      at 1024^2 on t:4, 50 epochs: epoch 0 within 1e-5 of f.'s and g.'s
+      plain operator; their loss-only paths.  The veltracer CLI of m. with
+      ``--checkpoint_format orbax --checkpoint_every 100``: its rows equal
+      to m.'s to the bit, a step directory every 100 epochs, the last step
+      restored into a fresh state equal to the run's final fields to the
+      bit with the Adam slots, two steps left by ``max_to_keep=2``, and its
+      ms/epoch beside m.'s (not gated).  ``odil_torch.examples.compare`` on
+      the card prints PASS.  The unmasked forms of ``rows1d_kernel`` keep
+      the SASS instruction counts and registers of the build before the
+      halo layer (``ROWS1D_PINNED``, checked right after the build).
    The streaming kernels (veltracer at (65,256,256) and (65,64,64), heat and
    wave at 64^2 and 1024^2; on the card the slabbed launch, counted apart)
    and the two-level kernel (t0 (65,256,256), t1 (33,128,128), P2
@@ -271,6 +311,31 @@ TURNS, TURN_EPOCHS = 8, 100
 # route's epochs and the 512^2 mg route's.
 HALO_SPEC, HALO_PART, HALO_SHARDS = "t:2,x:2", {"t": "t", "x": "x"}, 4
 HALO_LOSS_EPOCHS, HALO_EPOCHS_512 = 20, 40
+# Phase p: heat and wave on the mesh t:4 of four shards of the card (the CLIs
+# at 64^2 for phase e's and the wave cell's epochs, a history row every
+# HALO1D_EVERY; hand loops at 1024^2), and the veltracer CLI's asynchronous
+# checkpoints every CKPT_EVERY epochs.
+HALO1D_SPEC, HALO1D_PART, HALO1D_SHARDS = "t:4", {"t": "t"}, 4
+HALO1D_WAVE_EPOCHS, HALO1D_BIG_EPOCHS = 200, 50
+HALO1D_EVERY = {"heat": 100, "wave": 20}
+# The seeds of heat's unsharded loop with every gradient entry one ulp up
+# or down every epoch: the spread of these runs bounds the heat CLI under
+# --halo (twice the largest, since the worst row of three seeds varies by
+# nearly that factor).
+ROUNDOFF_SEEDS = (1, 2, 3)
+CKPT_EVERY = 100
+# The unmasked forms of rows1d_kernel as built before its halo layer (SASS
+# instructions by cuobjdump, registers by ptxas; measured on one NVIDIA H100
+# 80GB HBM3 for rowwise.cu before the layer): the layer leaves them as they were.
+ROWS1D_PINNED = {
+    ("HeatRow", 1): (5376, 128), ("HeatRow", 2): (5984, 128), ("HeatRow", 3): (6448, 128),
+    ("WaveRow", 1): (2744, 40), ("WaveRow", 2): (2456, 40), ("WaveRow", 3): (2904, 43),
+}
+# The data_*.pickle keys of the JAX examples' plot functions.
+PLOT_KEYS = {
+    "wave": ["cshape", "lower", "ref_u", "ref_ut", "state_u", "state_ut", "upper"],
+    "heat": ["imp_indices", "imp_points", "imp_u", "k", "ref_k", "ref_u", "ref_uk", "state_u"],
+}
 
 
 def fail(msg):
@@ -398,6 +463,27 @@ def profile_epochs(torch, opt, epoch_ms, tag, n=5):
         print(f"  {t / n:.4f} ms/epoch in {c / n:.0f} launches: {name[:100]}")
 
 
+def host_profile(torch, opt, tag, n=5):
+    """The host's operators by their own CPU time over `n` epochs of `opt`
+    (torch.profiler), and the card's busy time: where a host-bound epoch
+    goes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    opt.run_chunk(n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        opt.run_chunk(n)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n * 1e3
+    rows = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:10]
+    device = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
+    print(f"host profile: {wall:.4f} ms/epoch under the profiler, kernels {device:.4f} ms/epoch; by own CPU time "
+          f"per epoch: " + "; ".join(f"{e.key[:48]} {e.self_cpu_time_total / 1e3 / n:.3f} ms in {e.count // n}"
+                                     for e in rows) + f" {tag}")
+
+
 def short_name(name):
     """A kernel's demangled name without its namespace and argument list."""
     for junk in ("void ", "(anonymous namespace)::", "<unnamed>::", "(int)", "(bool)"):
@@ -494,6 +580,7 @@ class Counters:
             "backward_stream": rw.backward_stream_cuda, "forward_stream": rw.forward_stream_cuda,
             "backward_halo": rw.backward_halo_cuda, "forward_halo": rw.forward_halo_cuda,
             "backward_mg_local": rmg.backward_mg_local_cuda, "plain_on_card": rw.plain_on_card,
+            "backward_halo_rows1d": rw.backward_halo_rows1d_cuda, "forward_halo_rows1d": rw.forward_halo_rows1d_cuda,
         }
 
         # The mg backward's launches that also formed the sums, counted apart
@@ -606,8 +693,9 @@ def harness_phase(torch, counters, epochs, hand_losses, hand_ms, tag, extra_argv
     """Phase m: the veltracer CLI at the flagship size against
     ref_velt_256.csv and against phase a's hand loop (`hand_losses`, its
     `hand_ms` ms/epoch), then the wave CLI against ref_wave.csv's converged
-    margins.  Returns the launches of the mg kernels on the CLI's path.
-    extra_argv goes to both CLIs (a rehearsal on the CPU passes --device)."""
+    margins.  Returns the launches of the mg kernels on the CLI's path, the
+    veltracer CLI's train.csv rows and its ms/epoch.  extra_argv goes to
+    both CLIs (a rehearsal on the CPU passes --device)."""
     ref256 = read_ref("ref_velt_256.csv")
     none = dict.fromkeys(counters.read(), 0)
     cli_rows, cli_log, counts_vt, *_ = run_cli(torch, counters, "veltracer", [
@@ -658,8 +746,9 @@ def harness_phase(torch, counters, epochs, hand_losses, hand_ms, tag, extra_argv
           + f"; {log_ms(wave_log):.4f} ms/epoch {tag}")
     if rel0 > 1e-5 or any(ratio[c] > WAVE_MARGINS[c] for c in ratio):
         fail(f"wave CLI: epoch 0 rel {rel0:.2e} (limit 1e-5), ratios {ratio} (limits {WAVE_MARGINS})")
-    return {"backward_mg_sums": counts_vt["backward_mg_with_sums"], "forward_mg": counts_vt["forward_mg"],
-            "backward_mg": counts_vt["backward_mg"] - counts_vt["backward_mg_with_sums"]}
+    launches = {"backward_mg_sums": counts_vt["backward_mg_with_sums"], "forward_mg": counts_vt["forward_mg"],
+                "backward_mg": counts_vt["backward_mg"] - counts_vt["backward_mg_with_sums"]}
+    return launches, cli_rows, cli_ms
 
 
 def read_rows(name):
@@ -1090,11 +1179,392 @@ def heat_errors(torch, th, problem, extra, x):
     return err_u, err_k
 
 
+def rows1d_unchanged(builds, tag):
+    """The forms of rows1d_kernel without the halo layer against
+    ROWS1D_PINNED: their SASS instructions (where the toolkit has cuobjdump)
+    and registers, so that the layer is seen to leave them as they were."""
+    path, _, log = builds["rowwise"]
+    sass = sass_counts(path)
+    regs = ptxas_registers(log, "rows1d_kernel")
+    got = {}
+    for model, mode in ROWS1D_PINNED:
+        r = [v for k, v in regs.items() if f"{model}ELi{mode}ELb0E" in k]
+        got[(model, mode)] = (sass.get(f"rows1d::rows1d_kernel<rows1d::{model}, {mode}, 0>"), r[0] if len(r) == 1 else None)
+    print("rows1d_kernel without the halo layer, (SASS instructions, registers) against the build before the layer: "
+          + ", ".join(f"{m} mode {k} {got[(m, k)]} (pinned {w})" for (m, k), w in ROWS1D_PINNED.items())
+          + ("" if sass else " (no cuobjdump: registers only)") + f" {tag}")
+    bad = [key for key, want in ROWS1D_PINNED.items() if got[key][1] != want[1] or (sass and got[key][0] != want[0])]
+    if bad:
+        fail(f"the rows1d_kernel forms {bad} without the halo layer changed: {got}, pinned {ROWS1D_PINNED}")
+
+
+def shard_records(torch, np, th, tw, heat_ref, which, T, N, dev, seed=14):
+    """The recorded per-shard kernel calls (``halo._run_operators``) of heat
+    (the converged lane's configuration) or wave (fp32) at (T, N) on the mesh
+    t:4 of four shards of `dev`, at a seeded random state."""
+    from odil_torch import halo, parallel
+
+    mesh = parallel.mesh_from_spec(HALO1D_SPEC, devices=[dev] * HALO1D_SHARDS)
+    lane = heat_ref["config"]
+    if which == "heat":
+        p, s, _ = th.build(nt=T, nx=N, infer_k=True, imposed=lane["imposed"], nimp=lane["nimp"], seed=lane["seed"],
+                           kernel="pallas", device=dev, mesh=mesh, partition=HALO1D_PART)
+    else:
+        p, s, _ = tw.build(nt=T, nx=N, dtype=np.float32, kernel="pallas", device=dev, mesh=mesh, partition=HALO1D_PART)
+    rng = np.random.default_rng(seed)
+    arrays = [torch.as_tensor((0.3 * rng.normal(size=tuple(a.shape))).astype(np.float32), device=dev)
+              for a in p.domain.arrays_from_state(s)]
+    plan = halo._HaloPlan(p, s)
+    grid, params = halo._localize(p, plan, halo._mg_metas(p, s, plan), arrays)
+    results = halo._run_operators(p, plan, halo._extended(plan, grid), params, p.tracers)
+    return [r for ctx, _ in results for r in ctx.rowwise_deferred]
+
+
+def roundoff_spread(torch, th, heat_ref, dev, base, epochs):
+    """The spread that roundoff alone opens in heat's trajectory: e.'s hand
+    loop (unsharded, from its initial net) with every gradient entry moved
+    one ulp up or down (a coin of the seed's generator for each entry and
+    epoch) every epoch, the size of the change a sum in another order
+    makes.  The largest relative distance of its losses from the unsharded
+    CLI's rows `base` ({epoch: loss}, e.'s loop's to the bit) over
+    ROUNDOFF_SEEDS and the rows after epoch 0, and {seed: (that distance,
+    its epoch)}."""
+    from odil_torch.optim import Adam
+
+    lane = heat_ref["config"]
+    worst = {}
+    for seed in ROUNDOFF_SEEDS:
+        problem, state, _ = th.build(nt=lane["nt"], nx=lane["nx"], infer_k=True, imposed=lane["imposed"],
+                                     nimp=lane["nimp"], seed=lane["seed"], kernel="pallas", device=dev)
+        net = state.fields["k_net"]
+        net.weights = [torch.tensor(w, dtype=torch.float32, device=dev) for w in heat_ref["weights"]]
+        net.biases = [torch.tensor(b, dtype=torch.float32, device=dev) for b in heat_ref["biases"]]
+        grad_fn, gen = problem.make_loss_grad_fn(state), torch.Generator(device=dev).manual_seed(seed)
+
+        def moved(arrays, tracers, grad_fn=grad_fn, gen=gen):
+            out, grads = grad_fn(arrays, tracers)
+            return out, [torch.where(torch.rand(g.shape, generator=gen, device=g.device) < 0.5,
+                                     torch.nextafter(g, torch.full_like(g, float("inf"))),
+                                     torch.nextafter(g, torch.full_like(g, -float("inf")))) for g in grads]
+
+        _, losses, _ = train(torch, Adam, moved, problem.domain.arrays_from_state(state), epochs, lr=1e-3)
+        rel = {e: abs(losses[e - 1] - base[e]) / abs(base[e]) for e in base if e > 0}
+        e = max(rel, key=rel.get)
+        worst[seed] = (rel[e], e)
+    return max(r for r, _ in worst.values()), worst
+
+
+def halo1d_phase(torch, np, counters, heat_ref, vt_rows, vt_ms, vt_epochs, report, plain_big, tag, extra_argv=()):
+    """Phase p (the module docstring): the per-shard 1-D kernels against their
+    plain versions, heat and wave under --halo, the plot epochs, the
+    asynchronous checkpoints and compare.py.  `vt_rows`/`vt_ms`: phase m's
+    veltracer CLI rows and ms/epoch; `plain_big`: {which: the plain
+    operator's loss at 1024^2 on the initial state} of phases f and g.
+    Returns the launches of the per-shard 1-D kernels on their paths and
+    their timing cases at shard 1 of each size, {"<which>_<size>": (model,
+    nterms, hist, fields, params, data, consts)}."""
+    import contextlib
+    import io
+    import pickle
+
+    from odil_torch import parallel
+    from odil_torch.checkpoint import AsyncCheckpointer, checkpoint_load
+    from odil_torch.examples import compare
+    from odil_torch.examples import heat as heat_cli
+    from odil_torch.examples import veltracer as vt_cli
+    from odil_torch.examples import wave as wave_cli
+    from odil_torch.models import heat as th
+    from odil_torch.models import wave as tw
+    from odil_torch.ops import rowwise as rw
+    from odil_torch.optim import Adam
+
+    dev = torch.device(DEVICE)
+    none = dict.fromkeys(counters.read(), 0)
+    launches, cases = {}, {}
+    shards = HALO1D_SHARDS
+
+    # The per-shard kernels on every shard of the 64^2 and 1024^2 t:4 grids.
+    for which in ("heat", "wave"):
+        for size, (T, N) in SIZES_1D.items():
+            recs = shard_records(torch, np, th, tw, heat_ref, which, T, N, dev)
+            errs = {"f": 0.0, "s": 0.0, "g": 0.0, "g2": 0.0}
+            worst = (0.0, 0.0, -1.0)
+            for i, r in enumerate(recs):
+                m, nt_, h = r["row_fn"], r["nterms"], r["hist"]
+                a = [tuple(x.detach().contiguous() for x in r[k]) for k in ("fields", "params", "data", "consts")]
+                a64 = [tuple(x.double() for x in t) for t in a]
+                gs = torch.full((nt_,), 1.0 / a[0][0].numel(), device=dev)
+                kf = rw.forward_halo_rows1d_cuda(m, nt_, h, *a)
+                kd, kp, ks = rw.backward_halo_rows1d_cuda(m, nt_, h, *a, gs, True)
+                kd2, kp2, _ = rw.backward_halo_rows1d_cuda(m, nt_, h, *a, gs, False)
+                again = (rw.forward_halo_rows1d_cuda(m, nt_, h, *a), rw.backward_halo_rows1d_cuda(m, nt_, h, *a, gs, True),
+                         rw.backward_halo_rows1d_cuda(m, nt_, h, *a, gs, False))
+                pd, pp, _ = rw._backward_plain(m, nt_, h, *a, gs, True)
+                wf = rw._forward_plain(m, nt_, h, *a64)
+                wd, wp, ws = rw._backward_plain(m, nt_, h, *a64, gs.double(), True)
+                torch.cuda.synchronize()
+                e_f, ok_f = close(kf.double(), wf, TERMS_RTOL, 0.0)
+                e_s, ok_s = close(ks.double(), ws, TERMS_RTOL, 0.0)
+                e_g, ok_g, w1 = close_floor(list(kd) + list(kp), list(pd) + list(pp), list(wd) + list(wp))
+                e_g2, ok_g2, w2 = close_floor(list(kd2) + list(kp2), list(pd) + list(pp), list(wd) + list(wp))
+                bits = same_bits(torch, (kf, (kd, kp, ks), (kd2, kp2)), again)
+                if not (ok_f and ok_s and ok_g and ok_g2 and bits):
+                    fail(f"a per-shard {which} kernel disagrees with its plain version at shard {i} of "
+                         f"{tuple(a[0][0].shape)}: forward {ok_f}, sums {ok_s}, backward+sums {ok_g}, backward "
+                         f"{ok_g2}, the same bits again {bits}")
+                errs = {"f": max(errs["f"], e_f), "s": max(errs["s"], e_s), "g": max(errs["g"], e_g),
+                        "g2": max(errs["g2"], e_g2)}
+                worst = max(worst, w1, w2, key=lambda w: w[2])
+                if i == 1:
+                    cases[f"{which}_{size}"] = (m, nt_, h) + tuple(a)
+            print(f"per-shard {which} kernels on the {shards} shards of {T}x{N} (t:4, blocks "
+                  f"{tuple(recs[1]['fields'][0].shape)}): forward max|d sums| {errs['f']:.3e}, backward+sums max|d sums| "
+                  f"{errs['s']:.3e} max|d (dfields, dparams)| {errs['g']:.3e}, backward {errs['g2']:.3e}, against the "
+                  f"fp64 plain version with the fp32 floor ({worst_text(worst)}); the same bits again {tag}")
+            key = f"{which}_{size}"
+            report[f"forward_halo_rows1d_{key}"] = errs["f"]
+            report[f"backward_halo_rows1d_sums_{key}"] = errs["g"]
+            report[f"backward_halo_rows1d_{key}"] = errs["g2"]
+
+    # Heat and wave under --halo against their unsharded CLIs; the unsharded
+    # runs also check the plot epochs' data against pickle checkpoints of
+    # the same epochs.
+    lane = heat_ref["config"]
+    orig = heat_cli.make_problem
+
+    def make_problem(args):
+        problem, state = orig(args)
+        dtype = torch.float64 if args.double else torch.float32
+        net = state.fields["k_net"]
+        net.weights = [torch.tensor(w, dtype=dtype, device=problem.domain.device) for w in heat_ref["weights"]]
+        net.biases = [torch.tensor(b, dtype=dtype, device=problem.domain.device) for b in heat_ref["biases"]]
+        return problem, state
+
+    runs = {
+        "heat": (heat_cli, HEAT_EPOCHS, [
+            "--Nt", str(lane["nt"]), "--Nx", str(lane["nx"]), "--infer_k", "1", "--imposed", lane["imposed"],
+            "--nimp", str(lane["nimp"]), "--seed", str(lane["seed"]), "--kernel", "pallas"]),
+        "wave": (wave_cli, HALO1D_WAVE_EPOCHS, [
+            "--Nt", str(SIZES_1D["64"][0]), "--Nx", str(SIZES_1D["64"][1]), "--kernel", "pallas", "--double", "0",
+            "--optimizer", "adam", "--lr", "0.001"]),
+    }
+    heat_cli.make_problem = make_problem
+    try:
+        for which, (cli, epochs, argv) in runs.items():
+            argv = argv + ["--epochs", str(epochs), "--history_every", str(HALO1D_EVERY[which]), "--report_every",
+                           str(HALO1D_EVERY[which])] + list(extra_argv)
+            every = epochs // 2
+            drawn = {}
+
+            def keep(out, cli=cli, which=which, every=every, argv=argv):
+                """The plot epochs' data_*.pickle against a pickle checkpoint of
+                the same epoch: the JAX example's keys, state_u the field."""
+                cwd = os.getcwd()
+                os.chdir(out)
+                try:
+                    files = sorted(os.listdir(out))
+                    data = [f for f in files if f.startswith("data_")]
+                    drawn["figures"] = [f for f in files if f.endswith(".png")]
+                    if len(data) != 3:
+                        fail(f"{which} CLI: plot epochs wrote {data}, expected three data_*.pickle")
+                    args = cli.parse_args(argv + ["--outdir", out])
+                    for name in data:
+                        epoch = int(name[5:10]) * every
+                        with open(name, "rb") as f:
+                            payload = pickle.load(f)
+                        if sorted(payload) != PLOT_KEYS[which]:
+                            fail(f"{which} CLI: {name} has the keys {sorted(payload)}, the JAX example's "
+                                 f"{PLOT_KEYS[which]}")
+                        problem, state = cli.make_problem(args)
+                        checkpoint_load(problem.domain, state, f"checkpoint_{epoch:06d}.pickle")
+                        u = problem.domain.mod.numpy(problem.domain.field(state, "u"))
+                        if not np.array_equal(u, payload["state_u"]):
+                            fail(f"{which} CLI: {name}'s state_u is not the field of checkpoint_{epoch:06d}.pickle")
+                finally:
+                    os.chdir(cwd)
+
+            rows, log, counts, *_ = run_cli(torch, counters, which, argv + [
+                "--plot_every", str(every), "--frames", "3", "--dump_data", "1", "--checkpoint_every", str(every)],
+                keep=keep)
+            want = dict(none, backward_rows=epochs + 1, forward_rows=1)
+            expect_counts(counts, want, f"{which} CLI (64^2, unsharded)")
+            print(f"{which} CLI plot epochs (every {every}): three data_*.pickle with the JAX example's keys, state_u "
+                  f"equal to the field of the pickle checkpoint of its epoch; figures drawn: "
+                  f"{drawn['figures'] or 'none (matplotlib does not import)'} {tag}")
+            halo_argv = argv + ["--plot_every", "0", "--mesh", HALO1D_SPEC, "--halo", "1"]
+            evaluated = {}
+
+            def keep_halo(out, cli=cli, halo_argv=halo_argv):
+                """The loss-only path under --halo at the CLI's initial state
+                (the CLI's epoch-0 row is eval_loss_grad's, unsharded in
+                both packages)."""
+                cwd = os.getcwd()
+                os.chdir(out)
+                try:
+                    problem, state = cli.make_problem(cli.parse_args(halo_argv + ["--outdir", out]))
+                    counters.zero()
+                    (loss, _), _ = autograd_loss_grad_fn(torch, problem, state, halo=True)(
+                        problem.domain.arrays_from_state(state), problem.tracers)
+                    torch.cuda.synchronize()
+                    evaluated["loss"], evaluated["counts"] = float(loss), counters.read()
+                finally:
+                    os.chdir(cwd)
+
+            halo_rows, halo_log, counts, *_ = run_cli(torch, counters, which, halo_argv, keep=keep_halo)
+            expect_counts(counts, dict(none, backward_halo_rows1d=shards * epochs, backward_rows=1, forward_rows=1),
+                          f"{which} CLI (64^2, --mesh {HALO1D_SPEC} --halo 1)")
+            expect_counts(evaluated["counts"], dict(none, backward_halo_rows1d=shards, forward_halo_rows1d=shards),
+                          f"{which} 64^2 loss-only path under --halo")
+            launches[f"backward_halo_rows1d_sums_{which}_64"] = shards * epochs
+            launches[f"backward_halo_rows1d_{which}_64"] = shards
+            launches[f"forward_halo_rows1d_{which}_64"] = shards
+            base = {int(r["epoch"]): float(r["loss"]) for r in rows}
+            got = {int(r["epoch"]): float(r["loss"]) for r in halo_rows}
+            if sorted(got) != sorted(base):
+                fail(f"{which} CLI under --halo: rows at epochs {sorted(got)}, unsharded {sorted(base)}")
+            rel = {e: abs(got[e] - base[e]) / abs(base[e]) for e in base}
+            rel[0] = max(rel[0], abs(evaluated["loss"] - base[0]) / abs(base[0]))
+            worst = max((e for e in rel if e > 0), key=rel.get)
+            if which == "heat":
+                spread, seeds = roundoff_spread(torch, th, heat_ref, dev, base, epochs)
+                limit = 2 * spread
+                print(f"heat's spread from roundoff alone (e.'s hand loop, unsharded, with every gradient entry one "
+                      f"ulp up or down every epoch), the worst row's relative distance from the unsharded CLI's and "
+                      f"its epoch by seed: " + ", ".join(f"{k}: {100 * r:.4f}% at {e}" for k, (r, e) in seeds.items())
+                      + f" {tag}")
+            else:
+                limit = 0.01
+            print(f"{which} CLI under --mesh {HALO1D_SPEC} --halo 1 ({epochs} epochs, Adam lr 0.001, fp32): epoch-0 "
+                  f"loss {got[0]!r} (eval_loss_grad), the per-shard loss-only path's {evaluated['loss']!r}, vs the "
+                  f"unsharded CLI's {base[0]!r} (rel {rel[0]:.2e}); worst {HALO1D_EVERY[which]}-epoch row epoch "
+                  f"{worst} ({100 * rel[worst]:.4f}%, gated at {100 * limit:.4f}%); final "
+                  f"{got[epochs]!r} vs {base[epochs]!r}; {log_ms(halo_log):.4f} ms/epoch against the unsharded CLI's "
+                  f"{log_ms(log):.4f}; {shards} per-shard backward+sums an epoch; launches {counts}; the loss-only "
+                  f"path's {evaluated['counts']} {tag}")
+            if rel[0] > 1e-5 or rel[worst] > limit:
+                fail(f"{which} CLI under --halo: epoch 0 rel {rel[0]:.2e} (limit 1e-5), epoch {worst} "
+                     f"{100 * rel[worst]:.4f}% from the unsharded CLI (limit {100 * limit:.4f}%)")
+            if which == "heat":
+                converged_gate(halo_rows, read_rows("ref_heat_seeds.csv"), HEAT_MARGINS,
+                               f"heat CLI under --mesh {HALO1D_SPEC} --halo 1", tag, median=True, epochs=epochs)
+    finally:
+        heat_cli.make_problem = orig
+
+    # Heat and wave at 1024^2 on t:4 (hand loops): epoch 0 against the plain
+    # operator of phases f and g, and the loss-only path.
+    mesh = parallel.mesh_from_spec(HALO1D_SPEC, devices=[dev] * shards)
+    T, N = SIZES_1D["1024"]
+    for which in ("heat", "wave"):
+        if which == "heat":
+            problem, state, _ = th.build(nt=T, nx=N, infer_k=True, imposed=lane["imposed"], nimp=lane["nimp"],
+                                         seed=lane["seed"], kernel="pallas", device=dev, mesh=mesh,
+                                         partition=HALO1D_PART)
+        else:
+            problem, state, _ = tw.build(nt=T, nx=N, dtype=np.float32, kernel="pallas", device=dev, mesh=mesh,
+                                         partition=HALO1D_PART)
+        grad = problem.make_loss_grad_fn(state, halo=True)
+        if grad is None or grad.route != "generic":
+            fail(f"{which} 1024^2 under --halo: the one-pass route is {getattr(grad, 'route', None)}, not generic")
+        counters.zero()
+        opt, losses, chunk_ms = train(torch, Adam, grad, problem.domain.arrays_from_state(state), HALO1D_BIG_EPOCHS,
+                                      lr=1e-3)
+        expect_counts(counters.read(), dict(none, backward_halo_rows1d=shards * len(losses)),
+                      f"{which} 1024^2 training under --halo")
+        rel0 = abs(losses[0] - plain_big[which]) / abs(plain_big[which])
+        ms, _ = steady_ms(chunk_ms)
+        counters.zero()
+        autograd_loss_grad_fn(torch, problem, state, halo=True)(opt.x, problem.tracers)
+        torch.cuda.synchronize()
+        expect_counts(counters.read(), dict(none, backward_halo_rows1d=shards, forward_halo_rows1d=shards),
+                      f"{which} 1024^2 loss-only path under --halo")
+        print(f"training ({which} 1024^2, t:4 halo, pallas): {len(losses)} epochs, epoch-0 loss {losses[0]!r} vs the "
+              f"plain operator's {plain_big[which]!r} (rel {rel0:.2e}); final {losses[-1]!r}; {ms:.4f} ms/epoch {tag}")
+        if rel0 > 1e-5:
+            fail(f"{which} 1024^2 under --halo: epoch-0 loss {losses[0]} differs from the plain operator's "
+                 f"{plain_big[which]} (limit 1e-5)")
+        launches[f"backward_halo_rows1d_sums_{which}_1024"] = shards * len(losses)
+        launches[f"backward_halo_rows1d_{which}_1024"] = shards
+        launches[f"forward_halo_rows1d_{which}_1024"] = shards
+        del opt, grad, problem, state
+
+    # The veltracer CLI of phase m with asynchronous checkpoints.
+    restored = {}
+    vt_argv = ["--Nt", str(SIZES["256"][0]), "--Nx", str(SIZES["256"][1]), "--Ny", str(SIZES["256"][2]),
+               "--kernel", "pallas_mg", "--epochs", str(vt_epochs), "--history_every", str(CHUNK),
+               "--report_every", str(100 if vt_epochs >= 300 else CHUNK), "--plot_every", "0",
+               "--checkpoint_format", "orbax", "--checkpoint_every", str(CKPT_EVERY), *extra_argv]
+
+    def keep_ckpt(out):
+        """The steps on disk once the writer has finished the last, the last
+        restored into a fresh state, and a checkpointer with max_to_keep=2."""
+        ckpt = AsyncCheckpointer(os.path.join(out, "checkpoint_orbax"))
+        t0 = time.perf_counter()
+        while ckpt.latest_step() != vt_epochs and time.perf_counter() - t0 < 120:
+            time.sleep(0.05)
+        steps = sorted(int(n) for n in os.listdir(ckpt.directory))
+        restored["steps"], restored["wait"] = steps, time.perf_counter() - t0
+        args = vt_cli.parse_args(vt_argv + ["--outdir", out])
+        args.Nt, args.Ny = args.Nt or args.Nx, args.Ny or args.Nx
+        problem, fresh = vt_cli.make_problem(args)
+        slots = ckpt.restore(problem.domain, fresh)
+        restored["arrays"] = [a.clone() for a in problem.domain.arrays_from_state(fresh)]
+        restored["slots"] = sorted(slots) if slots else None
+        two = AsyncCheckpointer(os.path.join(out, "keep2"), max_to_keep=2)
+        for step in (1, 2, 3):
+            two.save(problem.domain, fresh, step)
+        two.close()
+        restored["keep2"] = sorted(os.listdir(two.directory))
+        ckpt.close()
+
+    rows, log, counts, (problem, state), _ = run_cli(torch, counters, "veltracer", vt_argv, keep=keep_ckpt)
+    values = lambda rs: [{k: v for k, v in r.items() if k not in NOT_VALUES or k in ("epoch", "frame")} for r in rs]
+    same_rows = values(rows) == values(vt_rows)
+    final = problem.domain.arrays_from_state(state)
+    same_state = len(final) == len(restored["arrays"]) and all(
+        torch.equal(a, b) for a, b in zip(final, restored["arrays"]))
+    want_steps = list(range(0, vt_epochs + 1, CKPT_EVERY))
+    print(f"veltracer CLI with --checkpoint_format orbax --checkpoint_every {CKPT_EVERY} ({vt_epochs} epochs): "
+          f"train.csv rows equal to phase m's to the bit: {same_rows}; steps on disk {restored['steps']} (the last "
+          f"whole {restored['wait']:.2f} s after the run); the last restored into a fresh state equal to the run's "
+          f"final fields to the bit: {same_state}, slots {restored['slots']}; max_to_keep=2 left {restored['keep2']}; "
+          f"{log_ms(log):.4f} ms/epoch against phase m's {vt_ms:.4f} (not gated); launches {counts} {tag}")
+    if not (same_rows and same_state and restored["steps"] == want_steps and restored["keep2"] == ["2", "3"]
+            and restored["slots"] == ["m", "step", "v"]):
+        fail("the veltracer CLI's asynchronous checkpoints: rows, steps, restore or max_to_keep differ (above)")
+
+    # Where a heat epoch under --halo spends its time: a hand loop at 64^2
+    # on t:4, its ms/epoch beside the unsharded loop's, then the host's
+    # operators and the card's kernels of a few epochs (torch.profiler).
+    loops = {}
+    for spec in (None, HALO1D_SPEC):
+        mesh_ = parallel.mesh_from_spec(spec, devices=[dev] * shards) if spec else None
+        problem, state, _ = th.build(nt=lane["nt"], nx=lane["nx"], infer_k=True, imposed=lane["imposed"],
+                                     nimp=lane["nimp"], seed=lane["seed"], kernel="pallas", device=dev, mesh=mesh_,
+                                     partition=HALO1D_PART if spec else None)
+        grad = problem.make_loss_grad_fn(state, halo=bool(spec))
+        opt, losses, chunk_ms = train(torch, Adam, grad, problem.domain.arrays_from_state(state), 100, lr=1e-3)
+        loops[spec] = (opt, steady_ms(chunk_ms)[0])
+    print(f"heat 64^2 hand loop: {loops[HALO1D_SPEC][1]:.4f} ms/epoch on t:4 (--halo) against {loops[None][1]:.4f} "
+          f"unsharded {tag}")
+    host_profile(torch, loops[HALO1D_SPEC][0], f"(heat 64 halo t:4) {tag}")
+
+    # compare.py on the card.
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        compare.main(["--device", str(dev)])
+    text = out.getvalue()
+    print("compare.py --device " + str(dev) + ": " + "; ".join(text.strip().splitlines()) + f" {tag}")
+    if text.strip().splitlines()[-1] != "PASS":
+        fail("compare.py did not print PASS")
+    return launches, cases
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--epochs", type=int, default=400, help="Flagship training epochs (multiple of 10)")
     parser.add_argument("--seed", type=int, default=0, help="Seed of the random kernel inputs")
     args = parser.parse_args()
+    t_main = time.perf_counter()
 
     import numpy as np
     import torch
@@ -1120,6 +1590,7 @@ def main():
 
     # -- Phase 1: build --------------------------------------------------------
     builds = build_all(_build)
+    rows1d_unchanged(builds, tag)
     rmg._library()
     rw._library()
     counters = Counters(rmg, rw)
@@ -1954,8 +2425,9 @@ def main():
 
     # m. The training harness: the two command-line examples through
     # util.optimize, each in a directory of its own under build/.
-    launches.update(harness_phase(torch, counters, args.epochs, losses_unsharded, loops["pallas_mg 256"][1][0],
-                                  tag))
+    m_launches, vt_rows, vt_ms = harness_phase(torch, counters, args.epochs, losses_unsharded,
+                                               loops["pallas_mg 256"][1][0], tag)
+    launches.update(m_launches)
 
     # n. The remaining CLIs at the converged lane's configurations; the heat
     # row kernels' launches on the heat CLI's path join phase e's.
@@ -1964,6 +2436,14 @@ def main():
 
     # o. Newton and Gauss-Newton: the run scripts' cases as CLIs.
     newton_phase(torch, counters, tag)
+
+    # p. Heat and wave under --halo, plot epochs, asynchronous checkpoints and
+    # compare.py.
+    t_p = time.perf_counter()
+    p_launches, halo1d_cases = halo1d_phase(torch, np, counters, heat_ref, vt_rows, vt_ms, args.epochs, report,
+                                            {"heat": heat_plain_big, "wave": wave_plain_big}, tag)
+    t_p = time.perf_counter() - t_p
+    launches.update(p_launches)
 
     idle = [name for name in report if launches.get(name, 0) < 1]
     if idle:
@@ -2113,6 +2593,26 @@ def main():
             OPS_BACKWARD * t0_[0].numel(), replaced, mg_src,
         )
 
+    # The per-shard 1-D kernels at shard 1's inputs of the 64^2 and 1024^2
+    # t:4 paths.
+    for key, (m, nt_, h, fs, ps, ds, cs) in halo1d_cases.items():
+        which = key.split("_")[0]
+        gs = torch.full((nt_,), 1.0 / fs[0].numel(), device=dev)
+        n_cells, f_in = fs[0].numel(), nbytes(fs + ps + ds + cs + (m.halo[0],))
+        ops_f, ops_b = ops_1d[which]
+        args_ = (m, nt_, h, fs, ps, ds, cs)
+        timed[f"forward_halo_rows1d_{key}"] = (
+            lambda a=args_: rw.forward_halo_rows1d_cuda(*a), lambda a=args_: rw._forward_plain(*a),
+            f_in + 4 * nt_, ops_f * n_cells, "odil_tpu/ops/rowwise.py:385", rows_src,
+        )
+        for sums, name in ((True, f"backward_halo_rows1d_sums_{key}"), (False, f"backward_halo_rows1d_{key}")):
+            timed[name] = (
+                lambda a=args_, gs=gs, s=sums: rw.backward_halo_rows1d_cuda(*a, gs, s),
+                lambda a=args_, gs=gs, s=sums: rw._backward_plain(*a, gs, s),
+                f_in + nbytes(fs + ps) + 4 * nt_ * (2 if sums else 1), ops_b * n_cells,
+                "odil_tpu/ops/rowwise.py:549", rows_src,
+            )
+
     print_mg_splits()
     # A backward+sums of the row kernels, slabbed or streaming (the masked
     # one slabbed), is one launch (torch.profiler; after the training loops,
@@ -2162,6 +2662,8 @@ def main():
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
 
+    print(f"seconds: phase p {t_p:.1f}, the script from its start (the kernels' build included) "
+          f"{time.perf_counter() - t_main:.1f} {tag}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -208,8 +208,8 @@ struct HeatRow {
     }
   }
 
-  template <bool GRADS>
-  __device__ __forceinline__ static void eval(const Rows1DArgs& A, const float* P, int it, int x,
+  template <bool GRADS, class Args>
+  __device__ __forceinline__ static void eval(const Args& A, const float* P, int it, int x,
                                               const float (&v)[2][1][3], const Face& fl, const Face& fr,
                                               const float* g2, float* res, float (&D)[2][1][3], float (&gk)[2]) {
     const float inv_dt = A.s[0], inv_dx = A.s[1], inv_2dx = A.s[2], impw = A.s[3];

@@ -52,6 +52,22 @@
 // reduces the columns in block order into A.sums and A.dparams and resets
 // the ticket: one launch, and the bits repeat run to run.
 //
+// The halo layer (rows1d_kernel<M, MODE, true>, Rows1DHaloArgs; the masked
+// per-shard pair, odil_rows1d_halo_*): a per-shard launch (odil_torch/halo.py)
+// runs on one shard's halo-extended block of the grid, its own periodic
+// (T, N) grid.  It replaces, for 1-D planes, the TPU's blocked pair run on
+// the row function that odil_tpu/halo.py:873-885 wraps with the shard's
+// masks (halo.py:924-936 -> odil_tpu/ops/rowwise.py:994-1048).  The row
+// model sees GLOBAL row indices (block row + off) for its row conditions
+// and reads the data at the block's own rows (data_at takes the global row
+// back); every residual is multiplied by the 0/1 plane mask at its cell and
+// by the row mask of its residual row (zero on halo rows and on a ghost node
+// the left shard owns: r_lo <= row < r_hi), so the adjoint sees masked
+// weights, as the wrapped row function's vjp does.  The rows a block reads
+// past its ends wrap inside the block: only masked rows read them, and
+// their cotangents are zero.  Without the layer (MASKED false) the kernel
+// is the code it was.
+//
 // Row model interface (struct M):
 //   static constexpr int NF, HIST, MAXT, NP;  // fields, rows back, terms, params
 //   static constexpr unsigned DUSED;          // the D entries (m * NF + f) * 3 + q it writes
@@ -61,15 +77,17 @@
 //   template <bool ADJ> __device__ static void face(
 //       const Rows1DArgs& A, const float* P, int it, int xa, const float (&va)[HIST + 1][NF][3],
 //       int xb, const float (&vb)[HIST + 1][NF][3], bool lview, bool rview, Face& F);
-//   template <bool GRADS> __device__ static void eval(
-//       const Rows1DArgs& A, const float* P, int it, int x, const float (&v)[HIST + 1][NF][3],
+//   template <bool GRADS, class Args> __device__ static void eval(
+//       const Args& A, const float* P, int it, int x, const float (&v)[HIST + 1][NF][3],
 //       const Face& fl, const Face& fr, const float* g2, float* res, float (&D)[HIST + 1][NF][3],
 //       float (&gk)[2]);
 //   __device__ static void face_vjp(const Rows1DArgs& A, const float* P, const Face& F, bool shared,
 //                                   float gl, float gr, float* pacc);
 // face: the face between cells xa and xb = xa + 1 (mod N) of residual row
 // it, from their samples; lview/rview: whether the left/right cell is in the
-// window.  eval writes the terms of residual row `it` at cell x into
+// window.  eval (Args: Rows1DArgs, or Rows1DHaloArgs on a shard's block,
+// whose data_at reads the data at the block's row of the global row it)
+// writes the terms of residual row `it` at cell x into
 // res[0..nterms), reading its faces' conductivities from fl and fr; with
 // GRADS, D gets the cotangents of sum_k g2[k]/2 res[k]^2 with respect to v
 // and gk those of its left and right face conductivities.  face_vjp adds the
@@ -79,6 +97,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "cp_async.cuh"
 
@@ -105,6 +125,19 @@ struct Rows1DArgs {
   float s[NSCALARS];          // the row model's scalars
 };
 
+// The masked per-shard launch: Rows1DArgs over the shard's halo-extended
+// block (T its rows) plus the halo layer.  Mirrored by
+// odil_torch/ops/rowwise.py::_Rows1DHaloArgs (checked through
+// odil_rows1d_halo_args_size()).
+struct Rows1DHaloArgs : Rows1DArgs {
+  const float* mask;  // (N) 0/1 plane mask: zero on halo columns
+  int off;            // the global row of block row 0
+  int r_lo, r_hi;     // the block's own rows: r_lo <= row < r_hi
+};
+
+template <bool MASKED>
+using ArgsOf = typename std::conditional<MASKED, Rows1DHaloArgs, Rows1DArgs>::type;
+
 constexpr int TILE = 32;       // cells of a tile
 constexpr int MAX_SLAB = 30;   // rows of a tile, at most
 constexpr int NTHREADS = 256;
@@ -122,6 +155,11 @@ __device__ __forceinline__ int pmod(int v, int n) { return ((v % n) + n) % n; }
 __device__ __forceinline__ float data_at(const Rows1DArgs& A, int d, int it, int x) {
   const int st = A.data_stride[d];
   return __ldg(A.data[d] + (size_t)it * st + (st == 1 ? 0 : x));
+}
+
+// The same on a shard's block, `it` being the global row.
+__device__ __forceinline__ float data_at(const Rows1DHaloArgs& A, int d, int it, int x) {
+  return data_at(static_cast<const Rows1DArgs&>(A), d, it - A.off, x);
 }
 
 // a[k] for a runtime k, through compile-time indices (keeps a in registers).
@@ -190,8 +228,8 @@ constexpr size_t smem_bytes() {
   return sizeof(TileSmem<M, (MODE & MODE_GRADS) != 0>);
 }
 
-template <class M, int MODE>
-__global__ void __launch_bounds__(NTHREADS, M::BLOCKS_PER_SM) rows1d_kernel(const Rows1DArgs A) {
+template <class M, int MODE, bool MASKED = false>
+__global__ void __launch_bounds__(NTHREADS, M::BLOCKS_PER_SM) rows1d_kernel(const ArgsOf<MASKED> A) {
   constexpr int H = M::HIST, NF = M::NF, NT = M::MAXT;
   constexpr int NP = M::NP > 0 ? M::NP : 1;
   constexpr bool grads = (MODE & MODE_GRADS) != 0;
@@ -274,6 +312,11 @@ __global__ void __launch_bounds__(NTHREADS, M::BLOCKS_PER_SM) rows1d_kernel(cons
       }
     };
     auto row_it = [&](int r) { return t0 + r < T ? t0 + r : t0 + r - T; };
+    // The row the model sees: the global row on a shard's block.
+    auto model_it = [&](int r) {
+      if constexpr (MASKED) return row_it(r) + A.off;
+      else return row_it(r);
+    };
 
     // 2. The faces of the window's residual rows (only those of the owned
     // cells without the gradients).
@@ -285,7 +328,7 @@ __global__ void __launch_bounds__(NTHREADS, M::BLOCKS_PER_SM) rows1d_kernel(cons
         float va[H + 1][NF][3], vb[H + 1][NF][3];
         samples(r, lview ? j - 1 : j, va);
         samples(r, rview ? j : j - 1, vb);
-        M::template face<grads>(A, sm.P, row_it(r), xi[j], va, xi[j + 1], vb, lview, rview, sm.face[r][j]);
+        M::template face<grads>(A, sm.P, model_it(r), xi[j], va, xi[j + 1], vb, lview, rview, sm.face[r][j]);
       }
       __syncthreads();
     }
@@ -301,7 +344,22 @@ __global__ void __launch_bounds__(NTHREADS, M::BLOCKS_PER_SM) rows1d_kernel(cons
         float v[H + 1][NF][3], res[NT], Dl[H + 1][NF][3], gk[2];
         samples(r, i, v);
         const int fi = M::FACES ? r : 0, fj = M::FACES ? i : 0, fk = M::FACES ? i + 1 : 0;
-        M::template eval<grads>(A, sm.P, row_it(r), xi[i + 1], v, sm.face[fi][fj], sm.face[fi][fk], g2, res, Dl, gk);
+        if constexpr (MASKED) {
+          // The cell's mask scales the loss weights (so the cotangents) and,
+          // after the model, the terms.
+          const int lt = row_it(r);
+          const float m = lt >= A.r_lo && lt < A.r_hi ? __ldg(A.mask + xi[i + 1]) : 0.0f;
+          float g2m[NT];
+#pragma unroll
+          for (int k = 0; k < NT; ++k) g2m[k] = g2[k] * m;
+          M::template eval<grads>(A, sm.P, model_it(r), xi[i + 1], v, sm.face[fi][fj], sm.face[fi][fk], g2m, res, Dl,
+                                  gk);
+#pragma unroll
+          for (int k = 0; k < NT; ++k) res[k] *= m;
+        } else {
+          M::template eval<grads>(A, sm.P, row_it(r), xi[i + 1], v, sm.face[fi][fj], sm.face[fi][fk], g2, res, Dl,
+                                  gk);
+        }
         if (sums && own) {
 #pragma unroll
           for (int k = 0; k < NT; ++k) s[k] += k < A.nterms ? res[k] * res[k] : 0.0f;
@@ -418,49 +476,57 @@ __global__ void __launch_bounds__(NTHREADS, M::BLOCKS_PER_SM) rows1d_kernel(cons
   if (tid == 0) *A.ticket = 0u;
 }
 
-template <class M, int MODE>
-int launch(const Rows1DArgs& A, cudaStream_t s) {
+template <class M, int MODE, bool MASKED>
+int launch(const ArgsOf<MASKED>& A, cudaStream_t s) {
   constexpr size_t bytes = smem_bytes<M, MODE>();
   static const cudaError_t attr =
-      cudaFuncSetAttribute(rows1d_kernel<M, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      cudaFuncSetAttribute(rows1d_kernel<M, MODE, MASKED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (attr != cudaSuccess) return (int)attr;
   if (A.blocks < 1 || A.slab < 1 || A.slab > MAX_SLAB) return (int)cudaErrorInvalidValue;
-  rows1d_kernel<M, MODE><<<A.blocks, NTHREADS, bytes, s>>>(A);
+  rows1d_kernel<M, MODE, MASKED><<<A.blocks, NTHREADS, bytes, s>>>(A);
   return (int)cudaGetLastError();
 }
 
 // The blocks of a launch (MODE) that the card holds at once: the waves the
 // Python side sizes the slabs and the grid for.
-template <class M, int MODE>
+template <class M, int MODE, bool MASKED>
 int resident_blocks() {
   constexpr size_t bytes = smem_bytes<M, MODE>();
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
-  if (cudaFuncSetAttribute(rows1d_kernel<M, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes) !=
+  if (cudaFuncSetAttribute(rows1d_kernel<M, MODE, MASKED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes) !=
       cudaSuccess)
     return 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rows1d_kernel<M, MODE>, NTHREADS, bytes) != cudaSuccess)
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rows1d_kernel<M, MODE, MASKED>, NTHREADS, bytes) !=
+      cudaSuccess)
     return 0;
   return sms * per_sm;
 }
 
-template <class M>
-int forward(const Rows1DArgs& A, cudaStream_t s) {
-  return launch<M, MODE_SUMS>(A, s);
+template <class M, bool MASKED>
+int forward(const ArgsOf<MASKED>& A, cudaStream_t s) {
+  return launch<M, MODE_SUMS, MASKED>(A, s);
 }
 
-template <class M>
-int backward(const Rows1DArgs& A, int with_sums, cudaStream_t s) {
-  return with_sums ? launch<M, MODE_SUMS | MODE_GRADS>(A, s) : launch<M, MODE_GRADS>(A, s);
+template <class M, bool MASKED>
+int backward(const ArgsOf<MASKED>& A, int with_sums, cudaStream_t s) {
+  return with_sums ? launch<M, MODE_SUMS | MODE_GRADS, MASKED>(A, s) : launch<M, MODE_GRADS, MASKED>(A, s);
 }
+
+// The blocks a launch holds at once; mode: 1 the sums, 2 the gradients, 3
+// both, plus MODE_MASKED for the masked per-shard form.
+enum { MODE_MASKED = 4 };
 
 template <class M>
 int resident(int mode) {
   switch (mode) {
-    case MODE_SUMS: return resident_blocks<M, MODE_SUMS>();
-    case MODE_GRADS: return resident_blocks<M, MODE_GRADS>();
-    case MODE_SUMS | MODE_GRADS: return resident_blocks<M, MODE_SUMS | MODE_GRADS>();
+    case MODE_SUMS: return resident_blocks<M, MODE_SUMS, false>();
+    case MODE_GRADS: return resident_blocks<M, MODE_GRADS, false>();
+    case MODE_SUMS | MODE_GRADS: return resident_blocks<M, MODE_SUMS | MODE_GRADS, false>();
+    case MODE_MASKED | MODE_SUMS: return resident_blocks<M, MODE_SUMS, true>();
+    case MODE_MASKED | MODE_GRADS: return resident_blocks<M, MODE_GRADS, true>();
+    case MODE_MASKED | MODE_SUMS | MODE_GRADS: return resident_blocks<M, MODE_SUMS | MODE_GRADS, true>();
     default: return 0;
   }
 }

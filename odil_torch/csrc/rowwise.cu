@@ -476,8 +476,8 @@ int odil_rows1d_tile(int what) {
   return what == 0 ? rows1d::TILE : what == 1 ? rows1d::MAX_SLAB : rows1d::NTHREADS;
 }
 
-// The blocks of a launch (mode: 1 sums, 2 gradients, 3 both) that the card
-// holds at once.
+// The blocks of a launch (mode: 1 sums, 2 gradients, 3 both; plus 4 for the
+// masked per-shard form) that the card holds at once.
 int odil_rows1d_resident_blocks(int model, int mode) {
   switch (model) {
     case 0: return rows1d::resident<rows1d::HeatRow>(mode);
@@ -489,8 +489,8 @@ int odil_rows1d_resident_blocks(int model, int mode) {
 int odil_rows1d_forward(int model, const rows1d::Rows1DArgs* a, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (model) {
-    case 0: return rows1d::forward<rows1d::HeatRow>(*a, s);
-    case 1: return rows1d::forward<rows1d::WaveRow>(*a, s);
+    case 0: return rows1d::forward<rows1d::HeatRow, false>(*a, s);
+    case 1: return rows1d::forward<rows1d::WaveRow, false>(*a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -498,8 +498,31 @@ int odil_rows1d_forward(int model, const rows1d::Rows1DArgs* a, void* stream) {
 int odil_rows1d_backward(int model, const rows1d::Rows1DArgs* a, int with_sums, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (model) {
-    case 0: return rows1d::backward<rows1d::HeatRow>(*a, with_sums, s);
-    case 1: return rows1d::backward<rows1d::WaveRow>(*a, with_sums, s);
+    case 0: return rows1d::backward<rows1d::HeatRow, false>(*a, with_sums, s);
+    case 1: return rows1d::backward<rows1d::WaveRow, false>(*a, with_sums, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The masked per-shard pair on 1-D planes (the blocked pair of
+// odil_tpu/ops/rowwise.py:322, :396 on the row function that
+// odil_tpu/halo.py:873-885 wraps): the halo layer of rows1d.cuh.
+int odil_rows1d_halo_args_size() { return (int)sizeof(rows1d::Rows1DHaloArgs); }
+
+int odil_rows1d_halo_forward(int model, const rows1d::Rows1DHaloArgs* a, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (model) {
+    case 0: return rows1d::forward<rows1d::HeatRow, true>(*a, s);
+    case 1: return rows1d::forward<rows1d::WaveRow, true>(*a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int odil_rows1d_halo_backward(int model, const rows1d::Rows1DHaloArgs* a, int with_sums, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (model) {
+    case 0: return rows1d::backward<rows1d::HeatRow, true>(*a, with_sums, s);
+    case 1: return rows1d::backward<rows1d::WaveRow, true>(*a, with_sums, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -28,8 +28,8 @@ struct WaveRow {
   static constexpr bool FACES = false;
   struct Face {};
 
-  template <bool GRADS>
-  __device__ __forceinline__ static void eval(const Rows1DArgs& A, const float* P, int it, int x,
+  template <bool GRADS, class Args>
+  __device__ __forceinline__ static void eval(const Args& A, const float* P, int it, int x,
                                               const float (&v)[3][1][3], const Face&, const Face&, const float* g2,
                                               float* res, float (&D)[3][1][3], float (&)[2]) {
     const float inv_dt = A.s[0], inv_dx2 = A.s[1], kimp = A.s[2], hdt = A.s[3];

@@ -14,8 +14,12 @@ RNG, which ``setup_outdir`` seeds as the JAX example's does, so the two
 draw the same points.  The nets' initial weights come from
 ``torch.Generator``s seeded with ``--seed`` (the conductivity net) and
 ``--seed`` + 1 (the temperature net), not the JAX package's draws; a JAX
-state is carried across with ``--checkpoint``.  Plots are not drawn yet
-(``plot.py`` is not ported); the ``frame`` column still advances.
+state is carried across with ``--checkpoint``.  The plot epochs write the
+JAX example's ``data_<frame>.pickle`` (``--dump_data``) and, where
+matplotlib imports, its ``u_`` and ``k_`` figures.  ``--mesh t:4 --halo 1``
+evaluates the ODIL loss per shard on an in-process mesh of the
+``--device`` (the t axis only: the row model reads its walls from the
+plane's index).
 
     python -m odil_torch.examples.heat --Nt 64 --Nx 64 --infer_k 1 --imposed stripe --epochs 1500 \\
         --history_every 100 --kernel pallas
@@ -34,6 +38,7 @@ import odil_torch as odil
 from odil_torch import printlog
 from odil_torch.checkpoint import checkpoint_load
 from odil_torch.models import heat as model
+from odil_torch.stencil import struct_to_numpy
 
 
 def parse_args(argv=None):
@@ -87,6 +92,57 @@ def state_temperature(domain, state, args):
     if args.solver == "odil":
         return domain.mod.numpy(domain.field(state, "u"))
     return domain.mod.numpy(model.eval_u_net(domain, state))
+
+
+def plot_func(problem, state, epoch, frame, cbinfo=None):
+    domain = problem.domain
+    extra = problem.extra
+    mod = domain.mod
+    args = extra.args
+    path0 = f"u_{frame:05d}.{args.plotext}"
+    path1 = f"k_{frame:05d}.{args.plotext}"
+    printlog(path0, path1)
+
+    state_u = state_temperature(domain, state, args)
+    ref_uk = extra.ref_uk
+    ref_k = model.true_conductivity(ref_uk)
+    k = None
+    if args.infer_k:
+        k = mod.numpy(model.squash_k(domain.neural_net(state, "k_net")(domain.cast(ref_uk))[0], mod, args.kmax))
+
+    plot = odil.util.plot_module()
+    if plot is not None:
+        import matplotlib.pyplot as plt
+
+        def scatter_imposed(i, fig, ax, data, extent):
+            if i == 0 and len(extra.imp_points):
+                imp_t, imp_x = extra.imp_points.T
+                ax.scatter(imp_x, imp_t, s=0.5, alpha=1, edgecolor="none", facecolor="k", zorder=100)
+
+        plot.plot_1d(domain, mod.numpy(extra.imp_u), state_u, path=path0,
+                     title=f"u epoch={epoch}" if args.plot_title else None, cmap="YlOrBr", nslices=5,
+                     interpolation="bilinear", callback=scatter_imposed, transpose=True, umin=0, umax=1)
+
+        fig, ax = plt.subplots(figsize=(1.7, 1.5))
+        if k is not None:
+            ax.plot(ref_uk, k, zorder=10)
+        ax.plot(ref_uk, ref_k, c="C2", lw=1.5, zorder=1)
+        ax.set_xlabel("u")
+        ax.set_ylabel("k")
+        ax.set_ylim(0, 0.03)
+        if args.plot_title:
+            ax.set_title(f"k epoch={epoch}")
+        fig.savefig(path1, bbox_inches="tight")
+        plt.close(fig)
+
+    if args.dump_data:
+        payload = struct_to_numpy(
+            mod,
+            dict(state_u=state_u, ref_u=extra.ref_u, imp_u=extra.imp_u, ref_uk=ref_uk, k=k, ref_k=ref_k,
+                 imp_indices=extra.imp_indices, imp_points=extra.imp_points),
+        )
+        with open(f"data_{frame:05d}.pickle", "wb") as f:
+            pickle.dump(payload, f)
 
 
 def compute_error(domain, extra, state, key):
@@ -146,9 +202,10 @@ def make_problem(args):
         printlog(f"Loading reference solution from '{args.ref_path}'")
         grid = odil.Domain(cshape=(args.Nt, args.Nx), dimnames=("t", "x"), dtype=dtype, device=args.device)
         ref_u = load_fields_interp(args.ref_path, ["u"], grid)["u"]
+    mesh, partition = odil.util.mesh_from_args(args, ("t", "x"))
     problem, state, extra = model.build(
         nt=args.Nt, nx=args.Nx, arch_k=args.arch_k, dtype=dtype, multigrid=args.multigrid, kernel=args.kernel,
-        device=args.device, ref_u=ref_u, args=args,
+        device=args.device, ref_u=ref_u, mesh=mesh, partition=partition, args=args,
     )
     domain = problem.domain
     if domain.multigrid:
@@ -195,7 +252,8 @@ def main(argv=None):
     args = parse_args(argv)
     odil.setup_outdir(args, relpath_args=["checkpoint", "checkpoint_train", "ref_path"])
     problem, state = make_problem(args)
-    callback = odil.make_callback(problem, args, history_func=history_func, report_func=report_func)
+    callback = odil.make_callback(problem, args, plot_func=plot_func, history_func=history_func,
+                                  report_func=report_func)
     odil.util.optimize(args, args.optimizer, problem, state, callback)
     with open("done", "w"):
         pass

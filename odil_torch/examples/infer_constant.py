@@ -6,8 +6,8 @@ The port's counterpart of ``examples/infer_constant/infer_constant.py``:
 the same flags and defaults (the on-device ``lbfgs``), the physics of
 ``odil_torch.models.advection``, the ``c_diff``, ``c_src`` and ``c_vel``
 columns of the history, and an early stop of the optimizer logged rather
-than raised.  Plots are not written yet (``plot.py`` is not ported); the
-``frame`` column still advances.
+than raised.  The plot epochs draw the JAX example's ``u_<frame>`` figure
+where matplotlib imports.
 
     python -m odil_torch.examples.infer_constant --Nt 64 --Nx 64 --epochs 100 --history_every 20
     python -m odil_torch.examples.infer_constant --Nt 16 --Nx 16 --epochs 60 --device cpu
@@ -59,6 +59,25 @@ def history_func(problem, state, epoch, history, cbinfo):
     history.append("c_vel", float(coeff[2]))
 
 
+def plot_func(problem, state, epoch, frame, cbinfo=None):
+    domain = problem.domain
+    extra = problem.extra
+    mod = domain.mod
+    state_u = mod.numpy(model.clamp_rows(domain.field(state, "u"), extra, mod))
+    coeff = mod.numpy(domain.field(state, "coeff"))
+    umax = float(np.max(np.abs(mod.numpy(extra.ref_u))))
+    plot = odil.util.plot_module()
+    if plot is None:
+        return
+    import matplotlib.pyplot as plt
+
+    fig = plot.plot_1d(domain, extra.ref_u, state_u, cmap="RdBu_r", nslices=5,
+                       title="epoch={:}, diff={:.3g}, src={:.3g}, vel={:.3g}".format(epoch, *coeff), transpose=True,
+                       transparent=False, umin=-umax, umax=umax)
+    odil.util.plot_module("plotutil").savefig(fig, f"u_{frame:05d}", printf=printlog)
+    plt.close(fig)
+
+
 def make_problem(args):
     dtype = np.float64 if args.double else np.float32
     problem, state, extra = model.build(
@@ -72,7 +91,8 @@ def main(argv=None):
     args = parse_args(argv)
     odil.setup_outdir(args)
     problem, state = make_problem(args)
-    callback = odil.make_callback(problem, args, report_func=report_func, history_func=history_func)
+    callback = odil.make_callback(problem, args, plot_func=plot_func, report_func=report_func,
+                                  history_func=history_func)
     try:
         odil.optimize(args, args.optimizer, problem, state, callback)
     except odil.EarlyStopError as e:

@@ -6,8 +6,9 @@ the same flags and defaults, and the physics of
 ``odil_torch.models.veltracer``.  ``--kernel pallas_mg`` trains through the
 fused multigrid kernel (one CUDA ``_backward_mg`` launch an epoch on the
 card), ``--kernel pallas`` through the generic row-wise kernels and
-``--kernel xla`` through the plain operator.  Plots are not written yet
-(``plot.py`` is not ported); the ``frame`` column still advances.
+``--kernel xla`` through the plain operator.  The plot epochs draw the
+JAX example's two figures (``u_<frame>.png`` with the velocity arrows,
+``vx_<frame>.png``) where matplotlib imports.
 
     python -m odil_torch.examples.veltracer --Nt 64 --Nx 256 --Ny 256 --kernel pallas_mg \\
         --epochs 400 --history_every 10 --plot_every 0
@@ -52,13 +53,47 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
+def plot_func(problem, state, epoch, frame, cbinfo=None):
+    domain = problem.domain
+    extra = problem.extra
+    mod = domain.mod
+    path0 = f"u_{frame:05d}.png"
+    path1 = f"vx_{frame:05d}.png"
+    printlog(path0)
+
+    slices_it = np.linspace(0, domain.cshape[0], 5, dtype=int)
+    slices_t = mod.numpy(domain.points_1d(0, loc="n"))[slices_it]
+
+    state_u = mod.numpy(domain.field(state, "u"))
+    state_vx = mod.numpy(domain.field(state, "vx"))
+    state_vy = mod.numpy(domain.field(state, "vy"))
+    plot = odil.util.plot_module()
+    if plot is None:
+        return
+
+    def quiver(i, j, ax, fig):
+        import matplotlib.pyplot as plt
+
+        plt.setp(ax.spines.values(), linewidth=0.25)
+        ax.yaxis.label.set_size(7)
+        xx, yy = (mod.numpy(p) for p in domain.points("x", "y", loc=".cc"))
+        skip = domain.cshape[1] // 8
+        offset = max(0, skip // 2 - 1)
+        x = xx[offset::skip, offset::skip].flatten()
+        y = yy[offset::skip, offset::skip].flatten()
+        vxs = state_vx[slices_it[j], offset::skip, offset::skip].flatten()
+        vys = state_vy[slices_it[j], offset::skip, offset::skip].flatten()
+        ax.quiver(x, y, vxs, vys, scale=5, color="k")
+
+    plot.plot_2d(domain, extra.exact_uu, state_u, slices_it, slices_t, path0, cmap="YlOrBr", umin=0, umax=1,
+                 callback=quiver, interpolation="bilinear", title=f"epoch={epoch}")
+    plot.plot_2d(domain, state_vx, state_vy, slices_it, slices_t, path1, umin=-0.5, umax=0.5, cmap="PuOr_r",
+                 interpolation="bilinear", ylabel_exact="vx", ylabel_pred="vy")
+
+
 def make_problem(args):
     dtype = np.float64 if args.double else np.float32
-    mesh = partition = None
-    if getattr(args, "mesh", None):
-        mesh = odil.parallel.mesh_from_spec(args.mesh, devices=_mesh_devices(args))
-        partition = odil.parallel.auto_partition(("t", "x", "y"), mesh)
-        printlog(f"mesh: {dict(mesh.shape)}, partition: {partition}")
+    mesh, partition = odil.util.mesh_from_args(args, ("t", "x", "y"))
     problem, state, extra = model.build(
         nt=args.Nt,
         nx=args.Nx,
@@ -78,24 +113,13 @@ def make_problem(args):
     return problem, state
 
 
-def _mesh_devices(args):
-    """The shards' devices: every shard on the one device of ``--device``
-    (the port's mesh is in-process; several cards are not ported)."""
-    import math
-
-    import torch
-
-    sizes = [int(p.partition(":")[2] or 1) for p in args.mesh.split(",")]
-    return [torch.device(args.device)] * max(1, math.prod(s for s in sizes if s > 0))
-
-
 def main(argv=None):
     args = parse_args(argv)
     args.Nt = args.Nt or args.Nx
     args.Ny = args.Ny or args.Nx
     odil.setup_outdir(args)
     problem, state = make_problem(args)
-    callback = odil.make_callback(problem, args)
+    callback = odil.make_callback(problem, args, plot_func=plot_func)
     odil.optimize(args, args.optimizer, problem, state, callback)
     return problem, state
 

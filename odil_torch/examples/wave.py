@@ -4,9 +4,11 @@ traces, trained through ``util.optimize``.
 The port's counterpart of ``examples/wave/wave.py``: the same flags and
 defaults, the physics of ``odil_torch.models.wave``, the ``error_u`` column
 of the history, an early stop of the optimizer logged rather than raised,
-and the ``done`` file at the end.  Plots and their data dumps are not
-written yet (``plot.py`` is not ported); the ``frame`` column still
-advances.  The default optimizer is the JAX package's on-device ``lbfgs``
+and the ``done`` file at the end.  The plot epochs write the JAX example's
+``data_<frame>.pickle`` (``--dump_data``) and, where matplotlib imports,
+its ``u_`` and ``ut_`` figures.  ``--mesh t:4 --halo 1`` evaluates the loss
+per shard on an in-process mesh of the ``--device`` (the t axis only: the
+row model reads its walls from the plane's index).  The default optimizer is the JAX package's on-device ``lbfgs``
 (``optim/lbfgs.py``); ``--optimizer lbfgsb`` takes scipy's L-BFGS-B on the
 host.
 
@@ -15,12 +17,14 @@ host.
 """
 
 import argparse
+import pickle
 
 import numpy as np
 
 import odil_torch as odil
 from odil_torch import printlog
 from odil_torch.models import wave as model
+from odil_torch.stencil import extrap_quad, extrap_quadh, struct_to_numpy
 
 
 def parse_args(argv=None):
@@ -50,6 +54,46 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
+def derived_ut(domain, init_u, uu):
+    """Central-difference time derivative of the recovered field (numpy)."""
+    dt = domain.step("t")
+    u = np.asarray(uu)
+    utm = np.roll(u, 1, axis=0)
+    utp = np.roll(u, -1, axis=0)
+    utm[0, :] = extrap_quadh(utp[0, :], u[0, :], domain.mod.numpy(init_u))
+    utp[-1, :] = extrap_quad(u[-3, :], u[-2, :], u[-1, :])
+    return (utp - utm) / (2 * float(dt))
+
+
+def plot_func(problem, state, epoch, frame, cbinfo=None):
+    domain = problem.domain
+    extra = problem.extra
+    args = extra.args
+    path0 = f"u_{frame:05d}.{args.plotext}"
+    path1 = f"ut_{frame:05d}.{args.plotext}"
+    printlog(path0, path1)
+
+    state_u = domain.mod.numpy(domain.field(state, "u"))
+    state_ut = derived_ut(domain, extra.init_u, state_u)
+
+    if args.dump_data:
+        payload = struct_to_numpy(
+            domain.mod,
+            dict(upper=domain.upper, lower=domain.lower, cshape=domain.cshape, state_u=state_u, state_ut=state_ut,
+                 ref_u=extra.ref_u, ref_ut=extra.ref_ut),
+        )
+        with open(f"data_{frame:05d}.pickle", "wb") as f:
+            pickle.dump(payload, f)
+
+    plot = odil.util.plot_module()
+    if plot is None:
+        return
+    for data, ref, path, label in ((state_u, extra.ref_u, path0, "u"), (state_ut, extra.ref_ut, path1, "ut")):
+        umax = np.max(np.abs(ref))
+        plot.plot_1d(domain, ref, data, path=path, title=f"{label} epoch={epoch:05d}" if args.plot_title else None,
+                     cmap="RdBu_r", nslices=5, transpose=True, umin=-umax, umax=umax)
+
+
 def u_error(domain, extra, state):
     du = domain.mod.numpy(domain.field(state, "u")) - extra.ref_u
     return float(np.sqrt(np.mean(du**2)))
@@ -65,9 +109,10 @@ def report_func(problem, state, epoch, cbinfo):
 
 def make_problem(args):
     dtype = np.float64 if args.double else np.float32
+    mesh, partition = odil.util.mesh_from_args(args, ("t", "x"))
     problem, state, extra = model.build(
         nt=args.Nt, nx=args.Nx, dtype=dtype, multigrid=args.multigrid, kernel=args.kernel, device=args.device,
-        args=args,
+        mesh=mesh, partition=partition, args=args,
     )
     if problem.domain.multigrid:
         printlog("multigrid levels:", problem.domain.mg_cshapes)
@@ -78,7 +123,8 @@ def main(argv=None):
     args = parse_args(argv)
     odil.setup_outdir(args)
     problem, state = make_problem(args)
-    callback = odil.make_callback(problem, args, history_func=history_func, report_func=report_func)
+    callback = odil.make_callback(problem, args, plot_func=plot_func, history_func=history_func,
+                                  report_func=report_func)
     try:
         odil.util.optimize(args, args.optimizer, problem, state, callback)
     except odil.EarlyStopError as e:

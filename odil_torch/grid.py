@@ -130,6 +130,12 @@ class Domain:
     def cast(self, value, dtype=None):
         return self.mod.cast(value, dtype or self.dtype)
 
+    def get_minimal(self):
+        """The geometry alone (``core_min.Domain``: numpy, no device)."""
+        from . import core_min
+
+        return core_min.Domain(self)
+
     def _points_1d(self, d, loc):
         if loc == "c":
             x = np.linspace(self.lower[d], self.upper[d], self.cshape[d], endpoint=False, dtype=self.dtype)

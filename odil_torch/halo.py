@@ -41,9 +41,11 @@ route and its vjp run as two CUDA graphs (``problem._GraphedPrologue``).
 Restrictions are the JAX package's (validated at build time): partitioned
 cell counts divide their mesh axis; no staggered-location conversion along
 partitioned axes; grid-rank terms keep the cell or node extent along
-partitioned axes; no hand-made ``Context.Raw`` terms.  Not ported: per-row
-data computed from local fields (the halo form of heat and wave) and
-``make_halo_residual_fn``.
+partitioned axes; no hand-made ``Context.Raw`` terms.  Per-row data of
+the local extent (auto-sharded extras, or data computed from local fields:
+heat's measurements) are extended from the neighbouring shards' data once
+every shard has recorded its kernel call (``_exchange_data``).  Not ported:
+``make_halo_residual_fn`` and the global multigrid ladder.
 """
 
 import copy
@@ -59,7 +61,19 @@ from .ops.rowwise import _loss_and_grads, halo_model, rowwise_loss_sums
 from .ops.rowwise_mg import _interp_matrices, rowwise_mg_local_loss_and_grads
 from .transfer import _interp_axis_matmul, _interp_matrix_on
 
-__all__ = ["make_halo_loss_fn", "make_halo_loss_grad_fn"]
+__all__ = ["make_halo_loss_fn", "make_halo_loss_grad_fn", "refuse_plane_partition"]
+
+
+def refuse_plane_partition(ctx, what):
+    """Raises for a shard's context (``_HaloContext``) whose plane axes are
+    partitioned: for row models that place their walls by the plane index
+    (heat, wave), whose residuals a shard's own index would move to the
+    seams.  The JAX package raises for wave there and gives heat another loss
+    than its unsharded one (365.63 against 370.04 at 16^2 on t:2,x:2, the
+    same random state)."""
+    plan = getattr(ctx, "plan", None)
+    if plan is not None and any(d > 0 for d in plan.dim_axis):
+        raise ValueError(f"{what} under --halo takes a partition of t only, got {plan.domain.partition}")
 
 
 class _Shard:
@@ -560,7 +574,6 @@ class _HaloContext:
         self.state = State(fields=dict(params), initialized=True)
         self.mg_partials = {}
         self._cache = {}
-        self.rowwise_defer = False
         self.rowwise_deferred = []
 
     def cast(self, value, dtype=None):
@@ -622,8 +635,10 @@ class _HaloContext:
         (``odil_tpu/halo.py:746``): the row-wise kernel on this shard's
         halo-extended blocks with a wrapped row model (global row offset,
         halo rows and columns and the duplicated ghost node masked out).
-        Returns Raw terms carrying (local sum, global count); with
-        ``rowwise_defer`` the call is recorded instead."""
+        The call is recorded in ``rowwise_deferred`` and the terms are
+        placeholders carrying ``deferred = (call, term)``: shard-local data
+        are extended only once every shard has recorded its call
+        (``_exchange_data``), and the caller runs the kernels then."""
         plan = self.plan
         domain = self.domain
         ndim = domain.ndim
@@ -643,30 +658,44 @@ class _HaloContext:
         dtype = exts[0].dtype
 
         def _localize_data(darr):
-            # Global-shaped data are sliced to each shard's block and extended
-            # like the fields; size-1 plane dims broadcast.
-            darr = torch.as_tensor(darr, device=plan.first)
+            # Per-row data are brought to the halo-extended local shape of the
+            # fields (``odil_tpu/halo.py``'s ``_localize_data``): global-shaped
+            # dims are sliced to each shard's block, size-1 plane dims
+            # broadcast, and the halo comes from the neighbouring shards.
+            # Global-shaped data are extended here, from every shard's block
+            # of the global array; shard-local data (auto-sharded extras, or
+            # data computed from local fields) once every shard has recorded
+            # its call (``_exchange_data``): (tensor or None, pending or None).
+            darr = torch.as_tensor(darr, device=shard.device)
             if darr.ndim != ndim:
                 raise ValueError(
                     f"halo mode: rowwise_terms data arrays must have grid rank (T, *plane); got {tuple(darr.shape)}"
                 )
-            dims, dwidths = {}, [(0, 0)] * ndim
+            glob, local, dwidths = {}, False, [(0, 0)] * ndim
             for dim, axis in plan.dim_axis.items():
                 nglob = domain.cshape[dim] + (1 if loc0[dim] == "n" else 0)
+                nloc = local_shape[dim]
                 s = darr.shape[dim]
                 if s == 1 and dim > 0:
                     continue
-                if s != nglob:
-                    raise NotImplementedError(
-                        f"halo mode: data of size {s} along partitioned dimension '{domain.dimnames[dim]}' "
-                        f"(the global extent is {nglob}): data computed from local fields are not ported"
+                if s == nglob:
+                    glob[dim] = dim
+                elif s == nloc:
+                    local = True
+                else:
+                    raise ValueError(
+                        f"halo mode: data array of shape {tuple(darr.shape)}: size {s} along partitioned dimension "
+                        f"'{domain.dimnames[dim]}' matches neither the global ({nglob}) nor the local ({nloc}) extent"
                     )
-                dims[dim] = dim
                 dwidths[dim] = tuple(w0[dim])
-            blocks = {s.key: _local_block(darr, plan, s, loc0, dims) for s in plan.shards}
-            return _extend_all(blocks, plan, dwidths, loc0, dims)[shard.key]
+            if not local:
+                blocks = {s.key: _local_block(darr, plan, s, loc0, glob) for s in plan.shards}
+                return _extend_all(blocks, plan, dwidths, loc0, glob)[shard.key], None
+            return None, (_local_block(darr, plan, shard, loc0, glob), dwidths, loc0)
 
-        ext_data = tuple(_localize_data(d) for d in data)
+        localized = [_localize_data(d) for d in data]
+        ext_data = tuple(e for e, _ in localized)
+        local_data = {j: p for j, (_, p) in enumerate(localized) if p is not None}
 
         lo0 = w0[0][0]
         node0 = loc0[0] == "n"
@@ -702,30 +731,19 @@ class _HaloContext:
             count *= domain.cshape[d] + (1 if loc0[d] == "n" else 0)
         # The masked-edge contract (odil_tpu/halo.py:894-899, xpad_ok) is the
         # plane mask of `model` alone: the kernels take the unpadded extent.
-        if self.rowwise_defer:
-            idx = len(self.rowwise_deferred)
-            self.rowwise_deferred.append(
-                dict(
-                    row_fn=model, fields=exts, params=tuple(params), data=ext_data, consts=user_consts,
-                    nterms=nterms, hist=hist, count=count, block_rows=block_rows, stream=stream, halox=halox,
-                )
+        idx = len(self.rowwise_deferred)
+        self.rowwise_deferred.append(
+            dict(
+                row_fn=model, fields=exts, params=tuple(params), data=ext_data, local_data=local_data,
+                consts=user_consts, nterms=nterms, hist=hist, count=count, block_rows=block_rows, stream=stream,
+                halox=halox,
             )
-            out = []
-            for t in range(nterms):
-                r = Context.Raw(None)
-                r.from_rowwise = True
-                r.deferred = (idx, t)
-                out.append(r)
-            return out
-        sums = rowwise_loss_sums(
-            model, exts, params=params, data=ext_data, consts=user_consts, nterms=nterms, hist=hist,
-            block_rows=block_rows, halox=halox,
         )
         out = []
-        for s in sums:
+        for t in range(nterms):
             r = Context.Raw(None)
-            r.halo_sum = (s, count)
             r.from_rowwise = True
+            r.deferred = (idx, t)
             out.append(r)
         return out
 
@@ -781,15 +799,35 @@ def _extended(plan, grid):
     return {k: _extend_all(blocks, plan, plan.widths[k], plan.locs[k]) for k, blocks in grid.items()}
 
 
-def _contexts(problem, plan, ext, params, tracers, defer=False):
+def _contexts(problem, plan, ext, params, tracers):
     """One ``_HaloContext`` per shard, in shard order."""
-    out = []
-    for s in plan.shards:
-        ctx = _HaloContext(plan, s, {k: v[s.key] for k, v in ext.items()}, params[s.key],
-                           plan.local_extra(problem, s), tracers)
-        ctx.rowwise_defer = defer
-        out.append(ctx)
-    return out
+    return [
+        _HaloContext(plan, s, {k: v[s.key] for k, v in ext.items()}, params[s.key], plan.local_extra(problem, s),
+                     tracers)
+        for s in plan.shards
+    ]
+
+
+def _run_operators(problem, plan, ext, params, tracers):
+    """Runs the operator on every shard's context, then extends the recorded
+    kernel calls' shard-local data (``_exchange_data``): [(ctx, values)]."""
+    results = [(ctx, problem._run_operator(ctx)[1]) for ctx in _contexts(problem, plan, ext, params, tracers)]
+    _exchange_data(plan, [ctx for ctx, _ in results])
+    return results
+
+
+def _exchange_data(plan, ctxs):
+    """Extends the shard-local per-row data of the recorded kernel calls by
+    their halo from the same call's data on the neighbouring shards: the
+    ppermute exchange of ``odil_tpu/halo.py``'s ``_localize_data`` for data of
+    the local extent (every shard records the same calls in the same order)."""
+    for idx, rec in enumerate(ctxs[0].rowwise_deferred):
+        for j, (_, widths, loc) in rec["local_data"].items():
+            blocks = {c.shard.key: c.rowwise_deferred[idx]["local_data"][j][0] for c in ctxs}
+            ext = _extend_all(blocks, plan, widths, loc)
+            for c in ctxs:
+                r = c.rowwise_deferred[idx]
+                r["data"] = r["data"][:j] + (ext[c.shard.key],) + r["data"][j + 1 :]
 
 
 def _mg_metas(problem, state, plan):
@@ -816,19 +854,23 @@ def make_halo_loss_fn(problem, state, extra_partition=None):
     def loss_fn(arrays, tracers):
         grid, params = _localize(problem, plan, mg_meta, arrays)
         sums, counts = None, None
-        for ctx in _contexts(problem, plan, _extended(plan, grid), params, tracers):
-            _, values = problem._run_operator(ctx)
+        for ctx, values in _run_operators(problem, plan, _extended(plan, grid), params, tracers):
+            kernel_sums = [
+                rowwise_loss_sums(r["row_fn"], r["fields"], params=r["params"], data=r["data"], consts=r["consts"],
+                                  nterms=r["nterms"], hist=r["hist"], block_rows=r["block_rows"], halox=r["halox"])
+                for r in ctx.rowwise_deferred
+            ]
             local, cnt = [], []
             for ti, v in enumerate(values):
                 if isinstance(v, Context.Raw):
-                    hs = getattr(v, "halo_sum", None)
-                    if hs is None:
+                    if getattr(v, "deferred", None) is None:
                         raise ValueError(
                             "halo mode does not support hand-made Context.Raw terms; "
                             "evaluate fused kernels through ctx.rowwise_terms"
                         )
-                    local.append(hs[0])
-                    cnt.append(hs[1])
+                    idx, t = v.deferred
+                    local.append(kernel_sums[idx][t])
+                    cnt.append(ctx.rowwise_deferred[idx]["count"])
                     continue
                 mask, count = _plain_term_mask(plan, ctx.shard, v, ti)
                 sq = torch.square(v)
@@ -1104,8 +1146,7 @@ def _make_halo_onepass_loss_grad_fn(problem, state, extra_partition=None):
         with torch.no_grad():
             grid0, params0 = _localize(problem, plan, mg_meta, arrays0)
             probe = []
-            for ctx in _contexts(problem, plan, _extended(plan, grid0), params0, problem.tracers, defer=True):
-                problem._run_operator(ctx)
+            for ctx, _ in _run_operators(problem, plan, _extended(plan, grid0), params0, problem.tracers):
                 probe += ctx.rowwise_deferred
     except (ValueError, NotImplementedError, RuntimeError, TypeError, KeyError):
         return None
@@ -1137,9 +1178,7 @@ def _make_halo_onepass_loss_grad_fn(problem, state, extra_partition=None):
         ext = {k: {s.key: exts[j * n + m] for m, s in enumerate(plan.shards)} for j, k in enumerate(grid_keys)}
         params = {s.key: {k: _param_on(st.fields[k], s.device) for k in plan.param_keys} for s in plan.shards}
         with torch.enable_grad():
-            results = []
-            for ctx in _contexts(problem, plan, ext, params, tracers, defer=True):
-                results.append((ctx, problem._run_operator(ctx)[1]))
+            results = _run_operators(problem, plan, ext, params, tracers)
 
         outs, couts = [], []
         kterms, kcounts, oterms = {}, {}, {}

@@ -33,6 +33,7 @@ import torch
 
 from ..fields import Array, Field, State
 from ..grid import Domain
+from ..halo import refuse_plane_partition
 from ..nn import eval_neural_net
 from ..ops.rowwise import _HEAT_LAYERS, RowModel
 from ..problem import Problem
@@ -396,6 +397,7 @@ def operator_odil_fused(ctx):
     mod = ctx.mod
     args = extra.args
     epoch = ctx.tracers["epoch"]
+    refuse_plane_partition(ctx, "heat")
     model, names, params = _row_model(ctx)
     u0 = extra.init_u
     # Made on the device (no host copy per epoch): ix as a plane constant,
@@ -528,7 +530,7 @@ def pick_imposed(domain, args):
 
 def build(nt=64, nx=64, infer_k=False, imposed="none", nimp=200, noise=0.0, seed=1000, kimp=2.0, kxreg=0.0,
           ktreg=0.0, kwreg=0.0, kmax=0.1, arch_k=(5, 5), dtype=np.float32, multigrid=True, kernel="xla",
-          device="cuda", ref_u=None, args=None):
+          device="cuda", ref_u=None, mesh=None, partition=None, args=None):
     """Builds the (inverse-)conductivity problem with a synthetic reference:
     (problem, state, extra).  The conductivity net's initial weights come
     from ``torch.Generator().manual_seed(seed)``.
@@ -536,7 +538,8 @@ def build(nt=64, nx=64, infer_k=False, imposed="none", nimp=200, noise=0.0, seed
     kernel: "pallas" (the row-wise kernels) or "xla" (the plain operator);
     the names are the JAX package's.  ref_u: the reference temperature on
     the grid (numpy; the measurements are taken from it), by default the
-    initial temperature's bump at every time."""
+    initial temperature's bump at every time.  mesh/partition: the shards of
+    the halo path (``parallel.Mesh``; evaluate with ``halo=True``)."""
     if kernel not in ("pallas", "xla"):
         raise ValueError(f"kernel={kernel!r}: heat has 'pallas' and 'xla'")
     if args is None:
@@ -545,7 +548,8 @@ def build(nt=64, nx=64, infer_k=False, imposed="none", nimp=200, noise=0.0, seed
             kxregdecay=0, ktreg=ktreg, ktregdecay=0, kwreg=kwreg, kwregdecay=0, kmax=kmax, keep_frozen=1,
             keep_init=1, solver="odil",
         )
-    domain = Domain(cshape=(nt, nx), dimnames=("t", "x"), multigrid=multigrid, dtype=dtype, device=device)
+    domain = Domain(cshape=(nt, nx), dimnames=("t", "x"), multigrid=multigrid, dtype=dtype, device=device,
+                    mesh=mesh, partition=partition)
     mod = domain.mod
     tt, xx = domain.points()
     x1 = domain.points_1d("x")

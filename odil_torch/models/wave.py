@@ -18,6 +18,7 @@ import torch
 
 from ..fields import State
 from ..grid import Domain
+from ..halo import refuse_plane_partition
 from ..ops.rowwise import RowModel
 from ..problem import Problem
 from ..stencil import extrap_quadh
@@ -144,6 +145,7 @@ def operator_fused(ctx):
     traces enter as per-row data of shape (T, 1)."""
     extra = ctx.extra
     mod = ctx.mod
+    refuse_plane_partition(ctx, "wave")
     nt, nx = ctx.size()
     left_utm = mod.reshape(mod.roll(extra.left_u, 1, 0), (nt, 1))
     right_utm = mod.reshape(mod.roll(extra.right_u, 1, 0), (nt, 1))
@@ -155,18 +157,20 @@ def operator_fused(ctx):
     return [("fu", term)]
 
 
-def build(nt=64, nx=64, kimp=1.0, dtype=np.float64, multigrid=True, kernel="xla", device="cuda", args=None):
+def build(nt=64, nx=64, kimp=1.0, dtype=np.float64, multigrid=True, kernel="xla", device="cuda", mesh=None,
+          partition=None, args=None):
     """Builds the wave assimilation problem: (problem, state, extra).
 
     kernel: "pallas" (the row-wise kernels) or "xla" (the plain operator);
-    the names are the JAX package's."""
+    the names are the JAX package's.  mesh/partition: the shards of the halo
+    path (``parallel.Mesh``; evaluate with ``halo=True``)."""
     if kernel not in ("pallas", "xla"):
         raise ValueError(f"kernel={kernel!r}: wave has 'pallas' and 'xla'")
     if args is None:
         args = argparse.Namespace(kimp=kimp)
     domain = Domain(
         cshape=(nt, nx), dimnames=("t", "x"), lower=(0, -1), upper=(1, 1), multigrid=multigrid, dtype=dtype,
-        device=device,
+        device=device, mesh=mesh, partition=partition,
     )
     tt, xx = (p.cpu().numpy() for p in domain.points())
     t1, x1 = (p.cpu().numpy() for p in domain.points_1d())

@@ -68,7 +68,12 @@ pair on an edge-padded extent (``_forward_tiled``/``_backward_tiled`` with
 ceiling division over its 16x32 tiles with every cell guarded, so it runs on
 the unpadded extended extent (130 = 128 + 2 x-rows for the flagship's
 ``x:2`` shards) and the mask alone does what ``_apply_xpad`` does there:
-``xpad_masked`` is accepted and changes nothing.
+``xpad_masked`` is accepted and changes nothing.  A wrapped heat or wave
+model launches the halo layer of the 1-D tile kernel (``csrc/rows1d.cuh``,
+``odil_rows1d_halo_*``: ``forward_halo_rows1d_cuda``/
+``backward_halo_rows1d_cuda``), the port of the blocked pair that the JAX
+package runs on its wrapped row function for 1-D planes
+(``odil_tpu/halo.py:924-936``, whose x-padded form needs 3-D grids).
 """
 
 import ctypes
@@ -372,6 +377,15 @@ class _Rows1DArgs(ctypes.Structure):
     ]
 
 
+class _Rows1DHaloArgs(ctypes.Structure):
+    """Mirror of ``struct Rows1DHaloArgs`` in csrc/rows1d.cuh (the masked
+    per-shard 1-D kernels): Rows1DArgs plus the halo layer."""
+
+    _fields_ = [("base", _Rows1DArgs), ("mask", ctypes.c_void_p)] + [
+        (n, ctypes.c_int) for n in ("off", "r_lo", "r_hi")
+    ]
+
+
 class _RowHaloArgs(ctypes.Structure):
     """Mirror of ``struct RowHaloArgs`` in csrc/rowwise.cu (the masked
     per-shard kernels): RowArgs plus the halo layer."""
@@ -403,9 +417,9 @@ class _VeltracerCuda:
             return "odil_rows_halo_forward", "odil_rows_halo_backward"
         return "odil_rows_forward", "odil_rows_backward"
 
-    def launch_shape(self, lib, T, shape, grads, sums):
+    def launch_shape(self, lib, T, shape, grads, sums, masked=False):
         """(slab, tiles, blocks, resident blocks) of a launch over T rows of
-        (X, Y) planes: a block a tile."""
+        (X, Y) planes: a block a tile (the masked form the same)."""
         X, Y = shape
         slab = _wave_slab(T, lib.odil_rows_num_blocks(T, X, Y, T), lib._odil_resident, 1)
         blocks = lib.odil_rows_num_blocks(T, X, Y, slab)
@@ -448,15 +462,18 @@ class _Rows1DCuda:
 
     def names(self, model, stream):
         """The (forward, backward) entry points: the streaming pair launches
-        the slabbed ones."""
+        the slabbed ones, a per-shard model the masked ones."""
         if model.halo is not None:
-            raise NotImplementedError(f"the {model.cuda_model} CUDA row model has no per-shard (halo) form")
+            if stream:
+                raise NotImplementedError("the masked per-shard kernels have no streaming form")
+            return "odil_rows1d_halo_forward", "odil_rows1d_halo_backward"
         return "odil_rows1d_forward", "odil_rows1d_backward"
 
-    def launch_shape(self, lib, T, shape, grads, sums):
+    def launch_shape(self, lib, T, shape, grads, sums, masked=False):
         """(slab, tiles, blocks, resident blocks) of a tile launch over (T, N)."""
         (N,) = shape
-        mode = int(bool(sums)) | 2 * int(bool(grads))  # the kernel's: 1 the sums, 2 the gradients, 3 both
+        # The kernel's mode: 1 the sums, 2 the gradients, 3 both; 4 the masked form.
+        mode = int(bool(sums)) | 2 * int(bool(grads)) | 4 * int(bool(masked))
         resident = lib._odil_rows1d_resident[(self.model_id, mode)]
         tile, max_slab, threads = lib._odil_rows1d_tile
         slab, blocks = _tile_rows(T, N, self.hist, bool(grads), resident, tile, max_slab, threads)
@@ -476,12 +493,13 @@ class _Rows1DCuda:
                 f"the {model.cuda_model} CUDA row kernels take {self.nfields} fields, data {self.ndata} and "
                 f"{len(self.consts)} consts, got {len(fields)}, {len(data)}, {len(consts)}"
             )
-        _check_cuda_tensors(tuple(fields) + tuple(params) + tuple(data) + tuple(consts), "row-wise")
+        halo = (model.halo[0],) if model.halo is not None else ()
+        _check_cuda_tensors(tuple(fields) + tuple(params) + tuple(data) + tuple(consts) + halo, "row-wise")
         shape = tuple(fields[0].shape)
         if len(shape) != 2 or shape[0] < 2:
             raise ValueError(f"the CUDA 1-D row kernels take (T, N) fields with T >= 2, got {shape}")
         T, N = shape
-        _check_shapes(fields, [shape] * len(fields), model.cuda_model)
+        _check_shapes(tuple(fields) + halo, [shape] * len(fields) + [(N,)] * len(halo), model.cuda_model)
         for d in data:
             if tuple(d.shape) not in ((T, N), (T, 1)):
                 raise ValueError(f"the CUDA 1-D row kernels take data of shape (T, N) or (T, 1), got {tuple(d.shape)}")
@@ -493,7 +511,7 @@ class _Rows1DCuda:
         dev = fields[0].device
         nparams = sum(p.numel() for p in params)
         stride = nterms + nparams
-        slab, _, blocks, _ = self.launch_shape(lib, T, (N,), grads, sums)
+        slab, _, blocks, _ = self.launch_shape(lib, T, (N,), grads, sums, model.halo is not None)
         partials = torch.empty((max(stride, 1), blocks), dtype=torch.float64, device=dev)
         out = torch.empty((max(stride, 1),), dtype=torch.float32, device=dev)  # sums, then dparams
         dfields = tuple(torch.empty_like(f) for f in fields) if grads else ()
@@ -511,6 +529,9 @@ class _Rows1DCuda:
             nterms=nterms, nparams=nparams, stride=stride, flags=flags,
             s=(ctypes.c_float * _NSCALARS)(*(list(scalars) + [0.0] * (_NSCALARS - len(scalars)))),
         )
+        if model.halo is not None:
+            mask, off, _, r_lo, r_hi = model.halo
+            args = _Rows1DHaloArgs(base=args, mask=mask.data_ptr(), off=off, r_lo=r_lo, r_hi=r_hi)
         return _Launch(args, dfields, tuple(dparams), out, (partials,))
 
 
@@ -572,7 +593,7 @@ def _library():
     lib = _build.load("rowwise")
     if not getattr(lib, "_odil_typed", False):
         for name in ("odil_rows_args_size", "odil_rows_halo_args_size", "odil_rows1d_args_size",
-                     "odil_rows_resident_blocks"):
+                     "odil_rows1d_halo_args_size", "odil_rows_resident_blocks"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
         lib.odil_rows_num_blocks.argtypes = [ctypes.c_int] * 4
@@ -587,14 +608,17 @@ def _library():
         for pre, struct in (("odil_rows", _RowArgs), ("odil_rows_halo", _RowHaloArgs)):
             getattr(lib, pre + "_forward").argtypes = [ctypes.POINTER(struct), ctypes.c_void_p]
             getattr(lib, pre + "_backward").argtypes = [ctypes.POINTER(struct), ctypes.c_int, ctypes.c_void_p]
-        lib.odil_rows1d_forward.argtypes = [ctypes.c_int, ctypes.POINTER(_Rows1DArgs), ctypes.c_void_p]
-        lib.odil_rows1d_backward.argtypes = [ctypes.c_int, ctypes.POINTER(_Rows1DArgs), ctypes.c_int, ctypes.c_void_p]
-        for pre in ("odil_rows", "odil_rows_halo", "odil_rows1d"):
+        for pre, struct in (("odil_rows1d", _Rows1DArgs), ("odil_rows1d_halo", _Rows1DHaloArgs)):
+            getattr(lib, pre + "_forward").argtypes = [ctypes.c_int, ctypes.POINTER(struct), ctypes.c_void_p]
+            getattr(lib, pre + "_backward").argtypes = [
+                ctypes.c_int, ctypes.POINTER(struct), ctypes.c_int, ctypes.c_void_p
+            ]
+        for pre in ("odil_rows", "odil_rows_halo", "odil_rows1d", "odil_rows1d_halo"):
             getattr(lib, pre + "_forward").restype = ctypes.c_int
             getattr(lib, pre + "_backward").restype = ctypes.c_int
         for name, struct in (
             ("odil_rows_args_size", _RowArgs), ("odil_rows_halo_args_size", _RowHaloArgs),
-            ("odil_rows1d_args_size", _Rows1DArgs),
+            ("odil_rows1d_args_size", _Rows1DArgs), ("odil_rows1d_halo_args_size", _Rows1DHaloArgs),
         ):
             size = getattr(lib, name)()
             if size != ctypes.sizeof(struct):
@@ -604,7 +628,7 @@ def _library():
         lib._odil_rows1d_tile = tuple(int(lib.odil_rows1d_tile(a)) for a in range(3))
         lib._odil_rows1d_resident = {
             (spec.model_id, mode): max(int(lib.odil_rows1d_resident_blocks(spec.model_id, mode)), 1)
-            for spec in _CUDA_MODELS.values() if isinstance(spec, _Rows1DCuda) for mode in (1, 2, 3)
+            for spec in _CUDA_MODELS.values() if isinstance(spec, _Rows1DCuda) for mode in (1, 2, 3, 5, 6, 7)
         }
         lib._odil_typed = True
     return lib
@@ -650,7 +674,7 @@ def launch_shape(model, fields, grads, sums):
     ``fields`` (a CUDA model's), the streaming pair's too."""
     spec = _cuda_model(model)
     T, *plane = fields[0].shape
-    return spec.launch_shape(_library(), T, tuple(plane), grads, sums)
+    return spec.launch_shape(_library(), T, tuple(plane), grads, sums, model.halo is not None)
 
 
 def row_tile():
@@ -736,6 +760,40 @@ def backward_halo_cuda(model, nterms, hist, fields, params, data, consts, g, wit
 backward_halo_cuda.launches = 0
 
 
+def forward_halo_rows1d_cuda(model, nterms, hist, fields, params, data, consts):
+    """CUDA masked per-shard forward kernel of the 1-D row models (replaces
+    ``_forward_blocked`` on the wrapped row function of
+    ``odil_tpu/halo.py:873-885``, ``odil_tpu/ops/rowwise.py:322``): (nterms,)
+    sums of squares of the masked residual rows of a ``halo_model``."""
+    sums = _launch_forward(model, nterms, hist, fields, params, data, consts)
+    forward_halo_rows1d_cuda.launches += 1
+    return sums
+
+
+forward_halo_rows1d_cuda.launches = 0
+
+
+def backward_halo_rows1d_cuda(model, nterms, hist, fields, params, data, consts, g, with_sums):
+    """CUDA masked per-shard backward kernel of the 1-D row models (replaces
+    ``_backward_blocked`` on the wrapped row function,
+    ``odil_tpu/ops/rowwise.py:396``): (dfields, dparams, sums or None) of a
+    ``halo_model``."""
+    out = _launch_backward(model, nterms, hist, fields, params, data, consts, g, with_sums)
+    backward_halo_rows1d_cuda.launches += 1
+    return out
+
+
+backward_halo_rows1d_cuda.launches = 0
+
+
+def _halo_kernels(model):
+    """The (forward, backward) per-shard wrappers of a wrapped model's CUDA
+    counterpart."""
+    if isinstance(_CUDA_MODELS.get(model.cuda_model), _Rows1DCuda):
+        return forward_halo_rows1d_cuda, backward_halo_rows1d_cuda
+    return forward_halo_cuda, backward_halo_cuda
+
+
 # -- Dispatch ------------------------------------------------------------------
 
 
@@ -768,14 +826,14 @@ def _plain(plain, tensor, *args):
 
 def _forward(model, nterms, hist, fields, params, data, consts, stream=False):
     if _kernel_route(model, fields[0]):
-        kernel = forward_halo_cuda if model.halo is not None else forward_stream_cuda if stream else forward_cuda
+        kernel = _halo_kernels(model)[0] if model.halo is not None else forward_stream_cuda if stream else forward_cuda
         return kernel(model, nterms, hist, _contig(fields), _contig(params), _contig(data), _contig(consts))
     return _plain(_forward_plain, fields[0], model, nterms, hist, fields, params, data, consts)
 
 
 def _backward(model, nterms, hist, fields, params, data, consts, g, with_sums=False, stream=False):
     if _kernel_route(model, fields[0]):
-        kernel = backward_halo_cuda if model.halo is not None else backward_stream_cuda if stream else backward_cuda
+        kernel = _halo_kernels(model)[1] if model.halo is not None else backward_stream_cuda if stream else backward_cuda
         return kernel(
             model, nterms, hist, _contig(fields), _contig(params), _contig(data), _contig(consts), g, with_sums
         )

@@ -10,8 +10,10 @@ live on the device that ``--device`` names (default ``cuda``); the seeds
 go to ``np.random`` and to one ``torch.Generator`` that ``setup_outdir``
 returns.  ``newton`` runs ``optimize_newton`` (the sparse Jacobian
 solved on the host) and ``gn``/``newton_mf`` the matrix-free Gauss-Newton
-of ``newton.py``.  Not ported yet: the Orbax checkpoint format, which
-raises (ROADMAP.md).
+of ``newton.py``.  ``--checkpoint_format orbax`` keeps the JAX package's
+flag and writes asynchronous checkpoints (``checkpoint.AsyncCheckpointer``,
+one directory a step under ``checkpoint_orbax``), not Orbax's files: Orbax
+imports JAX, which the port never does.
 """
 
 import argparse
@@ -29,8 +31,8 @@ from .optim import make_optimizer
 
 __all__ = [
     "Timer", "add_arguments", "assert_equal", "compute_task_epochs", "get_device_memory_usage_kb", "get_env_config",
-    "get_error", "get_memory_usage_kb", "make_callback", "optimize", "optimize_grad", "optimize_newton", "printlog",
-    "set_log_file", "setup_outdir",
+    "get_error", "get_memory_usage_kb", "make_callback", "mesh_from_args", "optimize", "optimize_grad",
+    "optimize_newton", "plot_module", "printlog", "set_log_file", "setup_outdir",
 ]
 
 
@@ -41,6 +43,7 @@ class _LogSink:
     def __init__(self):
         self.stream = sys.stderr
         self.echo = False
+        self.told_no_plots = None  # the stream already told that no figure is drawn
 
     def emit(self, text):
         if self.echo and self.stream is not sys.stderr:
@@ -51,6 +54,41 @@ class _LogSink:
 
 
 _log_sink = _LogSink()
+
+
+def mesh_from_args(args, dimnames):
+    """The (mesh, partition) of ``--mesh`` over the grid's ``dimnames``, or
+    (None, None) without it.  Every shard sits on the one device of
+    ``--device``: the port's mesh is in-process, and several cards are not
+    ported."""
+    if not getattr(args, "mesh", None):
+        return None, None
+    from . import parallel
+
+    sizes = [int(p.partition(":")[2] or 1) for p in args.mesh.split(",")]
+    devices = [torch.device(args.device)] * max(1, math.prod(s for s in sizes if s > 0))
+    mesh = parallel.mesh_from_spec(args.mesh, devices=devices)
+    partition = parallel.auto_partition(dimnames, mesh)
+    printlog(f"mesh: {dict(mesh.shape)}, partition: {partition}")
+    return mesh, partition
+
+
+def plot_module(name="plot"):
+    """``odil_torch.plot`` (or ``plotutil``) where matplotlib imports, else
+    None: a plot epoch then writes its data and draws no figure, and the
+    first such epoch of a log says so in it.  Any other import error
+    raises."""
+    import importlib
+
+    try:
+        return importlib.import_module(f"odil_torch.{name}")
+    except ImportError as e:
+        if not (e.name or "").startswith("matplotlib"):
+            raise
+        if _log_sink.told_no_plots is not _log_sink.stream:
+            _log_sink.told_no_plots = _log_sink.stream
+            printlog(f"plots: matplotlib does not import ({e}); the plot epochs write their data and no figures")
+        return None
 
 
 def assert_equal(first, second, msg=""):
@@ -121,7 +159,9 @@ def add_arguments(parser):
         type=str,
         default="pickle",
         choices=["pickle", "orbax"],
-        help="Checkpoint backend: the reference-compatible pickle ('orbax' is not ported and raises)",
+        help="Checkpoint backend: the reference-compatible pickle, or 'orbax' (the JAX package's name): "
+        "asynchronous checkpoints under checkpoint_orbax/<epoch>/state.pickle (pickle files, not Orbax's, "
+        "which would need JAX)",
     )
     add("--frames", type=int, default=10, help="Frames to plot. Zero disables first frame.")
     add("--outdir", type=str, default=".", help="Output directory")
@@ -479,11 +519,6 @@ def make_callback(
 ):
     """Builds the periodic callback: report / history / plot / checkpoint
     gated by the *_every cadences (reference ``util.py:337-467``)."""
-    if getattr(args, "checkpoint_format", "pickle") == "orbax":
-        raise NotImplementedError(
-            "--checkpoint_format orbax (the JAX package's asynchronous Orbax checkpointer) is not ported: "
-            "ROADMAP.md section 1; use --checkpoint_format pickle"
-        )
     cbinfo = argparse.Namespace()
     cbinfo.walltime = 0
     cbinfo.epoch = 0
@@ -493,6 +528,7 @@ def make_callback(
     cbinfo.args = args
     cbinfo.frame = getattr(args, "frame_start", 0) or 0
     cbinfo.history = History(csvpath="train.csv", warmup=1) if args.history_every else None
+    cbinfo.orbax = None  # the AsyncCheckpointer of --checkpoint_format orbax, made at the first checkpoint
 
     def callback(state, epoch, pinfo):
         problem = cbinfo.problem
@@ -585,13 +621,24 @@ def make_callback(
             if checkpoint_func is not None:
                 checkpoint_func(problem, state, epoch, cbinfo)
             else:
-                from .checkpoint import checkpoint_save
-
                 opt = getattr(problem, "_active_optimizer", None)
                 optstate = getattr(opt, "slots", None) if opt is not None else None
-                path = f"checkpoint_{epoch:06d}.pickle"
-                printlog(path)
-                checkpoint_save(problem.domain, state, path, optstate=optstate)
+                if getattr(args, "checkpoint_format", "pickle") == "orbax":
+                    if cbinfo.orbax is None:
+                        import atexit
+
+                        from .checkpoint import AsyncCheckpointer
+
+                        cbinfo.orbax = AsyncCheckpointer("checkpoint_orbax")
+                        atexit.register(cbinfo.orbax.close)
+                    printlog(f"checkpoint_orbax/{epoch}")
+                    cbinfo.orbax.save(problem.domain, state, epoch, optstate=optstate)
+                else:
+                    from .checkpoint import checkpoint_save
+
+                    path = f"checkpoint_{epoch:06d}.pickle"
+                    printlog(path)
+                    checkpoint_save(problem.domain, state, path, optstate=optstate)
 
         cbinfo.time_callback += time.time() - time_prev
 

@@ -1126,3 +1126,123 @@ def test_lbfgs_state_lives_on_the_card(cuda):
         assert {t.device.type for t in (opt.x, opt.memory.s, opt.memory.y, opt.memory.rho)} == {dev.type}
         out[dev.type] = x[0].cpu().numpy()
     np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-10)
+
+
+# -- The per-shard 1-D kernels (heat and wave under --halo) and async checkpoints --
+
+ROWS1D_HALO_CASES = {"heat": (64, 96), "wave": (64, 96), "heat_1024": (1024, 1024)}
+# sha256 (first 16 hex digits) of the masked 1-D kernels' outputs over the
+# four t:4 shards of _rows1d_halo_records (backward with the sums, without,
+# forward), from rows1d.cuh's halo layer as first written (NVIDIA H100 80GB
+# HBM3).
+ROWS1D_HALO_DIGESTS = {
+    "heat": ("4f769c0148f7504a", "96bf9a5f06a424be", "287a7cab8c70a5e8"),
+    "wave": ("8d8d89a2a68ffd8b", "8715b0bbdcc364b0", "938743c032a3751e"),
+    "heat_1024": ("6bd09299e82cdf5b", "729d79d691b6a251", "9856622ce93f1ac4"),
+}
+
+
+def _rows1d_halo_records(device, name, seed=14):
+    """The recorded kernel calls of the four shards of a t:4 mesh on one
+    device (heat with its net, measurements and both regularizations, or
+    wave), fp32, at a seeded random state: the masked models, blocks, data
+    and consts the per-shard kernels take."""
+    from odil_torch import halo as thalo
+    from odil_torch import parallel as tpar
+
+    T, N = ROWS1D_HALO_CASES[name]
+    mesh = tpar.mesh_from_spec("t:4", devices=[device] * 4)
+    if name.startswith("heat"):
+        p, s, _ = tht.build(nt=T, nx=N, infer_k=True, imposed="random", nimp=min(T * N // 8, 2000), kxreg=0.3,
+                            ktreg=0.2, dtype=np.float32, kernel="pallas", device=device, mesh=mesh,
+                            partition={"t": "t"})
+    else:
+        p, s, _ = twv.build(nt=T, nx=N, dtype=np.float32, kernel="pallas", device=device, mesh=mesh,
+                            partition={"t": "t"})
+    rng = np.random.default_rng(seed)
+    arrays = [(0.3 * rng.normal(size=a.shape)).astype(np.float32) for a in p.domain.arrays_from_state(s)]
+    plan = thalo._HaloPlan(p, s)
+    grid, params = thalo._localize(p, plan, thalo._mg_metas(p, s, plan), arrays_from_numpy(arrays, device=device))
+    results = thalo._run_operators(p, plan, thalo._extended(plan, grid), params, p.tracers)
+    return [r for ctx, _ in results for r in ctx.rowwise_deferred]
+
+
+def _record_args(r, dtype=None):
+    return [tuple((x.detach().to(dtype) if dtype else x.detach()).contiguous() for x in r[k])
+            for k in ("fields", "params", "data", "consts")]
+
+
+@pytest.mark.parametrize("name", list(ROWS1D_HALO_CASES))
+def test_rows1d_halo_kernels_match_plain(cuda, name):
+    """The masked 1-D kernels (backward with and without the sums, forward)
+    on every shard's block against the plain version of the wrapped model,
+    gradients within _close_floor of the fp64 one; they repeat their bits
+    and count apart from the veltracer per-shard kernels."""
+    counts = (trw.backward_halo_rows1d_cuda.launches, trw.backward_halo_cuda.launches)
+    for r in _rows1d_halo_records(cuda, name):
+        m, nt, h = r["row_fn"], r["nterms"], r["hist"]
+        assert m.halo is not None and m.cuda_model == name.split("_")[0]
+        a, a64 = _record_args(r), _record_args(r, torch.float64)
+        g = torch.linspace(0.5, 1.5, nt, device=cuda) / a[0][0].numel()
+        for with_sums in (True, False):
+            kd, kp, ks = trw.backward_halo_rows1d_cuda(m, nt, h, *a, g, with_sums)
+            pd, pp, ps = trw._backward_plain(m, nt, h, *a, g, with_sums)
+            wd, wp, _ = trw._backward_plain(m, nt, h, *a64, g.double(), with_sums)
+            for k, p, w in zip(list(kd) + list(kp), list(pd) + list(pp), list(wd) + list(wp)):
+                _close_floor(k, p, w)
+            if with_sums:
+                _close(ks, ps, 1e-5, 1e-7)
+                again = trw.backward_halo_rows1d_cuda(m, nt, h, *a, g, True)
+                assert _digest(list(kd) + list(kp) + [ks]) == _digest(list(again[0]) + list(again[1]) + [again[2]])
+        _close(trw.forward_halo_rows1d_cuda(m, nt, h, *a), trw._forward_plain(m, nt, h, *a), 1e-5, 1e-7)
+    assert trw.backward_halo_rows1d_cuda.launches - counts[0] == 4 * 3
+    assert trw.backward_halo_cuda.launches == counts[1]
+
+
+@pytest.mark.parametrize("name", list(ROWS1D_HALO_CASES))
+def test_rows1d_halo_kernels_keep_their_bits(cuda, name):
+    outs = [[], [], []]
+    for r in _rows1d_halo_records(cuda, name):
+        m, nt, h = r["row_fn"], r["nterms"], r["hist"]
+        a = _record_args(r)
+        g = torch.linspace(0.5, 1.5, nt, device=cuda) / a[0][0].numel()
+        d, p, s = trw.backward_halo_rows1d_cuda(m, nt, h, *a, g, True)
+        outs[0] += list(d) + list(p) + [s]
+        d, p, _ = trw.backward_halo_rows1d_cuda(m, nt, h, *a, g, False)
+        outs[1] += list(d) + list(p)
+        outs[2].append(trw.forward_halo_rows1d_cuda(m, nt, h, *a))
+    got = tuple(_digest(o) for o in outs)
+    assert got == ROWS1D_HALO_DIGESTS[name], got
+
+
+def test_async_checkpoint_is_not_reached_by_a_later_in_place_update(cuda, tmp_path):
+    """On a side stream busy with earlier work, a save and, right after it,
+    an in-place update of the field and of a slot on that stream: the saved
+    step holds the values of the save (the pinned copies are enqueued on the
+    stream before the update)."""
+    from odil_torch import Domain, Field, State
+    from odil_torch.checkpoint import AsyncCheckpointer
+
+    domain = Domain(cshape=(512, 512), dimnames=["x", "y"], dtype=np.float32, device=cuda)
+    state = domain.init_state(State(fields={"u": Field(np.zeros((512, 512)))}))
+    stream = torch.cuda.Stream()
+    ckpt = AsyncCheckpointer(tmp_path, max_to_keep=2)
+    with torch.cuda.stream(stream):
+        u = state.fields["u"].array
+        slot = torch.full_like(u, 3.0)
+        a = torch.randn(2048, 2048, device=cuda)
+        for _ in range(20):  # keeps the stream busy past the save
+            a = torch.tanh(a @ a)
+        u.add_(a[:512, :512] * 0 + 1.0)
+        want = u.clone()
+        for step in (1, 2, 3):
+            ckpt.save(domain, state, step, optstate={"m": [slot]})
+            u.add_(1.0)
+            slot.mul_(2.0)
+    stream.synchronize()
+    _ = domain.init_state(State(fields={"u": Field(np.zeros((512, 512)))}))
+    slots = ckpt.restore(domain, state, step=2)
+    _close(state.fields["u"].array, want + 1.0, 0.0, 0.0)
+    np.testing.assert_array_equal(slots["m"][0], np.full((512, 512), 6.0, dtype=np.float32))
+    assert ckpt.latest_step() == 3 and sorted(p.name for p in tmp_path.iterdir()) == ["2", "3"]
+    ckpt.close()

@@ -363,9 +363,12 @@ def test_emit_matches_the_jax_package(nsteps, tasks, last_only):
 @pytest.mark.parametrize("what", ["newton", "gn", "newton_mf", "poisson_mesh", "orbax"])
 def test_unported_parts_raise(what, outdir):
     """The parts still to port raise and cite the ROADMAP (the poisson CLI's
-    --mesh, the Orbax checkpoints); Newton (plain fields, as the run scripts
-    take it) and Gauss-Newton, ported since, run the veltracer CLI two
-    epochs: rows at epochs 0-2, finite, the loss lower at the end."""
+    --mesh); Newton (plain fields, as the run scripts take it) and
+    Gauss-Newton, ported since, run the veltracer CLI two epochs: rows at
+    epochs 0-2, finite, the loss lower at the end.  --checkpoint_format
+    orbax, ported since, runs the CLI two epochs with a checkpoint an epoch:
+    the latest step is 2 and restoring it into a fresh state gives the run's
+    final fields and its Adam slots."""
     if what == "poisson_mesh":  # the JAX package's GSPMD route
         from odil_torch.examples import poisson
 
@@ -375,12 +378,23 @@ def test_unported_parts_raise(what, outdir):
         return
     args = _vt_args(epochs=2, history_every=1, **({"multigrid": 0} if what == "newton" else {}))
     if what == "orbax":
-        args.checkpoint_format = "orbax"
         from odil_torch.examples import veltracer
 
-        problem, _ = veltracer.make_problem(args)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            todil.make_callback(problem, args)
+        args.checkpoint_format, args.checkpoint_every, args.outdir = "orbax", 1, str(outdir / what)
+        todil.setup_outdir(args)
+        problem, state = veltracer.make_problem(args)
+        callback = todil.make_callback(problem, args)
+        todil.optimize(args, args.optimizer, problem, state, callback)
+        ckpt = callback.cbinfo.orbax
+        ckpt.wait()
+        assert ckpt.latest_step() == 2 and sorted(os.listdir(outdir / what / "checkpoint_orbax")) == ["0", "1", "2"]
+        _, fresh = veltracer.make_problem(args)
+        slots = ckpt.restore(problem.domain, fresh)
+        domain = problem.domain
+        for a, b in zip(domain.arrays_from_state(fresh), domain.arrays_from_state(state)):
+            assert torch.equal(a, b)
+        assert int(slots["step"]) == 2 and len(slots["m"]) == len(slots["v"]) == len(domain.arrays_from_state(state))
+        ckpt.close()
         return
     args.optimizer = what
     problem, _ = _vt_run(args, outdir / what)

@@ -57,6 +57,14 @@ def test_port_sources_found():
         "odil_torch/newton.py",
         "odil_torch/amg.py",
         "odil_torch/linsolver.py",
+        "odil_torch/plot.py",
+        "odil_torch/plotutil.py",
+        "odil_torch/_cmapdata.py",
+        "odil_torch/core_min.py",
+        "odil_torch/examples/compare.py",
+        "odil_torch/examples/heat_plot_train.py",
+        "odil_torch/examples/poisson_plot_train.py",
+        "odil_torch/examples/poisson_plot_field.py",
     } <= names
 
 
@@ -74,6 +82,10 @@ def test_port_sources_found():
         "odil_torch.examples.infer_constant", "odil_torch.examples.fields",
         # Newton and the linear solvers.
         "odil_torch.newton", "odil_torch.amg", "odil_torch.linsolver",
+        # Plots, post-processing and compare.py, in one interpreter.
+        "odil_torch.plot, odil_torch.plotutil, odil_torch.core_min, odil_torch.examples.compare, "
+        "odil_torch.examples.heat_plot_train, odil_torch.examples.poisson_plot_train, "
+        "odil_torch.examples.poisson_plot_field",
     ],
 )
 def test_new_modules_import_without_jax(name):
