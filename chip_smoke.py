@@ -210,6 +210,33 @@ Phases, any failure exits non-zero and prints no result:
       the card prints PASS.  The unmasked forms of ``rows1d_kernel`` keep
       the SASS instruction counts and registers of the build before the
       halo layer (``ROWS1D_PINNED``, checked right after the build).
+   q. Every mesh route on the mesh of four shards of the card.  q1:
+      the run script's poisson gn case (64^2 fp64, plain CG, 3 epochs) under
+      ``--mesh x:2,y:2 --halo 1`` (the halo residual map), its rows within
+      the band phase o holds the unsharded case to (rtol 1e-7 or twice the
+      JAX package's own spread), its ms/epoch and normal matvecs beside
+      phase o's.  q2: the halo loss of velocity_from_tracer (64x256x256,
+      ``pallas``, t:2,x:2) with ``mg_ladder="global"`` and ``"local"``, 20
+      loss+grad evaluations each (autograd of ``make_halo_loss_fn``: four
+      masked forwards and backwards an evaluation), at a seeded random state:
+      the loss within 1e-5 of the unsharded pallas loss, the global ladder's
+      gradients within ``close_floor`` of the local one's (the fp64 plain
+      operator as the floor's reference); the ms of each.  q3:
+      ``parallel.multi_start`` with 4 starts: poisson 64^2 in fp64 (plain
+      torch, ``torch.func.vmap``; scale 0.5, Adam lr 0.001, 200 epochs), the
+      batched loss at epoch 0 the mean of the instances' (rtol 1e-12) and
+      every instance's loss lower at the end; heat 64^2 ``kernel="pallas"``
+      (a loop over the instances; scale 0.05, 50 epochs), each instance's
+      rows within 1e-5 of a single-start run from its start with the loss
+      scaled by 1/4, one forward and one backward row kernel an instance and
+      epoch; the batched ms/epoch beside four single runs.  q4: the GSPMD
+      route (``--mesh`` without ``--halo``): ``poisson --mesh x:2,y:2``
+      (case 0, cut to 200 epochs), ``heat --kernel pallas --mesh t:2,x:2``
+      (200 epochs; the x partition that ``--halo`` refuses) and m.'s
+      veltracer CLI on ``--mesh t:2,x:2``, each with train.csv rows equal to
+      the unsharded CLI's (m.'s for veltracer) to the bit, the same
+      launches, the ``mesh:`` line in its log, and its state on the card,
+      placed without a copy.
    The streaming kernels (veltracer at (65,256,256) and (65,64,64), heat and
    wave at 64^2 and 1024^2; on the card the slabbed launch, counted apart)
    and the two-level kernel (t0 (65,256,256), t1 (33,128,128), P2
@@ -897,15 +924,16 @@ def value_rows(rows, columns):
     return [[int(float(r["epoch"]))] + [float(r[c]) for c in columns] for r in rows]
 
 
-def rows_gate(got, want, columns, what, tag, rtol, spread=None, floor=True, only=None):
-    """Every value within rtol of the JAX row's (`rtol` a number or a list by
-    row), or twice `spread` (the JAX package's own spread by row and column
+def rows_gate(got, want, columns, what, tag, rtol, spread=None, floor=True, only=None, whose="the JAX package's"):
+    """Every value within rtol of the reference row's (`rtol` a number or a
+    list by row; `whose` names the reference, by default the JAX package's
+    rows), or twice `spread` (the JAX package's own spread by row and column
     when its CG operator changes by one ulp), or, with `floor`, both below
     1e-12 of epoch 0's loss (1e-6 of its norms); `only` limits the gate to
     those epochs.  Returns the largest relative distance; fails on any other
     value."""
     if [r[0] for r in got] != [r[0] for r in want]:
-        fail(f"{what}: rows at epochs {[r[0] for r in got]}, the JAX package's at {[r[0] for r in want]}")
+        fail(f"{what}: rows at epochs {[r[0] for r in got]}, {whose} at {[r[0] for r in want]}")
     floors = [1e-12 * abs(v) if c == "loss" else 1e-6 * abs(v) if c.startswith("norm_") else 0.0
               for c, v in zip(columns, want[0][1:])] if floor else [0.0] * len(columns)
     worst, bad = 0.0, []
@@ -920,9 +948,9 @@ def rows_gate(got, want, columns, what, tag, rtol, spread=None, floor=True, only
             if not abs(x - y) <= limit:
                 bad.append((a[0], columns[j], x, y, limit))
             worst = max(worst, abs(x - y) / abs(y) if y else 0.0)
-    print(f"{what}: largest relative distance from the JAX package's rows {worst:.3e} {tag}")
+    print(f"{what}: largest relative distance from {whose} rows {worst:.3e} {tag}")
     if bad:
-        fail(f"{what}: rows off the JAX package's (epoch, column, card, JAX, limit): {bad[:6]}")
+        fail(f"{what}: rows off {whose} (epoch, column, card, reference, limit): {bad[:6]}")
     return worst
 
 
@@ -934,8 +962,9 @@ def newton_phase(torch, counters, tag, extra_argv=()):
     linearization's gradients on the card with their copy to the host, the
     assembly and the solve on the host, the update), a Gauss-Newton epoch's
     normal matvecs, CG iterations and host syncs, and the device of the
-    iterate.  extra_argv goes to every CLI (a rehearsal on the CPU passes
-    --device)."""
+    iterate.  Returns poisson gn's (rows, ms/epoch, normal matvecs an
+    epoch) with plain CG, for phase q.  extra_argv goes to every CLI (a
+    rehearsal on the CPU passes --device)."""
     import shutil
 
     from odil_torch.examples import heat as heat_cli
@@ -943,6 +972,7 @@ def newton_phase(torch, counters, tag, extra_argv=()):
     with open(NEWTON_DATA) as fh:
         data = json.load(fh)["cases"]
     none = dict.fromkeys(counters.read(), 0)
+    last = {}  # the ms/epoch and normal matvecs an epoch of the last run
 
     def run(name, what, argv=(), keep=None, case=None):
         case = case or data[name]
@@ -967,6 +997,7 @@ def newton_phase(torch, counters, tag, extra_argv=()):
                      f"CG iterations, {stats['syncs'] / n:.1f} CG host syncs")
         print(f"{what}: {log_ms(log):.4f} ms/epoch (median walltime/epoch of its train.log reports after the first), "
               f"{seconds:.2f} s wall; {split}; iterate on {devices.pop()} {tag}")
+        last.update(ms=log_ms(log), matvecs=stats.get("matvecs", 0) / n)
         return rows
 
     def jax_rows(name):
@@ -984,6 +1015,8 @@ def newton_phase(torch, counters, tag, extra_argv=()):
     for name, what in (("poisson_gn", "poisson gn CLI (64^2 fp64, Gauss-Newton, plain CG)"),
                        ("wave_gn", "wave gn CLI (64^2 fp64, multigrid fields, Gauss-Newton, plain CG)")):
         rows = run(name, what)
+        if name == "poisson_gn":
+            poisson_gn = (rows, last["ms"], last["matvecs"])
         gn_final[name] = rows[-1][data[name]["columns"].index("loss") + 1]
         rows_gate(rows, jax_rows(name), data[name]["columns"], what + " (rtol 1e-7 or twice the JAX package's own "
                   "spread)", tag, 1e-7, spread=data[name]["jax_spread"])
@@ -1071,6 +1104,7 @@ def newton_phase(torch, counters, tag, extra_argv=()):
           f"{finals} (band {band}) {tag}")
     if not band[0] <= rows[-1][vcol] <= band[1]:
         fail(f"{what}: last loss {rows[-1][vcol]} outside {band}")
+    return poisson_gn
 
 
 def autograd_loss_grad_fn(torch, problem, state, halo=False):
@@ -1557,6 +1591,237 @@ def halo1d_phase(torch, np, counters, heat_ref, vt_rows, vt_ms, vt_epochs, repor
     if text.strip().splitlines()[-1] != "PASS":
         fail("compare.py did not print PASS")
     return launches, cases
+
+
+# The mesh routes of phase q: the mesh of four shards of the card, the
+# evaluations of the global ladder, multi_start's starts and epochs, and the
+# GSPMD CLIs' epochs.
+MESH_SPEC, MESH_PART = "t:2,x:2", {"t": "t", "x": "x"}
+MESH_SPEC_XY = "x:2,y:2"
+LADDER_EVALS = 20
+STARTS, STARTS_PLAIN_EPOCHS, STARTS_KERNEL_EPOCHS = 4, 200, 50
+GSPMD_EPOCHS, GSPMD_EVERY = 200, 20
+
+
+def mesh_phase(torch, np, counters, heat_lane, vt_rows, vt_ms, vt_epochs, poisson_gn, tag, extra_argv=()):
+    """Phase q: every mesh route on the card.  q1 Gauss-Newton under --halo
+    (the halo residual map), q2 the global multigrid ladder of the halo
+    loss, q3 ``parallel.multi_start`` on a plain and a kernel route, q4 the
+    GSPMD route (``--mesh`` without ``--halo``) of three CLIs.  `vt_rows`,
+    `vt_ms`: phase m's veltracer CLI rows and ms/epoch; `poisson_gn`: phase
+    o's plain-CG poisson gn rows, ms/epoch and normal matvecs an epoch.
+    Returns the launches of the kernels on phase q's paths.  extra_argv goes
+    to every CLI (a rehearsal on the CPU passes --device)."""
+    import argparse
+
+    from odil_torch import parallel
+    from odil_torch.halo import make_halo_loss_fn
+    from odil_torch.models import heat as th
+    from odil_torch.models import poisson as tpo
+    from odil_torch.models import veltracer as vt
+    from odil_torch.optim import Adam
+    from odil_torch.optim.base import autograd_loss_grad_fn as loss_grad_of
+
+    none = dict.fromkeys(counters.read(), 0)
+    dev = torch.device(DEVICE)
+    launches = {}
+
+    def nonzero(counts):
+        return {k: v for k, v in counts.items() if v}
+
+    def mesh_line(log, spec):
+        want = f"mesh: {parallel.mesh_from_spec(spec, devices=[dev] * 4).shape}"
+        if not any(want in line for line in log):
+            fail(f"the CLI's train.log has no line '{want}'")
+
+    # q1. The run script's poisson gn case under --mesh x:2,y:2 --halo 1:
+    # rows within the band phase o holds the unsharded case to.
+    with open(NEWTON_DATA) as fh:
+        case = json.load(fh)["cases"]["poisson_gn"]
+    rows0, ms0, mv0 = poisson_gn
+    what = f"poisson gn CLI (64^2 fp64, plain CG) under --mesh {MESH_SPEC_XY} --halo 1"
+    csv_rows, log, counts, (problem, state), seconds = run_cli(
+        torch, counters, "poisson", case["argv"] + ["--mesh", MESH_SPEC_XY, "--halo", "1"] + list(extra_argv))
+    expect_counts(counts, none, what)
+    mesh_line(log, MESH_SPEC_XY)
+    rows = value_rows(csv_rows, case["columns"])
+    rows_gate(rows, rows0, case["columns"], what + " (rtol 1e-7 or twice the JAX package's own spread)", tag, 1e-7,
+              spread=case["jax_spread"], whose="phase o's unsharded")
+    stats = problem.solver_stats
+    if {a.device.type for a in problem.domain.arrays_from_state(state)} != {dev.type}:
+        fail(f"{what}: the iterate is not on {dev}")
+    print(f"{what}: {log_ms(log):.4f} ms/epoch, {stats['matvecs'] / stats['epochs']:.1f} normal matvecs an epoch, "
+          f"{seconds:.2f} s wall; unsharded (phase o) {ms0:.4f} ms/epoch, {mv0:.1f} normal matvecs an epoch {tag}")
+
+    # q2. The halo loss of velocity_from_tracer (pallas, 64x256x256, t:2,x:2)
+    # with the global and the local multigrid ladder: autograd of
+    # make_halo_loss_fn at a seeded random state.
+    nt, nx, ny = SIZES["256"]
+    mesh = parallel.mesh_from_spec(MESH_SPEC, devices=[dev] * 4)
+    p, s, _ = vt.build(nt=nt, nx=nx, ny=ny, kernel="pallas", device=dev, mesh=mesh, partition=MESH_PART)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = [0.3 * torch.randn(tuple(a.shape), generator=gen, device=dev) for a in p.domain.arrays_from_state(s)]
+    p0, s0, _ = vt.build(nt=nt, nx=nx, ny=ny, kernel="pallas", device=dev)
+    p64, s64, _ = vt.build(nt=nt, nx=nx, ny=ny, kernel="xla", dtype=np.float64, device=dev)
+    refs = {}
+    for name, (pr, st, xs) in {"fp32": (p0, s0, x), "fp64": (p64, s64, [a.double() for a in x])}.items():
+        leaves = [a.clone().requires_grad_(True) for a in xs]
+        loss, _ = pr.make_loss_fn(st)[0](leaves, pr.tracers)
+        refs[name] = (float(loss.detach()), torch.autograd.grad(loss, leaves))
+    del p0, s0, p64, s64
+    ladder = {}
+    for name in ("global", "local"):
+        fn, _ = make_halo_loss_fn(p, s, mg_ladder=name)
+        counters.zero()
+        ms = []
+        for _ in range(LADDER_EVALS):
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+            leaves = [a.clone().requires_grad_(True) for a in x]
+            loss, _ = fn(leaves, p.tracers)
+            grads = torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t_start) * 1e3)
+        counts = counters.read()
+        expect_counts(counts, dict(none, forward_halo=4 * LADDER_EVALS, backward_halo=4 * LADDER_EVALS),
+                      f"halo loss with the {name} ladder")
+        ladder[name] = (float(loss.detach()), grads, statistics.median(ms[1:]))
+        launches[f"q2 {name}"] = nonzero(counts)
+    rel = {k: abs(v[0] - refs["fp32"][0]) / abs(refs["fp32"][0]) for k, v in ladder.items()}
+    rel64 = {k: abs(v[0] - refs["fp64"][0]) / abs(refs["fp64"][0]) for k, v in ladder.items()}
+    err, ok, worst = close_floor(ladder["global"][1], ladder["local"][1], refs["fp64"][1])
+    print(f"halo loss (64x256x256 pallas, {MESH_SPEC}, autograd of make_halo_loss_fn, {LADDER_EVALS} evaluations "
+          f"each): global ladder {ladder['global'][2]:.4f} ms, local {ladder['local'][2]:.4f} ms a loss+grad "
+          f"(median after the first); loss rel to the unsharded pallas loss {rel['global']:.2e} / {rel['local']:.2e}, "
+          f"to the fp64 plain operator {rel64['global']:.2e} / {rel64['local']:.2e}; gradients global vs local "
+          f"max|d| {err:.3e}, {worst_text(worst)} {tag}")
+    if max(rel.values()) > 1e-5:
+        fail(f"halo loss: rel {rel} to the unsharded loss (limit 1e-5)")
+    if not ok:
+        fail(f"halo loss: the global ladder's gradients off the local ladder's beyond close_floor ({worst_text(worst)})")
+    del p, s, fn, x, refs, ladder, grads, leaves
+
+    # q3. multi_start: poisson 64^2 (plain torch, fp64, vmap) and heat 64^2
+    # (kernel route, fp32, a loop over the instances).
+    args = argparse.Namespace(ref="osc", rhs="exact", osc_k=2.0, mgloss=0)
+    p, s, _ = tpo.build(n=64, ndim=2, args=args, dtype=np.float64, device=dev)
+    loss_b, stacked = parallel.multi_start(p, s, STARTS, seed=0, scale=0.5)
+    loss_fn, _ = p.make_loss_fn(s)
+
+    def instance_losses(arrays_b):
+        with torch.no_grad():
+            return [float(loss_fn([a[i] for a in arrays_b], p.tracers)[0]) for i in range(STARTS)]
+
+    l0 = instance_losses(stacked)
+    with torch.no_grad():
+        lb0 = float(loss_b(stacked, p.tracers)[0])
+    counters.zero()
+    opt, _, chunk_ms = train(torch, Adam, loss_grad_of(loss_b), stacked, STARTS_PLAIN_EPOCHS, lr=1e-3)
+    expect_counts(counters.read(), none, "multi_start on poisson (plain torch)")
+    l1 = instance_losses(opt.x)
+    single_ms = [steady_ms(train(torch, Adam, loss_grad_of(loss_fn), [a[i] for a in stacked], STARTS_PLAIN_EPOCHS,
+                                 lr=1e-3)[2])[0] for i in range(STARTS)]
+    rel0 = abs(lb0 - statistics.fmean(l0)) / abs(statistics.fmean(l0))
+    print(f"multi_start (poisson 64^2 fp64, {STARTS} starts, scale 0.5, loss_fn_b {loss_b.form}, Adam lr 0.001, "
+          f"{STARTS_PLAIN_EPOCHS} epochs): batched loss at epoch 0 {lb0!r} against the mean of the instances' "
+          f"{statistics.fmean(l0)!r} (rel {rel0:.2e}); instance losses {l0} -> {l1}; batched "
+          f"{steady_ms(chunk_ms)[0]:.4f} ms/epoch against four single runs {sum(single_ms):.4f} "
+          f"({', '.join(f'{m:.4f}' for m in single_ms)}) {tag}")
+    if loss_b.form != "vmap" or rel0 > 1e-12 or not all(b < a for a, b in zip(l0, l1)):
+        fail(f"multi_start on poisson: form {loss_b.form}, epoch-0 rel {rel0:.2e} (limit 1e-12), losses {l0} -> {l1}")
+    del p, s, loss_b, stacked, opt
+
+    p, s, _ = th.build(nt=heat_lane["nt"], nx=heat_lane["nx"], kernel="pallas", infer_k=True,
+                       imposed=heat_lane["imposed"], nimp=heat_lane["nimp"], seed=heat_lane["seed"], device=dev)
+    loss_b, stacked = parallel.multi_start(p, s, STARTS, seed=2, scale=0.05)
+    loss_fn, _ = p.make_loss_fn(s)
+
+    def scaled(arrays, tracers):
+        loss, aux = loss_fn(arrays, tracers)
+        return loss / STARTS, aux
+
+    def kernel_run(fn, arrays, batch):
+        """Adam lr 0.001 in chunks of CHUNK epochs on the `batch` of instances
+        or one: (optimizer, host ms/epoch of the chunks, launches while
+        training, each instance's loss at epoch 0 and after each chunk)."""
+        o = Adam(loss_grad_of(fn), arrays, lr=1e-3)
+        rows, ms, counts = [], [], dict(none)
+
+        def row():
+            with torch.no_grad():
+                xs = [[a[i] for a in o.x] for i in range(STARTS)] if batch else [o.x]
+                return [float(loss_fn(xi, p.tracers)[0]) for xi in xs]
+
+        rows.append(row())
+        for _ in range(STARTS_KERNEL_EPOCHS // CHUNK):
+            counters.zero()
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+            o.run_chunk(CHUNK, p.tracers)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t_start) * 1e3 / CHUNK)
+            counts = {k: counts[k] + v for k, v in counters.read().items()}
+            rows.append(row())
+        return o, ms, counts, rows
+
+    _, ms_b, counts, rows_b = kernel_run(loss_b, stacked, True)
+    expect_counts(counts, dict(none, forward_rows=STARTS * STARTS_KERNEL_EPOCHS,
+                               backward_rows=STARTS * STARTS_KERNEL_EPOCHS),
+                  "multi_start on heat's kernel route (a loop over the instances)")
+    launches["q3 heat"] = nonzero(counts)
+    worst, single_ms = 0.0, []
+    for i in range(STARTS):
+        _, ms_i, _, rows_i = kernel_run(scaled, [a[i] for a in stacked], False)
+        single_ms.append(steady_ms(ms_i)[0])
+        for e, (a, b) in enumerate(zip(rows_b, rows_i)):
+            worst = max(worst, abs(a[i] - b[0]) / abs(b[0]))
+    print(f"multi_start (heat 64^2 --kernel pallas fp32, {STARTS} starts, scale 0.05, loss_fn_b {loss_b.form}, Adam "
+          f"lr 0.001, {STARTS_KERNEL_EPOCHS} epochs): every instance's rows (epoch 0 and every {CHUNK}) against its "
+          f"single-start run (the loss scaled by 1/{STARTS}) largest rel {worst:.2e}; launches {nonzero(counts)}; batched "
+          f"{steady_ms(ms_b)[0]:.4f} ms/epoch against four single runs {sum(single_ms):.4f} {tag}")
+    if loss_b.form != "loop" or worst > TERMS_RTOL:
+        fail(f"multi_start on heat: form {loss_b.form}, rows rel {worst:.2e} from the single-start runs (limit "
+             f"{TERMS_RTOL})")
+    del p, s, loss_b, stacked
+
+    # q4. The GSPMD route: three CLIs with --mesh and without --halo give the
+    # unsharded CLI's rows to the bit and launch the same kernels.
+    values = lambda rs: [{k: v for k, v in r.items() if k not in NOT_VALUES or k in ("epoch", "frame")} for r in rs]
+    every = ["--history_every", str(GSPMD_EVERY), "--report_every", str(GSPMD_EVERY), "--plot_every", "0"]
+    clis = {
+        "poisson": (["--N", "64", "--ref", "osc", "--rhs", "exact", "--double", "1", "--epochs", str(GSPMD_EPOCHS)]
+                    + every, MESH_SPEC_XY, none, None),
+        "heat": (["--Nt", str(heat_lane["nt"]), "--Nx", str(heat_lane["nx"]), "--infer_k", "1", "--imposed",
+                  heat_lane["imposed"], "--nimp", str(heat_lane["nimp"]), "--seed", str(heat_lane["seed"]),
+                  "--kernel", "pallas", "--epochs", str(GSPMD_EPOCHS)] + every, MESH_SPEC,
+                 dict(none, backward_rows=GSPMD_EPOCHS + 1, forward_rows=1), None),
+        "veltracer": (["--Nt", str(nt), "--Nx", str(nx), "--Ny", str(ny), "--kernel", "pallas_mg", "--epochs",
+                       str(vt_epochs), "--history_every", str(CHUNK), "--report_every",
+                       str(100 if vt_epochs >= 300 else CHUNK), "--plot_every", "0"], MESH_SPEC,
+                      dict(none, backward_mg=vt_epochs + 1, backward_mg_with_sums=vt_epochs, forward_mg=1),
+                      (vt_rows, vt_ms)),
+    }
+    for name, (argv, spec, want, ref) in clis.items():
+        if ref is None:
+            rows0, log0, counts0, *_ = run_cli(torch, counters, name, argv + list(extra_argv))
+            expect_counts(counts0, want, f"{name} CLI (unsharded)")
+            ref = (rows0, log_ms(log0))
+        rows, log, counts, (problem, state), _ = run_cli(torch, counters, name, argv + ["--mesh", spec]
+                                                         + list(extra_argv))
+        expect_counts(counts, want, f"{name} CLI --mesh {spec}")
+        mesh_line(log, spec)
+        arrays = problem.domain.arrays_from_state(state)
+        placed = parallel.shard_state_arrays(problem.domain, arrays)
+        same = values(rows) == values(ref[0])
+        print(f"{name} CLI --mesh {spec} (the GSPMD route, {argv[argv.index('--epochs') + 1]} epochs): train.csv rows "
+              f"equal to the unsharded CLI's to the bit: {same}; {log_ms(log):.4f} ms/epoch against the unsharded "
+              f"{ref[1]:.4f}; launches {nonzero(counts)}; state on {sorted({str(a.device) for a in arrays})} {tag}")
+        if not same:
+            fail(f"{name} CLI --mesh {spec}: train.csv rows differ from the unsharded CLI's")
+        if any(a.device.type != dev.type for a in arrays) or any(a is not b for a, b in zip(placed, arrays)):
+            fail(f"{name} CLI --mesh {spec}: the state left the card or its placement copied it")
+        launches[f"q4 {name}"] = nonzero(counts)
+    return launches
 
 
 def main():
@@ -2435,7 +2700,7 @@ def main():
         launches[name] += n
 
     # o. Newton and Gauss-Newton: the run scripts' cases as CLIs.
-    newton_phase(torch, counters, tag)
+    poisson_gn = newton_phase(torch, counters, tag)
 
     # p. Heat and wave under --halo, plot epochs, asynchronous checkpoints and
     # compare.py.
@@ -2444,6 +2709,13 @@ def main():
                                             {"heat": heat_plain_big, "wave": wave_plain_big}, tag)
     t_p = time.perf_counter() - t_p
     launches.update(p_launches)
+
+    # q. Every mesh route on the card: Gauss-Newton under --halo, the global
+    # multigrid ladder, multi_start and the GSPMD route.
+    t_q = time.perf_counter()
+    q_launches = mesh_phase(torch, np, counters, heat_ref["config"], vt_rows, vt_ms, args.epochs, poisson_gn, tag)
+    t_q = time.perf_counter() - t_q
+    print(f"phase q: launches on its paths {q_launches}; {t_q:.1f} s {tag}")
 
     idle = [name for name in report if launches.get(name, 0) < 1]
     if idle:
@@ -2662,7 +2934,7 @@ def main():
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
 
-    print(f"seconds: phase p {t_p:.1f}, the script from its start (the kernels' build included) "
+    print(f"seconds: phase p {t_p:.1f}, phase q {t_q:.1f}, the script from its start (the kernels' build included) "
           f"{time.perf_counter() - t_main:.1f} {tag}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

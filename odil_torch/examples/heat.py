@@ -19,7 +19,8 @@ JAX example's ``data_<frame>.pickle`` (``--dump_data``) and, where
 matplotlib imports, its ``u_`` and ``k_`` figures.  ``--mesh t:4 --halo 1``
 evaluates the ODIL loss per shard on an in-process mesh of the
 ``--device`` (the t axis only: the row model reads its walls from the
-plane's index).
+plane's index); ``--mesh`` without ``--halo`` (any partition, x included)
+takes the GSPMD route, the unsharded evaluation on the card.
 
     python -m odil_torch.examples.heat --Nt 64 --Nx 64 --infer_k 1 --imposed stripe --epochs 1500 \\
         --history_every 100 --kernel pallas

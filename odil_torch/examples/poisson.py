@@ -5,7 +5,10 @@ The port's counterpart of ``examples/poisson/poisson.py``: the same flags
 and defaults, the physics of ``odil_torch.models.poisson``, the
 ``error_u`` column of the history and the XMF and ``data*.pickle`` dumps
 (``--dump_xmf``, ``--dump_data``) at each plot epoch and at the end.
-``--mesh`` (the JAX package's GSPMD route) is not ported and raises.
+``--mesh`` shards the domain over an in-process mesh of the ``--device``:
+without ``--halo`` the GSPMD route (the unsharded evaluation on one card),
+with ``--halo 1`` the per-shard route, Gauss-Newton (``--optimizer gn``)
+included.
 
     python -m odil_torch.examples.poisson --N 64 --ref osc --rhs exact --epochs 1000 --history_every 50
     python -m odil_torch.examples.poisson --N 16 --epochs 60 --device cpu
@@ -97,13 +100,11 @@ def report_func(problem, state, epoch, cbinfo):
 
 
 def make_problem(args):
-    if getattr(args, "mesh", None):
-        raise NotImplementedError(
-            "poisson --mesh (the JAX package's GSPMD route) is not ported: ROADMAP.md section 1, item 6"
-        )
     dtype = np.float64 if args.double else np.float32
+    mesh, partition = odil.util.mesh_from_args(args, ["x", "y", "z", "sx", "sy", "sz"][: args.ndim])
     problem, state, extra = model.build(
-        n=args.N, ndim=args.ndim, dtype=dtype, multigrid=args.multigrid, device=args.device, args=args
+        n=args.N, ndim=args.ndim, dtype=dtype, multigrid=args.multigrid, mesh=mesh, partition=partition,
+        device=args.device, args=args,
     )
     domain = problem.domain
     if domain.multigrid:

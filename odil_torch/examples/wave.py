@@ -8,7 +8,9 @@ and the ``done`` file at the end.  The plot epochs write the JAX example's
 ``data_<frame>.pickle`` (``--dump_data``) and, where matplotlib imports,
 its ``u_`` and ``ut_`` figures.  ``--mesh t:4 --halo 1`` evaluates the loss
 per shard on an in-process mesh of the ``--device`` (the t axis only: the
-row model reads its walls from the plane's index).  The default optimizer is the JAX package's on-device ``lbfgs``
+row model reads its walls from the plane's index); ``--mesh`` without
+``--halo`` takes the GSPMD route, the unsharded evaluation on the card.
+The default optimizer is the JAX package's on-device ``lbfgs``
 (``optim/lbfgs.py``); ``--optimizer lbfgsb`` takes scipy's L-BFGS-B on the
 host.
 

@@ -4,9 +4,11 @@ state initialization and the flat array order.
 PyTorch counterpart of ``odil_tpu/grid.py:52-473``.  Every tensor the
 domain creates lives on ``device`` (default ``cuda``; the CPU tests pass
 ``device="cpu"``).  ``mesh`` (``parallel.Mesh``) and ``partition`` (grid
-dimension name -> mesh axis name) describe the shards of the halo path
-(``halo.py``, ``Problem.make_loss_fn(state, halo=True)``); the arrays stay
-whole on ``device``.
+dimension name -> mesh axis name) describe the shards of both mesh routes:
+the halo path (``halo.py``, ``Problem.make_loss_fn(state, halo=True)``) and
+the JAX package's GSPMD route (no ``halo``), whose sharding specs
+(``field_sharding``, ``constrain``) are computed as the JAX package
+computes them; the arrays stay whole on the mesh's card.
 """
 
 import math
@@ -46,8 +48,10 @@ class Domain:
     mg_*: hierarchy options (levels, per-level factors, active axes, interp).
     device: where the domain's tensors live (default ``cuda``).
     mesh, partition: optional ``parallel.Mesh`` and dict mapping dimension
-        names to mesh axis names, for the halo path; each partitioned cell
-        count must divide its mesh axis (``odil_tpu/halo.py:31-33``).
+        names to mesh axis names.  A mesh without a partition replicates
+        every array; the halo path needs a partition whose cell counts
+        divide their mesh axes (``odil_tpu/halo.py:31-33``), the GSPMD route
+        replicates a dimension that does not (``field_sharding``).
     """
 
     def __init__(
@@ -76,23 +80,14 @@ class Domain:
         assert len(self.dimnames) == ndim, f"dimnames={self.dimnames} vs cshape={cshape}"
         self.mesh = mesh
         self.partition = dict(partition) if partition else None
-        if mesh is not None and not partition:
-            raise NotImplementedError(
-                "odil_torch.Domain: a mesh without a partition replicates every array (the JAX package's GSPMD "
-                "route), which is not ported; give partition= and evaluate with halo=True"
-            )
+        self._sharding_warned = set()
         if partition and mesh is None:
             raise ValueError("Domain: partition needs a mesh")
         if mesh is not None:
             sizes = mesh.shape
-            for name, axis in self.partition.items():
+            for name, axis in (self.partition or {}).items():
                 if name not in self.dimnames or axis not in sizes:
                     raise ValueError(f"Domain: partition {name!r} -> {axis!r} names no grid dimension or mesh axis")
-                n = cshape[self.dimnames.index(name)]
-                if n % sizes[axis]:
-                    raise ValueError(
-                        f"Domain: {n} cells along '{name}' do not divide mesh axis '{axis}' ({sizes[axis]} shards)"
-                    )
         self.device = torch.device(device)
         self.mod = ModTorch(self.device)
         self.dtype = np.dtype(dtype) if dtype is not None else runtime.default_dtype()
@@ -220,6 +215,67 @@ class Domain:
             pts[i] = self.lower[i] + (self.upper[i] - self.lower[i]) * pts[i]
         return [p for p in pts]
 
+    # -- Sharding ----------------------------------------------------------
+
+    def field_sharding(self, loc=None, shape=None, allow_uneven=False):
+        """The ``parallel.NamedSharding`` of a grid field, or None without a
+        mesh or a partition (``odil_tpu/grid.py:234``).
+
+        An axis whose size does not divide its mesh axis is replicated in
+        the storage layout, unless ``allow_uneven`` (the in-jit constraint of
+        the JAX package, under which the node axes of N+1 entries shard).
+        Where such an axis is the finest grid's and uneven tiling would not
+        take it either (the cell count itself does not divide: the whole axis
+        serializes), a warning is logged once per (dim, size, mesh axis)."""
+        if self.mesh is None or self.partition is None:
+            return None
+        from .parallel import NamedSharding, PartitionSpec
+
+        axis_sizes = self.mesh.shape
+        entries = []
+        for d, name in enumerate(self.dimnames):
+            axis = self.partition.get(name)
+            if axis is not None and shape is not None and shape[d] % axis_sizes[axis] != 0:
+                if allow_uneven:
+                    entries.append(axis)
+                    continue
+                if shape[d] >= self.cshape[d] and (
+                    shape[d] != self.cshape[d] + 1 or self.cshape[d] % axis_sizes[axis] != 0
+                ):
+                    key = (name, shape[d], axis)
+                    if key not in self._sharding_warned:
+                        self._sharding_warned.add(key)
+                        from .util import printlog
+
+                        printlog(
+                            f"warning: replicating dim '{name}' (size {shape[d]}) "
+                            f"instead of sharding over mesh axis '{axis}' "
+                            f"({axis_sizes[axis]} devices): size does not divide "
+                            f"the axis; this serializes the dimension"
+                        )
+                axis = None
+            entries.append(axis)
+        return NamedSharding(self.mesh, PartitionSpec(*entries))
+
+    def _place(self, array, loc=None):
+        """Casts to the domain's dtype and places a grid field with the
+        domain's sharding: on the port's one-card mesh, on the mesh's card
+        (the same tensor when it lies there), its values untouched."""
+        array = self.cast(array)
+        sharding = self.field_sharding(loc, shape=tuple(array.shape))
+        if sharding is not None:
+            return sharding.place(array)
+        return array
+
+    def constrain(self, array):
+        """The domain's sharding constraint on a fine-grid array
+        (``odil_tpu/grid.py:289``, uneven tiling allowed).  On one card
+        GSPMD's partitioning changes no number, so this places the array on
+        the mesh's card and leaves its values as they are."""
+        if self.mesh is None or self.partition is None:
+            return array
+        return self.field_sharding(shape=tuple(array.shape), allow_uneven=True).place(array)
+
     # -- Multigrid decomposition -------------------------------------------
 
     def multigrid_to_regular(self, mgfield):
@@ -273,7 +329,7 @@ class Domain:
             array = field.array
             if array is None:
                 array = self.mod.zeros(shape, dtype=self.dtype)
-            array = self.cast(array)
+            array = self._place(array, loc=loc)
             assert tuple(array.shape) == shape, f"{tuple(array.shape)} vs {shape}"
             return Field(array, loc=loc, cshape=cshape)
         if isinstance(field, MultigridField):

@@ -23,11 +23,13 @@ Mesh axes that partition no grid dimension replicate every block: the
 controller evaluates each distinct block once (the JAX package's psum over
 the partitioning axes only, with the replicas in the counts).
 
-The multigrid ladder runs per shard (the JAX package's default
-``mg_ladder="local"``): the finest level is sliced like a field, the coarser
-levels are whole, and each shard prolongs only the coarse window that feeds
-its block through windows of the dense interp matrices (``_mg_ladder_meta``,
-``_local_mg_block``).
+The multigrid ladder runs per shard by default (``mg_ladder="local"``):
+the finest level is sliced like a field, the coarser levels are whole, and
+each shard prolongs only the coarse window that feeds its block through
+windows of the dense interp matrices (``_mg_ladder_meta``,
+``_local_mg_block``).  With ``mg_ladder="global"`` the ladder runs on the
+whole grid before the shards (``Problem._fine_state``) and its fine fields
+are localized like plain Fields.
 
 Fused-kernel operators compose through ``ctx.rowwise_terms``: the kernel
 runs per shard on the halo-extended blocks with a wrapped row model
@@ -44,8 +46,11 @@ partitioned axes; grid-rank terms keep the cell or node extent along
 partitioned axes; no hand-made ``Context.Raw`` terms.  Per-row data of
 the local extent (auto-sharded extras, or data computed from local fields:
 heat's measurements) are extended from the neighbouring shards' data once
-every shard has recorded its kernel call (``_exchange_data``).  Not ported:
-``make_halo_residual_fn`` and the global multigrid ladder.
+every shard has recorded its kernel call (``_exchange_data``).
+
+``make_halo_residual_fn`` is the per-shard residual map of Gauss-Newton
+under ``--halo``: the shards' masked terms stitched into the ghost-noded
+global layout, for plain operators only.
 """
 
 import copy
@@ -61,7 +66,7 @@ from .ops.rowwise import _loss_and_grads, halo_model, rowwise_loss_sums
 from .ops.rowwise_mg import _interp_matrices, rowwise_mg_local_loss_and_grads
 from .transfer import _interp_axis_matmul, _interp_matrix_on
 
-__all__ = ["make_halo_loss_fn", "make_halo_loss_grad_fn", "refuse_plane_partition"]
+__all__ = ["make_halo_loss_fn", "make_halo_loss_grad_fn", "make_halo_residual_fn", "refuse_plane_partition"]
 
 
 def refuse_plane_partition(ctx, what):
@@ -517,14 +522,16 @@ class _HaloPlan:
         return m
 
 
-def _localize(problem, plan, mg_meta, arrays):
+def _localize(problem, plan, mg_meta, arrays, global_ladder=False):
     """Every shard's grid blocks and parameter unknowns from the global
     arrays: ``({key: {shard key: block}}, {shard key: {key: Array or
-    NeuralNet}})``.  Multigrid fields run the local ladder.  Differentiable.
-    The counterpart of the JAX package's ``_halo_global_inputs`` (:1031, the
-    ghost-node layout) and ``_local_grid_params`` (:1003, the local ladder
-    and the parameters' regrouping) together."""
-    st = problem.state_from_arrays(arrays)
+    NeuralNet}})``.  Multigrid fields run the local ladder, or with
+    ``global_ladder`` are flattened on the whole grid first and sliced like
+    plain Fields.  Differentiable.  The counterpart of the JAX package's
+    ``_halo_global_inputs`` (:1031, the ghost-node layout) and
+    ``_local_grid_params`` (:1003, the local ladder and the parameters'
+    regrouping) together."""
+    st = problem._fine_state(arrays) if global_ladder else problem.state_from_arrays(arrays)
     grid, params = {}, {s.key: {} for s in plan.shards}
     for key, f in st.fields.items():
         if isinstance(f, Field):
@@ -836,23 +843,30 @@ def _mg_metas(problem, state, plan):
     }
 
 
-def make_halo_loss_fn(problem, state, extra_partition=None):
+def make_halo_loss_fn(problem, state, extra_partition=None, mg_ladder="local"):
     """Returns (loss_fn, arrays0) with the contract of ``Problem.make_loss_fn``
     (``loss_fn(arrays, tracers) -> (loss, (terms, norms))``, differentiable by
     autograd), evaluated per shard with the halo exchange
     (``odil_tpu/halo.py:1058``).
 
     extra_partition: optional {attr_name: tuple of dim names | None}
-    overriding the automatic localization of ``ctx.extra`` arrays.  The
-    multigrid ladder runs per shard (the JAX package's default
-    ``mg_ladder="local"``; its GSPMD ``"global"`` form is not ported)."""
+    overriding the automatic localization of ``ctx.extra`` arrays.
+
+    mg_ladder: ``"local"`` (the default) runs the multigrid Horner ladder
+    per shard, each shard prolonging only the coarse window that feeds its
+    block; ``"global"`` runs it on the whole grid before the shards (the
+    JAX package's GSPMD prologue) and localizes its fine fields like plain
+    Fields."""
+    if mg_ladder not in ("local", "global"):
+        raise ValueError(f"mg_ladder must be 'local' or 'global', got {mg_ladder!r}")
+    global_ladder = mg_ladder == "global"
     plan = _HaloPlan(problem, state, extra_partition=extra_partition)
     problem._capture_structure(state)
     arrays0 = problem.domain.arrays_from_state(state)
-    mg_meta = _mg_metas(problem, state, plan)
+    mg_meta = {} if global_ladder else _mg_metas(problem, state, plan)
 
     def loss_fn(arrays, tracers):
-        grid, params = _localize(problem, plan, mg_meta, arrays)
+        grid, params = _localize(problem, plan, mg_meta, arrays, global_ladder)
         sums, counts = None, None
         for ctx, values in _run_operators(problem, plan, _extended(plan, grid), params, tracers):
             kernel_sums = [
@@ -887,6 +901,83 @@ def make_halo_loss_fn(problem, state, extra_partition=None):
         return loss, (terms, norms)
 
     return loss_fn, arrays0
+
+
+def make_halo_residual_fn(problem, state, extra_partition=None):
+    """Returns ``(f, x0)`` with the contract of ``Problem.residual_fn``
+    (``f(packed) -> the concatenated residual vector``, differentiable by
+    ``torch.func.jvp``/``vjp`` and autograd; ``f.term_names`` and
+    ``f.term_sizes``), evaluated per shard with the halo exchange
+    (``odil_tpu/halo.py:1171``).
+
+    Each shard runs the operator on its halo-extended blocks, every
+    grid-rank term masked by its ownership mask (``_plain_term_mask``: the
+    duplicated ghost node is zero on every shard but the left one).  The
+    shards' grid-rank terms are stitched into the ghost-noded global layout
+    as ``shard_map``'s ``out_specs=P(*dim_axis)`` stitches them: the blocks
+    concatenated along the partitioned dimensions in mesh order, so the
+    vector has the JAX map's length and order element for element.  Other
+    terms (scalar penalties, parameter regularizers) come from the first
+    shard, as the JAX package's replicated out-spec takes them.  Up to a
+    fixed permutation plus structurally zero rows, f is
+    ``Problem.residual_fn``'s map: the normal equations are the same.
+
+    The localization runs eagerly (no CUDA graphs), so that forward-mode
+    products pass through it.  Kernel operators (``ctx.rowwise_terms``) are
+    declined, as in the JAX package: their halo form reduces straight to
+    masked sums."""
+    plan = _HaloPlan(problem, state, extra_partition=extra_partition)
+    if plan.rowwise_calls:
+        raise ValueError(
+            "make_halo_residual_fn: kernel operators (ctx.rowwise_terms) "
+            "have no per-row residual form under halo; build the problem "
+            "with the plain operator (kernel='xla')"
+        )
+    domain = problem.domain
+    problem._capture_structure(state)
+    arrays0 = domain.arrays_from_state(state)
+    shapes = [tuple(a.shape) for a in arrays0]
+    sizes = [int(np.prod(s)) for s in shapes]
+    mg_meta = _mg_metas(problem, state, plan)
+    # The grid dimension of each partitioning axis, in mesh order: the order
+    # in which the shard keys index the blocks.
+    axis_dim = {a: d for d, a in plan.dim_axis.items()}
+    stitch_dims = [axis_dim[a] for a in plan.used_axes]
+
+    def stitch(blocks):
+        """One tensor from {shard key: block}: the blocks concatenated along
+        each partitioned dimension, the last mesh axis innermost."""
+        for pos in range(len(stitch_dims) - 1, -1, -1):
+            groups = {}
+            for key in sorted(blocks):
+                groups.setdefault(key[:pos], []).append(blocks[key])
+            blocks = {k: torch.cat(v, dim=stitch_dims[pos]) for k, v in groups.items()}
+        return blocks[()]
+
+    def f_values(x):
+        arrays = [p.reshape(s) for p, s in zip(torch.split(x, sizes), shapes)]
+        grid, params = _localize(problem, plan, mg_meta, arrays)
+        results = _run_operators(problem, plan, _extended(plan, grid), params, problem.tracers)
+        out = []
+        for ti in range(len(results[0][1])):
+            blocks = {}
+            for ctx, values in results:
+                v = values[ti]
+                mask, _ = _plain_term_mask(plan, ctx.shard, v, ti)
+                blocks[ctx.shard.key] = (v if mask is None else v * mask).to(plan.first)
+            first = blocks[plan.shards[0].key]
+            out.append(stitch(blocks) if first.ndim == domain.ndim else first)
+        return out
+
+    def f(x):
+        return torch.cat([v.reshape(-1) for v in f_values(x)])
+
+    x0 = torch.cat([a.detach().reshape(-1) for a in arrays0])
+    with torch.no_grad():
+        values = f_values(x0)
+    f.term_names = list(plan.names)
+    f.term_sizes = [int(v.numel()) for v in values]
+    return f, x0
 
 
 def make_halo_loss_grad_fn(problem, state, extra_partition=None, fuse=None):

@@ -539,7 +539,8 @@ def build(nt=64, nx=64, infer_k=False, imposed="none", nimp=200, noise=0.0, seed
     the names are the JAX package's.  ref_u: the reference temperature on
     the grid (numpy; the measurements are taken from it), by default the
     initial temperature's bump at every time.  mesh/partition: the shards of
-    the halo path (``parallel.Mesh``; evaluate with ``halo=True``)."""
+    the Domain (``parallel.Mesh``): the halo path with ``halo=True`` (t
+    partitioned only), the GSPMD route without it."""
     if kernel not in ("pallas", "xla"):
         raise ValueError(f"kernel={kernel!r}: heat has 'pallas' and 'xla'")
     if args is None:

@@ -6,8 +6,8 @@ second-order Laplacian with quadratic-half ghost extrapolation through the
 boundary value, and an optional multigrid-norm loss that appends the
 residual restricted to coarser grids (``restrict_to_coarser``).  The
 reference fields are computed in numpy on the host and cast to the
-domain's device.  The JAX package's GSPMD route (``mesh=``/``partition=``)
-is not ported and raises.
+domain's device.  ``mesh=``/``partition=`` go to the Domain: the GSPMD
+route without ``halo``, the per-shard route with it.
 """
 
 import argparse
@@ -108,10 +108,6 @@ def operator(ctx):
 def build(n=64, ndim=2, ref="hat", rhs="discrete", osc_k=2.0, mgloss=0, dtype=np.float64, multigrid=True,
           mesh=None, partition=None, device="cuda", args=None):
     """Builds the Poisson inversion problem: (problem, state, extra)."""
-    if mesh is not None or partition is not None:
-        raise NotImplementedError(
-            "poisson with a mesh (the JAX package's GSPMD route) is not ported: ROADMAP.md section 1, item 6"
-        )
     if args is None:
         args = argparse.Namespace(ref=ref, rhs=rhs, osc_k=osc_k, mgloss=mgloss)
     domain = Domain(
@@ -120,6 +116,8 @@ def build(n=64, ndim=2, ref="hat", rhs="discrete", osc_k=2.0, mgloss=0, dtype=np
         multigrid=multigrid,
         dtype=dtype,
         device=device,
+        mesh=mesh,
+        partition=partition,
     )
     mod = domain.mod
     ref_u = reference_solution(args.ref, args, domain)

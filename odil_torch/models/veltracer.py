@@ -360,8 +360,9 @@ def build(
 
     kernel: "pallas_mg" (the MG-fused kernel), "pallas" (the row-wise
     kernels over the fine fields) or "xla" (the plain operator); the names
-    are the JAX package's.  mesh/partition: the shards of the halo path
-    (``parallel.Mesh``; evaluate with ``halo=True``)."""
+    are the JAX package's.  mesh/partition: the shards of the Domain
+    (``parallel.Mesh``): the halo path with ``halo=True``, the GSPMD route
+    without it."""
     if kernel not in ("pallas_mg", "pallas", "xla"):
         raise ValueError(f"kernel={kernel!r}: the port has 'pallas_mg', 'pallas' and 'xla'")
     if args is None:

@@ -162,8 +162,9 @@ def build(nt=64, nx=64, kimp=1.0, dtype=np.float64, multigrid=True, kernel="xla"
     """Builds the wave assimilation problem: (problem, state, extra).
 
     kernel: "pallas" (the row-wise kernels) or "xla" (the plain operator);
-    the names are the JAX package's.  mesh/partition: the shards of the halo
-    path (``parallel.Mesh``; evaluate with ``halo=True``)."""
+    the names are the JAX package's.  mesh/partition: the shards of the
+    Domain (``parallel.Mesh``): the halo path with ``halo=True`` (t
+    partitioned only), the GSPMD route without it."""
     if kernel not in ("pallas", "xla"):
         raise ValueError(f"kernel={kernel!r}: wave has 'pallas' and 'xla'")
     if args is None:

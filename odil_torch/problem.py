@@ -12,7 +12,9 @@ training harness's evaluations: ``eval_loss_grad`` (:571, autograd of
 ``loss_terms``), ``eval_operator`` (:603) and ``get_context`` (:829).  For
 Newton: ``eval_operator_grad`` and ``linearize`` (:622-777, the sparse
 Jacobian assembled on the host) and ``residual_fn`` (:779, the residual map
-whose ``torch.func`` products the matrix-free Gauss-Newton solves with).
+whose ``torch.func`` products the matrix-free Gauss-Newton solves with).  A
+Domain with a mesh takes the halo route with ``halo=True`` (``halo.py``) and
+the GSPMD route without it (``_constrain_fields``, :241).
 """
 
 import functools
@@ -146,6 +148,7 @@ class Problem:
         def terms_of(*arrays):
             partials = {} if self.mg_partial else None
             state = self._flatten_multigrid_batched(self.state_from_arrays(arrays), partial_out=partials)
+            state = self._constrain_fields(state)
             ctx = Context(self.domain, state, extra=self.extra, tracers=tracers)
             ctx.mg_partials = partials or {}
             _, values = self._run_operator(ctx)
@@ -156,11 +159,23 @@ class Problem:
         norms = [torch.sqrt(torch.clamp(t, min=0)) for t in terms]
         return loss, terms, norms
 
-    def _check_mesh(self, halo):
-        if self.domain.mesh is not None and not halo:
-            raise NotImplementedError(
-                "a Domain with a mesh evaluates per shard (halo=True); the JAX package's GSPMD route is not ported"
-            )
+    def _constrain_fields(self, state):
+        """The domain's sharding constraint on every flattened fine-grid
+        Field (``odil_tpu/problem.py:241``, the GSPMD route: a Domain with a
+        mesh evaluated without ``halo``).  On the port's one-card mesh the
+        constraint places each array on the mesh's card and changes no value,
+        so the route runs the unsharded evaluation: the same kernels and the
+        same bits.  No-op without a mesh or a partition."""
+        domain = self.domain
+        if domain.mesh is None or not domain.partition:
+            return state
+        fields = {
+            k: Field(domain.constrain(f.array), loc=f.loc)
+            if isinstance(f, Field) and f.array.ndim == domain.ndim
+            else f
+            for k, f in state.fields.items()
+        }
+        return State(fields=fields, initialized=True)
 
     def make_loss_fn(self, state, halo=False, extra_partition=None):
         """(loss_fn, arrays0): loss_fn(arrays, tracers) -> (loss, (terms,
@@ -168,12 +183,12 @@ class Problem:
 
         halo=True evaluates per shard of the domain's mesh with the halo
         exchange (``halo.make_halo_loss_fn``); requires Domain(mesh=...,
-        partition=...)."""
+        partition=...).  Without it a Domain with a mesh takes the GSPMD
+        route (``_constrain_fields``)."""
         if halo:
             from .halo import make_halo_loss_fn
 
             return make_halo_loss_fn(self, state, extra_partition=extra_partition)
-        self._check_mesh(halo)
         self._capture_structure(state)
         arrays0 = self.domain.arrays_from_state(state)
 
@@ -235,7 +250,6 @@ class Problem:
             from .halo import make_halo_loss_grad_fn
 
             return make_halo_loss_grad_fn(self, state, extra_partition=extra_partition, fuse=halo_fuse)
-        self._check_mesh(halo)
         fn = self._make_mg_loss_grad_fn(state)
         if fn is not None:
             return fn
@@ -622,15 +636,15 @@ class Problem:
         ``f.term_names`` and ``f.term_sizes`` give the terms' names and flat
         sizes, found by one evaluation.
 
-        halo=True (the per-shard residual map, ``make_halo_residual_fn``,
-        ``odil_tpu/halo.py:1171``) is not ported: ROADMAP.md section 1,
-        item 4."""
+        halo=True evaluates per shard of the domain's mesh with the halo
+        exchange (``halo.make_halo_residual_fn``, ``odil_tpu/halo.py:1171``):
+        the same residual map up to a fixed permutation of its rows plus
+        structurally zero ghost-node rows, so the Gauss-Newton normal
+        equations are unchanged."""
         if halo:
-            raise NotImplementedError(
-                "residual_fn(halo=True), the per-shard residual map of the JAX package's halo route "
-                "(make_halo_residual_fn), is not ported: ROADMAP.md section 1, item 4"
-            )
-        self._check_mesh(halo)
+            from .halo import make_halo_residual_fn
+
+            return make_halo_residual_fn(self, state)
         self._capture_structure(state)
         domain = self.domain
         arrays0 = domain.arrays_from_state(state)
@@ -639,7 +653,7 @@ class Problem:
 
         def f_values(x):
             arrays = [p.reshape(s) for p, s in zip(torch.split(x, sizes), shapes)]
-            st = self._flatten_multigrid_batched(self.state_from_arrays(arrays))
+            st = self._constrain_fields(self._flatten_multigrid_batched(self.state_from_arrays(arrays)))
             ctx = Context(domain, st, extra=self.extra, tracers=self.tracers)
             _, values = self._run_operator(ctx)
             return [v.value if isinstance(v, Context.Raw) else v for v in values]

@@ -60,7 +60,10 @@ def mesh_from_args(args, dimnames):
     """The (mesh, partition) of ``--mesh`` over the grid's ``dimnames``, or
     (None, None) without it.  Every shard sits on the one device of
     ``--device``: the port's mesh is in-process, and several cards are not
-    ported."""
+    ported.  Without ``--halo`` the CLI takes the GSPMD route (the
+    unsharded evaluation on the card, ``Problem._constrain_fields``); with
+    ``--halo 1`` the per-shard route (``halo.py``), Gauss-Newton's residual
+    map included."""
     if not getattr(args, "mesh", None):
         return None, None
     from . import parallel

@@ -109,8 +109,14 @@ def test_poisson_exact_rhs_and_mesh():
     _, _, je = jpo.build(n=8, ndim=2, args=args)
     _, _, te = tpo.build(n=8, ndim=2, args=args, device="cpu")
     np.testing.assert_allclose(_host(te.rhs), np.asarray(je.rhs), rtol=1e-12)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpo.build(n=8, ndim=2, args=args, device="cpu", mesh=object())
+    # With a mesh (the GSPMD route): the Domain takes it, and the loss and
+    # gradients are the unsharded ones.
+    mesh = todil.parallel.mesh_from_spec("x:2,y:2", devices=[torch.device("cpu")] * 4)
+    tp, ts, _ = tpo.build(n=8, ndim=2, args=args, device="cpu")
+    mp, ms, _ = tpo.build(n=8, ndim=2, args=args, device="cpu", mesh=mesh, partition={"x": "x", "y": "y"})
+    assert mp.domain.mesh is mesh and mp.domain.partition == {"x": "x", "y": "y"}
+    (l0, g0), (l1, g1) = (p.eval_loss_grad(s)[:2] for p, s in ((tp, ts), (mp, ms)))
+    assert l0 == l1 and all(torch.equal(a, b) for a, b in zip(g0, g1))
 
 
 def test_advection_operator_matches_jax():

@@ -1246,3 +1246,70 @@ def test_async_checkpoint_is_not_reached_by_a_later_in_place_update(cuda, tmp_pa
     np.testing.assert_array_equal(slots["m"][0], np.full((512, 512), 6.0, dtype=np.float32))
     assert ckpt.latest_step() == 3 and sorted(p.name for p in tmp_path.iterdir()) == ["2", "3"]
     ckpt.close()
+
+
+# -- The mesh routes on one card: multi_start and the GSPMD route ------------------
+
+
+def test_multi_start_kernel_route_on_the_card(cuda):
+    """``parallel.multi_start`` on heat's kernel route (64^2, fp32, 4
+    starts, 10 Adam epochs): ``loss_fn_b`` loops over the instances, so every
+    epoch launches the row kernels' forward and backward once an instance;
+    each instance follows its single-start run (the loss scaled by 1/4, so
+    the updates are the batch's) within the fp32 floor."""
+    from odil_torch import parallel
+    from odil_torch.optim import Adam
+    from odil_torch.optim.base import autograd_loss_grad_fn
+
+    problem, state, _ = tht.build(nt=64, nx=64, kernel="pallas", infer_k=True, imposed="stripe", device=cuda)
+    nstarts, epochs = 4, 10
+    loss_b, stacked = parallel.multi_start(problem, state, nstarts=nstarts, seed=2, scale=0.05)
+    assert loss_b.form == "loop" and all(a.is_cuda for a in stacked)
+    before = (trw.forward_cuda.launches, trw.backward_cuda.launches)
+    batched = Adam(autograd_loss_grad_fn(loss_b), stacked, lr=1e-3)
+    losses = batched.run_chunk(epochs, problem.tracers)
+    assert (trw.forward_cuda.launches - before[0], trw.backward_cuda.launches - before[1]) == (
+        nstarts * epochs, nstarts * epochs)
+    loss_fn, _ = problem.make_loss_fn(state)
+
+    def scaled(arrays, tracers):
+        loss, aux = loss_fn(arrays, tracers)
+        return loss / nstarts, aux
+
+    rows = []
+    for i in range(nstarts):
+        single = Adam(autograd_loss_grad_fn(scaled), [a[i] for a in stacked], lr=1e-3)
+        rows.append(single.run_chunk(epochs, problem.tracers) * nstarts)
+        for a, b in zip(batched.x, single.x):
+            _close(a[i], b, 1e-5, 1e-6)
+    _close(losses, torch.stack(rows).mean(0), 1e-5, 0.0)
+
+
+@pytest.mark.parametrize("kernel", ["pallas_mg", "pallas"])
+def test_gspmd_route_is_the_unsharded_route_on_the_card(cuda, kernel):
+    """A Domain on the mesh t:2,x:2 of four shards of the card, evaluated
+    without halo: the fused route (its CUDA graphs and kernels) and the
+    loss-only path give the unsharded loss and gradients to the bit, the
+    same launches, and the state's arrays stay the same tensors on the
+    card."""
+    from odil_torch import parallel
+
+    mesh = parallel.mesh_from_spec("t:2,x:2", devices=[cuda] * 4)
+    kw = dict(nt=16, nx=64, ny=64, kernel=kernel, device=cuda)
+    p0, s0, _ = tvt.build(**kw)
+    p1, s1, _ = tvt.build(**kw, mesh=mesh, partition={"t": "t", "x": "x"})
+    arrays = p1.domain.arrays_from_state(s1)
+    assert all(a.is_cuda for a in arrays)
+    assert all(a is b for a, b in zip(parallel.shard_state_arrays(p1.domain, arrays), arrays))
+    rng = np.random.default_rng(3)
+    x = [torch.as_tensor((0.3 * rng.normal(size=tuple(a.shape))).astype(np.float32), device=cuda) for a in arrays]
+    outs, launches = [], []
+    for p, s in ((p0, s0), (p1, s1)):
+        before = dict(mg=trmg.backward_mg_cuda.launches, rows=trw.backward_cuda.launches)
+        (loss, (terms, _)), grads = p.make_loss_grad_fn(s)(x, p.tracers)
+        leaves = [a.clone().requires_grad_(True) for a in x]
+        l2, _ = p.make_loss_fn(s)[0](leaves, p.tracers)
+        outs.append([loss, *terms, *grads, l2, *torch.autograd.grad(l2, leaves)])
+        launches.append((trmg.backward_mg_cuda.launches - before["mg"], trw.backward_cuda.launches - before["rows"]))
+    assert launches[0] == launches[1] and sum(launches[0]) >= 2
+    assert all(torch.equal(a, b) for a, b in zip(*outs))

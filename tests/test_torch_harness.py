@@ -362,8 +362,9 @@ def test_emit_matches_the_jax_package(nsteps, tasks, last_only):
 
 @pytest.mark.parametrize("what", ["newton", "gn", "newton_mf", "poisson_mesh", "orbax"])
 def test_unported_parts_raise(what, outdir):
-    """The parts still to port raise and cite the ROADMAP (the poisson CLI's
-    --mesh); Newton (plain fields, as the run scripts take it) and
+    """The poisson CLI's --mesh, ported since, runs (a mesh axis that names
+    no grid dimension: every array replicated) and gives the unsharded rows
+    to the bit; Newton (plain fields, as the run scripts take it) and
     Gauss-Newton, ported since, run the veltracer CLI two epochs: rows at
     epochs 0-2, finite, the loss lower at the end.  --checkpoint_format
     orbax, ported since, runs the CLI two epochs with a checkpoint an epoch:
@@ -372,9 +373,13 @@ def test_unported_parts_raise(what, outdir):
     if what == "poisson_mesh":  # the JAX package's GSPMD route
         from odil_torch.examples import poisson
 
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            poisson.main(["--N", "8", "--epochs", "2", "--mesh", "t:2", "--device", "cpu", "--outdir",
-                          str(outdir / what)])
+        rows = []
+        for name, mesh in (("plain", ()), (what, ("--mesh", "t:2"))):
+            poisson.main(["--N", "8", "--epochs", "2", "--history_every", "1", "--device", "cpu", *mesh, "--outdir",
+                          str(outdir / name)])
+            rows.append([{k: v for k, v in r.items() if k not in ("walltime", "memory")}
+                         for r in _read_csv(outdir / name / "train.csv")])
+        assert rows[0] == rows[1] and len(rows[0]) == 3
         return
     args = _vt_args(epochs=2, history_every=1, **({"multigrid": 0} if what == "newton" else {}))
     if what == "orbax":

@@ -216,18 +216,25 @@ def test_linearize_scalar_residual_term():
 
 
 def test_residual_fn_halo_and_mesh_raise():
-    """The per-shard residual map and a Domain with a mesh are not ported:
-    both raise and cite the ROADMAP."""
-    _, _, tp, ts = _fixture()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md section 1, item 4"):
-        tp.residual_fn(ts, halo=True)
+    """The per-shard residual map (halo=True) and a Domain with a mesh
+    without halo (the GSPMD route) both give the unsharded residual map:
+    the same vector (cell-located fields: no ghost-node rows) and the same
+    Jacobian products."""
     mesh = todil.parallel.mesh_from_spec("x:2", devices=[torch.device("cpu")] * 2)
-    domain = todil.Domain(cshape=(4, 4), dimnames=["x", "y"], dtype=DT, device="cpu", mesh=mesh,
-                          partition={"x": "x"})
-    state = domain.init_state(todil.State(fields={"u": None}))
-    problem = todil.Problem(lambda ctx: [ctx.field("u")], domain)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        problem.residual_fn(state)
+    maps = []
+    for kw, halo in (({}, False), ({"mesh": mesh, "partition": {"x": "x"}}, False),
+                     ({"mesh": mesh, "partition": {"x": "x"}}, True)):
+        domain = todil.Domain(cshape=(4, 4), dimnames=["x", "y"], dtype=DT, device="cpu", **kw)
+        state = domain.init_state(todil.State(fields={"u": np.arange(16.0).reshape(4, 4)}))
+        problem = todil.Problem(lambda ctx: [ctx.field("u", 1, 0) - ctx.field("u") ** 2], domain)
+        maps.append(problem.residual_fn(state, halo=halo))
+    (f0, x0), *others = maps
+    v = torch.tensor(np.random.RandomState(2).normal(size=tuple(x0.shape)))
+    for f, x in others:
+        assert torch.equal(x, x0) and f.term_sizes == f0.term_sizes and f.term_names == f0.term_names
+        np.testing.assert_allclose(f(x).numpy(), f0(x0).numpy(), rtol=1e-15)
+        np.testing.assert_allclose(torch.func.jvp(f, (x,), (v,))[1].numpy(), torch.func.jvp(f0, (x0,), (v,))[1].numpy(),
+                                   rtol=1e-14)
 
 
 # -- linsolver and amg ---------------------------------------------------------

@@ -1,8 +1,9 @@
 """odil_torch.parallel and the mesh arguments of Domain against the JAX
 package: mesh specs parse to the same axis names and shapes (the port's
 mesh on a list of eight CPU devices, JAX's on the conftest's eight virtual
-host devices), auto_partition maps the same dimensions, and the port
-rejects what it does not run."""
+host devices), auto_partition maps the same dimensions, a Domain with a
+mesh takes the GSPMD route without halo, and the port rejects what it does
+not run (several cards, several processes)."""
 
 import jax
 import numpy as np
@@ -78,24 +79,36 @@ def test_domain_checks_the_partition():
     d = odil_torch.Domain((8, 16, 16), dimnames=("t", "x", "y"), mesh=mesh, partition={"t": "t", "x": "x"},
                           device="cpu")
     assert d.mesh is mesh and d.partition == {"t": "t", "x": "x"}
-    with pytest.raises(ValueError, match="do not divide"):
-        odil_torch.Domain((8, 18, 16), dimnames=("t", "x", "y"), mesh=mesh, partition={"x": "x"}, device="cpu")
+    # A partition that does not divide: the GSPMD route replicates the
+    # dimension (the JAX package's warning), the halo route refuses it.
+    d = odil_torch.Domain((8, 18, 16), dimnames=("t", "x", "y"), mesh=mesh, partition={"x": "x"}, device="cpu")
+    assert d.field_sharding(shape=(8, 18, 16)).spec == (None, None, None)
+    state = d.init_state(odil_torch.State(fields={"u": None}))
+    problem = odil_torch.Problem(lambda ctx: [ctx.field("u", 0, 1, 0) - ctx.field("u")], d)
+    with pytest.raises(ValueError, match="not divisible"):
+        problem.make_loss_fn(state, halo=True)
     with pytest.raises(ValueError, match="names no grid dimension"):
         odil_torch.Domain((8, 16, 16), dimnames=("t", "x", "y"), mesh=mesh, partition={"z": "x"}, device="cpu")
     with pytest.raises(ValueError, match="needs a mesh"):
         odil_torch.Domain((8, 16, 16), dimnames=("t", "x", "y"), partition={"x": "x"}, device="cpu")
-    with pytest.raises(NotImplementedError):
-        odil_torch.Domain((8, 16, 16), dimnames=("t", "x", "y"), mesh=mesh, device="cpu")
+    # A mesh without a partition replicates every array (the GSPMD route).
+    d = odil_torch.Domain((8, 16, 16), dimnames=("t", "x", "y"), mesh=mesh, device="cpu")
+    assert d.mesh is mesh and d.partition is None and d.field_sharding(shape=(8, 16, 16)) is None
 
 
 def test_mesh_without_halo_raises():
-    """A mesh evaluates per shard (halo=True); the JAX package's GSPMD route,
-    which the same Domain takes without halo, is not ported."""
+    """A mesh evaluated without halo takes the JAX package's GSPMD route: on
+    one device the unsharded loss and gradients, to the bit, through
+    make_loss_fn and make_loss_grad_fn; with halo=True the per-shard route."""
     mesh = tpar.mesh_from_spec("x:4", devices=CPU8)
-    p, s, _ = tvt.build(nt=8, nx=16, ny=16, kernel="pallas", dtype=np.float64, device="cpu", mesh=mesh,
-                        partition={"x": "x"})
-    with pytest.raises(NotImplementedError):
-        p.make_loss_fn(s)
-    with pytest.raises(NotImplementedError):
-        p.make_loss_grad_fn(s)
+    kw = dict(nt=8, nx=16, ny=16, kernel="pallas", dtype=np.float64, device="cpu")
+    p0, s0, _ = tvt.build(**kw)
+    p, s, _ = tvt.build(**kw, mesh=mesh, partition={"x": "x"})
+    arrays = [a.detach().requires_grad_(True) for a in p.domain.arrays_from_state(s)]
+    got = []
+    for prob, st in ((p0, s0), (p, s)):
+        loss, (terms, _) = prob.make_loss_fn(st)[0](arrays, prob.tracers)
+        got.append([loss, *terms, *torch.autograd.grad(loss, arrays)])
+    assert all(torch.equal(a, b) for a, b in zip(*got))
+    assert p.make_loss_grad_fn(s) is None and p0.make_loss_grad_fn(s0) is None  # fp64: autograd, as unsharded
     assert p.make_loss_fn(s, halo=True)[0] is not None

@@ -146,11 +146,14 @@ def test_flagship_multigrid_levels():
 
 
 def test_unported_paths_raise():
-    """What is still to port raises: sharding.  The streaming kernels are
-    ported (a streaming call runs; tests/test_torch_stream.py).  The plain
-    operator has no fused route."""
+    """What is still to port raises: a mesh over several cards.  A mesh
+    without a partition, ported since (the GSPMD route), replicates every
+    array.  The streaming kernels are ported (a streaming call runs;
+    tests/test_torch_stream.py).  The plain operator has no fused route."""
     with pytest.raises(NotImplementedError):
-        odil_torch.Domain(cshape=(4, 4), mesh=object(), device="cpu")
+        odil_torch.parallel.mesh_from_spec("x:2", devices=[torch.device("cuda", 0), torch.device("cuda", 1)])
+    mesh = odil_torch.parallel.mesh_from_spec("x:2", devices=[torch.device("cpu")] * 2)
+    assert odil_torch.Domain(cshape=(4, 4), mesh=mesh, device="cpu").field_sharding(shape=(4, 4)) is None
     tp, ts, extra = tvt.build(kernel="pallas_mg", multigrid=False, device="cpu", **SIZE)
     fields = tp.domain.arrays_from_state(ts)
     model = trw.RowModel(lambda it, T, rows, data_rows, params, consts: (rows[0][0] - rows[0][1],))
