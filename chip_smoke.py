@@ -237,6 +237,30 @@ Phases, any failure exits non-zero and prints no result:
       the unsharded CLI's (m.'s for veltracer) to the bit, the same
       launches, the ``mesh:`` line in its log, and its state on the card,
       placed without a copy.
+   r. The halo route over several processes (``torch.distributed``): the
+      script starts its own workers (``chip_smoke.py --dist-worker``), each
+      joining the group through ``parallel.init_distributed`` with its
+      backend and transport printed, and kills them on the way out.  r1:
+      four processes share the card over gloo (NCCL refuses two ranks on one
+      card), one shard of t:2,x:2 each, and train the flagship (64x256x256)
+      through the generic and the MG-fused halo routes for ``--epochs``
+      epochs each, as j. does: epoch 0 within 1e-5 of j.'s, each process's
+      epoch-0 gradient within 1e-5 of the single controller's on its block
+      (max|diff| over the array's max|entry|), every row within twice the
+      spread that one-ulp gradient noise opens in the single controller's
+      rows (three seeds) of j.'s and within 15% of ``ref_velt_256.csv``, the
+      losses the same on every process, one
+      masked backward+sums (or one local-block mg backward) a process and
+      epoch and no other kernel; the largest distance from j.'s rows and
+      each route's ms/epoch beside j.'s printed.  r2: heat (e.'s net) and
+      wave (fp32) at 64^2 on t:4 over two processes of two shards (gloo),
+      200 epochs, against the single controller on the mesh of four shards
+      of the card: epoch 0 within 1e-5, every 20-epoch row within twice the
+      spread that one-ulp gradient noise opens in the single controller
+      (three seeds, as p. holds heat) and at least g.'s 1%; two masked 1-D
+      backward+sums a process and epoch.  r3: one process with NCCL at
+      world size 1, the generic route for 50 epochs: its rows equal to j.'s
+      first 50 to the bit.
    The streaming kernels (veltracer at (65,256,256) and (65,64,64), heat and
    wave at 64^2 and 1024^2; on the card the slabbed launch, counted apart)
    and the two-level kernel (t0 (65,256,256), t1 (33,128,128), P2
@@ -351,6 +375,19 @@ HALO1D_EVERY = {"heat": 100, "wave": 20}
 # nearly that factor).
 ROUNDOFF_SEEDS = (1, 2, 3)
 CKPT_EVERY = 100
+# Phase r: the halo route over several processes.  r1: the flagship on
+# HALO_SPEC with one shard a process (4 processes sharing the card over
+# gloo); r2: heat and wave at 64^2 on HALO1D_SPEC over 2 processes of 2
+# shards, DIST_1D_EPOCHS epochs; r3: one process with NCCL, the flagship's
+# generic route for DIST_NCCL_EPOCHS epochs.  A worker may take
+# DIST_TIMEOUT seconds; the group's collectives time out after as long.
+DIST_1D_PROCS, DIST_1D_EPOCHS, DIST_NCCL_EPOCHS = 2, 200, 50
+DIST_TIMEOUT = 300
+# r1's epoch-0 gradient: each process's block of every array against the
+# single controller's, max|difference| over the array's max|entry|.  A sum
+# in another order moves an entry by a few fp32 ulps of the terms it adds;
+# a cotangent lost or counted twice moves it by its own size.
+DIST_GRAD_LIMIT = 1e-5
 # The unmasked forms of rows1d_kernel as built before its halo layer (SASS
 # instructions by cuobjdump, registers by ptxas; measured on one NVIDIA H100
 # 80GB HBM3 for rowwise.cu before the layer): the layer leaves them as they were.
@@ -1107,6 +1144,310 @@ def newton_phase(torch, counters, tag, extra_argv=()):
     return poisson_gn
 
 
+def dist_build(torch, np, model, mesh, dev, heat_ref):
+    """Phase r's problems, built the same way in its workers and for the
+    single controller: the flagship of phase j, heat of phase e (from its
+    initial net) and wave of phase g (fp32), on `mesh`."""
+    from odil_torch.models import heat as th
+    from odil_torch.models import veltracer as vt
+    from odil_torch.models import wave as tw
+
+    if model == "flagship":
+        return vt.build(*SIZES["256"], kernel="pallas_mg", device=dev, mesh=mesh, partition=HALO_PART)
+    nt, nx = SIZES_1D["64"]
+    if model == "wave":
+        return tw.build(nt=nt, nx=nx, dtype=np.float32, kernel="pallas", device=dev, mesh=mesh, partition=HALO1D_PART)
+    lane = heat_ref["config"]
+    problem, state, extra = th.build(nt=lane["nt"], nx=lane["nx"], infer_k=True, imposed=lane["imposed"],
+                                     nimp=lane["nimp"], seed=lane["seed"], kernel="pallas", device=dev, mesh=mesh,
+                                     partition=HALO1D_PART)
+    net = state.fields["k_net"]
+    net.weights = [torch.tensor(w, dtype=torch.float32, device=dev) for w in heat_ref["weights"]]
+    net.biases = [torch.tensor(b, dtype=torch.float32, device=dev) for b in heat_ref["biases"]]
+    return problem, state, extra
+
+
+# The runs of each phase-r job: (model, halo route, epochs or None for
+# --epochs, Adam's lr).
+DIST_RUNS = {
+    "r1": [("flagship", "generic", None, 0.01), ("flagship", "mg", None, 0.01)],
+    "r2": [("heat", "generic", DIST_1D_EPOCHS, 1e-3), ("wave", "generic", DIST_1D_EPOCHS, 1e-3)],
+    "r3": [("flagship", "generic", DIST_NCCL_EPOCHS, 0.01)],
+}
+
+
+def dist_worker(job, rank, world, port, out, epochs):
+    """One process of a phase-r job (``chip_smoke.py --dist-worker``): joins
+    the group (gloo for r1 and r2, whose processes share the card; NCCL for
+    r3), trains each of the job's runs through the halo route on this
+    process's arrays, and writes its losses, ms/epoch and kernel launches
+    to ``<out>.<rank>.json``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    import torch.distributed as dist
+
+    from odil_torch import comm, parallel
+    from odil_torch.ops import rowwise as rw
+    from odil_torch.ops import rowwise_mg as rmg
+    from odil_torch.optim import Adam
+
+    backend = "nccl" if job == "r3" else "gloo"
+    parallel.init_distributed(f"localhost:{port}", world, rank, backend=backend, timeout=DIST_TIMEOUT)
+    dev = parallel.local_device()
+    counters = Counters(rmg, rw)
+    with open(HEAT_DATA) as fh:
+        heat_ref = json.load(fh)
+    result = {"backend": backend, "transport": comm.transport(), "device": str(dev), "runs": {}}
+    for model, fuse, n, lr in DIST_RUNS[job]:
+        spec, shards = (HALO_SPEC, HALO_SHARDS) if model == "flagship" else (HALO1D_SPEC, HALO1D_SHARDS)
+        mesh = parallel.mesh_from_spec(spec) if world > 1 else parallel.mesh_from_spec(spec, devices=[dev] * shards)
+        problem, state, _ = dist_build(torch, np, model, mesh, dev, heat_ref)
+        grad_fn = problem.make_loss_grad_fn(state, halo=True, halo_fuse=fuse)
+        if grad_fn is None or grad_fn.route != fuse:
+            fail(f"phase {job}: make_loss_grad_fn(halo=True, halo_fuse={fuse!r}) gave "
+                 f"{None if grad_fn is None else grad_fn.route!r} on process {rank}")
+        x0 = parallel.shard_state_arrays(problem.domain, problem.domain.arrays_from_state(state))
+        grad = grad_distance(torch, problem.domain, grad_fn, x0, f"{out}.grad_{fuse}.pt", rank) if job == "r1" else None
+        counters.zero()
+        _, losses, chunk_ms = train(torch, Adam, grad_fn, x0, n or epochs, lr=lr)
+        result["runs"][f"{model} {fuse}"] = {
+            "losses": losses, "ms": steady_ms(chunk_ms)[0], "counts": counters.read(), "grad": grad,
+            "block": list(x0[0].shape), "shards": len([o for o in mesh.owners.reshape(-1) if o == rank]),
+        }
+    with open(f"{out}.{rank}.json", "w") as fh:
+        json.dump(result, fh)
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def grad_distance(torch, domain, grad_fn, x0, path, rank):
+    """This process's epoch-0 gradient against the single controller's
+    (the whole arrays saved in `path`): for each array, max|g - ref| over
+    max|ref| on this process's block of it (``Domain.field_sharding``'s
+    region; a non-grid array whole).  Returns the largest and its array."""
+    _, grads = grad_fn(x0, {"epoch": 0})
+    ref = torch.load(path)
+    worst = (0.0, None)
+    for i, (g, r) in enumerate(zip(grads, ref)):
+        r = r.to(g.device)
+        if r.ndim == domain.ndim:
+            region = domain.field_sharding(shape=tuple(r.shape)).region(tuple(r.shape), rank)
+            r = r[tuple(slice(lo, hi) for lo, hi in region)]
+        if g.shape != r.shape:
+            fail(f"phase r1: process {rank}'s gradient of array {i} has the shape {tuple(g.shape)}, its block of the "
+                 f"single controller's {tuple(r.shape)}")
+        rel = float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+        worst = max(worst, (rel, i), key=lambda w: w[0])
+    return worst
+
+
+def dist_out(job):
+    """The stem of a phase-r job's files under build/."""
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    return os.path.join(HERE, "build", f"chip_smoke_{job}")
+
+
+def dist_command(job, rank, world, port, out, epochs):
+    """The command line of one phase-r worker."""
+    return [sys.executable, os.path.abspath(__file__), "--epochs", str(epochs), "--dist-worker", job, str(rank),
+            str(world), str(port), out]
+
+
+def dist_launch(job, world, epochs, tag):
+    """Runs the `world` processes of a phase-r job and reads their results
+    (by rank); a process that fails, or outlasts DIST_TIMEOUT, fails the
+    phase (the others are killed)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    out = dist_out(job)
+    for r in range(world):
+        if os.path.exists(f"{out}.{r}.json"):
+            os.remove(f"{out}.{r}.json")
+    env = {k: v for k, v in os.environ.items() if k not in ("LOCAL_RANK", "RANK", "WORLD_SIZE")}
+    logs = [open(f"{out}.{r}.log", "w+") for r in range(world)]  # files, not pipes: no writer waits on a reader
+    procs = [subprocess.Popen(dist_command(job, r, world, port, out, epochs), cwd=HERE, env=env, stdout=log,
+                              stderr=subprocess.STDOUT) for r, log in enumerate(logs)]
+    try:
+        for p in procs:
+            p.wait(timeout=DIST_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f"phase {job}: a process outlasted {DIST_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        texts = []
+        for log in logs:
+            log.seek(0)
+            texts.append(log.read())
+            log.close()
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        if p.returncode != 0:
+            fail(f"phase {job}: process {r} of {world} exited {p.returncode}: {text[-3000:]}")
+        for line in text.splitlines():
+            if line.startswith("init_distributed:"):
+                print(f"  {job}: {line} {tag}")
+    results = []
+    for r in range(world):
+        with open(f"{out}.{r}.json") as fh:
+            results.append(json.load(fh))
+    return results
+
+
+def dist_phase(torch, np, counters, halo_losses, j_ms, ref256, heat_ref, epochs, tag):
+    """Phase r (the module docstring): the halo route over several processes.
+    `halo_losses`/`j_ms`: phase j's losses and ms/epoch by route (the single
+    controller on the mesh of four shards of the card).  Returns the
+    launches of the kernels on its paths, summed over the processes."""
+    from odil_torch import parallel
+    from odil_torch.optim import Adam
+
+    dev = torch.device(DEVICE)
+    launches = {}
+    none = dict.fromkeys(counters.read(), 0)
+
+    def same_on_every_rank(results, run):
+        first = results[0]["runs"][run]["losses"]
+        if any(r["runs"][run]["losses"] != first for r in results[1:]):
+            fail(f"phase r: the {run} losses differ between the processes")
+        return first
+
+    def expect(results, run, key, per_rank):
+        for rank, res in enumerate(results):
+            expect_counts(res["runs"][run]["counts"], dict(none, **{key: per_rank}), f"phase r {run} on process {rank}")
+        return per_rank * len(results)
+
+    # r1: the flagship on t:2,x:2, one shard a process, four processes on the
+    # card over gloo.  Before it, on the single controller (phase j's mesh
+    # of four shards of the card): each route's epoch-0 gradient, saved for
+    # the workers to meet on their blocks, and the spread that one-ulp
+    # gradient noise opens in its rows (three seeds, as r2 and phase p).
+    t_r = time.perf_counter()
+    mesh = parallel.mesh_from_spec(HALO_SPEC, devices=[dev] * HALO_SHARDS)
+    spreads = {}
+    for fuse in ("generic", "mg"):
+        j_rows = trajectory_rows(halo_losses[fuse])
+
+        def single(seed=None):
+            problem, state, _ = dist_build(torch, np, "flagship", mesh, dev, heat_ref)
+            grad_fn = problem.make_loss_grad_fn(state, halo=True, halo_fuse=fuse)
+            if grad_fn is None or grad_fn.route != fuse:
+                fail(f"phase r1: the single controller's halo route is not {fuse!r}")
+            return grad_fn if seed is None else one_ulp_moves(torch, grad_fn, seed, dev), problem, state
+
+        grad_fn, problem, state = single()
+        _, grads = grad_fn(problem.domain.arrays_from_state(state), {"epoch": 0})
+        torch.save([g.detach().cpu() for g in grads], f"{dist_out('r1')}.grad_{fuse}.pt")
+        del grad_fn, grads
+        spread = 0.0
+        for seed in ROUNDOFF_SEEDS:
+            grad_fn, problem, state = single(seed)
+            moved = trajectory_rows(train(torch, Adam, grad_fn, problem.domain.arrays_from_state(state),
+                                          len(halo_losses[fuse]), lr=DIST_RUNS["r1"][0][3])[1])
+            spread = max(spread, max(abs(moved[e] - j_rows[e]) / abs(j_rows[e]) for e in j_rows))
+        spreads[fuse] = spread
+    results = dist_launch("r1", HALO_SHARDS, epochs, tag)
+    for fuse, key, name in (("generic", "backward_halo", "backward_halo_sums"),
+                            ("mg", "backward_mg_local", "backward_mg_local_sums")):
+        run = f"flagship {fuse}"
+        losses = same_on_every_rank(results, run)
+        launches[name] = expect(results, run, key, len(losses))
+        rows, j_rows = trajectory_rows(losses), trajectory_rows(halo_losses[fuse])
+        ref_rel = {e: abs(rows[e] - ref256[e]) / abs(ref256[e]) for e in rows if e in ref256}
+        j_rel = {e: abs(rows[e] - j_rows[e]) / abs(j_rows[e]) for e in rows if e in j_rows}
+        worst_ref, worst_j = max(ref_rel, key=ref_rel.get), max(j_rel, key=j_rel.get)
+        band = 2 * spreads[fuse]
+        grads = [tuple(r["runs"][run]["grad"]) for r in results]
+        grad_rel, grad_rank = max((g[0], n) for n, g in enumerate(grads))
+        info = results[0]["runs"][run]
+        print(f"r1 halo {fuse} over {len(results)} processes (gloo, {info['shards']} shard a process, block "
+              f"{tuple(info['block'])}): {len(losses)} epochs, epoch 0 {rows[0]!r} vs phase j's {j_rows[0]!r} (rel "
+              f"{j_rel[0]:.2e}, the same bits: {rows[0] == j_rows[0]}); epoch-0 gradient against the single "
+              f"controller's, largest max|diff|/max|g| {grad_rel:.3e} (process {grad_rank}, array "
+              f"{grads[grad_rank][1]}; limit {DIST_GRAD_LIMIT:.0e}); largest row distance from phase j's epoch "
+              f"{worst_j} ({100 * j_rel[worst_j]:.4f}%) within {100 * band:.4f}% (one-ulp noise opens "
+              f"{100 * spreads[fuse]:.4f}%); worst row against ref_velt_256.csv epoch {worst_ref} "
+              f"({100 * ref_rel[worst_ref]:.2f}%); {launches[name]} launches of {key} ({len(results)} an epoch); "
+              f"{info['ms']:.4f} ms/epoch (process 0) against phase j's {j_ms[fuse]:.4f} {tag}")
+        if j_rel[0] > 1e-5:
+            fail(f"r1 halo {fuse}: epoch-0 loss {rows[0]} differs from phase j's {j_rows[0]} (limit 1e-5)")
+        if grad_rel > DIST_GRAD_LIMIT:
+            fail(f"r1 halo {fuse}: process {grad_rank}'s epoch-0 gradient of array {grads[grad_rank][1]} leaves the "
+                 f"single controller's by {grad_rel:.3e} of its largest entry (limit {DIST_GRAD_LIMIT:.0e})")
+        if j_rel[worst_j] > band:
+            fail(f"r1 halo {fuse}: epoch {worst_j} is {100 * j_rel[worst_j]:.4f}% from phase j's row, outside twice "
+                 f"the one-ulp noise spread ({100 * band:.4f}%)")
+        bad = [e for e, r in ref_rel.items() if r > 0.15]
+        if ref_rel[0] > 1e-5 or bad:
+            fail(f"r1 halo {fuse}: rows {bad} leave ref_velt_256.csv by more than 15% (epoch 0 rel {ref_rel[0]:.2e})")
+
+    # r2: heat and wave on t:4 over two processes of two shards, against the
+    # single controller on the mesh of four shards of the card.  The
+    # processes add the gradient's rows that several shards read in another
+    # order than the single controller, so the band is phase p's for heat:
+    # twice the spread that one-ulp gradient noise opens in the single
+    # controller's trajectory (three seeds), and at least g.'s 1%.
+    results = dist_launch("r2", DIST_1D_PROCS, epochs, tag)
+    mesh = parallel.mesh_from_spec(HALO1D_SPEC, devices=[dev] * HALO1D_SHARDS)
+    every = 20
+    for model in ("heat", "wave"):
+        run = f"{model} generic"
+        losses = same_on_every_rank(results, run)
+        key = f"backward_halo_rows1d_sums_{model}_64"
+        launches[key] = expect(results, run, "backward_halo_rows1d", HALO1D_SHARDS // DIST_1D_PROCS * len(losses))
+        lr = DIST_RUNS["r2"][0][3]
+
+        def single(seed=None):
+            problem, state, _ = dist_build(torch, np, model, mesh, dev, heat_ref)
+            grad_fn = problem.make_loss_grad_fn(state, halo=True)
+            if seed is not None:
+                grad_fn = one_ulp_moves(torch, grad_fn, seed, dev)
+            return train(torch, Adam, grad_fn, problem.domain.arrays_from_state(state), len(losses), lr=lr)
+
+        def distance(a, b):
+            return {e: abs(a[max(e - 1, 0)] - b[max(e - 1, 0)]) / abs(b[max(e - 1, 0)])
+                    for e in range(0, len(a) + 1, every)}
+
+        counters.zero()
+        _, base, chunk_ms = single()
+        expect_counts(counters.read(), dict(none, backward_halo_rows1d=HALO1D_SHARDS * len(base)),
+                      f"phase r {model} on the single controller")
+        spread = max(max(distance(single(seed)[1], base).values()) for seed in ROUNDOFF_SEEDS)
+        band = max(0.01, 2 * spread)
+        rel = distance(losses, base)
+        worst = max(rel, key=rel.get)
+        print(f"r2 {model} 64^2 on {HALO1D_SPEC} over {len(results)} processes of "
+              f"{results[0]['runs'][run]['shards']} shards (gloo): {len(losses)} epochs, epoch 0 {losses[0]!r} vs the "
+              f"single controller's {base[0]!r} (rel {rel[0]:.2e}); worst {every}-epoch row epoch {worst} "
+              f"({100 * rel[worst]:.4f}%) within {100 * band:.4f}% (one-ulp noise opens {100 * spread:.4f}%); final "
+              f"{losses[-1]!r} vs {base[-1]!r}; {launches[key]} launches of the masked backward+sums; "
+              f"{results[0]['runs'][run]['ms']:.4f} ms/epoch (process 0) against the single controller's "
+              f"{steady_ms(chunk_ms)[0]:.4f} {tag}")
+        if rel[0] > 1e-5 or rel[worst] > band:
+            fail(f"r2 {model}: epoch 0 rel {rel[0]:.2e} (limit 1e-5), epoch {worst} {100 * rel[worst]:.3f}% (limit "
+                 f"{100 * band:.3f}%)")
+
+    # r3: one process over NCCL at world size 1: phase j's generic route.
+    (res,) = dist_launch("r3", 1, epochs, tag)
+    run = res["runs"]["flagship generic"]
+    losses = run["losses"]
+    launches["backward_halo_sums"] += expect([res], "flagship generic", "backward_halo", HALO_SHARDS * len(losses))
+    same = losses == halo_losses["generic"][: len(losses)]
+    print(f"r3 halo generic, one process, backend {res['backend']} ({res['transport']}): {len(losses)} epochs, rows "
+          f"equal to phase j's first {len(losses)} to the bit: {same}; {run['ms']:.4f} ms/epoch {tag}")
+    if not same:
+        fail("r3: the rows over NCCL at world size 1 differ from phase j's")
+    print(f"phase r: {time.perf_counter() - t_r:.1f} s {tag}")
+    return launches
+
+
 def autograd_loss_grad_fn(torch, problem, state, halo=False):
     """The plain route's training step: autograd of make_loss_fn (per shard
     with the halo exchange when `halo`)."""
@@ -1254,6 +1595,21 @@ def shard_records(torch, np, th, tw, heat_ref, which, T, N, dev, seed=14):
     return [r for ctx, _ in results for r in ctx.rowwise_deferred]
 
 
+def one_ulp_moves(torch, grad_fn, seed, dev):
+    """``grad_fn`` with every gradient entry moved one ulp up or down (a coin
+    of the seed's generator for each entry and call): the size of the change
+    a sum in another order makes."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def moved(arrays, tracers):
+        out, grads = grad_fn(arrays, tracers)
+        return out, [torch.where(torch.rand(g.shape, generator=gen, device=g.device) < 0.5,
+                                 torch.nextafter(g, torch.full_like(g, float("inf"))),
+                                 torch.nextafter(g, torch.full_like(g, -float("inf")))) for g in grads]
+
+    return moved
+
+
 def roundoff_spread(torch, th, heat_ref, dev, base, epochs):
     """The spread that roundoff alone opens in heat's trajectory: e.'s hand
     loop (unsharded, from its initial net) with every gradient entry moved
@@ -1273,14 +1629,7 @@ def roundoff_spread(torch, th, heat_ref, dev, base, epochs):
         net = state.fields["k_net"]
         net.weights = [torch.tensor(w, dtype=torch.float32, device=dev) for w in heat_ref["weights"]]
         net.biases = [torch.tensor(b, dtype=torch.float32, device=dev) for b in heat_ref["biases"]]
-        grad_fn, gen = problem.make_loss_grad_fn(state), torch.Generator(device=dev).manual_seed(seed)
-
-        def moved(arrays, tracers, grad_fn=grad_fn, gen=gen):
-            out, grads = grad_fn(arrays, tracers)
-            return out, [torch.where(torch.rand(g.shape, generator=gen, device=g.device) < 0.5,
-                                     torch.nextafter(g, torch.full_like(g, float("inf"))),
-                                     torch.nextafter(g, torch.full_like(g, -float("inf")))) for g in grads]
-
+        moved = one_ulp_moves(torch, problem.make_loss_grad_fn(state), seed, dev)
         _, losses, _ = train(torch, Adam, moved, problem.domain.arrays_from_state(state), epochs, lr=1e-3)
         rel = {e: abs(losses[e - 1] - base[e]) / abs(base[e]) for e in base if e > 0}
         e = max(rel, key=rel.get)
@@ -1828,8 +2177,14 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--epochs", type=int, default=400, help="Flagship training epochs (multiple of 10)")
     parser.add_argument("--seed", type=int, default=0, help="Seed of the random kernel inputs")
+    parser.add_argument("--dist-worker", nargs=5, metavar=("JOB", "RANK", "WORLD", "PORT", "OUT"),
+                        help="Run one process of a phase-r job (started by the script itself)")
     args = parser.parse_args()
     t_main = time.perf_counter()
+    if args.dist_worker:
+        job, rank, world, port, out = args.dist_worker
+        dist_worker(job, int(rank), int(world), port, out, args.epochs)
+        return
 
     import numpy as np
     import torch
@@ -2717,6 +3072,14 @@ def main():
     t_q = time.perf_counter() - t_q
     print(f"phase q: launches on its paths {q_launches}; {t_q:.1f} s {tag}")
 
+    # r. The halo route over several processes (torch.distributed).
+    t_r = time.perf_counter()
+    r_launches = dist_phase(torch, np, counters, {f: v[0] for f, v in halo_losses.items()},
+                            {f: loops[f"halo {f} 256"][1][0] for f in halo_losses}, ref256, heat_ref, args.epochs, tag)
+    t_r = time.perf_counter() - t_r
+    for name, n in r_launches.items():
+        launches[name] += n
+
     idle = [name for name in report if launches.get(name, 0) < 1]
     if idle:
         fail(f"kernels not launched on their paths: {idle}")
@@ -2934,7 +3297,7 @@ def main():
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
 
-    print(f"seconds: phase p {t_p:.1f}, phase q {t_q:.1f}, the script from its start (the kernels' build included) "
+    print(f"seconds: phase p {t_p:.1f}, phase q {t_q:.1f}, phase r {t_r:.1f}, the script from its start (the kernels' build included) "
           f"{time.perf_counter() - t_main:.1f} {tag}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -8,7 +8,10 @@ dimension name -> mesh axis name) describe the shards of both mesh routes:
 the halo path (``halo.py``, ``Problem.make_loss_fn(state, halo=True)``) and
 the JAX package's GSPMD route (no ``halo``), whose sharding specs
 (``field_sharding``, ``constrain``) are computed as the JAX package
-computes them; the arrays stay whole on the mesh's card.
+computes them; the arrays stay whole on the mesh's card.  On a mesh over
+several processes the state that a Domain initializes stays whole on this
+process's device; ``parallel.shard_state_arrays`` gives each process its
+block of it for the halo route.
 """
 
 import math
@@ -260,10 +263,14 @@ class Domain:
     def _place(self, array, loc=None):
         """Casts to the domain's dtype and places a grid field with the
         domain's sharding: on the port's one-card mesh, on the mesh's card
-        (the same tensor when it lies there), its values untouched."""
+        (the same tensor when it lies there), its values untouched.  On a
+        mesh over several processes the whole array on this process's
+        device."""
         array = self.cast(array)
         sharding = self.field_sharding(loc, shape=tuple(array.shape))
         if sharding is not None:
+            if self.mesh.spans_processes:
+                return array.to(self.mesh.local_device)
             return sharding.place(array)
         return array
 
@@ -274,6 +281,9 @@ class Domain:
         the mesh's card and leaves its values as they are."""
         if self.mesh is None or self.partition is None:
             return array
+        from .parallel import refuse_processes
+
+        refuse_processes(self.mesh, "the GSPMD route (a mesh without halo)", "use halo=True (--halo 1)")
         return self.field_sharding(shape=tuple(array.shape), allow_uneven=True).place(array)
 
     # -- Multigrid decomposition -------------------------------------------

@@ -4,20 +4,29 @@ PyTorch counterpart of ``odil_tpu/halo.py``.  The JAX package evaluates the
 loss inside ``shard_map``: one program per device holding one block of
 every grid field, stencil shifts as slices of a halo-extended local block,
 ``ppermute`` rings for the halo exchange and ``psum`` for every loss sum.
-The port is a single controller that loops over the mesh's shards in a
-fixed order:
+The port runs one program a process over the shards that the process
+owns (``_HaloPlan.local_shards``); in one process that is every shard, and
+the program is a single controller that loops over them in a fixed order:
 
-- the global state stays on the mesh's first device;
-- each shard's local block is sliced from the global tensors (ghost-node
+- the process holds its block of every array (in one process the whole
+  array) in the storage layout of ``Domain.field_sharding``, on its device;
+- each shard's local block is sliced from the process's arrays (ghost-node
   blocks of B+1 entries along node-located partitioned axes), moved to the
   shard's device, and extended by its halo from the neighbouring shards'
   blocks (``_extend_all``: the ppermute rings, with the JAX package's node
-  rule, so the periodic wrap reproduces ``roll`` over N+1 nodes);
+  rule, so the periodic wrap reproduces ``roll`` over N+1 nodes); a
+  neighbour in another process sends its slab (``comm.ppermute``);
 - autograd of those slices and concatenations is the exact scatter-add
   that JAX's transposes give, so duplicated nodes and halo cells send their
-  cotangents back to the owning blocks;
-- ``psum`` is a sum over the shards' tensors, in shard order, on the first
-  device.
+  cotangents back to the owning blocks (across processes through
+  ppermute's backward);
+- ``psum`` is a sum over the shards' tensors in shard order
+  (``_sum_shards``; across processes the shards' values are gathered
+  first, so every process adds the same numbers in the same order);
+- across processes, the cotangent of an array that several processes hold
+  (the whole extent of node axes, parameters) is summed over them in rank
+  order (``comm.replicas``), and the coarse multigrid levels are gathered
+  whole (``comm.gather``), their cotangents summed back onto the blocks.
 
 Mesh axes that partition no grid dimension replicate every block: the
 controller evaluates each distinct block once (the JAX package's psum over
@@ -59,11 +68,13 @@ import os
 import numpy as np
 import torch
 
+from . import comm
 from .context import Context
 from .fields import Array, Field, MultigridField, NeuralNet, State, field_arrays
 from .nn import eval_neural_net
 from .ops.rowwise import _loss_and_grads, halo_model, rowwise_loss_sums
 from .ops.rowwise_mg import _interp_matrices, rowwise_mg_local_loss_and_grads
+from .parallel import shard_state_arrays
 from .transfer import _interp_axis_matmul, _interp_matrix_on
 
 __all__ = ["make_halo_loss_fn", "make_halo_loss_grad_fn", "make_halo_residual_fn", "refuse_plane_partition"]
@@ -83,20 +94,24 @@ def refuse_plane_partition(ctx, what):
 
 class _Shard:
     """One distinct block of the mesh: its index along each partitioning
-    axis (``key``, in the plan's axis order) and its device."""
+    axis (``key``, in the plan's axis order), its device, the process that
+    owns it and its number in shard order."""
 
-    def __init__(self, index, key, device):
+    def __init__(self, index, key, device, owner=0, number=0):
         self.index, self.key, self.device = index, key, device
+        self.owner, self.number = owner, number
 
     def __repr__(self):
         return f"_Shard({self.index}, {self.device})"
 
 
-def _local_block(a, plan, shard, loc, dims=None):
-    """Shard's block of the global array ``a``: along each partitioned grid
+def _local_block(a, plan, shard, loc, dims=None, start=None):
+    """Shard's block of the array ``a``: along each partitioned grid
     dimension (``dims``: {array dim: grid dim}, default the identity) the
     cells [i*B, (i+1)*B), or the ghost-node block [i*B, i*B+B] on a node
-    axis; moved to the shard's device."""
+    axis; moved to the shard's device.  ``a`` is the global array, or with
+    ``start`` (the first global index of ``a`` along each array dimension)
+    a process's block of it."""
     dims = dims if dims is not None else {d: d for d in range(a.ndim)}
     for j, d in dims.items():
         axis = plan.dim_axis.get(d)
@@ -104,7 +119,7 @@ def _local_block(a, plan, shard, loc, dims=None):
             continue
         B = plan.domain.cshape[d] // plan.axis_sizes[axis]
         i = shard.index[axis]
-        a = a.narrow(j, i * B, B + (1 if loc[j] == "n" else 0))
+        a = a.narrow(j, i * B - (start[j] if start else 0), B + (1 if loc[j] == "n" else 0))
     return a.to(shard.device)
 
 
@@ -118,48 +133,103 @@ def _extend_all(blocks, plan, widths, loc, dims=None):
     blocks of B+1 rows sharing one node with each neighbour): the slab is one
     row wider and each receiver drops the shared node -- interior receivers
     take [0:h] (leading) / [1:h+1] (trailing), the ring-wrap receivers shift
-    by one, matching periodic indexing modulo N+1.
+    by one, matching periodic indexing modulo N+1.  A neighbour absent from
+    ``blocks`` lives in another process, which sends its slab
+    (``_remote_slabs``).
 
     blocks: {shard key: tensor}; returns the same keys, extended."""
-    dims = dims if dims is not None else {d: d for d in range(len(loc))}
-    for j, d in dims.items():
-        axis = plan.dim_axis.get(d)
-        if axis is None:
-            continue
-        lo, hi = widths[j]
-        if not (lo or hi):
-            continue
-        k = plan.axis_sizes[axis]
-        pos = plan.axis_pos[axis]
-        node = loc[j] == "n"
-        out = {}
-        for key, a in blocks.items():
-            i = key[pos]
+    return _extend_many(plan, [(blocks, widths, loc, dims)])[0]
 
-            def neighbour(step):
-                nk = list(key)
-                nk[pos] = (i + step) % k
-                return blocks[tuple(nk)]
 
-            parts = []
-            if lo:
-                prev = neighbour(-1)
-                n, w = prev.shape[j], lo + (1 if node else 0)
-                slab = prev.narrow(j, n - w, w)
-                if node:
-                    slab = slab.narrow(j, 1 if i == 0 else 0, lo)
-                parts.append(slab.to(a.device))
-            parts.append(a)
-            if hi:
-                nxt = neighbour(1)
-                w = hi + (1 if node else 0)
-                slab = nxt.narrow(j, 0, w)
-                if node:
-                    slab = slab.narrow(j, 0 if i == k - 1 else 1, hi)
-                parts.append(slab.to(a.device))
-            out[key] = torch.cat(parts, dim=j) if len(parts) > 1 else a
-        blocks = out
-    return blocks
+def _extend_many(plan, items):
+    """``_extend_all`` of several arrays' blocks, ``items`` [(blocks, widths,
+    loc, dims)], in lockstep: the n-th dimension of every item, then the
+    next, with one ``comm.ppermute`` a step for the slabs of all items that
+    cross processes.  Each item's operations are those of it alone."""
+    items = [(blocks, widths, loc, list((dims if dims is not None else {d: d for d in range(len(loc))}).items()))
+             for blocks, widths, loc, dims in items]
+    out = [blocks for blocks, *_ in items]
+    for step in range(max(len(dims) for *_, dims in items)):
+        steps, sends, recvs, keys = {}, [], [], []
+        for n, (_, widths, loc, dims) in enumerate(items):
+            if step >= len(dims):
+                continue
+            j, d = dims[step]
+            axis = plan.dim_axis.get(d)
+            if axis is None:
+                continue
+            lo, hi = widths[j]
+            if not (lo or hi):
+                continue
+            node = loc[j] == "n"
+            k, pos = plan.axis_sizes[axis], plan.axis_pos[axis]
+            wlo, whi = (lo + (1 if node else 0) if lo else 0), (hi + (1 if node else 0) if hi else 0)
+            steps[n] = (j, lo, hi, k, pos, node, wlo, whi)
+            _remote_slabs(out[n], plan, n, steps[n], sends, recvs, keys)
+        remote = dict(zip(keys, comm.ppermute(sends, recvs, plan.chain))) if (sends or recvs) else {}
+        for n, (j, lo, hi, k, pos, node, wlo, whi) in steps.items():
+            blocks = out[n]
+            ext = {}
+            for key, a in blocks.items():
+                i = key[pos]
+
+                def neighbour(step):
+                    return blocks.get(_moved(key, pos, (i + step) % k))
+
+                parts = []
+                if lo:
+                    prev = neighbour(-1)
+                    if prev is None:
+                        slab = remote[(n, key, -1)]
+                    else:
+                        m, w = prev.shape[j], wlo
+                        slab = prev.narrow(j, m - w, w)
+                    if node:
+                        slab = slab.narrow(j, 1 if i == 0 else 0, lo)
+                    parts.append(slab.to(a.device))
+                parts.append(a)
+                if hi:
+                    nxt = neighbour(1)
+                    slab = remote[(n, key, 1)] if nxt is None else nxt.narrow(j, 0, whi)
+                    if node:
+                        slab = slab.narrow(j, 0 if i == k - 1 else 1, hi)
+                    parts.append(slab.to(a.device))
+                ext[key] = torch.cat(parts, dim=j) if len(parts) > 1 else a
+            out[n] = ext
+    return out
+
+
+def _moved(key, pos, i):
+    """``key`` with its entry ``pos`` set to ``i``."""
+    nk = list(key)
+    nk[pos] = i
+    return tuple(nk)
+
+
+def _remote_slabs(blocks, plan, n, step, sends, recvs, keys):
+    """The halo slabs of item ``n``'s blocks along one step (array dimension
+    ``j``, mesh axis position ``pos`` of ``k`` shards) whose ring neighbour
+    lives in another process: each block sends its trailing ``wlo`` rows to
+    the next shard and its leading ``whi`` rows to the previous one, where
+    those are remote.  Appends to ``sends`` and ``recvs`` (``comm.ppermute``'s
+    lists, tags unique among the items) and to ``keys`` (n, shard key, -1 or
+    1): the slab that the shard receives from its previous (-1) or next (1)
+    neighbour, untrimmed, as ``_extend_many`` slices it from a local one."""
+    j, _, _, k, pos, _, wlo, whi = step
+    base = 2 * len(plan.shards) * n
+    for key, a in blocks.items():
+        i = key[pos]
+        prv, nxt = _moved(key, pos, (i - 1) % k), _moved(key, pos, (i + 1) % k)
+        for w, which, to, frm, side, first in ((wlo, 0, nxt, prv, -1, a.shape[j] - wlo), (whi, 1, prv, nxt, 1, 0)):
+            if not w:
+                continue
+            if to not in blocks:
+                sends.append((plan.owner[to], base + plan.tag(key, which), a.narrow(j, first, w)))
+            if frm not in blocks:
+                shape = list(a.shape)
+                shape[j] = w
+                recvs.append((plan.owner[frm], base + plan.tag(frm, which), tuple(shape), a.dtype, a.device))
+                keys.append((n, key, side))
 
 
 def _plain_term_mask(plan, shard, v, ti):
@@ -311,8 +381,10 @@ def _local_mg_block(plan, shard, meta, levels):
 
 class _HaloPlan:
     """Static plan built once per (problem, state): which dimensions are
-    partitioned, the distinct shards, per-field halo widths, the extra
-    arrays' localization and the term names (``odil_tpu/halo.py:385``)."""
+    partitioned, the distinct shards and those of this process, per-field
+    halo widths, the extra arrays' localization, the term names
+    (``odil_tpu/halo.py:385``), and across processes the storage of each
+    array (``inputs``)."""
 
     def __init__(self, problem, state, extra_partition=None):
         domain = problem.domain
@@ -329,10 +401,26 @@ class _HaloPlan:
         self.used_axes = tuple(a for a in self.mesh.axis_names if a in set(self.dim_axis.values()))
         self.axis_pos = {a: p for p, a in enumerate(self.used_axes)}
         self.shards = []
-        for key in np.ndindex(*[self.axis_sizes[a] for a in self.used_axes]):
+        for n, key in enumerate(np.ndindex(*[self.axis_sizes[a] for a in self.used_axes])):
             index = dict(zip(self.used_axes, (int(i) for i in key)))
-            self.shards.append(_Shard(index, tuple(int(i) for i in key), self.mesh.device_at(index)))
-        self.first = self.mesh.devices.reshape(-1)[0]
+            self.shards.append(_Shard(index, tuple(int(i) for i in key), self.mesh.device_at(index),
+                                      self.mesh.owner_at(index), n))
+        # Across processes: this process's shards, on its device; the sums go
+        # through the group whenever one spans the mesh's processes.
+        self.spmd = self.mesh.spans_processes
+        if self.spmd:
+            idle = [a for a in self.mesh.axis_names if a not in self.used_axes and self.axis_sizes[a] > 1]
+            if idle:
+                raise NotImplementedError(
+                    f"halo mode over several processes: mesh axes {idle} partition no grid dimension (each "
+                    "process would evaluate replicas of other processes' shards); drop them from the mesh"
+                )
+        self.local_shards = [s for s in self.shards if s.owner == self.mesh.process]
+        self.owner = {s.key: s.owner for s in self.shards}
+        self.number = {s.key: s.number for s in self.shards}
+        self.reduces = comm.initialized() and len(self.mesh.processes) == comm.world_size()
+        self.process_shards = [[s.number for s in self.shards if s.owner == r] for r in self.mesh.processes]
+        self.first = self.mesh.local_device
         self.names, self.locs, self.widths, self.param_keys = self._discover(problem, state)
         self._validate(problem, state)
         # Extra arrays with a node-sized partitioned axis: {name: {array_dim: grid dim}}.
@@ -341,6 +429,80 @@ class _HaloPlan:
         self._plan_extra(problem, extra_partition)
         self._masks = {}
         self._extras = {}
+        self._plan_storage(state)
+        # The order of the backward's collectives; each evaluation starts a
+        # new chain (``comm.Chain``).
+        self.chain = comm.Chain()
+
+    def tag(self, key, which):
+        """The tag of shard ``key``'s slab ``which`` (0: its trailing rows, 1:
+        its leading rows) in one exchange."""
+        return 2 * self.number[key] + which
+
+    # -- Storage across processes ---------------------------------------------
+
+    def _plan_storage(self, state):
+        """Each flat array's role across processes: ``"block"`` (a Field, or
+        the finest level of a multigrid field: sliced into shards from this
+        process's block, its cotangent summed over the processes that hold
+        the same block), ``"whole"`` (a coarser level: gathered whole) or
+        ``"param"`` (held whole by every process); and ``starts``, the first
+        global index of this process's block of each field's (finest)
+        array.  In one process nothing is planned: the arrays are whole."""
+        self.starts = {}
+        self.storage = []
+        if not self.spmd:
+            return
+        domain = self.domain
+        ranks = list(self.mesh.processes)
+        for key, f in state.fields.items():
+            arrs = field_arrays(f)
+            if isinstance(f, Field):
+                kinds = ["block"]
+            elif isinstance(f, MultigridField):
+                kinds = ["block"] + ["whole"] * (len(arrs) - 1)
+            else:
+                kinds = ["param"] * len(arrs)
+            for n, (kind, a) in enumerate(zip(kinds, arrs)):
+                shape = tuple(a.shape)
+                if kind == "param" or a.ndim != domain.ndim:
+                    self.storage.append(("param", shape, None, ranks))
+                    continue
+                sharding = domain.field_sharding(shape=shape)
+                regions = [sharding.region(shape, r) for r in ranks]
+                mine = regions[ranks.index(self.mesh.process)]
+                if n == 0:
+                    self.starts[key] = tuple(lo for lo, _ in mine)
+                group = [r for r, reg in zip(ranks, regions) if reg == mine]
+                self.storage.append((kind, shape, regions, group))
+
+    def inputs(self, arrays, global_ladder=False, kinds=("block", "whole", "param")):
+        """This process's arrays as the shards read them (``kinds``: the
+        roles to take; the others pass as they are): across processes the
+        "block" arrays as they are but for the sum of their cotangents over
+        the processes that hold the same block, the "whole" ones (with
+        ``global_ladder`` every grid array) gathered whole, the parameters
+        with their cotangents summed over every process.  In one process the
+        arrays themselves."""
+        if not self.spmd:
+            return list(arrays)
+        out = list(arrays)
+        # One exchange for the gathered arrays, one for each replica group.
+        batches = {}
+        for i, (kind, shape, regions, group) in enumerate(self.storage):
+            if kind not in kinds:
+                continue
+            gathered = kind == "whole" or (global_ladder and kind == "block")
+            batches.setdefault(("gather",) if gathered else ("replicas", tuple(group)), []).append(i)
+        for key, idx in batches.items():
+            xs = [arrays[i] for i in idx]
+            if key[0] == "gather":
+                got = comm.gather(xs, [(self.storage[i][2], self.storage[i][1]) for i in idx], self.chain)
+            else:
+                got = comm.replicas(xs, list(key[1]), self.chain)
+            for i, x in zip(idx, got):
+                out[i] = x
+        return out
 
     # -- Discovery -----------------------------------------------------------
 
@@ -363,6 +525,7 @@ class _HaloPlan:
                 "automatically) or use the plain operator (kernel='xla')"
             )
         self.rowwise_calls = list(ctx.rowwise_calls)
+        self.streams = any(r["stream"] for r in ctx.rowwise_deferred)
         locs, widths, param_keys = {}, {}, []
         for key, f in st.fields.items():
             if isinstance(f, Field):
@@ -487,7 +650,7 @@ class _HaloPlan:
         if not self._extras:
             items = vars(extra) if not isinstance(extra, dict) else extra
             whole = {name: torch.as_tensor(items[name], device=self.first) for name in self.extra_dims}
-            for s in self.shards:
+            for s in self.local_shards:
                 arrs = {n: _local_block(v, self, s, self.extra_locs[n], self.extra_dims[n]) for n, v in whole.items()}
                 self._extras[s.key] = _local_extra_of(extra, arrs)
         return self._extras[shard.key]
@@ -523,29 +686,46 @@ class _HaloPlan:
 
 
 def _localize(problem, plan, mg_meta, arrays, global_ladder=False):
-    """Every shard's grid blocks and parameter unknowns from the global
-    arrays: ``({key: {shard key: block}}, {shard key: {key: Array or
-    NeuralNet}})``.  Multigrid fields run the local ladder, or with
-    ``global_ladder`` are flattened on the whole grid first and sliced like
-    plain Fields.  Differentiable.  The counterpart of the JAX package's
-    ``_halo_global_inputs`` (:1031, the ghost-node layout) and
-    ``_local_grid_params`` (:1003, the local ladder and the parameters'
+    """Every local shard's grid blocks and parameter unknowns from the
+    arrays as ``plan.inputs`` gives them: ``({key: {shard key: block}},
+    {shard key: {key: Array or NeuralNet}})``.  Multigrid fields run the
+    local ladder, or with ``global_ladder`` are flattened on the whole grid
+    first and sliced like plain Fields.  Differentiable.  The counterpart of
+    the JAX package's ``_halo_global_inputs`` (:1031, the ghost-node layout)
+    and ``_local_grid_params`` (:1003, the local ladder and the parameters'
     regrouping) together."""
     st = problem._fine_state(arrays) if global_ladder else problem.state_from_arrays(arrays)
-    grid, params = {}, {s.key: {} for s in plan.shards}
+    grid, params = {}, {s.key: {} for s in plan.local_shards}
     for key, f in st.fields.items():
+        start = None if global_ladder else plan.starts.get(key)
         if isinstance(f, Field):
-            grid[key] = {s.key: _local_block(f.array, plan, s, plan.locs[key]) for s in plan.shards}
+            grid[key] = {s.key: _local_block(f.array, plan, s, plan.locs[key], start=start) for s in plan.local_shards}
         elif isinstance(f, MultigridField):
             levels = [t.array for t in f.terms]
             grid[key] = {}
-            for s in plan.shards:
-                local = [_local_block(levels[0], plan, s, plan.locs[key])] + [lv.to(s.device) for lv in levels[1:]]
+            for s in plan.local_shards:
+                local = [_local_block(levels[0], plan, s, plan.locs[key], start=start)]
+                local += [lv.to(s.device) for lv in levels[1:]]
                 grid[key][s.key] = _local_mg_block(plan, s, mg_meta[key], local)
         else:
-            for s in plan.shards:
+            for s in plan.local_shards:
                 params[s.key][key] = _param_on(f, s.device)
     return grid, params
+
+
+def _sum_shards(plan, values):
+    """The sum over every shard of the mesh, in shard order, of ``values``
+    (one tensor of one shape a local shard, in shard order): the psum.
+    Where a process group spans the mesh's processes the shards' values are
+    gathered first (``comm.psum_table``), so every process folds the same
+    numbers in the same order; in one process without a group the local
+    values are folded as they are.  Either way the same fold."""
+    if plan.reduces:
+        values = comm.psum_table(torch.stack(values), plan.process_shards, len(plan.shards)).unbind(0)
+    acc = values[0]
+    for v in values[1:]:
+        acc = acc + v
+    return acc
 
 
 def _param_on(f, device):
@@ -803,20 +983,22 @@ class _HaloContext:
 def _extended(plan, grid):
     """Every grid field's halo-extended blocks, {key: {shard key: block}},
     from the shards' local blocks."""
-    return {k: _extend_all(blocks, plan, plan.widths[k], plan.locs[k]) for k, blocks in grid.items()}
+    keys = list(grid)
+    ext = _extend_many(plan, [(grid[k], plan.widths[k], plan.locs[k], None) for k in keys])
+    return dict(zip(keys, ext))
 
 
 def _contexts(problem, plan, ext, params, tracers):
-    """One ``_HaloContext`` per shard, in shard order."""
+    """One ``_HaloContext`` per local shard, in shard order."""
     return [
         _HaloContext(plan, s, {k: v[s.key] for k, v in ext.items()}, params[s.key], plan.local_extra(problem, s),
                      tracers)
-        for s in plan.shards
+        for s in plan.local_shards
     ]
 
 
 def _run_operators(problem, plan, ext, params, tracers):
-    """Runs the operator on every shard's context, then extends the recorded
+    """Runs the operator on every local shard's context, then extends the recorded
     kernel calls' shard-local data (``_exchange_data``): [(ctx, values)]."""
     results = [(ctx, problem._run_operator(ctx)[1]) for ctx in _contexts(problem, plan, ext, params, tracers)]
     _exchange_data(plan, [ctx for ctx, _ in results])
@@ -827,7 +1009,8 @@ def _exchange_data(plan, ctxs):
     """Extends the shard-local per-row data of the recorded kernel calls by
     their halo from the same call's data on the neighbouring shards: the
     ppermute exchange of ``odil_tpu/halo.py``'s ``_localize_data`` for data of
-    the local extent (every shard records the same calls in the same order)."""
+    the local extent (every shard records the same calls in the same order;
+    a neighbour in another process sends its data through ``comm``)."""
     for idx, rec in enumerate(ctxs[0].rowwise_deferred):
         for j, (_, widths, loc) in rec["local_data"].items():
             blocks = {c.shard.key: c.rowwise_deferred[idx]["local_data"][j][0] for c in ctxs}
@@ -863,11 +1046,14 @@ def make_halo_loss_fn(problem, state, extra_partition=None, mg_ladder="local"):
     plan = _HaloPlan(problem, state, extra_partition=extra_partition)
     problem._capture_structure(state)
     arrays0 = problem.domain.arrays_from_state(state)
+    if plan.spmd:
+        arrays0 = shard_state_arrays(problem.domain, arrays0)
     mg_meta = {} if global_ladder else _mg_metas(problem, state, plan)
 
     def loss_fn(arrays, tracers):
-        grid, params = _localize(problem, plan, mg_meta, arrays, global_ladder)
-        sums, counts = None, None
+        plan.chain = comm.Chain()
+        grid, params = _localize(problem, plan, mg_meta, plan.inputs(arrays, global_ladder), global_ladder)
+        per_shard, counts = [], None
         for ctx, values in _run_operators(problem, plan, _extended(plan, grid), params, tracers):
             kernel_sums = [
                 rowwise_loss_sums(r["row_fn"], r["fields"], params=r["params"], data=r["data"], consts=r["consts"],
@@ -892,10 +1078,9 @@ def make_halo_loss_fn(problem, state, extra_partition=None, mg_ladder="local"):
                     sq = sq * mask
                 local.append(torch.sum(sq))
                 cnt.append(count)
-            local = [x.to(plan.first) for x in local]
-            sums = local if sums is None else [a + b for a, b in zip(sums, local)]
+            per_shard.append(torch.stack([x.to(plan.first) for x in local]))
             counts = cnt
-        terms = [s / c for s, c in zip(sums, counts)]
+        terms = [s / c for s, c in zip(_sum_shards(plan, per_shard).unbind(), counts)]
         loss = sum(terms)
         norms = [torch.sqrt(t) for t in terms]
         return loss, (terms, norms)
@@ -927,6 +1112,11 @@ def make_halo_residual_fn(problem, state, extra_partition=None):
     declined, as in the JAX package: their halo form reduces straight to
     masked sums."""
     plan = _HaloPlan(problem, state, extra_partition=extra_partition)
+    if plan.spmd:
+        raise NotImplementedError(
+            "make_halo_residual_fn over several processes is not ported (its CG dot products would need a "
+            "psum); run Gauss-Newton under --halo in one process"
+        )
     if plan.rowwise_calls:
         raise ValueError(
             "make_halo_residual_fn: kernel operators (ctx.rowwise_terms) "
@@ -1038,7 +1228,10 @@ def _make_halo_mg_loss_grad_fn(problem, state, extra_partition=None):
       g0/2 + Tcw - 1; the heads, rebuilt from the global level-0 term and
       partial at global rows g0-hist .. g0-1 (periodic) with the kernel's
       operation order (the JAX package rebuilds them on the ring predecessor
-      and ppermutes them: the same values);
+      and ppermutes them: the same values).  Across processes the coarse
+      levels are gathered whole, so the partial is whole on every process;
+      the level-0 term is this process's block, whole along t, so the heads'
+      rows are its own and only their x halo comes from the neighbours;
     - per-shard sums and the window cotangents are summed over the shards
       by autograd of the localization.
 
@@ -1112,7 +1305,7 @@ def _make_halo_mg_loss_grad_fn(problem, state, extra_partition=None):
     # block's global columns and the heads' global rows (index tensors made
     # here, outside the CUDA graph), and whether it owns its first row.
     geo = {}
-    for s in plan.shards:
+    for s in plan.local_shards:
         i_t = s.index[ax_t] if ax_t else 0
         x0 = (s.index[ax_x] * XB if ax_x else 0) - hx
         xcols = ((x0 + torch.arange(Xe)) % X).to(domain.device)
@@ -1120,37 +1313,48 @@ def _make_halo_mg_loss_grad_fn(problem, state, extra_partition=None):
         geo[s.key] = (i_t * B, x0, xcols, hrows, i_t == 0)
 
     def localize(*arrs):
-        """(t0x, Pw, heads) of every shard, flat: shard-major, field-minor."""
+        """(t0x, Pw, heads) of every local shard, flat: shard-major,
+        field-minor."""
         partials = {}
-        problem._flatten_multigrid_batched(problem.state_from_arrays(arrs), partial_out=partials)
+        problem._flatten_multigrid_batched(problem.state_from_arrays(plan.inputs(arrs)), partial_out=partials)
         out = []
-        t0x = {}
+        items = []
         for k in keys:
-            t0 = partials[k][0]
-            blocks = {s.key: _local_block(t0, plan, s, "ncc") for s in plan.shards}
-            t0x[k] = _extend_all(blocks, plan, x_widths, "ncc") if hx else blocks
-        for s in plan.shards:
+            t0, start = partials[k][0], plan.starts.get(k)
+            items.append(({s.key: _local_block(t0, plan, s, "ncc", start=start) for s in plan.local_shards},
+                          x_widths, "ncc", None))
+        if plan.spmd:
+            # The heads' rows at the shard's columns, x-extended like the
+            # blocks: t0[hrows][:, xcols] without the global t0.
+            for k in keys:
+                t0, start = partials[k][0], plan.starts.get(k)
+                items.append(({s.key: _local_block(t0[geo[s.key][3]], plan, s, "ncc", dims={1: 1}, start=start)
+                               for s in plan.local_shards}, x_widths, "ncc", {1: 1}))
+        ext = _extend_many(plan, items) if hx else [blocks for blocks, *_ in items]
+        t0x, t0h = dict(zip(keys, ext)), dict(zip(keys, ext[len(keys):]))
+        for s in plan.local_shards:
             g0, _, xcols, hrows, _ = geo[s.key]
             for j, k in enumerate(keys):
                 t0, P = partials[k][0], partials[k][2]
                 Pw = P.narrow(0, g0 // 2, Tcw) if k_t > 1 else P
-                heads = _head_rows(t0, P, hrows, xcols, f0s[j])
+                heads = _head_rows(t0, P, hrows, xcols, f0s[j], t0h[k][s.key] if plan.spmd else None)
                 out += [t0x[k][s.key], Pw.to(s.device), heads.to(s.device)]
         return tuple(out)
 
     graphs = []
 
     def loss_grad_fn(arrays, tracers):
-        if arrays[0].is_cuda:
+        plan.chain = comm.Chain()
+        if arrays[0].is_cuda and not plan.spmd:
             g = _graphed(graphs, localize, arrays, list(range(len(arrays))))
             parts = g.forward(arrays)
         else:
             leaves = [a.detach().requires_grad_(True) for a in arrays]
             with torch.enable_grad():
                 parts = localize(*leaves)
-        sums = None
+        per_shard = []
         douts = []
-        for n, s in enumerate(plan.shards):
+        for n, s in enumerate(plan.local_shards):
             g0, x0, _, _, own = geo[s.key]
             local_extra = plan.local_extra(problem, s)
             dctx = _HaloContext(plan, s, None, {}, local_extra, tracers)
@@ -1172,11 +1376,11 @@ def _make_halo_mg_loss_grad_fn(problem, state, extra_partition=None):
             lsums, (dt0, dPw, dheads, _) = rowwise_mg_local_loss_and_grads(
                 model, t0s, Pws, f0s, heads, x0=x0, consts=consts, nterms=nterms, hist=hist, gscale=1.0 / cells
             )
-            lsums = lsums.to(plan.first)
-            sums = lsums if sums is None else sums + lsums
+            per_shard.append(lsums.to(plan.first))
             for j in range(len(keys)):
                 douts += [dt0[j], dPw[j], dheads[j]]
-        if arrays[0].is_cuda:
+        sums = _sum_shards(plan, per_shard)
+        if arrays[0].is_cuda and not plan.spmd:
             grads = g.backward(douts)
         else:
             grads = list(torch.autograd.grad(parts, leaves, douts, allow_unused=True))
@@ -1187,15 +1391,16 @@ def _make_halo_mg_loss_grad_fn(problem, state, extra_partition=None):
     return loss_grad_fn
 
 
-def _head_rows(t0, P, r, xcols, f0):
+def _head_rows(t0, P, r, xcols, f0, t0r=None):
     """Fine rows ``r`` (global row indices) at the global columns ``xcols``,
     rebuilt from the level-0 term and the level-1 partial in the operation
-    order of ``ops/rowwise_mg._recon_rows``."""
+    order of ``ops/rowwise_mg._recon_rows``; ``t0r``, where given, is
+    ``t0[r][:, xcols]`` already gathered."""
     Tc, CX, CY = P.shape
     Wx, Wy = _interp_matrices(CX, CY, P.dtype, P.device)
     w = (0.5 * (r % 2).to(P.dtype)).view(-1, 1, 1)
     c = (1.0 - w) * P[r // 2] + w * P[torch.clamp(r // 2 + 1, max=Tc - 1)]
-    return f0 * t0[r][:, xcols] + torch.matmul(Wx[xcols], torch.matmul(c, Wy.T))
+    return f0 * (t0[r][:, xcols] if t0r is None else t0r) + torch.matmul(Wx[xcols], torch.matmul(c, Wy.T))
 
 
 def _make_halo_onepass_loss_grad_fn(problem, state, extra_partition=None):
@@ -1213,16 +1418,21 @@ def _make_halo_onepass_loss_grad_fn(problem, state, extra_partition=None):
     onto the arrays -- the halo exchange's transpose included.  Per-term sums
     are summed over the shards against the global counts.
 
-    Returns None when no kernel call is recorded, a call streams, or the
-    deferred probe fails; and for 64-bit fields on the card."""
+    Returns None when no kernel call is recorded, a call streams, or (in
+    one process) the deferred probe fails; and for 64-bit fields on the
+    card.  Across processes the route is decided from the plan alone, which
+    every process builds from the same state, before any collective: the
+    probe then runs on every process and a failure raises."""
     domain = problem.domain
     if _wide_on_card(domain):
         return None
     plan = _HaloPlan(problem, state, extra_partition=extra_partition)
-    if not plan.rowwise_calls:
+    if not plan.rowwise_calls or plan.streams:
         return None
     problem._capture_structure(state)
     arrays0 = domain.arrays_from_state(state)
+    if plan.spmd:
+        arrays0 = shard_state_arrays(domain, arrays0)
     mg_meta = _mg_metas(problem, state, plan)
     grid_keys = list(plan.locs)
     fields = problem._template.fields
@@ -1233,29 +1443,36 @@ def _make_halo_onepass_loss_grad_fn(problem, state, extra_partition=None):
     direct = [i for k in plan.param_keys for i in spans[k]]  # parameter unknowns: leaves as they are
     live = [i for i in range(pos) if i not in direct]
 
-    try:
+    def deferred_calls():
         with torch.no_grad():
-            grid0, params0 = _localize(problem, plan, mg_meta, arrays0)
+            grid0, params0 = _localize(problem, plan, mg_meta, plan.inputs(arrays0))
             probe = []
             for ctx, _ in _run_operators(problem, plan, _extended(plan, grid0), params0, problem.tracers):
                 probe += ctx.rowwise_deferred
-    except (ValueError, NotImplementedError, RuntimeError, TypeError, KeyError):
-        return None
-    if not probe or any(r["stream"] for r in probe):
-        return None
-    del grid0, params0, probe
+        return probe
+
+    if plan.spmd:
+        deferred_calls()
+    else:
+        try:
+            probe = deferred_calls()
+        except (ValueError, NotImplementedError, RuntimeError, TypeError, KeyError):
+            return None
+        if not probe or any(r["stream"] for r in probe):
+            return None
 
     def localize(*arrs):
-        """Every shard's extended block of every grid field, flat (key-major,
-        shard-minor)."""
-        ext = _extended(plan, _localize(problem, plan, mg_meta, arrs)[0])
-        return tuple(ext[k][s.key] for k in grid_keys for s in plan.shards)
+        """Every local shard's extended block of every grid field, flat
+        (key-major, shard-minor)."""
+        ext = _extended(plan, _localize(problem, plan, mg_meta, plan.inputs(arrs, kinds=("block", "whole")))[0])
+        return tuple(ext[k][s.key] for k in grid_keys for s in plan.local_shards)
 
     graphs = []
 
     def loss_grad_fn(arrays, tracers):
-        n = len(plan.shards)
-        if arrays[0].is_cuda:
+        plan.chain = comm.Chain()
+        n = len(plan.local_shards)
+        if arrays[0].is_cuda and not plan.spmd:
             g = _graphed(graphs, localize, arrays, live)
             exts = [e.requires_grad_(True) for e in g.forward(arrays)]
             own = {i: arrays[i].detach().requires_grad_(True) for i in direct}
@@ -1265,15 +1482,19 @@ def _make_halo_onepass_loss_grad_fn(problem, state, extra_partition=None):
             leaves = [a.detach().requires_grad_(True) for a in arrays]
             with torch.enable_grad():
                 exts = list(localize(*leaves))
-            st = problem.state_from_arrays(leaves)
-        ext = {k: {s.key: exts[j * n + m] for m, s in enumerate(plan.shards)} for j, k in enumerate(grid_keys)}
-        params = {s.key: {k: _param_on(st.fields[k], s.device) for k in plan.param_keys} for s in plan.shards}
+                st = problem.state_from_arrays(plan.inputs(leaves, kinds=("param",)))
+        ext = {k: {s.key: exts[j * n + m] for m, s in enumerate(plan.local_shards)} for j, k in enumerate(grid_keys)}
+        params = {s.key: {k: _param_on(st.fields[k], s.device) for k in plan.param_keys} for s in plan.local_shards}
         with torch.enable_grad():
             results = _run_operators(problem, plan, ext, params, tracers)
 
+        # Per shard a row of the terms' sums: a kernel term's raw sum, a plain
+        # term's sum over its count; summed over the shards, then the kernel
+        # terms over their counts.
         outs, couts = [], []
-        kterms, kcounts, oterms = {}, {}, {}
+        kcounts, rows = {}, []
         for ctx, values in results:
+            ksums = {}
             for idx, r in enumerate(ctx.rowwise_deferred):
                 count = r["count"]
                 sums, dfields, dprm = _loss_and_grads(
@@ -1281,16 +1502,18 @@ def _make_halo_onepass_loss_grad_fn(problem, state, extra_partition=None):
                     data=[x.detach() for x in r["data"]], consts=[x.detach() for x in r["consts"]],
                     nterms=r["nterms"], hist=r["hist"], gscale=1.0 / count,
                 )
-                sums = sums.to(plan.first)
+                ksums[idx] = sums.to(plan.first)
                 for t in range(r["nterms"]):
-                    kterms[(idx, t)] = kterms.get((idx, t), 0.0) + sums[t]
                     kcounts[(idx, t)] = count
                 for x, d in zip(tuple(r["fields"]) + tuple(r["params"]), tuple(dfields) + tuple(dprm)):
                     if x.requires_grad:
                         outs.append(x)
                         couts.append(d)
+            row = []
             for ti, v in enumerate(values):
                 if isinstance(v, Context.Raw):
+                    idx, t = v.deferred
+                    row.append(ksums[idx][t])
                     continue
                 mask, count = _plain_term_mask(plan, ctx.shard, v, ti)
                 sq = torch.square(v.detach())
@@ -1298,25 +1521,24 @@ def _make_halo_onepass_loss_grad_fn(problem, state, extra_partition=None):
                 if mask is not None:
                     sq = sq * mask
                     d = d * mask
-                oterms[ti] = oterms.get(ti, 0.0) + torch.sum(sq).to(plan.first) / count
+                row.append(torch.sum(sq).to(plan.first) / count)
                 if v.requires_grad:
                     outs.append(v)
                     couts.append(d)
+            rows.append(torch.stack(row))
         dleaves = torch.autograd.grad(outs, leaves, couts, allow_unused=True) if outs else [None] * len(leaves)
         dleaves = [torch.zeros_like(a) if d is None else d for a, d in zip(leaves, dleaves)]
-        if arrays[0].is_cuda:
+        if arrays[0].is_cuda and not plan.spmd:
             grads = g.backward(dleaves[: len(exts)])
             for i, d in zip(direct, dleaves[len(exts) :]):
                 grads[i] = d
         else:
             grads = dleaves
         grads = [torch.zeros_like(a) if d is None else d for a, d in zip(arrays, grads)]
+        sums = _sum_shards(plan, rows).unbind()
         terms = []
         for ti, v in enumerate(results[0][1]):
-            if isinstance(v, Context.Raw):
-                terms.append(kterms[v.deferred] / kcounts[v.deferred])
-            else:
-                terms.append(oterms[ti])
+            terms.append(sums[ti] / kcounts[v.deferred] if isinstance(v, Context.Raw) else sums[ti])
         tv = torch.stack([torch.as_tensor(t, dtype=arrays[0].dtype, device=plan.first) for t in terms])
         return (tv.sum(), (list(tv.unbind()), list(torch.sqrt(torch.clamp(tv, min=0)).unbind()))), grads
 

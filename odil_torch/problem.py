@@ -159,6 +159,13 @@ class Problem:
         norms = [torch.sqrt(torch.clamp(t, min=0)) for t in terms]
         return loss, terms, norms
 
+    def _refuse_processes(self):
+        """The routes without ``halo`` run in one process: a Domain whose
+        mesh spans several raises (``parallel.refuse_processes``)."""
+        from .parallel import refuse_processes
+
+        refuse_processes(self.domain.mesh, "the GSPMD route (a mesh without halo)", "use halo=True (--halo 1)")
+
     def _constrain_fields(self, state):
         """The domain's sharding constraint on every flattened fine-grid
         Field (``odil_tpu/problem.py:241``, the GSPMD route: a Domain with a
@@ -189,6 +196,7 @@ class Problem:
             from .halo import make_halo_loss_fn
 
             return make_halo_loss_fn(self, state, extra_partition=extra_partition)
+        self._refuse_processes()
         self._capture_structure(state)
         arrays0 = self.domain.arrays_from_state(state)
 
@@ -205,6 +213,7 @@ class Problem:
         device in the state's array order."""
         if not state.initialized:
             raise RuntimeError("Uninitialized state, use `state = domain.init_state(state)`")
+        self._refuse_processes()
         self._capture_structure(state)
         leaves = [a.detach().requires_grad_(True) for a in self.domain.arrays_from_state(state)]
         with torch.enable_grad():
@@ -250,6 +259,7 @@ class Problem:
             from .halo import make_halo_loss_grad_fn
 
             return make_halo_loss_grad_fn(self, state, extra_partition=extra_partition, fuse=halo_fuse)
+        self._refuse_processes()
         fn = self._make_mg_loss_grad_fn(state)
         if fn is not None:
             return fn
@@ -645,6 +655,7 @@ class Problem:
             from .halo import make_halo_residual_fn
 
             return make_halo_residual_fn(self, state)
+        self._refuse_processes()
         self._capture_structure(state)
         domain = self.domain
         arrays0 = domain.arrays_from_state(state)

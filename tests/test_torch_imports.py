@@ -65,6 +65,7 @@ def test_port_sources_found():
         "odil_torch/examples/heat_plot_train.py",
         "odil_torch/examples/poisson_plot_train.py",
         "odil_torch/examples/poisson_plot_field.py",
+        "odil_torch/comm.py",
     } <= names
 
 
@@ -73,7 +74,7 @@ def test_port_sources_found():
     [
         "odil_torch.models.heat", "odil_torch.models.wave", "odil_torch.nn", "odil_torch.stencil", "odil_torch.problem",
         "odil_torch.ops.rowwise", "odil_torch.ops.rowwise_mg", "odil_torch.models.veltracer",
-        "odil_torch.parallel", "odil_torch.halo",
+        "odil_torch.parallel", "odil_torch.halo", "odil_torch.comm",
         # The package itself (util, history, io, cache, checkpoint, linsolver, optim) and the CLIs.
         "odil_torch", "odil_torch.examples.veltracer", "odil_torch.examples.wave",
         # The optimizer, models and CLIs of the last slice.

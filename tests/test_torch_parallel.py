@@ -68,10 +68,121 @@ def test_auto_partition_matches_jax(spec):
 
 
 def test_init_distributed_single_process_only():
+    """The single-process calls are no-ops: no process group, process 0 of
+    1, and meshes of one process (several processes run in
+    tests/test_torch_distributed.py)."""
+    import torch.distributed as dist
+
     assert tpar.init_distributed() is None
     assert tpar.init_distributed(num_processes=1) is None
-    with pytest.raises(NotImplementedError):
-        tpar.init_distributed("localhost:1234", num_processes=2, process_id=0)
+    assert tpar.init_distributed("localhost:1234", num_processes=1, process_id=0) is None
+    assert not (dist.is_available() and dist.is_initialized())
+    assert (tpar.process_index(), tpar.process_count()) == (0, 1)
+    mesh = tpar.mesh_from_spec("t:2,x:4", devices=CPU8)
+    assert not mesh.spans_processes and mesh.processes == [0] and (mesh.owners == 0).all()
+    assert mesh.box() == {"t": (0, 2), "x": (0, 4)} and mesh.local_device == torch.device("cpu")
+
+
+def test_init_distributed_needs_a_card_or_device(monkeypatch):
+    """Several processes with no card visible and no device named raise
+    before any group is made: a process runs on the CPU only when asked."""
+    import torch.distributed as dist
+
+    monkeypatch.setattr(tpar, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="no CUDA device is visible"):
+        tpar.init_distributed("localhost:1", num_processes=2, process_id=0)
+    with pytest.raises(RuntimeError, match="no CUDA device is visible"):
+        tpar.init_distributed(backend="gloo")
+    assert not (dist.is_available() and dist.is_initialized())
+
+
+def _spanning(spec, nproc, process):
+    """The mesh of ``spec`` over CPU entries, owned process-major by
+    ``nproc`` processes, seen from ``process``."""
+    m = tpar.mesh_from_spec(spec, devices=CPU8)
+    owners = np.repeat(np.arange(nproc), m.devices.size // nproc).reshape(m.devices.shape)
+    return tpar.Mesh(m.devices, m.axis_names, owners=owners, process=process)
+
+
+@pytest.mark.parametrize("spec,nproc,boxes", [
+    ("t:2,x:4", 2, [{"t": (0, 1), "x": (0, 4)}, {"t": (1, 1), "x": (0, 4)}]),
+    ("x:2,t:2", 2, [{"x": (0, 1), "t": (0, 2)}, {"x": (1, 1), "t": (0, 2)}]),
+    ("t:2,x:2", 4, [{"t": (i, 1), "x": (j, 1)} for i in range(2) for j in range(2)]),
+], ids=["t2x4", "x2t2", "t2x2_one_each"])
+def test_mesh_owners_over_processes(spec, nproc, boxes):
+    """Each position's owner (process-major, as jax.devices() orders the
+    processes' devices) and each process's box."""
+    for r in range(nproc):
+        mesh = _spanning(spec, nproc, r)
+        assert mesh.spans_processes and mesh.processes == list(range(nproc))
+        assert mesh.box() == boxes[r] == mesh.box(r)
+        assert mesh.local_device == torch.device("cpu")
+        for pos in np.ndindex(*mesh.devices.shape):
+            index = dict(zip(mesh.axis_names, pos))
+            owner = [q for q, box in enumerate(boxes) if all(lo <= index[a] < lo + n for a, (lo, n) in box.items())]
+            assert owner == [mesh.owner_at(index)] == [int(mesh.owners[pos])]
+
+
+def test_mesh_box_check_raises():
+    """A process's positions must form a box of the mesh; a process that
+    owns none of a spanning mesh's positions cannot use it."""
+    devs = np.empty((3, 2), dtype=object)
+    devs[:] = torch.device("cpu")
+    with pytest.raises(ValueError, match="do not form a box"):
+        tpar.Mesh(devs, ("t", "x"), owners=np.repeat([0, 1], 3).reshape(3, 2), process=0)
+    with pytest.raises(ValueError, match="owns no position"):
+        tpar.Mesh(devs, ("t", "x"), owners=np.repeat([0, 1], 3).reshape(2, 3).T.copy(), process=2)
+    mesh = tpar.Mesh(devs, ("t", "x"), owners=np.array([[0, 1]] * 3), process=1)
+    assert mesh.box() == {"t": (0, 3), "x": (1, 1)}
+
+
+@pytest.mark.parametrize("process", range(4))
+def test_shard_state_arrays_gives_each_process_its_block(process):
+    """On t:2,x:2 over four processes (one shard each) every process holds
+    the block of each array that Domain.field_sharding names: the t axis of
+    N+1 nodes whole, x halved on the levels that divide, the coarse levels
+    that do not divide whole; the state the Domain initializes stays whole."""
+    mesh = _spanning("t:2,x:2", 4, process)
+    p, s, _ = tvt.build(nt=16, nx=16, ny=16, kernel="pallas", dtype=np.float64, device="cpu", mesh=mesh,
+                        partition={"t": "t", "x": "x"})
+    whole = [torch.arange(a.numel(), dtype=torch.float64).reshape(a.shape) for a in p.domain.arrays_from_state(s)]
+    assert [tuple(a.shape) for a in p.domain.arrays_from_state(s)] == [tuple(a.shape) for a in whole]
+    mine = tpar.shard_state_arrays(p.domain, whole)
+    i_x = process % 2
+    assert len(mine) == len(whole) > 2
+    for a, b in zip(whole, mine):
+        spec = p.domain.field_sharding(shape=tuple(a.shape)).spec
+        assert spec[0] is None and spec[2] is None  # node axis of N+1 entries; y unpartitioned
+        if a.shape[1] % 2:
+            assert spec[1] is None and torch.equal(a, b)
+        else:
+            assert spec[1] == "x"
+            n = a.shape[1] // 2
+            assert torch.equal(b, a[:, i_x * n: (i_x + 1) * n])
+
+
+def test_one_process_routes_raise_over_processes():
+    """The routes that run in one process only say so on a mesh over
+    several: the GSPMD route (a mesh without halo), Gauss-Newton's halo
+    residual map, multi_start, and a mesh over two cards in one process."""
+    from odil_torch.halo import make_halo_residual_fn
+    from odil_torch.models import poisson as tpo
+
+    mesh = _spanning("t:2,x:2", 2, 0)
+    p, s, _ = tvt.build(nt=8, nx=16, ny=16, kernel="pallas", dtype=np.float64, device="cpu", mesh=mesh,
+                        partition={"t": "t", "x": "x"})
+    for call in (lambda: p.make_loss_fn(s), lambda: p.make_loss_grad_fn(s), lambda: p.eval_loss_grad(s),
+                 lambda: p.residual_fn(s), lambda: tpar.multi_start(p, s, 2)):
+        with pytest.raises(NotImplementedError, match="several processes"):
+            call()
+    pp, ps, _ = tpo.build(n=16, dtype=np.float64, device="cpu", mesh=_spanning("x:2,y:2", 2, 1),
+                          partition={"x": "x", "y": "y"})
+    with pytest.raises(NotImplementedError, match="several processes"):
+        make_halo_residual_fn(pp, ps)
+    with pytest.raises(NotImplementedError, match="several processes"):
+        pp.residual_fn(ps, halo=True)
+    with pytest.raises(NotImplementedError, match="one card a process|one process a card"):
+        tpar.mesh_from_spec("x:2", devices=[torch.device("cuda", 0), torch.device("cuda", 1)])
 
 
 def test_domain_checks_the_partition():
