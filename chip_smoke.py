@@ -261,6 +261,35 @@ Phases, any failure exits non-zero and prints no result:
       backward+sums a process and epoch.  r3: one process with NCCL at
       world size 1, the generic route for 50 epochs: its rows equal to j.'s
       first 50 to the bit.
+   s. The other routes over several processes (the workers as in r.,
+      ``routes_worker``), against the single controller on the mesh of four
+      shards of the card.  s1: the flagship (64x256x256) ``pallas_mg`` on
+      t:2,x:2 through the GSPMD route (no ``halo``), four processes sharing
+      the card over gloo, 100 epochs: every process holds its blocks and
+      gathers the whole arrays (``Problem.make_loss_fn``); epoch 0's loss,
+      every process's block of the epoch-0 gradient and all 100 rows equal
+      to the single controller's to the bit; one mg backward+sums a process
+      and epoch, and the epoch-0 evaluation's forward and sums-off
+      backward.  s2: its plain operator (``kernel="xla"``), the same
+      route, 20 epochs: epoch 0 within 1e-6, each
+      block of the epoch-0 gradient within ``close_floor`` (the fp64 plain
+      operator as the floor's reference), every row within twice the spread
+      that one-ulp gradient noise opens in the single controller's rows
+      (three seeds); no kernel.  s3: q1's poisson gn CLI under ``--mesh
+      x:2,y:2 --halo 1`` over two processes of two shards: rows within
+      q1's band (rtol 1e-7 or twice the JAX package's own spread), every
+      process's iterate the same bits after every step.  s4:
+      ``multi_start`` with 4 starts on a batch axis over two processes, q3's
+      poisson (rows within 1e-12 of q3's) and heat (``pallas``, rows within
+      twice one-ulp noise's spread of q3's, each instance's rows within it
+      too; one forward and one backward row kernel an instance and epoch),
+      50 epochs.  s5: s1's problem in one process that has joined an NCCL
+      group at world size 1: its mesh does not span processes, so no
+      collective runs and the route is the one-process GSPMD route; 50
+      epochs, rows and the epoch-0 gradient equal to s1's single
+      controller's to the bit (joining NCCL changes no number; r3 holds
+      the same for the halo route).  Each prints its
+      ms/epoch, its collective rounds and the MB a process sends an epoch.
    The streaming kernels (veltracer at (65,256,256) and (65,64,64), heat and
    wave at 64^2 and 1024^2; on the card the slabbed launch, counted apart)
    and the two-level kernel (t0 (65,256,256), t1 (33,128,128), P2
@@ -1448,6 +1477,370 @@ def dist_phase(torch, np, counters, halo_losses, j_ms, ref256, heat_ref, epochs,
     return launches
 
 
+# Phase s: the routes beside --halo over several processes.  Its jobs: s12
+# (four processes sharing the card over gloo: the flagship's GSPMD route on
+# MESH_SPEC, s1 pallas_mg and s2 its plain operator), s34 (two processes: s3
+# the poisson gn CLI under --halo, s4 multi_start with the batch axis over
+# the processes) and s5 (one process in an NCCL group, s1's problem).
+ROUTES_EPOCHS = {"s1": 100, "s2": 20, "s4": 50, "s5": 50}
+ROUTES_PROCS = {"s12": 4, "s34": 2, "s5": 1}
+S2_LOSS_RTOL = 1e-6
+
+
+def count_collectives(comm, world):
+    """Counts this process's collective rounds and the bytes it sends in
+    them (``comm._exchange`` and the all_gathers of ``psum_table``,
+    ``allsum`` and the object gathers): {"rounds", "bytes"}, zeroed by the
+    caller."""
+    import torch.distributed as dist
+
+    stats = {"rounds": 0, "bytes": 0}
+    exchange, all_gather = comm._exchange, dist.all_gather
+
+    def counted_exchange(sends, recvs):
+        stats["rounds"] += 1
+        stats["bytes"] += sum(t.numel() * t.element_size() for _, _, t in sends)
+        return exchange(sends, recvs)
+
+    def counted_all_gather(parts, t, *a, **k):
+        stats["rounds"] += 1
+        stats["bytes"] += t.numel() * t.element_size() * (world - 1)
+        return all_gather(parts, t, *a, **k)
+
+    comm._exchange, dist.all_gather = counted_exchange, counted_all_gather
+    return stats
+
+
+def block_of(domain, ref, rank):
+    """This process's block of the whole array ``ref`` (``Domain.field_sharding``'s region)."""
+    if ref.ndim != domain.ndim:
+        return ref
+    region = domain.field_sharding(shape=tuple(ref.shape)).region(tuple(ref.shape), rank)
+    return ref[tuple(slice(lo, hi) for lo, hi in region)]
+
+
+def routes_worker(job, rank, world, port, out):
+    """One process of a phase-s job (``chip_smoke.py --dist-worker s..``):
+    joins the group (gloo for s12 and s34, whose processes share the card;
+    NCCL for s5), runs the job's routes on this process's blocks, and writes
+    its rows, ms/epoch, collectives and launches to ``<out>.<rank>.json``."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    import torch.distributed as dist
+
+    from odil_torch import comm, newton, parallel
+    from odil_torch.models import heat as th
+    from odil_torch.models import poisson as tpo
+    from odil_torch.models import veltracer as vt
+    from odil_torch.ops import rowwise as rw
+    from odil_torch.ops import rowwise_mg as rmg
+    from odil_torch.optim import Adam
+    from odil_torch.optim.base import autograd_loss_grad_fn as loss_grad_of
+
+    backend = "nccl" if job == "s5" else "gloo"
+    parallel.init_distributed(f"localhost:{port}", world, rank, backend=backend,
+                              device=None if DEVICE == "cuda" else DEVICE, timeout=DIST_TIMEOUT)
+    dev = parallel.local_device()
+    counters = Counters(rmg, rw)
+    stats = count_collectives(comm, world)
+    result = {"backend": backend, "transport": comm.transport(), "device": str(dev), "runs": {}}
+    stem = os.path.join(os.path.dirname(out), "chip_smoke_s")
+
+    def gspmd_run(name, kernel, epochs):
+        mesh = parallel.mesh_from_spec(MESH_SPEC) if world > 1 else parallel.mesh_from_spec(MESH_SPEC,
+                                                                                             devices=[dev] * 4)
+        problem, state, _ = vt.build(*SIZES["256"], kernel=kernel, device=dev, mesh=mesh, partition=MESH_PART)
+        domain = problem.domain
+        counters.zero()
+        loss0, grads0, *_ = problem.eval_loss_grad(state)
+        eval_counts = counters.read()
+        grad_fn = problem.make_loss_grad_fn(state) or loss_grad_of(problem.make_loss_fn(state)[0])
+        x0 = parallel.shard_state_arrays(domain, domain.arrays_from_state(state))
+        ref = torch.load(f"{stem}_{kernel}.pt")
+        _, grads = grad_fn(x0, {"epoch": 0})
+        mine = [block_of(domain, r.to(dev), rank) for r in ref["grads"]]
+        if any(g.shape != r.shape for g, r in zip(grads, mine)):
+            fail(f"phase {name}: process {rank}'s gradient blocks {[tuple(g.shape) for g in grads]}, the single "
+                 f"controller's {[tuple(r.shape) for r in mine]}")
+        grad = {
+            "bits": all(torch.equal(g, r) for g, r in zip(grads, mine))
+            and all(torch.equal(g, r) for g, r in zip(grads0, mine)),
+            "max_rel": max(float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30) for g, r in zip(grads, mine)),
+        }
+        if "grads64" in ref:
+            err, ok, worst = close_floor(grads, mine, [block_of(domain, r.to(dev), rank) for r in ref["grads64"]])
+            grad.update(close_floor=ok, err=err, worst=worst_text(worst))
+        counters.zero()
+        stats.update(rounds=0, bytes=0)
+        _, losses, chunk_ms = train(torch, Adam, grad_fn, x0, epochs, lr=0.01)
+        result["runs"][name] = {
+            "spans": domain.mesh.spans_processes, "loss0": float(loss0),
+            "grad": grad, "eval_counts": eval_counts, "losses": losses, "ms": steady_ms(chunk_ms)[0],
+            "counts": counters.read(), "rounds": stats["rounds"] / epochs, "mb": stats["bytes"] / epochs / 1e6,
+            "block": list(x0[0].shape),
+        }
+
+    if job in ("s12", "s5"):
+        for name, kernel in (("s1", "pallas_mg"), ("s2", "xla")) if job == "s12" else (("s5", "pallas_mg"),):
+            gspmd_run(name, kernel, ROUTES_EPOCHS[name])
+    else:
+        # s3: the poisson gn CLI of q1 under --mesh x:2,y:2 --halo 1, each
+        # process's iterate digested after every step.
+        digests = []
+        step = newton.gauss_newton_step
+
+        def recorded(*a, **k):
+            x, info = step(*a, **k)
+            digests.append(hashlib.sha256(x.detach().cpu().numpy().tobytes()).hexdigest())
+            return x, info
+
+        newton.gauss_newton_step = recorded
+        with open(NEWTON_DATA) as fh:
+            case = json.load(fh)["cases"]["poisson_gn"]
+        extra = [] if DEVICE == "cuda" else ["--device", DEVICE]
+        stats.update(rounds=0, bytes=0)
+        csv_rows, log, counts, (problem, state), seconds = run_cli(
+            torch, counters, "poisson", case["argv"] + ["--mesh", MESH_SPEC_XY, "--halo", "1"] + extra)
+        newton.gauss_newton_step = step
+        epochs = problem.solver_stats["epochs"]
+        result["runs"]["s3"] = {
+            "rows": value_rows(csv_rows, case["columns"]), "digests": digests, "counts": counts,
+            "ms": log_ms(log), "seconds": seconds, "matvecs": problem.solver_stats["matvecs"] / epochs,
+            "rounds": stats["rounds"] / epochs, "mb": stats["bytes"] / epochs / 1e6,
+        }
+        # s4: multi_start with its batch axis over the processes, q3's cases.
+        mesh = parallel.mesh_from_spec(f"b:{world}")
+        with open(HEAT_DATA) as fh:
+            lane = json.load(fh)["config"]
+        builds = {
+            "poisson": (lambda: tpo.build(n=64, ndim=2, args=argparse.Namespace(ref="osc", rhs="exact", osc_k=2.0,
+                                                                                  mgloss=0),
+                                          dtype=np.float64, device=dev), 0, 0.5),
+            "heat": (lambda: th.build(nt=lane["nt"], nx=lane["nx"], kernel="pallas", infer_k=True,
+                                      imposed=lane["imposed"], nimp=lane["nimp"], seed=lane["seed"], device=dev), 2,
+                     0.05),
+        }
+        for model, (build, seed, scale) in builds.items():
+            p, st, _ = build()
+            loss_b, stacked = parallel.multi_start(p, st, STARTS, seed=seed, scale=scale, mesh=mesh, batch_axis="b")
+            loss_fn, _ = p.make_loss_fn(st)
+            o = Adam(loss_grad_of(loss_b), stacked, lr=1e-3)
+
+            def row():
+                with torch.no_grad():
+                    return [float(loss_fn([a[i] for a in o.x], p.tracers)[0]) for i in range(len(o.x[0]))]
+
+            rows, losses, ms, counts = [row()], [], [], dict.fromkeys(counters.read(), 0)
+            stats.update(rounds=0, bytes=0)
+            for _ in range(ROUTES_EPOCHS["s4"] // CHUNK):
+                counters.zero()
+                torch.cuda.synchronize()
+                t_start = time.perf_counter()
+                out_ = o.run_chunk(CHUNK, p.tracers)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t_start) * 1e3 / CHUNK)
+                counts = {k: counts[k] + v for k, v in counters.read().items()}
+                losses += out_.cpu().tolist()
+                rows.append(row())
+            result["runs"][f"s4 {model}"] = {
+                "form": loss_b.form, "instances": loss_b.instances, "losses": losses, "rows": rows,
+                "ms": steady_ms(ms)[0], "counts": counts, "rounds": stats["rounds"] / len(losses),
+                "mb": stats["bytes"] / len(losses) / 1e6,
+            }
+    with open(f"{out}.{rank}.json", "w") as fh:
+        json.dump(result, fh)
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def routes_phase(torch, np, counters, heat_ref, q_refs, poisson_gn, j_ms, tag):
+    """Phase s (the module docstring): the GSPMD route, Gauss-Newton and
+    ``multi_start`` over several processes.  `q_refs`: phase q's rows and
+    ms/epoch; `poisson_gn`: phase o's; `j_ms`: phase j's ms/epoch by halo
+    route.  Returns the launches of the kernels on its paths, summed over
+    the processes."""
+    from odil_torch import parallel
+    from odil_torch.models import heat as th
+    from odil_torch.models import veltracer as vt
+    from odil_torch.optim import Adam
+    from odil_torch.optim.base import autograd_loss_grad_fn as loss_grad_of
+
+    dev = torch.device(DEVICE)
+    none = dict.fromkeys(counters.read(), 0)
+    t_s = time.perf_counter()
+    stem = dist_out("s")
+
+    def same_on_every_rank(results, run, key="losses"):
+        first = results[0]["runs"][run][key]
+        if any(r["runs"][run][key] != first for r in results[1:]):
+            fail(f"phase s: the {run} {key} differ between the processes")
+        return first
+
+    # The single controller of s1, s2 and s5: the GSPMD route on the mesh of
+    # four shards of the card (q4's unsharded evaluation), its epoch-0
+    # gradient saved for the workers to meet on their blocks.
+    single = {}
+    mesh = parallel.mesh_from_spec(MESH_SPEC, devices=[dev] * 4)
+    for kernel, epochs in (("pallas_mg", ROUTES_EPOCHS["s1"]), ("xla", ROUTES_EPOCHS["s2"])):
+        problem, state, _ = vt.build(*SIZES["256"], kernel=kernel, device=dev, mesh=mesh, partition=MESH_PART)
+        grad_fn = problem.make_loss_grad_fn(state) or loss_grad_of(problem.make_loss_fn(state)[0])
+        x0 = problem.domain.arrays_from_state(state)
+        loss0 = float(problem.eval_loss_grad(state)[0])
+        ref = {"grads": [g.detach().cpu() for g in grad_fn(x0, {"epoch": 0})[1]]}
+        spread = None
+        if kernel == "xla":
+            p64, s64, _ = vt.build(*SIZES["256"], kernel="xla", dtype=np.float64, device=dev)
+            ref["grads64"] = [g.detach().cpu() for g in p64.eval_loss_grad(s64)[1]]
+            del p64, s64
+        torch.save(ref, f"{stem}_{kernel}.pt")
+        _, losses, chunk_ms = train(torch, Adam, grad_fn, x0, epochs, lr=0.01)
+        if kernel == "xla":
+            spread = 0.0
+            for seed in ROUNDOFF_SEEDS:
+                moved = train(torch, Adam, one_ulp_moves(torch, grad_fn, seed, dev), x0, epochs, lr=0.01)[1]
+                spread = max(spread, max(abs(a - b) / abs(b) for a, b in zip(moved, losses)))
+        single[kernel] = (loss0, losses, steady_ms(chunk_ms)[0], spread)
+        del problem, state, grad_fn, x0, ref
+
+    launches = {}
+    results = dist_launch("s12", ROUTES_PROCS["s12"], ROUTES_EPOCHS["s1"], tag)
+    loss0, rows0, ms0, _ = single["pallas_mg"]
+    run = "s1"
+    losses = same_on_every_rank(results, run)
+    infos = [r["runs"][run] for r in results]
+    info = infos[0]
+    per_rank = {k: v for k, v in info["counts"].items() if v}
+    for rank, i in enumerate(infos):
+        expect_counts(i["counts"], dict(none, backward_mg=len(losses), backward_mg_with_sums=len(losses)),
+                      f"phase s1 on process {rank}")
+        expect_counts(i["eval_counts"], dict(none, forward_mg=1, backward_mg=1),
+                      f"phase s1's epoch 0 on process {rank}")
+    launches["backward_mg_sums"] = len(losses) * len(infos)
+    launches["forward_mg"] = launches["backward_mg"] = len(infos)
+    bits = all(i["grad"]["bits"] for i in infos)
+    print(f"s1 GSPMD pallas_mg (64x256x256, {MESH_SPEC}) over {len(results)} processes (gloo, one shard each, block "
+          f"{tuple(info['block'])}): epoch 0 {info['loss0']!r} vs the single "
+          f"controller's {loss0!r} (the same bits: {info['loss0'] == loss0}); every process's block of the epoch-0 "
+          f"gradient the single controller's to the bit: {bits}; {len(losses)} rows equal to its to the bit: "
+          f"{losses == rows0}; {info['ms']:.4f} ms/epoch (process 0) against the single controller's {ms0:.4f}, phase "
+          f"q4's veltracer CLI {q_refs['q4 ms']['veltracer']:.4f} and phase j's mg halo route {j_ms['mg']:.4f}; an "
+          f"epoch {info['rounds']:.1f} exchange rounds, {info['mb']:.3f} MB sent by process 0; launches a process "
+          f"{per_rank} {tag}")
+    if not info["spans"] or info["loss0"] != loss0 or not bits or losses != rows0:
+        fail(f"s1: mesh over processes {info['spans']}, epoch 0 the same bits {info['loss0'] == loss0}, gradient "
+             f"blocks the same bits {bits}, rows the same bits {losses == rows0}")
+
+    run = "s2"
+    loss0, rows0, ms0, spread = single["xla"]
+    losses = same_on_every_rank(results, run)
+    infos = [r["runs"][run] for r in results]
+    info = infos[0]
+    for rank, i in enumerate(infos):
+        expect_counts(i["counts"], none, f"phase s2 on process {rank}")
+    rel0 = abs(info["loss0"] - loss0) / abs(loss0)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, rows0)]
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    band = 2 * spread
+    floor_ok = all(i["grad"]["close_floor"] for i in infos)
+    print(f"s2 GSPMD xla (64x256x256 fp32, {MESH_SPEC}) over {len(results)} processes (gloo, one shard each): "
+          f"epoch 0 {info['loss0']!r} vs the single controller's {loss0!r} (rel {rel0:.2e}, limit "
+          f"{S2_LOSS_RTOL:.0e}); epoch-0 gradient blocks within close_floor on every process: {floor_ok} (largest "
+          f"max|d| {max(i['grad']['err'] for i in infos):.3e}, process 0 {info['grad']['worst']}; the same bits "
+          f"{all(i['grad']['bits'] for i in infos)}); {len(losses)} rows (the same bits {losses == rows0}), "
+          f"the largest distance epoch {worst} ({100 * rel[worst]:.5f}%) within {100 * band:.5f}% (one-ulp noise "
+          f"opens {100 * spread:.5f}%); {info['ms']:.4f} ms/epoch (process 0) against the single controller's "
+          f"{ms0:.4f}; an epoch {info['rounds']:.1f} exchange rounds, {info['mb']:.3f} MB sent by process 0; no "
+          f"kernel {tag}")
+    if not info["spans"] or rel0 > S2_LOSS_RTOL or not floor_ok or rel[worst] > band:
+        fail(f"s2: mesh over processes {info['spans']}, epoch 0 rel {rel0:.2e}, gradient within close_floor "
+             f"{floor_ok}, epoch {worst} {100 * rel[worst]:.5f}% (band {100 * band:.5f}%)")
+
+    # s3 and s4: two processes.  s4's band for heat: twice the spread that
+    # one-ulp gradient noise opens in the single controller's batch rows
+    # (q3's case, three seeds).
+    lane = heat_ref["config"]
+    p, st, _ = th.build(nt=lane["nt"], nx=lane["nx"], kernel="pallas", infer_k=True, imposed=lane["imposed"],
+                        nimp=lane["nimp"], seed=lane["seed"], device=dev)
+    loss_b, stacked = parallel.multi_start(p, st, STARTS, seed=2, scale=0.05)
+    heat_rows = q_refs["q3 heat"]
+    heat_spread = 0.0
+    for seed in ROUNDOFF_SEEDS:
+        o = Adam(one_ulp_moves(torch, loss_grad_of(loss_b), seed, dev), stacked, lr=1e-3)
+        moved = sum((o.run_chunk(CHUNK, p.tracers).cpu().tolist() for _ in range(ROUTES_EPOCHS["s4"] // CHUNK)), [])
+        heat_spread = max(heat_spread, max(abs(a - b) / abs(b) for a, b in zip(moved, heat_rows)))
+    del p, st, loss_b, stacked
+
+    results = dist_launch("s34", ROUTES_PROCS["s34"], ROUTES_EPOCHS["s4"], tag)
+    with open(NEWTON_DATA) as fh:
+        case = json.load(fh)["cases"]["poisson_gn"]
+    rows = same_on_every_rank(results, "s3", "rows")
+    digests = [r["runs"]["s3"]["digests"] for r in results]
+    same_x = all(d == digests[0] for d in digests) and len(digests[0]) > 0
+    info = results[0]["runs"]["s3"]
+    for rank, r in enumerate(results):
+        expect_counts(r["runs"]["s3"]["counts"], none, f"phase s3 on process {rank}")
+    what = (f"s3 poisson gn CLI (64^2 fp64, plain CG) under --mesh {MESH_SPEC_XY} --halo 1 over {len(results)} "
+            f"processes of two shards (gloo)")
+    q1_rows, q1_ms = q_refs["q1"]
+    rows_gate(rows, q1_rows, case["columns"], what + " (rtol 1e-7 or twice the JAX package's own spread)", tag, 1e-7,
+              spread=case["jax_spread"], whose="phase q1's")
+    print(f"{what}: every process's iterate the same bits after each of {len(digests[0])} steps: {same_x}; "
+          f"{info['ms']:.4f} ms/epoch, {info['matvecs']:.1f} normal matvecs an epoch, {info['rounds']:.1f} collective "
+          f"rounds and {info['mb']:.3f} MB sent by process 0 an epoch; q1 {q1_ms:.4f} ms/epoch, phase o "
+          f"{poisson_gn[1]:.4f} {tag}")
+    if not same_x:
+        fail("s3: the processes' iterates differ")
+    for model, ref_rows, rtol in (("poisson", q_refs["q3 poisson"], 1e-12), ("heat", heat_rows, 2 * heat_spread)):
+        run = f"s4 {model}"
+        losses = same_on_every_rank(results, run)
+        infos = [r["runs"][run] for r in results]
+        ref = ref_rows[: len(losses)]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+        worst = max(range(len(rel)), key=rel.__getitem__)
+        inst_rel = 0.0
+        for i in infos:
+            for got, want in zip(i["rows"], q_refs["q3 heat rows"]) if model == "heat" else ():
+                for n, k in enumerate(i["instances"]):
+                    inst_rel = max(inst_rel, abs(got[n] - want[k]) / abs(want[k]))
+        per = len(infos[0]["instances"])
+        if model == "heat":
+            for rank, i in enumerate(infos):
+                expect_counts(i["counts"], dict(none, forward_rows=per * len(losses), backward_rows=per * len(losses)),
+                              f"phase s4 heat on process {rank}")
+            launches["forward_rows_heat_64"] = launches["backward_rows_heat_64"] = per * len(losses) * len(infos)
+        instances = [i["instances"] for i in infos]
+        print(f"s4 multi_start {model} ({STARTS} starts, batch axis over {len(results)} processes, instances "
+              f"{instances}, form {infos[0]['form']}): {len(losses)} batch-mean rows against q3's, the largest "
+              f"distance epoch {worst} ({rel[worst]:.3e}, limit {rtol:.3e}); "
+              + (f"every instance's rows against q3's same instance largest rel {inst_rel:.2e}; " if model == "heat"
+                 else "") + f"{infos[0]['ms']:.4f} ms/epoch (process 0), {infos[0]['rounds']:.1f} collective rounds "
+              f"and {infos[0]['mb']:.6f} MB sent an epoch {tag}")
+        if sorted(sum(instances, [])) != list(range(STARTS)) or rel[worst] > rtol or inst_rel > max(rtol, 1e-5):
+            fail(f"s4 {model}: instances {instances}, epoch {worst} rel {rel[worst]:.3e} (limit {rtol:.3e}), instance "
+                 f"rows rel {inst_rel:.2e}")
+
+    (res,) = dist_launch("s5", ROUTES_PROCS["s5"], ROUTES_EPOCHS["s5"], tag)
+    run = res["runs"]["s5"]
+    rows0 = single["pallas_mg"][1]
+    same = run["losses"] == rows0[: len(run["losses"])]
+    expect_counts(run["counts"], dict(none, backward_mg=len(run["losses"]), backward_mg_with_sums=len(run["losses"])),
+                  "phase s5")
+    launches["backward_mg_sums"] += len(run["losses"])
+    print(f"s5 GSPMD pallas_mg, one process in a group of one, backend {res['backend']} ({res['transport']}; the "
+          f"mesh over processes: {run['spans']}, so no collective runs); "
+          f"{len(run['losses'])} epochs, rows equal to s1's single controller's first {len(run['losses'])} to the bit: "
+          f"{same}; epoch-0 gradient the same bits: {run['grad']['bits']}; {run['ms']:.4f} ms/epoch {tag}")
+    if run["spans"] or not same or not run["grad"]["bits"]:
+        fail("s5: the rows or the epoch-0 gradient over NCCL at world size 1 differ from the single controller's")
+    print(f"phase s: {time.perf_counter() - t_s:.1f} s {tag}")
+    return launches
+
+
 def autograd_loss_grad_fn(torch, problem, state, halo=False):
     """The plain route's training step: autograd of make_loss_fn (per shard
     with the halo exchange when `halo`)."""
@@ -1959,8 +2352,9 @@ def mesh_phase(torch, np, counters, heat_lane, vt_rows, vt_ms, vt_epochs, poisso
     GSPMD route (``--mesh`` without ``--halo``) of three CLIs.  `vt_rows`,
     `vt_ms`: phase m's veltracer CLI rows and ms/epoch; `poisson_gn`: phase
     o's plain-CG poisson gn rows, ms/epoch and normal matvecs an epoch.
-    Returns the launches of the kernels on phase q's paths.  extra_argv goes
-    to every CLI (a rehearsal on the CPU passes --device)."""
+    Returns the launches of the kernels on phase q's paths and the rows and
+    ms/epoch that phase s holds its processes to.  extra_argv goes to every
+    CLI (a rehearsal on the CPU passes --device)."""
     import argparse
 
     from odil_torch import parallel
@@ -1973,7 +2367,7 @@ def mesh_phase(torch, np, counters, heat_lane, vt_rows, vt_ms, vt_epochs, poisso
 
     none = dict.fromkeys(counters.read(), 0)
     dev = torch.device(DEVICE)
-    launches = {}
+    launches, keep = {}, {"q4 ms": {}}
 
     def nonzero(counts):
         return {k: v for k, v in counts.items() if v}
@@ -1996,6 +2390,7 @@ def mesh_phase(torch, np, counters, heat_lane, vt_rows, vt_ms, vt_epochs, poisso
     rows = value_rows(csv_rows, case["columns"])
     rows_gate(rows, rows0, case["columns"], what + " (rtol 1e-7 or twice the JAX package's own spread)", tag, 1e-7,
               spread=case["jax_spread"], whose="phase o's unsharded")
+    keep["q1"] = (rows, log_ms(log))
     stats = problem.solver_stats
     if {a.device.type for a in problem.domain.arrays_from_state(state)} != {dev.type}:
         fail(f"{what}: the iterate is not on {dev}")
@@ -2065,7 +2460,7 @@ def mesh_phase(torch, np, counters, heat_lane, vt_rows, vt_ms, vt_epochs, poisso
     with torch.no_grad():
         lb0 = float(loss_b(stacked, p.tracers)[0])
     counters.zero()
-    opt, _, chunk_ms = train(torch, Adam, loss_grad_of(loss_b), stacked, STARTS_PLAIN_EPOCHS, lr=1e-3)
+    opt, keep["q3 poisson"], chunk_ms = train(torch, Adam, loss_grad_of(loss_b), stacked, STARTS_PLAIN_EPOCHS, lr=1e-3)
     expect_counts(counters.read(), none, "multi_start on poisson (plain torch)")
     l1 = instance_losses(opt.x)
     single_ms = [steady_ms(train(torch, Adam, loss_grad_of(loss_fn), [a[i] for a in stacked], STARTS_PLAIN_EPOCHS,
@@ -2092,9 +2487,10 @@ def mesh_phase(torch, np, counters, heat_lane, vt_rows, vt_ms, vt_epochs, poisso
     def kernel_run(fn, arrays, batch):
         """Adam lr 0.001 in chunks of CHUNK epochs on the `batch` of instances
         or one: (optimizer, host ms/epoch of the chunks, launches while
-        training, each instance's loss at epoch 0 and after each chunk)."""
+        training, each instance's loss at epoch 0 and after each chunk, the
+        losses of every epoch)."""
         o = Adam(loss_grad_of(fn), arrays, lr=1e-3)
-        rows, ms, counts = [], [], dict(none)
+        rows, ms, counts, losses = [], [], dict(none), []
 
         def row():
             with torch.no_grad():
@@ -2106,21 +2502,23 @@ def mesh_phase(torch, np, counters, heat_lane, vt_rows, vt_ms, vt_epochs, poisso
             counters.zero()
             torch.cuda.synchronize()
             t_start = time.perf_counter()
-            o.run_chunk(CHUNK, p.tracers)
+            out = o.run_chunk(CHUNK, p.tracers)
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t_start) * 1e3 / CHUNK)
             counts = {k: counts[k] + v for k, v in counters.read().items()}
+            losses += out.cpu().tolist()
             rows.append(row())
-        return o, ms, counts, rows
+        return o, ms, counts, rows, losses
 
-    _, ms_b, counts, rows_b = kernel_run(loss_b, stacked, True)
+    _, ms_b, counts, rows_b, keep["q3 heat"] = kernel_run(loss_b, stacked, True)
+    keep["q3 heat rows"] = rows_b
     expect_counts(counts, dict(none, forward_rows=STARTS * STARTS_KERNEL_EPOCHS,
                                backward_rows=STARTS * STARTS_KERNEL_EPOCHS),
                   "multi_start on heat's kernel route (a loop over the instances)")
     launches["q3 heat"] = nonzero(counts)
     worst, single_ms = 0.0, []
     for i in range(STARTS):
-        _, ms_i, _, rows_i = kernel_run(scaled, [a[i] for a in stacked], False)
+        _, ms_i, _, rows_i, _ = kernel_run(scaled, [a[i] for a in stacked], False)
         single_ms.append(steady_ms(ms_i)[0])
         for e, (a, b) in enumerate(zip(rows_b, rows_i)):
             worst = max(worst, abs(a[i] - b[0]) / abs(b[0]))
@@ -2170,7 +2568,8 @@ def mesh_phase(torch, np, counters, heat_lane, vt_rows, vt_ms, vt_epochs, poisso
         if any(a.device.type != dev.type for a in arrays) or any(a is not b for a, b in zip(placed, arrays)):
             fail(f"{name} CLI --mesh {spec}: the state left the card or its placement copied it")
         launches[f"q4 {name}"] = nonzero(counts)
-    return launches
+        keep["q4 ms"][name] = log_ms(log)
+    return launches, keep
 
 
 def main():
@@ -2183,7 +2582,10 @@ def main():
     t_main = time.perf_counter()
     if args.dist_worker:
         job, rank, world, port, out = args.dist_worker
-        dist_worker(job, int(rank), int(world), port, out, args.epochs)
+        if job.startswith("s"):
+            routes_worker(job, int(rank), int(world), port, out)
+        else:
+            dist_worker(job, int(rank), int(world), port, out, args.epochs)
         return
 
     import numpy as np
@@ -3068,7 +3470,8 @@ def main():
     # q. Every mesh route on the card: Gauss-Newton under --halo, the global
     # multigrid ladder, multi_start and the GSPMD route.
     t_q = time.perf_counter()
-    q_launches = mesh_phase(torch, np, counters, heat_ref["config"], vt_rows, vt_ms, args.epochs, poisson_gn, tag)
+    q_launches, q_refs = mesh_phase(torch, np, counters, heat_ref["config"], vt_rows, vt_ms, args.epochs, poisson_gn,
+                                    tag)
     t_q = time.perf_counter() - t_q
     print(f"phase q: launches on its paths {q_launches}; {t_q:.1f} s {tag}")
 
@@ -3079,6 +3482,15 @@ def main():
     t_r = time.perf_counter() - t_r
     for name, n in r_launches.items():
         launches[name] += n
+
+    # s. The GSPMD route, Gauss-Newton and multi_start over several processes.
+    t_s = time.perf_counter()
+    s_launches = routes_phase(torch, np, counters, heat_ref, q_refs, poisson_gn,
+                              {f: loops[f"halo {f} 256"][1][0] for f in halo_losses}, tag)
+    t_s = time.perf_counter() - t_s
+    for name, n in s_launches.items():
+        launches[name] += n
+        print(f"phase s: {name} +{n} launches (s) {tag}")
 
     idle = [name for name in report if launches.get(name, 0) < 1]
     if idle:
@@ -3297,7 +3709,8 @@ def main():
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
 
-    print(f"seconds: phase p {t_p:.1f}, phase q {t_q:.1f}, phase r {t_r:.1f}, the script from its start (the kernels' build included) "
+    print(f"seconds: phase p {t_p:.1f}, phase q {t_q:.1f}, phase r {t_r:.1f}, phase s {t_s:.1f}, the script from its "
+          f"start (the kernels' build included) "
           f"{time.perf_counter() - t_main:.1f} {tag}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

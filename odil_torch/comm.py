@@ -17,7 +17,15 @@ autograd Function over ``torch.distributed``'s default group:
   of the processes that hold the same blocks, summed in rank order;
 - ``gather(xs, specs)``: the whole arrays from every process's blocks;
   backward, each process's block of every process's cotangent, summed in
-  rank order.
+  rank order;
+- ``gather_replicated(xs, specs)``: the same whole arrays, for an
+  evaluation that every process runs whole (the GSPMD route over
+  processes); backward, this process's block of its own cotangent, since
+  every process differentiates the same function of them;
+- ``allsum(x)``: the sum of every process's ``x`` (whole x-space vectors
+  of Gauss-Newton), added in rank order, so every process gets the same
+  bits; backward, the identity, as for ``psum_table``; under
+  ``torch.func.vmap`` one exchange for the whole batch.
 
 Each call is one round of messages, one a peer: its pieces are packed.
 
@@ -39,8 +47,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = [
-    "Chain", "CollectiveError", "gather", "initialized", "ppermute", "psum_table", "rank", "replicas", "transport",
-    "world_size",
+    "Chain", "CollectiveError", "allsum", "gather", "gather_replicated", "initialized", "ppermute", "psum_table",
+    "rank", "replicas", "transport", "world_size",
 ]
 
 
@@ -339,3 +347,70 @@ def gather(xs, specs, chain):
     if not xs or len(specs[0][0]) == 1:
         return list(xs)
     return _apply(_Gather, tuple((tuple(r), tuple(s)) for r, s in specs), list(xs), chain)
+
+
+
+class _GatherReplicated(_Gather):
+
+    @staticmethod
+    def backward(ctx, _gtoken, *gs):
+        me = rank()
+        return (None, _token_grad(ctx)) + tuple(g[_slices(regions[me])] for g, (regions, _) in zip(gs, ctx.spec))
+
+
+def gather_replicated(xs, specs, chain):
+    """``gather``'s whole arrays, for an evaluation that every process runs
+    on the whole arrays alike (so every process's cotangent of them is the
+    whole gradient): the backward keeps this process's block of its own
+    cotangent and exchanges nothing.  ``gather``'s backward, which sums the
+    processes' cotangents, would give the gradient times the world size
+    there."""
+    if not xs or len(specs[0][0]) == 1:
+        return list(xs)
+    return _apply(_GatherReplicated, tuple((tuple(r), tuple(s)) for r, s in specs), list(xs), chain)
+
+
+# -- Sums of whole vectors --------------------------------------------------
+
+
+def _allsum(x):
+    """Every process's ``x`` summed in rank order (one all_gather)."""
+    wire = _wire(x)
+    parts = [torch.empty_like(wire) for _ in range(world_size())]
+    try:
+        dist.all_gather(parts, wire)
+    except Exception as e:  # noqa: BLE001 -- re-raised as the one error no caller takes
+        raise CollectiveError(f"all_gather of a vector to sum failed: {e}") from e
+    return _fold([p.to(x.device, non_blocking=True) for p in parts], list(range(len(parts))))
+
+
+class _AllSum(torch.autograd.Function):
+
+    @staticmethod
+    def forward(x):
+        return _allsum(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+    @staticmethod
+    def vmap(info, in_dims, x):
+        return _allsum(x), in_dims[0]
+
+
+def allsum(x):
+    """The sum of every process's ``x`` (a whole vector of one shape on
+    every process), added in rank order: the same bits on every process.
+    Gauss-Newton's transposed products over processes: each process pulls
+    its residual block back to a whole x-space vector, and these are summed.
+    Its backward is the identity (every process differentiates the same
+    function of the sum, as for ``psum_table``); under ``torch.func.vmap``
+    the batch is summed in one exchange."""
+    if world_size() == 1:
+        return x
+    return _AllSum.apply(x)

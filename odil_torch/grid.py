@@ -278,13 +278,16 @@ class Domain:
         """The domain's sharding constraint on a fine-grid array
         (``odil_tpu/grid.py:289``, uneven tiling allowed).  On one card
         GSPMD's partitioning changes no number, so this places the array on
-        the mesh's card and leaves its values as they are."""
+        the mesh's card and leaves its values as they are.  Over several
+        processes the constraint meets the whole array that the GSPMD route
+        gathers and every process evaluates alike (``Problem.make_loss_fn``):
+        it stays whole, on this process's device."""
         if self.mesh is None or self.partition is None:
             return array
-        from .parallel import refuse_processes
-
-        refuse_processes(self.mesh, "the GSPMD route (a mesh without halo)", "use halo=True (--halo 1)")
-        return self.field_sharding(shape=tuple(array.shape), allow_uneven=True).place(array)
+        sharding = self.field_sharding(shape=tuple(array.shape), allow_uneven=True)
+        if self.mesh.spans_processes:
+            return array.to(self.mesh.local_device)
+        return sharding.place(array)
 
     # -- Multigrid decomposition -------------------------------------------
 

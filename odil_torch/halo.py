@@ -434,6 +434,13 @@ class _HaloPlan:
         # new chain (``comm.Chain``).
         self.chain = comm.Chain()
 
+    def every_shard(self):
+        """Every shard of the mesh, in shard order, on this process's device:
+        the blocks that a process holding the whole arrays slices for the
+        shards of others (``_localize(..., every=True)``)."""
+        return [s if s.owner == self.mesh.process else _Shard(s.index, s.key, self.first, s.owner, s.number)
+                for s in self.shards]
+
     def tag(self, key, which):
         """The tag of shard ``key``'s slab ``which`` (0: its trailing rows, 1:
         its leading rows) in one exchange."""
@@ -685,7 +692,7 @@ class _HaloPlan:
         return m
 
 
-def _localize(problem, plan, mg_meta, arrays, global_ladder=False):
+def _localize(problem, plan, mg_meta, arrays, global_ladder=False, every=False):
     """Every local shard's grid blocks and parameter unknowns from the
     arrays as ``plan.inputs`` gives them: ``({key: {shard key: block}},
     {shard key: {key: Array or NeuralNet}})``.  Multigrid fields run the
@@ -693,22 +700,27 @@ def _localize(problem, plan, mg_meta, arrays, global_ladder=False):
     first and sliced like plain Fields.  Differentiable.  The counterpart of
     the JAX package's ``_halo_global_inputs`` (:1031, the ghost-node layout)
     and ``_local_grid_params`` (:1003, the local ladder and the parameters'
-    regrouping) together."""
+    regrouping) together.
+
+    every=True: ``arrays`` are the whole arrays, and the blocks of every
+    shard of the mesh are sliced from them (``plan.every_shard``), so that
+    extending them needs no exchange."""
+    shards = plan.every_shard() if every else plan.local_shards
     st = problem._fine_state(arrays) if global_ladder else problem.state_from_arrays(arrays)
-    grid, params = {}, {s.key: {} for s in plan.local_shards}
+    grid, params = {}, {s.key: {} for s in shards}
     for key, f in st.fields.items():
-        start = None if global_ladder else plan.starts.get(key)
+        start = None if (global_ladder or every) else plan.starts.get(key)
         if isinstance(f, Field):
-            grid[key] = {s.key: _local_block(f.array, plan, s, plan.locs[key], start=start) for s in plan.local_shards}
+            grid[key] = {s.key: _local_block(f.array, plan, s, plan.locs[key], start=start) for s in shards}
         elif isinstance(f, MultigridField):
             levels = [t.array for t in f.terms]
             grid[key] = {}
-            for s in plan.local_shards:
+            for s in shards:
                 local = [_local_block(levels[0], plan, s, plan.locs[key], start=start)]
                 local += [lv.to(s.device) for lv in levels[1:]]
                 grid[key][s.key] = _local_mg_block(plan, s, mg_meta[key], local)
         else:
-            for s in plan.local_shards:
+            for s in shards:
                 params[s.key][key] = _param_on(f, s.device)
     return grid, params
 
@@ -1107,16 +1119,26 @@ def make_halo_residual_fn(problem, state, extra_partition=None):
     fixed permutation plus structurally zero rows, f is
     ``Problem.residual_fn``'s map: the normal equations are the same.
 
+    Over several processes the packed state x is whole and the same on every
+    process, and f(x) is this process's part of the vector: its shards'
+    blocks stitched over its box of the mesh (the other terms on the
+    process of the first shard only).  Each process slices the blocks of
+    every shard from x (``_localize(..., every=True)``), so f exchanges
+    nothing and ``torch.func`` differentiates it as it is; what crosses
+    processes is left to the caller (``newton.py``) through the attributes
+    that f then carries: ``reduce_x`` (the ordered sum of the processes'
+    x-space vectors, ``comm.allsum``: J^T w is the sum of the processes'
+    pullbacks), ``term_sums(r)`` (each term's sum of squares over the whole
+    vector, folded in shard order through ``comm.psum_table``),
+    ``term_counts`` (the terms' whole sizes) and ``local_part(z)`` (this
+    process's part of a vector of the whole map's layout, e.g. a probe drawn
+    whole on every process).
+
     The localization runs eagerly (no CUDA graphs), so that forward-mode
     products pass through it.  Kernel operators (``ctx.rowwise_terms``) are
     declined, as in the JAX package: their halo form reduces straight to
     masked sums."""
     plan = _HaloPlan(problem, state, extra_partition=extra_partition)
-    if plan.spmd:
-        raise NotImplementedError(
-            "make_halo_residual_fn over several processes is not ported (its CG dot products would need a "
-            "psum); run Gauss-Newton under --halo in one process"
-        )
     if plan.rowwise_calls:
         raise ValueError(
             "make_halo_residual_fn: kernel operators (ctx.rowwise_terms) "
@@ -1133,6 +1155,8 @@ def make_halo_residual_fn(problem, state, extra_partition=None):
     # in which the shard keys index the blocks.
     axis_dim = {a: d for d, a in plan.dim_axis.items()}
     stitch_dims = [axis_dim[a] for a in plan.used_axes]
+    first_here = plan.shards[0].owner == plan.mesh.process
+    other_shapes = {}  # the shapes of the terms that are not grid-rank
 
     def stitch(blocks):
         """One tensor from {shard key: block}: the blocks concatenated along
@@ -1146,7 +1170,7 @@ def make_halo_residual_fn(problem, state, extra_partition=None):
 
     def f_values(x):
         arrays = [p.reshape(s) for p, s in zip(torch.split(x, sizes), shapes)]
-        grid, params = _localize(problem, plan, mg_meta, arrays)
+        grid, params = _localize(problem, plan, mg_meta, arrays, every=plan.spmd)
         results = _run_operators(problem, plan, _extended(plan, grid), params, problem.tracers)
         out = []
         for ti in range(len(results[0][1])):
@@ -1155,8 +1179,12 @@ def make_halo_residual_fn(problem, state, extra_partition=None):
                 v = values[ti]
                 mask, _ = _plain_term_mask(plan, ctx.shard, v, ti)
                 blocks[ctx.shard.key] = (v if mask is None else v * mask).to(plan.first)
-            first = blocks[plan.shards[0].key]
-            out.append(stitch(blocks) if first.ndim == domain.ndim else first)
+            some = blocks[plan.local_shards[0].key]
+            if some.ndim == domain.ndim:
+                out.append(stitch(blocks))
+            else:
+                other_shapes[ti] = tuple(some.shape)
+                out.append(blocks[plan.shards[0].key] if first_here else some.reshape(-1)[:0])
         return out
 
     def f(x):
@@ -1167,7 +1195,82 @@ def make_halo_residual_fn(problem, state, extra_partition=None):
         values = f_values(x0)
     f.term_names = list(plan.names)
     f.term_sizes = [int(v.numel()) for v in values]
+    if plan.spmd:
+        _spread_residual_space(f, plan, values, other_shapes, stitch_dims)
     return f, x0
+
+
+def _spread_residual_space(f, plan, values, other_shapes, stitch_dims):
+    """The attributes of a residual map over processes
+    (``make_halo_residual_fn``): ``reduce_x``, ``term_sums``,
+    ``term_counts`` and ``local_part``.  ``values``: this process's terms at
+    x0 (their shapes give the layout); ``other_shapes``: {term: shape} of
+    the terms that are not grid-rank."""
+    ndim = plan.domain.ndim
+    box = plan.mesh.box()
+    first_here = plan.shards[0].owner == plan.mesh.process
+    grid_term = []  # per term: None, or the block extent along each stitch dimension and the whole shape
+    counts = []
+    for v in values:
+        if v.ndim != ndim:
+            grid_term.append(None)
+            counts.append(int(np.prod(other_shapes[len(counts)])))
+            continue
+        extent = [v.shape[d] // box[a][1] for a, d in zip(plan.used_axes, stitch_dims)]
+        whole = list(v.shape)
+        for a, d, e in zip(plan.used_axes, stitch_dims, extent):
+            whole[d] = e * plan.axis_sizes[a]
+        grid_term.append((extent, tuple(whole)))
+        counts.append(int(np.prod(whole)))
+    sizes = list(f.term_sizes)
+
+    def blocks_of(t, ti):
+        """This process's shards' blocks of term ``ti``'s stitched tensor
+        ``t``, in shard order."""
+        extent, _ = grid_term[ti]
+        out = []
+        for s in plan.local_shards:
+            b = t
+            for a, d, e in zip(plan.used_axes, stitch_dims, extent):
+                b = b.narrow(d, (s.index[a] - box[a][0]) * e, e)
+            out.append(b)
+        return out
+
+    def term_sums(r):
+        rows = [[] for _ in plan.local_shards]
+        for ti, (p, size) in enumerate(zip(torch.split(r, sizes), sizes)):
+            if grid_term[ti] is None:
+                for n, s in enumerate(plan.local_shards):
+                    rows[n].append(torch.sum(torch.square(p)) if s.number == 0 else torch.zeros((), dtype=r.dtype,
+                                                                                                device=r.device))
+                continue
+            shape = list(values[ti].shape)
+            for n, b in enumerate(blocks_of(p.reshape(shape), ti)):
+                rows[n].append(torch.sum(torch.square(b)))
+        table = comm.psum_table(torch.stack([torch.stack(row) for row in rows]), plan.process_shards,
+                                len(plan.shards))
+        acc = table[0]
+        for row in table[1:]:
+            acc = acc + row
+        return acc
+
+    def local_part(z):
+        out = []
+        for ti, p in enumerate(torch.split(z, counts)):
+            if grid_term[ti] is None:
+                out.append(p if first_here else p[:0])
+                continue
+            extent, whole = grid_term[ti]
+            b = p.reshape(whole)
+            for a, d, e in zip(plan.used_axes, stitch_dims, extent):
+                b = b.narrow(d, box[a][0] * e, box[a][1] * e)
+            out.append(b.reshape(-1))
+        return torch.cat(out)
+
+    f.reduce_x = comm.allsum
+    f.term_sums = term_sums
+    f.term_counts = counts
+    f.local_part = local_part
 
 
 def make_halo_loss_grad_fn(problem, state, extra_partition=None, fuse=None):

@@ -25,6 +25,17 @@ Every random probe (Rademacher and normal) comes from ``draw`` with the
 ``torch.Generator`` that the driver seeds from ``--seed``, in the order in
 which the JAX package draws from ``jax.random``; a test can replace
 ``draw`` to replay the JAX package's draws.
+
+Over several processes (a residual map of ``halo.make_halo_residual_fn``
+on a mesh that spans them) the packed state and every x-space vector are
+whole and the same on every process, and the residual vector is split: each
+process holds its shards' part.  A transposed product J^T w is the sum, in
+rank order, of the processes' pullbacks (``f.reduce_x``), and the
+residual's sums of squares are folded over the shards in shard order
+(``f.term_sums``); the residual-space probes are drawn whole on every
+process from the same generator and each keeps its part (``f.local_part``).
+Everything else (CG, the Jacobi diagonal, BPX, the V-cycle) runs unchanged
+on the whole x-space vectors, so every process's iterate has the same bits.
 """
 
 from argparse import Namespace
@@ -67,6 +78,34 @@ def draw(kind, shape, dtype, device, generator):
 
 def _vdot(a, b):
     return torch.sum(a * b)
+
+
+def _pullback(f, x):
+    """(r(x), w -> J^T w): over processes (``f.reduce_x``) the sum of every
+    process's pullback of its part of w."""
+    r0, pullback = vjp(f, x)
+    reduce = getattr(f, "reduce_x", None)
+    if reduce is None:
+        return r0, lambda w: pullback(w)[0]
+    return r0, lambda w: reduce(pullback(w)[0])
+
+
+def _term_means(f, r, sizes):
+    """The mean square of each term of the residual vector r; over
+    processes (``f.term_sums``) of the whole vector, from every process's
+    part."""
+    sums = getattr(f, "term_sums", None)
+    if sums is None:
+        return [torch.mean(torch.square(p)) for p in torch.split(r, list(sizes))]
+    return [s / n for s, n in zip(sums(r).unbind(), f.term_counts)]
+
+
+def _mean_square(f, r):
+    """The mean square of the whole residual vector r."""
+    sums = getattr(f, "term_sums", None)
+    if sums is None:
+        return torch.mean(torch.square(r))
+    return torch.sum(sums(r)) / sum(f.term_counts)
 
 
 def cg(A, b, tol=1e-5, atol=0.0, maxiter=None, M=None):
@@ -120,9 +159,13 @@ def cg(A, b, tol=1e-5, atol=0.0, maxiter=None, M=None):
 def estimate_normal_diag(f, x, generator, nprobe=8):
     """Hutchinson estimate of diag(J^T J) at x: the mean of (J^T z)^2 over
     `nprobe` Rademacher probes z in the residual space (in r(x)'s dtype)."""
-    r0, pullback = vjp(f, x)
-    probes = [draw("rademacher", r0.shape, r0.dtype, r0.device, generator) for _ in range(nprobe)]
-    return torch.mean(torch.stack([torch.square(pullback(z)[0]) for z in probes]), dim=0)
+    r0, pullback = _pullback(f, x)
+    local = getattr(f, "local_part", None)
+    shape = r0.shape if local is None else (sum(f.term_counts),)
+    probes = [draw("rademacher", shape, r0.dtype, r0.device, generator) for _ in range(nprobe)]
+    if local is not None:
+        probes = [local(z) for z in probes]
+    return torch.mean(torch.stack([torch.square(pullback(z)) for z in probes]), dim=0)
 
 
 def _field_layout(domain, state):
@@ -452,10 +495,10 @@ def gauss_newton_step(f, x, damp=0.0, dampdiag=0.0, tol=1e-6, maxiter=100, preco
     "loss" (the mean square of r(x)), the CG's "iterations", "matvecs" and
     "syncs", and with `term_sizes` the per-term mean squares of r(x)
     ("terms"), "step_norm" and "x_norm" (0-dim tensors on the device)."""
-    r0, pullback = vjp(f, x)
+    r0, pullback = _pullback(f, x)
 
     def normal_matvec(v):
-        av = pullback(jvp(f, (x,), (v,))[1])[0]
+        av = pullback(jvp(f, (x,), (v,))[1])
         if damp:
             av = av + (damp * damp) * v
         if dampdiag and precond_diag is not None:
@@ -469,11 +512,11 @@ def gauss_newton_step(f, x, damp=0.0, dampdiag=0.0, tol=1e-6, maxiter=100, preco
         def M(v):
             return inv * v
 
-    rhs = -pullback(r0)[0]
+    rhs = -pullback(r0)
     delta, stats = cg(normal_matvec, rhs, tol=tol, maxiter=maxiter, M=M)
-    info = dict(stats, loss=torch.mean(torch.square(r0)))
+    info = dict(stats, loss=_mean_square(f, r0.detach()))
     if term_sizes is not None:
-        info["terms"] = [torch.mean(torch.square(p)) for p in torch.split(r0.detach(), list(term_sizes))]
+        info["terms"] = _term_means(f, r0.detach(), term_sizes)
         info["step_norm"] = torch.linalg.norm(delta)
         info["x_norm"] = torch.linalg.norm(x)
     return (x + delta).detach(), info
@@ -509,7 +552,7 @@ def optimize_gauss_newton(args, problem, state, callback=None, **kwargs):
     generator.manual_seed(int(getattr(args, "seed", 0) or 0))
 
     def normal_mv_at(xl, v):
-        return vjp(f, xl)[1](jvp(f, (xl,), (v,))[1])[0]
+        return _pullback(f, xl)[1](jvp(f, (xl,), (v,))[1])
 
     names = f.term_names
     sizes = f.term_sizes
@@ -552,7 +595,7 @@ def optimize_gauss_newton(args, problem, state, callback=None, **kwargs):
 
     def term_stats(x):
         with torch.no_grad():
-            return [torch.mean(torch.square(p)) for p in torch.split(f(x), list(sizes))]
+            return _term_means(f, f(x), sizes)
 
     def pinfo_from_terms(terms):
         terms = list(torch.stack(terms).cpu().numpy())

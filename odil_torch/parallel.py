@@ -24,7 +24,9 @@ A Domain with a mesh takes both of the JAX package's mesh routes:
   Domain does: on one card GSPMD's partitioning changes no number, so the
   sharding specs (``Domain.field_sharding``, ``NamedSharding``) are computed
   as the JAX package computes them and the arrays stay whole on the mesh's
-  card.  Over several processes this route raises ``NotImplementedError``;
+  card.  Over several processes each process holds its blocks, gathers
+  the whole arrays and runs the single controller's evaluation
+  (``Problem.make_loss_fn``);
 - with ``halo=True`` the per-shard route (``halo.py``): in one process the
   controller loops over the mesh's shards; over several, each process runs
   its own shards and exchanges halos and sums with the others
@@ -35,7 +37,8 @@ A Domain with a mesh takes both of the JAX package's mesh routes:
   and coarse levels that do not divide.
 
 ``multi_start`` batches independent starts of one problem along a leading
-instance axis, in one process.
+instance axis; with its ``batch_axis`` on a mesh over several processes
+each process runs its block of the instances.
 
 A mesh over more than one distinct card inside one process raises
 ``NotImplementedError``: the per-shard kernels launch on the current card's
@@ -370,10 +373,13 @@ def shard_state_arrays(domain, arrays):
     return [domain.field_sharding(shape=tuple(a.shape)).place(a) if a.ndim == domain.ndim else a for a in arrays]
 
 
-def gather_state_arrays(domain, arrays, shapes):
+def gather_state_arrays(domain, arrays, shapes, grad=False):
     """The whole arrays from every process's blocks (``shard_state_arrays``'s
     inverse; ``shapes``: the whole arrays' shapes), on every process.  A
-    collective: every process calls it with the same shapes."""
+    collective: every process calls it with the same shapes.  With
+    ``grad=True`` differentiable, for an evaluation that every process runs
+    whole alike (``comm.gather_replicated``: the backward keeps this
+    process's block of its own cotangent); else under ``no_grad``."""
     if domain.mesh is None or not domain.partition or not domain.mesh.spans_processes:
         return list(arrays)
     from . import comm
@@ -384,9 +390,14 @@ def gather_state_arrays(domain, arrays, shapes):
     for i in grid:
         sh = domain.field_sharding(shape=tuple(shapes[i]))
         specs.append(([sh.region(tuple(shapes[i]), r) for r in domain.mesh.processes], tuple(shapes[i])))
-    with torch.no_grad():
-        for i, a in zip(grid, comm.gather([arrays[i] for i in grid], specs, comm.Chain())):
-            out[i] = a
+    blocks = [arrays[i] for i in grid]
+    if grad:
+        got = comm.gather_replicated(blocks, specs, comm.Chain())
+    else:
+        with torch.no_grad():
+            got = comm.gather(blocks, specs, comm.Chain())
+    for i, a in zip(grid, got):
+        out[i] = a
     return out
 
 
@@ -431,6 +442,17 @@ def multi_start(problem, state, nstarts, seed=0, scale=1.0, mesh=None, batch_axi
     (``NamedSharding``); on the port's one-card mesh the instances sit on the
     mesh's card.
 
+    Over several processes (a ``mesh`` whose ``batch_axis`` positions belong
+    to several) each process holds a contiguous block of the instances
+    (``stacked`` is its block): every process draws all ``nstarts`` starts
+    from the seeded generator and keeps its own, so instance i is the same
+    for any number of processes.  ``loss_fn_b`` evaluates the process's
+    instances, gathers every instance's loss, terms and norms into one table
+    in instance order (``comm.psum_table``) and takes the mean of each
+    column as the single controller takes it; its backward keeps the
+    process's own rows.  A problem whose domain mesh spans processes as well
+    raises ``NotImplementedError``.
+
     per_instance: optional {field name: array of shape (nstarts, *field)}
     giving each instance its own value of that unknown (the idiom for batched
     inverse problems: data in a frozen Field, overridden here).  Only
@@ -445,8 +467,9 @@ def multi_start(problem, state, nstarts, seed=0, scale=1.0, mesh=None, batch_axi
     calls, each launching the kernel as the single-start run does."""
     from .fields import field_arrays
 
-    for m in (problem.domain.mesh, mesh):
-        refuse_processes(m, "multi_start", "run the starts in one process")
+    refuse_processes(problem.domain.mesh, "multi_start with a domain mesh",
+                     "give the domain a mesh of one process (or none) and put the processes on the batch axis "
+                     "of multi_start's mesh")
     loss_fn, arrays = problem.make_loss_fn(state)
     index_of, pos = {}, 0
     for name, fobj in state.fields.items():
@@ -470,6 +493,13 @@ def multi_start(problem, state, nstarts, seed=0, scale=1.0, mesh=None, batch_axi
 
     generator = torch.Generator(device="cpu").manual_seed(int(seed))
     sharded = mesh is not None and batch_axis is not None
+    spread = sharded and mesh.spans_processes
+    if spread:
+        batch = NamedSharding(mesh, PartitionSpec(batch_axis))
+        index = [list(range(*batch.region((nstarts,), r)[0])) for r in mesh.processes]
+        mine = index[mesh.processes.index(mesh.process)]
+    else:
+        mine = list(range(nstarts))
     stacked = []
     for i, a in enumerate(arrays):
         if i in overrides:
@@ -487,14 +517,26 @@ def multi_start(problem, state, nstarts, seed=0, scale=1.0, mesh=None, batch_axi
     def mean(t):
         return torch.mean(t, dim=0)
 
+    def batch_mean(losses, terms, norms):
+        """The means over every instance of the process's instances'
+        (losses, terms, norms); over processes through one table of all."""
+        if spread:
+            from . import comm
+
+            cols = [losses] + list(terms) + list(norms)
+            table = comm.psum_table(torch.stack(cols, dim=1), index, nstarts)
+            cols = [c.contiguous() for c in table.unbind(1)]
+            losses, terms, norms = cols[0], cols[1: 1 + len(terms)], cols[1 + len(terms):]
+        return mean(losses), ([mean(t) for t in terms], [mean(n) for n in norms])
+
     if _reaches_kernels(problem, state):
 
         def loss_fn_b(arrays_b, tracers):
-            outs = [loss_fn([a[i] for a in arrays_b], tracers) for i in range(nstarts)]
+            outs = [loss_fn([a[i] for a in arrays_b], tracers) for i in range(len(mine))]
             losses = torch.stack([loss for loss, _ in outs])
             terms = [torch.stack(t) for t in zip(*[o[1][0] for o in outs])]
             norms = [torch.stack(n) for n in zip(*[o[1][1] for o in outs])]
-            return mean(losses), ([mean(t) for t in terms], [mean(n) for n in norms])
+            return batch_mean(losses, terms, norms)
 
         loss_fn_b.form = "loop"
     else:
@@ -505,7 +547,8 @@ def multi_start(problem, state, nstarts, seed=0, scale=1.0, mesh=None, batch_axi
                 return loss, tuple(terms), tuple(norms)
 
             losses, terms, norms = torch.func.vmap(one)(*arrays_b)
-            return mean(losses), ([mean(t) for t in terms], [mean(n) for n in norms])
+            return batch_mean(losses, terms, norms)
 
         loss_fn_b.form = "vmap"
+    loss_fn_b.instances = mine
     return loss_fn_b, stacked

@@ -15,6 +15,15 @@ Jacobian assembled on the host) and ``residual_fn`` (:779, the residual map
 whose ``torch.func`` products the matrix-free Gauss-Newton solves with).  A
 Domain with a mesh takes the halo route with ``halo=True`` (``halo.py``) and
 the GSPMD route without it (``_constrain_fields``, :241).
+
+The GSPMD route over several processes (a mesh whose positions belong to
+several, ``parallel.init_distributed``) takes its arrays as each process's
+blocks (``parallel.shard_state_arrays``).  Every process gathers the whole
+arrays (``parallel.gather_state_arrays``; under autograd
+``comm.gather_replicated``, whose backward keeps this process's block of
+its own cotangent) and runs the single controller's evaluation on them,
+kernels included, and keeps its block of the gradient.  The JAX kernels
+know nothing of sharding either: GSPMD hands them replicated operands.
 """
 
 import functools
@@ -159,12 +168,11 @@ class Problem:
         norms = [torch.sqrt(torch.clamp(t, min=0)) for t in terms]
         return loss, terms, norms
 
-    def _refuse_processes(self):
-        """The routes without ``halo`` run in one process: a Domain whose
-        mesh spans several raises (``parallel.refuse_processes``)."""
-        from .parallel import refuse_processes
-
-        refuse_processes(self.domain.mesh, "the GSPMD route (a mesh without halo)", "use halo=True (--halo 1)")
+    def _over_processes(self):
+        """Whether the GSPMD route runs over several processes (the module's
+        text): a Domain whose partitioned mesh spans them."""
+        mesh = self.domain.mesh
+        return mesh is not None and bool(self.domain.partition) and mesh.spans_processes
 
     def _constrain_fields(self, state):
         """The domain's sharding constraint on every flattened fine-grid
@@ -196,9 +204,19 @@ class Problem:
             from .halo import make_halo_loss_fn
 
             return make_halo_loss_fn(self, state, extra_partition=extra_partition)
-        self._refuse_processes()
         self._capture_structure(state)
         arrays0 = self.domain.arrays_from_state(state)
+        if self._over_processes():
+            from .parallel import gather_state_arrays, shard_state_arrays
+
+            shapes = [tuple(a.shape) for a in arrays0]
+
+            def loss_fn(arrays, tracers):
+                whole = gather_state_arrays(self.domain, arrays, shapes, grad=True)
+                loss, terms, norms = self.loss_terms(whole, tracers)
+                return loss, (terms, norms)
+
+            return loss_fn, shard_state_arrays(self.domain, arrays0)
 
         def loss_fn(arrays, tracers):
             loss, terms, norms = self.loss_terms(arrays, tracers)
@@ -210,14 +228,14 @@ class Problem:
         """Loss, gradients and residual norms at `state`, by autograd of
         ``loss_terms``: (loss, grads, terms, names, norms), the loss, terms
         and norms as numpy scalars, the grads as tensors on the domain's
-        device in the state's array order."""
+        device in the state's array order (over processes, the GSPMD route's
+        gradient: this process's blocks)."""
         if not state.initialized:
             raise RuntimeError("Uninitialized state, use `state = domain.init_state(state)`")
-        self._refuse_processes()
-        self._capture_structure(state)
-        leaves = [a.detach().requires_grad_(True) for a in self.domain.arrays_from_state(state)]
+        loss_fn, arrays = self.make_loss_fn(state)
+        leaves = [a.detach().requires_grad_(True) for a in arrays]
         with torch.enable_grad():
-            loss, terms, norms = self.loss_terms(leaves, self.tracers)
+            loss, (terms, norms) = loss_fn(leaves, self.tracers)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(a) if g is None else g for a, g in zip(leaves, grads)]
 
@@ -259,11 +277,22 @@ class Problem:
             from .halo import make_halo_loss_grad_fn
 
             return make_halo_loss_grad_fn(self, state, extra_partition=extra_partition, fuse=halo_fuse)
-        self._refuse_processes()
         fn = self._make_mg_loss_grad_fn(state)
-        if fn is not None:
+        if fn is None:
+            fn = self._make_onepass_loss_grad_fn(state)
+        if fn is None or not self._over_processes():
             return fn
-        return self._make_onepass_loss_grad_fn(state)
+        # Over processes: the single controller's fused route on the whole
+        # arrays, and this process's blocks of its gradient.
+        from .parallel import gather_state_arrays, shard_state_arrays
+
+        shapes = [tuple(a.shape) for a in self.domain.arrays_from_state(state)]
+
+        def loss_grad_fn(arrays, tracers):
+            out, grads = fn(gather_state_arrays(self.domain, arrays, shapes), tracers)
+            return out, shard_state_arrays(self.domain, grads)
+
+        return loss_grad_fn
 
     def _make_mg_loss_grad_fn(self, state):
         fused = getattr(self.operator, "loss_and_grads", None)
@@ -560,6 +589,10 @@ class Problem:
         in one transfer; the assembly is ``odil_tpu/problem.py:688-777``'s."""
         if not state.initialized:
             raise RuntimeError("Uninitialized state, use `state = domain.init_state(state)`")
+        from .parallel import refuse_processes
+
+        refuse_processes(self.domain.mesh, "Problem.linearize (the sparse Jacobian on one host)",
+                         "use the matrix-free Gauss-Newton (residual_fn, --optimizer gn)")
         if modsp is None:
             import scipy.sparse as modsp
 
@@ -655,7 +688,8 @@ class Problem:
             from .halo import make_halo_residual_fn
 
             return make_halo_residual_fn(self, state)
-        self._refuse_processes()
+        # Over several processes every process evaluates the whole map on the
+        # whole packed state alike, and exchanges nothing.
         self._capture_structure(state)
         domain = self.domain
         arrays0 = domain.arrays_from_state(state)

@@ -263,20 +263,52 @@ def _profiler(profile_dir, device):
     return prof
 
 
+# What to use instead of the optimizers that do not run over several processes.
+_NOT_OVER_PROCESSES = {
+    "lbfgs": ("the on-device L-BFGS (its two-loop recursion and line search would need psums over the blocks)",
+              "use --optimizer adam or gd, or gn (matrix-free Gauss-Newton)"),
+    "lbfgsb": ("L-BFGS-B (scipy's, on one host's whole vector)",
+               "use --optimizer adam or gd, or gn (matrix-free Gauss-Newton)"),
+    "newton": ("the sparse Newton (Problem.linearize assembles the Jacobian on one host)",
+               "use --optimizer gn (matrix-free Gauss-Newton)"),
+}
+
+
+def refuse_over_processes(domain, optname):
+    """NotImplementedError, before any collective, for an optimizer that does
+    not run on a mesh over several processes."""
+    from . import parallel
+
+    if optname in _NOT_OVER_PROCESSES:
+        parallel.refuse_processes(domain.mesh, *_NOT_OVER_PROCESSES[optname])
+
+
 def optimize_grad(args, optname, problem, state, callback=None, **kwargs):
-    """Gradient-based optimization of `problem` over `state` (in place)."""
+    """Gradient-based optimization of `problem` over `state` (in place).
+
+    Over several processes the optimizer updates this process's blocks of
+    the arrays (``parallel.shard_state_arrays``), and the state that the
+    callback sees, and that is left in ``state``, is gathered whole
+    (``parallel.gather_state_arrays``) on every process."""
+    from . import parallel
+
     domain = problem.domain
+    refuse_over_processes(domain, optname)
+    shapes = [tuple(a.shape) for a in domain.arrays_from_state(state)]
+
+    def whole(arrays):
+        return parallel.gather_state_arrays(domain, arrays, shapes)
 
     def loss_grad(arrays):
-        domain.arrays_to_state(arrays, state)
+        domain.arrays_to_state(whole(arrays), state)
         loss, grads, terms, names, norms = problem.eval_loss_grad(state)
         return loss, grads, _pinfo_from(loss, terms, names, norms)
 
     def callback_wrap(arrays, epoch, pinfo):
-        domain.arrays_to_state(arrays, state)
+        domain.arrays_to_state(whole(arrays), state)
         callback(state, epoch, pinfo)
         if getattr(args, "callback_update_state", 0):
-            new = domain.arrays_from_state(state)
+            new = parallel.shard_state_arrays(domain, domain.arrays_from_state(state))
             for i in range(len(new)):
                 arrays[i] = new[i]
 
@@ -350,7 +382,7 @@ def optimize_grad(args, optname, problem, state, callback=None, **kwargs):
             os.makedirs(profile_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
             printlog(f"profiler trace written to {profile_dir}")
-    domain.arrays_to_state(arrays, state)
+    domain.arrays_to_state(whole(arrays), state)
     return arrays, optinfo
 
 
@@ -368,6 +400,7 @@ def optimize_newton(args, problem, state, callback=None, **kwargs):
     from .linsolver import solve
 
     domain = problem.domain
+    refuse_over_processes(domain, "newton")
 
     def eval_pinfo(state):
         loss, _, terms, names, norms = problem.eval_loss_grad(state)

@@ -180,14 +180,15 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _launch(out):
-    """Starts the workers of one run; returns a function that waits for
-    them and reads rank 0's results."""
+def _launch(out, script=__file__):
+    """Starts the workers of one run (``script`` run as ``__main__``, this
+    file by default); returns a function that waits for them and reads rank
+    0's results."""
     port = _free_port()
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
     logs = [open(f"{out}.{r}.log", "w+") for r in range(NPROC)]  # files, not pipes: no writer waits on a reader
     procs = [
-        subprocess.Popen([sys.executable, __file__, str(r), str(NPROC), str(port), out], env=env, cwd=REPO,
+        subprocess.Popen([sys.executable, script, str(r), str(NPROC), str(port), out], env=env, cwd=REPO,
                          stdout=log, stderr=subprocess.STDOUT)
         for r, log in enumerate(logs)
     ]

@@ -162,25 +162,26 @@ def test_shard_state_arrays_gives_each_process_its_block(process):
 
 
 def test_one_process_routes_raise_over_processes():
-    """The routes that run in one process only say so on a mesh over
-    several: the GSPMD route (a mesh without halo), Gauss-Newton's halo
-    residual map, multi_start, and a mesh over two cards in one process."""
+    """The routes that still run in one process only say so on a mesh over
+    several, before any collective (these meshes have no group): the sparse
+    Newton's linearization, multi_start on a problem whose domain mesh
+    spans processes, and a mesh over two cards in one process.  The GSPMD
+    route and Gauss-Newton's halo residual map build there."""
     from odil_torch.halo import make_halo_residual_fn
     from odil_torch.models import poisson as tpo
 
     mesh = _spanning("t:2,x:2", 2, 0)
     p, s, _ = tvt.build(nt=8, nx=16, ny=16, kernel="pallas", dtype=np.float64, device="cpu", mesh=mesh,
                         partition={"t": "t", "x": "x"})
-    for call in (lambda: p.make_loss_fn(s), lambda: p.make_loss_grad_fn(s), lambda: p.eval_loss_grad(s),
-                 lambda: p.residual_fn(s), lambda: tpar.multi_start(p, s, 2)):
+    for call in (lambda: p.linearize(s), lambda: tpar.multi_start(p, s, 2)):
         with pytest.raises(NotImplementedError, match="several processes"):
             call()
-    pp, ps, _ = tpo.build(n=16, dtype=np.float64, device="cpu", mesh=_spanning("x:2,y:2", 2, 1),
+    assert p._over_processes()
+    p.make_loss_fn(s)
+    pp, ps, _ = tpo.build(n=16, multigrid=False, dtype=np.float64, device="cpu", mesh=_spanning("x:2,y:2", 2, 1),
                           partition={"x": "x", "y": "y"})
-    with pytest.raises(NotImplementedError, match="several processes"):
-        make_halo_residual_fn(pp, ps)
-    with pytest.raises(NotImplementedError, match="several processes"):
-        pp.residual_fn(ps, halo=True)
+    f, x0 = make_halo_residual_fn(pp, ps)
+    assert x0.numel() == 16 * 16 and f.term_counts == [16 * 16] and f.term_sizes == [16 * 8]
     with pytest.raises(NotImplementedError, match="one card a process|one process a card"):
         tpar.mesh_from_spec("x:2", devices=[torch.device("cuda", 0), torch.device("cuda", 1)])
 
