@@ -243,8 +243,8 @@ Phases, any failure exits non-zero and prints no result:
       backend and transport printed, and kills them on the way out.  r1:
       four processes share the card over gloo (NCCL refuses two ranks on one
       card), one shard of t:2,x:2 each, and train the flagship (64x256x256)
-      through the generic and the MG-fused halo routes for ``--epochs``
-      epochs each, as j. does: epoch 0 within 1e-5 of j.'s, each process's
+      through the generic and the MG-fused halo routes for 200 epochs each
+      (j.'s first 200): epoch 0 within 1e-5 of j.'s, each process's
       epoch-0 gradient within 1e-5 of the single controller's on its block
       (max|diff| over the array's max|entry|), every row within twice the
       spread that one-ulp gradient noise opens in the single controller's
@@ -290,6 +290,37 @@ Phases, any failure exits non-zero and prints no result:
       controller's to the bit (joining NCCL changes no number; r3 holds
       the same for the halo route).  Each prints its
       ms/epoch, its collective rounds and the MB a process sends an epoch.
+   t. The routes that open on a mesh over several processes in PR 16 (the
+      workers as in r., ``spanning_worker``).  t1: the flagship
+      (64x256x256, ``pallas_mg``) through ``util.optimize(args, "lbfgs",
+      ...)`` on t:2,x:2 (the GSPMD route), four processes, 20 iterations:
+      its rows and the whole iterate after every iteration equal to the
+      single controller's (the mesh of four shards of the card) to the bit,
+      the same iterate bits on every process; ms/iteration, evaluations and
+      host syncs an iteration, the MB a process sends and the L-BFGS memory
+      a process; one mg backward+sums a process and evaluation.  t2: the
+      wave CLI (64^2 fp32 ``--kernel pallas``, its default L-BFGS, 200
+      iterations) under ``--mesh t:2 --halo 1`` over two processes: epoch 0
+      equal to the one-process run's on the same mesh to the bit, the rows
+      within phase n's converged margins for wave (``ref_wave.csv``), the
+      iterate the same bits on both processes after every iteration; one
+      masked 1-D backward+sums a process and evaluation.  t3: the flagship's
+      halo mg route on t:2,q:2 (q partitions no grid dimension: the
+      processes along it are replicas), four processes, 100 Adam epochs:
+      epoch 0 equal to the one-process run's on t:2 to the bit, its
+      gradient within r1's limit and its rows inside twice the one-ulp band
+      of that run; every process's gradient blocks and rows equal to the
+      same route's on t:2 over two processes (no idle axis) to the bit; one
+      local-block mg backward a process and epoch.  t4: ``multi_start`` on
+      q3's heat (4 starts, 50 epochs) with the domain's t over two processes
+      (every instance on each process's blocks) and on b:2,t:2 (the
+      instances on b), a process a b index or a t index: batch rows within
+      twice s4's one-ulp spread of q3's and each instance's rows within it
+      too; one forward and one backward row kernel an instance and epoch on
+      each process.  t5: every computing name of ``ctx.mod``
+      (``backend.ModTorch``) on the card against the CPU: the same bits for
+      the exact operations, 1e-6 relative for the others, the convolutions
+      with TF32 off; ``random``'s shapes, dtypes, determinism and moments.
    The streaming kernels (veltracer at (65,256,256) and (65,64,64), heat and
    wave at 64^2 and 1024^2; on the card the slabbed launch, counted apart)
    and the two-level kernel (t0 (65,256,256), t1 (33,128,128), P2
@@ -406,11 +437,12 @@ ROUNDOFF_SEEDS = (1, 2, 3)
 CKPT_EVERY = 100
 # Phase r: the halo route over several processes.  r1: the flagship on
 # HALO_SPEC with one shard a process (4 processes sharing the card over
-# gloo); r2: heat and wave at 64^2 on HALO1D_SPEC over 2 processes of 2
-# shards, DIST_1D_EPOCHS epochs; r3: one process with NCCL, the flagship's
-# generic route for DIST_NCCL_EPOCHS epochs.  A worker may take
-# DIST_TIMEOUT seconds; the group's collectives time out after as long.
-DIST_1D_PROCS, DIST_1D_EPOCHS, DIST_NCCL_EPOCHS = 2, 200, 50
+# gloo), DIST_R1_EPOCHS epochs a route (the first half of phase j's rows:
+# the script's time limit); r2: heat and wave at 64^2 on HALO1D_SPEC over 2
+# processes of 2 shards, DIST_1D_EPOCHS epochs; r3: one process with NCCL,
+# the flagship's generic route for DIST_NCCL_EPOCHS epochs.  A worker may
+# take DIST_TIMEOUT seconds; the group's collectives time out after as long.
+DIST_R1_EPOCHS, DIST_1D_PROCS, DIST_1D_EPOCHS, DIST_NCCL_EPOCHS = 200, 2, 200, 50
 DIST_TIMEOUT = 300
 # r1's epoch-0 gradient: each process's block of every array against the
 # single controller's, max|difference| over the array's max|entry|.  A sum
@@ -1196,16 +1228,15 @@ def dist_build(torch, np, model, mesh, dev, heat_ref):
     return problem, state, extra
 
 
-# The runs of each phase-r job: (model, halo route, epochs or None for
-# --epochs, Adam's lr).
+# The runs of each phase-r job: (model, halo route, epochs, Adam's lr).
 DIST_RUNS = {
-    "r1": [("flagship", "generic", None, 0.01), ("flagship", "mg", None, 0.01)],
+    "r1": [("flagship", "generic", DIST_R1_EPOCHS, 0.01), ("flagship", "mg", DIST_R1_EPOCHS, 0.01)],
     "r2": [("heat", "generic", DIST_1D_EPOCHS, 1e-3), ("wave", "generic", DIST_1D_EPOCHS, 1e-3)],
     "r3": [("flagship", "generic", DIST_NCCL_EPOCHS, 0.01)],
 }
 
 
-def dist_worker(job, rank, world, port, out, epochs):
+def dist_worker(job, rank, world, port, out):
     """One process of a phase-r job (``chip_smoke.py --dist-worker``): joins
     the group (gloo for r1 and r2, whose processes share the card; NCCL for
     r3), trains each of the job's runs through the halo route on this
@@ -1240,7 +1271,7 @@ def dist_worker(job, rank, world, port, out, epochs):
         x0 = parallel.shard_state_arrays(problem.domain, problem.domain.arrays_from_state(state))
         grad = grad_distance(torch, problem.domain, grad_fn, x0, f"{out}.grad_{fuse}.pt", rank) if job == "r1" else None
         counters.zero()
-        _, losses, chunk_ms = train(torch, Adam, grad_fn, x0, n or epochs, lr=lr)
+        _, losses, chunk_ms = train(torch, Adam, grad_fn, x0, n, lr=lr)
         result["runs"][f"{model} {fuse}"] = {
             "losses": losses, "ms": steady_ms(chunk_ms)[0], "counts": counters.read(), "grad": grad,
             "block": list(x0[0].shape), "shards": len([o for o in mesh.owners.reshape(-1) if o == rank]),
@@ -1379,8 +1410,8 @@ def dist_phase(torch, np, counters, halo_losses, j_ms, ref256, heat_ref, epochs,
         for seed in ROUNDOFF_SEEDS:
             grad_fn, problem, state = single(seed)
             moved = trajectory_rows(train(torch, Adam, grad_fn, problem.domain.arrays_from_state(state),
-                                          len(halo_losses[fuse]), lr=DIST_RUNS["r1"][0][3])[1])
-            spread = max(spread, max(abs(moved[e] - j_rows[e]) / abs(j_rows[e]) for e in j_rows))
+                                          DIST_R1_EPOCHS, lr=DIST_RUNS["r1"][0][3])[1])
+            spread = max(spread, max(abs(moved[e] - j_rows[e]) / abs(j_rows[e]) for e in moved))
         spreads[fuse] = spread
     results = dist_launch("r1", HALO_SHARDS, epochs, tag)
     for fuse, key, name in (("generic", "backward_halo", "backward_halo_sums"),
@@ -1533,7 +1564,6 @@ def routes_worker(job, rank, world, port, out):
     import torch.distributed as dist
 
     from odil_torch import comm, newton, parallel
-    from odil_torch.models import heat as th
     from odil_torch.models import poisson as tpo
     from odil_torch.models import veltracer as vt
     from odil_torch.ops import rowwise as rw
@@ -1620,9 +1650,7 @@ def routes_worker(job, rank, world, port, out):
             "poisson": (lambda: tpo.build(n=64, ndim=2, args=argparse.Namespace(ref="osc", rhs="exact", osc_k=2.0,
                                                                                   mgloss=0),
                                           dtype=np.float64, device=dev), 0, 0.5),
-            "heat": (lambda: th.build(nt=lane["nt"], nx=lane["nx"], kernel="pallas", infer_k=True,
-                                      imposed=lane["imposed"], nimp=lane["nimp"], seed=lane["seed"], device=dev), 2,
-                     0.05),
+            "heat": (lambda: heat_lane_build(torch, np, lane, dev), 2, 0.05),
         }
         for model, (build, seed, scale) in builds.items():
             p, st, _ = build()
@@ -1665,7 +1693,6 @@ def routes_phase(torch, np, counters, heat_ref, q_refs, poisson_gn, j_ms, tag):
     route.  Returns the launches of the kernels on its paths, summed over
     the processes."""
     from odil_torch import parallel
-    from odil_torch.models import heat as th
     from odil_torch.models import veltracer as vt
     from odil_torch.optim import Adam
     from odil_torch.optim.base import autograd_loss_grad_fn as loss_grad_of
@@ -1764,8 +1791,7 @@ def routes_phase(torch, np, counters, heat_ref, q_refs, poisson_gn, j_ms, tag):
     # one-ulp gradient noise opens in the single controller's batch rows
     # (q3's case, three seeds).
     lane = heat_ref["config"]
-    p, st, _ = th.build(nt=lane["nt"], nx=lane["nx"], kernel="pallas", infer_k=True, imposed=lane["imposed"],
-                        nimp=lane["nimp"], seed=lane["seed"], device=dev)
+    p, st, _ = heat_lane_build(torch, np, lane, dev)
     loss_b, stacked = parallel.multi_start(p, st, STARTS, seed=2, scale=0.05)
     heat_rows = q_refs["q3 heat"]
     heat_spread = 0.0
@@ -1773,6 +1799,7 @@ def routes_phase(torch, np, counters, heat_ref, q_refs, poisson_gn, j_ms, tag):
         o = Adam(one_ulp_moves(torch, loss_grad_of(loss_b), seed, dev), stacked, lr=1e-3)
         moved = sum((o.run_chunk(CHUNK, p.tracers).cpu().tolist() for _ in range(ROUTES_EPOCHS["s4"] // CHUNK)), [])
         heat_spread = max(heat_spread, max(abs(a - b) / abs(b) for a, b in zip(moved, heat_rows)))
+    q_refs["q3 heat spread"] = heat_spread  # phase t's band for q3's heat rows
     del p, st, loss_b, stacked
 
     results = dist_launch("s34", ROUTES_PROCS["s34"], ROUTES_EPOCHS["s4"], tag)
@@ -1838,6 +1865,521 @@ def routes_phase(torch, np, counters, heat_ref, q_refs, poisson_gn, j_ms, tag):
     if run["spans"] or not same or not run["grad"]["bits"]:
         fail("s5: the rows or the epoch-0 gradient over NCCL at world size 1 differ from the single controller's")
     print(f"phase s: {time.perf_counter() - t_s:.1f} s {tag}")
+    return launches
+
+
+# Phase t: the routes that open on a mesh over several processes in PR 16.
+# Its jobs: t13 (four processes sharing the card over gloo: t1 the
+# flagship's L-BFGS on the GSPMD route, t3 the flagship's halo mg route on a
+# mesh with an idle axis) and t24 (two processes: t2 the wave CLI's L-BFGS
+# under --halo, t4 multi_start on a domain mesh over the processes).  t5,
+# the ctx.mod surface on the card, runs in the script's own process.
+T_ITERS, T_HALO_EPOCHS = 20, 100
+T_PROCS = {"t13": 4, "t24": 2}
+T_IDLE_SPEC, T_IDLE_PART = "t:2,q:2", {"t": "t"}
+T_WAVE_ARGV = ["--Nt", "64", "--Nx", "64", "--kernel", "pallas", "--double", "0", "--epochs", "200",
+               "--history_every", "20", "--mesh", "t:2", "--halo", "1"]
+# multi_start's forms on a domain mesh over the processes: form -> (mesh
+# spec, owners or None for process-major, batch axis).  "a": the domain's t
+# over the processes, every instance on each process's blocks; "b_b"/"b_t":
+# one mesh for the domain (t) and the instances (b), a process a b index or
+# a t index.
+T_MS_FORMS = {"a": ("t:2", None, None), "b_b": ("b:2,t:2", None, "b"), "b_t": ("b:2,t:2", [[0, 1], [0, 1]], "b")}
+# The ctx.mod names whose results are exact (no reduction, no rounding of
+# a transcendental): the card's bits are the CPU's.
+MOD_EXACT = {
+    "abs", "argmax", "argmin", "broadcast_to", "clip", "concatenate", "floor", "full", "hstack", "maximum", "min",
+    "max", "minimum", "moveaxis", "ones", "ones_like", "pad", "reshape", "roll", "square", "stack", "transpose",
+    "where", "zeros", "zeros_like", "flatten", "relu", "cast", "gather_nd", "split_by_sizes", "array", "constant",
+    "variable", "copy", "native", "meshgrid", "median", "arange",
+}
+
+
+def digest_iterates(lbfgs):
+    """Records a digest of each whole L-BFGS iterate as the recursion meets
+    it (``_Memory.direction``); returns (the list, a one-entry list of the
+    seconds the digests took, a function that undoes the wrapping)."""
+    import hashlib
+
+    digests, spent = [], [0.0]
+    direction = lbfgs._Memory.direction
+
+    def recorded(self, x, g):
+        t_start = time.perf_counter()
+        digests.append(hashlib.sha256(x.detach().cpu().numpy().tobytes()).hexdigest())
+        spent[0] += time.perf_counter() - t_start
+        return direction(self, x, g)
+
+    lbfgs._Memory.direction = recorded
+    return digests, spent, lambda: setattr(lbfgs._Memory, "direction", direction)
+
+
+def lbfgs_run(torch, counters, mesh, dev, stats=None):
+    """t1's run: the flagship (64x256x256, pallas_mg) on `mesh` through
+    ``util.optimize(args, "lbfgs", ...)``, T_ITERS iterations, a row every
+    iteration.  Returns its rows, the digest of the whole iterate at each
+    iteration and at the end, ms/iteration (the wall of util.optimize, its
+    epoch-0 evaluation and the callback's state gathers included), the
+    evaluations and host syncs an iteration, the memory, the launches and
+    (with `stats`) the collective rounds and MB a process an iteration.  The
+    iterates' digests (a host copy of the whole state each) are timed apart
+    and left out of ms/iteration."""
+    import hashlib
+
+    from odil_torch import util
+    from odil_torch.models import veltracer as vt
+    from odil_torch.optim import lbfgs
+
+    problem, state, _ = vt.build(*SIZES["256"], kernel="pallas_mg", device=dev, mesh=mesh, partition=MESH_PART)
+    rows = []
+
+    def callback(state, epoch, pinfo):
+        rows.append(float(pinfo["loss"]))
+
+    callback.every_epoch = True
+    args = argparse.Namespace(epochs=T_ITERS, epoch_start=0, lr=0.01, halo=0)
+    digests, spent, restore = digest_iterates(lbfgs)
+    counters.zero()
+    if stats is not None:
+        stats.update(rounds=0, bytes=0)
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    try:
+        util.optimize(args, "lbfgs", problem, state, callback)
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_start
+    opt = problem._active_optimizer
+    digests.append(hashlib.sha256(opt.x.detach().cpu().numpy().tobytes()).hexdigest())
+    out = {"rows": rows, "digests": digests, "ms": (seconds - spent[0]) * 1e3 / opt.evals, "iters": opt.evals,
+           "digest_ms": spent[0] * 1e3 / opt.evals,
+           "evals": opt.grad_evals / opt.evals, "syncs": opt.host_syncs / opt.evals,
+           "memory_mb": opt.memory_bytes / 1e6, "memory_shape": list(opt.memory.s.shape), "counts": counters.read(),
+           "grad_evals": opt.grad_evals, "spans": problem.domain.mesh.spans_processes}
+    if stats is not None:
+        out.update(rounds=stats["rounds"] / opt.evals, mb=stats["bytes"] / opt.evals / 1e6)
+    return out
+
+
+def idle_build(torch, mesh, dev, spec_part):
+    """t3's problem: the flagship (64x256x256, pallas_mg) on `mesh`, its
+    halo mg route."""
+    from odil_torch.models import veltracer as vt
+
+    problem, state, _ = vt.build(*SIZES["256"], kernel="pallas_mg", device=dev, mesh=mesh, partition=spec_part)
+    grad_fn = problem.make_loss_grad_fn(state, halo=True, halo_fuse="mg")
+    if grad_fn is None or grad_fn.route != "mg":
+        fail(f"phase t3: the halo route on {mesh.shape} is {None if grad_fn is None else grad_fn.route!r}, not 'mg'")
+    return problem, state, grad_fn
+
+
+def idle_run(torch, Adam, grad_fn, domain, x0, counters, stats, stem, dev, rank):
+    """t3's run on this process's blocks `x0`: the epoch-0 loss, the
+    digest of the epoch-0 gradient's blocks and their largest distance from
+    the one-process run's (saved under `stem`), T_HALO_EPOCHS Adam epochs,
+    the launches, the collectives and the ms/epoch."""
+    import hashlib
+
+    ref = torch.load(f"{stem}_idle.pt")
+    (loss0, _), grads = grad_fn(x0, {"epoch": 0})
+    mine = [block_of(domain, r.to(dev), rank) for r in ref["grads"]]
+    if any(g.shape != r.shape for g, r in zip(grads, mine)):
+        fail(f"phase t3: process {rank}'s gradient blocks {[tuple(g.shape) for g in grads]}, the one-process run's "
+             f"{[tuple(r.shape) for r in mine]}")
+    rel = max(float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30) for g, r in zip(grads, mine))
+    digest = hashlib.sha256(b"".join(g.detach().cpu().numpy().tobytes() for g in grads)).hexdigest()
+    counters.zero()
+    stats.update(rounds=0, bytes=0)
+    _, losses, chunk_ms = train(torch, Adam, grad_fn, x0, T_HALO_EPOCHS, lr=0.01)
+    return {"loss0": float(loss0), "grad_rel": rel, "grad_digest": digest, "losses": losses,
+            "ms": steady_ms(chunk_ms)[0], "counts": counters.read(), "rounds": stats["rounds"] / T_HALO_EPOCHS,
+            "mb": stats["bytes"] / T_HALO_EPOCHS / 1e6, "block": list(x0[0].shape),
+            "t_index": domain.mesh.box()["t"][0]}
+
+
+def heat_lane_build(torch, np, lane, dev, mesh=None):
+    """q3's heat problem (64^2, pallas), on `mesh` with t partitioned."""
+    from odil_torch.models import heat as th
+
+    return th.build(nt=lane["nt"], nx=lane["nx"], kernel="pallas", infer_k=True, imposed=lane["imposed"],
+                    nimp=lane["nimp"], seed=lane["seed"], device=dev, mesh=mesh,
+                    partition={"t": "t"} if mesh is not None else None)
+
+
+def spanning_worker(job, rank, world, port, out):
+    """One process of a phase-t job (``chip_smoke.py --dist-worker t..``):
+    joins the group (gloo: the processes share the card), runs the job's
+    routes on this process's blocks, and writes its rows, digests, ms,
+    collectives and launches to ``<out>.<rank>.json``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    import torch.distributed as dist
+
+    from odil_torch import comm, parallel
+    from odil_torch.ops import rowwise as rw
+    from odil_torch.ops import rowwise_mg as rmg
+    from odil_torch.optim import Adam, lbfgs
+    from odil_torch.optim.base import autograd_loss_grad_fn as loss_grad_of
+
+    parallel.init_distributed(f"localhost:{port}", world, rank, backend="gloo",
+                              device=None if DEVICE == "cuda" else DEVICE, timeout=DIST_TIMEOUT)
+    dev = parallel.local_device()
+    counters = Counters(rmg, rw)
+    stats = count_collectives(comm, world)
+    result = {"transport": comm.transport(), "device": str(dev), "runs": {}}
+    stem = os.path.join(os.path.dirname(out), "chip_smoke_t")
+    if job == "t13":
+        result["runs"]["t1"] = lbfgs_run(torch, counters, parallel.mesh_from_spec(MESH_SPEC), dev, stats)
+        # t3: the halo mg route on t:2,q:2; q partitions nothing, so the
+        # processes at q 0 and q 1 are replicas.
+        problem, state, grad_fn = idle_build(torch, parallel.mesh_from_spec(T_IDLE_SPEC), dev, T_IDLE_PART)
+        domain = problem.domain
+        x0 = parallel.shard_state_arrays(domain, domain.arrays_from_state(state))
+        result["runs"]["t3"] = idle_run(torch, Adam, grad_fn, domain, x0, counters, stats, stem, dev, rank)
+    else:
+        # t3's second reference: the same route on t:2 over the two processes
+        # (no idle axis), which t3's replicas must meet to the bit.
+        problem, state, grad_fn = idle_build(torch, parallel.mesh_from_spec("t:2"), dev, T_IDLE_PART)
+        domain = problem.domain
+        x0 = parallel.shard_state_arrays(domain, domain.arrays_from_state(state))
+        result["runs"]["t3 ref"] = idle_run(torch, Adam, grad_fn, domain, x0, counters, stats, stem, dev, rank)
+        # t2: the wave CLI (its default optimizer, L-BFGS) under --mesh t:2
+        # --halo 1, one shard a process.
+        extra = [] if DEVICE == "cuda" else ["--device", DEVICE]
+        digests, _, restore = digest_iterates(lbfgs)
+        stats.update(rounds=0, bytes=0)
+        try:
+            rows, log, counts, (problem, _), seconds = run_cli(torch, counters, "wave", T_WAVE_ARGV + extra)
+        finally:
+            restore()
+        opt = problem._active_optimizer
+        result["runs"]["t2"] = {
+            "rows": rows, "digests": digests, "counts": counts, "ms": log_ms(log), "seconds": seconds,
+            "iters": opt.evals, "grad_evals": opt.grad_evals, "syncs": opt.host_syncs / opt.evals,
+            "memory_mb": opt.memory_bytes / 1e6, "rounds": stats["rounds"] / opt.evals,
+            "mb": stats["bytes"] / opt.evals / 1e6, "spans": problem.domain.mesh.spans_processes,
+        }
+        # t4: multi_start on q3's heat problem with the domain's mesh over the
+        # processes, in each form.
+        with open(HEAT_DATA) as fh:
+            lane = json.load(fh)["config"]
+        for form, (spec, owners, batch_axis) in T_MS_FORMS.items():
+            mesh = parallel.mesh_from_spec(spec)
+            if owners is not None:
+                mesh = parallel.Mesh(mesh.devices, mesh.axis_names, owners=owners)
+            p, st, _ = heat_lane_build(torch, np, lane, dev, mesh)
+            loss_b, stacked = parallel.multi_start(p, st, STARTS, seed=2, scale=0.05,
+                                                   mesh=mesh if batch_axis else None, batch_axis=batch_axis)
+            loss_fn, _ = p.make_loss_fn(st)
+            o = Adam(loss_grad_of(loss_b), stacked, lr=1e-3)
+
+            def row():
+                with torch.no_grad():
+                    return [float(loss_fn([a[i] for a in o.x], p.tracers)[0]) for i in range(len(o.x[0]))]
+
+            rows, losses, ms, counts = [row()], [], [], dict.fromkeys(counters.read(), 0)
+            stats.update(rounds=0, bytes=0)
+            for _ in range(STARTS_KERNEL_EPOCHS // CHUNK):
+                counters.zero()
+                torch.cuda.synchronize()
+                t_start = time.perf_counter()
+                out_ = o.run_chunk(CHUNK, p.tracers)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t_start) * 1e3 / CHUNK)
+                counts = {k: counts[k] + v for k, v in counters.read().items()}
+                losses += out_.cpu().tolist()
+                rows.append(row())
+            result["runs"][f"t4 {form}"] = {
+                "form": loss_b.form, "instances": loss_b.instances, "losses": losses, "rows": rows,
+                "ms": steady_ms(ms)[0], "counts": counts, "rounds": stats["rounds"] / len(losses),
+                "mb": stats["bytes"] / len(losses) / 1e6, "block": list(stacked[0].shape),
+            }
+    with open(f"{out}.{rank}.json", "w") as fh:
+        json.dump(result, fh)
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def mod_cases(np):
+    """name -> fn(mod, A) over fp32 numpy draws (A: numpy to the mod's
+    tensors): every public name of the ctx.mod surface that computes."""
+    rng = np.random.default_rng(16)
+    x = rng.normal(size=(64, 48)).astype(np.float32)
+    y = rng.normal(size=(64, 48)).astype(np.float32)
+    p = (np.abs(x) + 0.5).astype(np.float32)  # the reductions' inputs: no cancellation to magnify roundoff
+    c = rng.normal(size=(2, 3, 4)).astype(np.float32)
+    idx = np.array([[0, 1], [63, 47], [5, 9]])
+    conv_in = {nd: rng.normal(size=(33, 32, 16)[:nd]).astype(np.float32) for nd in (1, 2, 3)}
+    conv_k = {nd: rng.normal(size=(3, 3, 3)[:nd]).astype(np.float32) for nd in (1, 2, 3)}
+    tr_in = {nd: rng.normal(size=(2,) + (17, 16, 8)[:nd] + (3,)).astype(np.float32) for nd in (0, 1, 2, 3)}
+    tr_k = {nd: rng.normal(size=(3, 3, 3)[:nd] + (3, 4)).astype(np.float32) for nd in (0, 1, 2, 3)}
+    return {
+        "abs": lambda m, A: m.abs(A(x)), "arange": lambda m, A: [m.arange(7), m.arange(0.0, 1.0, 0.125)],
+        "arctan2": lambda m, A: m.arctan2(A(x), A(y)),
+        "argmax": lambda m, A: [m.argmax(A(x)), m.argmax(A(x), axis=1)],
+        "argmin": lambda m, A: [m.argmin(A(x)), m.argmin(A(x), axis=0)],
+        "broadcast_to": lambda m, A: m.broadcast_to(A(x[0]), (5, 48)),
+        "clip": lambda m, A: m.clip(A(x), -0.5, 0.5),
+        "concatenate": lambda m, A: [m.concatenate([A(x), A(y)], axis=1), m.concatenate([A(x), A(y)], axis=None)],
+        "cos": lambda m, A: m.cos(A(x)), "cosh": lambda m, A: m.cosh(A(x)),
+        "cumsum": lambda m, A: [m.cumsum(A(p), axis=0), m.cumsum(A(p))],
+        "einsum": lambda m, A: m.einsum("ij,kj->ik", A(p), A(p)), "exp": lambda m, A: m.exp(A(x)),
+        "floor": lambda m, A: m.floor(A(3 * x)), "full": lambda m, A: [m.full((3, 4), 2.5), m.full(3, 2)],
+        "hstack": lambda m, A: m.hstack([A(x), A(y)]),
+        "linspace": lambda m, A: [m.linspace(0, 1, 65), m.linspace(-1, 1, 16, endpoint=False)],
+        "log": lambda m, A: m.log(A(p)), "matmul": lambda m, A: m.matmul(A(p), A(p.T.copy())),
+        "maximum": lambda m, A: m.maximum(A(x), A(y)), "mean": lambda m, A: [m.mean(A(p)), m.mean(A(p), axis=0)],
+        "median": lambda m, A: [m.median(A(x)), m.median(A(x), axis=0)],
+        "meshgrid": lambda m, A: list(m.meshgrid(A(x[0]), A(y[:, 0].copy()))),
+        "minimum": lambda m, A: m.minimum(A(x), A(y)), "moveaxis": lambda m, A: m.moveaxis(A(c), 0, -1),
+        "ones": lambda m, A: m.ones((3, 4)), "ones_like": lambda m, A: m.ones_like(A(x)),
+        "pad": lambda m, A: [m.pad(A(x), ((1, 2), (3, 0)))] + [m.pad(A(x), 2, mode=k) for k in ("wrap", "edge")],
+        "reshape": lambda m, A: m.reshape(A(x), (96, 32)), "roll": lambda m, A: m.roll(A(x), (1, -2), (0, 1)),
+        "sin": lambda m, A: m.sin(A(x)), "sinh": lambda m, A: m.sinh(A(x)),
+        "sqrt": lambda m, A: m.sqrt(A(np.abs(x))), "square": lambda m, A: m.square(A(x)),
+        "stack": lambda m, A: m.stack([A(x), A(y)], axis=1), "std": lambda m, A: [m.std(A(p)), m.std(A(p), axis=1)],
+        "sum": lambda m, A: [m.sum(A(p)), m.sum(A(p), axis=0)], "tanh": lambda m, A: m.tanh(A(x)),
+        "transpose": lambda m, A: m.transpose(A(c)), "where": lambda m, A: m.where(A(x) > 0, A(x), 0.5),
+        "zeros": lambda m, A: m.zeros((3, 4)), "zeros_like": lambda m, A: m.zeros_like(A(x)),
+        "min": lambda m, A: [m.min(A(x)), m.min(A(x), axis=0)], "max": lambda m, A: [m.max(A(x)), m.max(A(x), axis=1)],
+        "flatten": lambda m, A: m.flatten(A(x)), "relu": lambda m, A: m.relu(A(x)),
+        "sigmoid": lambda m, A: m.sigmoid(A(x)), "norm": lambda m, A: m.norm(A(p)),
+        "cast": lambda m, A: [m.cast(A(x), np.float64), m.cast(A(3 * x), np.int32)],
+        "gather_nd": lambda m, A: m.gather_nd(A(x), A(idx)),
+        "split_by_sizes": lambda m, A: m.split_by_sizes(A(x), [16, 48], axis=0),
+        "array": lambda m, A: m.array(x), "constant": lambda m, A: m.constant(x),
+        "variable": lambda m, A: m.variable(x), "copy": lambda m, A: m.copy(A(x)), "native": lambda m, A: m.native(x),
+        "convolution": lambda m, A: [m.convolution(A(conv_in[nd]), A(conv_k[nd]), s, p) for nd in (1, 2, 3)
+                                     for s in (1, 2) for p in ("VALID", "SAME")],
+        "conv_transpose": lambda m, A: [m.conv_transpose(A(tr_in[nd]), A(tr_k[nd]), strides=s, padding=p)
+                                        for nd in (0, 1, 2, 3) for s in (1, 2) for p in ("VALID", "SAME")],
+    }
+
+
+def mod_phase(torch, np, tag):
+    """t5: every computing name of ``ModTorch`` on the card against its
+    result on the CPU (the same fp32 inputs): a tensor on the card, of the
+    CPU result's shape and dtype, the same bits where the operation is exact
+    (``MOD_EXACT``), else within 1e-6 relative (atol 1e-6 of the largest
+    entry); the convolutions with TF32 off; ``random`` on the card: its
+    shapes, dtypes, a seed's draws twice the same and the moments of 1e6
+    draws."""
+    from odil_torch.backend import ModTorch
+
+    card, cpu = ModTorch(DEVICE, x64=False), ModTorch("cpu", x64=False)
+    bad, worst = [], (0.0, None)
+    cases = mod_cases(np)
+    for name, fn in cases.items():
+        got = fn(card, lambda a: torch.from_numpy(a).to(DEVICE))
+        want = fn(cpu, torch.from_numpy)
+        got = got if isinstance(got, (list, tuple)) else [got]
+        want = want if isinstance(want, (list, tuple)) else [want]
+        for g, w in zip(got, want):
+            if g.device.type != torch.device(DEVICE).type or g.shape != w.shape or g.dtype != w.dtype:
+                bad.append(f"{name}: {g.device} {tuple(g.shape)} {g.dtype} vs {tuple(w.shape)} {w.dtype}")
+                continue
+            g = g.cpu()
+            if name in MOD_EXACT or not w.is_floating_point():
+                if not torch.equal(g, w):
+                    bad.append(f"{name}: not the CPU's bits")
+                continue
+            err = float((g.double() - w.double()).abs().max()) if w.numel() else 0.0
+            scale = float(w.double().abs().max()) if w.numel() else 1.0
+            worst = max(worst, (err / max(scale, 1e-30), name), key=lambda t: t[0])
+            if err > 1e-6 * max(scale, 1.0):
+                bad.append(f"{name}: max|d| {err:.3e} (max|w| {scale:.3e})")
+    tf32 = torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32
+    card.random.set_seed(7)
+    a = card.random.normal((1000000,), mean=1.5, stddev=2.0)
+    card.random.set_seed(7)
+    b = card.random.normal((1000000,), mean=1.5, stddev=2.0)
+    u = card.random.uniform((1000000,), minval=-1.0, maxval=3.0)
+    n = a.numel()
+    moments = (abs(float(a.double().mean()) - 1.5) < 5 * 2.0 / n ** 0.5
+               and abs(float(a.double().std()) - 2.0) < 5 * 2.0 / (2 * n) ** 0.5
+               and abs(float(u.double().mean()) - 1.0) < 5 * (16 / 12) ** 0.5 / n ** 0.5
+               and float(u.min()) >= -1.0 and float(u.max()) < 3.0)
+    rand_ok = (a.device.type == u.device.type == torch.device(DEVICE).type and a.dtype == u.dtype == torch.float32
+               and torch.equal(a, b) and moments and isinstance(card.random.next_key(), torch.Generator))
+    print(f"t5 ctx.mod on the card: {len(cases)} names against the CPU, {sum(n in MOD_EXACT for n in cases)} held "
+          f"to the bit; the largest relative distance of the others {worst[0]:.2e} ({worst[1]}); TF32 after the "
+          f"convolutions: {tf32}; random on the card (shapes, dtypes, one seed's draws twice the same, moments of "
+          f"1e6 draws): {rand_ok} {tag}")
+    if bad or tf32 or not rand_ok:
+        fail(f"t5: {bad[:10]}, TF32 {tf32}, random {rand_ok}")
+
+
+def spanning_phase(torch, np, counters, q_refs, tag, extra_argv=()):
+    """Phase t (the module docstring): L-BFGS over processes, --halo with an
+    idle mesh axis over processes, multi_start on a domain mesh over the
+    processes, and the ctx.mod surface on the card.  `q_refs`: phase q's
+    rows (and s4's heat spread).  Returns the launches of the kernels on its
+    paths, summed over the processes.  extra_argv goes to the wave CLI of
+    this process (a rehearsal on the CPU passes --device)."""
+    from odil_torch import parallel
+    from odil_torch.optim import Adam, lbfgs
+
+    dev = torch.device(DEVICE)
+    none = dict.fromkeys(counters.read(), 0)
+    t_t = time.perf_counter()
+    stem = dist_out("t")
+    launches = {}
+
+    def same_on_every_rank(results, run, key):
+        first = results[0]["runs"][run][key]
+        if any(r["runs"][run][key] != first for r in results[1:]):
+            fail(f"phase t: the {run} {key} differ between the processes")
+        return first
+
+    # The single controllers of t1 and t3 on the card: t1's L-BFGS on the mesh
+    # of four shards of the card (the unsharded evaluation), t3's halo mg
+    # route on t:2 of two shards of the card (its epoch-0 gradient saved for
+    # the workers to meet on their blocks, and the spread that one-ulp
+    # gradient noise opens in its rows, three seeds).
+    single = lbfgs_run(torch, counters, parallel.mesh_from_spec(MESH_SPEC, devices=[dev] * 4), dev)
+    one = parallel.mesh_from_spec("t:2", devices=[dev] * 2)
+    problem, state, grad_fn = idle_build(torch, one, dev, T_IDLE_PART)
+    x0 = problem.domain.arrays_from_state(state)
+    torch.save({"grads": [g.detach().cpu() for g in grad_fn(x0, {"epoch": 0})[1]]}, f"{stem}_idle.pt")
+    _, idle_rows, idle_ms = train(torch, Adam, grad_fn, x0, T_HALO_EPOCHS, lr=0.01)
+    idle_spread = 0.0
+    for seed in ROUNDOFF_SEEDS:
+        moved = train(torch, Adam, one_ulp_moves(torch, grad_fn, seed, dev), x0, T_HALO_EPOCHS, lr=0.01)[1]
+        idle_spread = max(idle_spread, max(abs(a - b) / abs(b) for a, b in zip(moved, idle_rows)))
+    del problem, state, grad_fn, x0
+
+    results13 = dist_launch("t13", T_PROCS["t13"], T_HALO_EPOCHS, tag)
+    infos = [r["runs"]["t1"] for r in results13]
+    rows = same_on_every_rank(results13, "t1", "rows")
+    digests = same_on_every_rank(results13, "t1", "digests")
+    info = infos[0]
+    for rank, i in enumerate(infos):
+        expect_counts(i["counts"], dict(none, forward_mg=1, backward_mg=i["grad_evals"] + 1,
+                                        backward_mg_with_sums=i["grad_evals"]), f"phase t1 on process {rank}")
+    launches["backward_mg_sums"] = sum(i["grad_evals"] for i in infos)
+    launches["forward_mg"] = launches["backward_mg"] = len(infos)
+    bits = rows == single["rows"] and digests == single["digests"]
+    print(f"t1 L-BFGS pallas_mg (64x256x256, {MESH_SPEC}, the GSPMD route) over {len(infos)} processes (gloo): "
+          f"{info['iters']} iterations; epoch 0 {rows[0]!r} vs the single controller's {single['rows'][0]!r}; "
+          f"{len(rows)} rows and the whole iterate after every iteration equal to the single controller's to the "
+          f"bit: {bits}; the same iterate bits on every process after each of {len(digests)} iterations: True; "
+          f"{info['ms']:.4f} ms/iteration (process 0; util.optimize's wall, its epoch-0 evaluation and the callback's "
+          f"state gathers included, the iterate's digests ({info['digest_ms']:.1f} ms an iteration) left out) against "
+          f"the single controller's {single['ms']:.4f}; {info['evals']:.3f} "
+          f"loss+grad evaluations and {info['syncs']:.3f} host syncs an iteration; {info['rounds']:.2f} collective "
+          f"rounds and {info['mb']:.3f} MB sent by process 0 an iteration; L-BFGS memory {info['memory_mb']:.1f} MB "
+          f"a process ({tuple(info['memory_shape'])} x2 fp32) {tag}")
+    if not info["spans"] or not bits or len(rows) != T_ITERS + 1:
+        fail(f"t1: mesh over processes {info['spans']}, rows and iterates the single controller's bits {bits}, "
+             f"{len(rows)} rows")
+
+    # t2 and t4: two processes.  t2's reference: the same CLI in this process
+    # on t:2 of two shards of the card.
+    digests0, _, restore = digest_iterates(lbfgs)
+    try:
+        wave_rows, wave_log, *_ = run_cli(torch, counters, "wave", T_WAVE_ARGV + list(extra_argv))
+    finally:
+        restore()
+    results = dist_launch("t24", T_PROCS["t24"], T_HALO_EPOCHS, tag)
+    rows = results[0]["runs"]["t2"]["rows"]
+    if any([{k: v for k, v in r.items() if k not in NOT_VALUES} for r in res["runs"]["t2"]["rows"]]
+           != [{k: v for k, v in r.items() if k not in NOT_VALUES} for r in rows] for res in results[1:]):
+        fail("phase t: the t2 rows differ between the processes")
+    digests = same_on_every_rank(results, "t2", "digests")
+    infos = [r["runs"]["t2"] for r in results]
+    for rank, i in enumerate(infos):
+        expect_counts(i["counts"], dict(none, backward_halo_rows1d=i["grad_evals"],
+                                        forward_rows=i["counts"]["forward_rows"],
+                                        backward_rows=i["counts"]["backward_rows"]), f"phase t2 on process {rank}")
+    launches["backward_halo_rows1d_sums_wave_64"] = sum(i["grad_evals"] for i in infos)
+    info = infos[0]
+    what = (f"t2 wave CLI (64^2 fp32 --kernel pallas, L-BFGS, 200 iterations) under --mesh t:2 --halo 1 over "
+            f"{len(infos)} processes (gloo)")
+    rows_bits = [float(r["loss"]) for r in rows] == [float(r["loss"]) for r in wave_rows]
+    print(f"{what}: epoch 0 {rows[0]['loss']} vs the one-process run's {wave_rows[0]['loss']} (the same bits: "
+          f"{rows[0]['loss'] == wave_rows[0]['loss']}); rows equal to it: {rows_bits}; the iterate the same bits on "
+          f"both processes after each of {len(digests)} iterations: True (the one-process run's: "
+          f"{digests == digests0}); "
+          f"{info['ms']:.4f} ms/epoch (its train.log) against the one-process run's {log_ms(wave_log):.4f}; "
+          f"{info['grad_evals'] / info['iters']:.3f} evaluations and {info['syncs']:.3f} host syncs an iteration; "
+          f"{info['rounds']:.1f} collective rounds and {info['mb']:.4f} MB sent by process 0 an iteration; memory "
+          f"{info['memory_mb']:.2f} MB {tag}")
+    if not info["spans"] or rows[0]["loss"] != wave_rows[0]["loss"]:
+        fail(f"t2: mesh over processes {info['spans']}, epoch 0 {rows[0]['loss']} vs {wave_rows[0]['loss']}")
+    converged_gate(rows, read_rows("ref_wave.csv"), {"error_u": 1.3, "loss": 1.8}, what, tag)
+
+    # t3 against the one-process run on t:2 (epoch 0 to the bit, the gradient
+    # within r1's limit, the rows inside the one-ulp band) and against t24's
+    # run of the same route on t:2 over two processes (no idle axis): every
+    # replica's gradient blocks and rows to the bit.
+    infos = [r["runs"]["t3"] for r in results13]
+    refs = {r["runs"]["t3 ref"]["t_index"]: r["runs"]["t3 ref"] for r in results}
+    losses = same_on_every_rank(results13, "t3", "losses")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, idle_rows)]
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    band = 2 * idle_spread
+    grad_rel = max(i["grad_rel"] for i in infos)
+    replica_bits = all(i["grad_digest"] == refs[i["t_index"]]["grad_digest"] for i in infos)
+    ref_rows = refs[0]["losses"]
+    for rank, i in enumerate(infos):
+        expect_counts(i["counts"], dict(none, backward_mg_local=len(losses)), f"phase t3 on process {rank}")
+    for i in refs.values():
+        expect_counts(i["counts"], dict(none, backward_mg_local=len(losses)), "phase t3's reference over two processes")
+    launches["backward_mg_local_sums"] = len(losses) * (len(infos) + len(refs))
+    info = infos[0]
+    print(f"t3 halo mg (64x256x256) on {T_IDLE_SPEC} (q partitions nothing: processes 0/1 and 2/3 are replicas) "
+          f"over {len(infos)} processes (gloo, block {tuple(info['block'])}): epoch 0 {losses[0]!r} vs the one-process "
+          f"t:2 run's {idle_rows[0]!r} (the same bits: {losses[0] == idle_rows[0]}); every process's gradient blocks "
+          f"and {len(losses)} rows equal to those of the same route on t:2 over two processes to the bit: "
+          f"{replica_bits and losses == ref_rows}; the epoch-0 gradient against the one-process run's, largest "
+          f"max|diff|/max|g| {grad_rel:.3e} (limit {DIST_GRAD_LIMIT:.0e}); rows against the one-process run's (the "
+          f"same bits {losses == idle_rows}), the largest distance epoch {worst} ({rel[worst]:.3e}) within "
+          f"{band:.3e} (one-ulp noise opens {idle_spread:.3e}); {info['ms']:.4f} ms/epoch (process 0) against the "
+          f"one-process run's {steady_ms(idle_ms)[0]:.4f} and two processes' {refs[0]['ms']:.4f}; "
+          f"{info['rounds']:.1f} collective rounds and {info['mb']:.3f} MB sent by process 0 an epoch; one "
+          f"local-block mg backward a process and epoch {tag}")
+    if (losses[0] != idle_rows[0] or not replica_bits or losses != ref_rows or grad_rel > DIST_GRAD_LIMIT
+            or rel[worst] > band):
+        fail(f"t3: epoch 0 the same bits {losses[0] == idle_rows[0]}, replicas' gradient blocks and rows the "
+             f"two-process run's {replica_bits} {losses == ref_rows}, gradient {grad_rel:.3e}, epoch {worst} rel "
+             f"{rel[worst]:.3e} (band {band:.3e})")
+
+    ref_rows, ref_inst = q_refs["q3 heat"], q_refs["q3 heat rows"]
+    rtol = 2 * q_refs["q3 heat spread"]
+    for form in T_MS_FORMS:
+        run = f"t4 {form}"
+        losses = same_on_every_rank(results, run, "losses")
+        infos = [r["runs"][run] for r in results]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_rows)]
+        worst = max(range(len(rel)), key=rel.__getitem__)
+        inst_rel = 0.0
+        for i in infos:
+            for got, want in zip(i["rows"], ref_inst):
+                for n, k in enumerate(i["instances"]):
+                    inst_rel = max(inst_rel, abs(got[n] - want[k]) / abs(want[k]))
+        for rank, i in enumerate(infos):
+            per = STARTS * len(losses)
+            expect_counts(i["counts"], dict(none, forward_rows=per, backward_rows=per), f"phase t4 {form} on process {rank}")
+        n = STARTS * len(losses) * len(infos)
+        launches["forward_rows_heat_64"] = launches.get("forward_rows_heat_64", 0) + n
+        launches["backward_rows_heat_64"] = launches.get("backward_rows_heat_64", 0) + n
+        instances = [i["instances"] for i in infos]
+        print(f"t4 multi_start heat 64^2 pallas, form {form} ({T_MS_FORMS[form][0]}, batch axis "
+              f"{T_MS_FORMS[form][2]}; instances {instances}, stacked block {tuple(infos[0]['block'])}, loss_fn_b "
+              f"{infos[0]['form']}): {len(losses)} batch-mean rows against q3's, the largest distance epoch {worst} "
+              f"({rel[worst]:.3e}, limit {rtol:.3e}); every instance's rows against q3's same instance largest rel "
+              f"{inst_rel:.2e}; {infos[0]['ms']:.4f} ms/epoch (process 0), {infos[0]['rounds']:.1f} collective rounds "
+              f"and {infos[0]['mb']:.4f} MB sent an epoch {tag}")
+        if infos[0]["form"] != "loop" or rel[worst] > rtol or inst_rel > max(rtol, 1e-5):
+            fail(f"t4 {form}: form {infos[0]['form']}, epoch {worst} rel {rel[worst]:.3e} (limit {rtol:.3e}), "
+                 f"instance rows rel {inst_rel:.2e}")
+
+    mod_phase(torch, np, tag)
+    print(f"phase t: {time.perf_counter() - t_t:.1f} s {tag}")
     return launches
 
 
@@ -2359,7 +2901,6 @@ def mesh_phase(torch, np, counters, heat_lane, vt_rows, vt_ms, vt_epochs, poisso
 
     from odil_torch import parallel
     from odil_torch.halo import make_halo_loss_fn
-    from odil_torch.models import heat as th
     from odil_torch.models import poisson as tpo
     from odil_torch.models import veltracer as vt
     from odil_torch.optim import Adam
@@ -2475,8 +3016,7 @@ def mesh_phase(torch, np, counters, heat_lane, vt_rows, vt_ms, vt_epochs, poisso
         fail(f"multi_start on poisson: form {loss_b.form}, epoch-0 rel {rel0:.2e} (limit 1e-12), losses {l0} -> {l1}")
     del p, s, loss_b, stacked, opt
 
-    p, s, _ = th.build(nt=heat_lane["nt"], nx=heat_lane["nx"], kernel="pallas", infer_k=True,
-                       imposed=heat_lane["imposed"], nimp=heat_lane["nimp"], seed=heat_lane["seed"], device=dev)
+    p, s, _ = heat_lane_build(torch, np, heat_lane, dev)
     loss_b, stacked = parallel.multi_start(p, s, STARTS, seed=2, scale=0.05)
     loss_fn, _ = p.make_loss_fn(s)
 
@@ -2584,8 +3124,10 @@ def main():
         job, rank, world, port, out = args.dist_worker
         if job.startswith("s"):
             routes_worker(job, int(rank), int(world), port, out)
+        elif job.startswith("t"):
+            spanning_worker(job, int(rank), int(world), port, out)
         else:
-            dist_worker(job, int(rank), int(world), port, out, args.epochs)
+            dist_worker(job, int(rank), int(world), port, out)
         return
 
     import numpy as np
@@ -3492,6 +4034,15 @@ def main():
         launches[name] += n
         print(f"phase s: {name} +{n} launches (s) {tag}")
 
+    # t. L-BFGS over processes, --halo with an idle mesh axis, multi_start on
+    # a domain mesh over processes, and the ctx.mod surface on the card.
+    t_t = time.perf_counter()
+    t_launches = spanning_phase(torch, np, counters, q_refs, tag)
+    t_t = time.perf_counter() - t_t
+    for name, n in t_launches.items():
+        launches[name] += n
+        print(f"phase t: {name} +{n} launches (t) {tag}")
+
     idle = [name for name in report if launches.get(name, 0) < 1]
     if idle:
         fail(f"kernels not launched on their paths: {idle}")
@@ -3709,7 +4260,8 @@ def main():
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
 
-    print(f"seconds: phase p {t_p:.1f}, phase q {t_q:.1f}, phase r {t_r:.1f}, phase s {t_s:.1f}, the script from its "
+    print(f"seconds: phase p {t_p:.1f}, phase q {t_q:.1f}, phase r {t_r:.1f}, phase s {t_s:.1f}, phase t {t_t:.1f}, the "
+          f"script from its "
           f"start (the kernels' build included) "
           f"{time.perf_counter() - t_main:.1f} {tag}")
     print(json.dumps({"kernels": kernels}))

@@ -11,21 +11,24 @@ autograd Function over ``torch.distributed``'s default group:
   cotangents back and receives those of the sent ones;
 - ``psum_table(values, index, count)``: every process's per-shard values
   gathered into one table in shard order, the same bits on every process
-  (the caller folds the rows in that order); its backward takes the rows of
-  the process's own shards, since every process evaluates the same loss;
+  (the caller folds the rows in that order; a shard that several processes
+  evaluate, replicas along an idle mesh axis, enters once, from the lowest
+  rank); its backward takes the rows of the process's own shards, since
+  every process evaluates the same loss;
 - ``replicas(xs, group)``: the identity forward; backward, the cotangents
   of the processes that hold the same blocks, summed in rank order;
 - ``gather(xs, specs)``: the whole arrays from every process's blocks;
-  backward, each process's block of every process's cotangent, summed in
-  rank order;
+  backward, each process's block of every process's cotangent (or of those
+  of a ``group``, one replica), summed in rank order;
 - ``gather_replicated(xs, specs)``: the same whole arrays, for an
   evaluation that every process runs whole (the GSPMD route over
   processes); backward, this process's block of its own cotangent, since
   every process differentiates the same function of them;
-- ``allsum(x)``: the sum of every process's ``x`` (whole x-space vectors
-  of Gauss-Newton), added in rank order, so every process gets the same
-  bits; backward, the identity, as for ``psum_table``; under
-  ``torch.func.vmap`` one exchange for the whole batch.
+- ``allsum(x)``: the sum of every process's ``x`` (or of a ``group``'s;
+  whole x-space vectors of Gauss-Newton), added in rank order, so every
+  process gets the same bits; backward, the identity, as for
+  ``psum_table``; under ``torch.func.vmap`` one exchange for the whole
+  batch.
 
 Each call is one round of messages, one a peer: its pieces are packed.
 
@@ -219,7 +222,8 @@ class _PsumTable(torch.autograd.Function):
         table = [None] * count
         for r, part in enumerate(parts):
             for n, g in enumerate(index[r]):
-                table[g] = part[n]
+                if table[g] is None:
+                    table[g] = part[n]
         return torch.zeros(()), torch.stack(table).to(values.device)
 
     @staticmethod
@@ -230,7 +234,8 @@ class _PsumTable(torch.autograd.Function):
 def psum_table(values, index, count):
     """``values`` (one row per shard of this process) gathered from every
     process into a (count, ...) table in shard order; ``index[r]``: the
-    shard numbers of process r's rows.  Every process gets the same table,
+    shard numbers of process r's rows (a shard in several processes' lists
+    takes the row of the first of them).  Every process gets the same table,
     and with it the same sums when it folds the rows in order.  The backward
     is local: it assumes, as the halo route's losses guarantee, that every
     process differentiates the same function of the table."""
@@ -290,6 +295,7 @@ class _Gather(torch.autograd.Function):
     def forward(ctx, spec, token, *xs):
         me = rank()
         ctx.spec = spec
+        spec = spec[0]
         ctx.chained = token is not None
         ctx.blocks = [x.shape for x in xs]
         # One holder (the lowest rank) a distinct block sends it to the
@@ -318,15 +324,15 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, _gtoken, *gs):
         me = rank()
-        world = len(ctx.spec[0][0])
-        others = [r for r in range(world) if r != me]
+        specs, group = ctx.spec
+        others = [r for r in group if r != me]
         gs = [g.contiguous() for g in gs]
-        sends = [(r, i, g[_slices(regions[r])]) for r in others for i, (g, (regions, _)) in enumerate(zip(gs, ctx.spec))]
+        sends = [(r, i, g[_slices(regions[r])]) for r in others for i, (g, (regions, _)) in enumerate(zip(gs, specs))]
         recvs = [(r, i, ctx.blocks[i], g.dtype, g.device) for r in others for i, g in enumerate(gs)]
         got = iter(_exchange(sends, recvs))
         parts = {r: [next(got) for _ in gs] for r in others}
-        parts[me] = [g[_slices(regions[me])] for g, (regions, _) in zip(gs, ctx.spec)]
-        sums = [_fold({r: parts[r][i] for r in range(world)}, list(range(world))) for i in range(len(gs))]
+        parts[me] = [g[_slices(regions[me])] for g, (regions, _) in zip(gs, specs)]
+        sums = [_fold({r: parts[r][i] for r in group}, list(group)) for i in range(len(gs))]
         return (None, _token_grad(ctx)) + tuple(sums)
 
 
@@ -338,15 +344,21 @@ def _region_shape(region):
     return tuple(hi - lo for lo, hi in region)
 
 
-def gather(xs, specs, chain):
+def _gather_spec(specs, group):
+    world = len(specs[0][0])
+    return tuple((tuple(r), tuple(s)) for r, s in specs), tuple(range(world) if group is None else group)
+
+
+def gather(xs, specs, chain, group=None):
     """The whole arrays from every process's blocks of them, in one
     exchange: ``specs[i] = (regions, shape)``, ``regions[r]`` process r's
     block of array i as ((lo, hi) per dimension).  The backward gives this
-    process the sum, in rank order, of every process's cotangent over its
-    block."""
+    process the sum, in rank order, of the cotangents over its block of the
+    processes of ``group`` (sorted ranks, this one included; default every
+    process): one replica, where several evaluate the same function."""
     if not xs or len(specs[0][0]) == 1:
         return list(xs)
-    return _apply(_Gather, tuple((tuple(r), tuple(s)) for r, s in specs), list(xs), chain)
+    return _apply(_Gather, _gather_spec(specs, group), list(xs), chain)
 
 
 
@@ -355,7 +367,7 @@ class _GatherReplicated(_Gather):
     @staticmethod
     def backward(ctx, _gtoken, *gs):
         me = rank()
-        return (None, _token_grad(ctx)) + tuple(g[_slices(regions[me])] for g, (regions, _) in zip(gs, ctx.spec))
+        return (None, _token_grad(ctx)) + tuple(g[_slices(regions[me])] for g, (regions, _) in zip(gs, ctx.spec[0]))
 
 
 def gather_replicated(xs, specs, chain):
@@ -367,28 +379,29 @@ def gather_replicated(xs, specs, chain):
     there."""
     if not xs or len(specs[0][0]) == 1:
         return list(xs)
-    return _apply(_GatherReplicated, tuple((tuple(r), tuple(s)) for r, s in specs), list(xs), chain)
+    return _apply(_GatherReplicated, _gather_spec(specs, None), list(xs), chain)
 
 
 # -- Sums of whole vectors --------------------------------------------------
 
 
-def _allsum(x):
-    """Every process's ``x`` summed in rank order (one all_gather)."""
+def _allsum(x, group):
+    """The ``x`` of the processes of ``group`` summed in rank order (one
+    all_gather of every process's)."""
     wire = _wire(x)
     parts = [torch.empty_like(wire) for _ in range(world_size())]
     try:
         dist.all_gather(parts, wire)
     except Exception as e:  # noqa: BLE001 -- re-raised as the one error no caller takes
         raise CollectiveError(f"all_gather of a vector to sum failed: {e}") from e
-    return _fold([p.to(x.device, non_blocking=True) for p in parts], list(range(len(parts))))
+    return _fold([p.to(x.device, non_blocking=True) for p in parts], list(group or range(len(parts))))
 
 
 class _AllSum(torch.autograd.Function):
 
     @staticmethod
-    def forward(x):
-        return _allsum(x)
+    def forward(x, group):
+        return _allsum(x, group)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -396,21 +409,24 @@ class _AllSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return g
+        return g, None
 
     @staticmethod
-    def vmap(info, in_dims, x):
-        return _allsum(x), in_dims[0]
+    def vmap(info, in_dims, x, group):
+        return _allsum(x, group), in_dims[0]
 
 
-def allsum(x):
+def allsum(x, group=None):
     """The sum of every process's ``x`` (a whole vector of one shape on
     every process), added in rank order: the same bits on every process.
     Gauss-Newton's transposed products over processes: each process pulls
     its residual block back to a whole x-space vector, and these are summed.
-    Its backward is the identity (every process differentiates the same
-    function of the sum, as for ``psum_table``); under ``torch.func.vmap``
-    the batch is summed in one exchange."""
+    ``group``: the sorted ranks whose vectors are summed (default every
+    process; one replica where several evaluate the same residual blocks);
+    every process still takes part in the exchange.  Its backward is the
+    identity (every process differentiates the same function of the sum, as
+    for ``psum_table``); under ``torch.func.vmap`` the batch is summed in
+    one exchange."""
     if world_size() == 1:
         return x
-    return _AllSum.apply(x)
+    return _AllSum.apply(x, tuple(group) if group is not None else None)

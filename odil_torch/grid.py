@@ -92,8 +92,10 @@ class Domain:
                 if name not in self.dimnames or axis not in sizes:
                     raise ValueError(f"Domain: partition {name!r} -> {axis!r} names no grid dimension or mesh axis")
         self.device = torch.device(device)
-        self.mod = ModTorch(self.device)
         self.dtype = np.dtype(dtype) if dtype is not None else runtime.default_dtype()
+        # A float64 grid turns on 64-bit defaults, as the JAX package's
+        # Domain turns on jax_enable_x64.
+        self.mod = ModTorch(self.device, x64=True if self.dtype == np.float64 else None)
         self.lower = (np.ones(ndim) * lower).astype(self.dtype)
         self.upper = (np.ones(ndim) * upper).astype(self.dtype)
 

@@ -30,7 +30,15 @@ the program is a single controller that loops over them in a fixed order:
 
 Mesh axes that partition no grid dimension replicate every block: the
 controller evaluates each distinct block once (the JAX package's psum over
-the partitioning axes only, with the replicas in the counts).
+the partitioning axes only, with the replicas in the counts).  Across
+processes whose positions differ along such an idle axis, each process
+evaluates the shards it owns, as every device along an idle axis evaluates
+a replica in the JAX package: a replica is the set of processes at one
+index along the idle axes (``_HaloPlan.replica_group``); the halo exchanges
+pair the processes of one replica, each shard's sums enter the table once
+(``comm.psum_table`` takes a row from the lowest rank that holds it), and
+the cotangents are summed over the processes of one replica only, so that
+every replica holds the same gradient, counted once.
 
 The multigrid ladder runs per shard by default (``mg_ladder="local"``):
 the finest level is sliced like a field, the coarser levels are whole, and
@@ -400,26 +408,25 @@ class _HaloPlan:
         # The partitioning axes, in mesh order; a shard is one block of them.
         self.used_axes = tuple(a for a in self.mesh.axis_names if a in set(self.dim_axis.values()))
         self.axis_pos = {a: p for p, a in enumerate(self.used_axes)}
+        # Across processes: this process's shards, on its device; the sums go
+        # through the group whenever one spans the mesh's processes.  The
+        # owner of a shard is the process that holds its position in this
+        # process's replica (its index along the idle axes).
+        self.spmd = self.mesh.spans_processes
+        replicas = {r: self._replica_of(r) for r in self.mesh.processes}
+        me = self.mesh.process
+        self.replica_group = [r for r in self.mesh.processes if replicas[r] == replicas[me]]
         self.shards = []
         for n, key in enumerate(np.ndindex(*[self.axis_sizes[a] for a in self.used_axes])):
             index = dict(zip(self.used_axes, (int(i) for i in key)))
             self.shards.append(_Shard(index, tuple(int(i) for i in key), self.mesh.device_at(index),
-                                      self.mesh.owner_at(index), n))
-        # Across processes: this process's shards, on its device; the sums go
-        # through the group whenever one spans the mesh's processes.
-        self.spmd = self.mesh.spans_processes
-        if self.spmd:
-            idle = [a for a in self.mesh.axis_names if a not in self.used_axes and self.axis_sizes[a] > 1]
-            if idle:
-                raise NotImplementedError(
-                    f"halo mode over several processes: mesh axes {idle} partition no grid dimension (each "
-                    "process would evaluate replicas of other processes' shards); drop them from the mesh"
-                )
-        self.local_shards = [s for s in self.shards if s.owner == self.mesh.process]
+                                      self.mesh.owner_at(dict(replicas[me], **index)), n))
+        self.local_shards = [s for s in self.shards if s.owner == me]
         self.owner = {s.key: s.owner for s in self.shards}
         self.number = {s.key: s.number for s in self.shards}
         self.reduces = comm.initialized() and len(self.mesh.processes) == comm.world_size()
-        self.process_shards = [[s.number for s in self.shards if s.owner == r] for r in self.mesh.processes]
+        self.process_shards = [[s.number for s in self.shards if self.mesh.owner_at(dict(replicas[r], **s.index)) == r]
+                               for r in self.mesh.processes]
         self.first = self.mesh.local_device
         self.names, self.locs, self.widths, self.param_keys = self._discover(problem, state)
         self._validate(problem, state)
@@ -433,6 +440,26 @@ class _HaloPlan:
         # The order of the backward's collectives; each evaluation starts a
         # new chain (``comm.Chain``).
         self.chain = comm.Chain()
+
+    def _replica_of(self, process):
+        """{idle axis: first index} of ``process``'s positions along the mesh
+        axes that partition no grid dimension: the processes of one replica
+        share it.  ValueError unless every process's positions span the same
+        count along each such axis, aligned to it (then each replica holds
+        every shard exactly once)."""
+        idle = [a for a in self.mesh.axis_names if a not in self.used_axes]
+        if not self.mesh.spans_processes:
+            return dict.fromkeys(idle, 0)
+        boxes = {r: self.mesh.box(r) for r in self.mesh.processes}
+        for a in idle:
+            counts = {boxes[r][a][1] for r in boxes}
+            if len(counts) > 1 or any(boxes[r][a][0] % boxes[r][a][1] for r in boxes):
+                raise ValueError(
+                    f"halo mode over several processes: the processes' positions along mesh axis {a!r}, which "
+                    f"partitions no grid dimension, are not blocks of one size: "
+                    f"{ {r: boxes[r][a] for r in boxes} }"
+                )
+        return {a: boxes[process][a][0] for a in idle}
 
     def every_shard(self):
         """Every shard of the mesh, in shard order, on this process's device:
@@ -462,6 +489,7 @@ class _HaloPlan:
             return
         domain = self.domain
         ranks = list(self.mesh.processes)
+        replica = self.replica_group
         for key, f in state.fields.items():
             arrs = field_arrays(f)
             if isinstance(f, Field):
@@ -473,14 +501,14 @@ class _HaloPlan:
             for n, (kind, a) in enumerate(zip(kinds, arrs)):
                 shape = tuple(a.shape)
                 if kind == "param" or a.ndim != domain.ndim:
-                    self.storage.append(("param", shape, None, ranks))
+                    self.storage.append(("param", shape, None, replica))
                     continue
                 sharding = domain.field_sharding(shape=shape)
                 regions = [sharding.region(shape, r) for r in ranks]
                 mine = regions[ranks.index(self.mesh.process)]
                 if n == 0:
                     self.starts[key] = tuple(lo for lo, _ in mine)
-                group = [r for r, reg in zip(ranks, regions) if reg == mine]
+                group = [r for r, reg in zip(ranks, regions) if reg == mine and r in replica]
                 self.storage.append((kind, shape, regions, group))
 
     def inputs(self, arrays, global_ladder=False, kinds=("block", "whole", "param")):
@@ -504,7 +532,8 @@ class _HaloPlan:
         for key, idx in batches.items():
             xs = [arrays[i] for i in idx]
             if key[0] == "gather":
-                got = comm.gather(xs, [(self.storage[i][2], self.storage[i][1]) for i in idx], self.chain)
+                got = comm.gather(xs, [(self.storage[i][2], self.storage[i][1]) for i in idx], self.chain,
+                                  group=self.replica_group)
             else:
                 got = comm.replicas(xs, list(key[1]), self.chain)
             for i, x in zip(idx, got):
@@ -1267,7 +1296,7 @@ def _spread_residual_space(f, plan, values, other_shapes, stitch_dims):
             out.append(b.reshape(-1))
         return torch.cat(out)
 
-    f.reduce_x = comm.allsum
+    f.reduce_x = lambda v: comm.allsum(v, group=plan.replica_group)
     f.term_sums = term_sums
     f.term_counts = counts
     f.local_part = local_part

@@ -60,15 +60,25 @@ class Optimizer:
         self.loss_grad_fn = None  # Optional fused loss+grad (see bind()).
         self.tracers = None  # Tracer template; 'epoch' is set in the loop.
         self.task_epochs = None  # Sorted epochs at which the callback must run.
+        # The arrays whole from this process's blocks and back (identities
+        # unless the state is held in blocks over several processes).
+        self.whole = self.blocks = list
 
-    def bind(self, loss_fn, tracers=None, task_epochs=None, names=None, max_chunk=512, loss_grad_fn=None):
+    def bind(self, loss_fn, tracers=None, task_epochs=None, names=None, max_chunk=512, loss_grad_fn=None,
+             whole=None, blocks=None):
         """Installs the loss function and the callback schedule.
 
         loss_grad_fn: optional fused (arrays, tracers) ->
         ((loss, (terms, norms)), grads), e.g. ``Problem.make_loss_grad_fn``;
         gradient optimizers use it when set, and autograd of loss_fn
-        otherwise."""
+        otherwise.  whole, blocks: where the arrays are this process's
+        blocks of a state over several processes, the maps from the blocks
+        to the whole arrays (a collective, ``parallel.gather_state_arrays``)
+        and back (``parallel.shard_state_arrays``); the optimizers that work
+        on whole vectors (L-BFGS) use them."""
         self.loss_fn = loss_fn
+        self.whole = whole or list
+        self.blocks = blocks or list
         self.loss_grad_fn = loss_grad_fn
         self.tracers = dict(tracers) if tracers else dict()
         self.task_epochs = task_epochs

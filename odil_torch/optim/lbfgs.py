@@ -30,6 +30,17 @@ within the iteration.  Iterations run in the chunks of ``Optimizer._chunks``;
 the last step's terms and norms reach the callback through ``_emit``.  If
 max|grad| at a chunk's last iterate is below ``pgtol``, ``EarlyStopError``
 is raised with the JAX package's optinfo fields.
+
+Over several processes (a state held in blocks, ``Optimizer.bind``'s
+``whole`` and ``blocks`` maps) the iterate, the gradient and the memory are
+whole on every process, as the JAX package's optax state is a global array:
+each evaluation takes this process's blocks of the iterate and the
+gradient's blocks are gathered whole after it (``whole``, which takes an
+entry that several processes hold once, from one of them).  The values are
+the route's loss, the same bits on every process, so the recursion and the
+line search run unchanged and every process takes the same branches with
+no collective of their own; the memory costs 2 m whole state vectors a
+process (``memory_bytes``).
 """
 
 from argparse import Namespace
@@ -227,7 +238,14 @@ class LbfgsOptimizer(Optimizer):
                 "LbfgsOptimizer requires a bound device loss function; use util.optimize_grad or call "
                 ".bind(loss_fn, ...)"
             )
-        grad_fn = self._grad_fn()
+        block_grad_fn = self._grad_fn()
+        whole, blocks = self.whole, self.blocks
+
+        def grad_fn(arrays, tracers):
+            out, grads = block_grad_fn(blocks(arrays), tracers)
+            return out, whole(grads)
+
+        x0 = whole([a.detach() for a in x0])
         shapes = [tuple(a.shape) for a in x0]
         sizes = [int(np.prod(s)) for s in shapes]
 
@@ -237,7 +255,7 @@ class LbfgsOptimizer(Optimizer):
         def flat(arrays):
             return torch.cat([a.reshape(-1) for a in arrays])
 
-        x = flat([a.detach() for a in x0])
+        x = flat(x0)
         self.x = x
         self.memory = memory = _Memory(self.m, x)
         tracers = dict(self.tracers)
@@ -272,7 +290,7 @@ class LbfgsOptimizer(Optimizer):
             self.x = x
             self.evals += n
             stacked = (losses, torch.stack(list(terms))[None], torch.stack(list(norms))[None])
-            self._emit(callback, unflat(x), epoch, stacked, n)
+            self._emit(callback, blocks(unflat(x)), epoch, stacked, n)
             epoch += n
             gmax = float(gmax)
             self.host_syncs += 1
@@ -282,7 +300,14 @@ class LbfgsOptimizer(Optimizer):
                     task=f"CONVERGED: max|grad|={gmax:.3e} < pgtol={self.pgtol:.3e}",
                     evals=self.evals,
                     epochs=epoch - epoch_start,
-                    x=unflat(x),
+                    x=blocks(unflat(x)),
                 )
                 raise EarlyStopError(optinfo.task, optinfo)
-        return unflat(x), Namespace(epochs=epochs, evals=self.evals)
+        return blocks(unflat(x)), Namespace(epochs=epochs, evals=self.evals)
+
+    @property
+    def memory_bytes(self):
+        """The bytes of the last run's (s, y) ring on its device (2 m whole
+        state vectors, on every process)."""
+        s = self.memory.s
+        return 2 * s.numel() * s.element_size()

@@ -38,7 +38,9 @@ A Domain with a mesh takes both of the JAX package's mesh routes:
 
 ``multi_start`` batches independent starts of one problem along a leading
 instance axis; with its ``batch_axis`` on a mesh over several processes
-each process runs its block of the instances.
+each process runs its block of the instances, and on a problem whose
+domain mesh spans processes each process holds its domain blocks of the
+instances and gathers them whole for the batched evaluation.
 
 A mesh over more than one distinct card inside one process raises
 ``NotImplementedError``: the per-shard kernels launch on the current card's
@@ -450,8 +452,18 @@ def multi_start(problem, state, nstarts, seed=0, scale=1.0, mesh=None, batch_axi
     instances, gathers every instance's loss, terms and norms into one table
     in instance order (``comm.psum_table``) and takes the mean of each
     column as the single controller takes it; its backward keeps the
-    process's own rows.  A problem whose domain mesh spans processes as well
-    raises ``NotImplementedError``.
+    process's own rows.
+
+    A problem whose domain mesh spans processes holds each instance in the
+    domain's blocks: ``stacked`` is this process's block of each stacked
+    array, along the domain's partition and, with ``batch_axis`` (an axis
+    of the domain's own mesh, which ``mesh`` must then be), along the
+    instances.  Without ``batch_axis`` every process holds every instance.
+    ``loss_fn_b`` gathers the stacked arrays whole outside the batched
+    evaluation (``comm.gather_replicated``, as the GSPMD route gathers, so
+    that no collective runs under ``torch.func``), evaluates every instance
+    as the single controller does, and its backward keeps this process's
+    block of each instance's gradient.
 
     per_instance: optional {field name: array of shape (nstarts, *field)}
     giving each instance its own value of that unknown (the idiom for batched
@@ -467,10 +479,27 @@ def multi_start(problem, state, nstarts, seed=0, scale=1.0, mesh=None, batch_axi
     calls, each launching the kernel as the single-start run does."""
     from .fields import field_arrays
 
-    refuse_processes(problem.domain.mesh, "multi_start with a domain mesh",
-                     "give the domain a mesh of one process (or none) and put the processes on the batch axis "
-                     "of multi_start's mesh")
-    loss_fn, arrays = problem.make_loss_fn(state)
+    domain = problem.domain
+    spatial = problem._over_processes()
+    if spatial:
+        # The single controller's loss on the whole arrays, and the whole
+        # state's arrays: the stacked blocks are gathered before it.
+        def loss_fn(arrays, tracers):
+            loss, terms, norms = problem.loss_terms(arrays, tracers)
+            return loss, (terms, norms)
+
+        problem._capture_structure(state)
+        arrays = domain.arrays_from_state(state)
+        if batch_axis is not None:
+            if mesh is not None and mesh is not domain.mesh:
+                raise ValueError("multi_start: with a domain mesh over several processes the batch axis is an axis "
+                                 "of the domain's own mesh; pass mesh=problem.domain.mesh")
+            if batch_axis not in domain.mesh.axis_names or batch_axis in domain.partition.values():
+                raise ValueError(f"multi_start: batch axis {batch_axis!r} must be an axis of the domain's mesh "
+                                 f"{domain.mesh.axis_names} that partitions no grid dimension")
+        mesh = domain.mesh
+    else:
+        loss_fn, arrays = problem.make_loss_fn(state)
     index_of, pos = {}, 0
     for name, fobj in state.fields.items():
         n = len(field_arrays(fobj))
@@ -492,15 +521,15 @@ def multi_start(problem, state, nstarts, seed=0, scale=1.0, mesh=None, batch_axi
         overrides[start] = value
 
     generator = torch.Generator(device="cpu").manual_seed(int(seed))
-    sharded = mesh is not None and batch_axis is not None
-    spread = sharded and mesh.spans_processes
-    if spread:
+    sharded = mesh is not None and (batch_axis is not None or spatial)
+    spread = sharded and mesh.spans_processes and not spatial
+    if sharded and mesh.spans_processes:
         batch = NamedSharding(mesh, PartitionSpec(batch_axis))
         index = [list(range(*batch.region((nstarts,), r)[0])) for r in mesh.processes]
         mine = index[mesh.processes.index(mesh.process)]
     else:
         mine = list(range(nstarts))
-    stacked = []
+    stacked, gathers = [], []
     for i, a in enumerate(arrays):
         if i in overrides:
             batched = overrides[i].to(device=a.device, dtype=a.dtype)
@@ -511,7 +540,13 @@ def multi_start(problem, state, nstarts, seed=0, scale=1.0, mesh=None, batch_axi
             noise[0] = 0.0
             batched = a.detach()[None] + noise.to(a.device)
         if sharded:
-            batched = NamedSharding(mesh, PartitionSpec(batch_axis, *([None] * a.ndim))).place(batched)
+            inner = [None] * a.ndim
+            if spatial and a.ndim == domain.ndim:
+                inner = list(domain.field_sharding(shape=tuple(a.shape)).spec)
+            sharding = NamedSharding(mesh, PartitionSpec(batch_axis, *inner))
+            shape = tuple(batched.shape)
+            gathers.append(([sharding.region(shape, r) for r in mesh.processes], shape))
+            batched = sharding.place(batched)
         stacked.append(batched)
 
     def mean(t):
@@ -529,10 +564,19 @@ def multi_start(problem, state, nstarts, seed=0, scale=1.0, mesh=None, batch_axi
             losses, terms, norms = cols[0], cols[1: 1 + len(terms)], cols[1 + len(terms):]
         return mean(losses), ([mean(t) for t in terms], [mean(n) for n in norms])
 
+    def whole(arrays_b):
+        """The stacked arrays whole, where the domain's mesh spans processes."""
+        if not spatial:
+            return arrays_b
+        from . import comm
+
+        return comm.gather_replicated(list(arrays_b), gathers, comm.Chain())
+
     if _reaches_kernels(problem, state):
 
         def loss_fn_b(arrays_b, tracers):
-            outs = [loss_fn([a[i] for a in arrays_b], tracers) for i in range(len(mine))]
+            arrays_b = whole(arrays_b)
+            outs = [loss_fn([a[i] for a in arrays_b], tracers) for i in range(len(arrays_b[0]))]
             losses = torch.stack([loss for loss, _ in outs])
             terms = [torch.stack(t) for t in zip(*[o[1][0] for o in outs])]
             norms = [torch.stack(n) for n in zip(*[o[1][1] for o in outs])]
@@ -546,7 +590,7 @@ def multi_start(problem, state, nstarts, seed=0, scale=1.0, mesh=None, batch_axi
                 loss, (terms, norms) = loss_fn(list(arrs), tracers)
                 return loss, tuple(terms), tuple(norms)
 
-            losses, terms, norms = torch.func.vmap(one)(*arrays_b)
+            losses, terms, norms = torch.func.vmap(one)(*whole(arrays_b))
             return batch_mean(losses, terms, norms)
 
         loss_fn_b.form = "vmap"

@@ -265,8 +265,6 @@ def _profiler(profile_dir, device):
 
 # What to use instead of the optimizers that do not run over several processes.
 _NOT_OVER_PROCESSES = {
-    "lbfgs": ("the on-device L-BFGS (its two-loop recursion and line search would need psums over the blocks)",
-              "use --optimizer adam or gd, or gn (matrix-free Gauss-Newton)"),
     "lbfgsb": ("L-BFGS-B (scipy's, on one host's whole vector)",
                "use --optimizer adam or gd, or gn (matrix-free Gauss-Newton)"),
     "newton": ("the sparse Newton (Problem.linearize assembles the Jacobian on one host)",
@@ -289,7 +287,9 @@ def optimize_grad(args, optname, problem, state, callback=None, **kwargs):
     Over several processes the optimizer updates this process's blocks of
     the arrays (``parallel.shard_state_arrays``), and the state that the
     callback sees, and that is left in ``state``, is gathered whole
-    (``parallel.gather_state_arrays``) on every process."""
+    (``parallel.gather_state_arrays``) on every process.  The L-BFGS keeps
+    its iterate whole on every process through the same two maps
+    (``Optimizer.bind``'s ``whole`` and ``blocks``)."""
     from . import parallel
 
     domain = problem.domain
@@ -360,6 +360,8 @@ def optimize_grad(args, optname, problem, state, callback=None, **kwargs):
         names=names,
         max_chunk=getattr(args, "max_chunk", 512) or 512,
         loss_grad_fn=loss_grad_fn,
+        whole=whole,
+        blocks=lambda arrays: parallel.shard_state_arrays(domain, arrays),
     )
 
     profile_dir = getattr(args, "profile_dir", None)

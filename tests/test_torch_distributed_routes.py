@@ -1,7 +1,9 @@
 """The routes beside ``--halo`` over several processes (``torch.distributed``
 over gloo, on the CPU): the GSPMD route (a mesh that spans processes,
-evaluated without ``halo``), Gauss-Newton over processes and
-``multi_start`` with its batch axis over processes.
+evaluated without ``halo``), Gauss-Newton over processes, ``multi_start``
+with its batch axis over processes or on a domain mesh that spans them,
+the on-device L-BFGS over processes, and ``--halo`` on a mesh with an axis
+that partitions no grid dimension.
 
 Like ``tests/test_torch_distributed.py``, the test starts two worker
 processes with ``subprocess`` on a free port; the worker is this file run
@@ -36,7 +38,17 @@ same thread count.  The cases:
 - ``multi_start`` with 4 starts on ``b:2`` (2 instances a process):
   poisson 16^2 (fp64, vmap) and heat 16^2 ``pallas`` (fp32, the kernel
   loop), 5 Adam epochs, and the batched loss and gradient at numpy-drawn
-  starts.
+  starts;
+- the L-BFGS (``util.optimize(args, "lbfgs", ...)``, 8 iterations):
+  poisson 16^2 fp64 on ``x:2,y:2``, the plain flagship 16^3 fp64 and the
+  ``pallas_mg`` flagship 8x16x16 fp32 on ``x:2,t:4`` (the GSPMD route),
+  wave 16^2 fp64 under ``--halo`` on ``t:2``;
+- ``multi_start`` on a domain mesh over the processes: poisson 16^2 on
+  ``x:2,y:2`` without a batch axis, heat 16^2 ``pallas`` on ``b:2,t:2``
+  (the domain's t on t, the instances on b) with a process a b index or a
+  t index;
+- ``--halo`` with an idle axis: the plain flagship 16^3 fp64 on
+  ``t:2,q:2`` and ``q:2,t:2`` (the processes replicas of each other).
 
 Every process gathers the whole arrays and evaluates the single
 controller's loss on them (``Problem.make_loss_fn``).  Held here: the plain
@@ -54,8 +66,17 @@ case's within 1e-9 of the single controller's, and every process's iterate
 with the same bits at each epoch; ``multi_start`` instance by instance
 against the single controller, and its batched loss and gradient against
 the JAX package's ``multi_start`` on a ``b:2`` mesh of virtual CPU devices
-(fp64 1e-12, fp32 1e-5); and a second launch repeating every number of the
-first to the bit.
+(fp64 1e-12, fp32 1e-5); the L-BFGS rows equal to the single controller's
+to the bit on the GSPMD route and within rtol 1e-10 under ``--halo``, the
+whole state the same bits on both processes after every iteration, and
+poisson's rows within 1e-10 of the JAX package's ``LbfgsOptimizer`` on 4
+virtual CPU devices; ``multi_start`` on a spanning domain mesh instance by
+instance against the single controller (the loss and every gradient block
+to the bit) and the JAX package's on the same mesh of virtual CPU
+devices; the idle axis's loss, terms and gradient within 1e-12 of the JAX
+package's ``make_halo_loss_fn`` on ``t:2,q:2`` and equal to the port's
+one-process ``t:2`` to the bit; and a second launch repeating every
+number of the first to the bit.
 """
 
 import argparse
@@ -96,6 +117,20 @@ GN_EPOCHS = 2
 STARTS, STARTS_EPOCHS = 4, 5
 MS_SCALE = {"poisson": 0.5, "heat": 0.05}
 SEED = 3
+# The on-device L-BFGS over processes: case -> (model, mesh spec, halo).
+LBFGS = {"poisson": ("poisson", "x:2,y:2", 0), "xla": ("flagship", "x:2,t:4", 0),
+         "wave_halo": ("wave", "t:2", 1), "pallas_mg": ("flagship8", "x:2,t:4", 0)}
+LBFGS_ITERS = 8
+# multi_start on a domain mesh that spans the processes: case -> (model, mesh
+# spec, owners or None for process-major, batch axis).  "a": every process
+# holds every instance on its domain blocks; "b_b"/"b_t": one mesh for the
+# domain (t) and the instances (b), a process a b index or a t index.
+MS_SPATIAL = {"a": ("poisson", "x:2,y:2", None, None), "b_b": ("heat", "b:2,t:2", None, "b"),
+              "b_t": ("heat", "b:2,t:2", [[0, 1], [0, 1]], "b")}
+# --halo on a mesh with an axis (q) that partitions no grid dimension: a
+# process a t index (q inside each process), and a process a q index (the
+# two processes replicas of each other).
+IDLE = ("t:2,q:2", "q:2,t:2")
 
 
 # -- Shared by the worker and the test --------------------------------------
@@ -171,6 +206,60 @@ def _gn_args(halo, linsolver, maxiter):
         linsolver_dampdiag=0, linsolver_maxiter=maxiter, linsolver_precond_every=0, seed=0, nlvl=100,
         smooth_pre=3, ndirect=3, halo=halo,
     )
+
+
+def _lbfgs_build(model, mesh=None):
+    """The problem of an L-BFGS case in the port (``mesh``: None for the
+    single controller), its state random where the model's is not."""
+    from odil_torch.convert import arrays_from_numpy
+    from odil_torch.models import poisson as tpo
+    from odil_torch.models import veltracer
+    from odil_torch.models import wave as tw
+
+    part = {"x": "x", "y": "y"} if model == "poisson" else {"t": "t"} if model == "wave" else PART
+    kw = dict(device="cpu", mesh=mesh, partition=part if mesh is not None else None)
+    if model == "poisson":
+        return tpo.build(dtype=np.float64, **POISSON, **kw)
+    if model == "wave":
+        return tw.build(nt=16, nx=16, dtype=np.float64, kernel="pallas", **kw)
+    if model == "flagship":
+        problem, state, extra = veltracer.build(kernel="xla", dtype=np.float64, **FLAGSHIP, **kw)
+    else:
+        problem, state, extra = veltracer.build(nt=8, nx=16, ny=16, kernel="pallas_mg", dtype=np.float32, **kw)
+    dtype = np.dtype(problem.domain.dtype)
+    problem.domain.arrays_to_state(arrays_from_numpy(_state_arrays(problem, state, dtype), device="cpu"), state)
+    return problem, state, extra
+
+
+def _lbfgs_args(halo):
+    return argparse.Namespace(epochs=LBFGS_ITERS, epoch_start=0, lr=1e-3, halo=halo)
+
+
+def _ms_spatial_build(model, odil, mesh=None):
+    """The problem of a ``MS_SPATIAL`` case in the package ``odil``, on
+    ``mesh`` (None: unsharded)."""
+    import importlib
+
+    mod = importlib.import_module(f"{odil}.models.{model}")
+    kw = {"device": "cpu"} if odil == "odil_torch" else {}
+    if model == "poisson":
+        return mod.build(dtype=np.float64, **POISSON, mesh=mesh, partition={"x": "x", "y": "y"} if mesh else None,
+                         **kw)
+    return mod.build(nt=16, nx=16, infer_k=True, imposed="random", nimp=20, kernel="pallas", dtype=np.float32,
+                     mesh=mesh, partition={"t": "t"} if mesh else None, **kw)
+
+
+def _stack_sharding(domain, mesh, batch_axis):
+    """shape -> the port's sharding of a stacked array of ``shape``
+    (instances first) where the domain's mesh spans processes."""
+    from odil_torch import parallel
+
+    def of(shape):
+        shape = tuple(shape[1:])
+        inner = list(domain.field_sharding(shape=shape).spec) if len(shape) == domain.ndim else [None] * len(shape)
+        return parallel.NamedSharding(mesh, parallel.PartitionSpec(batch_axis, *inner))
+
+    return of
 
 
 # -- The worker ----------------------------------------------------------------
@@ -344,6 +433,93 @@ def worker(rank, world, port, out):
             res[f"ms_{name}/grad{k}"] = np.concatenate([g[k] for _, _, g in every])
             res[f"ms_{name}/single_grad{k}"] = sg.numpy()
 
+    # The on-device L-BFGS through util.optimize: the rows and, after every
+    # iteration, a digest of the whole state that each process's callback
+    # sees.
+    for case, (model, spec, halo) in LBFGS.items():
+        for who in ("spmd", "single"):
+            problem, state, _ = _lbfgs_build(model, parallel.mesh_from_spec(spec) if who == "spmd" else None)
+            rows, digests = [], []
+
+            def callback(state, epoch, pinfo, problem=problem, rows=rows, digests=digests):
+                rows.append([float(pinfo["loss"])] + [float(t) for t in pinfo["terms"]])
+                digests.append(_digest([problem.domain.pack_state(state)]))
+
+            util.optimize(_lbfgs_args(halo if who == "spmd" else 0), "lbfgs", problem, state, callback)
+            opt = problem._active_optimizer
+            res[f"lbfgs_{case}/{who}"] = np.array(rows)
+            res[f"lbfgs_{case}/{who}_x"] = problem.domain.pack_state(state).numpy()
+            if who == "spmd":
+                res[f"lbfgs_{case}/spans"] = np.array(problem.domain.mesh.spans_processes)
+                res[f"lbfgs_{case}/evals"] = np.array([opt.evals, opt.grad_evals, opt.memory.s.numel()])
+                every = _everyone(digests, world)
+                same[f"lbfgs_{case}"] = all(d == every[0] for d in every) and len(every[0]) == LBFGS_ITERS + 1
+
+    # multi_start on a domain mesh over the processes: the form, each
+    # process's instances and blocks, the batch loss and every block of its
+    # gradient against the single controller's, 5 Adam epochs, and the
+    # batched loss and gradient at the numpy-drawn starts (for the JAX
+    # package's).
+    for case, (model, spec, owners, batch_axis) in MS_SPATIAL.items():
+        scale = MS_SCALE[model]
+        mesh = parallel.mesh_from_spec(spec)
+        if owners is not None:
+            mesh = parallel.Mesh(mesh.devices, mesh.axis_names, owners=owners)
+        problem, state, _ = _ms_spatial_build(model, "odil_torch", mesh)
+        single, sstate, _ = _ms_spatial_build(model, "odil_torch")
+        loss_b, stacked = parallel.multi_start(problem, state, STARTS, seed=1, scale=scale,
+                                               mesh=mesh if batch_axis else None, batch_axis=batch_axis)
+        sloss_b, sstacked = parallel.multi_start(single, sstate, STARTS, seed=1, scale=scale)
+        fn, sfn = autograd_loss_grad_fn(loss_b), autograd_loss_grad_fn(sloss_b)
+        sharding = _stack_sharding(problem.domain, mesh, batch_axis)
+        (loss, (terms, _)), grads = fn(stacked, problem.tracers)
+        (sloss, (sterms, _)), sgrads = sfn(sstacked, single.tracers)
+        blocks = [sharding(tuple(sg.shape)).place(sg) for sg in sgrads]
+        key = f"msx_{case}"
+        res[f"{key}/form"] = np.array([loss_b.form, sloss_b.form])
+        res[f"{key}/instances"] = np.array(sum(_everyone(list(loss_b.instances), world), []))
+        res[f"{key}/loss"] = np.array([float(loss), float(sloss)])
+        res[f"{key}/terms"] = np.array([[float(t) for t in terms], [float(t) for t in sterms]])
+        res[f"{key}/stacked"] = np.array(_everyone(all(torch.equal(a, sharding(tuple(b.shape)).place(b))
+                                                       for a, b in zip(stacked, sstacked)), world))
+        res[f"{key}/grad_bits"] = np.array(_everyone(all(torch.equal(g, b) for g, b in zip(grads, blocks)), world))
+        opt, sopt = Adam(fn, stacked, lr=1e-3), Adam(sfn, sstacked, lr=1e-3)
+        res[f"{key}/rows"] = np.array([opt.run_chunk(STARTS_EPOCHS).numpy(), sopt.run_chunk(STARTS_EPOCHS).numpy()])
+        starts = _ms_starts(single, sstate)
+        (loss, (terms, _)), grads = fn([sharding(a.shape).place(torch.from_numpy(a)) for a in starts],
+                                       problem.tracers)
+        res[f"{key}/np_loss"] = loss.detach().numpy()
+        res[f"{key}/np_terms"] = torch.stack([t.detach() for t in terms]).numpy()
+        parts = _everyone([g.numpy() for g in grads], world)
+        for k, a in enumerate(starts):
+            whole = np.zeros(a.shape, dtype=a.dtype)
+            for r in range(world):
+                whole[tuple(slice(lo, hi) for lo, hi in sharding(a.shape).region(a.shape, r))] = parts[r][k]
+            res[f"{key}/np_grad{k}"] = whole
+
+    # --halo on a mesh with an idle axis: the plain flagship's loss, terms
+    # and gathered gradient, and those of one process's mesh t:2.
+    from odil_torch.models import veltracer
+
+    for spec in IDLE:
+        got = {}
+        for who in ("spmd", "one"):
+            mesh = parallel.mesh_from_spec(spec) if who == "spmd" else parallel.Mesh(
+                np.array([torch.device("cpu")] * 2, dtype=object), ("t",), owners=[rank, rank], process=rank)
+            problem, state, _ = veltracer.build(kernel="xla", dtype=np.float64, device="cpu", mesh=mesh,
+                                                partition={"t": "t"}, **FLAGSHIP)
+            whole = arrays_from_numpy(_state_arrays(problem, state, np.float64), device="cpu")
+            shapes = [tuple(a.shape) for a in whole]
+            fn = autograd_loss_grad_fn(problem.make_loss_fn(state, halo=True)[0])
+            (loss, (terms, _)), grads = fn(parallel.shard_state_arrays(problem.domain, whole), problem.tracers)
+            grads = parallel.gather_state_arrays(problem.domain, grads, shapes)
+            got[who] = (loss.detach().numpy(), torch.stack([t.detach() for t in terms]).numpy(),
+                        np.concatenate([g.numpy().ravel() for g in grads]))
+        res[f"idle_{spec}/spans"] = np.array(parallel.mesh_from_spec(spec).spans_processes)
+        for who, (loss, terms, grad) in got.items():
+            res[f"idle_{spec}/{who}_loss"], res[f"idle_{spec}/{who}_terms"] = loss, terms
+            res[f"idle_{spec}/{who}_grad"] = grad
+
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "odil_tpu", "odil")]
     res["jax_modules"] = np.array([len(m) for m in _everyone(loaded, world)])
     agreed = _everyone(same, world)
@@ -373,6 +549,8 @@ def _jax_refs():
     from jax.sharding import NamedSharding, PartitionSpec
 
     from odil_tpu import parallel as jpar
+    from odil_tpu import util as jutil
+    from odil_tpu.halo import make_halo_loss_fn
     from odil_tpu.models import poisson as jpo
     from odil_tpu.models import veltracer as jvt
     from odil_tpu.newton import optimize_gauss_newton
@@ -410,6 +588,29 @@ def _jax_refs():
         halo, linsolver, maxiter = GN["halo_cg"]
         optimize_gauss_newton(_gn_args(halo, linsolver, maxiter), problem, state, callback)
         refs["gn"] = np.array(rows)
+        # The L-BFGS through util.optimize: poisson on x:2,y:2.
+        problem, state, _ = jpo.build(dtype=np.float64, mesh=mesh, partition={"x": "x", "y": "y"}, **POISSON)
+        rows = []
+        jutil.optimize(_lbfgs_args(0), "lbfgs", problem, state, callback)
+        refs["lbfgs_poisson"] = np.array(rows)
+        # multi_start on a domain mesh, at the numpy-drawn starts.
+        for case, (model, spec, _, batch_axis) in MS_SPATIAL.items():
+            jmesh = jpar.mesh_from_spec(spec, devices=jax.devices()[:4])
+            jp, js, _ = _ms_spatial_build(model, "odil_tpu", jmesh)
+            loss_b, _ = jpar.multi_start(jp, js, STARTS, seed=1, scale=MS_SCALE[model],
+                                         mesh=jmesh if batch_axis else None, batch_axis=batch_axis)
+            starts = [jnp.asarray(a) for a in _ms_starts(jp, js)]
+            if batch_axis:
+                starts = [jax.device_put(a, NamedSharding(jmesh, PartitionSpec(batch_axis))) for a in starts]
+            (loss, (terms, _)), grads = jax.jit(jax.value_and_grad(loss_b, has_aux=True))(starts, jp.tracers)
+            refs[f"msx_{case}"] = (float(loss), [float(t) for t in terms], [np.asarray(g) for g in grads])
+        # --halo on t:2,q:2 (q partitions no grid dimension).
+        jmesh = jpar.mesh_from_spec("t:2,q:2", devices=jax.devices()[:4])
+        jp, js, _ = jvt.build(kernel="xla", dtype=np.float64, mesh=jmesh, partition={"t": "t"}, **FLAGSHIP)
+        arrays = [jnp.asarray(a) for a in _state_arrays(jp, js, np.float64)]
+        loss_fn, _ = make_halo_loss_fn(jp, js)
+        (loss, (terms, _)), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(arrays, jp.tracers)
+        refs["idle"] = (float(loss), [float(t) for t in terms], np.concatenate([np.asarray(g).ravel() for g in grads]))
     finally:
         jax.config.update("jax_disable_most_optimizations", old)
     return refs
@@ -584,9 +785,94 @@ if __name__ != "__main__":
             assert a.shape == b.shape
             _close(a, b, grtol, gatol)
 
+    @pytest.mark.parametrize("case", list(LBFGS))
+    def test_lbfgs_over_processes(run, case):
+        """util.optimize with the on-device L-BFGS over 2 processes, 8
+        iterations (poisson 16^2 fp64, the plain flagship 16^3 fp64 and the
+        pallas_mg flagship 8x16x16 fp32 on the GSPMD route; wave 16^2 fp64
+        under --halo on t:2): the rows equal to the single controller's to
+        the bit on the GSPMD route and within rtol 1e-10 under --halo, the
+        final state likewise, and the whole state with the same bits on
+        both processes after every iteration."""
+        rows, srows = run[f"lbfgs_{case}/spmd"], run[f"lbfgs_{case}/single"]
+        x, sx = run[f"lbfgs_{case}/spmd_x"], run[f"lbfgs_{case}/single_x"]
+        assert run[f"lbfgs_{case}/spans"] and rows.shape == srows.shape and len(rows) == LBFGS_ITERS + 1
+        evals, grad_evals, _ = run[f"lbfgs_{case}/evals"]
+        assert evals == LBFGS_ITERS and grad_evals >= 2 * LBFGS_ITERS
+        if LBFGS[case][2]:
+            np.testing.assert_allclose(rows, srows, rtol=1e-10, atol=0)
+            np.testing.assert_allclose(x, sx, rtol=1e-10, atol=1e-12 * max(1.0, float(np.abs(sx).max())))
+        else:
+            assert rows.tobytes() == srows.tobytes() and x.tobytes() == sx.tobytes()
+        assert f"lbfgs_{case}" in run["same_bits"]
+
+    def test_lbfgs_poisson_matches_jax(run, results):
+        """The L-BFGS rows of poisson 16^2 fp64 on x:2,y:2 over 2 processes
+        against the JAX package's LbfgsOptimizer (util.optimize) on a mesh of
+        4 virtual CPU devices, within tests/test_torch_lbfgs.py's rtol 1e-10."""
+        np.testing.assert_allclose(run["lbfgs_poisson/spmd"], results[1]["lbfgs_poisson"], rtol=1e-10, atol=1e-14)
+
+    @pytest.mark.parametrize("case", list(MS_SPATIAL))
+    def test_multi_start_on_a_spanning_domain_mesh(run, case):
+        """multi_start with 4 starts on a domain mesh over 2 processes: (a)
+        poisson 16^2 fp64 on x:2,y:2, every instance on each process's
+        blocks; (b) heat 16^2 pallas fp32 on b:2,t:2 (the domain's t on t, the
+        instances on b), a process a b index or a t index.  The single
+        controller's form; each process's stacked starts the blocks of the
+        single controller's; the batch loss and terms equal to its to the bit
+        and every block of the gradient too; 5 Adam epochs within rtol 1e-10
+        (fp64) or 1e-5 (fp32)."""
+        key = f"msx_{case}"
+        form, sform = run[f"{key}/form"]
+        assert form == sform == ("vmap" if case == "a" else "loop")
+        want = list(range(STARTS)) * (1 if case == "b_b" else 2)
+        assert list(run[f"{key}/instances"]) == want
+        assert all(run[f"{key}/stacked"]) and all(run[f"{key}/grad_bits"])
+        loss, terms = run[f"{key}/loss"], run[f"{key}/terms"]
+        assert loss[0].tobytes() == loss[1].tobytes() and terms[0].tobytes() == terms[1].tobytes()
+        rows = run[f"{key}/rows"]
+        np.testing.assert_allclose(rows[0], rows[1], rtol=1e-10 if case == "a" else 1e-5)
+
+    @pytest.mark.parametrize("case", list(MS_SPATIAL))
+    def test_multi_start_on_a_spanning_domain_mesh_matches_jax(run, results, case):
+        """The batched loss, terms and gradient of each spanning-mesh form at
+        numpy-drawn starts against the JAX package's multi_start on the same
+        mesh of virtual CPU devices: fp64 within 1e-12; fp32 (the kernel
+        loop against its pallas kernels in interpret mode) loss and terms
+        within rtol 1e-5, the gradient within rtol 1e-4 (atol 1e-6 of its
+        largest entry)."""
+        loss, terms, grads = results[1][f"msx_{case}"]
+        key = f"msx_{case}"
+        rtol, grtol, gatol = (1e-12, 1e-12, 1e-12) if case == "a" else (1e-5, 1e-4, 1e-6)
+        np.testing.assert_allclose(float(run[f"{key}/np_loss"]), loss, rtol=rtol)
+        np.testing.assert_allclose(run[f"{key}/np_terms"], terms, rtol=rtol, atol=1e-30)
+        assert f"{key}/np_grad{len(grads)}" not in run
+        for k, b in enumerate(grads):
+            a = run[f"{key}/np_grad{k}"]
+            assert a.shape == b.shape
+            _close(a, b, grtol, gatol)
+
+    @pytest.mark.parametrize("spec", IDLE)
+    def test_halo_idle_axis_over_processes(run, results, spec):
+        """--halo over 2 processes on a mesh whose axis q partitions no grid
+        dimension (t:2,q:2: each process a t index; q:2,t:2: the processes
+        replicas of each other): the plain flagship's loss, terms and
+        gathered gradient within 1e-12 of the JAX package's
+        make_halo_loss_fn on t:2,q:2 of virtual CPU devices, and equal to
+        the port's one-process mesh t:2 to the bit (each shard's sums once,
+        the replicas' gradients not summed)."""
+        loss, terms, grad = results[1]["idle"]
+        key = f"idle_{spec}"
+        assert run[f"{key}/spans"]
+        np.testing.assert_allclose(float(run[f"{key}/spmd_loss"]), loss, rtol=1e-12)
+        np.testing.assert_allclose(run[f"{key}/spmd_terms"], terms, rtol=1e-12)
+        _close(run[f"{key}/spmd_grad"], grad, 1e-12, 1e-12)
+        for what in ("loss", "terms", "grad"):
+            assert run[f"{key}/spmd_{what}"].tobytes() == run[f"{key}/one_{what}"].tobytes(), what
+
     def test_every_process_same_bits(run):
         """Every check of bits across processes ran and held."""
-        assert list(run["same_bits"]) == list(run["checked_bits"]) and len(run["checked_bits"]) == 8
+        assert list(run["same_bits"]) == list(run["checked_bits"]) and len(run["checked_bits"]) == 8 + len(LBFGS)
 
     def test_workers_import_no_jax(run):
         """No worker process loaded jax or the JAX package."""
@@ -618,12 +904,16 @@ if __name__ != "__main__":
 
     @pytest.mark.parametrize("optimizer", ["lbfgs", "lbfgsb"])
     def test_lbfgs_refused_over_processes(optimizer):
-        """L-BFGS and L-BFGS-B over processes raise before any collective,
-        naming the optimizers to use instead."""
+        """L-BFGS-B over processes raises before any collective, naming the
+        optimizers to use instead; the on-device L-BFGS is no longer refused
+        (it runs over processes: test_lbfgs_over_processes)."""
         from odil_torch import util
 
         problem, state, _ = _poisson(_spanning("x:2,y:2"))
         args = argparse.Namespace(epochs=2, epoch_start=0, lr=1e-3, halo=0)
+        if optimizer == "lbfgs":
+            assert util.refuse_over_processes(problem.domain, optimizer) is None
+            return
         _raises_naming(lambda: util.optimize(args, optimizer, problem, state), "--optimizer adam or gd", "gn")
 
     def test_newton_refused_over_processes():
@@ -637,12 +927,26 @@ if __name__ != "__main__":
         _raises_naming(lambda: problem.linearize(state), "Gauss-Newton")
 
     def test_multi_start_refuses_a_spatial_mesh_over_processes():
-        """multi_start on a problem whose domain mesh spans processes raises
-        before any collective, naming the batch axis to use instead."""
+        """multi_start on a problem whose domain mesh spans processes builds
+        without a collective: every instance on this process's domain
+        blocks, or with a batch axis of the domain's mesh its block of the
+        instances too; a batch axis of another mesh, or one that partitions
+        a grid dimension, is refused before any collective."""
         from odil_torch import parallel
 
         problem, state, _ = _poisson(_spanning("x:2,y:2"))
-        _raises_naming(lambda: parallel.multi_start(problem, state, 4), "batch axis")
+        loss_b, stacked = parallel.multi_start(problem, state, 4)
+        blocks = parallel.shard_state_arrays(problem.domain, problem.domain.arrays_from_state(state))
+        assert loss_b.instances == [0, 1, 2, 3] and loss_b.form == "vmap"
+        assert [tuple(a.shape) for a in stacked] == [(4,) + tuple(b.shape) for b in blocks]
+        with pytest.raises(ValueError, match="partitions no grid dimension"):
+            parallel.multi_start(problem, state, 4, mesh=problem.domain.mesh, batch_axis="x")
+        with pytest.raises(ValueError, match="domain's own mesh"):
+            parallel.multi_start(problem, state, 4, mesh=_spanning("x:2,y:2"), batch_axis="x")
+        mesh = _spanning("b:2,x:2,y:2", process=1)
+        problem, state, _ = _poisson(mesh)
+        loss_b, stacked = parallel.multi_start(problem, state, 4, mesh=mesh, batch_axis="b")
+        assert loss_b.instances == [2, 3] and [tuple(a.shape) for a in stacked] == [(2, 16, 16)]
 
     def test_two_runs_same_bits(results):
         """A second launch repeats every number of the first to the bit."""

@@ -66,6 +66,8 @@ def test_port_sources_found():
         "odil_torch/examples/poisson_plot_train.py",
         "odil_torch/examples/poisson_plot_field.py",
         "odil_torch/comm.py",
+        "odil_torch/backend.py",
+        "odil_torch/tools/plot_field.py",
     } <= names
 
 
@@ -87,6 +89,8 @@ def test_port_sources_found():
         "odil_torch.plot, odil_torch.plotutil, odil_torch.core_min, odil_torch.examples.compare, "
         "odil_torch.examples.heat_plot_train, odil_torch.examples.poisson_plot_train, "
         "odil_torch.examples.poisson_plot_field",
+        # The op namespaces and the field plotter.
+        "odil_torch.backend", "odil_torch.tools.plot_field",
     ],
 )
 def test_new_modules_import_without_jax(name):

@@ -164,20 +164,24 @@ def test_shard_state_arrays_gives_each_process_its_block(process):
 def test_one_process_routes_raise_over_processes():
     """The routes that still run in one process only say so on a mesh over
     several, before any collective (these meshes have no group): the sparse
-    Newton's linearization, multi_start on a problem whose domain mesh
-    spans processes, and a mesh over two cards in one process.  The GSPMD
-    route and Gauss-Newton's halo residual map build there."""
+    Newton's linearization and a mesh over two cards in one process.  The
+    GSPMD route, multi_start on a problem whose domain mesh spans processes
+    (every instance in this process's blocks) and Gauss-Newton's halo
+    residual map build there."""
     from odil_torch.halo import make_halo_residual_fn
     from odil_torch.models import poisson as tpo
 
     mesh = _spanning("t:2,x:2", 2, 0)
     p, s, _ = tvt.build(nt=8, nx=16, ny=16, kernel="pallas", dtype=np.float64, device="cpu", mesh=mesh,
                         partition={"t": "t", "x": "x"})
-    for call in (lambda: p.linearize(s), lambda: tpar.multi_start(p, s, 2)):
-        with pytest.raises(NotImplementedError, match="several processes"):
-            call()
+    with pytest.raises(NotImplementedError, match="several processes"):
+        p.linearize(s)
     assert p._over_processes()
     p.make_loss_fn(s)
+    loss_b, stacked = tpar.multi_start(p, s, 2)
+    blocks = tpar.shard_state_arrays(p.domain, p.domain.arrays_from_state(s))
+    assert loss_b.instances == [0, 1] and loss_b.form == "loop"
+    assert [tuple(a.shape) for a in stacked] == [(2,) + tuple(b.shape) for b in blocks]
     pp, ps, _ = tpo.build(n=16, multigrid=False, dtype=np.float64, device="cpu", mesh=_spanning("x:2,y:2", 2, 1),
                           partition={"x": "x", "y": "y"})
     f, x0 = make_halo_residual_fn(pp, ps)
