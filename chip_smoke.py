@@ -9,8 +9,10 @@ Run from the root of a checkout on a machine with the card:
 Phases, any failure exits non-zero and prints no result:
 
 1. Build: the CUDA libraries of ``odil_torch/csrc/`` (``rowwise_mg.cu``,
-   ``rowwise.cu``) compile with nvcc for sm_90a into ``build/odil_torch/``,
-   one nvcc per source, started together.
+   ``rowwise.cu``, and ``heat_net.cu`` for each of phase u's conductivity
+   nets) compile with nvcc for sm_90a into ``build/odil_torch/``, one nvcc
+   per source or net, started together; the heat_net builds are waited
+   for before phase u.
 2. Kernels vs their plain PyTorch versions, on seeded random fields and the
    real tracer planes (terms rtol 1e-5; gradients rtol 1e-4 with atol
    1e-6 * max|ref|):
@@ -93,11 +95,34 @@ Phases, any failure exits non-zero and prints no result:
       row within 1% of j.'s generic run, and its gradients at the trained
       state against the generic route's.
    l. A row model without a CUDA counterpart: heat 64^2 with ``keep_init=0``
-      (no hand adjoint, so ``cuda_model=None``) trained 50 epochs on the card
-      through the one-pass route, whose row-wise call runs the plain version
-      on the card (``rowwise.plain_on_card``, once an epoch, and no kernel);
-      epoch 0 within 1e-5 and every 10-epoch row within 1% of the plain
-      operator (``kernel="xla"``) trained the same way by autograd.
+      whose row function reaches ``ctx.rowwise_terms`` bare, as a user's row
+      function does (``RowModel(row_fn)``: no CUDA model, no hand adjoint),
+      trained 50 epochs on the card through the one-pass route, whose
+      row-wise call runs the plain version on the card
+      (``rowwise.plain_on_card``, once an epoch, and no kernel); epoch 0
+      within 1e-5 and every 10-epoch row within 1% of the plain operator
+      (``kernel="xla"``) trained the same way by autograd.
+   u. Every heat configuration on the row kernels (``csrc/heat_net.cu``, a
+      library per conductivity net, built with the others at the start).
+      Kernels: forward, backward+sums and backward against the plain version
+      (the hand adjoint) in fp64 at 64^2 and 1024^2 (the converged lane's
+      measurements, seeded random fields and net noise) for ``keep_init=0``,
+      ``keep_frozen=0``, ``--arch_k 32 32`` with and without keep_frozen and
+      ``--arch_k 16 16 16`` with both keep flags off; for the last, the
+      streaming pair at 1024^2 (the slabbed launch's bits) and the masked
+      per-shard kernels on the t:4 shards of 1024^2 (``close_floor``).
+      Training: heat 64^2 with ``kernel="pallas"``, 50 epochs each with
+      ``keep_init=0`` and with ``--arch_k 32 32 --keep_frozen 0``, one heat
+      backward+sums an epoch and no ``plain_on_card``, epoch 0 within 1e-5
+      and every 10-epoch row within 1% of ``kernel="xla"`` trained the same
+      way, and the loss-only path; the last configuration at 1024^2 through
+      the slabbed, streaming and per-shard (t:4) routes, 10 epochs each,
+      epoch 0 within 1e-5 of the plain operator, and their loss-only paths.
+      The CLI: ``odil_torch.examples.heat --Nt 256 --Nx 256 --infer_k 1
+      --imposed stripe --arch_k 32 32 --keep_frozen 0``, 50 epochs, with
+      ``--kernel pallas`` (one backward+sums an epoch plus the epoch-0
+      evaluation's forward and sums-off backward) and ``--kernel xla``:
+      epoch 0 within 1e-5, every row within 1%.
    m. The training harness: the command-line examples run as a user runs
       them, through ``util.optimize``, ``make_callback`` and ``History``,
       each in a new directory under ``build/`` (the working directory and
@@ -383,14 +408,42 @@ OPS_FORWARD = 3 * 23 + OPS_ROWS_FORWARD
 OPS_BACKWARD = OPS_FORWARD + 60 + 12
 # The heat and wave row models (heat_row.cuh, wave_row.cuh), per residual
 # cell, a multiply-add counted as two operations and a tanhf or expf as one:
-# heat's conductivity net runs once per face, about one face a cell (35
-# multiply-adds, 11 transcendentals, 3 for the sigmoid and kmax: 84), with
+# heat's conductivity net runs once per face, about one face a cell, with
 # its face temperature (3), and the stencil (~25); its backward adds the
-# stencil's adjoint (~30), the net's param adjoint once per face (170) and
-# the gather (6).  Wave: the stencil (16) and its adjoint (20).
-OPS_HEAT_NET, OPS_HEAT_NET_VJP = 84, 170
-OPS_HEAT_FORWARD = OPS_HEAT_NET + 3 + 25
-OPS_HEAT_BACKWARD = OPS_HEAT_FORWARD + 30 + OPS_HEAT_NET_VJP + 6
+# stencil's adjoint (~30), the net's param adjoint once per face and the
+# gather (6), and without keep_frozen the net's tangent once per face and the
+# face temperatures' cotangents (heat_net_ops).  Wave: the stencil (16) and
+# its adjoint (20).
+
+
+def heat_net_ops(widths=(5, 5)):
+    """fp32 operations of one pass of the conductivity net [1, *widths, 1]
+    (its multiply-adds, a tanhf a hidden unit, the expf, 3 for the sigmoid
+    and kmax: 84 for [1, 5, 5, 1]), of its param adjoint (4 for the output's
+    cotangent, an add a bias, a multiply-add a weight, the cotangents back
+    through every layer but the first -- a multiply where the layer has one
+    output -- and 3 a hidden unit for tanh's derivative: 170), and of its
+    tangent with the face temperatures' cotangents (without keep_frozen)."""
+    dims = (1,) + tuple(widths) + (1,)
+    macs = sum(a * b for a, b in zip(dims, dims[1:]))
+    hidden = sum(widths)
+    back = sum(ni * (1 if no == 1 else 2 * no) for ni, no in zip(dims[1:-1], dims[2:]))
+    net = 2 * macs + hidden + 1 + 3
+    vjp = 4 + hidden + 1 + 2 * macs + back + 3 * hidden
+    tangent = 2 * (macs - dims[1]) + 3 * hidden + 4 + 8
+    return net, vjp, tangent
+
+
+def heat_ops(widths=(5, 5), keep_frozen=True):
+    """(forward, backward) fp32 operations per residual cell of the heat row
+    model with the conductivity net of hidden ``widths``."""
+    net, vjp, tangent = heat_net_ops(widths)
+    forward = net + 3 + 25
+    return forward, forward + 30 + vjp + 6 + (0 if keep_frozen else tangent)
+
+
+OPS_HEAT_NET, OPS_HEAT_NET_VJP, _ = heat_net_ops()
+OPS_HEAT_FORWARD, OPS_HEAT_BACKWARD = heat_ops()
 OPS_WAVE_FORWARD = 16
 OPS_WAVE_BACKWARD = OPS_WAVE_FORWARD + 20
 # The two-level backward adds, per level-1 cell, the rebuild of the level-1
@@ -449,6 +502,21 @@ DIST_TIMEOUT = 300
 # in another order moves an entry by a few fp32 ulps of the terms it adds;
 # a cotangent lost or counted twice moves it by its own size.
 DIST_GRAD_LIMIT = 1e-5
+# Phase u: every heat configuration on the row kernels.  U_CONFIGS: name ->
+# (hidden widths of the conductivity net, keep_init, keep_frozen), each held
+# to its plain version at SIZES_1D (the converged lane's measurements);
+# U_TRAIN: the 64^2 training runs against kernel="xla" (U_EPOCHS epochs, a
+# row every U_EVERY); U_BIG: the configuration whose slabbed, streaming and
+# masked per-shard kernels run a 1024^2 path (U_BIG_EPOCHS epochs each);
+# U_CLI_ARGV: the heat CLI at 256^2, --kernel pallas against --kernel xla.
+U_CONFIGS = {
+    "ki0": ((5, 5), 0, 1), "kf0": ((5, 5), 1, 0), "w32x32": ((32, 32), 1, 1), "w32x32_kf0": ((32, 32), 1, 0),
+    "w16x16x16_ki0_kf0": ((16, 16, 16), 0, 0),
+}
+U_TRAIN, U_BIG = ("ki0", "w32x32_kf0"), "w16x16x16_ki0_kf0"
+U_EPOCHS, U_EVERY, U_BIG_EPOCHS = 50, 10, 10
+U_CLI_ARGV = ["--Nt", "256", "--Nx", "256", "--infer_k", "1", "--imposed", "stripe", "--arch_k", "32", "32",
+              "--keep_frozen", "0", "--epochs", "50", "--history_every", "10", "--report_every", "10"]
 # The unmasked forms of rows1d_kernel as built before its halo layer (SASS
 # instructions by cuobjdump, registers by ptxas; measured on one NVIDIA H100
 # 80GB HBM3 for rowwise.cu before the layer): the layer leaves them as they were.
@@ -638,12 +706,22 @@ def sass_counts(path):
     return counts
 
 
-def build_all(_build, names=("rowwise_mg", "rowwise")):
-    """Compiles every CUDA source, one nvcc each, all started together, and
-    prints ptxas's register and shared-memory report and each kernel's SASS
-    instruction count."""
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
-        results = dict(zip(names, ex.map(_build.compile_source, names)))
+def start_builds(_build, jobs):
+    """Starts one nvcc for each job (a source's name, or ``(name, variant,
+    defines)`` for a source built in variants), all together: {name, or
+    "name variant": future of ``compile_source``}."""
+    jobs = [(j,) if isinstance(j, str) else tuple(j) for j in jobs]
+    ex = concurrent.futures.ThreadPoolExecutor(len(jobs))
+    futures = {" ".join(str(p) for p in j[:2]): ex.submit(_build.compile_source, *j) for j in jobs}
+    ex.shutdown(wait=False)
+    return futures
+
+
+def report_builds(futures):
+    """Waits for the builds of `futures` and prints ptxas's register and
+    shared-memory report and each kernel's SASS instruction count.
+    {name: (path, seconds, report)}."""
+    results = {name: f.result() for name, f in futures.items()}
     for name, (path, seconds, log) in results.items():
         print(f"build: {os.path.relpath(path, HERE)} in {seconds:.1f} s")
         for line in log.splitlines():
@@ -652,6 +730,11 @@ def build_all(_build, names=("rowwise_mg", "rowwise")):
         for kernel, n in sass_counts(path).items():
             print(f"  sass: {n} instructions in {kernel}")
     return results
+
+
+def build_all(_build, jobs=("rowwise_mg", "rowwise")):
+    """start_builds, then report_builds."""
+    return report_builds(start_builds(_build, jobs))
 
 
 def ptxas_registers(log, kernel):
@@ -2448,6 +2531,21 @@ def streaming(problem):
     return problem
 
 
+def user_row_function(problem, rw):
+    """The problem with every ``ctx.rowwise_terms`` call of its operator
+    taking the bare row function, as a user's row function reaches it: no
+    CUDA model, no hand adjoint (``rowwise.plain_on_card`` on the card)."""
+    base = problem.operator
+
+    def operator(ctx):
+        call = ctx.rowwise_terms
+        ctx.rowwise_terms = lambda model, *a, **k: call(rw.RowModel(model.row_fn), *a, **k)
+        return base(ctx)
+
+    problem.operator = operator
+    return problem
+
+
 def same_bits(torch, first, again):
     """Whether two calls' outputs (nested tuples of tensors or None) are
     bitwise equal."""
@@ -2508,17 +2606,18 @@ def rows1d_unchanged(builds, tag):
         fail(f"the rows1d_kernel forms {bad} without the halo layer changed: {got}, pinned {ROWS1D_PINNED}")
 
 
-def shard_records(torch, np, th, tw, heat_ref, which, T, N, dev, seed=14):
+def shard_records(torch, np, th, tw, heat_ref, which, T, N, dev, seed=14, heat_kw=None):
     """The recorded per-shard kernel calls (``halo._run_operators``) of heat
-    (the converged lane's configuration) or wave (fp32) at (T, N) on the mesh
-    t:4 of four shards of `dev`, at a seeded random state."""
+    (the converged lane's configuration, or the build arguments `heat_kw`)
+    or wave (fp32) at (T, N) on the mesh t:4 of four shards of `dev`, at a
+    seeded random state."""
     from odil_torch import halo, parallel
 
     mesh = parallel.mesh_from_spec(HALO1D_SPEC, devices=[dev] * HALO1D_SHARDS)
     lane = heat_ref["config"]
     if which == "heat":
-        p, s, _ = th.build(nt=T, nx=N, infer_k=True, imposed=lane["imposed"], nimp=lane["nimp"], seed=lane["seed"],
-                           kernel="pallas", device=dev, mesh=mesh, partition=HALO1D_PART)
+        kw = heat_kw or dict(infer_k=True, imposed=lane["imposed"], nimp=lane["nimp"], seed=lane["seed"])
+        p, s, _ = th.build(nt=T, nx=N, kernel="pallas", device=dev, mesh=mesh, partition=HALO1D_PART, **kw)
     else:
         p, s, _ = tw.build(nt=T, nx=N, dtype=np.float32, kernel="pallas", device=dev, mesh=mesh, partition=HALO1D_PART)
     rng = np.random.default_rng(seed)
@@ -2881,6 +2980,298 @@ def halo1d_phase(torch, np, counters, heat_ref, vt_rows, vt_ms, vt_epochs, repor
 # evaluations of the global ladder, multi_start's starts and epochs, and the
 # GSPMD CLIs' epochs.
 MESH_SPEC, MESH_PART = "t:2,x:2", {"t": "t", "x": "x"}
+def configs_phase(torch, np, counters, heat_ref, report, launches, loops, tag, extra_argv=()):
+    """Phase u (the module docstring): every heat configuration on the row
+    kernels.  Fills `report` and `launches` for the kernel table's entries
+    of its paths and returns their timing entries (as main's `timed`), the
+    streaming entries' slabbed launches, the bytes their slabs read again,
+    and its row cases for the launch checks."""
+    from odil_torch import parallel
+    from odil_torch.context import Context
+    from odil_torch.models import heat as th
+    from odil_torch.ops import rowwise as rw
+    from odil_torch.optim import Adam
+
+    t_u = time.perf_counter()
+    dev = torch.device(DEVICE)
+    lane = heat_ref["config"]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rand = lambda *shape: 0.3 * torch.randn(shape, generator=gen, device=dev)
+    none = dict.fromkeys(counters.read(), 0)
+    wide = lambda ts: tuple(t.double() for t in ts)
+    nbytes = lambda ts: 4 * sum(t.numel() for t in ts)
+    source = "odil_torch/csrc/heat_net.cu"
+
+    def build_kw(config):
+        widths, ki, kf = U_CONFIGS[config]
+        return dict(arch_k=widths, args=argparse.Namespace(
+            infer_k=True, imposed=lane["imposed"], nimp=lane["nimp"], noise=0.0, seed=lane["seed"], kimp=2.0,
+            kxreg=0.0, kxregdecay=0, ktreg=0.0, ktregdecay=0, kwreg=0.0, kwregdecay=0, kmax=0.1, keep_frozen=kf,
+            keep_init=ki, solver="odil"))
+
+    def case(config, T, N):
+        """row_case_1d of a configuration: seeded random fields, the build's
+        data and consts, its conductivity net plus seeded noise."""
+        p, s, e = th.build(nt=T, nx=N, multigrid=False, kernel="pallas", device=dev, **build_kw(config))
+        model, names, params = th._row_model(Context(p.domain, s, extra=e, tracers=p.tracers))
+        if model.cuda_model != "heat" or model.row_vjp is None or rw._heat_library(model) is rw._library():
+            fail(f"heat {config}: the row model {model.cuda_model!r} does not take the heat_net.cu kernels")
+        params = tuple(q + rand(*q.shape) for q in params)
+        zero = torch.zeros((1, 1), device=dev)
+        u0 = e.init_u
+        consts = (u0, torch.roll(u0, 1, 0), torch.roll(u0, -1, 0), torch.arange(N, dtype=torch.float32, device=dev),
+                  zero, zero)
+        return model, len(names), 1, (rand(T, N) + 0.5,), params, (e.imp_mask, e.imp_u + rand(T, N)), consts
+
+    timed, slabbed, edge, row_cases = {}, {}, {}, {}
+    entries = {"ki0": "64", "w32x32_kf0": "64", U_BIG: "1024"}  # the kernel table's configurations and sizes
+
+    # u, kernels: forward, backward+sums and backward of every configuration
+    # against the plain version in fp64 at 64^2 and 1024^2.
+    for config in U_CONFIGS:
+        for size, (T, N) in SIZES_1D.items():
+            c = case(config, T, N)
+            m, nt_, h, fs, ps, ds, cs_ = c
+            gs = torch.full((nt_,), 1.0 / fs[0].numel(), device=dev)
+            kf = rw.forward_cuda(*c)
+            kd, kp, ks = rw.backward_cuda(*c, gs, True)
+            kd2, kp2, _ = rw.backward_cuda(*c, gs, False)
+            pf = rw._forward_plain(m, nt_, h, wide(fs), wide(ps), wide(ds), wide(cs_))
+            pd, pp, psums = rw._backward_plain(m, nt_, h, wide(fs), wide(ps), wide(ds), wide(cs_), gs.double(), True)
+            torch.cuda.synchronize()
+            e_f, ok_f = close(kf.double(), pf, TERMS_RTOL, 0.0)
+            e_s, ok_s = close(ks.double(), psums, TERMS_RTOL, 0.0)
+            e_g, ok_g = close_all([a.double() for a in kd + kp], list(pd) + list(pp))
+            e_g2, ok_g2 = close_all([a.double() for a in kd2 + kp2], list(pd) + list(pp))
+            e_p = max(float((a.double() - b).abs().max()) for a, b in zip(kp, pp))
+            shape = rw.launch_shape(m, fs, True, True)
+            print(f"heat {config} kernels at {tuple(fs[0].shape)} (net {[1, *U_CONFIGS[config][0], 1]}, "
+                  f"{sum(p.numel() for p in ps)} params, keep_init {U_CONFIGS[config][1]}, keep_frozen "
+                  f"{U_CONFIGS[config][2]}): forward max|d sums| {e_f:.3e} (rel {rel_err(kf, pf):.2e}), backward+sums "
+                  f"max|d sums| {e_s:.3e} max|d (dfields, dparams)| {e_g:.3e} (dparams {e_p:.3e}), backward "
+                  f"{e_g2:.3e}; backward+sums launch (slab, tiles, blocks, resident) {shape} {tag}")
+            if not (ok_f and ok_s and ok_g and ok_g2):
+                fail(f"a heat {config} kernel disagrees with its plain version at {tuple(fs[0].shape)}: forward {ok_f}, "
+                     f"sums {ok_s}, backward+sums {ok_g}, backward {ok_g2}")
+            if entries.get(config) != size:
+                continue
+            key = f"heat_{config}_{size}"
+            report[f"forward_rows_{key}"], report[f"backward_rows_sums_{key}"] = e_f, e_g
+            report[f"backward_rows_{key}"] = e_g2
+            row_cases[key] = c
+            ops_f, ops_b = heat_ops(U_CONFIGS[config][0], U_CONFIGS[config][2])
+            n_cells, f_in = fs[0].numel(), nbytes(fs + ps + ds + cs_)
+            timed[f"forward_rows_{key}"] = (lambda c=c: rw.forward_cuda(*c), lambda c=c: rw._forward_plain(*c),
+                                            f_in + 4 * nt_, ops_f * n_cells, "odil_tpu/ops/rowwise.py:385", source)
+            for sums, name in ((True, f"backward_rows_sums_{key}"), (False, f"backward_rows_{key}")):
+                timed[name] = (lambda c=c, gs=gs, s=sums: rw.backward_cuda(*c, gs, s),
+                               lambda c=c, gs=gs, s=sums: rw._backward_plain(*c, gs, s),
+                               f_in + nbytes(fs + ps) + 4 * nt_ * (2 if sums else 1), ops_b * n_cells,
+                               "odil_tpu/ops/rowwise.py:549", source)
+            if config != U_BIG:
+                continue
+            # The streaming pair at 1024^2: the plain version's numbers and the
+            # slabbed launch's bits.
+            calls = (lambda: rw.forward_stream_cuda(*c), lambda: rw.backward_stream_cuda(*c, gs, True),
+                     lambda: rw.backward_stream_cuda(*c, gs, False))
+            sf, (sd, sp, ss), (sd2, sp2, _) = first = [f() for f in calls]
+            again = [f() for f in calls]
+            torch.cuda.synchronize()
+            bits = same_bits(torch, first, again) and same_bits(torch, first, [kf, (kd, kp, ks), (kd2, kp2, None)])
+            e_sf, ok_sf = close(sf.double(), pf, TERMS_RTOL, 0.0)
+            e_ss, ok_ss = close(ss.double(), psums, TERMS_RTOL, 0.0)
+            e_sg, ok_sg = close_all([a.double() for a in sd + sp], list(pd) + list(pp))
+            e_sg2, ok_sg2 = close_all([a.double() for a in sd2 + sp2], list(pd) + list(pp))
+            print(f"heat {config} stream kernels at {tuple(fs[0].shape)}: forward max|d sums| {e_sf:.3e}, backward "
+                  f"max|d grads| {e_sg2:.3e}, backward+sums max|d sums| {e_ss:.3e} max|d grads| {e_sg:.3e}; the same "
+                  f"bits call after call and as the slabbed launch: {bits} {tag}")
+            if not (ok_sf and ok_ss and ok_sg and ok_sg2 and bits):
+                fail(f"a heat {config} streaming kernel disagrees with its plain version or its own bits: forward "
+                     f"{ok_sf}, sums {ok_ss}, backward+sums {ok_sg}, backward {ok_sg2}, bits {bits}")
+            report[f"forward_stream_{key}"], report[f"backward_stream_{key}"] = e_sf, e_sg2
+            plane = nbytes(fs) // fs[0].shape[0]
+            timed[f"forward_stream_{key}"] = (lambda c=c: rw.forward_stream_cuda(*c), lambda c=c: rw._forward_plain(*c),
+                                              f_in + 4 * nt_, ops_f * n_cells, "odil_tpu/ops/rowwise.py:676", source)
+            timed[f"backward_stream_{key}"] = (lambda c=c, gs=gs: rw.backward_stream_cuda(*c, gs, False),
+                                               lambda c=c, gs=gs: rw._backward_plain(*c, gs, False),
+                                               f_in + nbytes(fs + ps) + 4 * nt_, ops_b * n_cells,
+                                               "odil_tpu/ops/rowwise.py:811", source)
+            slabbed[f"forward_stream_{key}"] = lambda c=c: rw.forward_cuda(*c)
+            slabbed[f"backward_stream_{key}"] = lambda c=c, gs=gs: rw.backward_cuda(*c, gs, False)
+            for name, grads, sums in ((f"forward_stream_{key}", False, True), (f"backward_stream_{key}", True, False)):
+                edge[name] = -(-fs[0].shape[0] // rw.launch_shape(m, fs, grads, sums)[0]) * h * (2 if grads else 1) * plane
+            del first, again
+
+    # The masked per-shard kernels on the t:4 shards of 1024^2 (U_BIG).
+    T, N = SIZES_1D["1024"]
+    key = f"heat_{U_BIG}_1024"
+    recs = shard_records(torch, np, th, None, heat_ref, "heat", T, N, dev, heat_kw=build_kw(U_BIG))
+    errs = {"f": 0.0, "s": 0.0, "g": 0.0, "g2": 0.0}
+    for i, r in enumerate(recs):
+        m, nt_, h = r["row_fn"], r["nterms"], r["hist"]
+        a = [tuple(x.detach().contiguous() for x in r[k]) for k in ("fields", "params", "data", "consts")]
+        a64 = [tuple(x.double() for x in t) for t in a]
+        gs = torch.full((nt_,), 1.0 / a[0][0].numel(), device=dev)
+        kf = rw.forward_halo_rows1d_cuda(m, nt_, h, *a)
+        kd, kp, ks = rw.backward_halo_rows1d_cuda(m, nt_, h, *a, gs, True)
+        kd2, kp2, _ = rw.backward_halo_rows1d_cuda(m, nt_, h, *a, gs, False)
+        pd, pp, _ = rw._backward_plain(m, nt_, h, *a, gs, True)
+        wf = rw._forward_plain(m, nt_, h, *a64)
+        wd, wp, ws = rw._backward_plain(m, nt_, h, *a64, gs.double(), True)
+        torch.cuda.synchronize()
+        e_f, ok_f = close(kf.double(), wf, TERMS_RTOL, 0.0)
+        e_s, ok_s = close(ks.double(), ws, TERMS_RTOL, 0.0)
+        e_g, ok_g, _ = close_floor(list(kd) + list(kp), list(pd) + list(pp), list(wd) + list(wp))
+        e_g2, ok_g2, _ = close_floor(list(kd2) + list(kp2), list(pd) + list(pp), list(wd) + list(wp))
+        if not (ok_f and ok_s and ok_g and ok_g2):
+            fail(f"a per-shard heat {U_BIG} kernel disagrees with its plain version at shard {i}: forward {ok_f}, "
+                 f"sums {ok_s}, backward+sums {ok_g}, backward {ok_g2}")
+        errs = {"f": max(errs["f"], e_f), "s": max(errs["s"], e_s), "g": max(errs["g"], e_g), "g2": max(errs["g2"], e_g2)}
+        if i == 1:
+            c = (m, nt_, h) + tuple(a)
+    print(f"per-shard heat {U_BIG} kernels on the {HALO1D_SHARDS} shards of {T}x{N} (t:4): forward max|d sums| "
+          f"{errs['f']:.3e}, backward+sums max|d sums| {errs['s']:.3e} max|d (dfields, dparams)| {errs['g']:.3e}, "
+          f"backward {errs['g2']:.3e}, against the fp64 plain version with the fp32 floor {tag}")
+    report[f"forward_halo_rows1d_{key}"] = errs["f"]
+    report[f"backward_halo_rows1d_sums_{key}"], report[f"backward_halo_rows1d_{key}"] = errs["g"], errs["g2"]
+    m, nt_, h, fs, ps, ds, cs_ = c
+    gs = torch.full((nt_,), 1.0 / fs[0].numel(), device=dev)
+    ops_f, ops_b = heat_ops(U_CONFIGS[U_BIG][0], U_CONFIGS[U_BIG][2])
+    n_cells, f_in = fs[0].numel(), nbytes(fs + ps + ds + cs_ + (m.halo[0],))
+    timed[f"forward_halo_rows1d_{key}"] = (lambda c=c: rw.forward_halo_rows1d_cuda(*c),
+                                           lambda c=c: rw._forward_plain(*c),
+                                           f_in + 4 * nt_, ops_f * n_cells, "odil_tpu/ops/rowwise.py:385", source)
+    for sums, name in ((True, f"backward_halo_rows1d_sums_{key}"), (False, f"backward_halo_rows1d_{key}")):
+        timed[name] = (lambda c=c, gs=gs, s=sums: rw.backward_halo_rows1d_cuda(*c, gs, s),
+                       lambda c=c, gs=gs, s=sums: rw._backward_plain(*c, gs, s),
+                       f_in + nbytes(fs + ps) + 4 * nt_ * (2 if sums else 1), ops_b * n_cells,
+                       "odil_tpu/ops/rowwise.py:549", source)
+    row_cases[f"{key} shard 1"] = c
+    del recs
+    t_kernels = time.perf_counter() - t_u
+
+    def zero_state_loss(problem, state):
+        loss_fn, _ = problem.make_loss_fn(state)
+        with torch.no_grad():
+            return float(loss_fn(problem.domain.arrays_from_state(state), problem.tracers)[0])
+
+    def loss_only(problem, state, x, grad_fn, what, want, halo=False):
+        """The loss-only path at x, its launches against `want`, its loss and
+        gradients against grad_fn's."""
+        counters.zero()
+        (loss_e, _), grads_e = autograd_loss_grad_fn(torch, problem, state, halo=halo)(x, problem.tracers)
+        torch.cuda.synchronize()
+        expect_counts(counters.read(), want, f"{what} loss-only path")
+        (loss_t, _), grads_t = grad_fn(x, problem.tracers)
+        e, ok = close_all(grads_e, grads_t)
+        print(f"{what} loss-only vs one-pass route: loss {float(loss_e)!r} vs {float(loss_t)!r}, max|dgrad| {e:.3e} "
+              f"{tag}")
+        if abs(float(loss_e) - float(loss_t)) > TERMS_RTOL * abs(float(loss_t)) or not ok:
+            fail(f"{what}: the loss-only path and the one-pass route disagree")
+
+    def against(losses, base, what, every):
+        rel = {e: abs(losses[max(e - 1, 0)] - base[max(e - 1, 0)]) / abs(base[max(e - 1, 0)])
+               for e in range(0, len(losses) + 1, every)}
+        worst = max(rel, key=rel.get)
+        print(f"{what}: epoch-0 loss {losses[0]!r} vs {base[0]!r} (rel {rel[0]:.2e}); worst {every}-epoch row epoch "
+              f"{worst} ({100 * rel[worst]:.4f}%); final {losses[-1]!r} vs {base[len(losses) - 1]!r} {tag}")
+        if rel[0] > 1e-5 or rel[worst] > 0.01:
+            fail(f"{what}: epoch 0 rel {rel[0]:.2e} (limit 1e-5), epoch {worst} {100 * rel[worst]:.3f}% (limit 1%)")
+
+    # u, training: heat 64^2 in the kernel route against kernel="xla" trained
+    # the same way.
+    for config in U_TRAIN:
+        what = f"heat 64^2 {config}"
+        problem, state, _ = th.build(nt=lane["nt"], nx=lane["nx"], kernel="pallas", device=dev, **build_kw(config))
+        grad = problem.make_loss_grad_fn(state)
+        if grad is None:
+            fail(f"make_loss_grad_fn declined {what}")
+        counters.zero()
+        opt, losses, chunk_ms = train(torch, Adam, grad, problem.domain.arrays_from_state(state), U_EPOCHS, lr=1e-3)
+        expect_counts(counters.read(), dict(none, backward_rows=len(losses)), f"training ({what}, pallas)")
+        key = f"heat_{config}_64"
+        launches[f"backward_rows_sums_{key}"] = len(losses)
+        loss_only(problem, state, opt.x, grad, what, dict(none, forward_rows=1, backward_rows=1))
+        launches[f"forward_rows_{key}"] = launches[f"backward_rows_{key}"] = 1
+        loops[f"{what} (kernel)"] = (opt, steady_ms(chunk_ms))
+        problem_x, state_x, _ = th.build(nt=lane["nt"], nx=lane["nx"], kernel="xla", device=dev, **build_kw(config))
+        counters.zero()
+        _, losses_x, chunk_x = train(torch, Adam, autograd_loss_grad_fn(torch, problem_x, state_x),
+                                     problem_x.domain.arrays_from_state(state_x), U_EPOCHS, lr=1e-3)
+        expect_counts(counters.read(), none, f"training ({what}, xla)")
+        loops[f"{what} (plain operator)"] = (None, steady_ms(chunk_x))
+        against(losses, losses_x, f"training ({what}, pallas vs xla; {loops[f'{what} (kernel)'][1][0]:.4f} vs "
+                f"{loops[f'{what} (plain operator)'][1][0]:.4f} ms/epoch)", U_EVERY)
+        del opt, problem, state, problem_x, state_x
+
+    # U_BIG at 1024^2: the slabbed, streaming and per-shard routes, epoch 0
+    # against the plain operator.
+    T, N = SIZES_1D["1024"]
+    key = f"heat_{U_BIG}_1024"
+    plain = zero_state_loss(*th.build(nt=T, nx=N, kernel="xla", device=dev, **build_kw(U_BIG))[:2])
+    mesh = parallel.mesh_from_spec(HALO1D_SPEC, devices=[dev] * HALO1D_SHARDS)
+    for route in ("slabbed", "streaming", "halo"):
+        what = f"heat 1024^2 {U_BIG} ({route})"
+        part = dict(mesh=mesh, partition=HALO1D_PART) if route == "halo" else {}
+        problem, state, _ = th.build(nt=T, nx=N, kernel="pallas", device=dev, **part, **build_kw(U_BIG))
+        arrays = problem.domain.arrays_from_state(state)
+        n = U_BIG_EPOCHS
+        if route == "streaming":
+            streaming(problem)
+            if problem.make_loss_grad_fn(state) is not None:
+                fail(f"{what}: make_loss_grad_fn took a streaming call")
+            counters.zero()
+            opt, losses, chunk_ms = train(torch, Adam, autograd_loss_grad_fn(torch, problem, state), arrays, n, lr=1e-3)
+            expect_counts(counters.read(), dict(none, forward_stream=n, backward_stream=n), what)
+            launches[f"forward_stream_{key}"] = launches[f"backward_stream_{key}"] = n
+        else:
+            grad = problem.make_loss_grad_fn(state, halo=route == "halo")
+            if grad is None or (route == "halo" and grad.route != "generic"):
+                fail(f"{what}: the one-pass route is {getattr(grad, 'route', None)}")
+            counters.zero()
+            opt, losses, chunk_ms = train(torch, Adam, grad, arrays, n, lr=1e-3)
+            if route == "halo":
+                expect_counts(counters.read(), dict(none, backward_halo_rows1d=HALO1D_SHARDS * n), what)
+                loss_only(problem, state, opt.x, grad, what, dict(
+                    none, backward_halo_rows1d=HALO1D_SHARDS, forward_halo_rows1d=HALO1D_SHARDS), halo=True)
+                launches[f"backward_halo_rows1d_sums_{key}"] = HALO1D_SHARDS * n
+                launches[f"forward_halo_rows1d_{key}"] = launches[f"backward_halo_rows1d_{key}"] = HALO1D_SHARDS
+            else:
+                expect_counts(counters.read(), dict(none, backward_rows=n), what)
+                loss_only(problem, state, opt.x, grad, what, dict(none, forward_rows=1, backward_rows=1))
+                launches[f"backward_rows_sums_{key}"] = n
+                launches[f"forward_rows_{key}"] = launches[f"backward_rows_{key}"] = 1
+        rel0 = abs(losses[0] - plain) / abs(plain)
+        ms, _ = steady_ms(chunk_ms)
+        print(f"training ({what}): {len(losses)} epochs, epoch-0 loss {losses[0]!r} vs the plain operator's "
+              f"{plain!r} (rel {rel0:.2e}); final {losses[-1]!r}; {ms:.4f} ms/epoch {tag}")
+        if rel0 > 1e-5:
+            fail(f"{what}: epoch-0 loss {losses[0]} differs from the plain operator's {plain} (limit 1e-5)")
+        del opt, problem, state, arrays
+
+    # u, the CLI: --kernel pallas against --kernel xla at 256^2.
+    rows = {}
+    for kernel in ("pallas", "xla"):
+        out, log, counts, _, seconds = run_cli(torch, counters, "heat", U_CLI_ARGV + ["--kernel", kernel] + list(extra_argv))
+        epochs = int(U_CLI_ARGV[U_CLI_ARGV.index("--epochs") + 1])
+        want = dict(none, backward_rows=epochs + 1, forward_rows=1) if kernel == "pallas" else none
+        expect_counts(counts, want, f"heat CLI --kernel {kernel} ({' '.join(U_CLI_ARGV)})")
+        rows[kernel] = {int(r["epoch"]): float(r["loss"]) for r in out}
+        print(f"heat CLI --kernel {kernel} {' '.join(U_CLI_ARGV)}: {log_ms(log):.4f} ms/epoch, {seconds:.2f} s wall; "
+              f"launches {counts} {tag}")
+    if sorted(rows["pallas"]) != sorted(rows["xla"]):
+        fail(f"heat CLI: rows at epochs {sorted(rows['pallas'])} with pallas, {sorted(rows['xla'])} with xla")
+    rel = {e: abs(rows["pallas"][e] - rows["xla"][e]) / abs(rows["xla"][e]) for e in rows["xla"]}
+    worst = max(rel, key=rel.get)
+    print(f"heat CLI --kernel pallas vs --kernel xla ({' '.join(U_CLI_ARGV)}): epoch 0 rel {rel[0]:.2e}; worst row "
+          f"epoch {worst} ({100 * rel[worst]:.4f}%) {tag}")
+    if rel[0] > 1e-5 or rel[worst] > 0.01:
+        fail(f"heat CLI: --kernel pallas parts from --kernel xla (epoch 0 rel {rel[0]:.2e}, limit 1e-5; epoch {worst} "
+             f"{100 * rel[worst]:.3f}%, limit 1%)")
+    print(f"phase u: {time.perf_counter() - t_u:.1f} s (its kernel checks {t_kernels:.1f} s) {tag}")
+    return timed, slabbed, edge, row_cases
+
+
 MESH_SPEC_XY = "x:2,y:2"
 LADDER_EVALS = 20
 STARTS, STARTS_PLAIN_EPOCHS, STARTS_KERNEL_EPOCHS = 4, 200, 50
@@ -3153,7 +3544,11 @@ def main():
     print(f"card: {card}")
 
     # -- Phase 1: build --------------------------------------------------------
-    builds = build_all(_build)
+    # The heat_net.cu libraries of phase u's nets start with the others and
+    # are waited for before phase u.
+    heat_nets = sorted({widths for widths, _, _ in U_CONFIGS.values()})
+    pending = start_builds(_build, ["rowwise_mg", "rowwise"] + [rw.heat_net_source(w) for w in heat_nets])
+    builds = report_builds({k: pending.pop(k) for k in ("rowwise_mg", "rowwise")})
     rows1d_unchanged(builds, tag)
     rmg._library()
     rw._library()
@@ -3961,7 +4356,7 @@ def main():
     loops["halo loss-only 256"] = (opt_q, steady_ms(chunk_ms))
     del opt_q, problem_q, state_q, grads_e, grads_t, x
 
-    # l. heat without its CUDA model: plain torch on the card.
+    # l. A user row function (no CUDA model): plain torch on the card.
     heat_plain_args = argparse.Namespace(
         infer_k=True, imposed="stripe", nimp=lane["nimp"], noise=0.0, seed=lane["seed"], kimp=2.0, kxreg=0.0,
         kxregdecay=0, ktreg=0.0, ktregdecay=0, kwreg=0.0, kwregdecay=0, kmax=0.1, keep_frozen=1, keep_init=0,
@@ -3969,23 +4364,29 @@ def main():
     )
     heat64 = dict(nt=lane["nt"], nx=lane["nx"], device=dev, args=heat_plain_args)
     problem_n, state_n, extra_n = th.build(kernel="pallas", **heat64)
-    if th._row_model(Context(problem_n.domain, state_n, extra=extra_n, tracers=problem_n.tracers))[0].cuda_model:
-        fail("heat with keep_init=0 declares a CUDA model")
+    user_row_function(problem_n, rw)
     grad_n = problem_n.make_loss_grad_fn(state_n)
     if grad_n is None:
-        fail("make_loss_grad_fn declined heat with keep_init=0")
+        fail("make_loss_grad_fn declined heat's row function as a user row function")
     counters.zero()
     _, losses_n, chunk_ms = train(torch, Adam, grad_n, problem_n.domain.arrays_from_state(state_n), 50, lr=1e-3)
-    expect_counts(counters.read(), dict(none, plain_on_card=len(losses_n)), "heat keep_init=0 training on the card")
-    loops["heat 64 keep_init=0 (plain on card)"] = (None, steady_ms(chunk_ms))
+    expect_counts(counters.read(), dict(none, plain_on_card=len(losses_n)), "a user row function's training on the card")
+    loops["heat 64 keep_init=0 as a user row function (plain on card)"] = (None, steady_ms(chunk_ms))
     problem_x, state_x, _ = th.build(kernel="xla", **heat64)
     counters.zero()
     _, losses_x, _ = train(torch, Adam, autograd_loss_grad_fn(torch, problem_x, state_x),
                            problem_x.domain.arrays_from_state(state_x), 50, lr=1e-3)
     expect_counts(counters.read(), none, "heat keep_init=0 on the plain operator")
-    against_route(losses_n, losses_x, "training (heat 64^2 keep_init=0, plain on card, vs the plain operator)",
-                  every=10)
+    against_route(losses_n, losses_x, "training (heat 64^2 keep_init=0 as a user row function, plain on card, vs the "
+                  "plain operator)", every=10)
     del problem_n, state_n, grad_n, problem_x, state_x
+
+    # u. Every heat configuration on the row kernels: keep_init=0,
+    # keep_frozen=0 and wider and deeper conductivity nets.
+    t_u = time.perf_counter()
+    builds.update(report_builds(pending))
+    u_timed, u_slabbed, u_edge, u_cases = configs_phase(torch, np, counters, heat_ref, report, launches, loops, tag)
+    t_u = time.perf_counter() - t_u
 
     # m. The training harness: the two command-line examples through
     # util.optimize, each in a directory of its own under build/.
@@ -4211,6 +4612,12 @@ def main():
                 "odil_tpu/ops/rowwise.py:549", rows_src,
             )
 
+    # Phase u's kernels.
+    timed.update(u_timed)
+    slabbed.update(u_slabbed)
+    edge.update(u_edge)
+    row_cases.update(u_cases)
+
     print_mg_splits()
     # A backward+sums of the row kernels, slabbed or streaming (the masked
     # one slabbed), is one launch (torch.profiler; after the training loops,
@@ -4218,7 +4625,7 @@ def main():
     for key, (m, nt_, h, fs, ps, ds, cs) in row_cases.items():
         gs = torch.full((nt_,), 1.0 / fs[0].numel(), device=dev)
         per_call = {}
-        routes = (("slabbed", rw.backward_halo_cuda),) if m.halo is not None else (
+        routes = (("slabbed", rw._halo_kernels(m)[1]),) if m.halo is not None else (
             ("slabbed", rw.backward_cuda), ("streaming", rw.backward_stream_cuda))
         for route, call in routes:
             _, _, counts = kernel_split(torch, lambda: call(m, nt_, h, fs, ps, ds, cs, gs, True), reps=10)
@@ -4233,6 +4640,8 @@ def main():
     print(f"launch floor: an empty kernel {floor_ms:.4f} ms (a CUDA graph of 50 launches) {tag}")
     print(f"operations per residual cell in the bounds: OPS_HEAT_FORWARD {OPS_HEAT_FORWARD}, OPS_HEAT_BACKWARD "
           f"{OPS_HEAT_BACKWARD} (one network pass {OPS_HEAT_NET} and one param adjoint {OPS_HEAT_NET_VJP} a face), "
+          + ", ".join(f"heat {c} {heat_ops(w, kf)} (net {heat_net_ops(w)})" for c, (w, _, kf) in U_CONFIGS.items())
+          + ", "
           f"OPS_WAVE_FORWARD {OPS_WAVE_FORWARD}, OPS_WAVE_BACKWARD {OPS_WAVE_BACKWARD}, OPS_ROWS_FORWARD "
           f"{OPS_ROWS_FORWARD}, OPS_ROWS_BACKWARD {OPS_ROWS_BACKWARD} {tag}")
     kernels = []
@@ -4260,7 +4669,7 @@ def main():
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
 
-    print(f"seconds: phase p {t_p:.1f}, phase q {t_q:.1f}, phase r {t_r:.1f}, phase s {t_s:.1f}, phase t {t_t:.1f}, the "
+    print(f"seconds: phase u {t_u:.1f}, phase p {t_p:.1f}, phase q {t_q:.1f}, phase r {t_r:.1f}, phase s {t_s:.1f}, phase t {t_t:.1f}, the "
           f"script from its "
           f"start (the kernels' build included) "
           f"{time.perf_counter() - t_main:.1f} {tag}")

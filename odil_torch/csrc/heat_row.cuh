@@ -2,22 +2,42 @@
 // code for the 1-D row kernels of rows1d.cuh.
 //
 // The row model is odil_torch/models/heat.py::_make_row_fn with its hand
-// adjoint _make_row_vjp (keep_init and keep_frozen on): residual row t reads
-// rows t and t-1 of u at x-1, x, x+1.  The previous row at t == 0 is the
-// linear extrapolation to the initial temperature, and the samples past the
-// ends are quadratic-half ghosts of a zero wall (ix == 0 first, then
-// ix == N-1).  The flux uses the conductivity k at the two faces, either the
-// [1, 5, 5, 1] tanh network of the params squashed by kmax * sigmoid
-// (infer_k) or the true conductivity; the face temperatures are frozen, so
-// d/du does not pass through k, while d/dparams does, through both faces.
+// adjoint _make_row_vjp: residual row t reads rows t and t-1 of u at x-1, x,
+// x+1.  With keep_init the previous row at t == 0 is the linear
+// extrapolation to the initial temperature; without it the previous row is
+// the periodic row T-1 and fu is zero at t == 0.  The samples past the ends
+// are quadratic-half ghosts of a zero wall (ix == 0 first, then ix == N-1).
+// The flux uses the conductivity k at the two faces, either a tanh network
+// [1, w1, ..., wL, 1] of the params squashed by kmax * sigmoid (infer_k) or
+// the true conductivity.  d/dparams passes through k at both faces.  With
+// keep_frozen the face temperatures are frozen, so d/du does not pass
+// through k; without it each face temperature (a quarter of four imposed
+// samples) takes the cotangent of its conductivity times dk/du, which the
+// face phase forms by a tangent pass beside the network's forward pass.
 // Terms, in order: fu, then imp (data rows imp_mask, imp_u), xreg and treg
 // (const (1, 1) weights kx, kt, read on the device so that the epoch's
 // annealing reaches them), each where its flag is set.
 //
 // Scalars: s[0] = 1/dt, s[1] = 1/dx, s[2] = 1/(2 dx), s[3] = imp weight,
 // s[4] = kmax.  Consts: u0 at x, at x-1, at x+1, ix (unused: the kernel knows
-// x), kx, kt.  Params: W1 (5,1), W2 (5,5), W3 (1,5), b1 (5), b2 (5), b3 (1),
-// flat.
+// x), kx, kt.  Params: the layers' weights (out, in) row-major in order, then
+// their biases, flat (the default net: W1 (5,1), W2 (5,5), W3 (1,5), b1 (5),
+// b2 (5), b3 (1)).
+//
+// Two builds of one template (HeatModel<NET, RUNTIME_KEEP>):
+//   - HeatRow, in rowwise.cu: the [1, 5, 5, 1] net with keep_init and
+//     keep_frozen compiled in (the flags word must carry both), the
+//     network's activations kept per face and the param cotangents summed
+//     per thread in registers (pacc of rows1d.cuh);
+//   - heat_net.cu, one library per net (its hidden widths a macro, built at
+//     first use by ops/rowwise.py): keep_init and keep_frozen read from the
+//     flags word, dk/du per face view.  Nets of at most 48 params keep the
+//     register form; larger ones (up to 3 hidden layers of 32 units, 2209
+//     params) the shared form of rows1d.cuh: a face phase that keeps k, u
+//     and dk only, and a param phase that records each face pass's layer
+//     inputs and output cotangents in shared memory, PASSES at a time, and
+//     sums the outer products param by param (each param owned by one
+//     thread, in a fixed order: no atomics).
 //
 // The face form.  Cell x's right-face temperature (s2 + s0)/4 and cell
 // x+1's left-face temperature (s0' + s1')/4 add the same two sums, so
@@ -27,17 +47,18 @@
 // kernel checks the bits.  The wall faces of the periodic seam (the ghosts
 // of x = N-1 and x = 0) belong to one cell each and keep their own pass.
 // The face adjoint adds the two cells' conductivity cotangents, left then
-// right, and runs one param adjoint.  The plain version of this order is
-// models/heat.py::_make_row_vjp_faces.
+// right, and runs one param adjoint.  Without keep_frozen each cell adds its
+// own faces' input cotangents into its samples (dk of the view it sees).
+// The plain version of this order is models/heat.py::_make_row_vjp(faces=True).
 //
-// Operations per residual cell (backward, infer_k; a multiply-add counted
-// as two and a tanhf or expf as one, as OPS_HEAT_* in chip_smoke.py counts
-// them): one network pass per face (84) and its face temperature (3), one
-// param adjoint per face (170), the stencil and its adjoint (~55), the
-// gather (6): about 320 fp32 operations against ~20 bytes a cell (the
-// field, the measured data rows, dfields).  On the H100 the two bounds are
-// about equal (0.005 ms at 1024^2); the kernel is held back by neither but
-// by the latency of its phases (PERF.md §6-§7).
+// Operations per residual cell of the default net (backward, infer_k; a
+// multiply-add counted as two and a tanhf or expf as one, as heat_ops in
+// chip_smoke.py counts them for any net): one network pass per face (84) and
+// its face temperature (3), one param adjoint per face (170), the stencil
+// and its adjoint (~55), the gather (6): about 320 fp32 operations against
+// ~20 bytes a cell (the field, the measured data rows, dfields).  On the
+// H100 the two bounds are about equal (0.005 ms at 1024^2); the kernel is
+// held back by neither but by the latency of its phases (PERF.md §6-§7).
 
 #pragma once
 
@@ -45,27 +66,231 @@
 
 namespace rows1d {
 
-struct HeatRow {
-  static constexpr int NF = 1, HIST = 1, MAXT = 4, NP = 46;
+// A conductivity net [1, W..., 1]: tanh hidden layers of widths W, a linear
+// output.  Layer l maps width(l) units to width(l + 1).
+template <int... W>
+struct HeatNet {
+  static constexpr int NH = sizeof...(W);  // hidden layers
+  static constexpr int NL = NH + 1;        // layers
+  static_assert(NH >= 1, "the heat kernels take nets of at least one hidden layer");
+  __host__ __device__ static constexpr int width(int l) {
+    constexpr int w[] = {1, W..., 1};
+    return w[l];
+  }
+  // The offsets of layer l's weights and biases in the flat params.
+  __host__ __device__ static constexpr int woff(int l) {
+    int n = 0;
+    for (int k = 0; k < l; ++k) n += width(k) * width(k + 1);
+    return n;
+  }
+  static constexpr int NW = woff(NL);
+  __host__ __device__ static constexpr int boff(int l) {
+    int n = NW;
+    for (int k = 0; k < l; ++k) n += width(k + 1);
+    return n;
+  }
+  static constexpr int NP = boff(NL);
+  __host__ __device__ static constexpr int max_width() {
+    int m = 1;
+    for (int l = 1; l < NL; ++l) m = width(l) > m ? width(l) : m;
+    return m;
+  }
+  static constexpr int MAXW = max_width();
+  // A face pass's record (the shared param form): entry 0 holds 1 (the
+  // biases' input), then the inputs of each layer (IN), then the cotangents
+  // of each layer's outputs (GA).
+  __host__ __device__ static constexpr int in_off(int l) {
+    int n = 1;
+    for (int k = 0; k < l; ++k) n += width(k);
+    return n;
+  }
+  __host__ __device__ static constexpr int ga_off(int l) {
+    int n = in_off(NL);
+    for (int k = 0; k < l; ++k) n += width(k + 1);
+    return n;
+  }
+  static constexpr int RECORD = ga_off(NL);  // 3 + 2 (w1 + ... + wL): odd, so rows fall on distinct banks
+};
+
+// The hidden activations at one face temperature, and the sigmoid.
+template <class NET>
+struct NetAct {
+  float h[NET::NH][NET::MAXW];
+  float s;
+};
+
+// The input of layer L's unit i.
+template <class NET, int L>
+__device__ __forceinline__ float layer_in(float x, const float (&h)[NET::NH][NET::MAXW], int i) {
+  if constexpr (L == 0) return x;
+  else return h[L - 1][i];
+}
+
+// The net's output before the sigmoid at x; the hidden activations into h.
+template <class NET, int L = 0>
+__device__ __forceinline__ float net_out(const float* P, float x, float (&h)[NET::NH][NET::MAXW]) {
+  constexpr int NI = NET::width(L), NO = NET::width(L + 1), WO = NET::woff(L), BO = NET::boff(L);
+  if constexpr (L + 1 == NET::NL) {
+    float acc = P[BO];
+#pragma unroll
+    for (int i = 0; i < NI; ++i) acc = acc + P[WO + i] * layer_in<NET, L>(x, h, i);
+    return acc;
+  } else {
+#pragma unroll
+    for (int o = 0; o < NO; ++o) {
+      float acc = P[BO + o];
+#pragma unroll
+      for (int i = 0; i < NI; ++i) acc = acc + P[WO + NI * o + i] * layer_in<NET, L>(x, h, i);
+      h[L][o] = tanhf(acc);
+    }
+    return net_out<NET, L + 1>(P, x, h);
+  }
+}
+
+// net_out with its derivative by x (forward mode): the hidden tangents into
+// t, the output's into tout.
+template <class NET, int L = 0>
+__device__ __forceinline__ float net_out_tangent(const float* P, float x, float (&h)[NET::NH][NET::MAXW],
+                                                 float (&t)[NET::NH][NET::MAXW], float& tout) {
+  constexpr int NI = NET::width(L), NO = NET::width(L + 1), WO = NET::woff(L), BO = NET::boff(L);
+  auto tin = [&](int i) {
+    if constexpr (L == 0) return 1.0f;
+    else return t[L - 1][i];
+  };
+  if constexpr (L + 1 == NET::NL) {
+    float acc = P[BO], tacc = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      acc = acc + P[WO + i] * layer_in<NET, L>(x, h, i);
+      tacc += P[WO + i] * tin(i);
+    }
+    tout = tacc;
+    return acc;
+  } else {
+#pragma unroll
+    for (int o = 0; o < NO; ++o) {
+      float acc = P[BO + o], tacc = 0.0f;
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        acc = acc + P[WO + NI * o + i] * layer_in<NET, L>(x, h, i);
+        tacc += P[WO + NI * o + i] * tin(i);
+      }
+      const float v = tanhf(acc);
+      h[L][o] = v;
+      t[L][o] = (1.0f - v * v) * tacc;
+    }
+    return net_out_tangent<NET, L + 1>(P, x, h, t, tout);
+  }
+}
+
+// Adds the param cotangents of layer L and the layers below it to pacc, ga
+// being the cotangents of layer L's outputs.
+template <class NET, int L>
+__device__ __forceinline__ void net_vjp(const float* P, float x, const float (&h)[NET::NH][NET::MAXW],
+                                        const float (&ga)[NET::width(L + 1)], float* pacc) {
+  constexpr int NI = NET::width(L), NO = NET::width(L + 1), WO = NET::woff(L), BO = NET::boff(L);
+#pragma unroll
+  for (int o = 0; o < NO; ++o) {
+    pacc[BO + o] += ga[o];
+#pragma unroll
+    for (int i = 0; i < NI; ++i) pacc[WO + NI * o + i] += ga[o] * layer_in<NET, L>(x, h, i);
+  }
+  if constexpr (L > 0) {
+    float gb[NI];
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      float gin;
+      if constexpr (NO == 1) {
+        gin = ga[0] * P[WO + i];
+      } else {
+        gin = 0.0f;
+#pragma unroll
+        for (int o = 0; o < NO; ++o) gin += P[WO + NI * o + i] * ga[o];
+      }
+      gb[i] = gin * (1.0f - h[L - 1][i] * h[L - 1][i]);
+    }
+    net_vjp<NET, L - 1>(P, x, h, gb, pacc);
+  }
+}
+
+// Writes the inputs of layer L and the layers above it (the hidden
+// activations) into a pass's record (the shared param form).
+template <class NET, int L>
+__device__ __forceinline__ void net_record_inputs(const float (&h)[NET::NH][NET::MAXW], float* rec) {
+#pragma unroll
+  for (int i = 0; i < NET::width(L); ++i) rec[NET::in_off(L) + i] = h[L - 1][i];
+  if constexpr (L + 1 < NET::NL) net_record_inputs<NET, L + 1>(h, rec);
+}
+
+// Writes the cotangents of layer L's outputs and those of the layers below
+// it into a pass's record (the shared param form).
+template <class NET, int L>
+__device__ __forceinline__ void net_record_back(const float* P, const float (&h)[NET::NH][NET::MAXW],
+                                                const float (&ga)[NET::width(L + 1)], float* rec) {
+  constexpr int NI = NET::width(L), NO = NET::width(L + 1), WO = NET::woff(L);
+#pragma unroll
+  for (int o = 0; o < NO; ++o) rec[NET::ga_off(L) + o] = ga[o];
+  if constexpr (L > 0) {
+    float gb[NI];
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      float gin = 0.0f;
+#pragma unroll
+      for (int o = 0; o < NO; ++o) gin += P[WO + NI * o + i] * ga[o];
+      gb[i] = gin * (1.0f - h[L - 1][i] * h[L - 1][i]);
+    }
+    net_record_back<NET, L - 1>(P, h, gb, rec);
+  }
+}
+
+// What the face phase keeps of a face: k[0] as its left cell sees it (that
+// cell's right face), k[1] as its right cell does, their temperatures u;
+// dk/du of both views where keep_frozen is read at run time; and the
+// network's activations at u[0] for the param adjoint in the register form.
+template <class ACT, bool DK, bool ACTS>
+struct HeatFace {
+  float k[2], u[2];
+  ACT n;  // 15 floats with the default net: an odd stride, so a warp reads its faces without bank conflicts
+};
+template <class ACT>
+struct HeatFace<ACT, true, true> {
+  float k[2], u[2], dk[2];
+  ACT n;
+};
+template <class ACT>
+struct HeatFace<ACT, true, false> {
+  float k[2], u[2], dk[2], pad;
+};
+
+template <class NET, bool RUNTIME_KEEP>
+struct HeatModel {
+  static constexpr int NF = 1, HIST = 1, MAXT = 4, NP = NET::NP;
   static constexpr unsigned DUSED = 0x3f;  // every sample of both rows
-  static constexpr int BLOCKS_PER_SM = 2;
+  // The param cotangents per thread in registers up to 48 params (the
+  // default net's 46), else the shared form (rows1d.cuh).
+  static constexpr bool REG_PARAMS = NP <= 48;
+  static constexpr int BLOCKS_PER_SM = RUNTIME_KEEP ? 1 : 2;
   static constexpr bool FACES = true;
-  enum { HAS_IMP = 1, HAS_X = 2, HAS_T = 4, INFER_K = 8 };
-  // Offsets of the params in the flat buffer.
-  static constexpr int W1 = 0, W2 = 5, W3 = 30, B1 = 35, B2 = 40, B3 = 45;
+  enum { HAS_IMP = 1, HAS_X = 2, HAS_T = 4, INFER_K = 8, KEEP_INIT = 16, KEEP_FROZEN = 32 };
+  using Act = NetAct<NET>;
+  using Face = HeatFace<Act, RUNTIME_KEEP, REG_PARAMS>;
+  // The shared param form: the face passes recorded at a time (all threads
+  // where the records fit beside the rest of the tile's shared memory, about
+  // 85 KB) and a record's floats.
+  static constexpr int RECORD = NET::RECORD;
+  static constexpr int PASSES = NTHREADS * RECORD * 4 <= 140000 ? NTHREADS : NTHREADS / 2;
 
-  struct Net {
-    float h1[5], h2[5], s;
-  };
+  // Whether a launch's arguments are this build's: the compiled-in keep
+  // flags, and the net's params.
+  static bool takes(const Rows1DArgs& A) {
+    if (!RUNTIME_KEEP && !((A.flags & KEEP_INIT) && (A.flags & KEEP_FROZEN))) return false;
+    return !(A.flags & INFER_K) || A.nparams == NP;
+  }
 
-  // A face of a residual row: k[0] as its left cell sees it (that cell's
-  // right face), k[1] as its right cell does, their temperatures u, and the
-  // network's activations at u[0] for the param adjoint (15 floats: an odd
-  // stride, so a warp reads its faces without bank conflicts).
-  struct Face {
-    float k[2], u[2];
-    Net n;
-  };
+  __device__ __forceinline__ static bool keep_init(const Rows1DArgs& A) {
+    if constexpr (RUNTIME_KEEP) return (A.flags & KEEP_INIT) != 0;
+    else return true;
+  }
 
   // The imposed samples of cell x in rows it (a, c) and it-1 (b, p).
   struct Cell {
@@ -73,7 +298,7 @@ struct HeatRow {
   };
 
   __device__ __forceinline__ static Cell cell_at(const Rows1DArgs& A, int it, int x, const float (&v)[2][1][3]) {
-    const bool first = it == 0, left = x == 0, right = x == A.N - 1;
+    const bool first = it == 0 && keep_init(A), left = x == 0, right = x == A.N - 1;
     const float am = v[0][0][0], a0 = v[0][0][1], ap = v[0][0][2];
     float bm = v[1][0][0], b0 = v[1][0][1], bp = v[1][0][2];
     if (first) {
@@ -95,53 +320,37 @@ struct HeatRow {
 
   // The conductivity at the face temperature x (and the network's
   // activations, for the param adjoint).
-  __device__ __forceinline__ static float k_of(const Rows1DArgs& A, const float* P, float x, Net& n, bool infer) {
+  __device__ __forceinline__ static float k_of(const Rows1DArgs& A, const float* P, float x, Act& n, bool infer) {
     if (!infer) {
       const float d = x - 0.5f;
       return 0.02f * expf(-(d * d) * 20.0f);
     }
-#pragma unroll
-    for (int o = 0; o < 5; ++o) n.h1[o] = tanhf(P[B1 + o] + P[W1 + o] * x);
-#pragma unroll
-    for (int o = 0; o < 5; ++o) {
-      float acc = P[B2 + o];
-#pragma unroll
-      for (int i = 0; i < 5; ++i) acc = acc + P[W2 + 5 * o + i] * n.h1[i];
-      n.h2[o] = tanhf(acc);
-    }
-    float acc = P[B3];
-#pragma unroll
-    for (int i = 0; i < 5; ++i) acc = acc + P[W3 + i] * n.h2[i];
+    const float acc = net_out<NET>(P, x, n.h);
     n.s = 1.0f / (1.0f + expf(-acc));
     return n.s * A.s[4];
   }
 
-  // Adds the param cotangents of gk * k(x) to pacc.
-  __device__ __forceinline__ static void k_vjp(const float* P, float x, const Net& n, float gk, float kmax,
+  // k_of and dk/dx into dk.
+  __device__ __forceinline__ static float k_dk(const Rows1DArgs& A, const float* P, float x, Act& n, bool infer,
+                                               float& dk) {
+    if (!infer) {
+      const float d = x - 0.5f;
+      const float k = 0.02f * expf(-(d * d) * 20.0f);
+      dk = k * (-40.0f * d);
+      return k;
+    }
+    float t[NET::NH][NET::MAXW], tout;
+    const float acc = net_out_tangent<NET>(P, x, n.h, t, tout);
+    n.s = 1.0f / (1.0f + expf(-acc));
+    dk = A.s[4] * (n.s * (1.0f - n.s)) * tout;
+    return n.s * A.s[4];
+  }
+
+  // Adds the param cotangents of gk * k(x) to pacc (the register form).
+  __device__ __forceinline__ static void k_vjp(const float* P, float x, const Act& n, float gk, float kmax,
                                                float* pacc) {
-    const float go = gk * kmax * (n.s * (1.0f - n.s));
-    pacc[B3] += go;
-    float ga2[5];
-#pragma unroll
-    for (int i = 0; i < 5; ++i) {
-      pacc[W3 + i] += go * n.h2[i];
-      ga2[i] = go * P[W3 + i] * (1.0f - n.h2[i] * n.h2[i]);
-    }
-#pragma unroll
-    for (int o = 0; o < 5; ++o) {
-      pacc[B2 + o] += ga2[o];
-#pragma unroll
-      for (int i = 0; i < 5; ++i) pacc[W2 + 5 * o + i] += ga2[o] * n.h1[i];
-    }
-#pragma unroll
-    for (int j = 0; j < 5; ++j) {
-      float gin = 0.0f;
-#pragma unroll
-      for (int o = 0; o < 5; ++o) gin += P[W2 + 5 * o + j] * ga2[o];
-      const float ga1 = gin * (1.0f - n.h1[j] * n.h1[j]);
-      pacc[W1 + j] += ga1 * x;
-      pacc[B1 + j] += ga1;
-    }
+    const float go[1] = {gk * kmax * (n.s * (1.0f - n.s))};
+    net_vjp<NET, NET::NL - 1>(P, x, n.h, go, pacc);
   }
 
   // The face between cells xa and xb = xa + 1 (mod N) of residual row it:
@@ -164,33 +373,97 @@ struct HeatRow {
       uR = ((c.a0 + c.b0) + (c.c1 + c.p1)) * 0.25f;
     }
     const bool shared = lview && rview && xb != 0 && __float_as_uint(uL) == __float_as_uint(uR);
-    Net n;
-    const float k0 = k_of(A, P, lview ? uL : uR, n, infer);
-    float k1 = k0;
-    if (lview && rview && !shared) {
-      Net m;
-      k1 = k_of(A, P, uR, m, infer);
+    Act n;
+    float k0, k1;
+    if constexpr (RUNTIME_KEEP) {
+      float dk0 = 0.0f, dk1 = 0.0f;
+      if (ADJ && !(A.flags & KEEP_FROZEN)) {
+        k0 = k_dk(A, P, lview ? uL : uR, n, infer, dk0);
+        k1 = k0;
+        dk1 = dk0;
+        if (lview && rview && !shared) {
+          Act m;
+          k1 = k_dk(A, P, uR, m, infer, dk1);
+        }
+      } else {
+        k0 = k_of(A, P, lview ? uL : uR, n, infer);
+        k1 = k0;
+        if (lview && rview && !shared) {
+          Act m;
+          k1 = k_of(A, P, uR, m, infer);
+        }
+      }
+      F.dk[0] = dk0;
+      F.dk[1] = dk1;
+    } else {
+      k0 = k_of(A, P, lview ? uL : uR, n, infer);
+      k1 = k0;
+      if (lview && rview && !shared) {
+        Act m;
+        k1 = k_of(A, P, uR, m, infer);
+      }
     }
     F.k[0] = k0;
     F.k[1] = k1;
     F.u[0] = uL;
     F.u[1] = uR;
-    if (ADJ) F.n = n;
+    if constexpr (REG_PARAMS) {
+      if (ADJ) F.n = n;
+    }
   }
 
-  // Adds the param cotangents of a face: gl from the cell on its left (of
-  // its right face), gr from the cell on its right (of its left face); one
-  // adjoint of their sum where both saw the same temperature, else one each
-  // (the network's activations at u[1] recomputed).
+  // Adds the param cotangents of a face (the register form): gl from the
+  // cell on its left (of its right face), gr from the cell on its right (of
+  // its left face); one adjoint of their sum where both saw the same
+  // temperature, else one each (the network's activations at u[1]
+  // recomputed).
   __device__ __forceinline__ static void face_vjp(const Rows1DArgs& A, const float* P, const Face& F, bool shared,
                                                   float gl, float gr, float* pacc) {
     const float kmax = A.s[4];
     k_vjp(P, F.u[0], F.n, shared ? gl + gr : gl, kmax, pacc);
     if (!shared && gr != 0.0f) {
-      Net m;
+      Act m;
       k_of(A, P, F.u[1], m, true);
       k_vjp(P, F.u[1], m, gr, kmax, pacc);
     }
+  }
+
+  // A face pass's record (the shared form): the inputs of every layer and
+  // the cotangents of every layer's outputs for gk * k(x); zeros where gk is
+  // zero.
+  __device__ __forceinline__ static void record(const Rows1DArgs& A, const float* P, float x, float gk, float* rec) {
+    if (gk == 0.0f) {
+#pragma unroll 4
+      for (int e = 0; e < RECORD; ++e) rec[e] = 0.0f;
+      return;
+    }
+    Act n;
+    const float acc = net_out<NET>(P, x, n.h);
+    n.s = 1.0f / (1.0f + expf(-acc));
+    rec[0] = 1.0f;
+    rec[NET::in_off(0)] = x;
+    net_record_inputs<NET, 1>(n.h, rec);
+    const float go[1] = {gk * A.s[4] * (n.s * (1.0f - n.s))};
+    net_record_back<NET, NET::NL - 1>(P, n.h, go, rec);
+  }
+
+  // The record entries of flat param p: (the cotangent, the input) whose
+  // product is its summand.
+  __device__ __forceinline__ static void param_slots(int p, int& ga, int& in) {
+    for (int l = 0; l < NET::NL; ++l) {
+      const int ni = NET::width(l), no = NET::width(l + 1);
+      if (p >= NET::woff(l) && p < NET::woff(l) + ni * no) {
+        ga = NET::ga_off(l) + (p - NET::woff(l)) / ni;
+        in = NET::in_off(l) + (p - NET::woff(l)) % ni;
+        return;
+      }
+      if (p >= NET::boff(l) && p < NET::boff(l) + no) {
+        ga = NET::ga_off(l) + p - NET::boff(l);
+        in = 0;
+        return;
+      }
+    }
+    ga = in = -1;
   }
 
   // Transpose of the quadratic-half ghosts (ix == N-1 reads the ix == 0 one,
@@ -214,13 +487,15 @@ struct HeatRow {
                                               const float* g2, float* res, float (&D)[2][1][3], float (&gk)[2]) {
     const float inv_dt = A.s[0], inv_dx = A.s[1], inv_2dx = A.s[2], impw = A.s[3];
     const bool first = it == 0, left = x == 0, right = x == A.N - 1;
+    const bool ki = keep_init(A);
     const bool has_imp = A.flags & HAS_IMP, has_x = A.flags & HAS_X, has_t = A.flags & HAS_T;
     const Cell c = cell_at(A, it, x, v);
     const float a0 = c.a0, b0 = c.b0;
     const float s0 = a0 + b0, s1 = c.c1 + c.p1, s2 = c.c2 + c.p2;
     const float du_m = (s0 - s1) * inv_2dx, du_p = (s2 - s0) * inv_2dx;
     const float km = fl.k[1], kp = fr.k[0];
-    const float fu = (a0 - b0) * inv_dt - (du_p * kp - du_m * km) * inv_dx;
+    float fu = (a0 - b0) * inv_dt - (du_p * kp - du_m * km) * inv_dx;
+    if (!ki && first) fu = 0.0f;
 
     // The optional terms and their positions after fu.
     const int kimp = 1, kxr = 1 + has_imp, ktr = kxr + has_x;
@@ -245,7 +520,15 @@ struct HeatRow {
     if (GRADS) {
       const float w0 = g2[0] * fu;
       const float g_dup = -w0 * kp * inv_dx, g_dum = w0 * km * inv_dx;
-      const float gs0 = (g_dum - g_dup) * inv_2dx, gs1 = -g_dum * inv_2dx, gs2 = g_dup * inv_2dx;
+      float gs0 = (g_dum - g_dup) * inv_2dx, gs1 = -g_dum * inv_2dx, gs2 = g_dup * inv_2dx;
+      if constexpr (RUNTIME_KEEP) {
+        if (!(A.flags & KEEP_FROZEN)) {  // the face temperatures (s0 + s1)/4 and (s2 + s0)/4
+          const float gum = w0 * du_m * inv_dx * fl.dk[1] * 0.25f, gup = -w0 * du_p * inv_dx * fr.dk[0] * 0.25f;
+          gs0 += gum + gup;
+          gs1 += gum;
+          gs2 += gup;
+        }
+      }
       float gc0 = gs0 + w0 * inv_dt, gc1 = gs1, gc2 = gs2;
       float gp0 = gs0 - w0 * inv_dt, gp1 = gs1, gp2 = gs2;
       if (has_imp) gc0 += pick<MAXT>(g2, kimp) * imp * mask * impw;
@@ -261,7 +544,7 @@ struct HeatRow {
       }
       quadh_adjoint(gc0, gc1, gc2, left, right);
       quadh_adjoint(gp0, gp1, gp2, left, right);
-      if (first) {  // the previous row is 2 u0 - the current one
+      if (first && ki) {  // the previous row is 2 u0 - the current one
         gc0 -= gp0;
         gc1 -= gp1;
         gc2 -= gp2;
@@ -278,5 +561,9 @@ struct HeatRow {
     }
   }
 };
+
+// The default: the [1, 5, 5, 1] net with keep_init and keep_frozen on, in
+// rowwise.cu (model id 0).
+struct HeatRow : HeatModel<HeatNet<5, 5>, false> {};
 
 }  // namespace rows1d

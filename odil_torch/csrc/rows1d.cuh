@@ -52,6 +52,19 @@
 // reduces the columns in block order into A.sums and A.dparams and resets
 // the ticket: one launch, and the bits repeat run to run.
 //
+// The shared param form (a row model with REG_PARAMS false: heat with a
+// conductivity net of more than 48 params, whose cotangents do not fit in a
+// thread's registers).  The face phase keeps no activations; phase 4 takes
+// the faces of the owned rows PASSES at a time: each thread records one
+// face's pass (its net recomputed: the inputs of every layer and the
+// cotangents of every layer's outputs, M::record) into shared memory, then
+// each thread sums, for the params it owns (p = tid, tid + NTHREADS, ...),
+// the products of their record entries over the passes in order (fp32 over
+// a round, fp64 across rounds); a face whose two cells see different
+// temperatures takes a second round for its right cell's pass.  A param's
+// block partial is its owner's sum; the last block sums each param's column
+// over the blocks in order.  Deterministic, no atomics.
+//
 // The halo layer (rows1d_kernel<M, MODE, true>, Rows1DHaloArgs; the masked
 // per-shard pair, odil_rows1d_halo_*): a per-shard launch (odil_torch/halo.py)
 // runs on one shard's halo-extended block of the grid, its own periodic
@@ -73,6 +86,8 @@
 //   static constexpr unsigned DUSED;          // the D entries (m * NF + f) * 3 + q it writes
 //   static constexpr int BLOCKS_PER_SM;       // the blocks an SM should hold (__launch_bounds__)
 //   static constexpr bool FACES;              // a face phase (heat) or none (wave)
+//   static constexpr bool REG_PARAMS;         // param cotangents in registers, or the shared form
+//   static bool takes(const Rows1DArgs&);     // whether a launch's arguments are this build's
 //   struct Face;                              // what the face phase leaves
 //   template <bool ADJ> __device__ static void face(
 //       const Rows1DArgs& A, const float* P, int it, int xa, const float (&va)[HIST + 1][NF][3],
@@ -83,6 +98,12 @@
 //       float (&gk)[2]);
 //   __device__ static void face_vjp(const Rows1DArgs& A, const float* P, const Face& F, bool shared,
 //                                   float gl, float gr, float* pacc);
+// The shared form adds PASSES and RECORD (passes a round, floats a record),
+//   __device__ static void record(const Rows1DArgs& A, const float* P, float u, float gk, float* rec);
+//   __device__ static void param_slots(int p, int& ga, int& in);
+// record: a face pass's record for the conductivity cotangent gk at
+// temperature u (zeros where gk is zero); param_slots: the record entries
+// whose product is param p's summand.
 // face: the face between cells xa and xb = xa + 1 (mod N) of residual row
 // it, from their samples; lview/rview: whether the left/right cell is in the
 // window.  eval (Args: Rows1DArgs, or Rows1DHaloArgs on a shard's block,
@@ -212,7 +233,7 @@ struct TileSmem {
   static constexpr int RROWS = MAX_SLAB + (GRADS ? H : 0);  // residual rows of a window
   static constexpr int FROWS = RROWS + H;                   // field rows of a window
   static constexpr int ND = d_slot(M::DUSED, (H + 1) * NF * 3);  // the D entries the model uses
-  static constexpr int NRED = M::MAXT + (M::NP > 0 ? M::NP : 1);
+  static constexpr int NRED = M::MAXT + (M::REG_PARAMS ? (M::NP > 0 ? M::NP : 1) : 0);
   static constexpr int NRED16 = (NRED + 15) / 16 * 16;
   float F[2][FROWS][NF][FCOLS];  // by tile parity; field row q of a window: global row t0 - H + q
   float D[GRADS ? RROWS : 1][GRADS ? ND : 1][RW];
@@ -223,9 +244,18 @@ struct TileSmem {
   double red[NWARPS][NRED16];
 };
 
+// The shared param form's records of a round of face passes.
+template <class M, bool GRADS>
+struct TileSmemShared : TileSmem<M, GRADS> {
+  float rec[GRADS ? M::PASSES : 1][GRADS ? M::RECORD : 1];
+};
+
+template <class M, bool GRADS>
+using SmemOf = typename std::conditional<M::REG_PARAMS, TileSmem<M, GRADS>, TileSmemShared<M, GRADS>>::type;
+
 template <class M, int MODE>
 constexpr size_t smem_bytes() {
-  return sizeof(TileSmem<M, (MODE & MODE_GRADS) != 0>);
+  return sizeof(SmemOf<M, (MODE & MODE_GRADS) != 0>);
 }
 
 template <class M, int MODE, bool MASKED = false>
@@ -234,7 +264,7 @@ __global__ void __launch_bounds__(NTHREADS, M::BLOCKS_PER_SM) rows1d_kernel(cons
   constexpr int NP = M::NP > 0 ? M::NP : 1;
   constexpr bool grads = (MODE & MODE_GRADS) != 0;
   constexpr bool sums = (MODE & MODE_SUMS) != 0;
-  using S = TileSmem<M, grads>;
+  using S = SmemOf<M, grads>;
   constexpr int NRED = S::NRED;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   S& sm = *reinterpret_cast<S*>(smem_raw);
@@ -248,14 +278,27 @@ __global__ void __launch_bounds__(NTHREADS, M::BLOCKS_PER_SM) rows1d_kernel(cons
   for (int p = 0, off = 0; off < A.nparams; off += A.param_size[p++]) {
     for (int k = tid; k < A.param_size[p]; k += NTHREADS) sm.P[off + k] = __ldg(A.params[p] + k);
   }
-  float g2[NT], s[NT], pacc[NP];
+  float g2[NT], s[NT], pacc[M::REG_PARAMS ? NP : 1];
 #pragma unroll
   for (int k = 0; k < NT; ++k) {
     g2[k] = (grads && k < A.nterms) ? 2.0f * __ldg(A.g + k) : 0.0f;
     s[k] = 0.0f;
   }
 #pragma unroll
-  for (int k = 0; k < NP; ++k) pacc[k] = 0.0f;
+  for (int k = 0; k < (M::REG_PARAMS ? NP : 1); ++k) pacc[k] = 0.0f;
+  // The shared param form: the params this thread owns, their record
+  // entries and their sums.
+  constexpr int NPT = M::REG_PARAMS ? 1 : (NP + NTHREADS - 1) / NTHREADS;
+  double pown[NPT];
+  int slot_ga[NPT], slot_in[NPT];
+#pragma unroll
+  for (int q = 0; q < NPT; ++q) {
+    pown[q] = 0.0;
+    slot_ga[q] = slot_in[q] = -1;
+    if constexpr (!M::REG_PARAMS) {
+      if (tid + q * NTHREADS < NP) M::param_slots(tid + q * NTHREADS, slot_ga[q], slot_in[q]);
+    }
+  }
 
   // Stages the window of a tile (its field rows, a warp a row) and its cell
   // table into buffer `buf`: the two cells on each side in 4-byte copies,
@@ -405,7 +448,7 @@ __global__ void __launch_bounds__(NTHREADS, M::BLOCKS_PER_SM) rows1d_kernel(cons
           A.df[f][(size_t)(t0 + tl) * N + x] = acc;
         }
       }
-      if constexpr (M::FACES) {
+      if constexpr (M::FACES && M::REG_PARAMS) {
         if (infer) {
           for (int idx = tid; idx < nown * (TILE + 1); idx += NTHREADS) {
             const int r = idx / (TILE + 1), j = 1 + idx % (TILE + 1);
@@ -414,6 +457,50 @@ __global__ void __launch_bounds__(NTHREADS, M::BLOCKS_PER_SM) rows1d_kernel(cons
             const typename M::Face& F = sm.face[r][j];
             const bool shared = xi[j + 1] != 0 && __float_as_uint(F.u[0]) == __float_as_uint(F.u[1]);
             M::face_vjp(A, sm.P, F, shared, gl, gr, pacc);
+          }
+        }
+      }
+      if constexpr (M::FACES && !M::REG_PARAMS) {
+        if (infer) {
+          // Rounds of PASSES faces: each face's pass (the two cells'
+          // cotangents where they share its temperature, else the left
+          // cell's), then where any face of the round has a right cell of
+          // another temperature, those cells' passes.
+          const int nfaces = nown * (TILE + 1);
+          for (int f0 = 0; f0 < nfaces; f0 += M::PASSES) {
+            bool second = false;
+            for (int view = 0; view < 2; ++view) {
+              if (view == 1 && !second) break;
+              if (tid < M::PASSES) {
+                const int f = f0 + tid;
+                float u = 0.0f, gsum = 0.0f;
+                if (f < nfaces) {
+                  const int r = f / (TILE + 1), j = 1 + f % (TILE + 1);
+                  const float gl = sm.gk[r][j - 1][1], gr = sm.gk[r][j][0];
+                  const typename M::Face& F = sm.face[r][j];
+                  const bool shared = xi[j + 1] != 0 && __float_as_uint(F.u[0]) == __float_as_uint(F.u[1]);
+                  if (view == 0) {
+                    u = F.u[0];
+                    gsum = shared ? gl + gr : gl;
+                  } else if (!shared) {
+                    u = F.u[1];
+                    gsum = gr;
+                  }
+                  if (view == 0 && !shared && gr != 0.0f) second = true;
+                }
+                M::record(A, sm.P, u, gsum, sm.rec[tid]);
+              }
+              second = __syncthreads_or(second);
+#pragma unroll
+              for (int q = 0; q < NPT; ++q) {
+                if (slot_ga[q] >= 0) {
+                  float acc = 0.0f;
+                  for (int p = 0; p < M::PASSES; ++p) acc += sm.rec[p][slot_ga[q]] * sm.rec[p][slot_in[q]];
+                  pown[q] += (double)acc;
+                }
+              }
+              __syncthreads();
+            }
           }
         }
       }
@@ -447,6 +534,16 @@ __global__ void __launch_bounds__(NTHREADS, M::BLOCKS_PER_SM) rows1d_kernel(cons
     A.partials[(size_t)col(tid) * nblocks + blockIdx.x] = acc;
     __threadfence();
   }
+  if constexpr (!M::REG_PARAMS) {
+    if (infer) {  // a param's block partial: its owner's sum
+#pragma unroll
+      for (int q = 0; q < NPT; ++q) {
+        const int p = tid + q * NTHREADS;
+        if (p < A.nparams) A.partials[(size_t)(A.nterms + p) * nblocks + blockIdx.x] = pown[q];
+      }
+      __threadfence();
+    }
+  }
   __syncthreads();
   if (tid == 0) last = atomicAdd(A.ticket, 1u) == nblocks - 1;
   __syncthreads();
@@ -473,6 +570,15 @@ __global__ void __launch_bounds__(NTHREADS, M::BLOCKS_PER_SM) rows1d_kernel(cons
     if (c < A.nterms) A.sums[c] = (float)acc;
     else A.dparams[c - A.nterms] = (float)acc;
   }
+  if constexpr (!M::REG_PARAMS) {
+    if (infer) {  // each param's column over the blocks in order
+      for (int p = tid; p < A.nparams; p += NTHREADS) {
+        double acc = 0.0;
+        for (unsigned b = 0; b < nblocks; ++b) acc += __ldcg(A.partials + (size_t)(A.nterms + p) * nblocks + b);
+        A.dparams[p] = (float)acc;
+      }
+    }
+  }
   if (tid == 0) *A.ticket = 0u;
 }
 
@@ -482,7 +588,7 @@ int launch(const ArgsOf<MASKED>& A, cudaStream_t s) {
   static const cudaError_t attr =
       cudaFuncSetAttribute(rows1d_kernel<M, MODE, MASKED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (attr != cudaSuccess) return (int)attr;
-  if (A.blocks < 1 || A.slab < 1 || A.slab > MAX_SLAB) return (int)cudaErrorInvalidValue;
+  if (A.blocks < 1 || A.slab < 1 || A.slab > MAX_SLAB || !M::takes(A)) return (int)cudaErrorInvalidValue;
   rows1d_kernel<M, MODE, MASKED><<<A.blocks, NTHREADS, bytes, s>>>(A);
   return (int)cudaGetLastError();
 }

@@ -25,8 +25,10 @@ struct WaveRow {
   // The samples it reads: row t at x, row t-1 at x-1, x, x+1, row t-2 at x.
   static constexpr unsigned DUSED = 1u << 1 | 1u << 3 | 1u << 4 | 1u << 5 | 1u << 7;
   static constexpr int BLOCKS_PER_SM = 4;
-  static constexpr bool FACES = false;
+  static constexpr bool FACES = false, REG_PARAMS = true;
   struct Face {};
+
+  static bool takes(const Rows1DArgs&) { return true; }
 
   template <bool GRADS, class Args>
   __device__ __forceinline__ static void eval(const Args& A, const float* P, int it, int x,

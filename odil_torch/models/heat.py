@@ -35,7 +35,7 @@ from ..fields import Array, Field, State
 from ..grid import Domain
 from ..halo import refuse_plane_partition
 from ..nn import eval_neural_net
-from ..ops.rowwise import _HEAT_LAYERS, RowModel
+from ..ops.rowwise import RowModel
 from ..problem import Problem
 from ..stencil import extrap_linear, extrap_quadh
 
@@ -164,9 +164,11 @@ def _sigmoid(x):
 
 def _make_net(layer_shapes, kmax):
     """k(x) of the conductivity net as unrolled scalar-weighted sums, as the
-    JAX package's fused operator writes it (``heat.py:154-169``), and the
-    vjp of its params.  ``forward(x, params) -> (k, cache)``;
-    ``param_vjp(cache, gk) -> [dW..., db...]`` summed over the stack."""
+    JAX package's fused operator writes it (``heat.py:154-169``), and its
+    vjp.  ``forward(x, params) -> (k, cache)``; ``vjp(cache, gk, params=True,
+    inputs=False) -> (dparams, dx)``: the param cotangents ``[dW..., db...]``
+    summed over the stack (or None) and the input cotangent element by
+    element (or None), both from one backward loop."""
     nl = len(layer_shapes)
 
     def forward(x, params):
@@ -184,22 +186,32 @@ def _make_net(layer_shapes, kmax):
         s = _sigmoid(hs[-1][0])
         return s * kmax, (hs, s, params)
 
-    def param_vjp(cache, gk):
-        hs, s, params = cache
-        ws = params[:nl]
+    def vjp(cache, gk, params=True, inputs=False):
+        hs, s, ps = cache
+        ws = ps[:nl]
         g = [gk * kmax * (s * (1 - s))]  # cotangents of the last layer's outputs
         dws, dbs = [None] * nl, [None] * nl
+        dx = None
         for li in range(nl - 1, -1, -1):
             no, ni = layer_shapes[li]
             hin = hs[li]
-            dws[li] = torch.stack([torch.stack([torch.sum(g[o] * hin[i]) for i in range(ni)]) for o in range(no)])
-            dbs[li] = torch.stack([torch.sum(g[o]) for o in range(no)])
-            if li:
+            if params:
+                dws[li] = torch.stack([torch.stack([torch.sum(g[o] * hin[i]) for i in range(ni)]) for o in range(no)])
+                dbs[li] = torch.stack([torch.sum(g[o]) for o in range(no)])
+            if li or inputs:
                 gin = [sum(ws[li][o, i] * g[o] for o in range(no)) for i in range(ni)]
-                g = [gi * (1 - h * h) for gi, h in zip(gin, hin)]
-        return dws + dbs
+                if li:
+                    g = [gi * (1 - h * h) for gi, h in zip(gin, hin)]
+                else:
+                    dx = gin[0]
+        return (dws + dbs if params else None), dx
 
-    return forward, param_vjp
+    return forward, vjp
+
+
+def _true_conductivity_vjp(x, gk):
+    """The input cotangent of gk * true_conductivity(x), element by element."""
+    return gk * true_conductivity(x, mod=torch) * (-40 * (x - 0.5))
 
 
 def _make_row_fn(dt, dx, nx, kmax, imp_weight, flags, layer_shapes):
@@ -271,12 +283,19 @@ def _shared_faces(u_right, u_left):
 
 
 def _make_row_vjp(dt, dx, nx, kmax, imp_weight, flags, layer_shapes, faces=False):
-    """Closed-form adjoint of ``_make_row_fn`` with keep_init and keep_frozen
-    on: ``row_vjp(...) -> ((d_cur, d_prev), dparams)``.  The face
-    temperatures are frozen, so d/du does not pass through k; d/dparams does,
-    through both faces.  Transposes, in order: the terms, the quadratic-half
-    ghosts at ix = nx-1 then ix = 0, the linear extrapolation of the previous
-    row at it = 0, the periodic x-rolls.
+    """Closed-form adjoint of ``_make_row_fn``: ``row_vjp(...) -> ((d_cur,
+    d_prev), dparams)``, for every configuration.  d/dparams passes through k
+    at both faces.  With keep_frozen the face temperatures are frozen, so d/du
+    does not pass through k; without it each face temperature (a quarter of
+    four imposed samples) gets the cotangent of its conductivity times dk/du
+    (the net's input cotangent, or the derivative of ``true_conductivity``),
+    which goes back through the same transposes as the stencil's.  With
+    keep_init the previous row at it = 0 is the linear extrapolation to the
+    initial temperature; without it the previous row is the periodic row T-1
+    and fu is zero at it = 0, so its cotangent is zero there.  Transposes, in
+    order: the terms, the quadratic-half ghosts at ix = nx-1 then ix = 0, the
+    linear extrapolation of the previous row at it = 0 (keep_init), the
+    periodic x-rolls.
 
     ``faces=True``: the param cotangents in the order of the CUDA kernel's
     face form (``csrc/heat_row.cuh``), one network pass and one param adjoint
@@ -286,11 +305,13 @@ def _make_row_vjp(dt, dx, nx, kmax, imp_weight, flags, layer_shapes, faces=False
     temperatures differ (row 0 with initial temperatures that disagree) keep
     one pass a cell.  The same function; another summation order."""
     has_imp, has_x, has_t, infer_k, keep_init, keep_frozen = flags
-    assert keep_init and keep_frozen, "the hand adjoint takes keep_init=1 and keep_frozen=1"
-    net, param_vjp = _make_net(layer_shapes, kmax) if infer_k else (None, None)
+    net, net_vjp = _make_net(layer_shapes, kmax) if infer_k else (None, None)
 
     def k_of(x, params):
-        return net(x, params) if infer_k else (true_conductivity(x, mod=torch), None)
+        return net(x, params) if infer_k else (true_conductivity(x, mod=torch), x)
+
+    def k_input_vjp(cache, gk):
+        return net_vjp(cache, gk, params=False, inputs=True)[1] if infer_k else _true_conductivity_vjp(cache, gk)
 
     def quadh_adjoint(g, ix):
         g0, g1, g2 = g
@@ -309,8 +330,9 @@ def _make_row_vjp(dt, dx, nx, kmax, imp_weight, flags, layer_shapes, faces=False
         def shifted(row):
             return [row, torch.roll(row, 1, -1), torch.roll(row, -1, -1)]
 
-        cur = shifted(cur0)
-        prev = [torch.where(first, extrap_linear(c, z), p) for c, p, z in zip(cur, shifted(prev0), (u0c, u0m, u0p))]
+        cur, prev = shifted(cur0), shifted(prev0)
+        if keep_init:
+            prev = [torch.where(first, extrap_linear(c, z), p) for c, p, z in zip(cur, prev, (u0c, u0m, u0p))]
         for row in (cur, prev):
             row[1] = torch.where(ix == 0, extrap_quadh(row[2], row[0], 0.0), row[1])
             row[2] = torch.where(ix == nx - 1, extrap_quadh(row[1], row[0], 0.0), row[2])
@@ -321,9 +343,13 @@ def _make_row_vjp(dt, dx, nx, kmax, imp_weight, flags, layer_shapes, faces=False
         kp, cache_p = k_of((s2 + s0) * 0.25, params)
 
         w = list(cots)
-        w0 = w[0]
+        w0 = w[0] if keep_init else torch.where(first, 0.0, w[0])
         g_dup, g_dum = -w0 * kp / dx, w0 * km / dx
         gs0, gs1, gs2 = (g_dum - g_dup) / (2 * dx), -g_dum / (2 * dx), g_dup / (2 * dx)
+        g_km, g_kp = w0 * du_m / dx, -w0 * du_p / dx  # of the conductivities
+        if not keep_frozen:  # the face temperatures (s0 + s1)/4 and (s2 + s0)/4
+            gum, gup = k_input_vjp(cache_m, g_km) * 0.25, k_input_vjp(cache_p, g_kp) * 0.25
+            gs0, gs1, gs2 = gs0 + (gum + gup), gs1 + gum, gs2 + gup
         gc = [gs0 + w0 / dt, gs1, gs2]
         gp = [gs0 - w0 / dt, gs1, gs2]
         pos = 1
@@ -338,19 +364,19 @@ def _make_row_vjp(dt, dx, nx, kmax, imp_weight, flags, layer_shapes, faces=False
             wt = torch.where(first, 0.0, w[pos] * kt[0, 0]) / dt
             gc[0], gp[0] = gc[0] + wt, gp[0] - wt
         gc, gp = quadh_adjoint(gc, ix), quadh_adjoint(gp, ix)
-        gc = [c - torch.where(first, p, 0.0) for c, p in zip(gc, gp)]
-        gp = [torch.where(first, 0.0, p) for p in gp]
+        if keep_init:
+            gc = [c - torch.where(first, p, 0.0) for c, p in zip(gc, gp)]
+            gp = [torch.where(first, 0.0, p) for p in gp]
         d_cur = gc[0] + torch.roll(gc[1], -1, -1) + torch.roll(gc[2], 1, -1)
         d_prev = gp[0] + torch.roll(gp[1], -1, -1) + torch.roll(gp[2], 1, -1)
         dparams = []
         if infer_k:
-            g_km, g_kp = w0 * du_m / dx, -w0 * du_p / dx
             if faces:
                 shared = _shared_faces((s2 + s0) * 0.25, (s0 + s1) * 0.25)
                 g_kp = g_kp + torch.where(shared, torch.roll(g_km, -1, -1), 0.0)
                 g_km = torch.where(torch.roll(shared, 1, -1), 0.0, g_km)
-            dm = param_vjp(cache_m, g_km)
-            dp = param_vjp(cache_p, g_kp)
+            dm = net_vjp(cache_m, g_km)[0]
+            dp = net_vjp(cache_p, g_kp)[0]
             dparams = [a + b for a, b in zip(dm, dp)]
         return (d_cur, d_prev), dparams
 
@@ -374,16 +400,15 @@ def _row_model(ctx):
         params = tuple(ctx.domain.arrays_from_field(net))
         shapes = tuple(tuple(w.shape) for w in net.weights)
     kmax = float(args.kmax)
-    hand = bool(args.keep_init) and bool(args.keep_frozen)
-    # The heat CUDA model carries the hand adjoint and the [1, 5, 5, 1] net;
-    # other models run plain torch on the card.
-    kernel_ok = hand and (not infer_k or shapes == _HEAT_LAYERS)
+    # Every configuration carries the hand adjoint and the heat CUDA model;
+    # a conductivity net beyond the kernels' limit raises on the card
+    # (ops/rowwise.py::_heat_check_params).
     model = RowModel(
         _make_row_fn(dt, dx, nx, kmax, imp_weight, flags, shapes),
-        _make_row_vjp(dt, dx, nx, kmax, imp_weight, flags, shapes) if hand else None,
-        cuda_model="heat" if kernel_ok else None,
+        _make_row_vjp(dt, dx, nx, kmax, imp_weight, flags, shapes),
+        cuda_model="heat",
         scalars=dict(dt=dt, dx=dx, kmax=kmax, imp_weight=imp_weight, has_imp=flags[0], has_x=flags[1],
-                     has_t=flags[2], infer_k=infer_k, layers=shapes),
+                     has_t=flags[2], infer_k=infer_k, keep_init=flags[4], keep_frozen=flags[5], layers=shapes),
     )
     names = ["fu"] + ["imp"] * flags[0] + ["xreg"] * flags[1] + ["treg"] * flags[2]
     return model, names, params

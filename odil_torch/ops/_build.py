@@ -4,7 +4,9 @@ Each source under ``odil_torch/csrc/`` compiles on first use, for
 ``sm_90a``, into ``build/odil_torch/`` at the root of the checkout (listed
 in ``.gitignore``); the library name carries a hash of the source and of
 the headers it includes (``source_digest``), so an edited source or header
-rebuilds.  Nothing here runs at import time: the CPU tests
+rebuilds.  A source built in variants (``heat_net.cu``, one library per
+conductivity net) takes its macros as ``defines`` and names the variant
+beside the hash.  Nothing here runs at import time: the CPU tests
 import every module and have no nvcc.
 """
 
@@ -62,14 +64,16 @@ def _nvcc():
     return found
 
 
-def compile_source(name):
+def compile_source(name, variant=None, defines=()):
     """Compiles ``csrc/<name>.cu`` to a shared library unless it is already
-    built; returns (path, seconds spent, nvcc's ptxas report)."""
+    built; returns (path, seconds spent, nvcc's ptxas report).  ``variant``
+    names a build with the macros ``defines`` ((name, value) pairs) in the
+    library's name."""
     src = os.path.join(_CSRC, name + ".cu")
     digest = source_digest(src)
     out_dir = build_dir()
     os.makedirs(out_dir, exist_ok=True)
-    lib = os.path.join(out_dir, f"lib{name}_{digest}.so")
+    lib = os.path.join(out_dir, f"lib{name}_{variant + '_' if variant else ''}{digest}.so")
     log = lib[:-3] + ".log"
     if os.path.exists(lib):
         report = ""
@@ -80,7 +84,7 @@ def compile_source(name):
     tmp = f"{lib}.{os.getpid()}.tmp"
     cmd = [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, src,
+        "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", *[f"-D{k}={v}" for k, v in defines], "-o", tmp, src,
     ]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -94,7 +98,8 @@ def compile_source(name):
 
 
 @functools.cache
-def load(name):
-    """The ctypes handle of ``csrc/<name>.cu``, built on first use."""
-    path, _, _ = compile_source(name)
+def load(name, variant=None, defines=()):
+    """The ctypes handle of ``csrc/<name>.cu`` (its ``variant``), built on
+    first use."""
+    path, _, _ = compile_source(name, variant, defines)
     return ctypes.CDLL(path)

@@ -27,11 +27,12 @@ param cotangents summed over the stack).
 Each entry point dispatches on the device of its tensors and on the row
 model's declaration: a CUDA tensor of a model that names a CUDA counterpart
 (``cuda_model``: veltracer on (T, X, Y) planes, heat and wave on (T, N)
-planes) launches the hand-written kernel of ``csrc/rowwise.cu``, and raises
-where that kernel does not take the call; a model that names none
-(``cuda_model is None``: a user row function, heat without its hand adjoint
-or with another conductivity net) runs the plain PyTorch version on the
-card's tensors (``plain_on_card``, with its own launch counter) -- autograd of
+planes) launches the hand-written kernel of ``csrc/rowwise.cu`` (heat with
+another conductivity net than [1, 5, 5, 1], or with keep_init or
+keep_frozen off: of ``csrc/heat_net.cu``, built for the net's widths), and
+raises where that kernel does not take the call; a model that names none
+(``cuda_model is None``: a user row function) runs the plain PyTorch
+version on the card's tensors (``plain_on_card``, with its own launch counter) -- autograd of
 the row function over the row stacks where the model has no ``row_vjp``, the
 counterpart of the TPU kernel's in-kernel ``jax.vjp``; a CPU tensor runs the
 plain version.  No exception selects a route.  64-bit fields take the plain
@@ -408,6 +409,9 @@ class _VeltracerCuda:
     """The veltracer row model on (T, X, Y) planes: 3 fields, 2 const planes
     (u_init, u_final), no params, no data, hist=1 (``csrc/veltracer_row.cuh``)."""
 
+    def library(self, model):
+        return _library()
+
     def names(self, model, stream):
         """The (forward, backward) entry points for this model: the streaming
         pair launches the slabbed ones."""
@@ -479,11 +483,16 @@ class _Rows1DCuda:
         slab, blocks = _tile_rows(T, N, self.hist, bool(grads), resident, tile, max_slab, threads)
         return slab, -(-T // slab) * -(-N // tile), blocks, resident
 
-    def __init__(self, model_id, hist, nfields, ndata, consts, flags_scalars, check_params):
+    def __init__(self, model_id, hist, nfields, ndata, consts, flags_scalars, check_params, library=None):
         self.model_id, self.hist, self.nfields, self.ndata = model_id, hist, nfields, ndata
         self.consts = consts  # the const shapes, "N" standing for the plane
         self.flags_scalars = flags_scalars
         self.check_params = check_params
+        self._library = library
+
+    def library(self, model):
+        """The library of this model's kernels, where it has the same id."""
+        return self._library(model) if self._library is not None else _library()
 
     def check(self, model, nterms, hist, fields, params, data, consts):
         if hist != self.hist:
@@ -519,6 +528,8 @@ class _Rows1DCuda:
         for p in params:
             dparams.append(out[pos : pos + p.numel()].view(p.shape))
             pos += p.numel()
+        if len(params) > _MAXP:  # a net of more layers: its params as one flat buffer (the kernel's order)
+            params = (torch.cat([p.reshape(-1) for p in params]),)
         flags, scalars = self.flags_scalars(model, nterms, N)
         args = _Rows1DArgs(
             f=_ptrs(fields, _MAXF), data=_ptrs(data, _MAXD), consts=_ptrs(consts, _MAXC), params=_ptrs(params, _MAXP),
@@ -532,31 +543,84 @@ class _Rows1DCuda:
         if model.halo is not None:
             mask, off, _, r_lo, r_hi = model.halo
             args = _Rows1DHaloArgs(base=args, mask=mask.data_ptr(), off=off, r_lo=r_lo, r_hi=r_hi)
-        return _Launch(args, dfields, tuple(dparams), out, (partials,))
+        return _Launch(args, dfields, tuple(dparams), out, (partials,) + params)
 
 
-# The conductivity net the heat CUDA model carries: [1, 5, 5, 1], tanh.
-_HEAT_LAYERS = ((5, 1), (5, 5), (1, 5))
+# The heat CUDA model's conductivity nets [1, w1, ..., wL, 1] (tanh hidden
+# layers): the default [1, 5, 5, 1] with keep_init and keep_frozen on is built
+# into rowwise.cu (``HeatRow``, its register-resident param cotangents); every
+# other configuration into a library of csrc/heat_net.cu for its hidden
+# widths, built at first use (``_heat_net_library``).  The limit: 1 to 3
+# hidden layers of 1 to 32 units (at most 2209 params).
+_HEAT_DEFAULT_WIDTHS = (5, 5)
+_HEAT_MAX_HIDDEN, _HEAT_MAX_WIDTH = 3, 32
+_HEAT_LIMIT = (f"the heat CUDA row model takes conductivity nets [1, w1, ..., wL, 1] with 1 <= L <= "
+               f"{_HEAT_MAX_HIDDEN} hidden layers of 1 to {_HEAT_MAX_WIDTH} units")
+
+
+@functools.lru_cache(maxsize=None)
+def _heat_net(layers):
+    """(hidden widths, param shapes) of a conductivity net's (out, in) layer
+    shapes from 1 input to 1 output, or None where the shapes are no such
+    chain or the net is beyond the kernels' limit (cached: the heat row
+    model is built anew every epoch)."""
+    layers = tuple(tuple(int(n) for n in shape) for shape in layers)
+    if not layers or layers[0][1] != 1 or layers[-1][0] != 1:
+        return None
+    if any(a[0] != b[1] for a, b in zip(layers, layers[1:])):
+        return None
+    widths = tuple(no for no, _ in layers[:-1])
+    if not 1 <= len(widths) <= _HEAT_MAX_HIDDEN or not all(1 <= w <= _HEAT_MAX_WIDTH for w in widths):
+        return None
+    return widths, layers + tuple((n,) for n, _ in layers)
 
 
 def _heat_flags_scalars(model, nterms, N):
     s = model.scalars
-    has_imp, has_x, has_t, infer_k = (bool(s[k]) for k in ("has_imp", "has_x", "has_t", "infer_k"))
+    has_imp, has_x, has_t, infer_k, keep_init, keep_frozen = (
+        bool(s[k]) for k in ("has_imp", "has_x", "has_t", "infer_k", "keep_init", "keep_frozen"))
     if nterms != 1 + has_imp + has_x + has_t:
         raise ValueError(f"nterms={nterms} does not match the heat flags")
-    flags = has_imp | has_x << 1 | has_t << 2 | infer_k << 3
+    flags = has_imp | has_x << 1 | has_t << 2 | infer_k << 3 | keep_init << 4 | keep_frozen << 5
     dt, dx = s["dt"], s["dx"]
     return flags, (1 / dt, 1 / dx, 1 / (2 * dx), s["imp_weight"], s["kmax"])
 
 
 def _heat_check_params(model, nterms, params):
     s = model.scalars
-    want = tuple(_HEAT_LAYERS) + tuple((n,) for n, _ in _HEAT_LAYERS) if s["infer_k"] else ()
-    if tuple(tuple(p.shape) for p in params) != want or (s["infer_k"] and tuple(s["layers"]) != _HEAT_LAYERS):
-        raise NotImplementedError(
-            f"the heat CUDA row model takes the [1, 5, 5, 1] conductivity net (params {want}), "
-            f"got {[tuple(p.shape) for p in params]}"
-        )
+    if not s["infer_k"]:
+        if params:
+            raise NotImplementedError(f"the heat CUDA row model without infer_k takes no params, got "
+                                      f"{[tuple(p.shape) for p in params]}")
+        return
+    net = _heat_net(s["layers"])
+    if net is None:
+        raise NotImplementedError(f"{_HEAT_LIMIT}, got layers {[tuple(shape) for shape in s['layers']]}")
+    if tuple(tuple(p.shape) for p in params) != net[1]:
+        raise NotImplementedError(f"the heat CUDA row model takes the params {net[1]} of its net, got "
+                                  f"{[tuple(p.shape) for p in params]}")
+
+
+def _heat_library(model):
+    """The library of the heat model's kernels: rowwise.cu for the default
+    net with keep_init and keep_frozen on (or the true conductivity with
+    both on), else heat_net.cu built for the net's hidden widths (the
+    default widths without infer_k)."""
+    s = model.scalars
+    widths = _heat_net(s["layers"])[0] if s["infer_k"] else _HEAT_DEFAULT_WIDTHS
+    if widths == _HEAT_DEFAULT_WIDTHS and s["keep_init"] and s["keep_frozen"]:
+        return _library()
+    return _heat_net_library(widths)
+
+
+def heat_net_source(widths):
+    """(source, variant, defines) of the heat kernels' library for a net of
+    hidden ``widths`` (``_build.compile_source``'s arguments): one macro a
+    hidden layer, 0 where the net has fewer (nvcc splits a macro's value at
+    its commas)."""
+    widths = tuple(int(w) for w in widths)
+    slots = widths + (0,) * (_HEAT_MAX_HIDDEN - len(widths))
+    return "heat_net", "w" + "x".join(map(str, widths)), tuple((f"ODIL_HEAT_W{i + 1}", w) for i, w in enumerate(slots))
 
 
 def _wave_flags_scalars(model, nterms, N):
@@ -575,7 +639,7 @@ def _wave_check_params(model, nterms, params):
 _CUDA_MODELS = {
     "veltracer": _VeltracerCuda(),
     "heat": _Rows1DCuda(0, 1, 1, (0, 2), ("N", "N", "N", "N", (1, 1), (1, 1)), _heat_flags_scalars,
-                        _heat_check_params),
+                        _heat_check_params, _heat_library),
     "wave": _Rows1DCuda(1, 2, 1, (2,), ("N", "N", "N"), _wave_flags_scalars, _wave_check_params),
 }
 
@@ -589,48 +653,81 @@ def _cuda_model(model):
     return spec
 
 
+def _type_rows1d(lib):
+    """Declares the rows1d entry points of a library (rowwise.cu or
+    heat_net.cu) and checks its argument structs' layout."""
+    for name in ("odil_rows1d_args_size", "odil_rows1d_halo_args_size"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+    for name, n in (("odil_rows1d_tile", 1), ("odil_rows1d_resident_blocks", 2)):
+        getattr(lib, name).argtypes = [ctypes.c_int] * n
+        getattr(lib, name).restype = ctypes.c_int
+    lib.odil_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.odil_cuda_error_string.restype = ctypes.c_char_p
+    for pre, struct in (("odil_rows1d", _Rows1DArgs), ("odil_rows1d_halo", _Rows1DHaloArgs)):
+        getattr(lib, pre + "_forward").argtypes = [ctypes.c_int, ctypes.POINTER(struct), ctypes.c_void_p]
+        getattr(lib, pre + "_backward").argtypes = [ctypes.c_int, ctypes.POINTER(struct), ctypes.c_int, ctypes.c_void_p]
+        getattr(lib, pre + "_forward").restype = ctypes.c_int
+        getattr(lib, pre + "_backward").restype = ctypes.c_int
+    for name, struct in (("odil_rows1d_args_size", _Rows1DArgs), ("odil_rows1d_halo_args_size", _Rows1DHaloArgs)):
+        size = getattr(lib, name)()
+        if size != ctypes.sizeof(struct):
+            raise RuntimeError(f"{struct.__name__} layout mismatch: C {size} vs ctypes {ctypes.sizeof(struct)} bytes")
+    lib._odil_rows1d_tile = tuple(int(lib.odil_rows1d_tile(a)) for a in range(3))
+
+
+def _rows1d_resident(lib, model_ids):
+    """{(model id, mode): blocks the card holds at once} of a library's 1-D
+    row models, every mode (1-3 and the masked 5-7)."""
+    return {(i, mode): max(int(lib.odil_rows1d_resident_blocks(i, mode)), 1)
+            for i in model_ids for mode in (1, 2, 3, 5, 6, 7)}
+
+
 def _library():
     lib = _build.load("rowwise")
     if not getattr(lib, "_odil_typed", False):
-        for name in ("odil_rows_args_size", "odil_rows_halo_args_size", "odil_rows1d_args_size",
-                     "odil_rows1d_halo_args_size", "odil_rows_resident_blocks"):
+        for name in ("odil_rows_args_size", "odil_rows_halo_args_size", "odil_rows_resident_blocks"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
         lib.odil_rows_num_blocks.argtypes = [ctypes.c_int] * 4
         lib.odil_rows_num_blocks.restype = ctypes.c_int
-        for name, n in (("odil_rows_tile", 1), ("odil_rows1d_tile", 1), ("odil_rows1d_resident_blocks", 2)):
-            getattr(lib, name).argtypes = [ctypes.c_int] * n
-            getattr(lib, name).restype = ctypes.c_int
-        lib.odil_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.odil_cuda_error_string.restype = ctypes.c_char_p
+        lib.odil_rows_tile.argtypes = [ctypes.c_int]
+        lib.odil_rows_tile.restype = ctypes.c_int
         lib.odil_empty_launch.argtypes = [ctypes.c_void_p]
         lib.odil_empty_launch.restype = ctypes.c_int
         for pre, struct in (("odil_rows", _RowArgs), ("odil_rows_halo", _RowHaloArgs)):
             getattr(lib, pre + "_forward").argtypes = [ctypes.POINTER(struct), ctypes.c_void_p]
             getattr(lib, pre + "_backward").argtypes = [ctypes.POINTER(struct), ctypes.c_int, ctypes.c_void_p]
-        for pre, struct in (("odil_rows1d", _Rows1DArgs), ("odil_rows1d_halo", _Rows1DHaloArgs)):
-            getattr(lib, pre + "_forward").argtypes = [ctypes.c_int, ctypes.POINTER(struct), ctypes.c_void_p]
-            getattr(lib, pre + "_backward").argtypes = [
-                ctypes.c_int, ctypes.POINTER(struct), ctypes.c_int, ctypes.c_void_p
-            ]
-        for pre in ("odil_rows", "odil_rows_halo", "odil_rows1d", "odil_rows1d_halo"):
             getattr(lib, pre + "_forward").restype = ctypes.c_int
             getattr(lib, pre + "_backward").restype = ctypes.c_int
-        for name, struct in (
-            ("odil_rows_args_size", _RowArgs), ("odil_rows_halo_args_size", _RowHaloArgs),
-            ("odil_rows1d_args_size", _Rows1DArgs), ("odil_rows1d_halo_args_size", _Rows1DHaloArgs),
-        ):
+        for name, struct in (("odil_rows_args_size", _RowArgs), ("odil_rows_halo_args_size", _RowHaloArgs)):
             size = getattr(lib, name)()
             if size != ctypes.sizeof(struct):
                 raise RuntimeError(f"{struct.__name__} layout mismatch: C {size} vs ctypes {ctypes.sizeof(struct)} bytes")
+        _type_rows1d(lib)
         # Read once: the launch shapes' searches take them (cached by shape).
         lib._odil_resident = max(int(lib.odil_rows_resident_blocks()), 1)
-        lib._odil_rows1d_tile = tuple(int(lib.odil_rows1d_tile(a)) for a in range(3))
-        lib._odil_rows1d_resident = {
-            (spec.model_id, mode): max(int(lib.odil_rows1d_resident_blocks(spec.model_id, mode)), 1)
-            for spec in _CUDA_MODELS.values() if isinstance(spec, _Rows1DCuda) for mode in (1, 2, 3, 5, 6, 7)
-        }
+        lib._odil_rows1d_resident = _rows1d_resident(
+            lib, [spec.model_id for spec in _CUDA_MODELS.values() if isinstance(spec, _Rows1DCuda)])
         lib._odil_typed = True
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _heat_net_library(widths):
+    """The heat kernels' library for a conductivity net of hidden ``widths``
+    (csrc/heat_net.cu, built at first use; its one row model has heat's id
+    in rowwise.cu, 0)."""
+    name, variant, defines = heat_net_source(widths)
+    lib = _build.load(name, variant, defines)
+    _type_rows1d(lib)
+    lib.odil_heat_net_params.argtypes = []
+    lib.odil_heat_net_params.restype = ctypes.c_int
+    dims = (1,) + tuple(widths) + (1,)
+    nparams = sum(a * b + b for a, b in zip(dims, dims[1:]))
+    if lib.odil_heat_net_params() != nparams:
+        raise RuntimeError(f"{name} {variant}: {lib.odil_heat_net_params()} params, expected {nparams}")
+    lib._odil_rows1d_resident = _rows1d_resident(lib, [_CUDA_MODELS["heat"].model_id])
     return lib
 
 
@@ -647,7 +744,7 @@ def _call(lib, spec, name, launch, *extra):
 def _launch_forward(model, nterms, hist, fields, params, data, consts, stream=False):
     spec = _cuda_model(model)
     spec.check(model, nterms, hist, fields, params, data, consts)
-    lib = _library()
+    lib = spec.library(model)
     name = spec.names(model, stream)[0]
     cs = _cuda_stream(fields[0])
     launch = spec.pack(lib, model, nterms, fields, params, data, consts, None, False, True, cs)
@@ -661,7 +758,7 @@ def _launch_backward(model, nterms, hist, fields, params, data, consts, g, with_
     g = g.to(torch.float32).contiguous()
     if not g.is_cuda or g.numel() < nterms:
         raise ValueError("g must hold nterms weights on the card")
-    lib = _library()
+    lib = spec.library(model)
     name = spec.names(model, stream)[1]
     cs = _cuda_stream(fields[0])
     launch = spec.pack(lib, model, nterms, fields, params, data, consts, g, True, with_sums, cs)
@@ -674,7 +771,7 @@ def launch_shape(model, fields, grads, sums):
     ``fields`` (a CUDA model's), the streaming pair's too."""
     spec = _cuda_model(model)
     T, *plane = fields[0].shape
-    return spec.launch_shape(_library(), T, tuple(plane), grads, sums, model.halo is not None)
+    return spec.launch_shape(spec.library(model), T, tuple(plane), grads, sums, model.halo is not None)
 
 
 def row_tile():

@@ -9,8 +9,10 @@ Tolerances: sums rtol 1e-5; gradients rtol 1e-4 with atol 1e-6 * max|ref|
 (fp32, different summation order); the per-shard kernels' gradients against
 the fp64 plain version within that plus 4 times the fp32 plain version's
 own distance from it (``_close_floor``).  Row models without a CUDA
-counterpart run their plain versions on the card (``rowwise.plain_on_card``)
-and give the CPU route's numbers."""
+counterpart (user row functions) run their plain versions on the card
+(``rowwise.plain_on_card``) and give the CPU route's numbers; every heat
+configuration takes the row kernels (``csrc/heat_net.cu`` beyond the
+default net)."""
 
 import hashlib
 
@@ -1072,10 +1074,11 @@ def _user_operator(ctx):
 
 @pytest.mark.parametrize("which", ["heat_keep_init_0", "user_row_fn"])
 def test_plain_on_card_route_matches_cpu_route(cuda, which):
-    """heat with keep_init=0 and a user row function through
-    ctx.rowwise_terms: the one-pass route runs their plain versions on the
-    card (plain_on_card once a call, no row-wise kernel) and gives the CPU
-    route's terms and gradients."""
+    """A user row function through ctx.rowwise_terms: the one-pass route
+    runs its plain version on the card (plain_on_card once a call, no
+    row-wise kernel); heat with keep_init=0, which declares its CUDA model,
+    takes the kernel (one backward+sums a call, no plain_on_card).  Both
+    give the CPU route's terms and gradients."""
     if which == "heat_keep_init_0":
         build = lambda d: tht.build(nt=16, nx=16, kernel="pallas", device=d, args=_heat_args())
     else:
@@ -1091,8 +1094,9 @@ def test_plain_on_card_route_matches_cpu_route(cuda, which):
     cfn, gfn = cp.make_loss_grad_fn(cs), gp.make_loss_grad_fn(gs)
     before = (trw.plain_on_card.launches, trw.backward_cuda.launches, trw.forward_cuda.launches)
     outs = [gfn(arrays_from_numpy(a, device=cuda), dict(gp.tracers, epoch=e)) for e, a in enumerate(states)]
+    plain, kernel = (0, 2) if which == "heat_keep_init_0" else (2, 0)
     assert (trw.plain_on_card.launches, trw.backward_cuda.launches, trw.forward_cuda.launches) == (
-        before[0] + 2, before[1], before[2])
+        before[0] + plain, before[1] + kernel, before[2])
     for e, (arrays, ((_, (gterms, _)), ggrads)) in enumerate(zip(states, outs)):
         (_, (cterms, _)), cgrads = cfn(arrays_from_numpy(arrays, device="cpu"), dict(cp.tracers, epoch=e))
         for a, b in zip(gterms, cterms):
@@ -1313,3 +1317,146 @@ def test_gspmd_route_is_the_unsharded_route_on_the_card(cuda, kernel):
         launches.append((trmg.backward_mg_cuda.launches - before["mg"], trw.backward_cuda.launches - before["rows"]))
     assert launches[0] == launches[1] and sum(launches[0]) >= 2
     assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+# -- Every heat configuration on the row kernels ---------------------------------
+
+# keep_init and keep_frozen on or off, the true conductivity, and nets of
+# other widths and depths (heat_net.cu, a library per net; the default
+# configuration stays in rowwise.cu): (hidden widths, args).
+HEAT_CONFIGS = {
+    "ki0": ((5, 5), dict(keep_init=0)),
+    "kf0": ((5, 5), dict(keep_frozen=0)),
+    "ki0_kf0": ((5, 5), dict(keep_init=0, keep_frozen=0)),
+    "true_k_ki0_kf0": ((5, 5), dict(infer_k=False, keep_init=0, keep_frozen=0)),
+    "w3x4_ki0_kf0": ((3, 4), dict(keep_init=0, keep_frozen=0)),
+    "w4x4x4_kf0": ((4, 4, 4), dict(keep_frozen=0)),
+    "w32x32": ((32, 32), dict()),
+    "w32x32_kf0": ((32, 32), dict(keep_frozen=0)),
+    "w16x16x16_ki0_kf0": ((16, 16, 16), dict(keep_init=0, keep_frozen=0)),
+}
+
+
+def _config_args(config, **kw):
+    import argparse
+
+    a = dict(infer_k=True, imposed="random", nimp=40, noise=0.0, seed=1000, kimp=2.0, kxreg=0.3, kxregdecay=0,
+             ktreg=0.2, ktregdecay=0, kwreg=0.0, kwregdecay=0, kmax=0.1, keep_frozen=1, keep_init=1, solver="odil")
+    a.update(HEAT_CONFIGS[config][1])
+    a.update(kw)
+    return argparse.Namespace(**a)
+
+
+def _config_case(config, device, T, N, seed=17):
+    """_row_case of a heat configuration of HEAT_CONFIGS."""
+    rng = np.random.default_rng(seed)
+    mk = lambda *shape: torch.as_tensor((0.3 * rng.normal(size=shape)).astype(np.float32), device=device)
+    p, s, e = tht.build(nt=T, nx=N, dtype=np.float32, multigrid=False, kernel="pallas", device=device,
+                        arch_k=HEAT_CONFIGS[config][0], args=_config_args(config))
+    model, names, params = tht._row_model(Context(p.domain, s, extra=e, tracers=p.tracers))
+    params = tuple(3 * mk(*q.shape) for q in params)
+    data = (e.imp_mask, mk(T, N)) if e.imp_size else ()
+    consts = (mk(N), mk(N), mk(N), torch.arange(N, dtype=torch.float32, device=device), mk(1, 1), mk(1, 1))
+    return model, len(names), 1, (mk(T, N) + 0.5,), params, data, consts
+
+
+@pytest.mark.parametrize("config", list(HEAT_CONFIGS))
+@pytest.mark.parametrize("shape", [(64, 64), (7, 5), (2, 3), (33, 257), (1024, 1024)])
+def test_heat_configurations_match_plain(cuda, config, shape):
+    """Forward, backward+sums and backward of every heat configuration
+    against the plain version (the hand adjoint) in fp64; the streaming
+    launch gives the slabbed launch's bits."""
+    model, nterms, hist, fields, params, data, consts = _config_case(config, cuda, *shape)
+    assert model.cuda_model == "heat" and model.row_vjp is not None
+    g = torch.linspace(0.5, 1.5, nterms, device=cuda) / fields[0].numel()
+    args = (model, nterms, hist, fields, params, data, consts)
+    wide = (model, nterms, hist, _wide(fields), _wide(params), _wide(data), _wide(consts))
+    _check_kernels(lambda: trw.forward_cuda(*args), lambda s: trw.backward_cuda(*args, g, s),
+                   lambda: trw._forward_plain(*wide), lambda s: trw._backward_plain(*wide, g.double(), s), nterms,
+                   len(params))
+    slabbed = [trw.forward_cuda(*args)] + [trw.backward_cuda(*args, g, s) for s in (True, False)]
+    streamed = [trw.forward_stream_cuda(*args)] + [trw.backward_stream_cuda(*args, g, s) for s in (True, False)]
+    flat = lambda out: [out[0]] + [t for b in out[1:] for t in list(b[0]) + list(b[1]) + ([b[2]] if b[2] is not None else [])]
+    assert _digest(flat(slabbed)) == _digest(flat(streamed))
+
+
+@pytest.mark.parametrize("config", list(HEAT_CONFIGS))
+def test_heat_configurations_repeat_their_bits(cuda, config):
+    """No atomics in the shared param form either: backward+sums (dfields,
+    dparams, sums) the same bits call after call."""
+    model, nterms, hist, fields, params, data, consts = _config_case(config, cuda, 256, 512)
+    g = torch.full((nterms,), 1.0 / fields[0].numel(), device=cuda)
+    outs = []
+    for _ in range(3):
+        kd, kp, ks = trw.backward_cuda(model, nterms, hist, fields, params, data, consts, g, True)
+        outs.append(_digest(list(kd) + list(kp) + [ks]))
+    assert outs[0] == outs[1] == outs[2]
+
+
+@pytest.mark.parametrize("config", ["ki0_kf0", "w32x32_kf0", "w16x16x16_ki0_kf0"])
+def test_heat_configurations_under_halo_match_plain(cuda, config):
+    """The masked per-shard kernels of a heat configuration on the four t:4
+    shards of 64x96 against the plain version of the wrapped model
+    (_close_floor), one masked launch a call."""
+    from odil_torch import halo as thalo
+    from odil_torch import parallel as tpar
+
+    mesh = tpar.mesh_from_spec("t:4", devices=[cuda] * 4)
+    p, s, _ = tht.build(nt=64, nx=96, kernel="pallas", device=cuda, mesh=mesh, partition={"t": "t"},
+                        arch_k=HEAT_CONFIGS[config][0], args=_config_args(config))
+    rng = np.random.default_rng(14)
+    arrays = [(0.3 * rng.normal(size=a.shape)).astype(np.float32) for a in p.domain.arrays_from_state(s)]
+    plan = thalo._HaloPlan(p, s)
+    grid, params = thalo._localize(p, plan, thalo._mg_metas(p, s, plan), arrays_from_numpy(arrays, device=cuda))
+    results = thalo._run_operators(p, plan, thalo._extended(plan, grid), params, p.tracers)
+    before = trw.backward_halo_rows1d_cuda.launches
+    for r in [r for ctx, _ in results for r in ctx.rowwise_deferred]:
+        m, nt, h = r["row_fn"], r["nterms"], r["hist"]
+        a, a64 = _record_args(r), _record_args(r, torch.float64)
+        g = torch.linspace(0.5, 1.5, nt, device=cuda) / a[0][0].numel()
+        for with_sums in (True, False):
+            kd, kp, ks = trw.backward_halo_rows1d_cuda(m, nt, h, *a, g, with_sums)
+            pd, pp, ps = trw._backward_plain(m, nt, h, *a, g, with_sums)
+            wd, wp, _ = trw._backward_plain(m, nt, h, *a64, g.double(), with_sums)
+            for k, q, w in zip(list(kd) + list(kp), list(pd) + list(pp), list(wd) + list(wp)):
+                _close_floor(k, q, w)
+            if with_sums:
+                _close(ks, ps, 1e-5, 1e-7)
+        _close(trw.forward_halo_rows1d_cuda(m, nt, h, *a), trw._forward_plain(m, nt, h, *a), 1e-5, 1e-7)
+    assert trw.backward_halo_rows1d_cuda.launches - before == 4 * 2
+
+
+@pytest.mark.parametrize("config", ["ki0", "w32x32_kf0"])
+def test_heat_configurations_take_the_kernel_route(cuda, config):
+    """The one-pass route of a heat configuration on the card: one
+    backward+sums a call, no plain_on_card; the CPU route's terms and
+    gradients."""
+    build = lambda d: tht.build(nt=16, nx=16, kernel="pallas", device=d, arch_k=HEAT_CONFIGS[config][0],
+                                args=_config_args(config))
+    cp, cs, _ = build("cpu")
+    gp, gs, _ = build(cuda)
+    rng = np.random.default_rng(9)
+    states = [[(0.3 * rng.normal(size=tuple(a.shape))).astype(np.float32) for a in cp.domain.arrays_from_state(cs)]
+              for _ in range(2)]
+    cfn, gfn = cp.make_loss_grad_fn(cs), gp.make_loss_grad_fn(gs)
+    before = (trw.plain_on_card.launches, trw.backward_cuda.launches)
+    outs = [gfn(arrays_from_numpy(a, device=cuda), dict(gp.tracers, epoch=e)) for e, a in enumerate(states)]
+    assert (trw.plain_on_card.launches, trw.backward_cuda.launches) == (before[0], before[1] + 2)
+    for e, (arrays, ((_, (gterms, _)), ggrads)) in enumerate(zip(states, outs)):
+        (_, (cterms, _)), cgrads = cfn(arrays_from_numpy(arrays, device="cpu"), dict(cp.tracers, epoch=e))
+        for a, b in zip(gterms, cterms):
+            _close(a, b, 1e-5, 0.0)
+        for a, b in zip(ggrads, cgrads):
+            _close(a, b, 1e-4, 1e-6)
+
+
+def test_heat_net_beyond_the_limit_raises(cuda):
+    """A conductivity net beyond the kernels' limit (33 units, four hidden
+    layers) raises with the limit on the card: no route picks itself."""
+    for arch in ((33,), (4, 4, 4, 4)):
+        p, s, e = tht.build(nt=8, nx=16, kernel="pallas", device=cuda, arch_k=arch, args=_config_args("w32x32"))
+        model, names, params = tht._row_model(Context(p.domain, s, extra=e, tracers=p.tracers))
+        fields = (torch.zeros((8, 16), device=cuda),)
+        consts = (torch.zeros(16, device=cuda),) * 4 + (torch.zeros((1, 1), device=cuda),) * 2
+        with pytest.raises(NotImplementedError, match="at most 3|1 to 32"):
+            trw.forward_cuda(model, len(names), 1, fields, params, (e.imp_mask, e.imp_u), consts)

@@ -184,3 +184,32 @@ def test_heat_halo_trajectory_matches_unsharded_fp64():
         opt = Adam(grad_fn, p.domain.arrays_from_state(s), lr=1e-3)
         losses[spec] = torch.cat([opt.run_chunk(10) for _ in range(10)]).numpy()
     np.testing.assert_allclose(losses["t:4"], losses[None], rtol=1e-8)
+
+
+def test_heat_halo_every_keep_flag_off_matches_unsharded():
+    """Heat with keep_init=0 and keep_frozen=0 (the hand adjoint through the
+    face temperatures, row 0 reading the periodic row T-1) on t:2 under
+    --halo, fp64: the generic one-pass route and the loss-only route against
+    the port's unsharded route (rtol 1e-10)."""
+    import argparse
+
+    args = argparse.Namespace(infer_k=True, imposed="random", nimp=40, noise=0.0, seed=1000, kimp=2.0, kxreg=0.3,
+                              kxregdecay=0, ktreg=0.2, ktregdecay=0, kwreg=0.0, kwregdecay=0, kmax=0.1, keep_frozen=0,
+                              keep_init=0, solver="odil")
+    out = {}
+    for spec in ("t:2", None):
+        mesh = tpar.mesh_from_spec(spec, devices=CPU8[:2]) if spec else None
+        tp, ts, _ = tht.build(nt=16, nx=16, kernel="pallas", dtype=np.float64, device="cpu", mesh=mesh,
+                              partition={"t": "t"} if spec else None, arch_k=(3, 4), args=args)
+        rng = np.random.default_rng(5)
+        arrays = [(0.3 * rng.normal(size=tuple(a.shape))).astype(np.float64) for a in tp.domain.arrays_from_state(ts)]
+        if spec:
+            fn = tp.make_loss_grad_fn(ts, halo=True)
+            assert fn is not None and fn.route == "generic"
+            (loss, (terms, _)), grads = fn(arrays_from_numpy(arrays, device="cpu"), tp.tracers)
+            out["onepass"] = (loss, terms, grads)
+        out[spec or "unsharded"] = _port_loss_route(tp, ts, arrays, halo=bool(spec))
+    ul, uterms, ugrads = out["unsharded"]
+    for name in ("onepass", "t:2"):
+        _check(*out[name], float(ul.detach()), [float(t.detach()) for t in uterms], [g.detach().numpy() for g in ugrads])
+

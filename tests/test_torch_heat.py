@@ -1,6 +1,9 @@
 """The heat inverse-conductivity model of the port against the JAX package on
 the CPU: the fused row function and its hand adjoint against autograd
-(fp64, rtol 1e-12), ``operator_odil_fused`` and ``operator_odil`` and the
+(fp64, rtol 1e-12) for every configuration (keep_init, keep_frozen, the
+true conductivity, nets of 1 to 3 hidden layers), each declaring the heat
+CUDA model, a net beyond the kernels' limit raising on card tensors,
+``operator_odil_fused`` and ``operator_odil`` and the
 one-pass route against the JAX package's ``make_loss_grad_fn(interpret=True)``
 (fp64 rtol 1e-10; fp32 terms rtol 1e-5, gradients rtol 1e-4 with atol 1e-6 *
 max|ref|), five Adam steps, the stripe of measurements, and the committed
@@ -82,18 +85,35 @@ def _jax_onepass(jp, js, arrays):
 # -- Row function and hand adjoint ---------------------------------------------
 
 
+# The configurations beyond the converged lane's: keep_init and keep_frozen
+# off, the true conductivity, and nets of other widths and depths (the
+# kernels' limit: 1 to 3 hidden layers of 1 to 32 units).
+CONFIGS = {
+    f"ki{ki}_kf{kf}" + ("_true_k" if not ik else f"_w{'x'.join(map(str, arch))}"): dict(
+        keep_init=ki, keep_frozen=kf, infer_k=ik, arch_k=arch)
+    for ki in (0, 1) for kf in (0, 1) for ik in (True, False)
+    for arch in (((5, 5), (3, 4), (6,), (4, 4, 4), (32, 32)) if ik else ((5, 5),))
+    if (ki, kf) != (1, 1) or arch != (5, 5)
+}
+
+
 @pytest.mark.parametrize("shape", [(8, 16), (7, 5), (6, 1), (5, 2)], ids=lambda s: f"{s[0]}x{s[1]}")
 @pytest.mark.parametrize(
     "kw",
-    [dict(), dict(imposed="none", kxreg=0.0), dict(infer_k=False, ktreg=0.0), dict(kxreg=0.0, ktreg=0.0, kwreg=0.0)],
-    ids=["all_terms", "no_imp_no_xreg", "true_k", "fu_imp"],
+    [dict(), dict(imposed="none", kxreg=0.0), dict(infer_k=False, ktreg=0.0), dict(kxreg=0.0, ktreg=0.0, kwreg=0.0)]
+    + list(CONFIGS.values()),
+    ids=["all_terms", "no_imp_no_xreg", "true_k", "fu_imp"] + list(CONFIGS),
 )
 def test_hand_adjoint_matches_autograd(shape, kw):
-    """_make_row_vjp (through the conductivity net for the params) against
-    autograd of _make_row_fn, fp64, at seeded random rows, data, consts and
-    params; periodic planes down to one cell."""
+    """_make_row_vjp (through the conductivity net for the params and, with
+    keep_frozen off, for the face temperatures) against autograd of
+    _make_row_fn, fp64, at seeded random rows, data, consts and params;
+    periodic planes down to one cell; both summation orders (one param
+    adjoint a cell, and the kernel's face form)."""
     T, N = shape
-    tp, ts, e = th.build(nt=T, nx=N, dtype=np.float64, multigrid=False, kernel="pallas", device="cpu",
+    kw = dict(kw)
+    arch = kw.pop("arch_k", (5, 5))
+    tp, ts, e = th.build(nt=T, nx=N, dtype=np.float64, multigrid=False, kernel="pallas", device="cpu", arch_k=arch,
                          args=_args(**kw))
     model, names, params = th._row_model(Context(tp.domain, ts, extra=e, tracers={"epoch": 0}))
     rng = np.random.default_rng(T * 10 + N)
@@ -103,22 +123,65 @@ def test_hand_adjoint_matches_autograd(shape, kw):
     data = (torch.as_tensor((rng.uniform(size=(T, N)) < 0.4).astype(np.float64)), mk(T, N)) if e.imp_size else ()
     consts = (mk(N), mk(N), mk(N), torch.arange(N, dtype=torch.float64), mk(1, 1), mk(1, 1))
     g = torch.as_tensor(rng.uniform(0.5, 1.5, len(names)))
-    hand = trw._backward_plain(model, len(names), 1, fields, params, data, consts, g, True)
     auto = trw._backward_plain(trw.RowModel(model.row_fn), len(names), 1, fields, params, data, consts, g, True)
-    assert len(hand[1]) == len(params)
-    for a, b in zip(list(hand[0]) + list(hand[1]), list(auto[0]) + list(auto[1])):
-        _close(a.numpy(), b.numpy(), 1e-12, 1e-13)
-    _close(hand[2].numpy(), auto[2].numpy(), 1e-12, 0.0)
+    s = model.scalars
+    flags = tuple(bool(s[k]) for k in ("has_imp", "has_x", "has_t", "infer_k", "keep_init", "keep_frozen"))
+    faces = th._make_row_vjp(s["dt"], s["dx"], N, s["kmax"], s["imp_weight"], flags, s["layers"], faces=True)
+    for vjp in (model.row_vjp, faces):
+        hand = trw._backward_plain(trw.RowModel(model.row_fn, vjp), len(names), 1, fields, params, data, consts, g,
+                                   True)
+        assert len(hand[1]) == len(params)
+        for a, b in zip(list(hand[0]) + list(hand[1]), list(auto[0]) + list(auto[1])):
+            _close(a.numpy(), b.numpy(), 1e-12, 1e-13)
+        _close(hand[2].numpy(), auto[2].numpy(), 1e-12, 0.0)
 
 
-def test_row_model_without_hand_adjoint():
-    """keep_frozen=0 differentiates k by u: no hand adjoint, no CUDA model
-    (autograd on the CPU, NotImplementedError on the card)."""
-    tp, ts, e = th.build(nt=8, nx=8, dtype=np.float64, kernel="pallas", device="cpu", args=_args(keep_frozen=0))
-    model, _, _ = th._row_model(Context(tp.domain, ts, extra=e, tracers={"epoch": 0}))
-    assert model.row_vjp is None and model.cuda_model is None
-    with pytest.raises(NotImplementedError):
-        trw._cuda_model(model)
+class _CardLike(torch.Tensor):
+    """A CPU tensor that reports ``is_cuda``: what the kernel wrappers read."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("config", ["ki1_kf1_w5x5"] + list(CONFIGS))
+def test_every_configuration_declares_the_heat_kernel(config):
+    """Every configuration carries the hand adjoint and names the heat CUDA
+    model, its keep flags among the kernel's flags; on the card it reaches
+    the kernel wrapper's own checks (which take it)."""
+    kw = dict(CONFIGS.get(config, dict(keep_init=1, keep_frozen=1, infer_k=True, arch_k=(5, 5))))
+    arch = kw.pop("arch_k")
+    tp, ts, e = th.build(nt=8, nx=16, dtype=np.float32, kernel="pallas", device="cpu", arch_k=arch, args=_args(**kw))
+    model, names, params = th._row_model(Context(tp.domain, ts, extra=e, tracers={"epoch": 0}))
+    assert model.cuda_model == "heat" and model.row_vjp is not None
+    assert (model.scalars["keep_init"], model.scalars["keep_frozen"]) == (bool(kw["keep_init"]), bool(kw["keep_frozen"]))
+    flags, _ = trw._heat_flags_scalars(model, len(names), 16)
+    assert (flags >> 4 & 1, flags >> 5 & 1) == (kw["keep_init"], kw["keep_frozen"])
+    card = lambda ts: tuple(t.as_subclass(_CardLike) for t in ts)
+    fields = card((torch.zeros(8, 16),))
+    data = card((e.imp_mask, e.imp_u)) if e.imp_size else ()
+    consts = card((torch.zeros(16),) * 4 + (torch.zeros(1, 1),) * 2)
+    trw._cuda_model(model).check(model, len(names), 1, fields, card(params), data, consts)
+
+
+@pytest.mark.parametrize("arch", [(33,), (4, 4, 4, 4), (8, 40)], ids=lambda a: "w" + "x".join(map(str, a)))
+def test_net_beyond_the_limit_raises_on_the_card(arch):
+    """A conductivity net beyond the kernels' limit raises on card tensors
+    before any build, naming the limit: no route picks itself (on the CPU
+    the plain version runs)."""
+    tp, ts, e = th.build(nt=8, nx=16, dtype=np.float32, kernel="pallas", device="cpu", arch_k=arch, args=_args())
+    model, names, params = th._row_model(Context(tp.domain, ts, extra=e, tracers={"epoch": 0}))
+    assert model.cuda_model == "heat"
+    card = lambda ts: tuple(t.as_subclass(_CardLike) for t in ts)
+    consts = card((torch.zeros(16),) * 4 + (torch.zeros(1, 1),) * 2)
+    before = trw.plain_on_card.launches
+    with pytest.raises(NotImplementedError, match="1 <= L <= 3 hidden layers of 1 to 32 units"):
+        trw._forward(model, len(names), 1, card((torch.zeros(8, 16),)), card(params), card((e.imp_mask, e.imp_u)),
+                     consts)
+    assert trw.plain_on_card.launches == before
+    fields = (torch.zeros(8, 16),)
+    sums = trw._forward(model, len(names), 1, fields, params, (e.imp_mask, e.imp_u), consts)
+    assert sums.shape == (len(names),)
 
 
 # -- Against the JAX package ---------------------------------------------------
@@ -163,6 +226,41 @@ def test_fp32_routes_match_jax_onepass(route):
         loss, (terms, _) = loss_fn(x, tp.tracers)
         grads = torch.autograd.grad(loss, x)
     _check(loss, terms, grads, jl, jterms, jg, 1e-5, 1e-4, 1e-6)
+
+
+JAX_CONFIGS = {"ki0": (dict(keep_init=0), (5, 5)), "kf0": (dict(keep_frozen=0), (5, 5)),
+               "ki0_kf0_w3x4": (dict(keep_init=0, keep_frozen=0), (3, 4))}
+
+
+@pytest.mark.parametrize("config, dtype", [("ki0_kf0_w3x4", np.float32), ("ki0_kf0_w3x4", np.float64),
+                                           ("ki0", np.float32), ("kf0", np.float64)],
+                         ids=["ki0_kf0_w3x4-fp32", "ki0_kf0_w3x4-fp64", "ki0-fp32", "kf0-fp64"])
+def test_configurations_match_jax_onepass(config, dtype):
+    """keep_init=0, keep_frozen=0 and a [1, 3, 4, 1] net against the JAX
+    package's one-pass route in interpret mode: the port's fp32 one-pass
+    route (the hand adjoint; terms rtol 1e-5, gradients rtol 1e-4, atol 1e-6
+    * max|ref|) and its fp64 make_loss_fn with autograd (rtol 1e-10)."""
+    from odil_tpu.models import heat as jh
+
+    kw, arch = JAX_CONFIGS[config]
+    tols = (1e-5, 1e-4, 1e-6) if dtype == np.float32 else (1e-10, 1e-10, 1e-12)
+    size = dict(nt=8, nx=8, dtype=dtype, kernel="pallas", arch_k=arch, args=_args(**kw))
+    jp, js, _ = jh.build(**size)
+    tp, ts, _ = th.build(device="cpu", **size)
+    rng = np.random.default_rng(8)
+    arrays = [(0.3 * rng.normal(size=a.shape)).astype(dtype) for a in jp.domain.arrays_from_state(js)]
+    jp.tracers["epoch"] = tp.tracers["epoch"] = 3
+    (jl, (jterms, _)), jg = _jax_onepass(jp, js, arrays)
+    if dtype == np.float32:
+        fn = tp.make_loss_grad_fn(ts)
+        assert fn is not None
+        (loss, (terms, _)), grads = fn(arrays_from_numpy(arrays, device="cpu"), tp.tracers)
+    else:
+        loss_fn, _ = tp.make_loss_fn(ts)
+        x = [a.requires_grad_(True) for a in arrays_from_numpy(arrays, device="cpu")]
+        loss, (terms, _) = loss_fn(x, tp.tracers)
+        grads = torch.autograd.grad(loss, x)
+    _check(loss, terms, grads, jl, jterms, jg, *tols)
 
 
 def test_adam_five_steps_match_jax():

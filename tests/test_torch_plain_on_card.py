@@ -5,8 +5,10 @@ model that names none runs its plain version on the card's tensors through
 launches that kernel.  On the CPU a tensor subclass that reports
 ``is_cuda`` stands for a card tensor, and the CUDA wrappers are replaced by
 recorders.  Heat with ``keep_init=0`` and with a [1, 8, 1] conductivity net
-declares no CUDA model, and its loss and gradients equal the JAX package's
-(fp32 terms rtol 1e-5, gradients rtol 1e-4 with atol 1e-6 * max|ref|)."""
+declares the heat CUDA model with its hand adjoint (every heat
+configuration does), and its loss and gradients on the CPU route equal the
+JAX package's (fp32 terms rtol 1e-5, gradients rtol 1e-4 with atol 1e-6 *
+max|ref|)."""
 
 import argparse
 import os
@@ -129,7 +131,7 @@ def test_mg_model_without_cuda_counterpart_runs_plain_on_card():
         assert torch.equal(a.as_subclass(torch.Tensor), b)
 
 
-# -- heat without the CUDA model, against the JAX package ----------------------
+# -- heat outside its default configuration, against the JAX package -----------
 
 
 def _args(**kw):
@@ -144,6 +146,9 @@ HEAT_CASES = {"keep_init_0": (dict(keep_init=0), (5, 5)), "net_1_8_1": (dict(), 
 
 @pytest.mark.parametrize("case", list(HEAT_CASES))
 def test_heat_without_cuda_model_matches_jax(case):
+    """Heat with keep_init=0 and with a [1, 8, 1] net: the row model names
+    the heat kernel and carries the hand adjoint; its one-pass route on the
+    CPU against the JAX package's in interpret mode."""
     from odil_tpu.models import heat as jh
 
     kw, arch = HEAT_CASES[case]
@@ -152,7 +157,7 @@ def test_heat_without_cuda_model_matches_jax(case):
     jp, js, _ = jh.build(**size)
     tp, ts, te = th.build(device="cpu", **size)
     model, _, params = th._row_model(Context(tp.domain, ts, extra=te, tracers={"epoch": 2}))
-    assert model.cuda_model is None
+    assert model.cuda_model == "heat" and model.row_vjp is not None
     assert [tuple(p.shape) for p in params[: len(arch) + 1]] == [
         (o, i) for i, o in zip((1,) + arch, arch + (1,))
     ]

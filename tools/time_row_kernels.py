@@ -156,7 +156,7 @@ def time_phases(tag, dev, rand, card):
         args = (m, nt_, h, fs, ps, ds, cs_, gs)
         times = {}
         for phase, lib in libs.items():
-            _build.load = lambda name, lib=lib: lib if name == "rowwise" else load(name)
+            _build.load = lambda name, *a, lib=lib: lib if name == "rowwise" else load(name, *a)
             try:
                 times[phase] = cs.kernel_ms(torch, lambda: backward(*args, False), 50)
             finally:
