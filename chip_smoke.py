@@ -9,10 +9,11 @@ Run from the root of a checkout on a machine with the card:
 Phases, any failure exits non-zero and prints no result:
 
 1. Build: the CUDA libraries of ``odil_torch/csrc/`` (``rowwise_mg.cu``,
-   ``rowwise.cu``, and ``heat_net.cu`` for each of phase u's conductivity
-   nets) compile with nvcc for sm_90a into ``build/odil_torch/``, one nvcc
-   per source or net, started together; the heat_net builds are waited
-   for before phase u.
+   ``rowwise.cu``, ``probes.cu``, the two ablation builds of
+   ``rowwise_mg.cu`` (``ODIL_MG_ABLATION``), and ``heat_net.cu`` for each of
+   phase u's conductivity nets) compile with nvcc for sm_90a into
+   ``build/odil_torch/``, one nvcc per source, variant or net, started
+   together; all but the first two are waited for before phase u.
 2. Kernels vs their plain PyTorch versions, on seeded random fields and the
    real tracer planes (terms rtol 1e-5; gradients rtol 1e-4 with atol
    1e-6 * max|ref|):
@@ -346,6 +347,24 @@ Phases, any failure exits non-zero and prints no result:
       (``backend.ModTorch``) on the card against the CPU: the same bits for
       the exact operations, 1e-6 relative for the others, the convolutions
       with TF32 off; ``random``'s shapes, dtypes, determinism and moments.
+   v. The last two TPU kernels and the tools that run them
+      (``csrc/probes.cu``: the roofline's copy3 and the kernel ablation's
+      fma; ``ops/mg_ablation.py``: the ablation builds of the mg kernel).
+      copy3 the bits of three clones and fma within rtol 1e-5 of its plain
+      version at (65,256,256) and (65,512,512), the count of FFMA in the
+      unrolled fma kernel (at least four chains of 128 a thread), the
+      trivial-row and no-matmul builds against their own plain versions
+      at both shapes (sums rtol 1e-5; gradients by ``close_floor``, the fp64
+      plain version and the fp32 floor: the no-matmul build's rough fields
+      leave a few cells where fp32 itself misses the gate); then
+      ``odil_torch.tools.roofline`` and ``odil_torch.tools.kernel_ablation``
+      (variants full, kernel-only, trivial-row, no-matmul, vpu; and vpu at
+      512^2) run as a user runs them, at ``--length 20 --reps 3``, each with its launches counted and
+      its JSON printed and finite, the full epoch with bf16 slots beside
+      fp32 slots (ungated), and the copy3 chain at 512^2.  The measured
+      ceilings (copy3's rate at 512^2, the larger fma rate) are printed
+      beside the data sheet's, and every kernel's line and JSON entry gets
+      ``bound_measured_ms``, its bound at those ceilings.
    The streaming kernels (veltracer at (65,256,256) and (65,64,64), heat and
    wave at 64^2 and 1024^2; on the card the slabbed launch, counted apart)
    and the two-level kernel (t0 (65,256,256), t1 (33,128,128), P2
@@ -396,60 +415,18 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PARITY = os.path.join(HERE, "docs", "parity_data")
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
-# fp32 operations per fine cell of each function, all three fields, counted
-# from the formulas: the six residual terms (40), their adjoint (60), the mg
-# rebuild of a fine value (blend of 4 coarse taps, two 2-tap contractions,
-# f0*t0 + up: 23 per field) and its transposed prolongation (12).
-OPS_ROWS_FORWARD = 40
-OPS_ROWS_BACKWARD = OPS_ROWS_FORWARD + 60
-OPS_FORWARD = 3 * 23 + OPS_ROWS_FORWARD
-OPS_BACKWARD = OPS_FORWARD + 60 + 12
-# The heat and wave row models (heat_row.cuh, wave_row.cuh), per residual
-# cell, a multiply-add counted as two operations and a tanhf or expf as one:
-# heat's conductivity net runs once per face, about one face a cell, with
-# its face temperature (3), and the stencil (~25); its backward adds the
-# stencil's adjoint (~30), the net's param adjoint once per face and the
-# gather (6), and without keep_frozen the net's tangent once per face and the
-# face temperatures' cotangents (heat_net_ops).  Wave: the stencil (16) and
-# its adjoint (20).
-
-
-def heat_net_ops(widths=(5, 5)):
-    """fp32 operations of one pass of the conductivity net [1, *widths, 1]
-    (its multiply-adds, a tanhf a hidden unit, the expf, 3 for the sigmoid
-    and kmax: 84 for [1, 5, 5, 1]), of its param adjoint (4 for the output's
-    cotangent, an add a bias, a multiply-add a weight, the cotangents back
-    through every layer but the first -- a multiply where the layer has one
-    output -- and 3 a hidden unit for tanh's derivative: 170), and of its
-    tangent with the face temperatures' cotangents (without keep_frozen)."""
-    dims = (1,) + tuple(widths) + (1,)
-    macs = sum(a * b for a, b in zip(dims, dims[1:]))
-    hidden = sum(widths)
-    back = sum(ni * (1 if no == 1 else 2 * no) for ni, no in zip(dims[1:-1], dims[2:]))
-    net = 2 * macs + hidden + 1 + 3
-    vjp = 4 + hidden + 1 + 2 * macs + back + 3 * hidden
-    tangent = 2 * (macs - dims[1]) + 3 * hidden + 4 + 8
-    return net, vjp, tangent
-
-
-def heat_ops(widths=(5, 5), keep_frozen=True):
-    """(forward, backward) fp32 operations per residual cell of the heat row
-    model with the conductivity net of hidden ``widths``."""
-    net, vjp, tangent = heat_net_ops(widths)
-    forward = net + 3 + 25
-    return forward, forward + 30 + vjp + 6 + (0 if keep_frozen else tangent)
-
-
-OPS_HEAT_NET, OPS_HEAT_NET_VJP, _ = heat_net_ops()
-OPS_HEAT_FORWARD, OPS_HEAT_BACKWARD = heat_ops()
-OPS_WAVE_FORWARD = 16
-OPS_WAVE_BACKWARD = OPS_WAVE_FORWARD + 20
-# The two-level backward adds, per level-1 cell, the rebuild of the level-1
-# value (23 per field) and the transposed prolongation one level down and
-# the f1 scaling (5 per field).
-OPS_LVL2_PER_COARSE = 3 * (23 + 5)
+sys.path.insert(0, HERE)
+try:
+    # The data-sheet rates and the fp32 operations a cell that the bounds use.
+    from odil_torch.tools.roofline import (
+        FP32_FLOPS, HBM_BYTES_PER_S, OPS_BACKWARD, OPS_FORWARD, OPS_HEAT_BACKWARD, OPS_HEAT_FORWARD, OPS_HEAT_NET,
+        OPS_HEAT_NET_VJP, OPS_LVL2_PER_COARSE, OPS_NO_MATMUL_BACKWARD, OPS_ROWS_BACKWARD, OPS_ROWS_FORWARD,
+        OPS_TRIVIAL_ROW_BACKWARD, OPS_WAVE_BACKWARD, OPS_WAVE_FORWARD, heat_net_ops, heat_ops,
+    )
+except ImportError as exc:
+    print(f"chip_smoke: FAIL: no odil_torch package beside {__file__} ({exc}): run from a checkout of the repository",
+          file=sys.stderr)
+    sys.exit(1)
 DEVICE = "cuda"
 # The grids in cells: the flagship (the whole-plane TPU kernels), 64^3 (the
 # blocked ones) and 512^2 (the x-tiled ones).
@@ -524,6 +501,16 @@ ROWS1D_PINNED = {
     ("HeatRow", 1): (5376, 128), ("HeatRow", 2): (5984, 128), ("HeatRow", 3): (6448, 128),
     ("WaveRow", 1): (2744, 40), ("WaveRow", 2): (2456, 40), ("WaveRow", 3): (2904, 43),
 }
+# Phase v: the probes and the ablation builds of the mg kernel.  V_SIZES:
+# the shapes where they are held to their plain versions and timed (the
+# probes' 512^2 arrays exceed the L2: the HBM reading); the tools run as
+# ``--length V_LENGTH --reps V_REPS`` (a warm-up chunk and V_REPS chunks of
+# V_LENGTH calls), the ablation over V_VARIANTS; fma against its plain
+# version within V_FMA_RTOL (one rounding a step against two, 128 steps).
+V_SIZES = {"256": (65, 256, 256), "512": (65, 512, 512)}
+V_LENGTH, V_REPS = 20, 3
+V_VARIANTS = "full,kernel-only,trivial-row,no-matmul,vpu"
+V_FMA_RTOL = 1e-5
 # The data_*.pickle keys of the JAX examples' plot functions.
 PLOT_KEYS = {
     "wave": ["cshape", "lower", "ref_u", "ref_ut", "state_u", "state_ut", "upper"],
@@ -706,6 +693,23 @@ def sass_counts(path):
     return counts
 
 
+def sass_opcount(path, kernel, opcode):
+    """Instructions of ``opcode`` in the functions of a built library whose
+    mangled name holds ``kernel`` (cuobjdump), or None where the toolkit has
+    no cuobjdump."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", path], capture_output=True, text=True).stdout
+    count, inside = 0, False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside and "*/" in line and opcode in line.split("*/", 1)[1].replace(";", " ").split():
+            count += 1
+    return count
+
+
 def start_builds(_build, jobs):
     """Starts one nvcc for each job (a source's name, or ``(name, variant,
     defines)`` for a source built in variants), all together: {name, or
@@ -781,6 +785,8 @@ class Counters:
     """The launch counters of the kernel wrappers."""
 
     def __init__(self, rmg, rw):
+        from odil_torch.ops import mg_ablation, probes
+
         self.wrappers = {
             "backward_mg": rmg.backward_mg_cuda, "forward_mg": rmg.forward_mg_cuda,
             "backward_mg2": rmg.backward_mg2_cuda,
@@ -789,6 +795,9 @@ class Counters:
             "backward_halo": rw.backward_halo_cuda, "forward_halo": rw.forward_halo_cuda,
             "backward_mg_local": rmg.backward_mg_local_cuda, "plain_on_card": rw.plain_on_card,
             "backward_halo_rows1d": rw.backward_halo_rows1d_cuda, "forward_halo_rows1d": rw.forward_halo_rows1d_cuda,
+            "copy3": probes.copy3_cuda, "fma": probes.fma_cuda,
+            "backward_trivial_row": mg_ablation.backward_trivial_row_cuda,
+            "backward_no_matmul": mg_ablation.backward_no_matmul_cuda,
         }
 
         # The mg backward's launches that also formed the sums, counted apart
@@ -3503,6 +3512,157 @@ def mesh_phase(torch, np, counters, heat_lane, vt_rows, vt_ms, vt_epochs, poisso
     return launches, keep
 
 
+def finite_numbers(obj):
+    """Whether every number in a JSON-like object is finite."""
+    if isinstance(obj, dict):
+        return all(finite_numbers(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return all(finite_numbers(v) for v in obj)
+    if isinstance(obj, (int, float)):
+        return obj == obj and abs(obj) != float("inf")
+    return True
+
+
+def probes_phase(torch, counters, builds, row_model, launches, report, tag):
+    """v. The roofline's copy3 and the ablation's fma probes and the two
+    ablation builds of the mg kernel against their plain versions, the
+    port's roofline and kernel-ablation tools on the card, and the card's
+    measured ceilings.  Returns (the timed entries, {name: its library
+    call}, (measured HBM bytes/s, measured fp32 FLOP/s))."""
+    from odil_torch.ops import mg_ablation, probes
+    from odil_torch.tools import kernel_ablation, roofline
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    K = probes.FMA_K
+    none = dict.fromkeys(counters.read(), 0)
+    n_chain = (1 + V_REPS) * V_LENGTH
+    argv = {s: ["--nt", str(T - 1), "--nx", str(X), "--length", str(V_LENGTH), "--reps", str(V_REPS)]
+            for s, (T, X, _) in V_SIZES.items()}
+    probe_src, mg_src = "odil_torch/csrc/probes.cu", "odil_torch/csrc/rowwise_mg.cu"
+
+    ffma = sass_opcount(builds["probes"][0], f"fma_kernelILi{K}E", "FFMA")
+    if ffma is None:
+        print(f"fma probe: no cuobjdump in the toolkit, its FFMA not counted {tag}")
+    else:
+        print(f"fma probe: {ffma} FFMA in fma_kernel<{K}> (four chains a thread and the scalar tail: at least "
+              f"{4 * K}) {tag}")
+        if ffma < 4 * K:
+            fail(f"the fma probe's chain was shortened: {ffma} FFMA in fma_kernel<{K}>, fewer than {4 * K}")
+
+    # The kernels against their plain versions.
+    inputs, timed, library = {}, {}, {}
+    variants = (("trivial_row", mg_ablation.backward_trivial_row_cuda, mg_ablation._backward_trivial_row_plain,
+                 OPS_TRIVIAL_ROW_BACKWARD),
+                ("no_matmul", mg_ablation.backward_no_matmul_cuda, mg_ablation._backward_no_matmul_plain,
+                 OPS_NO_MATMUL_BACKWARD))
+    for size, shape in V_SIZES.items():
+        abc = tuple(torch.rand(shape, generator=gen, device=dev) for _ in range(3))
+        inputs[size] = abc
+        k, k2, p = probes.copy3_cuda(*abc), probes.copy3_cuda(*abc), probes._copy3_plain(*abc)
+        kf, pf = probes.fma_cuda(abc[0], K), probes._fma_plain(abc[0], K)
+        torch.cuda.synchronize()
+        bits = all(torch.equal(x, y) for x, y in zip(k + k2, p + p))
+        e_f, ok_f = close(kf.double(), pf.double(), V_FMA_RTOL, 0.0)
+        print(f"probes at {shape}: copy3 the bits of three clones call after call: {bits}; fma max|d| {e_f:.3e} "
+              f"(max rel {rel_err(kf, pf):.2e}, rtol {V_FMA_RTOL}) {tag}")
+        if not (bits and ok_f):
+            fail(f"a probe disagrees with its plain version at {shape}: copy3 bits {bits}, fma {ok_f}")
+        report[f"copy3_{size}"], report[f"fma_{size}"] = 0.0, e_f
+        n = abc[0].numel()
+        timed[f"copy3_{size}"] = (lambda abc=abc: probes.copy3_cuda(*abc), lambda abc=abc: probes._copy3_plain(*abc),
+                                  6 * 4 * n, 0, "benchmarks/roofline.py:129", probe_src)
+        library[f"copy3_{size}"] = lambda abc=abc: [x.clone() for x in abc]
+        timed[f"fma_{size}"] = (lambda x=abc[0]: probes.fma_cuda(x, K), lambda x=abc[0]: probes._fma_plain(x, K),
+                                2 * 4 * n, 2 * K * n, "benchmarks/kernel_ablation.py:181", probe_src)
+        del k, k2, p, kf, pf
+
+        model, nterms, consts = row_model(size)
+        T, X, Y = shape
+        t0s = tuple(0.3 * torch.randn((T, X, Y), generator=gen, device=dev) for _ in range(3))
+        coarse = tuple(0.3 * torch.randn((T // 2 + 1, X // 2, Y // 2), generator=gen, device=dev) for _ in range(3))
+        cells = t0s[0].numel()
+        g = torch.full((nterms,), 1.0 / cells, device=dev)
+        f0s = (0.7, 1.1, 0.9)
+        wide = lambda ts: tuple(t.double() for t in ts)
+        for variant, kernel, plain, ops in variants:
+            args_ = (model, nterms, 1, f0s, t0s, coarse, consts, g, True)
+            kd, kP, ks = kernel(*args_)
+            pd, pP, ps = plain(*args_)
+            qd, qP, _ = plain(model, nterms, 1, f0s, wide(t0s), wide(coarse), wide(consts), g.double(), True)
+            torch.cuda.synchronize()
+            e_s, ok_s = close(ks.double() / cells, ps.double() / cells, TERMS_RTOL, 0.0)
+            e_g, ok_g, w_g = close_floor(kd + kP, pd + pP, qd + qP)
+            print(f"mg ablation build {variant} at {shape}: max|d sums| {e_s:.3e} (max rel {rel_err(ks, ps):.2e}), "
+                  f"max|d(dt0,dP)| {e_g:.3e} against its own plain version; {worst_text(w_g)} {tag}")
+            if not (ok_s and ok_g):
+                fail(f"the mg ablation build {variant} disagrees with its plain version at {shape} (sums {ok_s}, "
+                     f"grads {ok_g})")
+            del kd, kP, ks, pd, pP, ps, qd, qP
+            if size == "256":  # the shape of the ablation tool's chains
+                name = f"backward_mg_{variant}"
+                report[name] = e_g
+                nbytes = 4 * sum(t.numel() for t in t0s + coarse + tuple(consts) + t0s + coarse) + 8 * nterms
+                timed[name] = (lambda k=kernel, a=args_: k(*a), lambda p=plain, a=args_: p(*a), nbytes, ops * cells,
+                               "odil_tpu/ops/rowwise_mg.py:766", mg_src)
+
+    # The tools, each with the counters zeroed just before it and read after.
+    def run_tool(what, fn, want):
+        counters.zero()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = counters.read()
+        expect_counts(counts, dict(none, **want), what)
+        if not finite_numbers(out):
+            fail(f"{what}: a number of its output is not finite: {out}")
+        return out, counts
+
+    rl, counts = run_tool("the roofline tool", lambda: roofline.main(argv["256"]),
+                          {"backward_mg": 3 * n_chain, "backward_mg_with_sums": 3 * n_chain, "copy3": n_chain})
+    launches["copy3_256"] = counts["copy3"]
+    launches["backward_mg_sums"] += counts["backward_mg"]
+    losses = rl["chunk_last_losses"]
+    print(f"roofline tool: the full epoch with bf16 slots {rl['epoch_ms']} ms (fp32 slots "
+          f"{rl['epoch_fp32_slots_ms']} ms), loss+grad {rl['lossgrad_ms']} ms, copy3 {rl['copy_ms']} ms at "
+          f"{rl['copy_ceiling_GBps']} GB/s; the last loss of each chunk, bf16 slots {losses['bf16']} against fp32 "
+          f"slots {losses['fp32']} (not gated) {tag}")
+    ka, counts = run_tool("the kernel-ablation tool", lambda: kernel_ablation.main(argv["256"] + ["--variants", V_VARIANTS]),
+                          {"backward_mg": 2 * n_chain, "backward_mg_with_sums": 2 * n_chain, "backward_trivial_row": n_chain,
+                           "backward_no_matmul": n_chain, "fma": n_chain})
+    launches["backward_mg_sums"] += counts["backward_mg"]
+    launches["backward_mg_trivial_row"] = counts["backward_trivial_row"]
+    launches["backward_mg_no_matmul"] = counts["backward_no_matmul"]
+    launches["fma_256"] = counts["fma"]
+    ka512, counts = run_tool("the kernel-ablation tool's vpu probe at 512^2",
+                             lambda: kernel_ablation.main(argv["512"] + ["--variants", "vpu"]), {"fma": n_chain})
+    launches["fma_512"] = counts["fma"]
+    (dt_c512, reps_c512, _), counts = run_tool(
+        "the roofline tool's copy3 chain at 512^2",
+        lambda: roofline.timed_chain(roofline.copy_chain(V_LENGTH), inputs["512"], V_LENGTH, V_REPS, dev),
+        {"copy3": n_chain})
+    launches["copy3_512"] = counts["copy3"]
+    print(f"kernel-ablation tool: {ka['ms_per_iter']} ms/iter; row math {ka.get('row_math_bound_ms')} ms, in-kernel "
+          f"prolongation {ka.get('in_kernel_matmul_bound_ms')} ms, prologue and epilogue "
+          f"{ka.get('xla_prologue_epilogue_ms')} ms; fma chain {ka['vpu_ceiling_tflops']} TFLOP/s at 256^2, "
+          f"{ka512['vpu_ceiling_tflops']} at 512^2; the copy3 chain at 512^2 {1e3 * dt_c512:.4f} ms/call "
+          f"(reps {reps_c512}) {tag}")
+
+    # The measured ceilings: the copy rate at 512^2 (the HBM reading), the
+    # larger FMA rate (both lower bounds of the FMA ceiling).
+    copy_ms = {s: kernel_ms(torch, lambda s=s: probes.copy3_cuda(*inputs[s]), 50) for s in V_SIZES}
+    fma_ms = {s: kernel_ms(torch, lambda s=s: probes.fma_cuda(inputs[s][0], K), 50) for s in V_SIZES}
+    copy_rate = {s: 6 * 4 * inputs[s][0].numel() / (copy_ms[s] * 1e-3) for s in V_SIZES}
+    fma_rate = {s: 2 * K * inputs[s][0].numel() / (fma_ms[s] * 1e-3) for s in V_SIZES}
+    ceilings = (copy_rate["512"], max(fma_rate.values()))
+    print(f"measured ceilings: copy3 {copy_rate['512'] / 1e9:.1f} GB/s at {V_SIZES['512']} (HBM; "
+          f"{copy_rate['256'] / 1e9:.1f} GB/s at {V_SIZES['256']}, partly L2) against the data sheet's "
+          f"{HBM_BYTES_PER_S / 1e9:.0f} GB/s ({100 * ceilings[0] / HBM_BYTES_PER_S:.1f}%); fma "
+          f"{fma_rate['256'] / 1e12:.2f} TFLOP/s at {V_SIZES['256']}, {fma_rate['512'] / 1e12:.2f} at "
+          f"{V_SIZES['512']} against the data sheet's {FP32_FLOPS / 1e12:.0f} TFLOP/s "
+          f"({100 * ceilings[1] / FP32_FLOPS:.1f}%; lower bounds of the FMA ceiling) {tag}")
+    return timed, library, ceilings
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--epochs", type=int, default=400, help="Flagship training epochs (multiple of 10)")
@@ -3547,7 +3707,11 @@ def main():
     # The heat_net.cu libraries of phase u's nets start with the others and
     # are waited for before phase u.
     heat_nets = sorted({widths for widths, _, _ in U_CONFIGS.values()})
-    pending = start_builds(_build, ["rowwise_mg", "rowwise"] + [rw.heat_net_source(w) for w in heat_nets])
+    from odil_torch.ops import mg_ablation
+
+    ablations = [("rowwise_mg", v, (("ODIL_MG_ABLATION", code),)) for v, code in mg_ablation.ABLATIONS.items()]
+    pending = start_builds(_build, ["rowwise_mg", "rowwise", "probes"] + ablations
+                           + [rw.heat_net_source(w) for w in heat_nets])
     builds = report_builds({k: pending.pop(k) for k in ("rowwise_mg", "rowwise")})
     rows1d_unchanged(builds, tag)
     rmg._library()
@@ -4444,6 +4608,11 @@ def main():
         launches[name] += n
         print(f"phase t: {name} +{n} launches (t) {tag}")
 
+    # v. The probes, the ablation builds and the tools that run them.
+    t_v = time.perf_counter()
+    v_timed, library, (ceil_bytes, ceil_flops) = probes_phase(torch, counters, builds, row_model, launches, report, tag)
+    t_v = time.perf_counter() - t_v
+
     idle = [name for name in report if launches.get(name, 0) < 1]
     if idle:
         fail(f"kernels not launched on their paths: {idle}")
@@ -4612,8 +4781,9 @@ def main():
                 "odil_tpu/ops/rowwise.py:549", rows_src,
             )
 
-    # Phase u's kernels.
+    # Phase u's and phase v's kernels.
     timed.update(u_timed)
+    timed.update(v_timed)
     slabbed.update(u_slabbed)
     edge.update(u_edge)
     row_cases.update(u_cases)
@@ -4651,6 +4821,8 @@ def main():
         t_bytes = nbyte / HBM_BYTES_PER_S * 1e3
         t_ops = ops / FP32_FLOPS * 1e3
         bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        bound_measured_ms = max(nbyte / ceil_bytes, ops / ceil_flops) * 1e3
+        library_ms = kernel_ms(torch, library[name], 50) if name in library else None
         beside = f", slabbed launch {kernel_ms(torch, slabbed[name], 50):.4f} ms" if name in slabbed else ""
         if name in edge:
             t_edge = max((nbyte + edge[name]) / HBM_BYTES_PER_S * 1e3, t_ops)
@@ -4658,18 +4830,23 @@ def main():
         if name.endswith("_64"):
             beside += f", launch floor {floor_ms:.4f} ms"
         if name in unlisted:
-            print(f"kernel {name} (no path runs it): {ms:.4f} ms{beside}, bound {bound_ms:.4g} ms ({bound_by}), "
-                  f"plain {plain_ms:.4f} ms, max|d| {off_path[name]:.3e} {tag}")
+            print(f"kernel {name} (no path runs it): {ms:.4f} ms{beside}, bound {bound_ms:.4g} ms ({bound_by}; "
+                  f"{bound_measured_ms:.4g} ms at the measured ceilings), plain {plain_ms:.4f} ms, max|d| "
+                  f"{off_path[name]:.3e} {tag}")
             continue
-        print(f"kernel {name}: {ms:.4f} ms{beside}, bound {bound_ms:.4g} ms ({bound_by}), plain {plain_ms:.4f} ms, "
+        if library_ms is not None:
+            beside += f", library {library_ms:.4f} ms"
+        print(f"kernel {name}: {ms:.4f} ms{beside}, bound {bound_ms:.4g} ms ({bound_by}; {bound_measured_ms:.4g} ms at "
+              f"the measured ceilings), plain {plain_ms:.4f} ms, "
               f"{launches[name]} launches on its path {tag}")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaced,
             "launches": launches[name], "max_abs_err": report[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_measured_ms": bound_measured_ms,
+            "library_ms": library_ms,
         })
 
-    print(f"seconds: phase u {t_u:.1f}, phase p {t_p:.1f}, phase q {t_q:.1f}, phase r {t_r:.1f}, phase s {t_s:.1f}, phase t {t_t:.1f}, the "
+    print(f"seconds: phase v {t_v:.1f}, phase u {t_u:.1f}, phase p {t_p:.1f}, phase q {t_q:.1f}, phase r {t_r:.1f}, phase s {t_s:.1f}, phase t {t_t:.1f}, the "
           f"script from its "
           f"start (the kernels' build included) "
           f"{time.perf_counter() - t_main:.1f} {tag}")

@@ -125,7 +125,9 @@
 
 namespace rows1d {
 
-constexpr int MAXF = 2, MAXD = 2, MAXC = 6, MAXP = 6, NSCALARS = 8;
+// MAXP: the param tensors of the largest heat net the kernels take (three
+// hidden layers: four weights and four biases), each read where it lies.
+constexpr int MAXF = 2, MAXD = 2, MAXC = 6, MAXP = 8, NSCALARS = 8;
 
 // Mirrored by odil_torch/ops/rowwise.py::_Rows1DArgs (ctypes); the Python side
 // checks sizeof through odil_rows1d_args_size().

@@ -113,6 +113,23 @@
 // the whole coarse plane of the time window, 0 where no block's taps reach.
 // Bound: the bytes of the block, its window and heads in, dt0, dP and dheads
 // out; ~28.8 MB at the flagship's t:2,x:2 shards, ~8.6 us at 3.35 TB/s.
+//
+// Ablation builds (odil_torch/ops/mg_ablation.py; the kernel-ablation tool's
+// variants, benchmarks/kernel_ablation.py:224-291): the macro ODIL_MG_ABLATION
+// picks what the depth-1 whole-plane walk leaves out, and nothing else of the
+// walk changes.  Built without it (the library of every path), the code is
+// the code above.  1: the row model's arithmetic -- the row header is
+// mg_trivial_row.cuh, whose trivial row touches every input plane.  2: the
+// 2-tap prolongation and its transpose (the TPU tool's "no-matmul", which
+// stubs the in-kernel MXU dots by copies of the same shapes): a fine cell
+// takes the t-blended coarse value at (x mod CX, y mod CY), loaded with its
+// t0 values in place of the staged window and its taps (the tool's tiled
+// copy), and dP is the t-blended fine cotangent of the cells x < CX, y < CY
+// (the tool's slice), written by the owning thread as its slab's partial of
+// that coarse cell and summed over the slabs by mg_dp_slice_gather_kernel.
+// Both compute another function than the loss: each is held to its own
+// plain version.  The two-level and local-block entry points refuse an
+// ablation build.
 
 #include <type_traits>
 
@@ -121,7 +138,11 @@
 #define ODIL_TILE_X 16
 #define ODIL_THREAD_ROWS 8
 #define ODIL_PLANE_YOFF 2
+#if ODIL_MG_ABLATION == 1
+#include "mg_trivial_row.cuh"
+#else
 #include "veltracer_row.cuh"
+#endif
 
 namespace {
 
@@ -367,6 +388,22 @@ __device__ __forceinline__ float* dp_partial(const Args& A, int k, size_t& strid
   return A.dp_part + (blockIdx.z * dp_slots(A.slab) + k) * stride;
 }
 
+#if ODIL_MG_ABLATION == 2
+// The ablation without the prolongation: the closed coarse row k
+// (slab-relative) of this thread's cell in tile row `row` is its slab's
+// partial of coarse cell (x, y) where x < CX and y < CY (the slice), in
+// dense planes (slab, k, field) of the coarse shape.
+template <class Args>
+__device__ __forceinline__ void slice_dp(const Args& A, int k, int row, const float (&closed)[NF]) {
+  const int x = blockIdx.y * TILE_X + row, y = blockIdx.x * TILE_Y + threadIdx.x;
+  if (x >= A.CX || y >= A.CY) return;
+  const size_t cplane = (size_t)A.CX * A.CY;
+  float* out = A.dp_part + ((size_t)blockIdx.z * dp_slots(A.slab) + k) * NF * cplane + (size_t)x * A.CY + y;
+#pragma unroll
+  for (int f = 0; f < NF; ++f) out[f * cplane] = closed[f];
+}
+#endif
+
 // dP row l (the walk's fine row) of this thread's cells, d their cotangents
 // before the level-0 factor (0 for a cell it does not own): an even row adds
 // to the open coarse row l/2; an odd row closes (l-1)/2 (slab-relative k)
@@ -389,13 +426,19 @@ __device__ __forceinline__ void dp_step(DpStage& Q, const Args& A, const float (
         acc = 0.5f * d[c][f];
       }
     }
+#if ODIL_MG_ABLATION == 2
+    if (l & 1) slice_dp(A, k, row, closed);
+#else
     if (l & 1) close_dp_row(Q, closed, k % DPR, row);
+#endif
   }
+#if ODIL_MG_ABLATION != 2
   if ((l & 1) && k % DPR == DPR - 1) {
     size_t stride;
     float* out = dp_partial(A, k - (DPR - 1), stride);
     flush_dp(Q, DPR, out, stride);
   }
+#endif
 }
 
 // The slab's end: the open coarse row (walk rows end before l1, the next dP
@@ -403,6 +446,18 @@ __device__ __forceinline__ void dp_step(DpStage& Q, const Args& A, const float (
 template <class Args>
 __device__ void dp_finish(DpStage& Q, const Args& A, int l1, int c_lo) {
   const int open = l1 >> 1, k = open - c_lo;
+#if ODIL_MG_ABLATION == 2
+  if (open <= A.Tc - 1) {
+#pragma unroll
+    for (int c = 0; c < CELLS; ++c) {
+      const int row = threadIdx.y + c * THREAD_ROWS;
+      float closed[NF];
+#pragma unroll
+      for (int f = 0; f < NF; ++f) closed[f] = Q.acc[f][row][threadIdx.x];
+      slice_dp(A, k, row, closed);
+    }
+  }
+#else
   int n = k % DPR;
   if (open <= A.Tc - 1) {
 #pragma unroll
@@ -420,6 +475,7 @@ __device__ void dp_finish(DpStage& Q, const Args& A, int l1, int c_lo) {
     float* out = dp_partial(A, k - k % DPR, stride);
     flush_dp(Q, n, out, stride);
   }
+#endif
 }
 
 // The plane indices of the tile's fine rows and columns and their taps, as
@@ -532,7 +588,32 @@ struct RowLoads {
   int rr;
   float p0[NCB], p1[NCB];
   float t0[NPOS][NF];
+#if ODIL_MG_ABLATION == 2
+  float pb[NPOS][NF];  // the t-blended coarse value at (x mod CX, y mod CY) of each position
+#endif
 };
+
+#if ODIL_MG_ABLATION == 2
+// The ablation without the prolongation: this thread's blended coarse values
+// of fine row rr at (x mod CX, y mod CY) for its tile positions.
+template <class Args>
+__device__ __forceinline__ void fetch_tiled(RowLoads& L, const RowStage& S, const Args& A, int rr) {
+  const int tid = threadIdx.y * TILE_Y + threadIdx.x;
+  const int c0 = rr >> 1, c1 = min(c0 + 1, A.Tc - 1);
+  const float w = (rr & 1) ? 0.5f : 0.0f;
+  const size_t cplane = (size_t)A.CX * A.CY;
+#pragma unroll
+  for (int k = 0; k < NPOS; ++k) {
+    const int idx = tid + k * NTHREADS;
+    if (idx < HX * HY) {
+      const size_t o = (size_t)(S.xi[idx / HY] % A.CX) * A.CY + S.yi[idx % HY] % A.CY;
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+        L.pb[k][f] = (1.0f - w) * __ldg(A.P[f] + c0 * cplane + o) + w * __ldg(A.P[f] + c1 * cplane + o);
+    }
+  }
+}
+#endif
 
 // Issues the loads of fine row r (periodic in t; x0: the tile's first global
 // column).  A local block walks the stack [heads; block] of A.T + 1 rows:
@@ -564,6 +645,9 @@ __device__ __forceinline__ void fetch_row(RowLoads& L, const RowStage& S, const 
     rr = r < 0 ? r + A.T : (r >= A.T ? r - A.T : r);
   }
   L.rr = rr;
+#if ODIL_MG_ABLATION == 2
+  if constexpr (!LVL2) fetch_tiled(L, S, A, rr);
+#else
   if constexpr (!LVL2) {
     const int c0 = rr >> 1;
     const int c1 = min(c0 + 1, A.Tc - 1);
@@ -581,6 +665,7 @@ __device__ __forceinline__ void fetch_row(RowLoads& L, const RowStage& S, const 
       }
     }
   }
+#endif
 #pragma unroll
   for (int k = 0; k < NPOS; ++k) {
     const int idx = tid + k * NTHREADS;
@@ -618,6 +703,22 @@ __device__ __forceinline__ void rebuild_fine(Plane* F, const RowStage& S, const 
 // fine = f0 * t0[r] + Wx . blend_t(P[r/2], P[r/2+1]) . Wy^T, with the
 // blended coarse window staged in shared memory first.  Contains barriers,
 // so every thread of the block must call it; it ends with one.
+#if ODIL_MG_ABLATION == 2
+// The ablation without the prolongation: no staged window and no taps, the
+// loaded blended values themselves.
+__device__ void build_row(Plane* F, RowStage&, const MgArgs& A, const RowLoads& L) {
+  const int tid = threadIdx.y * TILE_Y + threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < NPOS; ++k) {
+    const int idx = tid + k * NTHREADS;
+    if (idx < HX * HY) {
+#pragma unroll
+      for (int f = 0; f < NF; ++f) F[f][idx / HY][idx % HY] = A.f0[f] * L.t0[k][f] + L.pb[k][f];
+    }
+  }
+  __syncthreads();
+}
+#else
 __device__ void build_row(Plane* F, RowStage& S, const MgArgs& A, const RowLoads& L) {
   const int tid = threadIdx.y * TILE_Y + threadIdx.x;
   const float w = (L.rr & 1) ? 0.5f : 0.0f;
@@ -630,6 +731,7 @@ __device__ void build_row(Plane* F, RowStage& S, const MgArgs& A, const RowLoads
   rebuild_fine(F, S, A, L);
   __syncthreads();
 }
+#endif
 
 // build_row at depth 2: the two coarse rows are level-1 rows of the P1 ring,
 // rebuilt first where the ring does not hold them (p1_rows: the rows in its
@@ -880,6 +982,30 @@ __global__ void __launch_bounds__(GATHER_B) mg_dp_gather_kernel(const Args A) {
   for (int f = 0; f < NF; ++f) A.dP[f][((size_t)c * A.CX + a) * A.CY + b] = v[f];
 }
 
+#if ODIL_MG_ABLATION == 2
+// The ablation without the prolongation: dP[f][c][a][b] from the slabs'
+// dense partials (slice_dp), added in slab order.  Grid and threads as
+// mg_dp_gather_kernel's.
+__global__ void __launch_bounds__(GATHER_B) mg_dp_slice_gather_kernel(const MgArgs A) {
+  const int b = blockIdx.x * GATHER_B + threadIdx.x;
+  if (b >= A.CY) return;
+  const int a = blockIdx.y, c = blockIdx.z;
+  const int nz = (A.T + A.slab - 1) / A.slab, zc = 2 * c / A.slab;
+  const size_t cplane = (size_t)A.CX * A.CY, o = (size_t)a * A.CY + b;
+  float v[NF] = {0.0f, 0.0f, 0.0f};
+  for (int z = max(zc - 1, 0); z <= min(zc + 1, nz - 1); ++z) {
+    int c_lo, c_hi;
+    dp_rows(A, z, c_lo, c_hi);
+    if (c < c_lo || c > c_hi) continue;
+    const float* part = A.dp_part + ((size_t)z * dp_slots(A.slab) + c - c_lo) * NF * cplane + o;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) v[f] += part[f * cplane];
+  }
+#pragma unroll
+  for (int f = 0; f < NF; ++f) A.dP[f][(size_t)c * cplane + o] = v[f];
+}
+#endif
+
 // The two-level fusion's dP2 = W1x^T (0.5 dP1[2c-1] + dP1[2c] + 0.5 dP1[2c+1])
 // W1y, gathered per level-2 cell from dP1 (dt0 here: the level-1 plane, X, Y
 // its size, CX, CY, Tc the level-2 ones; a coarse tile staged in shared
@@ -942,7 +1068,11 @@ int mg_launch(const Args& A, cudaStream_t s) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !(MODE & MODE_GRADS)) return (int)err;
   const dim3 ggrid((A.CY + GATHER_B - 1) / GATHER_B, A.CX, A.Tc);
+#if ODIL_MG_ABLATION == 2
+  mg_dp_slice_gather_kernel<<<ggrid, GATHER_B, 0, s>>>(A);
+#else
   mg_dp_gather_kernel<Args><<<ggrid, GATHER_B, 0, s>>>(A);
+#endif
   return (int)cudaGetLastError();
 }
 
@@ -969,7 +1099,13 @@ int odil_mg_num_blocks(int T, int X, int Y, int slab) {
 
 // The floats of A->dp_part for the same launch.
 long long odil_mg_dp_floats(int T, int X, int Y, int slab) {
-  return (long long)odil_mg_num_blocks(T, X, Y, slab) * dp_slots(slab) * DWIN;
+  const long long windows = (long long)odil_mg_num_blocks(T, X, Y, slab) * dp_slots(slab) * DWIN;
+#if ODIL_MG_ABLATION == 2
+  const long long dense = (long long)((T + slab - 1) / slab) * dp_slots(slab) * NF * (X / 2) * (Y / 2);
+  return dense > windows ? dense : windows;
+#else
+  return windows;
+#endif
 }
 
 // The walk's tile: its rows (axis 0) or its columns (axis 1), the tile the
@@ -1006,6 +1142,9 @@ int odil_mg_backward(const MgArgs* a, int with_sums, void* stream) {
 // the sums when with_sums, then dP2 from dP1 by the same transposed
 // prolongation one level down.
 int odil_mg_backward2(const Mg2Args* a, int with_sums, void* stream) {
+#if ODIL_MG_ABLATION
+  return (int)cudaErrorNotSupported;
+#else
   const Mg2Args A = *a;
   cudaStream_t s = (cudaStream_t)stream;
   const int err = mg_backward<true>(A, with_sums, s);
@@ -1019,6 +1158,7 @@ int odil_mg_backward2(const Mg2Args* a, int with_sums, void* stream) {
   const dim3 cgrid((B.CY + CT - 1) / CT, (B.CX + CT - 1) / CT, B.Tc * NF);
   mg_coarse_grad_kernel<<<cgrid, dim3(CT, CT), 0, s>>>(B);
   return (int)cudaGetLastError();
+#endif
 }
 
 // The local-block gradient pass (_backward_mg with wraps_in/emit_dwraps, with
@@ -1026,7 +1166,11 @@ int odil_mg_backward2(const Mg2Args* a, int with_sums, void* stream) {
 // dheads and the sums.  A->slab slabs the Tl + 1 rows of the stack.
 int odil_mg_backward_local(const MgLocalArgs* a, int with_sums, void* stream) {
   if (!with_sums) return (int)cudaErrorInvalidValue;
+#if ODIL_MG_ABLATION
+  return (int)cudaErrorNotSupported;
+#else
   return mg_launch<MODE_SUMS | MODE_GRADS, false>(*a, (cudaStream_t)stream);
+#endif
 }
 
 }  // extern "C"

@@ -353,7 +353,7 @@ class _RowArgs(ctypes.Structure):
     ]
 
 
-_MAXF, _MAXD, _MAXC, _MAXP, _NSCALARS = 2, 2, 6, 6, 8
+_MAXF, _MAXD, _MAXC, _MAXP, _NSCALARS = 2, 2, 6, 8, 8
 
 
 class _Rows1DArgs(ctypes.Structure):
@@ -528,8 +528,6 @@ class _Rows1DCuda:
         for p in params:
             dparams.append(out[pos : pos + p.numel()].view(p.shape))
             pos += p.numel()
-        if len(params) > _MAXP:  # a net of more layers: its params as one flat buffer (the kernel's order)
-            params = (torch.cat([p.reshape(-1) for p in params]),)
         flags, scalars = self.flags_scalars(model, nterms, N)
         args = _Rows1DArgs(
             f=_ptrs(fields, _MAXF), data=_ptrs(data, _MAXD), consts=_ptrs(consts, _MAXC), params=_ptrs(params, _MAXP),

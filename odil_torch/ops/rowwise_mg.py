@@ -391,7 +391,13 @@ class _MgLocalArgs(ctypes.Structure):
 
 
 def _library():
-    lib = _build.load("rowwise_mg")
+    return _typed(_build.load("rowwise_mg"))
+
+
+def _typed(lib):
+    """A library built from csrc/rowwise_mg.cu with its entry points typed,
+    its argument structs and tile checked against the mirrors here, and the
+    blocks the card holds at once (``_odil_resident``), once."""
     if not getattr(lib, "_odil_typed", False):
         lib.odil_mg_num_blocks.argtypes = [ctypes.c_int] * 4
         lib.odil_mg_num_blocks.restype = ctypes.c_int
@@ -504,13 +510,25 @@ forward_mg_cuda.launches = 0
 def backward_mg_cuda(model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums):
     """CUDA backward kernel (replaces ``_backward_mg``): (dt0, dP, sums or
     None) for the loss sum_k g[k] * S[k], on the current stream."""
+    out = _launch_backward(_library(), model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums)
+    backward_mg_cuda.launches += 1
+    backward_mg_cuda.launches_with_sums += bool(with_sums)
+    return out
+
+
+backward_mg_cuda.launches = 0
+backward_mg_cuda.launches_with_sums = 0  # the launches that also formed the sums
+
+
+def _launch_backward(lib, model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums):
+    """The backward walk of ``lib`` (the library of every path, or an
+    ablation build of ``ops/mg_ablation.py``) on checked inputs."""
     _check_cuda_inputs(model, t0s, coarse, consts, hist)
     if any(f == 0.0 for f in f0s):
         raise ValueError("the CUDA mg kernel needs nonzero level-0 factors")
     g = g.to(torch.float32).contiguous()
     if not g.is_cuda or g.numel() < nterms:
         raise ValueError("g must hold nterms weights on the card")
-    lib = _library()
     T, X, Y = t0s[0].shape
     slab, scratch, stream = _launch_plan(lib, T, X, Y, t0s[0].device)
     dt0 = tuple(torch.empty_like(t) for t in t0s)
@@ -518,13 +536,7 @@ def backward_mg_cuda(model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums
     args = _launch_args(model, f0s, t0s, coarse, consts, g, dt0, dP, scratch, nterms, slab)
     err = lib.odil_mg_backward(ctypes.byref(args), int(bool(with_sums)), stream)
     _raise_on(lib, err, "odil_mg_backward")
-    backward_mg_cuda.launches += 1
-    backward_mg_cuda.launches_with_sums += bool(with_sums)
     return dt0, dP, (scratch[1][:nterms] if with_sums else None)
-
-
-backward_mg_cuda.launches = 0
-backward_mg_cuda.launches_with_sums = 0  # the launches that also formed the sums
 
 
 def _check_cuda_inputs2(model, t0s, t1s, P2, consts, hist):

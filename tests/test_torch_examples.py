@@ -171,6 +171,7 @@ def _pinn_problem(port, infer_k):
         e.t_init, e.x_init = d.random_boundary(0, 0, args.Ncb)
         e.u_init = jh.initial_temperature(mod.cast(e.t_init, d.dtype), mod.cast(e.x_init, d.dtype), mod)
         e.u_bound = jh.initial_temperature(mod.cast(e.t_bound, d.dtype), mod.cast(e.x_bound, d.dtype), mod)
+        mod.random.set_seed(3)
         net = d.make_neural_net([2, 6, 6, 1])
     fields = {"u_net": net}
     if infer_k:

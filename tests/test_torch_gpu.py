@@ -12,7 +12,10 @@ own distance from it (``_close_floor``).  Row models without a CUDA
 counterpart (user row functions) run their plain versions on the card
 (``rowwise.plain_on_card``) and give the CPU route's numbers; every heat
 configuration takes the row kernels (``csrc/heat_net.cu`` beyond the
-default net)."""
+default net).  The probes (``csrc/probes.cu``): copy3 the bits of three
+clones, fma within rtol 1e-5 (both round each step once); the mg kernel's
+ablation builds (``ops/mg_ablation.py``) against their own plain versions
+with the mg gates."""
 
 import hashlib
 
@@ -1460,3 +1463,71 @@ def test_heat_net_beyond_the_limit_raises(cuda):
         consts = (torch.zeros(16, device=cuda),) * 4 + (torch.zeros((1, 1), device=cuda),) * 2
         with pytest.raises(NotImplementedError, match="at most 3|1 to 32"):
             trw.forward_cuda(model, len(names), 1, fields, params, (e.imp_mask, e.imp_u), consts)
+
+
+# -- The probes and the mg kernel's ablation builds --------------------------------
+
+
+@pytest.mark.parametrize("shape", [(65, 256, 256), (65, 512, 512), (5, 16, 16), (3, 5, 7)])
+def test_probes_match_plain(cuda, shape):
+    """copy3 gives the bits of three clones, fma its plain version within
+    rtol 1e-5 (one rounding a step against two, 128 steps), each launch
+    counted; an array whose start is not 16-byte aligned takes the scalar
+    loop and gives the same numbers."""
+    from odil_torch.ops import probes
+
+    rng = np.random.default_rng(4)
+    abc = tuple(torch.as_tensor(rng.random(shape).astype(np.float32), device=cuda) for _ in range(3))
+    before = (probes.copy3_cuda.launches, probes.fma_cuda.launches)
+    for got, want in zip(probes.copy3(*abc), probes._copy3_plain(*abc)):
+        assert torch.equal(got, want)
+    for k in (probes.FMA_K, 5):
+        _close(probes.fma(abc[0], k), probes._fma_plain(abc[0], k), 1e-5, 0.0)
+    assert (probes.copy3_cuda.launches, probes.fma_cuda.launches) == (before[0] + 1, before[1] + 2)
+    odd = tuple(torch.cat([x.reshape(-1), x.reshape(-1)[:1]])[1:] for x in abc)  # one float past a 16-byte start
+    assert odd[0].data_ptr() % 16 != 0
+    for got, want in zip(probes.copy3_cuda(*odd), odd):
+        assert torch.equal(got, want)
+    _close(probes.fma_cuda(odd[0]), probes._fma_plain(odd[0]), 1e-5, 0.0)
+
+
+def test_probes_refuse_what_they_do_not_take(cuda):
+    from odil_torch.ops import probes
+
+    x = torch.zeros((4, 8), device=cuda)
+    with pytest.raises(TypeError):
+        probes.copy3_cuda(x, x, x.double())
+    with pytest.raises(ValueError):
+        probes.copy3_cuda(x, x, x[:2])
+    with pytest.raises(TypeError):
+        probes.fma_cuda(x.t())
+
+
+@pytest.mark.parametrize("variant", ["trivial-row", "no-matmul"])
+@pytest.mark.parametrize("shape", [(65, 256, 256), (65, 512, 512), (9, 16, 16), (17, 64, 48)])
+def test_mg_ablation_builds_match_plain(cuda, variant, shape):
+    """Each ablation build of the mg kernel against its own plain version
+    (the mg gates), with and without the sums; the two-level and local-block
+    entry points refuse an ablation build."""
+    from odil_torch.ops import mg_ablation
+
+    T, X, Y = shape
+    t0s, coarse, consts = _inputs(cuda, T, X, Y, seed=6)
+    model = _model(K)
+    g = torch.linspace(0.5, 1.5, 6, device=cuda) / t0s[0].numel()
+    f0s = (0.7, 1.1, 0.9)
+    kernel = {"trivial-row": mg_ablation.backward_trivial_row_cuda,
+              "no-matmul": mg_ablation.backward_no_matmul_cuda}[variant]
+    plain = {"trivial-row": mg_ablation._backward_trivial_row_plain,
+             "no-matmul": mg_ablation._backward_no_matmul_plain}[variant]
+    for with_sums in (True, False):
+        before = kernel.launches
+        kd, kP, ks = kernel(model, 6, 1, f0s, t0s, coarse, consts, g, with_sums)
+        pd, pP, ps = plain(model, 6, 1, f0s, t0s, coarse, consts, g, with_sums)
+        assert kernel.launches == before + 1
+        for a, b in zip(kd + kP, pd + pP):
+            _close(a, b, 1e-4, 1e-6)
+        if with_sums:
+            _close(ks, ps, 1e-5, 0.0)
+    lib = mg_ablation._library(variant)
+    assert lib.odil_mg_backward2(None, 1, None) != 0 and lib.odil_mg_backward_local(None, 1, None) != 0

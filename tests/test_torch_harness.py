@@ -174,6 +174,7 @@ def _jax_state(seed):
     domain = jodil.Domain(cshape=(4, 4), dimnames=["x", "y"], multigrid=True, mg_convert_all=False,
                           dtype=np.float64)
     rng = np.random.default_rng(seed)
+    domain.mod.random.set_seed(seed)
     net = domain.make_neural_net([2, 3, 1])
     net.weights = [rng.normal(size=w.shape) for w in net.weights]
     net.biases = [rng.normal(size=b.shape) for b in net.biases]

@@ -68,6 +68,10 @@ def test_port_sources_found():
         "odil_torch/comm.py",
         "odil_torch/backend.py",
         "odil_torch/tools/plot_field.py",
+        "odil_torch/tools/roofline.py",
+        "odil_torch/tools/kernel_ablation.py",
+        "odil_torch/ops/probes.py",
+        "odil_torch/ops/mg_ablation.py",
     } <= names
 
 
@@ -91,6 +95,8 @@ def test_port_sources_found():
         "odil_torch.examples.poisson_plot_field",
         # The op namespaces and the field plotter.
         "odil_torch.backend", "odil_torch.tools.plot_field",
+        # The probes, the mg kernel's ablation builds and the tools that run them.
+        "odil_torch.ops.probes, odil_torch.ops.mg_ablation, odil_torch.tools.roofline, odil_torch.tools.kernel_ablation",
     ],
 )
 def test_new_modules_import_without_jax(name):

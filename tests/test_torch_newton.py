@@ -95,6 +95,8 @@ def _fixture(Nx=3, Ny=2, Na=5, Nnet=5, seed=1000):
 
     rng = np.random.RandomState(seed)
     jdom = jodil.Domain(cshape=(Nx, Ny), dimnames=["x", "y"], lower=(0, 0), upper=(Nx, Ny), dtype=DT)
+    # The JAX backend seeds an unseeded key from the OS: the net would differ run to run.
+    jdom.mod.random.set_seed(seed)
     net = jdom.make_neural_net([Nnet, Nnet], activation="none")
     jstate = jdom.init_state(jodil.State(fields={
         "uc": jodil.Field(np.ones(jdom.size(loc="cc")), loc="cc"),
