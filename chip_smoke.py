@@ -123,7 +123,11 @@ Phases, any failure exits non-zero and prints no result:
       --imposed stripe --arch_k 32 32 --keep_frozen 0``, 50 epochs, with
       ``--kernel pallas`` (one backward+sums an epoch plus the epoch-0
       evaluation's forward and sums-off backward) and ``--kernel xla``:
-      epoch 0 within 1e-5, every row within 1%.
+      epoch 0 within 1e-5, every row within 1%; both ms/epoch.  Before the
+      kernels, each wide net's library (more than 48 params, the wide form
+      of ``csrc/heat_wide.cuh``): ptxas's registers and spills, its build
+      seconds, its blocks an SM and the passes a batch of its param
+      phase.
    m. The training harness: the command-line examples run as a user runs
       them, through ``util.optimize``, ``make_callback`` and ``History``,
       each in a new directory under ``build/`` (the working directory and
@@ -408,6 +412,7 @@ import concurrent.futures
 import csv
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -2985,10 +2990,37 @@ def halo1d_phase(torch, np, counters, heat_ref, vt_rows, vt_ms, vt_epochs, repor
     return launches, cases
 
 
+def wide_forms(builds, tag):
+    """Phase u's heat_net.cu libraries of the wide form (nets of more than
+    48 params, csrc/heat_wide.cuh): ptxas's registers and spills of each
+    kernel, the build's seconds, the blocks an SM of each launch mode and
+    the passes a batch of its param phase."""
+    import torch
+
+    from odil_torch.ops import rowwise as rw
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    modes = {1: "forward", 2: "backward", 3: "backward+sums", 5: "masked forward", 6: "masked backward",
+             7: "masked backward+sums"}
+    for widths in sorted({w for w, _, _ in U_CONFIGS.values()}):
+        lib = rw._heat_net_library(widths)
+        if not lib._odil_wide_rows:
+            continue
+        _, seconds, log = builds[" ".join(rw.heat_net_source(widths)[:2])]
+        regs = re.findall(r"Used (\d+) registers", log)
+        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+        per_sm = {modes[m]: n / sms for (_, m), n in lib._odil_rows1d_resident.items()}
+        print(f"heat_net wide form [1, {', '.join(map(str, widths))}, 1]: built in {seconds:.1f} s; ptxas registers "
+              f"{regs}, spill stores/loads {spills}; blocks an SM {per_sm}; {lib._odil_wide_rows} passes a batch "
+              f"{tag}")
+
+
 # The mesh routes of phase q: the mesh of four shards of the card, the
 # evaluations of the global ladder, multi_start's starts and epochs, and the
 # GSPMD CLIs' epochs.
 MESH_SPEC, MESH_PART = "t:2,x:2", {"t": "t", "x": "x"}
+
+
 def configs_phase(torch, np, counters, heat_ref, report, launches, loops, tag, extra_argv=()):
     """Phase u (the module docstring): every heat configuration on the row
     kernels.  Fills `report` and `launches` for the kernel table's entries
@@ -3259,21 +3291,23 @@ def configs_phase(torch, np, counters, heat_ref, report, launches, loops, tag, e
         del opt, problem, state, arrays
 
     # u, the CLI: --kernel pallas against --kernel xla at 256^2.
-    rows = {}
+    rows, cli_ms = {}, {}
     for kernel in ("pallas", "xla"):
         out, log, counts, _, seconds = run_cli(torch, counters, "heat", U_CLI_ARGV + ["--kernel", kernel] + list(extra_argv))
         epochs = int(U_CLI_ARGV[U_CLI_ARGV.index("--epochs") + 1])
         want = dict(none, backward_rows=epochs + 1, forward_rows=1) if kernel == "pallas" else none
         expect_counts(counts, want, f"heat CLI --kernel {kernel} ({' '.join(U_CLI_ARGV)})")
         rows[kernel] = {int(r["epoch"]): float(r["loss"]) for r in out}
+        cli_ms[kernel] = log_ms(log)
         print(f"heat CLI --kernel {kernel} {' '.join(U_CLI_ARGV)}: {log_ms(log):.4f} ms/epoch, {seconds:.2f} s wall; "
               f"launches {counts} {tag}")
     if sorted(rows["pallas"]) != sorted(rows["xla"]):
         fail(f"heat CLI: rows at epochs {sorted(rows['pallas'])} with pallas, {sorted(rows['xla'])} with xla")
     rel = {e: abs(rows["pallas"][e] - rows["xla"][e]) / abs(rows["xla"][e]) for e in rows["xla"]}
     worst = max(rel, key=rel.get)
-    print(f"heat CLI --kernel pallas vs --kernel xla ({' '.join(U_CLI_ARGV)}): epoch 0 rel {rel[0]:.2e}; worst row "
-          f"epoch {worst} ({100 * rel[worst]:.4f}%) {tag}")
+    print(f"heat CLI --kernel pallas vs --kernel xla ({' '.join(U_CLI_ARGV)}): {cli_ms['pallas']:.4f} vs "
+          f"{cli_ms['xla']:.4f} ms/epoch; epoch 0 rel {rel[0]:.2e}; worst row epoch {worst} ({100 * rel[worst]:.4f}%) "
+          f"{tag}")
     if rel[0] > 1e-5 or rel[worst] > 0.01:
         fail(f"heat CLI: --kernel pallas parts from --kernel xla (epoch 0 rel {rel[0]:.2e}, limit 1e-5; epoch {worst} "
              f"{100 * rel[worst]:.3f}%, limit 1%)")
@@ -4549,6 +4583,7 @@ def main():
     # keep_frozen=0 and wider and deeper conductivity nets.
     t_u = time.perf_counter()
     builds.update(report_builds(pending))
+    wide_forms(builds, tag)
     u_timed, u_slabbed, u_edge, u_cases = configs_phase(torch, np, counters, heat_ref, report, launches, loops, tag)
     t_u = time.perf_counter() - t_u
 

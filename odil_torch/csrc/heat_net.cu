@@ -6,7 +6,9 @@
 // name) for every heat configuration but the default one of rowwise.cu (the
 // [1, 5, 5, 1] net with keep_init and keep_frozen on): keep_init and
 // keep_frozen are read from the flags word, infer_k off takes the
-// true conductivity (built with the default widths).
+// true conductivity (built with the default widths).  Nets of more than 48
+// params take the wide form (rows1d.cuh, heat_wide.cuh), whose layout
+// the build holds to every param owned once (static_assert).
 //
 // Replaces, for these configurations, the TPU kernels that run the heat row
 // function of odil_tpu/models/heat.py:136-250 (its in-kernel jax.vjp): the
@@ -49,12 +51,16 @@ extern "C" {
 // The params of this library's net: the Python side checks them.
 int odil_heat_net_params() { return HeatNetRow::NP; }
 
+// The passes a batch of the wide form's param phase (heat_wide.cuh), 0 for
+// the register form: ops/rowwise.py sizes the launch's tiles by them.
+int odil_heat_wide_rows() { return HeatNetRow::REG_PARAMS ? 0 : HeatNetRow::Wide::RB; }
+
 int odil_rows1d_args_size() { return (int)sizeof(rows1d::Rows1DArgs); }
 
 int odil_rows1d_halo_args_size() { return (int)sizeof(rows1d::Rows1DHaloArgs); }
 
 int odil_rows1d_tile(int what) {
-  return what == 0 ? rows1d::TILE : what == 1 ? rows1d::MAX_SLAB : rows1d::NTHREADS;
+  return what == 0 ? rows1d::TILE : what == 1 ? rows1d::max_slab<HeatNetRow>() : rows1d::NTHREADS;
 }
 
 int odil_rows1d_resident_blocks(int model, int mode) {

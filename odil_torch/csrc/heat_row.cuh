@@ -33,11 +33,12 @@
 //     first use by ops/rowwise.py): keep_init and keep_frozen read from the
 //     flags word, dk/du per face view.  Nets of at most 48 params keep the
 //     register form; larger ones (up to 3 hidden layers of 32 units, 2209
-//     params) the shared form of rows1d.cuh: a face phase that keeps k, u
-//     and dk only, and a param phase that records each face pass's layer
-//     inputs and output cotangents in shared memory, PASSES at a time, and
-//     sums the outer products param by param (each param owned by one
-//     thread, in a fixed order: no atomics).
+//     params) the wide form of rows1d.cuh and heat_wide.cuh: the face
+//     phase runs a face's net a thread in registers with the weights in
+//     16-byte loads (face_wide) and keeps k, u and dk only; the param phase
+//     records batches of face passes (each layer's inputs and output
+//     cotangents) and forms the param cotangents as products over them, each
+//     param owned by one thread's register tile (a fixed order: no atomics).
 //
 // The face form.  Cell x's right-face temperature (s2 + s0)/4 and cell
 // x+1's left-face temperature (s0' + s1')/4 add the same two sums, so
@@ -59,9 +60,16 @@
 // ~20 bytes a cell (the field, the measured data rows, dfields).  On the
 // H100 the two bounds are about equal (0.005 ms at 1024^2); the kernel is
 // held back by neither but by the latency of its phases (PERF.md §6-§7).
+// A wide net is bound by operations: [1, 16, 16, 16, 1] without keep_frozen
+// about 4200 a cell (heat_ops, which counts a tanh as one; tanhf issues
+// about 20 instructions, the wide form's tanh_fast 7).  The wide form
+// (heat_wide.cuh) issues a 16-byte weight load a 4 FFMA (8 beside the
+// tangent) and a record load a 4 FFMA; the latency of its chains, not its
+// loads, sets its time (PERF.md §6).
 
 #pragma once
 
+#include "heat_wide.cuh"
 #include "rows1d.cuh"
 
 namespace rows1d {
@@ -96,20 +104,6 @@ struct HeatNet {
     return m;
   }
   static constexpr int MAXW = max_width();
-  // A face pass's record (the shared param form): entry 0 holds 1 (the
-  // biases' input), then the inputs of each layer (IN), then the cotangents
-  // of each layer's outputs (GA).
-  __host__ __device__ static constexpr int in_off(int l) {
-    int n = 1;
-    for (int k = 0; k < l; ++k) n += width(k);
-    return n;
-  }
-  __host__ __device__ static constexpr int ga_off(int l) {
-    int n = in_off(NL);
-    for (int k = 0; k < l; ++k) n += width(k + 1);
-    return n;
-  }
-  static constexpr int RECORD = ga_off(NL);  // 3 + 2 (w1 + ... + wL): odd, so rows fall on distinct banks
 };
 
 // The hidden activations at one face temperature, and the sigmoid.
@@ -213,36 +207,6 @@ __device__ __forceinline__ void net_vjp(const float* P, float x, const float (&h
   }
 }
 
-// Writes the inputs of layer L and the layers above it (the hidden
-// activations) into a pass's record (the shared param form).
-template <class NET, int L>
-__device__ __forceinline__ void net_record_inputs(const float (&h)[NET::NH][NET::MAXW], float* rec) {
-#pragma unroll
-  for (int i = 0; i < NET::width(L); ++i) rec[NET::in_off(L) + i] = h[L - 1][i];
-  if constexpr (L + 1 < NET::NL) net_record_inputs<NET, L + 1>(h, rec);
-}
-
-// Writes the cotangents of layer L's outputs and those of the layers below
-// it into a pass's record (the shared param form).
-template <class NET, int L>
-__device__ __forceinline__ void net_record_back(const float* P, const float (&h)[NET::NH][NET::MAXW],
-                                                const float (&ga)[NET::width(L + 1)], float* rec) {
-  constexpr int NI = NET::width(L), NO = NET::width(L + 1), WO = NET::woff(L);
-#pragma unroll
-  for (int o = 0; o < NO; ++o) rec[NET::ga_off(L) + o] = ga[o];
-  if constexpr (L > 0) {
-    float gb[NI];
-#pragma unroll
-    for (int i = 0; i < NI; ++i) {
-      float gin = 0.0f;
-#pragma unroll
-      for (int o = 0; o < NO; ++o) gin += P[WO + NI * o + i] * ga[o];
-      gb[i] = gin * (1.0f - h[L - 1][i] * h[L - 1][i]);
-    }
-    net_record_back<NET, L - 1>(P, h, gb, rec);
-  }
-}
-
 // What the face phase keeps of a face: k[0] as its left cell sees it (that
 // cell's right face), k[1] as its right cell does, their temperatures u;
 // dk/du of both views where keep_frozen is read at run time; and the
@@ -267,18 +231,18 @@ struct HeatModel {
   static constexpr int NF = 1, HIST = 1, MAXT = 4, NP = NET::NP;
   static constexpr unsigned DUSED = 0x3f;  // every sample of both rows
   // The param cotangents per thread in registers up to 48 params (the
-  // default net's 46), else the shared form (rows1d.cuh).
+  // default net's 46), else the wide form (rows1d.cuh, heat_wide.cuh): two
+  // blocks an SM for nets of at most 16 units a layer (a pass's registers
+  // and its records in 70 KB beside the tile's 37 KB), else one (two layers
+  // of 32 units and their tangents take 128 registers).
   static constexpr bool REG_PARAMS = NP <= 48;
-  static constexpr int BLOCKS_PER_SM = RUNTIME_KEEP ? 1 : 2;
+  static constexpr int BLOCKS_PER_SM = !REG_PARAMS ? (NET::MAXW <= 16 ? 2 : 1) : RUNTIME_KEEP ? 1 : 2;
   static constexpr bool FACES = true;
   enum { HAS_IMP = 1, HAS_X = 2, HAS_T = 4, INFER_K = 8, KEEP_INIT = 16, KEEP_FROZEN = 32 };
   using Act = NetAct<NET>;
   using Face = HeatFace<Act, RUNTIME_KEEP, REG_PARAMS>;
-  // The shared param form: the face passes recorded at a time (all threads
-  // where the records fit beside the rest of the tile's shared memory, about
-  // 85 KB) and a record's floats.
-  static constexpr int RECORD = NET::RECORD;
-  static constexpr int PASSES = NTHREADS * RECORD * 4 <= 140000 ? NTHREADS : NTHREADS / 2;
+  static constexpr int WIDE_SLAB = 14;
+  using Wide = WideNet<NET, NTHREADS, NET::MAXW <= 16 ? 70000 : 170000>;
 
   // Whether a launch's arguments are this build's: the compiled-in keep
   // flags, and the net's params.
@@ -362,6 +326,10 @@ struct HeatModel {
   __device__ __forceinline__ static void face(const Rows1DArgs& A, const float* P, int it, int xa,
                                               const float (&va)[2][1][3], int xb, const float (&vb)[2][1][3],
                                               bool lview, bool rview, Face& F) {
+    if constexpr (!REG_PARAMS) {
+      face_wide<ADJ>(A, P, it, xa, va, xb, vb, lview, rview, F);
+      return;
+    }
     const bool infer = A.flags & INFER_K;
     float uL = 0.0f, uR = 0.0f;
     if (lview) {
@@ -412,6 +380,51 @@ struct HeatModel {
     }
   }
 
+  // face() of the wide form (P: its weights, heat_wide.cuh): the net of the
+  // first view in registers (its tangent beside it with ADJ and keep_frozen
+  // off), the second view's where the two differ.
+  template <bool ADJ>
+  __device__ __forceinline__ static void face_wide(const Rows1DArgs& A, const float* P, int it, int xa,
+                                                   const float (&va)[2][1][3], int xb, const float (&vb)[2][1][3],
+                                                   bool lview, bool rview, Face& F) {
+    float uL = 0.0f, uR = 0.0f;
+    if (lview) {
+      const Cell c = cell_at(A, it, xa, va);
+      uL = ((c.c2 + c.p2) + (c.a0 + c.b0)) * 0.25f;
+    }
+    if (rview) {
+      const Cell c = cell_at(A, it, xb, vb);
+      uR = ((c.a0 + c.b0) + (c.c1 + c.p1)) * 0.25f;
+    }
+    const bool second = lview && rview && !(xb != 0 && __float_as_uint(uL) == __float_as_uint(uR));
+    const bool tan = ADJ && !(A.flags & KEEP_FROZEN), infer = A.flags & INFER_K;
+    for (int view = 0; view < 2; ++view) {
+      if (view == 1 && !second) {
+        F.k[1] = F.k[0];
+        F.dk[1] = F.dk[0];
+        break;
+      }
+      const float x = view == 0 && lview ? uL : uR;
+      float k, dk = 0.0f;
+      if (!infer) {
+        const float d = x - 0.5f;
+        k = 0.02f * expf(-(d * d) * 20.0f);
+        if (tan) dk = k * (-40.0f * d);
+      } else {
+        float tout = 0.0f, hl[Wide::MW];
+        const float acc = tan ? Wide::template net<true, false>(P, x, tout, nullptr, hl)
+                              : Wide::template net<false, false>(P, x, tout, nullptr, hl);
+        const float s = 1.0f / (1.0f + expf(-acc));
+        k = s * A.s[4];
+        if (tan) dk = A.s[4] * (s * (1.0f - s)) * tout;
+      }
+      F.k[view] = k;
+      F.dk[view] = dk;
+    }
+    F.u[0] = uL;
+    F.u[1] = uR;
+  }
+
   // Adds the param cotangents of a face (the register form): gl from the
   // cell on its left (of its right face), gr from the cell on its right (of
   // its left face); one adjoint of their sum where both saw the same
@@ -426,44 +439,6 @@ struct HeatModel {
       k_of(A, P, F.u[1], m, true);
       k_vjp(P, F.u[1], m, gr, kmax, pacc);
     }
-  }
-
-  // A face pass's record (the shared form): the inputs of every layer and
-  // the cotangents of every layer's outputs for gk * k(x); zeros where gk is
-  // zero.
-  __device__ __forceinline__ static void record(const Rows1DArgs& A, const float* P, float x, float gk, float* rec) {
-    if (gk == 0.0f) {
-#pragma unroll 4
-      for (int e = 0; e < RECORD; ++e) rec[e] = 0.0f;
-      return;
-    }
-    Act n;
-    const float acc = net_out<NET>(P, x, n.h);
-    n.s = 1.0f / (1.0f + expf(-acc));
-    rec[0] = 1.0f;
-    rec[NET::in_off(0)] = x;
-    net_record_inputs<NET, 1>(n.h, rec);
-    const float go[1] = {gk * A.s[4] * (n.s * (1.0f - n.s))};
-    net_record_back<NET, NET::NL - 1>(P, n.h, go, rec);
-  }
-
-  // The record entries of flat param p: (the cotangent, the input) whose
-  // product is its summand.
-  __device__ __forceinline__ static void param_slots(int p, int& ga, int& in) {
-    for (int l = 0; l < NET::NL; ++l) {
-      const int ni = NET::width(l), no = NET::width(l + 1);
-      if (p >= NET::woff(l) && p < NET::woff(l) + ni * no) {
-        ga = NET::ga_off(l) + (p - NET::woff(l)) / ni;
-        in = NET::in_off(l) + (p - NET::woff(l)) % ni;
-        return;
-      }
-      if (p >= NET::boff(l) && p < NET::boff(l) + no) {
-        ga = NET::ga_off(l) + p - NET::boff(l);
-        in = 0;
-        return;
-      }
-    }
-    ga = in = -1;
   }
 
   // Transpose of the quadratic-half ghosts (ix == N-1 reads the ix == 0 one,

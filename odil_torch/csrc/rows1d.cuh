@@ -52,18 +52,22 @@
 // reduces the columns in block order into A.sums and A.dparams and resets
 // the ticket: one launch, and the bits repeat run to run.
 //
-// The shared param form (a row model with REG_PARAMS false: heat with a
+// The wide param form (a row model with REG_PARAMS false: heat with a
 // conductivity net of more than 48 params, whose cotangents do not fit in a
-// thread's registers).  The face phase keeps no activations; phase 4 takes
-// the faces of the owned rows PASSES at a time: each thread records one
-// face's pass (its net recomputed: the inputs of every layer and the
-// cotangents of every layer's outputs, M::record) into shared memory, then
-// each thread sums, for the params it owns (p = tid, tid + NTHREADS, ...),
-// the products of their record entries over the passes in order (fp32 over
-// a round, fp64 across rounds); a face whose two cells see different
-// temperatures takes a second round for its right cell's pass.  A param's
-// block partial is its owner's sum; the last block sums each param's column
-// over the blocks in order.  Deterministic, no atomics.
+// thread's registers; M::Wide, heat_wide.cuh).  Tiles of at most
+// M::WIDE_SLAB rows.  The face phase runs a face's net a thread (M::face on
+// the wide form's weights, face_params) and keeps no activations; phase 4
+// takes the faces of the owned rows in batches of Wide::RB: each thread
+// records one face's pass (the net again, then its adjoint: every layer's
+// inputs and output cotangents, Wide::grads), then the block forms the
+// param cotangents as products over the batch's records, each thread its
+// fixed 2x2 tiles of params in fp32 over the tile's batches and into the
+// block's fp64 sums once a tile (Wide::flush); a face whose two cells see
+// different temperatures adds its right cell's pass in a second batch of the
+// faces that need one (their ranks by ballots, warp counts by batch parity).
+// The block's param sums go to A.partials block-major, and the last block
+// sums each param over the blocks in order, a thread's params at once (the
+// loads coalesce).  Deterministic, no atomics.
 //
 // The halo layer (rows1d_kernel<M, MODE, true>, Rows1DHaloArgs; the masked
 // per-shard pair, odil_rows1d_halo_*): a per-shard launch (odil_torch/halo.py)
@@ -98,12 +102,9 @@
 //       float (&gk)[2]);
 //   __device__ static void face_vjp(const Rows1DArgs& A, const float* P, const Face& F, bool shared,
 //                                   float gl, float gr, float* pacc);
-// The shared form adds PASSES and RECORD (passes a round, floats a record),
-//   __device__ static void record(const Rows1DArgs& A, const float* P, float u, float gk, float* rec);
-//   __device__ static void param_slots(int p, int& ga, int& in);
-// record: a face pass's record for the conductivity cotangent gk at
-// temperature u (zeros where gk is zero); param_slots: the record entries
-// whose product is param p's summand.
+// The wide form adds WIDE_SLAB (rows of a tile at most), INFER_K (the flags
+// bit of its nets) and Wide (heat_wide.cuh: its shared memory, stage,
+// rank, grads, flush, RB); its face reads P = the Wide weights.
 // face: the face between cells xa and xb = xa + 1 (mod N) of residual row
 // it, from their samples; lview/rview: whether the left/right cell is in the
 // window.  eval (Args: Rows1DArgs, or Rows1DHaloArgs on a shard's block,
@@ -112,8 +113,9 @@
 // res[0..nterms), reading its faces' conductivities from fl and fr; with
 // GRADS, D gets the cotangents of sum_k g2[k]/2 res[k]^2 with respect to v
 // and gk those of its left and right face conductivities.  face_vjp adds the
-// param cotangents of a face, gl and gr being the gk of the cells on its
-// left and right; `shared` says both cells saw the same face temperature.
+// param cotangents of a face (the register form), gl and gr being the gk of
+// the cells on its left and right; `shared` says both cells saw the same
+// face temperature.
 
 #pragma once
 
@@ -228,11 +230,19 @@ __host__ __device__ constexpr int d_slot(unsigned used, int e) {
   return n;
 }
 
+// The rows of a tile at most: the wide param form's own (its batch blocks
+// beside the tile's), else MAX_SLAB.
+template <class M>
+constexpr int max_slab() {
+  if constexpr (M::REG_PARAMS) return MAX_SLAB;
+  else return M::WIDE_SLAB;
+}
+
 // The shared memory of a block (dynamic: it exceeds 48 KB with the faces).
 template <class M, bool GRADS>
 struct TileSmem {
   static constexpr int H = M::HIST, NF = M::NF;
-  static constexpr int RROWS = MAX_SLAB + (GRADS ? H : 0);  // residual rows of a window
+  static constexpr int RROWS = max_slab<M>() + (GRADS ? H : 0);  // residual rows of a window
   static constexpr int FROWS = RROWS + H;                   // field rows of a window
   static constexpr int ND = d_slot(M::DUSED, (H + 1) * NF * 3);  // the D entries the model uses
   static constexpr int NRED = M::MAXT + (M::REG_PARAMS ? (M::NP > 0 ? M::NP : 1) : 0);
@@ -241,23 +251,31 @@ struct TileSmem {
   float D[GRADS ? RROWS : 1][GRADS ? ND : 1][RW];
   typename M::Face face[M::FACES ? RROWS : 1][M::FACES ? NFACE : 1];
   float gk[M::FACES && GRADS ? RROWS : 1][RW][2];  // the cells' face-conductivity cotangents (left, right)
-  float P[M::NP > 0 ? M::NP : 1];
+  float P[M::REG_PARAMS && M::NP > 0 ? M::NP : 1];
   int xi[2][TILE + 4];  // by tile parity: the global cell of window cell x0 - 2 + k
   double red[NWARPS][NRED16];
 };
 
-// The shared param form's records of a round of face passes.
+// The wide param form's weights, sums and batch blocks.
 template <class M, bool GRADS>
-struct TileSmemShared : TileSmem<M, GRADS> {
-  float rec[GRADS ? M::PASSES : 1][GRADS ? M::RECORD : 1];
+struct TileSmemWide : TileSmem<M, GRADS> {
+  typename M::Wide::template Smem<GRADS> w;
 };
 
 template <class M, bool GRADS>
-using SmemOf = typename std::conditional<M::REG_PARAMS, TileSmem<M, GRADS>, TileSmemShared<M, GRADS>>::type;
+using SmemOf = typename std::conditional<M::REG_PARAMS, TileSmem<M, GRADS>, TileSmemWide<M, GRADS>>::type;
 
 template <class M, int MODE>
 constexpr size_t smem_bytes() {
   return sizeof(SmemOf<M, (MODE & MODE_GRADS) != 0>);
+}
+
+// The params the face phase reads: the flat params, or the wide form's
+// weight layouts (heat_wide.cuh).
+template <class M, class S>
+__device__ __forceinline__ const float* face_params(const S& sm) {
+  if constexpr (M::REG_PARAMS) return sm.P;
+  else return sm.w.wts;
 }
 
 template <class M, int MODE, bool MASKED = false>
@@ -277,8 +295,12 @@ __global__ void __launch_bounds__(NTHREADS, M::BLOCKS_PER_SM) rows1d_kernel(cons
   const int ntx = (N + TILE - 1) / TILE, ntiles = ntx * ((T + slab - 1) / slab);
   const bool infer = grads && M::NP > 0 && A.nparams > 0;
 
-  for (int p = 0, off = 0; off < A.nparams; off += A.param_size[p++]) {
-    for (int k = tid; k < A.param_size[p]; k += NTHREADS) sm.P[off + k] = __ldg(A.params[p] + k);
+  if constexpr (M::REG_PARAMS) {
+    for (int p = 0, off = 0; off < A.nparams; off += A.param_size[p++]) {
+      for (int k = tid; k < A.param_size[p]; k += NTHREADS) sm.P[off + k] = __ldg(A.params[p] + k);
+    }
+  } else {
+    M::Wide::template stage<grads>(A, sm.w);
   }
   float g2[NT], s[NT], pacc[M::REG_PARAMS ? NP : 1];
 #pragma unroll
@@ -288,19 +310,6 @@ __global__ void __launch_bounds__(NTHREADS, M::BLOCKS_PER_SM) rows1d_kernel(cons
   }
 #pragma unroll
   for (int k = 0; k < (M::REG_PARAMS ? NP : 1); ++k) pacc[k] = 0.0f;
-  // The shared param form: the params this thread owns, their record
-  // entries and their sums.
-  constexpr int NPT = M::REG_PARAMS ? 1 : (NP + NTHREADS - 1) / NTHREADS;
-  double pown[NPT];
-  int slot_ga[NPT], slot_in[NPT];
-#pragma unroll
-  for (int q = 0; q < NPT; ++q) {
-    pown[q] = 0.0;
-    slot_ga[q] = slot_in[q] = -1;
-    if constexpr (!M::REG_PARAMS) {
-      if (tid + q * NTHREADS < NP) M::param_slots(tid + q * NTHREADS, slot_ga[q], slot_in[q]);
-    }
-  }
 
   // Stages the window of a tile (its field rows, a warp a row) and its cell
   // table into buffer `buf`: the two cells on each side in 4-byte copies,
@@ -373,7 +382,8 @@ __global__ void __launch_bounds__(NTHREADS, M::BLOCKS_PER_SM) rows1d_kernel(cons
         float va[H + 1][NF][3], vb[H + 1][NF][3];
         samples(r, lview ? j - 1 : j, va);
         samples(r, rview ? j : j - 1, vb);
-        M::template face<grads>(A, sm.P, model_it(r), xi[j], va, xi[j + 1], vb, lview, rview, sm.face[r][j]);
+        M::template face<grads>(A, face_params<M>(sm), model_it(r), xi[j], va, xi[j + 1], vb, lview, rview,
+                                sm.face[r][j]);
       }
       __syncthreads();
     }
@@ -464,46 +474,44 @@ __global__ void __launch_bounds__(NTHREADS, M::BLOCKS_PER_SM) rows1d_kernel(cons
       }
       if constexpr (M::FACES && !M::REG_PARAMS) {
         if (infer) {
-          // Rounds of PASSES faces: each face's pass (the two cells'
-          // cotangents where they share its temperature, else the left
-          // cell's), then where any face of the round has a right cell of
-          // another temperature, those cells' passes.
+          // Batches of the owned rows' faces (heat_wide.cuh): each face's
+          // pass (the two cells' cotangents where they share its
+          // temperature, else the left cell's), then, where a batch has
+          // faces whose right cells see another temperature, those cells'
+          // passes as a second batch.  A batch without a cotangent is skipped.
+          using W = typename M::Wide;
           const int nfaces = nown * (TILE + 1);
-          for (int f0 = 0; f0 < nfaces; f0 += M::PASSES) {
+          float wacc[W::JPT][2][2] = {};  // this thread's param tiles over the tile's batches
+          for (int c0 = 0, parity = 0; c0 < nfaces; c0 += W::RB, parity ^= 1) {
+            const int n = min(W::RB, nfaces - c0);
+            float x = 0.0f, gsum = 0.0f, x2 = 0.0f, gr = 0.0f;
             bool second = false;
-            for (int view = 0; view < 2; ++view) {
-              if (view == 1 && !second) break;
-              if (tid < M::PASSES) {
-                const int f = f0 + tid;
-                float u = 0.0f, gsum = 0.0f;
-                if (f < nfaces) {
-                  const int r = f / (TILE + 1), j = 1 + f % (TILE + 1);
-                  const float gl = sm.gk[r][j - 1][1], gr = sm.gk[r][j][0];
-                  const typename M::Face& F = sm.face[r][j];
-                  const bool shared = xi[j + 1] != 0 && __float_as_uint(F.u[0]) == __float_as_uint(F.u[1]);
-                  if (view == 0) {
-                    u = F.u[0];
-                    gsum = shared ? gl + gr : gl;
-                  } else if (!shared) {
-                    u = F.u[1];
-                    gsum = gr;
-                  }
-                  if (view == 0 && !shared && gr != 0.0f) second = true;
-                }
-                M::record(A, sm.P, u, gsum, sm.rec[tid]);
-              }
-              second = __syncthreads_or(second);
-#pragma unroll
-              for (int q = 0; q < NPT; ++q) {
-                if (slot_ga[q] >= 0) {
-                  float acc = 0.0f;
-                  for (int p = 0; p < M::PASSES; ++p) acc += sm.rec[p][slot_ga[q]] * sm.rec[p][slot_in[q]];
-                  pown[q] += (double)acc;
-                }
-              }
-              __syncthreads();
+            if (tid < n) {
+              const int r = (c0 + tid) / (TILE + 1), j = 1 + (c0 + tid) % (TILE + 1);
+              const float gl = sm.gk[r][j - 1][1];
+              gr = sm.gk[r][j][0];
+              const typename M::Face& F = sm.face[r][j];
+              const bool shared = xi[j + 1] != 0 && __float_as_uint(F.u[0]) == __float_as_uint(F.u[1]);
+              x = F.u[0];
+              gsum = shared ? gl + gr : gl;
+              second = !shared && gr != 0.0f;
+              x2 = F.u[1];
+            }
+            const unsigned ballot = __ballot_sync(0xffffffffu, second);
+            if (lane == 0) sm.w.cnt[parity][warp] = __popc(ballot);
+            if (!__syncthreads_or(gsum != 0.0f || second)) continue;
+            int n2;
+            const int q = W::rank(sm.w.cnt[parity], ballot, n2);
+            if (second) {
+              sm.w.sx[q] = x2;
+              sm.w.sg[q] = gr;
+            }
+            W::grads(sm.w, n, x, gsum, A.s[4], wacc);
+            if (n2 > 0) {
+              W::grads(sm.w, n2, tid < n2 ? sm.w.sx[tid] : 0.0f, tid < n2 ? sm.w.sg[tid] : 0.0f, A.s[4], wacc);
             }
           }
+          W::flush(sm.w.acc, wacc);
         }
       }
     }
@@ -537,12 +545,9 @@ __global__ void __launch_bounds__(NTHREADS, M::BLOCKS_PER_SM) rows1d_kernel(cons
     __threadfence();
   }
   if constexpr (!M::REG_PARAMS) {
-    if (infer) {  // a param's block partial: its owner's sum
-#pragma unroll
-      for (int q = 0; q < NPT; ++q) {
-        const int p = tid + q * NTHREADS;
-        if (p < A.nparams) A.partials[(size_t)(A.nterms + p) * nblocks + blockIdx.x] = pown[q];
-      }
+    if (infer) {  // the block's param sums, block-major (so that the last block's loads coalesce)
+      double* part = A.partials + (size_t)A.nterms * nblocks + (size_t)blockIdx.x * A.nparams;
+      for (int p = tid; p < A.nparams; p += NTHREADS) part[p] = sm.w.acc[p];
       __threadfence();
     }
   }
@@ -573,11 +578,23 @@ __global__ void __launch_bounds__(NTHREADS, M::BLOCKS_PER_SM) rows1d_kernel(cons
     else A.dparams[c - A.nterms] = (float)acc;
   }
   if constexpr (!M::REG_PARAMS) {
-    if (infer) {  // each param's column over the blocks in order
-      for (int p = tid; p < A.nparams; p += NTHREADS) {
-        double acc = 0.0;
-        for (unsigned b = 0; b < nblocks; ++b) acc += __ldcg(A.partials + (size_t)(A.nterms + p) * nblocks + b);
-        A.dparams[p] = (float)acc;
+    if (infer) {  // each param's sum over the blocks in order, a thread's params p = tid, tid + NTHREADS, ... at once
+      constexpr int PT = (M::NP + NTHREADS - 1) / NTHREADS;
+      const double* part = A.partials + (size_t)A.nterms * nblocks;
+      double acc[PT];
+#pragma unroll
+      for (int q = 0; q < PT; ++q) acc[q] = 0.0;
+#pragma unroll 4
+      for (unsigned b = 0; b < nblocks; ++b) {
+#pragma unroll
+        for (int q = 0; q < PT; ++q) {
+          const int p = tid + q * NTHREADS;
+          if (p < A.nparams) acc[q] += __ldcg(part + (size_t)b * A.nparams + p);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < PT; ++q) {
+        if (tid + q * NTHREADS < A.nparams) A.dparams[tid + q * NTHREADS] = (float)acc[q];
       }
     }
   }
@@ -590,7 +607,7 @@ int launch(const ArgsOf<MASKED>& A, cudaStream_t s) {
   static const cudaError_t attr =
       cudaFuncSetAttribute(rows1d_kernel<M, MODE, MASKED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (attr != cudaSuccess) return (int)attr;
-  if (A.blocks < 1 || A.slab < 1 || A.slab > MAX_SLAB || !M::takes(A)) return (int)cudaErrorInvalidValue;
+  if (A.blocks < 1 || A.slab < 1 || A.slab > max_slab<M>() || !M::takes(A)) return (int)cudaErrorInvalidValue;
   rows1d_kernel<M, MODE, MASKED><<<A.blocks, NTHREADS, bytes, s>>>(A);
   return (int)cudaGetLastError();
 }

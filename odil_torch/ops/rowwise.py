@@ -256,14 +256,21 @@ def _wave_slab(T, tiles, resident, lead):
 
 
 @functools.lru_cache(maxsize=64)
-def _tile_rows(T, N, hist, grads, resident, tile, max_slab, threads):
+def _tile_rows(T, N, hist, grads, resident, tile, max_slab, threads, batches=None):
     """(slab, blocks) of a 1-D tile launch (``csrc/rows1d.cuh``) over (T, N):
     tiles of ``slab`` rows by ``tile`` cells, at most ``max_slab`` rows, taken
     by ``blocks`` blocks of ``threads`` threads in rounds.  The slab runs the
     launch in the fewest passes of a block's threads over its residual window
     (``slab + hist`` rows of ``tile + 2`` cells with the gradients, ``slab``
     rows of ``tile`` without), counting whole waves of the ``resident``
-    blocks; among equals the fewest tiles (the least recompute)."""
+    blocks; among equals the fewest tiles (the least recompute).  With
+    ``batches`` (the wide heat nets, ``csrc/heat_wide.cuh``: (threads, the
+    weight of a face's net, passes a param batch)) a tile costs its rounds
+    instead: its window's faces (``tile + 3`` a row with the gradients,
+    ``tile + 1`` without) a face a thread, each round the weight of a net
+    (2 with its tangent), and with the gradients its owned rows' faces
+    (``tile + 1`` a row) in param batches, each twice a net (the net again
+    and its adjoint)."""
     tiles_x = -(-N // tile)
     rows, width = (hist, tile + 2) if grads else (0, tile)
     best = None
@@ -272,7 +279,13 @@ def _tile_rows(T, N, hist, grads, resident, tile, max_slab, threads):
         if slab > max_slab or -(-T // slab) != nz:
             continue
         tiles = nz * tiles_x
-        cost = (-(-tiles // resident) * -(-(slab + rows) * width // threads), tiles)
+        if batches:
+            nthreads, weight, passes = batches
+            per = weight * -(-(slab + rows) * (width + 1) // nthreads)
+            per += 2 * -(-slab * (tile + 1) // passes) if grads else 0
+        else:
+            per = -(-(slab + rows) * width // threads)
+        cost = (-(-tiles // resident) * per, tiles)
         if best is None or cost < best[0]:
             best = (cost, slab, tiles)
     _, slab, tiles = best
@@ -421,7 +434,7 @@ class _VeltracerCuda:
             return "odil_rows_halo_forward", "odil_rows_halo_backward"
         return "odil_rows_forward", "odil_rows_backward"
 
-    def launch_shape(self, lib, T, shape, grads, sums, masked=False):
+    def launch_shape(self, lib, model, T, shape, grads, sums):
         """(slab, tiles, blocks, resident blocks) of a launch over T rows of
         (X, Y) planes: a block a tile (the masked form the same)."""
         X, Y = shape
@@ -443,7 +456,7 @@ class _VeltracerCuda:
     def pack(self, lib, model, nterms, fields, params, data, consts, g, grads, sums, cs):
         T, X, Y = fields[0].shape
         dev = fields[0].device
-        slab, _, nblocks, _ = self.launch_shape(lib, T, (X, Y), grads, sums)
+        slab, _, nblocks, _ = self.launch_shape(lib, model, T, (X, Y), grads, sums)
         partials = torch.empty((nblocks, _MAXTERMS), dtype=torch.float64, device=dev)
         out = torch.empty((_MAXTERMS,), dtype=torch.float32, device=dev)
         dfields = tuple(torch.empty_like(f) for f in fields) if grads else ()
@@ -473,22 +486,25 @@ class _Rows1DCuda:
             return "odil_rows1d_halo_forward", "odil_rows1d_halo_backward"
         return "odil_rows1d_forward", "odil_rows1d_backward"
 
-    def launch_shape(self, lib, T, shape, grads, sums, masked=False):
+    def launch_shape(self, lib, model, T, shape, grads, sums):
         """(slab, tiles, blocks, resident blocks) of a tile launch over (T, N)."""
         (N,) = shape
         # The kernel's mode: 1 the sums, 2 the gradients, 3 both; 4 the masked form.
-        mode = int(bool(sums)) | 2 * int(bool(grads)) | 4 * int(bool(masked))
+        mode = int(bool(sums)) | 2 * int(bool(grads)) | 4 * int(model.halo is not None)
         resident = lib._odil_rows1d_resident[(self.model_id, mode)]
         tile, max_slab, threads = lib._odil_rows1d_tile
-        slab, blocks = _tile_rows(T, N, self.hist, bool(grads), resident, tile, max_slab, threads)
+        batches = self.batches(lib, model, grads) if self.batches else None
+        slab, blocks = _tile_rows(T, N, self.hist, bool(grads), resident, tile, max_slab, threads, batches)
         return slab, -(-T // slab) * -(-N // tile), blocks, resident
 
-    def __init__(self, model_id, hist, nfields, ndata, consts, flags_scalars, check_params, library=None):
+    def __init__(self, model_id, hist, nfields, ndata, consts, flags_scalars, check_params, library=None,
+                 batches=None):
         self.model_id, self.hist, self.nfields, self.ndata = model_id, hist, nfields, ndata
         self.consts = consts  # the const shapes, "N" standing for the plane
         self.flags_scalars = flags_scalars
         self.check_params = check_params
         self._library = library
+        self.batches = batches  # (lib, model, grads) -> the wide form's batches (_tile_rows), or None
 
     def library(self, model):
         """The library of this model's kernels, where it has the same id."""
@@ -520,7 +536,7 @@ class _Rows1DCuda:
         dev = fields[0].device
         nparams = sum(p.numel() for p in params)
         stride = nterms + nparams
-        slab, _, blocks, _ = self.launch_shape(lib, T, (N,), grads, sums, model.halo is not None)
+        slab, _, blocks, _ = self.launch_shape(lib, model, T, (N,), grads, sums)
         partials = torch.empty((max(stride, 1), blocks), dtype=torch.float64, device=dev)
         out = torch.empty((max(stride, 1),), dtype=torch.float32, device=dev)  # sums, then dparams
         dfields = tuple(torch.empty_like(f) for f in fields) if grads else ()
@@ -611,6 +627,18 @@ def _heat_library(model):
     return _heat_net_library(widths)
 
 
+def _heat_batches(lib, model, grads):
+    """The rounds of a wide heat net's kernels (csrc/heat_wide.cuh), as
+    ``_tile_rows`` takes them: the threads of its face phase (a face a
+    thread), the weight of a face's net there (2 with its tangent: with the
+    gradients and keep_frozen off), and the passes a batch of its param
+    phase; None for the register form."""
+    rows = getattr(lib, "_odil_wide_rows", 0)
+    if not rows:
+        return None
+    return lib._odil_rows1d_tile[2], 1 + bool(grads and not model.scalars["keep_frozen"]), rows
+
+
 def heat_net_source(widths):
     """(source, variant, defines) of the heat kernels' library for a net of
     hidden ``widths`` (``_build.compile_source``'s arguments): one macro a
@@ -637,7 +665,7 @@ def _wave_check_params(model, nterms, params):
 _CUDA_MODELS = {
     "veltracer": _VeltracerCuda(),
     "heat": _Rows1DCuda(0, 1, 1, (0, 2), ("N", "N", "N", "N", (1, 1), (1, 1)), _heat_flags_scalars,
-                        _heat_check_params, _heat_library),
+                        _heat_check_params, _heat_library, _heat_batches),
     "wave": _Rows1DCuda(1, 2, 1, (2,), ("N", "N", "N"), _wave_flags_scalars, _wave_check_params),
 }
 
@@ -707,6 +735,7 @@ def _library():
         lib._odil_resident = max(int(lib.odil_rows_resident_blocks()), 1)
         lib._odil_rows1d_resident = _rows1d_resident(
             lib, [spec.model_id for spec in _CUDA_MODELS.values() if isinstance(spec, _Rows1DCuda)])
+        lib._odil_wide_rows = 0  # no wide form (read on every heat launch: a missing name is a symbol lookup)
         lib._odil_typed = True
     return lib
 
@@ -721,11 +750,14 @@ def _heat_net_library(widths):
     _type_rows1d(lib)
     lib.odil_heat_net_params.argtypes = []
     lib.odil_heat_net_params.restype = ctypes.c_int
+    lib.odil_heat_wide_rows.argtypes = []
+    lib.odil_heat_wide_rows.restype = ctypes.c_int
     dims = (1,) + tuple(widths) + (1,)
     nparams = sum(a * b + b for a, b in zip(dims, dims[1:]))
     if lib.odil_heat_net_params() != nparams:
         raise RuntimeError(f"{name} {variant}: {lib.odil_heat_net_params()} params, expected {nparams}")
     lib._odil_rows1d_resident = _rows1d_resident(lib, [_CUDA_MODELS["heat"].model_id])
+    lib._odil_wide_rows = int(lib.odil_heat_wide_rows())
     return lib
 
 
@@ -769,7 +801,7 @@ def launch_shape(model, fields, grads, sums):
     ``fields`` (a CUDA model's), the streaming pair's too."""
     spec = _cuda_model(model)
     T, *plane = fields[0].shape
-    return spec.launch_shape(spec.library(model), T, tuple(plane), grads, sums, model.halo is not None)
+    return spec.launch_shape(spec.library(model), model, T, tuple(plane), grads, sums)
 
 
 def row_tile():

@@ -1326,7 +1326,10 @@ def test_gspmd_route_is_the_unsharded_route_on_the_card(cuda, kernel):
 
 # keep_init and keep_frozen on or off, the true conductivity, and nets of
 # other widths and depths (heat_net.cu, a library per net; the default
-# configuration stays in rowwise.cu): (hidden widths, args).
+# configuration stays in rowwise.cu): (hidden widths, args).  Nets of more
+# than 48 params take the wide form (heat_wide.cuh): [1, 31, 7, 13, 1] no
+# width a multiple of its 16-byte weight loads or its 2x2 param tiles,
+# [1, 32, 32, 32, 1] the limit (2209 params).
 HEAT_CONFIGS = {
     "ki0": ((5, 5), dict(keep_init=0)),
     "kf0": ((5, 5), dict(keep_frozen=0)),
@@ -1337,6 +1340,8 @@ HEAT_CONFIGS = {
     "w32x32": ((32, 32), dict()),
     "w32x32_kf0": ((32, 32), dict(keep_frozen=0)),
     "w16x16x16_ki0_kf0": ((16, 16, 16), dict(keep_init=0, keep_frozen=0)),
+    "w31x7x13_kf0": ((31, 7, 13), dict(keep_frozen=0)),
+    "w32x32x32_ki0_kf0": ((32, 32, 32), dict(keep_init=0, keep_frozen=0)),
 }
 
 
@@ -1396,7 +1401,7 @@ def test_heat_configurations_repeat_their_bits(cuda, config):
     assert outs[0] == outs[1] == outs[2]
 
 
-@pytest.mark.parametrize("config", ["ki0_kf0", "w32x32_kf0", "w16x16x16_ki0_kf0"])
+@pytest.mark.parametrize("config", ["ki0_kf0", "w32x32_kf0", "w16x16x16_ki0_kf0", "w31x7x13_kf0"])
 def test_heat_configurations_under_halo_match_plain(cuda, config):
     """The masked per-shard kernels of a heat configuration on the four t:4
     shards of 64x96 against the plain version of the wrapped model
@@ -1451,6 +1456,59 @@ def test_heat_configurations_take_the_kernel_route(cuda, config):
             _close(a, b, 1e-5, 0.0)
         for a, b in zip(ggrads, cgrads):
             _close(a, b, 1e-4, 1e-6)
+
+
+# SASS instructions (cuobjdump) and registers (ptxas) of the row kernels that
+# the wide form leaves as they were: rowwise.cu's rows1d_kernel (the default
+# heat net, wave) and rows_kernel, rowwise_mg.cu, and heat_net.cu's register
+# form ([1, 5, 5, 1]); measured on an NVIDIA H100 80GB HBM3 for the builds
+# before the wide form.
+ROW_SASS = {
+    "rowwise": {
+        "rows1d::rows1d_kernel<rows1d::HeatRow, 1, 0>": 5376, "rows1d::rows1d_kernel<rows1d::HeatRow, 1, 1>": 5384,
+        "rows1d::rows1d_kernel<rows1d::HeatRow, 2, 0>": 5984, "rows1d::rows1d_kernel<rows1d::HeatRow, 2, 1>": 6024,
+        "rows1d::rows1d_kernel<rows1d::HeatRow, 3, 0>": 6448, "rows1d::rows1d_kernel<rows1d::HeatRow, 3, 1>": 6464,
+        "rows1d::rows1d_kernel<rows1d::WaveRow, 1, 0>": 2744, "rows1d::rows1d_kernel<rows1d::WaveRow, 1, 1>": 2752,
+        "rows1d::rows1d_kernel<rows1d::WaveRow, 2, 0>": 2456, "rows1d::rows1d_kernel<rows1d::WaveRow, 2, 1>": 2456,
+        "rows1d::rows1d_kernel<rows1d::WaveRow, 3, 0>": 2904, "rows1d::rows1d_kernel<rows1d::WaveRow, 3, 1>": 2920,
+        "rows_kernel<1, 0>": 3344, "rows_kernel<1, 1>": 3408, "rows_kernel<2, 0>": 3232, "rows_kernel<2, 1>": 3328,
+        "rows_kernel<3, 0>": 3880, "rows_kernel<3, 1>": 3984, "empty_kernel": 16,
+    },
+    "rowwise_mg": {
+        "mg_coarse_grad_kernel": 1016, "mg_dp_gather_kernel<Mg2Args>": 240, "mg_dp_gather_kernel<MgArgs>": 240,
+        "mg_dp_gather_kernel<MgLocalArgs>": 256, "mg_rows_kernel<1, 0, MgArgs>": 3224,
+        "mg_rows_kernel<2, 0, MgArgs>": 4408, "mg_rows_kernel<2, 1, Mg2Args>": 8112,
+        "mg_rows_kernel<3, 0, MgArgs>": 5000, "mg_rows_kernel<3, 0, MgLocalArgs>": 5696,
+        "mg_rows_kernel<3, 1, Mg2Args>": 8776,
+    },
+    "heat_net w5x5": {
+        "rows1d::rows1d_kernel<HeatNetRow, 1, 0>": 5376, "rows1d::rows1d_kernel<HeatNetRow, 1, 1>": 5392,
+        "rows1d::rows1d_kernel<HeatNetRow, 2, 0>": 6592, "rows1d::rows1d_kernel<HeatNetRow, 2, 1>": 6608,
+        "rows1d::rows1d_kernel<HeatNetRow, 3, 0>": 7016, "rows1d::rows1d_kernel<HeatNetRow, 3, 1>": 7032,
+    },
+}
+# Their registers, sorted.
+ROW_REGISTERS = {
+    "rowwise": [4, 40, 40, 40, 40, 43, 44, 63, 64, 80, 80, 80, 80, 128, 128, 128, 128, 128, 128],
+    "rowwise_mg": [30, 30, 30, 40, 76, 78, 80, 80, 80, 80],
+    "heat_net w5x5": [128, 128, 146, 146, 148, 152],
+}
+
+
+@pytest.mark.parametrize("build", list(ROW_SASS))
+def test_row_kernels_keep_their_sass(cuda, build):
+    """The builds the wide form must leave as they were: their SASS
+    instruction counts and registers, instruction for instruction."""
+    import chip_smoke
+    from odil_torch.ops import _build
+
+    job = (build,) if build in ("rowwise", "rowwise_mg") else trw.heat_net_source((5, 5))
+    path, _, log = _build.compile_source(*job)
+    counts = chip_smoke.sass_counts(path)
+    assert counts, "cuobjdump found no kernel"
+    assert counts == ROW_SASS[build]
+    regs = sorted(int(line.split("Used ")[1].split()[0]) for line in log.splitlines() if "Used " in line)
+    assert regs == ROW_REGISTERS[build]
 
 
 def test_heat_net_beyond_the_limit_raises(cuda):
