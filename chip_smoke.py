@@ -10,10 +10,12 @@ Phases, any failure exits non-zero and prints no result:
 
 1. Build: the CUDA libraries of ``odil_torch/csrc/`` (``rowwise_mg.cu``,
    ``rowwise.cu``, ``probes.cu``, the two ablation builds of
-   ``rowwise_mg.cu`` (``ODIL_MG_ABLATION``), and ``heat_net.cu`` for each of
-   phase u's conductivity nets) compile with nvcc for sm_90a into
-   ``build/odil_torch/``, one nvcc per source, variant or net, started
-   together; all but the first two are waited for before phase u.
+   ``rowwise_mg.cu`` (``ODIL_MG_ABLATION``), ``heat_net.cu`` for each of
+   phase u's conductivity nets, and phase l's traced row models: the row
+   functions of heat and wave traced at the start, before any kernel runs,
+   their generated sources) compile with nvcc for sm_90a into
+   ``build/odil_torch/``, one nvcc per source, variant, net or trace,
+   started together; all but the first two are waited for before phase l.
 2. Kernels vs their plain PyTorch versions, on seeded random fields and the
    real tracer planes (terms rtol 1e-5; gradients rtol 1e-4 with atol
    1e-6 * max|ref|):
@@ -95,14 +97,27 @@ Phases, any failure exits non-zero and prints no result:
       forward and one masked backward a shard and epoch), 20 epochs, every
       row within 1% of j.'s generic run, and its gradients at the trained
       state against the generic route's.
-   l. A row model without a CUDA counterpart: heat 64^2 with ``keep_init=0``
-      whose row function reaches ``ctx.rowwise_terms`` bare, as a user's row
-      function does (``RowModel(row_fn)``: no CUDA model, no hand adjoint),
-      trained 50 epochs on the card through the one-pass route, whose
-      row-wise call runs the plain version on the card
-      (``rowwise.plain_on_card``, once an epoch, and no kernel); epoch 0
+   l. User row functions on 1-D planes on the traced kernels
+      (``ops/rowtrace.py``: the row function traced to a ``rows1d.cuh`` row
+      model with its adjoint, a library each, built at the start).  The row
+      functions of heat (``keep_init=0``, ``keep_frozen=1``, the [1, 5, 5,
+      1] net, stripe measurements) and wave reach ``ctx.rowwise_terms``
+      bare, as a user's do (``RowModel(row_fn)``: no CUDA model, no hand
+      adjoint).  Each library's build seconds, ptxas registers and spills.
+      Kernels at 1024^2 (and heat's backward+sums at 64^2): forward,
+      backward+sums, backward and the streaming pair against the plain
+      version (autograd of the row function) in fp64 and against the hand
+      kernel (heat_net.cu's [1, 5, 5, 1], rowwise.cu's wave) on the same
+      inputs, the same bits call after call and streaming as slabbed.
+      Paths: heat 64^2 trained 50 epochs through the one-pass route, one
+      traced backward+sums an epoch and no ``plain_on_card``, epoch 0
       within 1e-5 and every 10-epoch row within 1% of the plain operator
-      (``kernel="xla"``) trained the same way by autograd.
+      (``kernel="xla"``) trained the same way by autograd, and its
+      loss-only path; heat and wave at 1024^2, 10 epochs one-pass and 10
+      streaming (one stream forward and backward an epoch), epoch 0 within
+      1e-5 of the plain operator, and their loss-only paths.  A row
+      function the tracer refuses (a field read at x+2) runs
+      ``plain_on_card`` with its reason, the CPU route's numbers.
    u. Every heat configuration on the row kernels (``csrc/heat_net.cu``, a
       library per conductivity net, built with the others at the start).
       Kernels: forward, backward+sums and backward against the plain version
@@ -484,6 +499,14 @@ DIST_TIMEOUT = 300
 # in another order moves an entry by a few fp32 ulps of the terms it adds;
 # a cotangent lost or counted twice moves it by its own size.
 DIST_GRAD_LIMIT = 1e-5
+# Phase l: user row functions on 1-D planes (the bare row function: no CUDA
+# model, no hand adjoint) on the traced kernels (odil_torch/ops/rowtrace.py).
+# L_CASES: (model, size) of its kernel checks and paths, heat in phase l's
+# configuration (keep_init=0, keep_frozen=1, the [1, 5, 5, 1] net, the
+# converged lane's stripe measurements) and wave; L_EPOCHS a 64^2 run (a row
+# every L_EVERY), L_BIG_EPOCHS a 1024^2 route.
+L_CASES = (("heat", "64"), ("heat", "1024"), ("wave", "1024"))
+L_EPOCHS, L_EVERY, L_BIG_EPOCHS = 50, 10, 10
 # Phase u: every heat configuration on the row kernels.  U_CONFIGS: name ->
 # (hidden widths of the conductivity net, keep_init, keep_frozen), each held
 # to its plain version at SIZES_1D (the converged lane's measurements);
@@ -716,12 +739,19 @@ def sass_opcount(path, kernel, opcode):
 
 
 def start_builds(_build, jobs):
-    """Starts one nvcc for each job (a source's name, or ``(name, variant,
-    defines)`` for a source built in variants), all together: {name, or
-    "name variant": future of ``compile_source``}."""
+    """Starts one nvcc for each job (a source's name, ``(name, variant,
+    defines)`` for a source built in variants, or ``("generated", name,
+    text, label)`` for a generated source), all together: {name, "name
+    variant" or "name label": future of ``compile_source`` or
+    ``compile_generated``}."""
     jobs = [(j,) if isinstance(j, str) else tuple(j) for j in jobs]
     ex = concurrent.futures.ThreadPoolExecutor(len(jobs))
-    futures = {" ".join(str(p) for p in j[:2]): ex.submit(_build.compile_source, *j) for j in jobs}
+    futures = {}
+    for j in jobs:
+        if j[0] == "generated":
+            futures[f"{j[1]} {j[3]}"] = ex.submit(_build.compile_generated, j[1], j[2])
+        else:
+            futures[" ".join(str(p) for p in j[:2])] = ex.submit(_build.compile_source, *j)
     ex.shutdown(wait=False)
     return futures
 
@@ -2601,6 +2631,65 @@ def heat_errors(torch, th, problem, extra, x):
     return err_u, err_k
 
 
+class _Captured(Exception):
+    pass
+
+
+def rowwise_call(problem, state):
+    """(the row model, (nterms, hist, fields, params, data, consts)) of a
+    problem's row-wise call, captured from its operator: no row kernel
+    runs."""
+    from odil_torch.context import Context
+
+    def capture(self, row_fn, keys, params=(), data=(), consts=(), nterms=1, hist=1, **kw):
+        fields = tuple(self.field(k).detach() for k in keys)
+        raise _Captured(row_fn, (nterms, hist, fields, tuple(p.detach() for p in params), tuple(data), tuple(consts)))
+
+    import torch
+
+    orig = Context.rowwise_terms
+    Context.rowwise_terms = capture
+    try:
+        with torch.no_grad():
+            problem.make_loss_fn(state)[0](problem.domain.arrays_from_state(state), problem.tracers)
+    except _Captured as c:
+        return c.args
+    finally:
+        Context.rowwise_terms = orig
+    fail("the operator made no row-wise call")
+
+
+def l_build(th, tw, np, which, size, dev, kernel="pallas"):
+    """(problem, state, extra) of phase l's configuration of `which` at
+    SIZES_1D[size]."""
+    T, N = SIZES_1D[size]
+    if which == "wave":
+        return tw.build(nt=T, nx=N, dtype=np.float32, kernel=kernel, device=dev)
+    with open(HEAT_DATA) as fh:
+        lane = json.load(fh)["config"]
+    args = argparse.Namespace(
+        infer_k=True, imposed="stripe", nimp=lane["nimp"], noise=0.0, seed=lane["seed"], kimp=2.0, kxreg=0.0,
+        kxregdecay=0, ktreg=0.0, ktregdecay=0, kwreg=0.0, kwregdecay=0, kmax=0.1, keep_frozen=1, keep_init=0,
+        solver="odil",
+    )
+    return th.build(nt=T, nx=N, kernel=kernel, device=dev, args=args)
+
+
+def traced_cases(th, tw, np, rw, dev):
+    """{(model, size): (the bare row model, the hand model, the captured
+    call, its traced CUDA counterpart)} of L_CASES: traced here, before any
+    build, so that their libraries build with the others."""
+    cases = {}
+    for which, size in L_CASES:
+        hand, call = rowwise_call(*l_build(th, tw, np, which, size, dev)[:2])
+        user = rw.RowModel(hand.row_fn)
+        spec, reason = rw._traced(user, *call)
+        if spec is None:
+            fail(f"phase l: the {which} row function at {size}^2 is refused by the tracer: {reason}")
+        cases[(which, size)] = (user, hand, call, spec)
+    return cases
+
+
 def rows1d_unchanged(builds, tag):
     """The forms of rows1d_kernel without the halo layer against
     ROWS1D_PINNED: their SASS instructions (where the toolkit has cuobjdump)
@@ -2988,6 +3077,237 @@ def halo1d_phase(torch, np, counters, heat_ref, vt_rows, vt_ms, vt_epochs, repor
     if text.strip().splitlines()[-1] != "PASS":
         fail("compare.py did not print PASS")
     return launches, cases
+
+
+def traced_phase(torch, np, counters, cases, builds, report, launches, loops, tag):
+    """Phase l (the module docstring): user row functions on 1-D planes on
+    the traced kernels.  `cases`: traced_cases's.  Fills `report` and
+    `launches` for the kernel table's entries of its paths and returns their
+    timing entries (as main's `timed`), the hand kernels' calls on the same
+    inputs and the slabbed launches beside the streaming ones."""
+    from odil_torch.models import heat as th
+    from odil_torch.models import wave as tw
+    from odil_torch.ops import rowwise as rw
+    from odil_torch.optim import Adam
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    rand = lambda *shape: 0.3 * torch.randn(shape, generator=gen, device=dev)
+    none = dict.fromkeys(counters.read(), 0)
+    wide = lambda ts: tuple(t.double() for t in ts)
+    nbytes = lambda ts: 4 * sum(t.numel() for t in ts)
+    source = "odil_torch/ops/rowtrace.py"
+    timed, hand_calls, slabbed = {}, {}, {}
+
+    for (which, size), (user, hand, call, spec) in cases.items():
+        tr = spec.trace
+        _, seconds, log = builds[f"rows1d_traced {which}_{size}"]
+        regs = re.findall(r"Used (\d+) registers", log)
+        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+        lib = rw._traced_library(tr.source)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        per_sm = {m: n / sms for (_, m), n in lib._odil_rows1d_resident.items()}
+        print(f"traced {which} row model at {size}^2 ({tr.name}): {tr.nfields} field, hist {tr.hist}, {tr.nterms} "
+              f"terms, {tr.nparams} params, DUSED {tr.dused:#x}, {tr.ops_forward}/{tr.ops_backward} fp32 operations "
+              f"a cell (forward/backward), BLOCKS_PER_SM {tr.blocks_per_sm}; built in {seconds:.1f} s; ptxas "
+              f"registers {regs}, spill stores/loads {spills}; blocks an SM by mode {per_sm} {tag}")
+
+    # l, kernels: the traced forward, backward+sums, backward and streaming
+    # pair at 1024^2 against the plain version (autograd of the row
+    # function) in fp64 and the hand kernel on the same inputs.
+    for (which, size), (user, hand, call, spec) in cases.items():
+        nt_, h, fs, ps, ds, cs_ = call
+        fs = tuple(rand(*f.shape) + (0.5 if which == "heat" else 0.0) for f in fs)
+        ps = tuple(p + rand(*p.shape) for p in ps)
+        ds = tuple(d + rand(*d.shape) if i else d for i, d in enumerate(ds)) if which == "heat" else tuple(
+            rand(*d.shape) for d in ds)
+        c = (nt_, h, fs, ps, ds, cs_)
+        gs = torch.full((nt_,), 1.0 / fs[0].numel(), device=dev)
+        counters.zero()
+        calls = (lambda: rw.forward_cuda(user, *c), lambda: rw.backward_cuda(user, *c, gs, True),
+                 lambda: rw.backward_cuda(user, *c, gs, False), lambda: rw.forward_stream_cuda(user, *c),
+                 lambda: rw.backward_stream_cuda(user, *c, gs, False))
+        first = [f() for f in calls]
+        again = [f() for f in calls]
+        kf, (kd, kp, ks), (kd2, kp2, _), sf, (sd, sp, _) = first
+        hf, (hd, hp, hs) = rw.forward_cuda(hand, *c), rw.backward_cuda(hand, *c, gs, True)
+        pd, pp, psums = rw._backward_plain(user, nt_, h, wide(fs), wide(ps), wide(ds), wide(cs_), gs.double(), True)
+        torch.cuda.synchronize()
+        counts = counters.read()
+        expect_counts(counts, dict(none, forward_rows=3, backward_rows=5, forward_stream=2, backward_stream=2),
+                      f"the traced {which} kernels at {size}^2")
+        bits = same_bits(torch, first, again) and same_bits(torch, [kf, (kd2, kp2)], [sf, (sd, sp)])
+        e_f, ok_f = close(kf.double(), psums, TERMS_RTOL, 0.0)
+        e_s, ok_s = close(ks.double(), psums, TERMS_RTOL, 0.0)
+        e_g, ok_g = close_all([a.double() for a in kd + kp], list(pd) + list(pp))
+        e_g2, ok_g2 = close_all([a.double() for a in kd2 + kp2], list(pd) + list(pp))
+        e_sf, ok_sf = close(sf.double(), psums, TERMS_RTOL, 0.0)
+        e_sg, ok_sg = close_all([a.double() for a in sd + sp], list(pd) + list(pp))
+        e_hf, ok_hf = close(kf, hf, TERMS_RTOL, 0.0)
+        e_hs, ok_hs = close(ks, hs, TERMS_RTOL, 0.0)
+        e_hg, ok_hg = close_all(list(kd) + list(kp), list(hd) + list(hp))
+        print(f"traced {which} kernels at {tuple(fs[0].shape)} against the plain version in fp64: forward max|d sums| "
+              f"{e_f:.3e}, backward+sums max|d sums| {e_s:.3e} max|d (dfields, dparams)| {e_g:.3e}, backward {e_g2:.3e}, "
+              f"stream forward {e_sf:.3e}, stream backward {e_sg:.3e}; against the hand kernel: forward {e_hf:.3e}, "
+              f"sums {e_hs:.3e}, grads {e_hg:.3e}; the same bits call after call and streaming as slabbed: {bits} "
+              f"{tag}")
+        if not (ok_f and ok_s and ok_g and ok_g2 and ok_sf and ok_sg and ok_hf and ok_hs and ok_hg and bits):
+            fail(f"a traced {which} kernel at {size}^2 disagrees: forward {ok_f}, sums {ok_s}, backward+sums {ok_g}, "
+                 f"backward {ok_g2}, stream {ok_sf}/{ok_sg}, hand {ok_hf}/{ok_hs}/{ok_hg}, bits {bits}")
+        del first, again, pd, pp
+        key = f"traced_{which}_{size}"
+        names = {"forward": f"forward_rows_{key}", "sums": f"backward_rows_sums_{key}",
+                 "backward": f"backward_rows_{key}", "sforward": f"forward_stream_{key}",
+                 "sbackward": f"backward_stream_{key}"}
+        errors = {"forward": e_f, "sums": e_g, "backward": e_g2, "sforward": e_sf, "sbackward": e_sg}
+        n_cells, f_in = fs[0].numel(), nbytes(fs + ps + ds + cs_)
+        # The function's operations: the generator's count, or the hand
+        # model's count of the same function where that is fewer (the traced
+        # heat body runs the conductivity net at both faces of a cell, the
+        # function needs one net a face; the generator counts both branches
+        # of a where).
+        hand_ops = {"heat": (OPS_HEAT_FORWARD, OPS_HEAT_BACKWARD), "wave": (OPS_WAVE_FORWARD, OPS_WAVE_BACKWARD)}[which]
+        ops_f = min(spec.trace.ops_forward, hand_ops[0]) * n_cells
+        ops_b = min(spec.trace.ops_backward, hand_ops[1]) * n_cells
+        b_f, b_b = f_in + 4 * nt_, f_in + nbytes(fs + ps)
+        # Each call takes the model: the traced one (user), the hand one, or
+        # the plain version's (autograd of the bare row function).
+        entries = {
+            "forward": (lambda m, c=c: rw.forward_cuda(m, *c), lambda m, c=c: rw._forward_plain(m, *c), b_f, ops_f,
+                        "odil_tpu/ops/rowwise.py:385"),
+            "sums": (lambda m, c=c, gs=gs: rw.backward_cuda(m, *c, gs, True),
+                     lambda m, c=c, gs=gs: rw._backward_plain(m, *c, gs, True), b_b + 8 * nt_, ops_b,
+                     "odil_tpu/ops/rowwise.py:549"),
+            "backward": (lambda m, c=c, gs=gs: rw.backward_cuda(m, *c, gs, False),
+                         lambda m, c=c, gs=gs: rw._backward_plain(m, *c, gs, False), b_b + 4 * nt_, ops_b,
+                         "odil_tpu/ops/rowwise.py:549"),
+            "sforward": (lambda m, c=c: rw.forward_stream_cuda(m, *c), lambda m, c=c: rw._forward_plain(m, *c), b_f,
+                         ops_f, "odil_tpu/ops/rowwise.py:676"),
+            "sbackward": (lambda m, c=c, gs=gs: rw.backward_stream_cuda(m, *c, gs, False),
+                          lambda m, c=c, gs=gs: rw._backward_plain(m, *c, gs, False), b_b + 4 * nt_, ops_b,
+                          "odil_tpu/ops/rowwise.py:811"),
+        }
+        for what, (kfn, pfn, nb, ops, replaced) in entries.items():
+            if size != "1024" and what != "sums":  # at 64^2 only what phase l's training runs
+                continue
+            name = names[what]
+            report[name] = errors[what]
+            timed[name] = (lambda kfn=kfn, u=user: kfn(u), lambda pfn=pfn, u=user: pfn(u), nb, ops, replaced, source)
+            hand_calls[name] = lambda kfn=kfn, h=hand: kfn(h)
+        slabbed[names["sforward"]] = lambda c=c, u=user: rw.forward_cuda(u, *c)
+        slabbed[names["sbackward"]] = lambda c=c, gs=gs, u=user: rw.backward_cuda(u, *c, gs, False)
+
+    def zero_state_loss(problem, state):
+        loss_fn, _ = problem.make_loss_fn(state)
+        with torch.no_grad():
+            return float(loss_fn(problem.domain.arrays_from_state(state), problem.tracers)[0])
+
+    def loss_only(problem, state, x, grad_fn, what):
+        """The loss-only path at x: one traced forward and one traced
+        backward; its loss and gradients against grad_fn's."""
+        loss_fn, _ = problem.make_loss_fn(state)
+        xs = [a.detach().clone().requires_grad_(True) for a in x]
+        counters.zero()
+        loss_e, _ = loss_fn(xs, problem.tracers)
+        grads_e = torch.autograd.grad(loss_e, xs)
+        torch.cuda.synchronize()
+        expect_counts(counters.read(), dict(none, forward_rows=1, backward_rows=1), f"{what} loss-only path")
+        (loss_t, _), grads_t = grad_fn(x, problem.tracers)
+        e, ok = close_all(grads_e, grads_t)
+        print(f"{what} loss-only vs one-pass route: loss {float(loss_e)!r} vs {float(loss_t)!r}, max|dgrad| {e:.3e} "
+              f"{tag}")
+        if abs(float(loss_e) - float(loss_t)) > TERMS_RTOL * abs(float(loss_t)) or not ok:
+            fail(f"{what}: the loss-only path and the one-pass route disagree")
+
+    def rel_rows(losses, base, every):
+        rel = {e: abs(losses[max(e - 1, 0)] - base[max(e - 1, 0)]) / abs(base[max(e - 1, 0)])
+               for e in range(0, len(losses) + 1, every)}
+        return rel, max(rel, key=rel.get)
+
+    # l. Heat 64^2 with its row function bare: the one-pass route on the
+    # traced kernel, against the plain operator trained the same way.
+    problem_n, state_n, _ = l_build(th, tw, np, "heat", "64", dev)
+    user_row_function(problem_n, rw)
+    grad_n = problem_n.make_loss_grad_fn(state_n)
+    if grad_n is None:
+        fail("make_loss_grad_fn declined heat's row function as a user row function")
+    counters.zero()
+    opt_n, losses_n, chunk_ms = train(torch, Adam, grad_n, problem_n.domain.arrays_from_state(state_n), L_EPOCHS,
+                                      lr=1e-3)
+    expect_counts(counters.read(), dict(none, backward_rows=len(losses_n)),
+                  "a user row function's training on the traced kernel")
+    launches["backward_rows_sums_traced_heat_64"] = len(losses_n)
+    loops["heat 64 keep_init=0 as a user row function (traced kernel)"] = (opt_n, steady_ms(chunk_ms))
+    problem_x, state_x, _ = l_build(th, tw, np, "heat", "64", dev, kernel="xla")
+    counters.zero()
+    _, losses_x, chunk_x = train(torch, Adam, autograd_loss_grad_fn(torch, problem_x, state_x),
+                                 problem_x.domain.arrays_from_state(state_x), L_EPOCHS, lr=1e-3)
+    expect_counts(counters.read(), none, "heat keep_init=0 on the plain operator")
+    rel, worst = rel_rows(losses_n, losses_x, L_EVERY)
+    print(f"training (heat 64^2 keep_init=0 as a user row function, traced kernel, vs the plain operator): epoch-0 "
+          f"loss {losses_n[0]!r} vs {losses_x[0]!r} (rel {rel[0]:.2e}); worst {L_EVERY}-epoch row epoch {worst} "
+          f"({100 * rel[worst]:.4f}%); final {losses_n[-1]!r} vs {losses_x[-1]!r}; {steady_ms(chunk_ms)[0]:.4f} "
+          f"ms/epoch against the plain operator's {steady_ms(chunk_x)[0]:.4f} {tag}")
+    if rel[0] > 1e-5 or rel[worst] > 0.01:
+        fail(f"phase l: epoch 0 rel {rel[0]:.2e} (limit 1e-5), epoch {worst} {100 * rel[worst]:.3f}% (limit 1%)")
+    loss_only(problem_n, state_n, opt_n.x, grad_n, "heat 64^2 as a user row function")
+    del problem_n, state_n, grad_n, problem_x, state_x, opt_n
+
+    # Heat and wave at 1024^2 with their row functions bare: the one-pass
+    # route, the loss-only path and the streaming route (autograd of the
+    # loss), epoch 0 within 1e-5 of the plain operator.
+    for which in ("heat", "wave"):
+        key = f"traced_{which}_1024"
+        plain = zero_state_loss(*l_build(th, tw, np, which, "1024", dev, kernel="xla")[:2])
+        problem_b, state_b, _ = l_build(th, tw, np, which, "1024", dev)
+        user_row_function(problem_b, rw)
+        grad_b = problem_b.make_loss_grad_fn(state_b)
+        counters.zero()
+        opt_b, losses, chunk_ms = train(torch, Adam, grad_b, problem_b.domain.arrays_from_state(state_b),
+                                        L_BIG_EPOCHS, lr=1e-3)
+        expect_counts(counters.read(), dict(none, backward_rows=len(losses)), f"{which} 1024^2 as a user row function")
+        launches[f"backward_rows_sums_{key}"] = len(losses)
+        rel0 = abs(losses[0] - plain) / abs(plain)
+        loss_only(problem_b, state_b, opt_b.x, grad_b, f"{which} 1024^2 as a user row function")
+        launches[f"forward_rows_{key}"] = launches[f"backward_rows_{key}"] = 1
+        problem_s, state_s, _ = l_build(th, tw, np, which, "1024", dev)
+        streaming(user_row_function(problem_s, rw))
+        counters.zero()
+        _, losses_s, chunk_s = train(torch, Adam, autograd_loss_grad_fn(torch, problem_s, state_s),
+                                     problem_s.domain.arrays_from_state(state_s), L_BIG_EPOCHS, lr=1e-3)
+        n = len(losses_s)
+        expect_counts(counters.read(), dict(none, forward_stream=n, backward_stream=n),
+                      f"{which} 1024^2 as a user row function, streaming")
+        launches[f"forward_stream_{key}"] = launches[f"backward_stream_{key}"] = n
+        rel_s = abs(losses_s[0] - plain) / abs(plain)
+        print(f"training ({which} 1024^2 as a user row function, traced kernels): one-pass {len(losses)} epochs, "
+              f"epoch-0 loss {losses[0]!r} vs the plain operator's {plain!r} (rel {rel0:.2e}), "
+              f"{steady_ms(chunk_ms)[0]:.4f} ms/epoch; streaming {n} epochs, epoch 0 rel {rel_s:.2e}, "
+              f"{steady_ms(chunk_s)[0]:.4f} ms/epoch (one chunk each, its set-up included) {tag}")
+        if rel0 > 1e-5 or rel_s > 1e-5:
+            fail(f"phase l: {which} 1024^2 epoch 0 rel {rel0:.2e} (one-pass), {rel_s:.2e} (streaming), limit 1e-5")
+        del problem_b, state_b, grad_b, problem_s, state_s, opt_b
+
+    # A row function the tracer refuses (a field read at x+2): the plain
+    # version on the card, counted with its reason, the CPU route's numbers.
+    def reach2(it, T_, rows, data_rows, params, consts):
+        ((cur, prev),) = rows
+        return ((cur - prev) * 10.0 - (torch.roll(cur, -2, -1) - 2 * cur + torch.roll(cur, 2, -1)),)
+
+    refused = rw.RowModel(reach2)
+    u = rand(*SIZES_1D["64"])
+    counters.zero()
+    sums, dfields, _ = rw.rowwise_loss_and_grads(refused, (u,), nterms=1, hist=1)
+    torch.cuda.synchronize()
+    expect_counts(counters.read(), dict(none, plain_on_card=1), "a refused row function")
+    reason = rw._traced(refused, 1, 1, (u,), (), (), ())[1]
+    cpu = rw.rowwise_loss_and_grads(refused, (u.cpu(),), nterms=1, hist=1)
+    e_r, ok_r = close_all([sums.cpu(), dfields[0].cpu()], [cpu[0], cpu[1][0]])
+    print(f"a refused row function (reach x+2) at 64^2: plain_on_card {counters.read()['plain_on_card']}, reason "
+          f"{reason!r} (counted {rw.plain_on_card.reasons[reason]}); against the CPU route max|d| {e_r:.3e} {tag}")
+    if reason is None or rw.plain_on_card.reasons[reason] < 1 or not ok_r:
+        fail(f"the refused row function: reason {reason!r}, against the CPU route {ok_r}")
+    return timed, hand_calls, slabbed
 
 
 def wide_forms(builds, tag):
@@ -3744,8 +4064,13 @@ def main():
     from odil_torch.ops import mg_ablation
 
     ablations = [("rowwise_mg", v, (("ODIL_MG_ABLATION", code),)) for v, code in mg_ablation.ABLATIONS.items()]
+    # Phase l's user row functions, traced before any build (their models
+    # built on the card): their generated sources build with the others.
+    l_cases = traced_cases(th, tw, np, rw, torch.device(DEVICE))
+    traced = [("generated", "rows1d_traced", spec.trace.source, f"{w}_{size}")
+              for (w, size), (_, _, _, spec) in l_cases.items()]
     pending = start_builds(_build, ["rowwise_mg", "rowwise", "probes"] + ablations
-                           + [rw.heat_net_source(w) for w in heat_nets])
+                           + [rw.heat_net_source(w) for w in heat_nets] + traced)
     builds = report_builds({k: pending.pop(k) for k in ("rowwise_mg", "rowwise")})
     rows1d_unchanged(builds, tag)
     rmg._library()
@@ -4554,35 +4879,16 @@ def main():
     loops["halo loss-only 256"] = (opt_q, steady_ms(chunk_ms))
     del opt_q, problem_q, state_q, grads_e, grads_t, x
 
-    # l. A user row function (no CUDA model): plain torch on the card.
-    heat_plain_args = argparse.Namespace(
-        infer_k=True, imposed="stripe", nimp=lane["nimp"], noise=0.0, seed=lane["seed"], kimp=2.0, kxreg=0.0,
-        kxregdecay=0, ktreg=0.0, ktregdecay=0, kwreg=0.0, kwregdecay=0, kmax=0.1, keep_frozen=1, keep_init=0,
-        solver="odil",
-    )
-    heat64 = dict(nt=lane["nt"], nx=lane["nx"], device=dev, args=heat_plain_args)
-    problem_n, state_n, extra_n = th.build(kernel="pallas", **heat64)
-    user_row_function(problem_n, rw)
-    grad_n = problem_n.make_loss_grad_fn(state_n)
-    if grad_n is None:
-        fail("make_loss_grad_fn declined heat's row function as a user row function")
-    counters.zero()
-    _, losses_n, chunk_ms = train(torch, Adam, grad_n, problem_n.domain.arrays_from_state(state_n), 50, lr=1e-3)
-    expect_counts(counters.read(), dict(none, plain_on_card=len(losses_n)), "a user row function's training on the card")
-    loops["heat 64 keep_init=0 as a user row function (plain on card)"] = (None, steady_ms(chunk_ms))
-    problem_x, state_x, _ = th.build(kernel="xla", **heat64)
-    counters.zero()
-    _, losses_x, _ = train(torch, Adam, autograd_loss_grad_fn(torch, problem_x, state_x),
-                           problem_x.domain.arrays_from_state(state_x), 50, lr=1e-3)
-    expect_counts(counters.read(), none, "heat keep_init=0 on the plain operator")
-    against_route(losses_n, losses_x, "training (heat 64^2 keep_init=0 as a user row function, plain on card, vs the "
-                  "plain operator)", every=10)
-    del problem_n, state_n, grad_n, problem_x, state_x
+    # l. User row functions on 1-D planes on the traced kernels (their
+    # libraries built with the others, waited for here with phase u's).
+    builds.update(report_builds(pending))
+    t_l = time.perf_counter()
+    l_timed, hand_calls, l_slabbed = traced_phase(torch, np, counters, l_cases, builds, report, launches, loops, tag)
+    t_l = time.perf_counter() - t_l
 
     # u. Every heat configuration on the row kernels: keep_init=0,
     # keep_frozen=0 and wider and deeper conductivity nets.
     t_u = time.perf_counter()
-    builds.update(report_builds(pending))
     wide_forms(builds, tag)
     u_timed, u_slabbed, u_edge, u_cases = configs_phase(torch, np, counters, heat_ref, report, launches, loops, tag)
     t_u = time.perf_counter() - t_u
@@ -4816,9 +5122,11 @@ def main():
                 "odil_tpu/ops/rowwise.py:549", rows_src,
             )
 
-    # Phase u's and phase v's kernels.
+    # Phase l's, phase u's and phase v's kernels.
+    timed.update(l_timed)
     timed.update(u_timed)
     timed.update(v_timed)
+    slabbed.update(l_slabbed)
     slabbed.update(u_slabbed)
     edge.update(u_edge)
     row_cases.update(u_cases)
@@ -4871,6 +5179,9 @@ def main():
             continue
         if library_ms is not None:
             beside += f", library {library_ms:.4f} ms"
+        hand_ms = kernel_ms(torch, hand_calls[name], 50) if name in hand_calls else None
+        if hand_ms is not None:
+            beside += f", the hand kernel on the same inputs {hand_ms:.4f} ms"
         print(f"kernel {name}: {ms:.4f} ms{beside}, bound {bound_ms:.4g} ms ({bound_by}; {bound_measured_ms:.4g} ms at "
               f"the measured ceilings), plain {plain_ms:.4f} ms, "
               f"{launches[name]} launches on its path {tag}")
@@ -4878,10 +5189,10 @@ def main():
             "name": name, "route": "cuda", "source": source, "replaces": replaced,
             "launches": launches[name], "max_abs_err": report[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bound_measured_ms": bound_measured_ms,
-            "library_ms": library_ms,
+            "library_ms": library_ms, "hand_ms": hand_ms,
         })
 
-    print(f"seconds: phase v {t_v:.1f}, phase u {t_u:.1f}, phase p {t_p:.1f}, phase q {t_q:.1f}, phase r {t_r:.1f}, phase s {t_s:.1f}, phase t {t_t:.1f}, the "
+    print(f"seconds: phase v {t_v:.1f}, phase l {t_l:.1f}, phase u {t_u:.1f}, phase p {t_p:.1f}, phase q {t_q:.1f}, phase r {t_r:.1f}, phase s {t_s:.1f}, phase t {t_t:.1f}, the "
           f"script from its "
           f"start (the kernels' build included) "
           f"{time.perf_counter() - t_main:.1f} {tag}")

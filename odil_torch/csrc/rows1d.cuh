@@ -102,6 +102,9 @@
 //       float (&gk)[2]);
 //   __device__ static void face_vjp(const Rows1DArgs& A, const float* P, const Face& F, bool shared,
 //                                   float gl, float gr, float* pacc);
+// A row model with CELL_PARAMS true (a traced row function, ops/rowtrace.py;
+// no faces, REG_PARAMS) takes eval(..., gk, float* pacc, bool own) and adds
+// the param cotangents of the owned cells into pacc itself.
 // The wide form adds WIDE_SLAB (rows of a tile at most), INFER_K (the flags
 // bit of its nets) and Wide (heat_wide.cuh: its shared memory, stage,
 // rank, grads, flush, RB); its face reads P = the Wide weights.
@@ -256,6 +259,14 @@ struct TileSmem {
   double red[NWARPS][NRED16];
 };
 
+// Whether a row model adds the param cotangents of its cells itself
+// (CELL_PARAMS: the row models that ops/rowtrace.py generates; eval then
+// also takes the thread's pacc and whether the cell is owned).
+template <class M, class = void>
+struct cell_params : std::false_type {};
+template <class M>
+struct cell_params<M, std::void_t<decltype(M::CELL_PARAMS)>> : std::integral_constant<bool, M::CELL_PARAMS> {};
+
 // The wide param form's weights, sums and batch blocks.
 template <class M, bool GRADS>
 struct TileSmemWide : TileSmem<M, GRADS> {
@@ -407,10 +418,18 @@ __global__ void __launch_bounds__(NTHREADS, M::BLOCKS_PER_SM) rows1d_kernel(cons
           float g2m[NT];
 #pragma unroll
           for (int k = 0; k < NT; ++k) g2m[k] = g2[k] * m;
-          M::template eval<grads>(A, sm.P, model_it(r), xi[i + 1], v, sm.face[fi][fj], sm.face[fi][fk], g2m, res, Dl,
-                                  gk);
+          if constexpr (cell_params<M>::value) {
+            M::template eval<grads>(A, sm.P, model_it(r), xi[i + 1], v, sm.face[fi][fj], sm.face[fi][fk], g2m, res,
+                                    Dl, gk, pacc, own);
+          } else {
+            M::template eval<grads>(A, sm.P, model_it(r), xi[i + 1], v, sm.face[fi][fj], sm.face[fi][fk], g2m, res, Dl,
+                                    gk);
+          }
 #pragma unroll
           for (int k = 0; k < NT; ++k) res[k] *= m;
+        } else if constexpr (cell_params<M>::value) {
+          M::template eval<grads>(A, sm.P, row_it(r), xi[i + 1], v, sm.face[fi][fj], sm.face[fi][fk], g2, res, Dl, gk,
+                                  pacc, own);
         } else {
           M::template eval<grads>(A, sm.P, row_it(r), xi[i + 1], v, sm.face[fi][fj], sm.face[fi][fk], g2, res, Dl,
                                   gk);

@@ -6,8 +6,12 @@ in ``.gitignore``); the library name carries a hash of the source and of
 the headers it includes (``source_digest``), so an edited source or header
 rebuilds.  A source built in variants (``heat_net.cu``, one library per
 conductivity net) takes its macros as ``defines`` and names the variant
-beside the hash.  Nothing here runs at import time: the CPU tests
-import every module and have no nvcc.
+beside the hash.  A generated source (``compile_generated``: a traced row
+function's row model, ``ops/rowtrace.py``) is written into the build
+directory and compiled with ``csrc/`` on the include path, its library
+named by the digest of its text and of the headers it includes.  Nothing
+here runs at import time: the CPU tests import every module and have no
+nvcc.
 """
 
 import ctypes
@@ -19,7 +23,8 @@ import shutil
 import subprocess
 import time
 
-__all__ = ["build_dir", "compile_source", "load", "source_digest"]
+__all__ = ["build_dir", "compile_generated", "compile_source", "generated_digest", "load", "load_generated",
+           "source_digest"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -32,25 +37,33 @@ def build_dir():
 _INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 
 
-def source_digest(src):
-    """A hash of the source file ``src`` and of every header it includes with
+def source_digest(src, text=None):
+    """A hash of the source file ``src`` (or of ``text``, a source whose
+    headers lie in ``csrc/``) and of every header it includes with
     ``#include "..."`` (resolved beside the including file), recursively."""
     h = hashlib.sha256()
     seen = set()
 
-    def add(path):
+    def add(path, data=None):
         path = os.path.normpath(path)
         if path in seen:
             return
         seen.add(path)
-        with open(path, "rb") as fh:
-            data = fh.read()
+        if data is None:
+            with open(path, "rb") as fh:
+                data = fh.read()
         h.update(os.path.basename(path).encode() + b"\0" + data + b"\0")
         for name in _INCLUDE.findall(data):
             add(os.path.join(os.path.dirname(path), name.decode()))
 
-    add(src)
+    add(src, None if text is None else text.encode())
     return h.hexdigest()[:16]
+
+
+def generated_digest(text):
+    """``source_digest`` of a generated source: its text and the headers
+    of ``csrc/`` it includes."""
+    return source_digest(os.path.join(_CSRC, "<generated>.cu"), text)
 
 
 def _nvcc():
@@ -70,10 +83,28 @@ def compile_source(name, variant=None, defines=()):
     names a build with the macros ``defines`` ((name, value) pairs) in the
     library's name."""
     src = os.path.join(_CSRC, name + ".cu")
-    digest = source_digest(src)
-    out_dir = build_dir()
-    os.makedirs(out_dir, exist_ok=True)
-    lib = os.path.join(out_dir, f"lib{name}_{variant + '_' if variant else ''}{digest}.so")
+    lib = os.path.join(build_dir(), f"lib{name}_{variant + '_' if variant else ''}{source_digest(src)}.so")
+    return _compile(src, lib, defines)
+
+
+def compile_generated(name, text):
+    """Compiles the generated source ``text`` (its ``#include "..."``
+    headers in ``csrc/``) to ``lib<name>_<digest>.so`` unless it is already
+    built, the source beside it as ``<name>_<digest>.cu``; returns (path,
+    seconds spent, nvcc's ptxas report)."""
+    digest = generated_digest(text)
+    os.makedirs(build_dir(), exist_ok=True)
+    src = os.path.join(build_dir(), f"{name}_{digest}.cu")
+    if not os.path.exists(src):
+        tmp = f"{src}.{os.getpid()}.tmp"
+        with open(tmp, "w") as fh:
+            fh.write(text)
+        os.replace(tmp, src)
+    return _compile(src, os.path.join(build_dir(), f"lib{name}_{digest}.so"), include=_CSRC)
+
+
+def _compile(src, lib, defines=(), include=None):
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
     log = lib[:-3] + ".log"
     if os.path.exists(lib):
         report = ""
@@ -84,7 +115,8 @@ def compile_source(name, variant=None, defines=()):
     tmp = f"{lib}.{os.getpid()}.tmp"
     cmd = [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", *[f"-D{k}={v}" for k, v in defines], "-o", tmp, src,
+        "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", *[f"-D{k}={v}" for k, v in defines],
+        *([f"-I{include}"] if include else []), "-o", tmp, src,
     ]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -102,4 +134,12 @@ def load(name, variant=None, defines=()):
     """The ctypes handle of ``csrc/<name>.cu`` (its ``variant``), built on
     first use."""
     path, _, _ = compile_source(name, variant, defines)
+    return ctypes.CDLL(path)
+
+
+@functools.lru_cache(maxsize=None)
+def load_generated(name, text):
+    """The ctypes handle of a generated source (``compile_generated``),
+    built on first use."""
+    path, _, _ = compile_generated(name, text)
     return ctypes.CDLL(path)

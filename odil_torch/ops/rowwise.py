@@ -30,12 +30,20 @@ model's declaration: a CUDA tensor of a model that names a CUDA counterpart
 planes) launches the hand-written kernel of ``csrc/rowwise.cu`` (heat with
 another conductivity net than [1, 5, 5, 1], or with keep_init or
 keep_frozen off: of ``csrc/heat_net.cu``, built for the net's widths), and
-raises where that kernel does not take the call; a model that names none
-(``cuda_model is None``: a user row function) runs the plain PyTorch
-version on the card's tensors (``plain_on_card``, with its own launch counter) -- autograd of
-the row function over the row stacks where the model has no ``row_vjp``, the
-counterpart of the TPU kernel's in-kernel ``jax.vjp``; a CPU tensor runs the
-plain version.  No exception selects a route.  64-bit fields take the plain
+raises where that kernel does not take the call.  A model that names none
+(``cuda_model is None``: a user row function) on float32 (T, N) planes is
+traced (``ops/rowtrace.py``, ``_traced``): its row function becomes a row
+model of ``csrc/rows1d.cuh`` with a generated adjoint, built at first use
+into a library of its own, and the call launches the same kernels and
+counters as heat and wave -- the counterpart of the TPU kernels' tracing of
+the row function and their in-kernel ``jax.vjp``.  A trace that is refused
+(a reach past x±1, more than 48 params, an operation outside the traced
+set; 2-D planes, 64-bit tensors and a per-shard model are not traced) runs
+the plain PyTorch version on the card's tensors (``plain_on_card``, its own
+launch counter and the reasons, ``plain_on_card.reasons``) -- autograd of
+the row function over the row stacks where the model has no ``row_vjp``.  A
+CPU tensor runs the plain version.  The route is decided before any build;
+no exception selects one, and a failed build or launch raises.  64-bit fields take the plain
 version on every device, by the JAX package's own rule (Mosaic cannot lower
 64-bit kernels, ``odil_tpu/ops/rowwise.py:968-969``): ``rowwise_loss_terms``
 differentiates it by autograd and ``rowwise_loss_and_grads`` returns None.
@@ -77,12 +85,13 @@ package runs on its wrapped row function for 1-D planes
 (``odil_tpu/halo.py:924-936``, whose x-padded form needs 3-D grids).
 """
 
+import collections
 import ctypes
 import functools
 
 import torch
 
-from . import _build
+from . import _build, rowtrace
 
 __all__ = [
     "RowModel",
@@ -670,7 +679,15 @@ _CUDA_MODELS = {
 }
 
 
-def _cuda_model(model):
+def _cuda_model(model, call=None):
+    """The CUDA counterpart of a model: its built-in one by name, or for a
+    user row function (``cuda_model is None``) the traced one of the call
+    ``(nterms, hist, fields, params, data, consts)``."""
+    if model.cuda_model is None and call is not None:
+        spec, reason = _traced(model, *call)
+        if spec is None:
+            raise NotImplementedError(f"the row function has no traced CUDA row model: {reason}")
+        return spec
     spec = _CUDA_MODELS.get(model.cuda_model)
     if spec is None:
         raise NotImplementedError(
@@ -679,10 +696,13 @@ def _cuda_model(model):
     return spec
 
 
-def _type_rows1d(lib):
-    """Declares the rows1d entry points of a library (rowwise.cu or
-    heat_net.cu) and checks its argument structs' layout."""
-    for name in ("odil_rows1d_args_size", "odil_rows1d_halo_args_size"):
+def _type_rows1d(lib, halo=True):
+    """Declares the rows1d entry points of a library (rowwise.cu,
+    heat_net.cu, or a traced row function's without the masked ones: halo
+    False) and checks its argument structs' layout."""
+    forms = (("odil_rows1d", _Rows1DArgs, "odil_rows1d_args_size"),) + (
+        (("odil_rows1d_halo", _Rows1DHaloArgs, "odil_rows1d_halo_args_size"),) if halo else ())
+    for _, _, name in forms:
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     for name, n in (("odil_rows1d_tile", 1), ("odil_rows1d_resident_blocks", 2)):
@@ -690,23 +710,22 @@ def _type_rows1d(lib):
         getattr(lib, name).restype = ctypes.c_int
     lib.odil_cuda_error_string.argtypes = [ctypes.c_int]
     lib.odil_cuda_error_string.restype = ctypes.c_char_p
-    for pre, struct in (("odil_rows1d", _Rows1DArgs), ("odil_rows1d_halo", _Rows1DHaloArgs)):
+    for pre, struct, _ in forms:
         getattr(lib, pre + "_forward").argtypes = [ctypes.c_int, ctypes.POINTER(struct), ctypes.c_void_p]
         getattr(lib, pre + "_backward").argtypes = [ctypes.c_int, ctypes.POINTER(struct), ctypes.c_int, ctypes.c_void_p]
         getattr(lib, pre + "_forward").restype = ctypes.c_int
         getattr(lib, pre + "_backward").restype = ctypes.c_int
-    for name, struct in (("odil_rows1d_args_size", _Rows1DArgs), ("odil_rows1d_halo_args_size", _Rows1DHaloArgs)):
+    for _, struct, name in forms:
         size = getattr(lib, name)()
         if size != ctypes.sizeof(struct):
             raise RuntimeError(f"{struct.__name__} layout mismatch: C {size} vs ctypes {ctypes.sizeof(struct)} bytes")
     lib._odil_rows1d_tile = tuple(int(lib.odil_rows1d_tile(a)) for a in range(3))
 
 
-def _rows1d_resident(lib, model_ids):
+def _rows1d_resident(lib, model_ids, modes=(1, 2, 3, 5, 6, 7)):
     """{(model id, mode): blocks the card holds at once} of a library's 1-D
     row models, every mode (1-3 and the masked 5-7)."""
-    return {(i, mode): max(int(lib.odil_rows1d_resident_blocks(i, mode)), 1)
-            for i in model_ids for mode in (1, 2, 3, 5, 6, 7)}
+    return {(i, mode): max(int(lib.odil_rows1d_resident_blocks(i, mode)), 1) for i in model_ids for mode in modes}
 
 
 def _library():
@@ -761,6 +780,84 @@ def _heat_net_library(widths):
     return lib
 
 
+# -- Traced row functions (ops/rowtrace.py) ------------------------------------
+
+
+def _traced(model, nterms, hist, fields, params, data, consts):
+    """(the traced CUDA counterpart, None) of a user row function's call,
+    or (None, the reason it has none): float32 tensors, (T, N) planes with
+    T >= 2, data of shape (T, N) or (T, 1), consts of one element or of
+    the plane's shape ((N,) or (1, N)), no per-shard layer and a trace that
+    ``rowtrace`` takes.  Cached by the row function's
+    ``rowtrace.fingerprint`` and the call's structure (a function without
+    one is traced at every call); nothing is built here."""
+    if model.halo is not None:
+        return None, "a per-shard (halo) row model: the traced kernels have no masked form yet"
+    ndim = fields[0].ndim
+    if ndim != 2:
+        return None, f"{ndim - 1}-D planes: the traced kernels take 1-D planes (T, N)"
+    wide = [t.dtype for t in tuple(fields) + tuple(params) + tuple(data) + tuple(consts) if t.dtype != torch.float32]
+    if wide:
+        return None, f"tensors of dtype {wide[0]}: the traced kernels take float32"
+    T, N = fields[0].shape
+    shapes = [tuple(t.shape) for t in fields]
+    if T < 2 or shapes != [(T, N)] * len(fields):
+        return None, f"fields of shapes {shapes}: the traced kernels take (T, N) fields with T >= 2"
+    for d in data:
+        if tuple(d.shape) not in ((T, N), (T, 1)):
+            return None, f"data of shape {tuple(d.shape)}: the traced kernels take (T, N) or (T, 1)"
+    for c in consts:
+        if c.numel() != 1 and tuple(c.shape) not in ((N,), (1, N)):
+            return None, f"a const of shape {tuple(c.shape)}: the traced kernels take one element or (N,) or (1, N)"
+    data_kinds = tuple(d.shape[-1] == N for d in data)
+    const_kinds = tuple((c.numel() != 1, c.ndim) for c in consts)
+    key = (rowtrace.fingerprint(model.row_fn), nterms, hist, len(fields), data_kinds, const_kinds,
+           tuple(tuple(p.shape) for p in params))
+    out = _TRACES.get(key) if key[0] is not None else None
+    if out is None:
+        try:
+            out = (_traced_spec(rowtrace.trace(model.row_fn, nterms, hist, len(fields), data_kinds, const_kinds,
+                                               key[6])), None)
+        except rowtrace.Refused as e:
+            out = (None, str(e))
+        if key[0] is not None:
+            if len(_TRACES) >= 256:
+                _TRACES.clear()
+            _TRACES[key] = out
+    return out
+
+
+# {(rowtrace.fingerprint of a row function, a call's structure): _traced's
+# result}: a row function made anew every epoch with the same code and
+# values is traced once.
+_TRACES = {}
+
+
+def _traced_spec(trace):
+    """The 1-D row model of a trace: model id 0 of its own library."""
+    consts = tuple((1,) * (ndim - 1) + ("N",) if plane else (1,) * ndim for plane, ndim in trace.consts)
+
+    def check_params(model, nterms, params):
+        if tuple(tuple(p.shape) for p in params) != trace.param_shapes:
+            raise ValueError(f"the traced row model takes params {trace.param_shapes}, got "
+                             f"{[tuple(p.shape) for p in params]}")
+
+    spec = _Rows1DCuda(0, trace.hist, trace.nfields, (len(trace.data),), consts, lambda model, nterms, N: (0, ()),
+                       check_params, lambda model: _traced_library(trace.source))
+    spec.trace = trace
+    return spec
+
+
+@functools.lru_cache(maxsize=None)
+def _traced_library(source):
+    """The library of a traced row model's kernels (``rowtrace.Trace.source``,
+    built at first use; one library per source)."""
+    lib = _build.load_generated("rows1d_traced", source)
+    _type_rows1d(lib, halo=False)
+    lib._odil_rows1d_resident = _rows1d_resident(lib, [0], modes=(1, 2, 3))
+    return lib
+
+
 def _cuda_stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -772,7 +869,7 @@ def _call(lib, spec, name, launch, *extra):
 
 
 def _launch_forward(model, nterms, hist, fields, params, data, consts, stream=False):
-    spec = _cuda_model(model)
+    spec = _cuda_model(model, (nterms, hist, fields, params, data, consts))
     spec.check(model, nterms, hist, fields, params, data, consts)
     lib = spec.library(model)
     name = spec.names(model, stream)[0]
@@ -783,7 +880,7 @@ def _launch_forward(model, nterms, hist, fields, params, data, consts, stream=Fa
 
 
 def _launch_backward(model, nterms, hist, fields, params, data, consts, g, with_sums, stream=False):
-    spec = _cuda_model(model)
+    spec = _cuda_model(model, (nterms, hist, fields, params, data, consts))
     spec.check(model, nterms, hist, fields, params, data, consts)
     g = g.to(torch.float32).contiguous()
     if not g.is_cuda or g.numel() < nterms:
@@ -928,43 +1025,61 @@ def _contig(ts):
     return tuple(t.contiguous() for t in ts)
 
 
-def plain_on_card(plain, *args):
+def plain_on_card(plain, *args, reason=None):
     """``plain(*args)`` on the card's tensors: the route of a row model that
-    declares no CUDA counterpart (``cuda_model is None``).  Plain torch, not
-    a kernel; its launch counter shows which calls took it."""
+    has no CUDA counterpart (``cuda_model is None`` and no trace: its
+    ``reason``).  Plain torch, not a kernel; its launch counter shows which
+    calls took it, ``plain_on_card.reasons`` why."""
     plain_on_card.launches += 1
+    if reason is not None:
+        plain_on_card.reasons[reason] += 1
     return plain(*args)
 
 
 plain_on_card.launches = 0
+plain_on_card.reasons = collections.Counter()
 
 
-def _kernel_route(model, tensor):
+def _kernel_route(model, tensor, call=None):
     """Whether a call on ``tensor`` launches a CUDA kernel: a CUDA tensor of a
-    model that names a CUDA counterpart.  Decided from the declaration only."""
-    return tensor.is_cuda and model.cuda_model is not None
+    model that names a CUDA counterpart, or of a user row function whose
+    call ``(nterms, hist, fields, params, data, consts)`` is traced
+    (``_traced``).  Decided before any build."""
+    if not tensor.is_cuda:
+        return False
+    if model.cuda_model is not None:
+        return True
+    return call is not None and _traced(model, *call)[0] is not None
 
 
-def _plain(plain, tensor, *args):
+def _plain(plain, tensor, *args, reason=None):
     """The plain version ``plain(*args)``, through ``plain_on_card`` on the
-    card."""
-    return plain_on_card(plain, *args) if tensor.is_cuda else plain(*args)
+    card (with the ``reason`` it has no kernel)."""
+    return plain_on_card(plain, *args, reason=reason) if tensor.is_cuda else plain(*args)
+
+
+def _reason(model, call):
+    """Why a call on the card takes the plain route (a user row function's
+    refused trace), or None."""
+    return _traced(model, *call)[1] if model.cuda_model is None and call[2][0].is_cuda else None
 
 
 def _forward(model, nterms, hist, fields, params, data, consts, stream=False):
-    if _kernel_route(model, fields[0]):
+    call = (nterms, hist, fields, params, data, consts)
+    if _kernel_route(model, fields[0], call):
         kernel = _halo_kernels(model)[0] if model.halo is not None else forward_stream_cuda if stream else forward_cuda
         return kernel(model, nterms, hist, _contig(fields), _contig(params), _contig(data), _contig(consts))
-    return _plain(_forward_plain, fields[0], model, nterms, hist, fields, params, data, consts)
+    return _plain(_forward_plain, fields[0], model, *call, reason=_reason(model, call))
 
 
 def _backward(model, nterms, hist, fields, params, data, consts, g, with_sums=False, stream=False):
-    if _kernel_route(model, fields[0]):
+    call = (nterms, hist, fields, params, data, consts)
+    if _kernel_route(model, fields[0], call):
         kernel = _halo_kernels(model)[1] if model.halo is not None else backward_stream_cuda if stream else backward_cuda
         return kernel(
             model, nterms, hist, _contig(fields), _contig(params), _contig(data), _contig(consts), g, with_sums
         )
-    return _plain(_backward_plain, fields[0], model, nterms, hist, fields, params, data, consts, g, with_sums)
+    return _plain(_backward_plain, fields[0], model, *call, g, with_sums, reason=_reason(model, call))
 
 
 class _RowwiseSumsq(torch.autograd.Function):

@@ -8,9 +8,11 @@ machine without them:
 Tolerances: sums rtol 1e-5; gradients rtol 1e-4 with atol 1e-6 * max|ref|
 (fp32, different summation order); the per-shard kernels' gradients against
 the fp64 plain version within that plus 4 times the fp32 plain version's
-own distance from it (``_close_floor``).  Row models without a CUDA
-counterpart (user row functions) run their plain versions on the card
-(``rowwise.plain_on_card``) and give the CPU route's numbers; every heat
+own distance from it (``_close_floor``).  User row functions on 1-D
+planes take the traced kernels (``ops/rowtrace.py``), held to the plain
+version and to the hand kernels of the same function; the others run
+their plain versions on the card (``rowwise.plain_on_card``) and give the
+CPU route's numbers; every heat
 configuration takes the row kernels (``csrc/heat_net.cu`` beyond the
 default net).  The probes (``csrc/probes.cu``): copy3 the bits of three
 clones, fma within rtol 1e-5 (both round each step once); the mg kernel's
@@ -1589,3 +1591,145 @@ def test_mg_ablation_builds_match_plain(cuda, variant, shape):
             _close(ks, ps, 1e-5, 0.0)
     lib = mg_ablation._library(variant)
     assert lib.odil_mg_backward2(None, 1, None) != 0 and lib.odil_mg_backward_local(None, 1, None) != 0
+
+
+# -- User row functions on 1-D planes: the traced kernels (ops/rowtrace.py) ---------
+
+
+def _traced_case(name, device, T, N, seed=17):
+    """_row_case's heat or wave inputs with the bare row function (a user's:
+    no CUDA model, no hand adjoint) beside the hand model."""
+    model, nterms, hist, fields, params, data, consts = _row_case(name, device, T, N, seed)
+    user = trw.RowModel(model.row_fn)
+    return user, model, (nterms, hist, fields, params, data, consts)
+
+
+# A model's literals (its steps, its last cell) follow its grid, so each
+# shape builds a library of its own.
+TRACED_SHAPES = [(64, 64), (7, 5), (33, 257), (1024, 1024)]
+TRACED_NAMES = ["heat", "heat_lane", "heat_true_k", "wave"]
+
+
+@pytest.fixture(scope="module")
+def traced_builds():
+    """Every traced case's library, built together (one nvcc each)."""
+    import concurrent.futures
+
+    from odil_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    cases = [(n, s) for n in TRACED_NAMES for s in TRACED_SHAPES] + [("heat_lane", (256, 512)), ("wave", (256, 512)),
+                                                                     ("wave", (8, 16))]
+    sources = set()
+    for name, shape in cases:
+        user, _, call = _traced_case(name, "cuda", *shape)
+        sources.add(trw._traced(user, *call)[0].trace.source)
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
+        list(ex.map(lambda src: _build.compile_generated("rows1d_traced", src), sources))
+
+
+@pytest.mark.parametrize("name", TRACED_NAMES)
+@pytest.mark.parametrize("shape", TRACED_SHAPES)
+def test_traced_kernels_match_plain_and_hand(cuda, traced_builds, name, shape):
+    """A bare heat or wave row function takes the traced kernels: forward,
+    backward+sums, backward and the streaming pair, each against the plain
+    version (autograd of the row function) in fp64 and against the hand
+    kernel on the same inputs; no plain_on_card."""
+    user, hand, call = _traced_case(name, cuda, *shape)
+    nterms, hist, fields, params, data, consts = call
+    assert trw._kernel_route(user, fields[0], call) and trw._traced(user, *call)[0] is not None
+    g = torch.linspace(0.5, 1.5, nterms, device=cuda) / fields[0].numel()
+    wide = (user, nterms, hist, _wide(fields), _wide(params), _wide(data), _wide(consts))
+    before, plain = _counts(), trw.plain_on_card.launches
+    for fwd, bwd in ((trw.forward_cuda, trw.backward_cuda), (trw.forward_stream_cuda, trw.backward_stream_cuda)):
+        for with_sums in (True, False):
+            kd, kp, ks = bwd(user, *call, g, with_sums)
+            hd, hp, hs = bwd(hand, *call, g, with_sums)
+            pd, pp, ps = trw._backward_plain(*wide, g.double(), with_sums)
+            assert len(kp) == len(pp) == len(params)
+            for a, b, c in zip(list(kd) + list(kp), list(pd) + list(pp), list(hd) + list(hp)):
+                _close(a, b, 1e-4, 1e-6)
+                _close(a, c, 1e-4, 1e-6)
+            if with_sums:
+                _close(ks, ps, 1e-5, 0.0)
+                _close(ks, hs, 1e-5, 0.0)
+        kf = fwd(user, *call)
+        _close(kf, trw._forward_plain(*wide), 1e-5, 0.0)
+        _close(kf, fwd(hand, *call), 1e-5, 0.0)
+    after = _counts()
+    assert {k: after[k] - before[k] for k in after} == dict(fwd=2, bwd=4, sfwd=2, sbwd=4)
+    assert trw.plain_on_card.launches == plain
+
+
+@pytest.mark.parametrize("name", ["heat_lane", "wave"])
+def test_traced_kernels_repeat_their_bits(cuda, traced_builds, name):
+    """No atomics: the traced backward+sums gives the same bits call after
+    call, and the streaming launch the slabbed one's."""
+    user, _, call = _traced_case(name, cuda, 256, 512)
+    g = torch.full((call[0],), 1.0 / call[2][0].numel(), device=cuda)
+    outs = []
+    for bwd in (trw.backward_cuda, trw.backward_cuda, trw.backward_stream_cuda):
+        kd, kp, ks = bwd(user, *call, g, True)
+        outs.append(_digest(list(kd) + list(kp) + [ks]))
+    assert outs[0] == outs[1] == outs[2]
+
+
+def test_traced_build_without_nvcc_raises(cuda, monkeypatch, tmp_path):
+    """A traced row function whose library cannot build (nvcc hidden, an
+    empty build directory) raises on the card: no fallback to the plain
+    version."""
+    from odil_torch.ops import _build
+
+    user, _, call = _traced_case("wave", cuda, 8, 16)
+    monkeypatch.setattr(_build, "build_dir", lambda: str(tmp_path))
+    monkeypatch.setattr(_build, "_nvcc", lambda: (_ for _ in ()).throw(RuntimeError("nvcc not found")))
+    trw._traced_library.cache_clear()
+    _build.load_generated.cache_clear()
+    before = trw.plain_on_card.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        trw.forward_cuda(user, *call)
+    assert trw.plain_on_card.launches == before
+    monkeypatch.undo()
+    trw._traced_library.cache_clear()
+    _build.load_generated.cache_clear()
+
+
+def test_traced_route_matches_cpu_route(cuda):
+    """Heat with keep_init=0 (the [1, 5, 5, 1] net, stripe measurements)
+    whose row function reaches ctx.rowwise_terms bare: one traced
+    backward+sums a call on the card and no plain_on_card; the CPU route's
+    terms and gradients."""
+    import argparse
+
+    args = argparse.Namespace(infer_k=True, imposed="stripe", nimp=200, noise=0.0, seed=1000, kimp=2.0, kxreg=0.0,
+                              kxregdecay=0, ktreg=0.0, ktregdecay=0, kwreg=0.0, kwregdecay=0, kmax=0.1,
+                              keep_frozen=1, keep_init=0, solver="odil")
+
+    def build(d):
+        p, s, e = tht.build(nt=16, nx=16, kernel="pallas", device=d, args=args)
+        base = p.operator
+
+        def operator(ctx):
+            call = ctx.rowwise_terms
+            ctx.rowwise_terms = lambda model, *a, **k: call(trw.RowModel(model.row_fn), *a, **k)
+            return base(ctx)
+
+        p.operator = operator
+        return p, s
+
+    cp, cs = build("cpu")
+    gp, gs = build(cuda)
+    rng = np.random.default_rng(8)
+    states = [[(0.3 * rng.normal(size=tuple(a.shape))).astype(np.float32) for a in cp.domain.arrays_from_state(cs)]
+              for _ in range(2)]
+    cfn, gfn = cp.make_loss_grad_fn(cs), gp.make_loss_grad_fn(gs)
+    before = (trw.plain_on_card.launches, trw.backward_cuda.launches)
+    outs = [gfn(arrays_from_numpy(a, device=cuda), dict(gp.tracers, epoch=e)) for e, a in enumerate(states)]
+    assert (trw.plain_on_card.launches, trw.backward_cuda.launches) == (before[0], before[1] + 2)
+    for e, (arrays, ((_, (gterms, _)), ggrads)) in enumerate(zip(states, outs)):
+        (_, (cterms, _)), cgrads = cfn(arrays_from_numpy(arrays, device="cpu"), dict(cp.tracers, epoch=e))
+        for a, b in zip(gterms, cterms):
+            _close(a, b, 1e-5, 0.0)
+        for a, b in zip(ggrads, cgrads):
+            _close(a, b, 1e-4, 1e-6)
