@@ -143,6 +143,38 @@ Phases, any failure exits non-zero and prints no result:
       of ``csrc/heat_wide.cuh``): ptxas's registers and spills, its build
       seconds, its blocks an SM and the passes a batch of its param
       phase.
+   w. User row functions on 2-D planes and on a shard's block on the traced
+      kernels (``ops/rowtrace.py``: a ``rows2d.cuh`` row model for (T, X, Y)
+      planes, and the masked forms of both ranks; the libraries built with
+      the others at the start).  Builds: the veltracer's row function at
+      256^2 (also the shards') and 512^2, the generic case (``w_net_row_fn``:
+      hist 2, params, (T, X, Y) and (T, 1, 1) data at (65,256,256)) and the
+      shard models of heat ``keep_init=0`` and wave at 64^2 and 1024^2 (the
+      first three of these phase l's libraries): each library's build
+      seconds, ptxas registers and spills, blocks an SM.  Kernels: forward,
+      backward+sums and backward (and the streaming pair unsharded) at
+      (65,256,256)x3, (65,512,512)x3, shard (1, 1) of t:2,x:2's
+      (34,130,256)x3 blocks with their (130,256) mask, the generic case, and
+      shard 1 of the t:4 grids of heat and wave at 64^2 and 1024^2, each
+      against the plain version in fp64 (``close_floor``) and the hand
+      kernel on the same inputs (``rows_kernel``, ``rows1d_kernel<HeatRow
+      /WaveRow, MODE, true>``), its bits call after call, streaming as
+      slabbed.  Paths, the row functions bare (``user_row_function``): the
+      veltracer on ``kernel="pallas"`` at (64,256,256) for W_EPOCHS
+      epochs, one traced 2-D backward+sums an epoch and no other kernel of
+      the row-wise or plain routes (the kernels of an epoch by name: no
+      ``rows_kernel``), epoch 0 within 1e-5 and every row within 15% of
+      ``ref_velt_256.csv``, every 10-epoch row within 1% of phase b's hand
+      route, and its loss-only path; at 512^2, W_BIG_EPOCHS epochs, epoch 0
+      within 1e-5 of the plain operator, and its loss-only path; streaming
+      at 256^2, W_BIG_EPOCHS epochs; the halo generic route on t:2,x:2 at
+      256^2, W_HALO_EPOCHS epochs, four masked traced backward+sums an
+      epoch, epoch 0 within 1e-5 of the unsharded run, and its loss-only
+      path; heat ``keep_init=0`` under ``--mesh t:4 --halo 1`` at 64^2,
+      W_HEAT_EPOCHS epochs, four masked traced 1-D backward+sums an epoch,
+      every 10-epoch row within 1% of the plain operator trained the same
+      way, and its loss-only path; the generic case W_BIG_EPOCHS gradient
+      steps through ``rowwise_loss_and_grads``.
    m. The training harness: the command-line examples run as a user runs
       them, through ``util.optimize``, ``make_callback`` and ``History``,
       each in a new directory under ``build/`` (the working directory and
@@ -173,8 +205,8 @@ Phases, any failure exits non-zero and prints no result:
       autograd of the loss); infer_constant 64^2 (fp64, the default
       ``lbfgs``, 100 epochs) against ``ref_infconst.csv`` (norm_0, c_diff,
       c_src, c_vel 1.15), and with ``--optimizer lbfgsb`` (1.1); heat_tmax
-      64^2 (``lbfgs``, 4000 epochs) against ``ref_heat_tmax.csv`` (norm_eqn
-      3, norm_imp 3, loss 10); wave 64^2
+      64^2 (``lbfgs``, HEAT_TMAX_EPOCHS epochs) against ``ref_heat_tmax.csv``
+      at that epoch (norm_eqn 3, norm_imp 3, loss 10); wave 64^2
       (fp64, ``lbfgs``, 200 epochs) against ``ref_wave.csv`` (error_u 1.3,
       loss 1.8); fields 8x4 (Adam, 100 epochs) against ``ref_fields.csv``
       (loss 1.2, the four norms 1.1); and the heat PINN solver 64^2 (200
@@ -456,6 +488,10 @@ SIZES_1D = {"64": (64, 64), "1024": (1024, 1024)}
 NARROW_1D = (7, 5)
 HEAT_DATA = os.path.join(HERE, "odil_torch", "data", "heat_inverse_64.json")
 HEAT_EPOCHS, HEAT_EVERY = 1500, 100
+# Phase n's heat_tmax CLI: its epochs (the reference's rows run to 4000;
+# held at its row of this epoch, a quarter of the depth for the script's
+# time).
+HEAT_TMAX_EPOCHS = 1000
 # The converged lane's margins on the reference seeds' medians
 # (tests/test_converged.py:81).
 HEAT_MARGINS = {"loss": 1.5, "error_u": 1.3, "error_k": 1.25}
@@ -1115,10 +1151,10 @@ def cli_phase(torch, counters, heat_ref, heat_losses, heat_ms, tag, extra_argv=(
                   "infer_constant CLI (64^2 fp64, L-BFGS-B, 100 epochs)")
     converged_gate(rows, read_rows("ref_infconst.csv"), dict.fromkeys(("norm_0", "c_diff", "c_src", "c_vel"), 1.1),
                    "infer_constant CLI (lbfgsb)", tag)
-    rows, _ = run("heat_tmax", ["--Nt", "64", "--Nx", "64", "--epochs", "4000", "--history_every", "200"],
-                  "heat_tmax CLI (64^2 fp64, lbfgs, 4000 epochs)", lbfgs=True)
-    converged_gate(rows, read_rows("ref_heat_tmax.csv"), {"norm_eqn": 3.0, "norm_imp": 3.0, "loss": 10.0},
-                   "heat_tmax CLI", tag)
+    rows, _ = run("heat_tmax", ["--Nt", "64", "--Nx", "64", "--epochs", str(HEAT_TMAX_EPOCHS), "--history_every",
+                                "200"], f"heat_tmax CLI (64^2 fp64, lbfgs, {HEAT_TMAX_EPOCHS} epochs)", lbfgs=True)
+    ref_tmax = [r for r in read_rows("ref_heat_tmax.csv") if int(float(r["epoch"])) <= HEAT_TMAX_EPOCHS]
+    converged_gate(rows, ref_tmax, {"norm_eqn": 3.0, "norm_imp": 3.0, "loss": 10.0}, "heat_tmax CLI", tag)
     rows, _ = run("wave", ["--Nt", "64", "--Nx", "64", "--double", "1", "--epochs", "200", "--history_every", "20"],
                   "wave CLI (64^2 fp64, lbfgs, 200 epochs)", lbfgs=True)
     converged_gate(rows, read_rows("ref_wave.csv"), {"error_u": 1.3, "loss": 1.8}, "wave CLI (lbfgs)", tag)
@@ -2659,20 +2695,25 @@ def rowwise_call(problem, state):
     fail("the operator made no row-wise call")
 
 
-def l_build(th, tw, np, which, size, dev, kernel="pallas"):
-    """(problem, state, extra) of phase l's configuration of `which` at
-    SIZES_1D[size]."""
-    T, N = SIZES_1D[size]
-    if which == "wave":
-        return tw.build(nt=T, nx=N, dtype=np.float32, kernel=kernel, device=dev)
+def l_heat_args():
+    """Phase l's heat configuration: keep_init=0, keep_frozen=1, the
+    converged lane's stripe measurements."""
     with open(HEAT_DATA) as fh:
         lane = json.load(fh)["config"]
-    args = argparse.Namespace(
+    return argparse.Namespace(
         infer_k=True, imposed="stripe", nimp=lane["nimp"], noise=0.0, seed=lane["seed"], kimp=2.0, kxreg=0.0,
         kxregdecay=0, ktreg=0.0, ktregdecay=0, kwreg=0.0, kwregdecay=0, kmax=0.1, keep_frozen=1, keep_init=0,
         solver="odil",
     )
-    return th.build(nt=T, nx=N, kernel=kernel, device=dev, args=args)
+
+
+def l_build(th, tw, np, which, size, dev, kernel="pallas", **kw):
+    """(problem, state, extra) of phase l's configuration of `which` at
+    SIZES_1D[size] (``kw``: a mesh and its partition)."""
+    T, N = SIZES_1D[size]
+    if which == "wave":
+        return tw.build(nt=T, nx=N, dtype=np.float32, kernel=kernel, device=dev, **kw)
+    return th.build(nt=T, nx=N, kernel=kernel, device=dev, args=l_heat_args(), **kw)
 
 
 def traced_cases(th, tw, np, rw, dev):
@@ -3104,7 +3145,7 @@ def traced_phase(torch, np, counters, cases, builds, report, launches, loops, ta
         _, seconds, log = builds[f"rows1d_traced {which}_{size}"]
         regs = re.findall(r"Used (\d+) registers", log)
         spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
-        lib = rw._traced_library(tr.source)
+        lib = spec.library(user)
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         per_sm = {m: n / sms for (_, m), n in lib._odil_rows1d_resident.items()}
         print(f"traced {which} row model at {size}^2 ({tr.name}): {tr.nfields} field, hist {tr.hist}, {tr.nterms} "
@@ -3333,6 +3374,403 @@ def wide_forms(builds, tag):
         print(f"heat_net wide form [1, {', '.join(map(str, widths))}, 1]: built in {seconds:.1f} s; ptxas registers "
               f"{regs}, spill stores/loads {spills}; blocks an SM {per_sm}; {lib._odil_wide_rows} passes a batch "
               f"{tag}")
+
+
+# Phase w: user row functions on 2-D planes and the masked traced forms.
+# W_EPOCHS: the bare veltracer at 256^2 on kernel="pallas" (phase b's
+# route); W_BIG_EPOCHS its 512^2, streaming and generic-case runs;
+# W_HALO_EPOCHS its halo generic route on t:2,x:2; W_HEAT_EPOCHS heat
+# keep_init=0 under --mesh t:4 --halo 1 at 64^2 (a row every L_EVERY).
+W_EPOCHS, W_BIG_EPOCHS, W_HALO_EPOCHS, W_HEAT_EPOCHS = 100, 10, 20, 50
+# The generic 2-D case: hist 2, params, (T, X, Y) and (T, 1, 1) data at the
+# flagship's width.
+W_NET_SHAPE = (65, 256, 256)
+
+
+def w_net_row_fn(it, T_, rows, data_rows, params, consts):
+    """Phase w's generic 2-D row function: two fields at hist 2, a [1, 4, 1]
+    tanh net of u's previous row as a coefficient (its weights as params,
+    read element by element), a (T, X, Y) data mask, a (T, 1, 1) data row and
+    the row count."""
+    import torch
+
+    (u, um, umm), (v, vm, _) = rows
+    mask, amp = data_rows
+    W1, b1, W2, b2 = params
+    k = sum(W2[0, i] * torch.tanh(W1[i, 0] * um + b1[i]) for i in range(4)) + b2[0]
+    lap = sum(torch.roll(u, s, d) for s in (-1, 1) for d in (-2, -1)) - 4 * u
+    r1 = (u - 2 * um + umm) - k * lap + v * (torch.roll(um, 1, -1) - torch.roll(um, -1, -2)) * amp
+    r2 = torch.where(it == T_ - 1, v - vm, (v - torch.roll(vm, 1, -2)) * 0.5)
+    return (r1 * mask, r2)
+
+
+def w_cases(torch, np, th, tw, vt, rw, heat_ref, dev):
+    """Phase w's traced cases, traced here before any build so that their
+    libraries build with the others: {name: (the bare model, the hand model
+    or None, the call, its traced counterpart)} -- the veltracer's row
+    function at 256^2 and 512^2 (its steps differ), on shard 1 of the
+    t:2,x:2 mesh at 256^2 (the 256^2 library), the generic case, and heat
+    keep_init=0 and wave on shard 1 of the t:4 mesh at 64^2 and 1024^2 (the
+    masked 1-D forms)."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rand = lambda *shape: 0.3 * torch.randn(shape, generator=gen, device=dev)
+    cases = {}
+    for size in ("256", "512"):
+        hand, call = rowwise_call(*vt.build(*SIZES[size], kernel="pallas", device=dev)[:2])
+        nt_, h, fs, ps, ds, cs = call
+        call = (nt_, h, tuple(rand(*f.shape) for f in fs), ps, ds, cs)
+        cases[f"velt_{size}"] = (rw.RowModel(hand.row_fn), hand, call)
+    # Shard (1, 1)'s block of the halo generic route, its masked row model.
+    user, hand, call = cases["velt_256"]
+    mask, shards = halo_inputs(torch, rw, None, hand, call[5], SIZES["256"], rand, dev)
+    meta, hm, fs, cs = shards[3][:4]
+    cases["velt_shard"] = (rw.halo_model(user, *hm.halo), hm, (call[0], 1, fs, (), (), cs))
+    T, X, Y = W_NET_SHAPE
+    data = ((torch.rand((T, X, Y), generator=gen, device=dev) > 0.3).float(), rand(T, 1, 1))
+    params = (rand(4, 1), rand(4), rand(1, 4), rand(1))
+    cases["net"] = (rw.RowModel(w_net_row_fn), None, (2, 2, (rand(T, X, Y), rand(T, X, Y)), params, data, ()))
+    for which in ("heat", "wave"):
+        for size, (T, N) in SIZES_1D.items():
+            recs = shard_records(torch, np, th, tw, heat_ref, which, T, N, dev, heat_kw=dict(args=l_heat_args()))
+            r = recs[1]
+            hand = r["row_fn"]
+            a = [tuple(x.detach().contiguous() for x in r[k]) for k in ("fields", "params", "data", "consts")]
+            cases[f"{which}_{size}_shard"] = (rw.halo_model(rw.RowModel(hand.inner.row_fn), *hand.halo), hand,
+                                              (r["nterms"], r["hist"], *a))
+    out = {}
+    for name, (user, hand, call) in cases.items():
+        spec, reason = rw._traced(user, *call)
+        if spec is None:
+            fail(f"phase w: the {name} row function is refused by the tracer: {reason}")
+        out[name] = (user, hand, call, spec)
+    return out
+
+
+def w_builds(cases):
+    """The build jobs of phase w's traced libraries (one a source)."""
+    jobs = {}
+    for name, (_, _, _, spec) in cases.items():
+        tr = spec.trace
+        jobs.setdefault(tr.source, ("generated", f"rows{tr.rank}d_traced", tr.source, f"w_{name}"))
+    return list(jobs.values())
+
+
+def user2d_phase(torch, np, counters, cases, builds, report, launches, loops, pallas_losses, zero_512, heat_ref, tag):
+    """Phase w (the module docstring): user row functions on 2-D planes and
+    on a shard's block on the traced kernels.  `cases`: w_cases's;
+    `pallas_losses`: phase b's rows; `zero_512`: the plain operator's loss
+    at 512^2 on the zero state.  Fills `report`, `launches` and `loops` and
+    returns its timing entries (as main's `timed`), the hand kernels' calls
+    on the same inputs and the slabbed launches beside the streaming
+    ones."""
+    from odil_torch import parallel
+    from odil_torch.models import heat as th
+    from odil_torch.models import veltracer as vt
+    from odil_torch.models import wave as tw
+    from odil_torch.ops import _build
+    from odil_torch.ops import rowwise as rw
+    from odil_torch.optim import Adam
+
+    dev = torch.device(DEVICE)
+    none = dict.fromkeys(counters.read(), 0)
+    wide = lambda ts: tuple(t.double() for t in ts)
+    nbytes = lambda ts: 4 * sum(t.numel() for t in ts)
+    source = "odil_torch/ops/rowtrace.py"
+    timed, hand_calls, slabbed = {}, {}, {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    seen = set()
+    for name, (user, hand, call, spec) in cases.items():
+        tr = spec.trace
+        if tr.source in seen:
+            continue
+        seen.add(tr.source)
+        # (a source shared with phase l's cases is built under its label)
+        _, seconds, log = next(b for b in builds.values() if b[0].endswith(f"_{_build.generated_digest(tr.source)}.so"))
+        regs = re.findall(r"Used (\d+) registers", log)
+        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+        lib = spec.library(user)
+        if tr.rank == 2:
+            per_sm = {m: n / sms for m, n in lib._odil_rows2d_resident.items()}
+            extra = f"shared memory a block {tr.smem[0]}/{tr.smem[1]} B (forward/backward), "
+        else:
+            per_sm = {m: n / sms for (_, m), n in lib._odil_rows1d_resident.items()}
+            extra = ""
+        print(f"traced {tr.rank}-D row model ({name}, {tr.name}): {tr.nfields} fields, hist {tr.hist}, {tr.nterms} "
+              f"terms, {tr.nparams} params, DUSED {tr.dused:#x}, {tr.ops_forward}/{tr.ops_backward} fp32 operations "
+              f"a cell, BLOCKS_PER_SM {tr.blocks_per_sm}, {extra}built in {seconds:.1f} s; ptxas registers {regs}, "
+              f"spill stores/loads {spills}; blocks an SM by mode {per_sm} {tag}")
+
+    # w, kernels: each case's forward, backward+sums and backward (and the
+    # streaming pair unsharded) against the plain version in fp64 (with the
+    # fp32 floor, as on a shard) and the hand kernel on the same inputs;
+    # their bits call after call, and streaming as slabbed.
+    hand_ops = {"velt": (OPS_ROWS_FORWARD, OPS_ROWS_BACKWARD), "heat": (OPS_HEAT_FORWARD, OPS_HEAT_BACKWARD),
+                "wave": (OPS_WAVE_FORWARD, OPS_WAVE_BACKWARD)}
+    # The kernel table's entries (the forms phase w's paths run) and the TPU
+    # kernels they replace (forward, backward).
+    table = {
+        "velt_256": (("forward", "sums", "backward", "sforward", "sbackward"),
+                     ("odil_tpu/ops/rowwise.py:174", "odil_tpu/ops/rowwise.py:292")),
+        "velt_512": (("forward", "sums", "backward"),
+                     ("odil_tpu/ops/rowwise_tiled.py:272", "odil_tpu/ops/rowwise_tiled.py:447")),
+        "velt_shard": (("forward", "sums", "backward"),
+                       ("odil_tpu/ops/rowwise_tiled.py:272", "odil_tpu/ops/rowwise_tiled.py:447")),
+        "net": (("sums",), ("odil_tpu/ops/rowwise.py:174", "odil_tpu/ops/rowwise.py:292")),
+        "heat_64_shard": (("forward", "sums", "backward"), ("odil_tpu/ops/rowwise.py:385", "odil_tpu/ops/rowwise.py:549")),
+    }
+    for name, (user, hand, call, spec) in cases.items():
+        nt_, h, fs, ps, ds, cs_ = call
+        masked = user.halo is not None
+        gs = torch.full((nt_,), 1.0 / fs[0].numel(), device=dev)
+        fwd, bwd = rw._halo_kernels(user, call) if masked else (rw.forward_cuda, rw.backward_cuda)
+        calls = [lambda: fwd(user, *call), lambda: bwd(user, *call, gs, True), lambda: bwd(user, *call, gs, False)]
+        if not masked:
+            calls += [lambda: rw.forward_stream_cuda(user, *call),
+                      lambda: rw.backward_stream_cuda(user, *call, gs, False)]
+        counters.zero()
+        first = [f() for f in calls]
+        again = [f() for f in calls]
+        torch.cuda.synchronize()
+        counts = counters.read()
+        kf, (kd, kp, ks), (kd2, kp2, _) = first[:3]
+        bits = same_bits(torch, first, again)
+        if not masked:
+            sf, (sd, sp, _) = first[3:]
+            bits = bits and same_bits(torch, [kf, (kd2, kp2)], [sf, (sd, sp)])
+        pf = rw._forward_plain(user, nt_, h, *map(wide, (fs, ps, ds, cs_)))
+        pd, pp, psums = rw._backward_plain(user, nt_, h, *map(wide, (fs, ps, ds, cs_)), gs.double(), True)
+        pd32, pp32, _ = rw._backward_plain(user, nt_, h, fs, ps, ds, cs_, gs, True)
+        e_f, ok_f = close(kf.double(), pf, TERMS_RTOL, 0.0)
+        e_s, ok_s = close(ks.double(), psums, TERMS_RTOL, 0.0)
+        e_g, ok_g, w1 = close_floor(list(kd) + list(kp), list(pd32) + list(pp32), list(pd) + list(pp))
+        e_g2, ok_g2, w2 = close_floor(list(kd2) + list(kp2), list(pd32) + list(pp32), list(pd) + list(pp))
+        ok_h, text_h = True, "no hand kernel (a user's own function)"
+        if hand is not None:
+            hf = fwd(hand, *call)
+            hd, hp, hs = bwd(hand, *call, gs, True)
+            e_hf, ok_hf = close(kf, hf, TERMS_RTOL, 0.0)
+            e_hs, ok_hs = close(ks, hs, TERMS_RTOL, 0.0)
+            e_hg, ok_hg, _ = close_floor(list(kd) + list(kp), list(hd) + list(hp), list(pd) + list(pp))
+            ok_h = ok_hf and ok_hs and ok_hg
+            text_h = f"the hand kernel: forward {e_hf:.3e}, sums {e_hs:.3e}, grads {e_hg:.3e}"
+        counter = {w: k for k, w in counters.wrappers.items()}
+        want = {counter[fwd]: 2, counter[bwd]: 4}
+        if not masked:
+            want.update(forward_stream=2, backward_stream=2)
+        print(f"traced kernels ({name}) at {tuple(fs[0].shape)} against the plain version in fp64: forward max|d sums| "
+              f"{e_f:.3e}, backward+sums max|d sums| {e_s:.3e} max|d (dfields, dparams)| {e_g:.3e}, backward {e_g2:.3e} "
+              f"({worst_text(max(w1, w2, key=lambda w: w[2]))}); against {text_h}; the same bits call after call"
+              f"{'' if masked else ' and streaming as slabbed'}: {bits} {tag}")
+        expect_counts(counts, dict(none, **want), f"phase w's kernel checks ({name})")
+        if not (ok_f and ok_s and ok_g and ok_g2 and ok_h and bits):
+            fail(f"a traced kernel ({name}) disagrees: forward {ok_f}, sums {ok_s}, backward+sums {ok_g}, backward "
+                 f"{ok_g2}, hand {ok_h}, bits {bits}")
+        del first, again, pd, pp, pd32, pp32
+        if name not in table:
+            continue
+        forms, rep = table[name]
+        which = name.split("_")[0]
+        tr = spec.trace
+        n_cells = fs[0].numel()
+        f_in = nbytes(fs + ps + ds + cs_ + ((user.halo[0],) if masked else ()))
+        ops = hand_ops.get(which, (tr.ops_forward, tr.ops_backward))
+        ops_f, ops_b = min(tr.ops_forward, ops[0]) * n_cells, min(tr.ops_backward, ops[1]) * n_cells
+        b_f, b_b = f_in + 4 * nt_, f_in + nbytes(fs + ps)
+        pre = {"velt_shard": "halo", "heat_64_shard": "halo_rows1d"}.get(name, "rows")
+        key = f"traced2d_{name}" if tr.rank == 2 else f"traced_{name}"
+        # Each call takes the model: the traced one (user), the hand one, or
+        # the plain version's (autograd of the bare row function).
+        entries = {
+            "forward": (f"forward_{pre}_{key}", lambda m, c=call, f=fwd: f(m, *c),
+                        lambda m, c=call: rw._forward_plain(m, *c), b_f, ops_f, rep[0], e_f),
+            "sums": (f"backward_{pre}_sums_{key}", lambda m, c=call, g_=gs, b=bwd: b(m, *c, g_, True),
+                     lambda m, c=call, g_=gs: rw._backward_plain(m, *c, g_, True), b_b + 8 * nt_, ops_b, rep[1], e_g),
+            "backward": (f"backward_{pre}_{key}", lambda m, c=call, g_=gs, b=bwd: b(m, *c, g_, False),
+                         lambda m, c=call, g_=gs: rw._backward_plain(m, *c, g_, False), b_b + 4 * nt_, ops_b, rep[1],
+                         e_g2),
+        }
+        if not masked:
+            entries["sforward"] = (f"forward_stream_{key}", lambda m, c=call: rw.forward_stream_cuda(m, *c),
+                                   lambda m, c=call: rw._forward_plain(m, *c), b_f, ops_f,
+                                   "odil_tpu/ops/rowwise.py:676", close(sf.double(), pf, TERMS_RTOL, 0.0)[0])
+            entries["sbackward"] = (f"backward_stream_{key}",
+                                    lambda m, c=call, g_=gs: rw.backward_stream_cuda(m, *c, g_, False),
+                                    lambda m, c=call, g_=gs: rw._backward_plain(m, *c, g_, False), b_b + 4 * nt_,
+                                    ops_b, "odil_tpu/ops/rowwise.py:811", e_g2)
+            if "sforward" in forms:
+                slabbed[f"forward_stream_{key}"] = lambda c=call, u=user: rw.forward_cuda(u, *c)
+                slabbed[f"backward_stream_{key}"] = lambda c=call, g_=gs, u=user: rw.backward_cuda(u, *c, g_, False)
+        for form in forms:
+            ename, kfn, pfn, nb, ops_, rep_, err = entries[form]
+            report[ename] = err
+            timed[ename] = (lambda kfn=kfn, u=user: kfn(u), lambda pfn=pfn, u=user: pfn(u), nb, ops_, rep_, source)
+            if hand is not None:
+                hand_calls[ename] = lambda kfn=kfn, hm=hand: kfn(hm)
+
+    def loss_only(problem, state, x, grad_fn, what, want, halo=False):
+        """The loss-only path at x (make_loss_fn + autograd): its launches
+        against `want`, its loss and gradients against grad_fn's."""
+        loss_fn, _ = problem.make_loss_fn(state, halo=halo)
+        xs = [a.detach().clone().requires_grad_(True) for a in x]
+        counters.zero()
+        loss_e, _ = loss_fn(xs, problem.tracers)
+        grads_e = torch.autograd.grad(loss_e, xs)
+        torch.cuda.synchronize()
+        expect_counts(counters.read(), dict(none, **want), f"{what} loss-only path")
+        (loss_t, _), grads_t = grad_fn(x, problem.tracers)
+        e, ok = close_all(grads_e, grads_t)
+        print(f"{what} loss-only vs one-pass route: loss {float(loss_e)!r} vs {float(loss_t)!r}, max|dgrad| {e:.3e} "
+              f"{tag}")
+        if abs(float(loss_e) - float(loss_t)) > TERMS_RTOL * abs(float(loss_t)) or not ok:
+            fail(f"{what}: the loss-only path and the one-pass route disagree")
+
+    def rel_rows(losses, base, every):
+        rel = {e: abs(losses[max(e - 1, 0)] - base[max(e - 1, 0)]) / abs(base[max(e - 1, 0)])
+               for e in range(0, len(losses) + 1, every)}
+        return rel, max(rel, key=rel.get)
+
+    ref256 = read_ref("ref_velt_256.csv")
+    what = "the veltracer's row function bare, 256^2 pallas (traced 2-D kernel)"
+    problem_b, state_b, _ = vt.build(*SIZES["256"], kernel="pallas", device=dev)
+    user_row_function(problem_b, rw)
+    grad_b = problem_b.make_loss_grad_fn(state_b)
+    if grad_b is None:
+        fail("make_loss_grad_fn declined the veltracer's row function as a user row function")
+    counters.zero()
+    opt_b, losses_b, chunk_ms = train(torch, Adam, grad_b, problem_b.domain.arrays_from_state(state_b), W_EPOCHS)
+    expect_counts(counters.read(), dict(none, backward_rows=len(losses_b)), what)
+    launches["backward_rows_sums_traced2d_velt_256"] = len(losses_b)
+    rows = trajectory_rows(losses_b)
+    rel = {e: abs(rows[e] - ref256[e]) / abs(ref256[e]) for e in rows if e in ref256}
+    worst = max(rel, key=rel.get)
+    rel_b, worst_b = rel_rows(losses_b, pallas_losses, CHUNK)
+    _, _, names = kernel_split(torch, lambda: grad_b(opt_b.x, problem_b.tracers), reps=3)
+    ms_b = steady_ms(chunk_ms)
+    print(f"training ({what}): {len(losses_b)} epochs, epoch-0 loss {rows[0]!r} (ref_velt_256.csv {ref256[0]!r}, rel "
+          f"{rel[0]:.2e}); worst reference row epoch {worst} ({100 * rel[worst]:.2f}%); worst {CHUNK}-epoch row against "
+          f"phase b's hand route epoch {worst_b} ({100 * rel_b[worst_b]:.4f}%); {ms_b[0]:.4f} ms/epoch; the kernels of "
+          f"an epoch {sorted(names)} {tag}")
+    if rel[0] > 1e-5 or rel[worst] > 0.15 or rel_b[worst_b] > 0.01:
+        fail(f"{what}: epoch 0 rel {rel[0]:.2e} (limit 1e-5), epoch {worst} {100 * rel[worst]:.2f}% from the "
+             f"reference (limit 15%), epoch {worst_b} {100 * rel_b[worst_b]:.3f}% from phase b (limit 1%)")
+    if not any("rows2d_kernel" in n for n in names) or any("rows_kernel<" in n for n in names):
+        fail(f"{what}: an epoch launched {sorted(names)}, not the traced 2-D kernel alone")
+    loss_only(problem_b, state_b, opt_b.x, grad_b, what, dict(forward_rows=1, backward_rows=1))
+    launches["forward_rows_traced2d_velt_256"] = launches["backward_rows_traced2d_velt_256"] = 1
+    loops["pallas 256, the veltracer's row function bare (traced 2-D kernel)"] = (opt_b, ms_b)
+    del problem_b, state_b, grad_b
+
+    what = "the veltracer's row function bare, 512^2 pallas (traced 2-D kernel)"
+    problem5, state5, _ = vt.build(*SIZES["512"], kernel="pallas", device=dev)
+    user_row_function(problem5, rw)
+    grad5 = problem5.make_loss_grad_fn(state5)
+    counters.zero()
+    opt5, losses, chunk_ms = train(torch, Adam, grad5, problem5.domain.arrays_from_state(state5), W_BIG_EPOCHS)
+    expect_counts(counters.read(), dict(none, backward_rows=len(losses)), what)
+    launches["backward_rows_sums_traced2d_velt_512"] = len(losses)
+    rel0 = abs(losses[0] - zero_512) / abs(zero_512)
+    print(f"training ({what}): {len(losses)} epochs, epoch-0 loss {losses[0]!r} vs the plain operator's {zero_512!r} "
+          f"(rel {rel0:.2e}); {steady_ms(chunk_ms)[0]:.4f} ms/epoch {tag}")
+    if rel0 > 1e-5:
+        fail(f"{what}: epoch 0 rel {rel0:.2e} (limit 1e-5)")
+    loss_only(problem5, state5, opt5.x, grad5, what, dict(forward_rows=1, backward_rows=1))
+    launches["forward_rows_traced2d_velt_512"] = launches["backward_rows_traced2d_velt_512"] = 1
+    del problem5, state5, grad5, opt5
+
+    what = "the veltracer's row function bare, 256^2 streaming (traced 2-D kernels)"
+    problem_s, state_s, _ = vt.build(*SIZES["256"], kernel="pallas", device=dev)
+    streaming(user_row_function(problem_s, rw))
+    counters.zero()
+    _, losses, chunk_ms = train(torch, Adam, autograd_loss_grad_fn(torch, problem_s, state_s),
+                                problem_s.domain.arrays_from_state(state_s), W_BIG_EPOCHS)
+    n = len(losses)
+    expect_counts(counters.read(), dict(none, forward_stream=n, backward_stream=n), what)
+    launches["forward_stream_traced2d_velt_256"] = launches["backward_stream_traced2d_velt_256"] = n
+    rel0 = abs(losses[0] - ref256[0]) / abs(ref256[0])
+    rel_s, worst_s = rel_rows(losses, losses_b, CHUNK)
+    print(f"training ({what}): {n} epochs, epoch-0 loss {losses[0]!r} (rel {rel0:.2e} to ref_velt_256.csv); worst "
+          f"{CHUNK}-epoch row against the one-pass route epoch {worst_s} ({100 * rel_s[worst_s]:.4f}%); "
+          f"{steady_ms(chunk_ms)[0]:.4f} ms/epoch {tag}")
+    if rel0 > 1e-5 or rel_s[worst_s] > 0.01:
+        fail(f"{what}: epoch 0 rel {rel0:.2e} (limit 1e-5), epoch {worst_s} {100 * rel_s[worst_s]:.3f}% (limit 1%)")
+    del problem_s, state_s
+
+    what = f"the veltracer's row function bare, halo generic on {HALO_SPEC} (masked traced 2-D kernels)"
+    mesh = parallel.mesh_from_spec(HALO_SPEC, devices=[dev] * HALO_SHARDS)
+    problem_q, state_q, _ = vt.build(*SIZES["256"], kernel="pallas", device=dev, mesh=mesh, partition=HALO_PART)
+    user_row_function(problem_q, rw)
+    grad_q = problem_q.make_loss_grad_fn(state_q, halo=True, halo_fuse="generic")
+    if grad_q is None or grad_q.route != "generic":
+        fail(f"{what}: the route is {getattr(grad_q, 'route', None)}")
+    counters.zero()
+    opt_q, losses, chunk_ms = train(torch, Adam, grad_q, problem_q.domain.arrays_from_state(state_q), W_HALO_EPOCHS)
+    expect_counts(counters.read(), dict(none, backward_halo=HALO_SHARDS * len(losses)), what)
+    launches["backward_halo_sums_traced2d_velt_shard"] = HALO_SHARDS * len(losses)
+    rel_q, worst_q = rel_rows(losses, losses_b, CHUNK)
+    print(f"training ({what}): {len(losses)} epochs, epoch-0 loss {losses[0]!r} vs the unsharded traced run's "
+          f"{losses_b[0]!r} (rel {rel_q[0]:.2e}); worst {CHUNK}-epoch row epoch {worst_q} ({100 * rel_q[worst_q]:.4f}%); "
+          f"{steady_ms(chunk_ms)[0]:.4f} ms/epoch {tag}")
+    if rel_q[0] > 1e-5:
+        fail(f"{what}: epoch 0 rel {rel_q[0]:.2e} (limit 1e-5)")
+    loss_only(problem_q, state_q, opt_q.x, grad_q, what, dict(forward_halo=HALO_SHARDS, backward_halo=HALO_SHARDS),
+              halo=True)
+    launches["forward_halo_traced2d_velt_shard"] = launches["backward_halo_traced2d_velt_shard"] = HALO_SHARDS
+    del problem_q, state_q, grad_q, opt_q
+
+    what = f"heat keep_init=0 as a user row function on {HALO1D_SPEC} --halo, 64^2 (masked traced 1-D kernels)"
+    mesh1 = parallel.mesh_from_spec(HALO1D_SPEC, devices=[dev] * HALO1D_SHARDS)
+    problem_h, state_h, _ = l_build(th, tw, np, "heat", "64", dev, mesh=mesh1, partition=HALO1D_PART)
+    user_row_function(problem_h, rw)
+    grad_h = problem_h.make_loss_grad_fn(state_h, halo=True)
+    if grad_h is None or grad_h.route != "generic":
+        fail(f"{what}: the route is {getattr(grad_h, 'route', None)}")
+    counters.zero()
+    opt_h, losses_h, chunk_ms = train(torch, Adam, grad_h, problem_h.domain.arrays_from_state(state_h), W_HEAT_EPOCHS,
+                                      lr=1e-3)
+    expect_counts(counters.read(), dict(none, backward_halo_rows1d=HALO1D_SHARDS * len(losses_h)), what)
+    launches["backward_halo_rows1d_sums_traced_heat_64_shard"] = HALO1D_SHARDS * len(losses_h)
+    problem_x, state_x, _ = l_build(th, tw, np, "heat", "64", dev, kernel="xla", mesh=mesh1, partition=HALO1D_PART)
+    counters.zero()
+    _, losses_x, chunk_x = train(torch, Adam, autograd_loss_grad_fn(torch, problem_x, state_x, halo=True),
+                                 problem_x.domain.arrays_from_state(state_x), W_HEAT_EPOCHS, lr=1e-3)
+    expect_counts(counters.read(), none, f"{what}: the plain operator")
+    rel_h, worst_h = rel_rows(losses_h, losses_x, L_EVERY)
+    ms_h = steady_ms(chunk_ms)
+    print(f"training ({what}) vs the plain operator the same way: epoch-0 loss {losses_h[0]!r} vs {losses_x[0]!r} (rel "
+          f"{rel_h[0]:.2e}); worst {L_EVERY}-epoch row epoch {worst_h} ({100 * rel_h[worst_h]:.4f}%); {ms_h[0]:.4f} "
+          f"ms/epoch against the plain operator's {steady_ms(chunk_x)[0]:.4f} {tag}")
+    if rel_h[worst_h] > 0.01:
+        fail(f"{what}: epoch {worst_h} {100 * rel_h[worst_h]:.3f}% from the plain operator (limit 1%)")
+    loss_only(problem_h, state_h, opt_h.x, grad_h, what,
+              dict(forward_halo_rows1d=HALO1D_SHARDS, backward_halo_rows1d=HALO1D_SHARDS), halo=True)
+    launches["forward_halo_rows1d_traced_heat_64_shard"] = HALO1D_SHARDS
+    launches["backward_halo_rows1d_traced_heat_64_shard"] = HALO1D_SHARDS
+    loops["heat 64 keep_init=0 as a user row function on t:4 --halo (traced masked kernel)"] = (opt_h, ms_h)
+    del problem_h, state_h, grad_h, problem_x, state_x
+
+    # The generic case's fields and params trained by Adam through
+    # rowwise_loss_and_grads, the public one-pass entry.
+    user, _, call, _ = cases["net"]
+    nt_, h, fs, ps, ds, cs_ = call
+
+    def grad_net(x, tracers):
+        sums, dfields, dparams = rw.rowwise_loss_and_grads(user, x[:2], params=x[2:], data=ds, nterms=nt_, hist=h)
+        terms = sums / fs[0].numel()
+        return (terms.sum(), (list(terms), [terms.sum()])), list(dfields) + list(dparams)
+
+    counters.zero()
+    _, losses, _ = train(torch, Adam, grad_net, [t.clone() for t in fs + ps], W_BIG_EPOCHS, lr=1e-3)
+    expect_counts(counters.read(), dict(none, backward_rows=W_BIG_EPOCHS), "the generic 2-D case's training")
+    launches["backward_rows_sums_traced2d_net"] = W_BIG_EPOCHS
+    plain = float(rw._forward_plain(user, nt_, h, *map(wide, (fs, ps, ds, cs_))).sum()) / fs[0].numel()
+    rel0 = abs(losses[0] - plain) / abs(plain)
+    print(f"the generic 2-D case (hist 2, params, data) at {W_NET_SHAPE}: {W_BIG_EPOCHS} Adam epochs through "
+          f"rowwise_loss_and_grads, loss {losses[0]!r} -> {losses[-1]!r}, epoch 0 against the plain version in fp64 "
+          f"rel {rel0:.2e} {tag}")
+    if rel0 > 1e-5 or not losses[-1] < losses[0]:
+        fail(f"the generic 2-D case: epoch 0 rel {rel0:.2e} (limit 1e-5), losses {losses}")
+    return timed, hand_calls, slabbed
 
 
 # The mesh routes of phase q: the mesh of four shards of the card, the
@@ -4069,6 +4507,10 @@ def main():
     l_cases = traced_cases(th, tw, np, rw, torch.device(DEVICE))
     traced = [("generated", "rows1d_traced", spec.trace.source, f"{w}_{size}")
               for (w, size), (_, _, _, spec) in l_cases.items()]
+    # Phase w's traced row models (2-D planes, shards), the same way.
+    with open(HEAT_DATA) as fh:
+        w_traced = w_cases(torch, np, th, tw, vt, rw, json.load(fh), torch.device(DEVICE))
+    traced += [job for job in w_builds(w_traced) if job[2] not in {j[2] for j in traced}]
     pending = start_builds(_build, ["rowwise_mg", "rowwise", "probes"] + ablations
                            + [rw.heat_net_source(w) for w in heat_nets] + traced)
     builds = report_builds({k: pending.pop(k) for k in ("rowwise_mg", "rowwise")})
@@ -4486,6 +4928,7 @@ def main():
     opt_p, losses, chunk_ms = train(torch, Adam, grad_p, problem_p.domain.arrays_from_state(state_p), args.epochs)
     expect_counts(counters.read(), dict(none, backward_rows=len(losses)), "pallas training at 256^2")
     launches["backward_rows_sums_256"] = counters.read()["backward_rows"]
+    pallas_losses = losses
     check_rows(losses, ref256, "training (pallas)")
     counts = loss_only(problem_p, state_p, opt_p.x, grad_p, "pallas", dict(none, forward_rows=1, backward_rows=1))
     launches["forward_rows_256"], launches["backward_rows_256"] = counts["forward_rows"], counts["backward_rows"]
@@ -4893,6 +5336,13 @@ def main():
     u_timed, u_slabbed, u_edge, u_cases = configs_phase(torch, np, counters, heat_ref, report, launches, loops, tag)
     t_u = time.perf_counter() - t_u
 
+    # w. User row functions on 2-D planes and on a shard's block on the
+    # traced kernels (their libraries built with the others).
+    t_w = time.perf_counter()
+    w_timed, w_hand, w_slabbed = user2d_phase(torch, np, counters, w_traced, builds, report, launches, loops,
+                                              pallas_losses, zero_loss, heat_ref, tag)
+    t_w = time.perf_counter() - t_w
+
     # m. The training harness: the two command-line examples through
     # util.optimize, each in a directory of its own under build/.
     m_launches, vt_rows, vt_ms = harness_phase(torch, counters, args.epochs, losses_unsharded,
@@ -5125,9 +5575,12 @@ def main():
     # Phase l's, phase u's and phase v's kernels.
     timed.update(l_timed)
     timed.update(u_timed)
+    timed.update(w_timed)
     timed.update(v_timed)
     slabbed.update(l_slabbed)
     slabbed.update(u_slabbed)
+    slabbed.update(w_slabbed)
+    hand_calls.update(w_hand)
     edge.update(u_edge)
     row_cases.update(u_cases)
 
@@ -5192,7 +5645,7 @@ def main():
             "library_ms": library_ms, "hand_ms": hand_ms,
         })
 
-    print(f"seconds: phase v {t_v:.1f}, phase l {t_l:.1f}, phase u {t_u:.1f}, phase p {t_p:.1f}, phase q {t_q:.1f}, phase r {t_r:.1f}, phase s {t_s:.1f}, phase t {t_t:.1f}, the "
+    print(f"seconds: phase v {t_v:.1f}, phase l {t_l:.1f}, phase u {t_u:.1f}, phase w {t_w:.1f}, phase p {t_p:.1f}, phase q {t_q:.1f}, phase r {t_r:.1f}, phase s {t_s:.1f}, phase t {t_t:.1f}, the "
           f"script from its "
           f"start (the kernels' build included) "
           f"{time.perf_counter() - t_main:.1f} {tag}")

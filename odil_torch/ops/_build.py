@@ -21,6 +21,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 
 __all__ = ["build_dir", "compile_generated", "compile_source", "generated_digest", "load", "load_generated",
@@ -96,11 +97,17 @@ def compile_generated(name, text):
     os.makedirs(build_dir(), exist_ok=True)
     src = os.path.join(build_dir(), f"{name}_{digest}.cu")
     if not os.path.exists(src):
-        tmp = f"{src}.{os.getpid()}.tmp"
+        tmp = f"{src}.{_tag()}.tmp"
         with open(tmp, "w") as fh:
             fh.write(text)
         os.replace(tmp, src)
     return _compile(src, os.path.join(build_dir(), f"lib{name}_{digest}.so"), include=_CSRC)
+
+
+def _tag():
+    """The process and thread of a build's temporary files: builds of one
+    source may run at once, in processes or in one process's threads."""
+    return f"{os.getpid()}.{threading.get_ident()}"
 
 
 def _compile(src, lib, defines=(), include=None):
@@ -112,7 +119,7 @@ def _compile(src, lib, defines=(), include=None):
             with open(log) as fh:
                 report = fh.read()
         return lib, 0.0, report
-    tmp = f"{lib}.{os.getpid()}.tmp"
+    tmp = f"{lib}.{_tag()}.tmp"
     cmd = [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
         "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", *[f"-D{k}={v}" for k, v in defines],

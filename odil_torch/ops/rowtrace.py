@@ -1,16 +1,17 @@
-"""A user's row function on 1-D planes as a row model of the 1-D tile
-kernels (``csrc/rows1d.cuh``): traced, differentiated and turned into CUDA
-at first use.
+"""A user's row function as a row model of the tile kernels, on 1-D planes
+(``csrc/rows1d.cuh``) or on 2-D planes (``csrc/rows2d.cuh``): traced,
+differentiated and turned into CUDA at first use.
 
 The TPU kernels ``_forward``/``_backward``, ``_forward_blocked``/
 ``_backward_blocked`` and ``_forward_stream``/``_backward_stream``
 (``odil_tpu/ops/rowwise.py:132``, ``:185``, ``:322``, ``:396``, ``:616``,
-``:690``) take any row function: Pallas traces it into the kernel's body and
-``jax.vjp`` differentiates it there.  CUDA has no autodiff, so for a row
-function that names no CUDA model (``RowModel.cuda_model is None``) on
-(T, N) planes this module does both ahead of the build; the kernel skeleton
-stays the hand-written ``rows1d_kernel``, and only the per-cell body is
-generated:
+``:690``) and the x-tiled pair of ``odil_tpu/ops/rowwise_tiled.py`` take any
+row function: Pallas traces it into the kernel's body and ``jax.vjp``
+differentiates it there.  CUDA has no autodiff, so for a row function that
+names no CUDA model (``RowModel.cuda_model is None``) on (T, N) or (T, X, Y)
+planes this module does both ahead of the build; the kernel skeleton stays
+hand-written (``rows1d_kernel``, ``rows2d_kernel``), and only the per-cell
+body is generated:
 
 1. ``trace``: the row function runs once on symbolic values, one per cell,
    that stand for its stacks (``rows[f][m]``, the data rows, the consts, the
@@ -19,27 +20,33 @@ generated:
    ``neg``, ``pow`` by a constant, ``tanh``, ``exp``, ``log``, ``sqrt``,
    ``rsqrt``, ``sigmoid``, ``abs``, ``minimum``/``maximum``, ``where``,
    comparisons and ``&``/``|``/``~``, ``detach``, ``torch.roll`` along the
-   plane and the elements of params (``w[o, i]``).  The result is a scalar
-   SSA program over the samples of the fields at x-1, x, x+1 (a roll moves
-   the reads of what it rolls: ``roll(v, s)`` at x is v at x - s), the data
-   and consts read at any offset with the plane's wrap, and the params.
-   Values are hash-consed, so equal expressions are one value.  A function
-   outside the set or the kernels' limits (2 fields, 2 data, 6 consts, 8
-   param tensors of 48 elements in all, fields read at x±1) raises
+   plane's axes (an axis of a value counted from its last: on a (R, X, Y)
+   stack dims -2 and -1, on an (X, Y) const plane dims 0 and 1; tuple shifts
+   and dims too) and the elements of params (``w[o, i]``).  The result is a
+   scalar SSA program over the samples of the fields at the offsets -1, 0, 1
+   along each plane axis (a roll moves the reads of what it rolls:
+   ``roll(v, s)`` at x is v at x - s), the data and consts read at any
+   offset with the plane's wrap, and the params.  Values are hash-consed,
+   so equal expressions are one value.  A function outside the set or the
+   kernels' limits (1-D: 2 fields and hist 4; 2-D: 3 fields, hist 2 and a
+   block's shared memory within 227 KB; both: 2 data, 6 consts, 8 param
+   tensors of 48 elements in all, fields read at ±1 along each axis) raises
    ``Refused`` with the reason, before anything is built.
 2. ``_adjoint``: reverse mode over the program with torch autograd's rules
    (``detach`` and comparisons give no gradient, ``where`` passes it to the
    chosen branch, ``minimum``/``maximum`` split it at ties, ``abs`` gives 0
    at 0), seeded with ``g2[k] * res[k]``, the cotangents of
-   ``sum_k g2[k]/2 res[k]^2`` (``rows1d.cuh``): ``D[m][f][q]`` of the
-   samples and ``pacc[p]`` of the params.
+   ``sum_k g2[k]/2 res[k]^2``: ``D[m][f][q]`` (1-D) or ``D[m][f][qx][qy]``
+   (2-D) of the samples and ``pacc[p]`` of the params.
 3. ``Trace.source``: a ``.cu`` unit whose row model struct has the
-   ``rows1d.cuh`` interface (``CELL_PARAMS``: its param cotangents go into
-   the kernel's registers, owned cells only) and that exports the
-   ``odil_rows1d_*`` entry points for model id 0, as ``heat_net.cu`` does
-   for heat.  Literals are exact fp32 hex floats.  ``ops/rowwise.py`` builds
-   it with ``_build.compile_generated`` at first use (one library per
-   source, keyed on its digest).
+   ``rows1d.cuh`` or the ``rows2d.cuh`` interface (its param cotangents go
+   into the kernel's registers, owned cells only) and that exports the
+   ``odil_rows1d_*`` or ``odil_rows2d_*`` entry points for model id 0, the
+   masked per-shard pair (``*_halo_*``) among them, as ``heat_net.cu`` does
+   for heat.  On a masked launch ``it`` and ``T`` are the global row and row
+   count.  Literals are exact fp32 hex floats.  ``ops/rowwise.py`` builds it
+   with ``_build.compile_generated`` at first use (one library per source,
+   keyed on its digest).
 
 The function's fp32 operations per cell (``ops_forward``, ``ops_backward``:
 a transcendental as one, a sigmoid as three; an expression that the body
@@ -55,10 +62,12 @@ import torch
 
 __all__ = ["Refused", "Trace", "fingerprint", "trace"]
 
-# The kernels' limits (csrc/rows1d.cuh: MAXF, MAXD, MAXC, MAXP; the register
-# param form of at most 48 cotangents a thread).
-MAX_FIELDS, MAX_DATA, MAX_CONSTS, MAX_PARAM_TENSORS, MAX_PARAMS = 2, 2, 6, 8, 48
-MAX_TERMS, MAX_HIST, REACH = 8, 4, 1
+# The kernels' limits (csrc/rows1d.cuh, csrc/rows2d.cuh: MAXF, MAXD, MAXC,
+# MAXP; the register param form of at most 48 cotangents a thread), by the
+# plane's rank where they differ; SMEM_LIMIT the shared memory of a block.
+MAX_FIELDS, MAX_DATA, MAX_CONSTS, MAX_PARAM_TENSORS, MAX_PARAMS = {1: 2, 2: 3}, 2, 6, 8, 48
+MAX_TERMS, MAX_HIST, REACH = 8, {1: 4, 2: 2}, 1
+SMEM_LIMIT = 232448
 
 _F, _I, _B = "float", "int", "bool"
 
@@ -104,19 +113,27 @@ class _Graph:
         return self.make("lit", (bool(value),), _B, False)
 
     def shift(self, node, d):
-        """``node`` at x + d."""
-        if d == 0 or not node.xdep:
+        """``node`` at the plane position + d (an offset along each axis)."""
+        if not any(d) or not node.xdep:
             return node
         key = (node.index, d)
         out = self._shifts.get(key)
         if out is None:
             if node.op in ("field", "data", "const"):
-                out = self.make(node.op, node.args[:-1] + (node.args[-1] + d,), node.dtype, True)
+                out = self.make(node.op, node.args[:-1] + (_plus(node.args[-1], d),), node.dtype, True)
             else:
                 out = self.make(node.op, tuple(self.shift(a, d) if isinstance(a, _Node) else a for a in node.args),
                                 node.dtype)
             self._shifts[key] = out
         return out
+
+
+def _plus(a, b):
+    return tuple(x + y for x, y in zip(a, b))
+
+
+def _minus(a, b):
+    return tuple(x - y for x, y in zip(a, b))
 
 
 def _f32_bits(value):
@@ -292,8 +309,9 @@ _FORWARD_OPS = {"add": 1, "sub": 1, "mul": 1, "div": 1, "neg": 1, "recip": 1, "t
 class _Tracer:
     """Runs a row function on symbolic values and records its graph."""
 
-    def __init__(self):
+    def __init__(self, rank=1):
         self.graph = _Graph()
+        self.rank = rank
 
     def sym(self, node, ndim):
         return _Sym(self, node, ndim)
@@ -432,15 +450,18 @@ class _Tracer:
         node, ndim = self.lift(x)
         if len(shifts) != len(dims):
             raise Refused("torch.roll with shifts and dims of other lengths")
-        d = 0
+        d = [0] * self.rank
         for s, axis in zip(shifts, dims):
             if not isinstance(s, int) or isinstance(s, bool):
                 raise Refused("torch.roll by a traced or non-integer shift")
-            if ndim == 0 or axis % ndim != ndim - 1:
-                raise Refused(f"torch.roll along axis {axis} of a {ndim}-D stack: only the plane axis (the last) is "
-                              f"traced")
-            d -= s  # roll(v, s) at x is v at x - s
-        return self.sym(self.graph.shift(node, d), ndim)
+            # The plane's axes are the value's last `rank` axes.
+            p = axis % ndim - (ndim - self.rank) if ndim else -1
+            if not 0 <= p < self.rank:
+                which = ("the plane axis (the last) is" if self.rank == 1
+                         else f"the plane's axes (the last {self.rank}) are")
+                raise Refused(f"torch.roll along axis {axis} of a {ndim}-D stack: only {which} traced")
+            d[p] -= s  # roll(v, s) at x is v at x - s
+        return self.sym(self.graph.shift(node, tuple(d)), ndim)
 
 
 # -- The trace -------------------------------------------------------------------
@@ -498,27 +519,71 @@ def fingerprint(fn):
 class Trace:
     """A traced row function: its program, adjoint and CUDA source.
 
-    nterms, hist, nfields: the call's; data: per data, whether it is a
-    (T, N) plane (else (T, 1)); consts: per const, (whether it is a plane
-    (else a scalar of one element), its ndim); param_shapes; nparams: their elements; dused: the D
-    entries its adjoint writes (``rows1d.cuh``'s DUSED); body: the row model
-    struct (``TracedRow``); source: the .cu unit; ops_forward,
-    ops_backward: the function's fp32 operations per residual cell (each
-    shift class once, ``_shift_classes``); blocks_per_sm."""
+    rank: the plane's (1: (T, N), 2: (T, X, Y)); nterms, hist, nfields: the
+    call's; data: per data, whether it is a plane ((T, N) or (T, X, Y), else
+    (T, 1) or (T, 1, 1)); consts: per const, (whether it is a plane (else a
+    scalar of one element), its ndim); param_shapes; nparams: their
+    elements; dused: the D entries its adjoint writes (a mask of the entries
+    (m * NF + f) * 3 + q on 1-D planes, ((m * NF + f) * 3 + qx) * 3 + qy on
+    2-D ones); body: the row model struct (``TracedRow``); source: the .cu
+    unit; ops_forward, ops_backward: the function's fp32 operations per
+    residual cell (each shift class once, ``_shift_classes``);
+    blocks_per_sm; smem: the dynamic shared memory of the 2-D kernels'
+    forward and backward blocks (``csrc/rows2d.cuh``), or None."""
 
-    def __init__(self, nterms, hist, nfields, data, consts, param_shapes, graph, outputs, name):
+    def __init__(self, nterms, hist, nfields, data, consts, param_shapes, graph, outputs, name, rank=1):
+        self.rank = rank
         self.nterms, self.hist, self.nfields = nterms, hist, nfields
         self.data, self.consts, self.param_shapes = tuple(data), tuple(consts), tuple(param_shapes)
         self.nparams = sum(_numel(s) for s in param_shapes)
         self.name = name
         self._graph, self._outputs = graph, outputs
-        # Param cotangents in registers (up to 48) and a net's activations
-        # kept for its adjoint: one block an SM past 16 params (the heat
-        # net's register form, heat_row.cuh), two with a few, four without
-        # (wave_row.cuh).
-        self.blocks_per_sm = 1 if self.nparams > 16 else 2 if self.nparams else 4
         self.body, self.dused, self.ops_forward, self.ops_backward = _generate(self)
+        if rank == 1:
+            # Param cotangents in registers (up to 48) and a net's
+            # activations kept for its adjoint: one block an SM past 16
+            # params (the heat net's register form, heat_row.cuh), two with
+            # a few, four without (wave_row.cuh).
+            self.smem = None
+            self.blocks_per_sm = 1 if self.nparams > 16 else 2 if self.nparams else 4
+        else:
+            # The blocks whose shared memory an SM holds (228 KB, 1 KB of it
+            # reserved a block), one past 16 params.
+            self.smem = tuple(rows2d_smem(nfields, hist, nterms, self.nparams, _staged(self.dused), grads)
+                              for grads in (False, True))
+            fit = SM_SMEM // (self.smem[1] + 1024)
+            self.blocks_per_sm = max(1, min(fit, 1 if self.nparams > 16 else 2))
+        self.body = self.body.replace("@BLOCKS_PER_SM@", str(self.blocks_per_sm))
         self.source = _unit(self)
+
+
+# The shared memory of an SM (H100: 228 KB, of which a block takes at most
+# SMEM_LIMIT).
+SM_SMEM = 233472
+# rows2d.cuh's tile: 16 x 32 cells, a window of halo 2 (20 x 40 floats a
+# plane row, the owned columns at 4), the ring-1 positions 18 x 34, a ring of
+# HIST + 4 fine rows, 8 warps.
+_R2_HX, _R2_HY, _R2_RX, _R2_RY, _R2_HYS, _R2_WARPS, _R2_AHEAD = 20, 40, 18, 34, 36, 8, 3
+
+
+def _staged(dused):
+    """The D entries of a 2-D trace that the kernel stages in shared memory:
+    those it uses at a nonzero offset (entry e at offset (0, 0) is e % 9 ==
+    4)."""
+    return sum(1 for e in range(dused.bit_length()) if (dused >> e) & 1 and e % 9 != 4)
+
+
+def rows2d_smem(nfields, hist, nterms, nparams, nstaged, grads):
+    """The bytes of ``rows2d.cuh``'s ``Smem<M, GRADS>`` (its layout: the
+    ring, the staged D planes, the params, the fp64 warp sums, the index
+    tables)."""
+    ring = (hist + _R2_AHEAD + 1) * nfields * _R2_HX * _R2_HY
+    staged = (max(nstaged, 1) * _R2_RX * _R2_RY) if grads else 1
+    size = 4 * (ring + staged + max(nparams, 1))
+    size = -(-size // 8) * 8
+    size += 8 * _R2_WARPS * (-(-(nterms + max(nparams, 1)) // 16) * 16)
+    size += 4 * (_R2_HX + _R2_HYS)
+    return -(-size // 8) * 8
 
 
 def _numel(shape):
@@ -528,38 +593,41 @@ def _numel(shape):
     return n
 
 
-def trace(row_fn, nterms, hist, nfields, data, consts, param_shapes):
+def trace(row_fn, nterms, hist, nfields, data, consts, param_shapes, rank=1):
     """The ``Trace`` of ``row_fn(it, T, rows, data_rows, params, consts)``
-    for ``nfields`` fields with ``hist`` rows back, data of kinds ``data``
-    (True: a (T, N) plane, False: (T, 1)), consts of kinds ``consts``
-    ((True, ndim): a plane (N,) or (1, N), (False, ndim): one element) and
-    params of ``param_shapes``.  Raises ``Refused`` with the reason where
-    the traced kernels do not take it."""
+    on planes of ``rank`` axes for ``nfields`` fields with ``hist`` rows
+    back, data of kinds ``data`` (True: a (T, *plane) plane, False: (T, 1)
+    or (T, 1, 1)), consts of kinds ``consts`` ((True, ndim): a plane, (N,) or
+    (1, N) on 1-D planes, (X, Y) on 2-D ones; (False, ndim): one element)
+    and params of ``param_shapes``.  Raises ``Refused`` with the reason
+    where the traced kernels do not take it."""
     limits = [
-        (nfields, MAX_FIELDS, "fields"), (len(data), MAX_DATA, "data"), (len(consts), MAX_CONSTS, "consts"),
+        (nfields, MAX_FIELDS[rank], "fields"), (len(data), MAX_DATA, "data"), (len(consts), MAX_CONSTS, "consts"),
         (len(param_shapes), MAX_PARAM_TENSORS, "param tensors"), (nterms, MAX_TERMS, "terms"),
-        (hist, MAX_HIST, "rows back (hist)"),
+        (hist, MAX_HIST[rank], "rows back (hist)"),
     ]
     for n, limit, what in limits:
         if n > limit:
-            raise Refused(f"{n} {what}: the traced kernels take at most {limit}")
+            raise Refused(f"{n} {what}: the traced kernels on {rank}-D planes take at most {limit}")
     nparams = sum(_numel(s) for s in param_shapes)
     if nparams > MAX_PARAMS:
         raise Refused(f"{nparams} param elements: the traced kernels keep at most {MAX_PARAMS} param cotangents in "
                       f"registers")
     if nterms < 1 or nfields < 1:
         raise Refused("no terms or no fields")
-    tracer = _Tracer()
+    tracer = _Tracer(rank)
     g = tracer.graph
-    rows = tuple(tuple(tracer.sym(g.make("field", (f, m, 0), _F, True), 2) for m in range(hist + 1))
+    zero = (0,) * rank
+    rows = tuple(tuple(tracer.sym(g.make("field", (f, m, zero), _F, True), rank + 1) for m in range(hist + 1))
                  for f in range(nfields))
-    data_rows = tuple(tracer.sym(g.make("data", (d, 0), _F, bool(plane)), 2) for d, plane in enumerate(data))
-    const_syms = [tracer.sym(g.make("const", (c, 0), _F, plane), ndim) for c, (plane, ndim) in enumerate(consts)]
+    data_rows = tuple(tracer.sym(g.make("data", (d, zero), _F, bool(plane)), rank + 1)
+                      for d, plane in enumerate(data))
+    const_syms = [tracer.sym(g.make("const", (c, zero), _F, plane), ndim) for c, (plane, ndim) in enumerate(consts)]
     params, base = [], 0
     for shape in param_shapes:
         params.append(_SymParam(tracer, base, shape))
         base += _numel(shape)
-    it = tracer.sym(g.make("it", (), _I, False), 2)
+    it = tracer.sym(g.make("it", (), _I, False), rank + 1)
     T = tracer.sym(g.make("T", (), _I, False), 0)
     try:
         res = row_fn(it, T, rows, data_rows, tuple(params), tuple(const_syms))
@@ -572,10 +640,18 @@ def trace(row_fn, nterms, hist, nfields, data, consts, param_shapes):
                       f"not the call's {nterms}")
     outputs = [tracer.cast(tracer.lift(r)[0], _F) for r in res]
     for node in _reachable(g, outputs):
-        if node.op == "field" and abs(node.args[2]) > REACH:
-            raise Refused(f"a field read at x{node.args[2]:+d}: the kernels' reach is x-1 .. x+1")
+        if node.op == "field":
+            for axis, d in zip("xy", node.args[2]):
+                if abs(d) > REACH:
+                    raise Refused(f"a field read at {axis}{d:+d}: the kernels' reach is -1 .. +1 along each plane "
+                                  f"axis")
     name = f"{getattr(row_fn, '__module__', '?')}.{getattr(row_fn, '__qualname__', repr(row_fn))}"
-    return Trace(nterms, hist, nfields, data, consts, param_shapes, g, outputs, name)
+    tr = Trace(nterms, hist, nfields, data, consts, param_shapes, g, outputs, name, rank)
+    if tr.smem is not None and tr.smem[1] > SMEM_LIMIT:
+        raise Refused(f"a block of the 2-D kernels needs {tr.smem[1]} bytes of shared memory (a ring of {hist + 4} "
+                      f"rows of {nfields} fields and {_staged(tr.dused)} staged cotangent planes), over the "
+                      f"{SMEM_LIMIT} bytes a block may take")
+    return tr
 
 
 def _reachable(graph, outputs):
@@ -616,7 +692,7 @@ _COMMUTATIVE = {"add", "mul", "min", "max", "eq", "ne", "and", "or"}
 
 def _shift_classes(nodes):
     """{node index: its class}: the nodes that are one expression at other
-    shifts along the plane, up to the order of a commutative operation's
+    shifts over the plane, up to the order of a commutative operation's
     operands, share a class (a net at the faces x-1/2 and x+1/2 of a cell:
     the x+1/2 one is its right neighbour's x-1/2 one).  The body computes
     each member; the function needs a class once per cell, so the operation
@@ -632,7 +708,8 @@ def _shift_classes(nodes):
             forms = []
             for order in (kids, kids[::-1]) if n.op in _COMMUTATIVE else (kids,):
                 ref = next(off for _, off in order if off is not None)
-                forms.append(((n.op, n.dtype) + tuple((c, "-" if off is None else off - ref) for c, off in order), ref))
+                forms.append(((n.op, n.dtype) + tuple((c, "-" if off is None else _minus(off, ref))
+                                                      for c, off in order), ref))
             key, ref = min(forms, key=lambda form: repr(form[0]))
         canon[n.index] = (ids.setdefault(key, len(ids)), ref)
     return {i: c for i, (c, _) in canon.items()}
@@ -647,13 +724,41 @@ def _node_ops(n):
     return _FORWARD_OPS.get(n.op, 0)
 
 
+def _sample(m, f, off):
+    """The index of a field sample in ``v`` and ``D``: ``[m][f][q...]``, q
+    the offset + 1 along each plane axis."""
+    return f"[{m}][{f}]" + "".join(f"[{d + 1}]" for d in off)
+
+
+def _entry(nfields, m, f, off):
+    """A sample's bit in DUSED: (m * NF + f) * 3 + q on 1-D planes,
+    ((m * NF + f) * 3 + qx) * 3 + qy on 2-D ones."""
+    e = m * nfields + f
+    for d in off:
+        e = e * 3 + d + 1
+    return e
+
+
+def _at(tr, off, plane):
+    """The C expressions of a plane position at offset ``off`` (the wrap of
+    the plane), or of the first position where ``plane`` is False."""
+    if tr.rank == 1:
+        return "x" if not plane or off[0] == 0 else f"rows1d::pmod(x + {off[0]}, A.N)"
+    names = []
+    for axis, d, n in zip("xy", off, ("A.X", "A.Y")):
+        names.append("0" if not plane else axis if d == 0 else f"rows2d::pmod({axis} + {d}, {n})")
+    return names
+
+
 def _generate(tr):
-    """(the TracedRow struct, DUSED, forward ops, backward ops) of a trace."""
+    """(the TracedRow struct, DUSED, forward ops, backward ops) of a trace;
+    the struct's BLOCKS_PER_SM is left as ``@BLOCKS_PER_SM@``."""
     nodes = _reachable(tr._graph, tr._outputs)
     classes = _shift_classes(nodes)
     ops_f = sum(_node_ops(n) for n in {classes[n.index]: n for n in nodes}.values())
     names = {}
     fwd = []
+    two = tr.rank == 2
 
     def e(n):
         return names[n.index]
@@ -668,23 +773,32 @@ def _generate(tr):
             names[n.index] = e(a[0])
             continue
         if op == "field":
-            f, m, dx = a
-            names[n.index] = f"v[{m}][{f}][{dx + 1}]"
+            f, m, off = a
+            names[n.index] = "v" + _sample(m, f, off)
             continue
         name = f"t{n.index}"
         names[n.index] = name
         if op == "data":
-            d, dx = a
-            expr = f"rows1d::data_at(A, {d}, it, {_x_at(dx if tr.data[d] else 0)})"
+            d, off = a
+            if two:
+                expr = f"rows2d::data_at(A, {d}, it, {', '.join(_at(tr, off, tr.data[d]))})"
+            else:
+                expr = f"rows1d::data_at(A, {d}, it, {_at(tr, off, tr.data[d])})"
         elif op == "const":
-            c, dx = a
-            expr = f"__ldg(A.consts[{c}] + {_x_at(dx)})" if tr.consts[c][0] else f"__ldg(A.consts[{c}])"
+            c, off = a
+            if not tr.consts[c][0]:
+                expr = f"__ldg(A.consts[{c}])"
+            elif two:
+                cx, cy = _at(tr, off, True)
+                expr = f"__ldg(A.consts[{c}] + (size_t){cx} * A.Y + {cy})"
+            else:
+                expr = f"__ldg(A.consts[{c}] + {_at(tr, off, True)})"
         elif op == "param":
             expr = f"P[{a[0]}]"
         elif op == "it":
             expr = "it"
-        elif op == "T":
-            expr = "A.T"
+        elif op == "T":  # the global row count on a masked launch
+            expr = "rows2d::model_T(A)" if two else "rows1d_traced::model_T(A)"
         elif op in _BINARY:
             expr = f"{e(a[0])} {_BINARY[op]} {e(a[1])}"
         elif op in _UNARY:
@@ -713,18 +827,55 @@ def _generate(tr):
     fwd += [f"res[{k}] = {e(r)};" for k, r in enumerate(tr._outputs)]
 
     adj, dused, pacc, ops_a = _adjoint(tr, nodes, e, classes)
-    nd = tr.nfields
     dmask = 0
-    for (m, f, q) in dused:
-        dmask |= 1 << ((m * nd + f) * 3 + q)
+    for (m, f, off) in dused:
+        dmask |= 1 << _entry(tr.nfields, m, f, off)
     param_sizes = " && ".join(f"A.param_size[{p}] == {_numel(s)}" for p, s in enumerate(tr.param_shapes))
     takes = f"A.nterms == MAXT && A.nparams == {tr.nparams}" + (f" && {param_sizes}" if param_sizes else "")
     ind = "      "
-    body = f"""// The row model traced from {tr.name}.
+    grads = f"""    if constexpr (GRADS) {{
+{ind}{(chr(10) + ind).join(adj) if adj else "(void)D;"}
+      if (own) {{
+{ind}  {(chr(10) + ind + "  ").join(pacc) if pacc else "(void)0;"}
+      }}
+    }}"""
+    if two:
+        lo, hi = dmask & (2**64 - 1), dmask >> 64
+        body = f"""// The row model traced from {tr.name}.
+struct TracedRow {{
+  static constexpr int NF = {tr.nfields}, HIST = {tr.hist}, MAXT = {tr.nterms}, NP = {tr.nparams};
+  // The D entries ((m * NF + f) * 3 + qx) * 3 + qy that eval writes, bits of DUSED_HI:DUSED_LO.
+  static constexpr unsigned long long DUSED_LO = {lo:#x}ull, DUSED_HI = {hi:#x}ull;
+  static constexpr int BLOCKS_PER_SM = @BLOCKS_PER_SM@;
+
+  __host__ __device__ static constexpr bool used(int e) {{
+    return e < 64 ? ((DUSED_LO >> e) & 1ull) != 0 : ((DUSED_HI >> (e < 64 ? 0 : e - 64)) & 1ull) != 0;
+  }}
+
+  static bool takes(const rows2d::Rows2DArgs& A) {{ return {takes}; }}
+
+  template <bool GRADS, class Args>
+  __host__ __device__ __forceinline__ static void eval(const Args& A, const float* P, int it, int x, int y,
+                                                       const float (&v)[HIST + 1][NF][3][3], const float* g2,
+                                                       float* res, float (&D)[HIST + 1][NF][3][3], float* pacc,
+                                                       bool own) {{
+    (void)P;
+    (void)x;
+    (void)y;
+    (void)g2;
+    (void)pacc;
+    (void)own;
+{ind}{(chr(10) + ind).join(fwd)}
+{grads}
+  }}
+}};
+"""
+    else:
+        body = f"""// The row model traced from {tr.name}.
 struct TracedRow {{
   static constexpr int NF = {tr.nfields}, HIST = {tr.hist}, MAXT = {tr.nterms}, NP = {tr.nparams};
   static constexpr unsigned DUSED = {dmask:#x}u;
-  static constexpr int BLOCKS_PER_SM = {tr.blocks_per_sm};
+  static constexpr int BLOCKS_PER_SM = @BLOCKS_PER_SM@;
   static constexpr bool FACES = false, REG_PARAMS = true, CELL_PARAMS = true;
   struct Face {{}};
 
@@ -741,20 +892,11 @@ struct TracedRow {{
     (void)pacc;
     (void)own;
 {ind}{(chr(10) + ind).join(fwd)}
-    if constexpr (GRADS) {{
-{ind}{(chr(10) + ind).join(adj) if adj else "(void)D;"}
-      if (own) {{
-{ind}  {(chr(10) + ind + "  ").join(pacc) if pacc else "(void)0;"}
-      }}
-    }}
+{grads}
   }}
 }};
 """
     return body, dmask, ops_f, ops_f + ops_a
-
-
-def _x_at(dx):
-    return "x" if dx == 0 else f"rows1d::pmod(x + {dx}, A.N)"
 
 
 def _adjoint(tr, nodes, e, classes):
@@ -793,9 +935,9 @@ def _adjoint(tr, nodes, e, classes):
         out.append(f"const float {gname} = {' + '.join(terms)};")
         op, a, y = n.op, n.args, e(n)
         if op == "field":
-            f, m, dx = a
-            dused.append((m, f, dx + 1))
-            out.append(f"D[{m}][{f}][{dx + 1}] = {gname};")
+            f, m, off = a
+            dused.append((m, f, off))
+            out.append(f"D{_sample(m, f, off)} = {gname};")
         elif op == "param":
             pacc.append(f"pacc[{a[0]}] += {gname};")
             ops += 1
@@ -849,14 +991,18 @@ def _adjoint(tr, nodes, e, classes):
 
 
 def _unit(tr):
-    """The .cu unit of a trace: the row model and the rows1d entry points
-    of model id 0."""
+    """The .cu unit of a trace: the row model and the rows1d or rows2d entry
+    points of model id 0, the masked per-shard pair among them."""
+    if tr.rank == 2:
+        return _unit2d(tr)
     return f"""// A row model of the 1-D tile kernels (rows1d.cuh), generated by
 // odil_torch/ops/rowtrace.py from the row function {tr.name}
 // ({tr.nfields} fields, hist {tr.hist}, {tr.nterms} terms, {tr.nparams} params).
 // Replaces, for this row function, the TPU kernels that trace it into their
 // bodies: _forward_blocked/_backward_blocked (odil_tpu/ops/rowwise.py:322,
-// :396) and _forward_stream/_backward_stream (:616, :690).
+// :396), on the row function that odil_tpu/halo.py:873-885 wraps for a
+// shard too (the masked pair, odil_rows1d_halo_*), and
+// _forward_stream/_backward_stream (:616, :690).
 
 #include <cuda_runtime.h>
 
@@ -872,20 +1018,15 @@ extern "C" {{
 
 int odil_rows1d_args_size() {{ return (int)sizeof(rows1d::Rows1DArgs); }}
 
+int odil_rows1d_halo_args_size() {{ return (int)sizeof(rows1d::Rows1DHaloArgs); }}
+
 int odil_rows1d_tile(int what) {{
   return what == 0 ? rows1d::TILE : what == 1 ? rows1d::max_slab<TracedRow>() : rows1d::NTHREADS;
 }}
 
-// The blocks an SM holds for modes 1-3 (no masked form).
+// The blocks an SM holds for modes 1-3 and the masked 5-7.
 int odil_rows1d_resident_blocks(int model, int mode) {{
-  if (model != 0) return 0;
-  switch (mode) {{
-    case rows1d::MODE_SUMS: return rows1d::resident_blocks<TracedRow, rows1d::MODE_SUMS, false>();
-    case rows1d::MODE_GRADS: return rows1d::resident_blocks<TracedRow, rows1d::MODE_GRADS, false>();
-    case rows1d::MODE_SUMS | rows1d::MODE_GRADS:
-      return rows1d::resident_blocks<TracedRow, rows1d::MODE_SUMS | rows1d::MODE_GRADS, false>();
-    default: return 0;
-  }}
+  return model == 0 ? rows1d::resident<TracedRow>(mode) : 0;
 }}
 
 const char* odil_cuda_error_string(int err) {{ return cudaGetErrorString((cudaError_t)err); }}
@@ -898,6 +1039,81 @@ int odil_rows1d_forward(int model, const rows1d::Rows1DArgs* a, void* stream) {{
 int odil_rows1d_backward(int model, const rows1d::Rows1DArgs* a, int with_sums, void* stream) {{
   if (model != 0) return (int)cudaErrorInvalidValue;
   return rows1d::backward<TracedRow, false>(*a, with_sums, (cudaStream_t)stream);
+}}
+
+// The masked per-shard pair: the model sees the global row and row count
+// (rows1d_traced::model_T, the flags of the launch).
+int odil_rows1d_halo_forward(int model, const rows1d::Rows1DHaloArgs* a, void* stream) {{
+  if (model != 0) return (int)cudaErrorInvalidValue;
+  return rows1d::forward<TracedRow, true>(*a, (cudaStream_t)stream);
+}}
+
+int odil_rows1d_halo_backward(int model, const rows1d::Rows1DHaloArgs* a, int with_sums, void* stream) {{
+  if (model != 0) return (int)cudaErrorInvalidValue;
+  return rows1d::backward<TracedRow, true>(*a, with_sums, (cudaStream_t)stream);
+}}
+
+}}  // extern "C"
+"""
+
+
+def _unit2d(tr):
+    return f"""// A row model of the 2-D tile kernels (rows2d.cuh), generated by
+// odil_torch/ops/rowtrace.py from the row function {tr.name}
+// ({tr.nfields} fields, hist {tr.hist}, {tr.nterms} terms, {tr.nparams} params).
+// Replaces, for this row function, the TPU kernels that trace it into their
+// bodies on (T, X, Y) planes: _forward/_backward (odil_tpu/ops/rowwise.py:132,
+// :185), _forward_blocked/_backward_blocked (:322, :396),
+// _forward_stream/_backward_stream (:616, :690) and the x-tiled pair
+// _forward_tiled/_backward_tiled (odil_tpu/ops/rowwise_tiled.py:187, :283),
+// with xpad on a shard's block the masked pair (odil_rows2d_halo_*).
+
+#include <cuda_runtime.h>
+
+#include "rows1d_traced.cuh"
+#include "rows2d.cuh"
+
+namespace {{
+
+{tr.body}
+}}  // namespace
+
+extern "C" {{
+
+int odil_rows2d_args_size() {{ return (int)sizeof(rows2d::Rows2DArgs); }}
+
+int odil_rows2d_halo_args_size() {{ return (int)sizeof(rows2d::Rows2DHaloArgs); }}
+
+// The tile's rows (0), columns (1) and threads (2), and the dynamic shared
+// memory of a forward (3) and a backward (4) block.
+int odil_rows2d_tile(int what) {{ return rows2d::tile_info<TracedRow>(what); }}
+
+// The blocks the card holds at once (mode: 1 the sums, 2 the gradients, 3
+// both, plus 4 masked).
+int odil_rows2d_resident_blocks(int model, int mode) {{
+  return model == 0 ? rows2d::resident<TracedRow>(mode) : 0;
+}}
+
+const char* odil_cuda_error_string(int err) {{ return cudaGetErrorString((cudaError_t)err); }}
+
+int odil_rows2d_forward(int model, const rows2d::Rows2DArgs* a, void* stream) {{
+  if (model != 0) return (int)cudaErrorInvalidValue;
+  return rows2d::forward<TracedRow, false>(*a, (cudaStream_t)stream);
+}}
+
+int odil_rows2d_backward(int model, const rows2d::Rows2DArgs* a, int with_sums, void* stream) {{
+  if (model != 0) return (int)cudaErrorInvalidValue;
+  return rows2d::backward<TracedRow, false>(*a, with_sums, (cudaStream_t)stream);
+}}
+
+int odil_rows2d_halo_forward(int model, const rows2d::Rows2DHaloArgs* a, void* stream) {{
+  if (model != 0) return (int)cudaErrorInvalidValue;
+  return rows2d::forward<TracedRow, true>(*a, (cudaStream_t)stream);
+}}
+
+int odil_rows2d_halo_backward(int model, const rows2d::Rows2DHaloArgs* a, int with_sums, void* stream) {{
+  if (model != 0) return (int)cudaErrorInvalidValue;
+  return rows2d::backward<TracedRow, true>(*a, with_sums, (cudaStream_t)stream);
 }}
 
 }}  // extern "C"

@@ -31,18 +31,21 @@ planes) launches the hand-written kernel of ``csrc/rowwise.cu`` (heat with
 another conductivity net than [1, 5, 5, 1], or with keep_init or
 keep_frozen off: of ``csrc/heat_net.cu``, built for the net's widths), and
 raises where that kernel does not take the call.  A model that names none
-(``cuda_model is None``: a user row function) on float32 (T, N) planes is
-traced (``ops/rowtrace.py``, ``_traced``): its row function becomes a row
-model of ``csrc/rows1d.cuh`` with a generated adjoint, built at first use
-into a library of its own, and the call launches the same kernels and
-counters as heat and wave -- the counterpart of the TPU kernels' tracing of
-the row function and their in-kernel ``jax.vjp``.  A trace that is refused
-(a reach past x±1, more than 48 params, an operation outside the traced
-set; 2-D planes, 64-bit tensors and a per-shard model are not traced) runs
-the plain PyTorch version on the card's tensors (``plain_on_card``, its own
-launch counter and the reasons, ``plain_on_card.reasons``) -- autograd of
-the row function over the row stacks where the model has no ``row_vjp``.  A
-CPU tensor runs the plain version.  The route is decided before any build;
+(``cuda_model is None``: a user row function) on float32 (T, N) or (T, X, Y)
+planes is traced (``ops/rowtrace.py``, ``_traced``): its row function becomes
+a row model of ``csrc/rows1d.cuh`` or ``csrc/rows2d.cuh`` with a generated
+adjoint, built at first use into a library of its own, and the call launches
+those kernels with the counters of the built-in models (a per-shard model
+too: the traced function is the one it wraps, ``halo_model``'s ``inner``)
+-- the counterpart of the TPU kernels' tracing of the row function and their
+in-kernel ``jax.vjp``.  A trace that is refused (a reach past ±1 along a
+plane axis, more than 48 params, an operation outside the traced set, a
+2-D block over the shared memory of a block; 3-D planes and 64-bit tensors
+are not traced) runs the plain PyTorch version on the card's tensors
+(``plain_on_card``, its own launch counter and the reasons,
+``plain_on_card.reasons``) -- autograd of the row function over the row
+stacks where the model has no ``row_vjp``.  A CPU tensor runs the plain
+version.  The route is decided before any build;
 no exception selects one, and a failed build or launch raises.  64-bit fields take the plain
 version on every device, by the JAX package's own rule (Mosaic cannot lower
 64-bit kernels, ``odil_tpu/ops/rowwise.py:968-969``): ``rowwise_loss_terms``
@@ -82,7 +85,10 @@ model launches the halo layer of the 1-D tile kernel (``csrc/rows1d.cuh``,
 ``odil_rows1d_halo_*``: ``forward_halo_rows1d_cuda``/
 ``backward_halo_rows1d_cuda``), the port of the blocked pair that the JAX
 package runs on its wrapped row function for 1-D planes
-(``odil_tpu/halo.py:924-936``, whose x-padded form needs 3-D grids).
+(``odil_tpu/halo.py:924-936``, whose x-padded form needs 3-D grids).  A
+wrapped traced row function launches its library's masked kernels: on 1-D
+planes through the 1-D wrappers, on 2-D planes (``odil_rows2d_halo_*``)
+through ``forward_halo_cuda``/``backward_halo_cuda``.
 """
 
 import collections
@@ -376,6 +382,7 @@ class _RowArgs(ctypes.Structure):
 
 
 _MAXF, _MAXD, _MAXC, _MAXP, _NSCALARS = 2, 2, 6, 8, 8
+_MAXF2 = 3  # the fields of csrc/rows2d.cuh
 
 
 class _Rows1DArgs(ctypes.Structure):
@@ -406,6 +413,35 @@ class _Rows1DHaloArgs(ctypes.Structure):
 
     _fields_ = [("base", _Rows1DArgs), ("mask", ctypes.c_void_p)] + [
         (n, ctypes.c_int) for n in ("off", "r_lo", "r_hi")
+    ]
+
+
+class _Rows2DArgs(ctypes.Structure):
+    """Mirror of ``struct Rows2DArgs`` in csrc/rows2d.cuh (the traced row
+    models on 2-D planes)."""
+
+    _fields_ = [
+        ("f", ctypes.c_void_p * _MAXF2),
+        ("data", ctypes.c_void_p * _MAXD),
+        ("consts", ctypes.c_void_p * _MAXC),
+        ("params", ctypes.c_void_p * _MAXP),
+        ("g", ctypes.c_void_p),
+        ("df", ctypes.c_void_p * _MAXF2),
+        ("dparams", ctypes.c_void_p),
+        ("partials", ctypes.c_void_p),
+        ("sums", ctypes.c_void_p),
+        ("ticket", ctypes.c_void_p),
+        ("data_stride", ctypes.c_int * _MAXD),
+        ("param_size", ctypes.c_int * _MAXP),
+    ] + [(n, ctypes.c_int) for n in ("T", "X", "Y", "slab", "nterms", "nparams", "stride")]
+
+
+class _Rows2DHaloArgs(ctypes.Structure):
+    """Mirror of ``struct Rows2DHaloArgs`` in csrc/rows2d.cuh (the masked
+    per-shard 2-D kernels): Rows2DArgs plus the halo layer."""
+
+    _fields_ = [("base", _Rows2DArgs), ("mask", ctypes.c_void_p)] + [
+        (n, ctypes.c_int) for n in ("off", "Tg", "r_lo", "r_hi")
     ]
 
 
@@ -569,6 +605,93 @@ class _Rows1DCuda:
         return _Launch(args, dfields, tuple(dparams), out, (partials,) + params)
 
 
+class _Rows2DCuda:
+    """A traced row model on 2-D planes (T, X, Y) of ``csrc/rows2d.cuh``:
+    model id 0 of the library built from its trace (``rowtrace.Trace``)."""
+
+    model_id = 0
+
+    def __init__(self, trace):
+        self.trace = trace
+
+    def library(self, model):
+        return _traced_library(self.trace.source, 2)
+
+    def names(self, model, stream):
+        """The (forward, backward) entry points: the streaming pair launches
+        the slabbed ones, a per-shard model the masked ones."""
+        if model.halo is not None:
+            if stream:
+                raise NotImplementedError("the masked per-shard kernels have no streaming form")
+            return "odil_rows2d_halo_forward", "odil_rows2d_halo_backward"
+        return "odil_rows2d_forward", "odil_rows2d_backward"
+
+    def launch_shape(self, lib, model, T, shape, grads, sums):
+        """(slab, tiles, blocks, resident blocks) of a launch over T rows of
+        (X, Y) planes: a block a tile of a slab, the slabs whole waves of the
+        resident blocks (a block reads its slab's hist rows before it, and
+        with the gradients walks hist rows past it)."""
+        X, Y = shape
+        mode = int(bool(sums)) | 2 * int(bool(grads)) | 4 * int(model.halo is not None)
+        resident = lib._odil_rows2d_resident[mode]
+        tile_x, tile_y = lib._odil_rows2d_tile[:2]
+        tiles = -(-X // tile_x) * -(-Y // tile_y)
+        slab = _wave_slab(T, tiles, resident, self.trace.hist * (2 if grads else 1))
+        blocks = tiles * -(-T // slab)
+        return slab, blocks, blocks, resident
+
+    def check(self, model, nterms, hist, fields, params, data, consts):
+        tr = self.trace
+        if (nterms, hist, len(fields), len(data), len(consts)) != (tr.nterms, tr.hist, tr.nfields, len(tr.data),
+                                                                    len(tr.consts)):
+            raise ValueError("the call does not match the traced row model's terms, hist, fields, data or consts")
+        halo = (model.halo[0],) if model.halo is not None else ()
+        _check_cuda_tensors(tuple(fields) + tuple(params) + tuple(data) + tuple(consts) + halo, "row-wise")
+        shape = tuple(fields[0].shape)
+        if len(shape) != 3 or shape[0] < 2:
+            raise ValueError(f"the CUDA 2-D row kernels take (T, X, Y) fields with T >= 2, got {shape}")
+        T, X, Y = shape
+        _check_shapes(tuple(fields) + halo, [shape] * len(fields) + [(X, Y)] * len(halo), "traced 2-D")
+        for d, plane in zip(data, tr.data):
+            if tuple(d.shape) != ((T, X, Y) if plane else (T, 1, 1)):
+                raise ValueError(f"the traced 2-D row model takes data of shape {(T, X, Y) if plane else (T, 1, 1)}, "
+                                 f"got {tuple(d.shape)}")
+        for c, (plane, _) in zip(consts, tr.consts):
+            if (tuple(c.shape) != (X, Y)) if plane else c.numel() != 1:
+                raise ValueError(f"the traced 2-D row model takes consts of shape (X, Y) or one element, got "
+                                 f"{tuple(c.shape)}")
+        if tuple(tuple(p.shape) for p in params) != tr.param_shapes:
+            raise ValueError(f"the traced row model takes params {tr.param_shapes}, got "
+                             f"{[tuple(p.shape) for p in params]}")
+
+    def pack(self, lib, model, nterms, fields, params, data, consts, g, grads, sums, cs):
+        T, X, Y = fields[0].shape
+        dev = fields[0].device
+        nparams = sum(p.numel() for p in params)
+        stride = nterms + nparams
+        slab, _, blocks, _ = self.launch_shape(lib, model, T, (X, Y), grads, sums)
+        partials = torch.empty((max(stride, 1), blocks), dtype=torch.float64, device=dev)
+        out = torch.empty((max(stride, 1),), dtype=torch.float32, device=dev)  # sums, then dparams
+        dfields = tuple(torch.empty_like(f) for f in fields) if grads else ()
+        dparams, pos = [], nterms
+        for p in params:
+            dparams.append(out[pos : pos + p.numel()].view(p.shape))
+            pos += p.numel()
+        args = _Rows2DArgs(
+            f=_ptrs(fields, _MAXF2), data=_ptrs(data, _MAXD), consts=_ptrs(consts, _MAXC),
+            params=_ptrs(params, _MAXP), g=g.data_ptr() if g is not None else None, df=_ptrs(dfields, _MAXF2),
+            dparams=out.data_ptr() + 4 * nterms, partials=partials.data_ptr(), sums=out.data_ptr(),
+            ticket=_ticket(dev, cs).data_ptr(),
+            data_stride=(ctypes.c_int * _MAXD)(*[d[0].numel() for d in data]),
+            param_size=(ctypes.c_int * _MAXP)(*[p.numel() for p in params]), T=T, X=X, Y=Y, slab=slab,
+            nterms=nterms, nparams=nparams, stride=stride,
+        )
+        if model.halo is not None:
+            mask, off, Tg, r_lo, r_hi = model.halo
+            args = _Rows2DHaloArgs(base=args, mask=mask.data_ptr(), off=off, Tg=Tg, r_lo=r_lo, r_hi=r_hi)
+        return _Launch(args, dfields, tuple(dparams), out, (partials,) + params)
+
+
 # The heat CUDA model's conductivity nets [1, w1, ..., wL, 1] (tanh hidden
 # layers): the default [1, 5, 5, 1] with keep_init and keep_frozen on is built
 # into rowwise.cu (``HeatRow``, its register-resident param cotangents); every
@@ -696,12 +819,12 @@ def _cuda_model(model, call=None):
     return spec
 
 
-def _type_rows1d(lib, halo=True):
+def _type_rows1d(lib):
     """Declares the rows1d entry points of a library (rowwise.cu,
-    heat_net.cu, or a traced row function's without the masked ones: halo
-    False) and checks its argument structs' layout."""
-    forms = (("odil_rows1d", _Rows1DArgs, "odil_rows1d_args_size"),) + (
-        (("odil_rows1d_halo", _Rows1DHaloArgs, "odil_rows1d_halo_args_size"),) if halo else ())
+    heat_net.cu or a traced row function's) and checks its argument
+    structs' layout."""
+    forms = (("odil_rows1d", _Rows1DArgs, "odil_rows1d_args_size"),
+             ("odil_rows1d_halo", _Rows1DHaloArgs, "odil_rows1d_halo_args_size"))
     for _, _, name in forms:
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
@@ -785,39 +908,43 @@ def _heat_net_library(widths):
 
 def _traced(model, nterms, hist, fields, params, data, consts):
     """(the traced CUDA counterpart, None) of a user row function's call,
-    or (None, the reason it has none): float32 tensors, (T, N) planes with
-    T >= 2, data of shape (T, N) or (T, 1), consts of one element or of
-    the plane's shape ((N,) or (1, N)), no per-shard layer and a trace that
-    ``rowtrace`` takes.  Cached by the row function's
-    ``rowtrace.fingerprint`` and the call's structure (a function without
-    one is traced at every call); nothing is built here."""
-    if model.halo is not None:
-        return None, "a per-shard (halo) row model: the traced kernels have no masked form yet"
-    ndim = fields[0].ndim
-    if ndim != 2:
-        return None, f"{ndim - 1}-D planes: the traced kernels take 1-D planes (T, N)"
+    or (None, the reason it has none): float32 tensors, (T, N) or (T, X, Y)
+    planes with T >= 2, data of shape (T, *plane) or (T, 1[, 1]), consts of
+    one element or of the plane's shape ((N,) or (1, N); (X, Y)) and a trace
+    that ``rowtrace`` takes.  A per-shard model (``halo_model``) traces the
+    row function it wraps, whose masked kernels its launches take.  Cached by
+    the row function's ``rowtrace.fingerprint`` and the call's structure (a
+    function without one is traced at every call); nothing is built here."""
+    row_fn = (model.inner if model.halo is not None else model).row_fn
+    rank = fields[0].ndim - 1
+    if rank not in (1, 2):
+        return None, f"{rank}-D planes: the traced kernels take 1-D planes (T, N) and 2-D planes (T, X, Y)"
     wide = [t.dtype for t in tuple(fields) + tuple(params) + tuple(data) + tuple(consts) if t.dtype != torch.float32]
     if wide:
         return None, f"tensors of dtype {wide[0]}: the traced kernels take float32"
-    T, N = fields[0].shape
+    T, *plane = fields[0].shape
+    plane = tuple(plane)
     shapes = [tuple(t.shape) for t in fields]
-    if T < 2 or shapes != [(T, N)] * len(fields):
-        return None, f"fields of shapes {shapes}: the traced kernels take (T, N) fields with T >= 2"
+    if T < 2 or shapes != [(T,) + plane] * len(fields):
+        return None, f"fields of shapes {shapes}: the traced kernels take (T, *plane) fields with T >= 2"
+    one = (1,) * rank
     for d in data:
-        if tuple(d.shape) not in ((T, N), (T, 1)):
-            return None, f"data of shape {tuple(d.shape)}: the traced kernels take (T, N) or (T, 1)"
+        if tuple(d.shape) not in ((T,) + plane, (T,) + one):
+            return None, f"data of shape {tuple(d.shape)}: the traced kernels take {(T,) + plane} or {(T,) + one}"
+    planes = (plane, (1,) + plane) if rank == 1 else (plane,)
     for c in consts:
-        if c.numel() != 1 and tuple(c.shape) not in ((N,), (1, N)):
-            return None, f"a const of shape {tuple(c.shape)}: the traced kernels take one element or (N,) or (1, N)"
-    data_kinds = tuple(d.shape[-1] == N for d in data)
+        if c.numel() != 1 and tuple(c.shape) not in planes:
+            return None, (f"a const of shape {tuple(c.shape)}: the traced kernels take one element or "
+                          f"{' or '.join(map(str, planes))}")
+    data_kinds = tuple(tuple(d.shape[1:]) == plane for d in data)
     const_kinds = tuple((c.numel() != 1, c.ndim) for c in consts)
-    key = (rowtrace.fingerprint(model.row_fn), nterms, hist, len(fields), data_kinds, const_kinds,
-           tuple(tuple(p.shape) for p in params))
+    pshapes = tuple(tuple(p.shape) for p in params)
+    key = (rowtrace.fingerprint(row_fn), rank, nterms, hist, len(fields), data_kinds, const_kinds, pshapes)
     out = _TRACES.get(key) if key[0] is not None else None
     if out is None:
         try:
-            out = (_traced_spec(rowtrace.trace(model.row_fn, nterms, hist, len(fields), data_kinds, const_kinds,
-                                               key[6])), None)
+            tr = rowtrace.trace(row_fn, nterms, hist, len(fields), data_kinds, const_kinds, pshapes, rank)
+            out = (_traced_spec(tr) if rank == 1 else _Rows2DCuda(tr), None)
         except rowtrace.Refused as e:
             out = (None, str(e))
         if key[0] is not None:
@@ -833,6 +960,12 @@ def _traced(model, nterms, hist, fields, params, data, consts):
 _TRACES = {}
 
 
+def _traced_flags(model, nterms, N):
+    """The traced 1-D model's flags and scalars: no scalars; the flags carry
+    the global row count of a per-shard launch (``rows1d_traced::model_T``)."""
+    return (model.halo[2] if model.halo is not None else 0), ()
+
+
 def _traced_spec(trace):
     """The 1-D row model of a trace: model id 0 of its own library."""
     consts = tuple((1,) * (ndim - 1) + ("N",) if plane else (1,) * ndim for plane, ndim in trace.consts)
@@ -842,20 +975,50 @@ def _traced_spec(trace):
             raise ValueError(f"the traced row model takes params {trace.param_shapes}, got "
                              f"{[tuple(p.shape) for p in params]}")
 
-    spec = _Rows1DCuda(0, trace.hist, trace.nfields, (len(trace.data),), consts, lambda model, nterms, N: (0, ()),
-                       check_params, lambda model: _traced_library(trace.source))
+    spec = _Rows1DCuda(0, trace.hist, trace.nfields, (len(trace.data),), consts, _traced_flags, check_params,
+                       lambda model: _traced_library(trace.source, 1))
     spec.trace = trace
     return spec
 
 
 @functools.lru_cache(maxsize=None)
-def _traced_library(source):
-    """The library of a traced row model's kernels (``rowtrace.Trace.source``,
-    built at first use; one library per source)."""
-    lib = _build.load_generated("rows1d_traced", source)
-    _type_rows1d(lib, halo=False)
-    lib._odil_rows1d_resident = _rows1d_resident(lib, [0], modes=(1, 2, 3))
+def _traced_library(source, rank):
+    """The library of a traced row model's kernels (``rowtrace.Trace.source``
+    on planes of ``rank`` axes, built at first use; one library per
+    source)."""
+    if rank == 1:
+        lib = _build.load_generated("rows1d_traced", source)
+        _type_rows1d(lib)
+        lib._odil_rows1d_resident = _rows1d_resident(lib, [0])
+        return lib
+    lib = _build.load_generated("rows2d_traced", source)
+    _type_rows2d(lib)
     return lib
+
+
+def _type_rows2d(lib):
+    """Declares the rows2d entry points of a traced library, checks its
+    argument structs' layout and reads its tile and resident blocks."""
+    for name in ("odil_rows2d_args_size", "odil_rows2d_halo_args_size"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+    for name, n in (("odil_rows2d_tile", 1), ("odil_rows2d_resident_blocks", 2)):
+        getattr(lib, name).argtypes = [ctypes.c_int] * n
+        getattr(lib, name).restype = ctypes.c_int
+    lib.odil_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.odil_cuda_error_string.restype = ctypes.c_char_p
+    for pre, struct in (("odil_rows2d", _Rows2DArgs), ("odil_rows2d_halo", _Rows2DHaloArgs)):
+        getattr(lib, pre + "_forward").argtypes = [ctypes.c_int, ctypes.POINTER(struct), ctypes.c_void_p]
+        getattr(lib, pre + "_backward").argtypes = [ctypes.c_int, ctypes.POINTER(struct), ctypes.c_int, ctypes.c_void_p]
+        getattr(lib, pre + "_forward").restype = ctypes.c_int
+        getattr(lib, pre + "_backward").restype = ctypes.c_int
+        size = getattr(lib, pre + "_args_size")()
+        if size != ctypes.sizeof(struct):
+            raise RuntimeError(f"{struct.__name__} layout mismatch: C {size} vs ctypes {ctypes.sizeof(struct)} "
+                               f"bytes")
+    lib._odil_rows2d_tile = tuple(int(lib.odil_rows2d_tile(a)) for a in range(5))
+    lib._odil_rows2d_resident = {mode: max(int(lib.odil_rows2d_resident_blocks(0, mode)), 1)
+                                 for mode in (1, 2, 3, 5, 6, 7)}
 
 
 def _cuda_stream(t):
@@ -863,7 +1026,7 @@ def _cuda_stream(t):
 
 
 def _call(lib, spec, name, launch, *extra):
-    head = (spec.model_id,) if isinstance(spec, _Rows1DCuda) else ()
+    head = (spec.model_id,) if isinstance(spec, (_Rows1DCuda, _Rows2DCuda)) else ()
     fn = getattr(lib, name)
     _raise_on(lib, fn(*head, ctypes.byref(launch.args), *extra), name)
 
@@ -1010,10 +1173,11 @@ def backward_halo_rows1d_cuda(model, nterms, hist, fields, params, data, consts,
 backward_halo_rows1d_cuda.launches = 0
 
 
-def _halo_kernels(model):
+def _halo_kernels(model, call=None):
     """The (forward, backward) per-shard wrappers of a wrapped model's CUDA
-    counterpart."""
-    if isinstance(_CUDA_MODELS.get(model.cuda_model), _Rows1DCuda):
+    counterpart (a traced one's for a user row function's ``call``): the
+    1-D row models' or the 2-D ones'."""
+    if isinstance(_cuda_model(model, call), _Rows1DCuda):
         return forward_halo_rows1d_cuda, backward_halo_rows1d_cuda
     return forward_halo_cuda, backward_halo_cuda
 
@@ -1067,7 +1231,10 @@ def _reason(model, call):
 def _forward(model, nterms, hist, fields, params, data, consts, stream=False):
     call = (nterms, hist, fields, params, data, consts)
     if _kernel_route(model, fields[0], call):
-        kernel = _halo_kernels(model)[0] if model.halo is not None else forward_stream_cuda if stream else forward_cuda
+        if model.halo is not None:
+            kernel = _halo_kernels(model, call)[0]
+        else:
+            kernel = forward_stream_cuda if stream else forward_cuda
         return kernel(model, nterms, hist, _contig(fields), _contig(params), _contig(data), _contig(consts))
     return _plain(_forward_plain, fields[0], model, *call, reason=_reason(model, call))
 
@@ -1075,7 +1242,10 @@ def _forward(model, nterms, hist, fields, params, data, consts, stream=False):
 def _backward(model, nterms, hist, fields, params, data, consts, g, with_sums=False, stream=False):
     call = (nterms, hist, fields, params, data, consts)
     if _kernel_route(model, fields[0], call):
-        kernel = _halo_kernels(model)[1] if model.halo is not None else backward_stream_cuda if stream else backward_cuda
+        if model.halo is not None:
+            kernel = _halo_kernels(model, call)[1]
+        else:
+            kernel = backward_stream_cuda if stream else backward_cuda
         return kernel(
             model, nterms, hist, _contig(fields), _contig(params), _contig(data), _contig(consts), g, with_sums
         )

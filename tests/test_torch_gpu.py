@@ -8,11 +8,12 @@ machine without them:
 Tolerances: sums rtol 1e-5; gradients rtol 1e-4 with atol 1e-6 * max|ref|
 (fp32, different summation order); the per-shard kernels' gradients against
 the fp64 plain version within that plus 4 times the fp32 plain version's
-own distance from it (``_close_floor``).  User row functions on 1-D
-planes take the traced kernels (``ops/rowtrace.py``), held to the plain
-version and to the hand kernels of the same function; the others run
-their plain versions on the card (``rowwise.plain_on_card``) and give the
-CPU route's numbers; every heat
+own distance from it (``_close_floor``).  User row functions on 1-D and
+2-D planes take the traced kernels (``ops/rowtrace.py``), unsharded and on
+a shard's block (the masked forms), held to the plain version and to the
+hand kernels of the same function; those the tracer refuses run their
+plain versions on the card (``rowwise.plain_on_card``) and give the CPU
+route's numbers; every heat
 configuration takes the row kernels (``csrc/heat_net.cu`` beyond the
 default net).  The probes (``csrc/probes.cu``): copy3 the bits of three
 clones, fma within rtol 1e-5 (both round each step once); the mg kernel's
@@ -228,10 +229,15 @@ def test_generic_loss_terms_autograd_match_plain(cuda):
         _close(a, b, 1e-4, 1e-6)
 
 
+def _reach_y2_row_fn(it, T_, rows, data_rows, params, consts):
+    """Six terms that read u two cells along y: past the tracer's reach."""
+    return tuple(rows[0][0] - torch.roll(rows[0][1], 2, -1) for _ in range(6))
+
+
 def test_generic_wrappers_refuse_other_models_and_types(cuda):
     fields, consts = _fields(cuda, 8, 16, 16)
     with pytest.raises(NotImplementedError):
-        trw.forward_cuda(trw.RowModel(_model(K).row_fn), 6, 1, fields, (), (), consts)
+        trw.forward_cuda(trw.RowModel(_reach_y2_row_fn), 6, 1, fields, (), (), consts)
     with pytest.raises(TypeError):
         trw.forward_cuda(_model(K), 6, 1, tuple(f.double() for f in fields), (), (), consts)
     with pytest.raises(TypeError):
@@ -1069,27 +1075,35 @@ def _heat_args(**kw):
     return argparse.Namespace(**a)
 
 
-def _user_operator(ctx):
+def _user_operator(ctx, refused=True):
     """The flagship's kernel call with its row function as a user's: no
-    CUDA model, no hand adjoint."""
+    CUDA model, no hand adjoint; with `refused`, one term reads u two cells
+    along y (times zero), past the tracer's reach."""
     d = tvt._kernel_decl(ctx)
-    return ctx.rowwise_terms(trw.RowModel(d["row_fn"].row_fn), d["keys"], consts=d["consts"], nterms=d["nterms"],
-                             hist=1, halox=1)
+    fn = d["row_fn"].row_fn
+    if refused:
+        def fn(it, T, rows, data_rows, params, consts, base=fn):
+            res = base(it, T, rows, data_rows, params, consts)
+            return (res[0] + 0.0 * torch.roll(rows[0][0], 2, -1),) + tuple(res[1:])
+
+    return ctx.rowwise_terms(trw.RowModel(fn), d["keys"], consts=d["consts"], nterms=d["nterms"], hist=1, halox=1)
 
 
-@pytest.mark.parametrize("which", ["heat_keep_init_0", "user_row_fn"])
+@pytest.mark.parametrize("which", ["heat_keep_init_0", "user_row_fn", "user_row_fn_traced"])
 def test_plain_on_card_route_matches_cpu_route(cuda, which):
     """A user row function through ctx.rowwise_terms: the one-pass route
-    runs its plain version on the card (plain_on_card once a call, no
-    row-wise kernel); heat with keep_init=0, which declares its CUDA model,
-    takes the kernel (one backward+sums a call, no plain_on_card).  Both
-    give the CPU route's terms and gradients."""
+    runs its plain version on the card where the tracer refuses it
+    (plain_on_card once a call, no row-wise kernel) and the traced 2-D
+    kernel where it takes it (one backward+sums a call, no plain_on_card);
+    heat with keep_init=0, which declares its CUDA model, takes the kernel
+    (one backward+sums a call, no plain_on_card).  All give the CPU route's
+    terms and gradients."""
     if which == "heat_keep_init_0":
         build = lambda d: tht.build(nt=16, nx=16, kernel="pallas", device=d, args=_heat_args())
     else:
         def build(d):
             p, s, e = tvt.build(nt=8, nx=32, ny=32, kernel="pallas", device=d)
-            p.operator = _user_operator
+            p.operator = lambda ctx: _user_operator(ctx, refused=which == "user_row_fn")
             return p, s, e
     cp, cs, _ = build("cpu")
     gp, gs, _ = build(cuda)
@@ -1099,7 +1113,7 @@ def test_plain_on_card_route_matches_cpu_route(cuda, which):
     cfn, gfn = cp.make_loss_grad_fn(cs), gp.make_loss_grad_fn(gs)
     before = (trw.plain_on_card.launches, trw.backward_cuda.launches, trw.forward_cuda.launches)
     outs = [gfn(arrays_from_numpy(a, device=cuda), dict(gp.tracers, epoch=e)) for e, a in enumerate(states)]
-    plain, kernel = (0, 2) if which == "heat_keep_init_0" else (2, 0)
+    plain, kernel = (2, 0) if which == "user_row_fn" else (0, 2)
     assert (trw.plain_on_card.launches, trw.backward_cuda.launches, trw.forward_cuda.launches) == (
         before[0] + plain, before[1] + kernel, before[2])
     for e, (arrays, ((_, (gterms, _)), ggrads)) in enumerate(zip(states, outs)):
@@ -1733,3 +1747,194 @@ def test_traced_route_matches_cpu_route(cuda):
             _close(a, b, 1e-5, 0.0)
         for a, b in zip(ggrads, cgrads):
             _close(a, b, 1e-4, 1e-6)
+
+
+# -- User row functions on 2-D planes and the masked traced kernels ----------------
+
+
+def _traced2d_case(device, T, X, Y, seed=23):
+    """The veltracer's row function bare (a user's: no CUDA model, no hand
+    adjoint) beside its hand model, at (T, X, Y) with the steps of the grid,
+    seeded random fields and const planes."""
+    rng = np.random.default_rng(seed)
+    mk = lambda *shape: torch.as_tensor((0.3 * rng.normal(size=shape)).astype(np.float32), device=device)
+    dt, dx, dy = 1.0 / (T - 1), 1.0 / X, 1.0 / Y
+    hand = trmg.RowModel(tvt._make_row_fn(dt, dx, dy, **K), tvt._make_row_vjp(dt, dx, dy, **K),
+                         cuda_model="veltracer", scalars=dict(dt=dt, dx=dx, dy=dy, **K))
+    user = trw.RowModel(hand.row_fn)
+    return user, hand, (6, 1, tuple(mk(T, X, Y) for _ in range(3)), (), (), (mk(X, Y), mk(X, Y)))
+
+
+def _net2d_case(device, T, X, Y, seed=29):
+    rng = np.random.default_rng(seed)
+    mk = lambda *shape: torch.as_tensor((0.3 * rng.normal(size=shape)).astype(np.float32), device=device)
+    mask = torch.as_tensor(rng.integers(0, 2, (T, X, Y)).astype(np.float32), device=device)
+    params = (mk(4, 1), mk(4), mk(1, 4), mk(1))
+    import chip_smoke
+
+    # chip_smoke.w_net_row_fn: hist 2, two fields, a [1, 4, 1] net's params,
+    # (T, X, Y) and (T, 1, 1) data, the row count.
+    return trw.RowModel(chip_smoke.w_net_row_fn), (2, 2, (mk(T, X, Y), mk(T, X, Y)), params, (mask, mk(T, 1, 1)), ())
+
+
+# The veltracer's steps follow the grid, so each shape builds a library.
+TRACED2D_SHAPES = [(65, 256, 256), (65, 512, 512), (9, 3, 5), (17, 40, 72), (34, 130, 256)]
+NET2D_SHAPES = [(33, 64, 96), (7, 5, 3)]
+
+
+def _shard_mask(X, Y, device):
+    m = torch.ones((X, Y), device=device)
+    m[0] = m[-1] = 0.0
+    return m
+
+
+@pytest.fixture(scope="module")
+def traced2d_builds():
+    """Every 2-D traced case's library and the masked 1-D ones', built
+    together (one nvcc each)."""
+    import concurrent.futures
+
+    from odil_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    jobs = set()
+    for shape in TRACED2D_SHAPES:
+        user, _, call = _traced2d_case("cuda", *shape)
+        jobs.add(("rows2d_traced", trw._traced(user, *call)[0].trace.source))
+    for shape in NET2D_SHAPES:
+        user, call = _net2d_case("cuda", *shape)
+        jobs.add(("rows2d_traced", trw._traced(user, *call)[0].trace.source))
+    for name in ("heat_lane", "wave"):
+        for shape in ((18, 64), (258, 1024)):
+            user, _, call = _traced_case(name, "cuda", *shape)
+            jobs.add(("rows1d_traced", trw._traced(user, *call)[0].trace.source))
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
+        list(ex.map(lambda job: _build.compile_generated(*job), jobs))
+
+
+@pytest.mark.parametrize("shape", TRACED2D_SHAPES)
+def test_traced_2d_kernels_match_plain_and_hand(cuda, traced2d_builds, shape):
+    """The veltracer's row function bare takes the traced 2-D kernels:
+    forward, backward+sums, backward and the streaming pair, each against the
+    plain version (autograd of the row function) in fp64 and against the
+    hand kernel (rows_kernel) on the same inputs; no plain_on_card."""
+    user, hand, call = _traced2d_case(cuda, *shape)
+    nterms, hist, fields, params, data, consts = call
+    assert trw._kernel_route(user, fields[0], call) and isinstance(trw._traced(user, *call)[0], trw._Rows2DCuda)
+    g = torch.linspace(0.5, 1.5, nterms, device=cuda) / fields[0].numel()
+    wide = (user, nterms, hist, _wide(fields), _wide(params), _wide(data), _wide(consts))
+    before, plain = _counts(), trw.plain_on_card.launches
+    for fwd, bwd in ((trw.forward_cuda, trw.backward_cuda), (trw.forward_stream_cuda, trw.backward_stream_cuda)):
+        for with_sums in (True, False):
+            kd, _, ks = bwd(user, *call, g, with_sums)
+            hd, _, hs = bwd(hand, *call, g, with_sums)
+            pd, _, ps = trw._backward_plain(*wide, g.double(), with_sums)
+            for a, b, c in zip(kd, pd, hd):
+                _close_max(a, b)
+                _close_max(a, c)
+            if with_sums:
+                _close(ks, ps, 1e-5, 0.0)
+                _close(ks, hs, 1e-5, 0.0)
+        kf = fwd(user, *call)
+        _close(kf, trw._forward_plain(*wide), 1e-5, 0.0)
+        _close(kf, fwd(hand, *call), 1e-5, 0.0)
+    after = _counts()
+    assert {k: after[k] - before[k] for k in after} == dict(fwd=2, bwd=4, sfwd=2, sbwd=4)
+    assert trw.plain_on_card.launches == plain
+
+
+@pytest.mark.parametrize("shape", NET2D_SHAPES)
+def test_traced_2d_kernels_with_params_and_data(cuda, traced2d_builds, shape):
+    """A hist-2 row function with params, (T, X, Y) and (T, 1, 1) data:
+    forward and backward (sums on and off) against the plain version in
+    fp64, the param cotangents too."""
+    user, call = _net2d_case(cuda, *shape)
+    nterms, hist, fields, params, data, consts = call
+    g = torch.linspace(0.5, 1.5, nterms, device=cuda) / fields[0].numel()
+    wide = (user, nterms, hist, _wide(fields), _wide(params), _wide(data), _wide(consts))
+    for with_sums in (True, False):
+        kd, kp, ks = trw.backward_cuda(user, *call, g, with_sums)
+        pd, pp, ps = trw._backward_plain(*wide, g.double(), with_sums)
+        assert len(kp) == len(params)
+        for a, b in zip(list(kd) + list(kp), list(pd) + list(pp)):
+            _close_max(a, b)
+        if with_sums:
+            _close(ks, ps, 1e-5, 0.0)
+    _close(trw.forward_cuda(user, *call), trw._forward_plain(*wide), 1e-5, 0.0)
+
+
+@pytest.mark.parametrize("shape", [(34, 130, 256), (9, 3, 5)])
+def test_traced_2d_masked_kernels_match_plain_and_hand(cuda, traced2d_builds, shape):
+    """The veltracer's row function bare on a shard's block: the masked 2-D
+    traced kernels (forward_halo_cuda, backward_halo_cuda) at two row
+    offsets against the plain version of the wrapped function in fp64 and
+    against the hand masked kernel on the same inputs."""
+    user, hand, call = _traced2d_case(cuda, *shape)
+    nterms, hist, fields, params, data, consts = call
+    T, X, Y = shape
+    mask = _shard_mask(X, Y, cuda)
+    g = torch.linspace(0.5, 1.5, nterms, device=cuda) / fields[0].numel()
+    for off, Tg, lo, hi in ((-1, 2 * T - 3, 1, T), (T - 3, 2 * T - 3, 2, T)):
+        hu, hh = trw.halo_model(user, mask, off, Tg, lo, hi), trw.halo_model(hand, mask, off, Tg, lo, hi)
+        before = (trw.forward_halo_cuda.launches, trw.backward_halo_cuda.launches)
+        kd, _, ks = trw._halo_kernels(hu, call)[1](hu, *call, g, True)
+        kf = trw.forward_halo_cuda(hu, *call)
+        assert (trw.forward_halo_cuda.launches, trw.backward_halo_cuda.launches) == (before[0] + 1, before[1] + 1)
+        hd, _, hs = trw.backward_halo_cuda(hh, *call, g, True)
+        pd, pp, ps = trw._backward_plain(hu, nterms, hist, _wide(fields), (), (), _wide(consts), g.double(), True)
+        pd32, _, _ = trw._backward_plain(hu, nterms, hist, fields, (), (), consts, g, True)
+        for a, b, b64, c in zip(kd, pd32, pd, hd):
+            _close_floor(a, b, b64)
+            _close_floor(a, c, b64)
+        _close(ks, ps, 1e-5, 0.0)
+        _close(ks, hs, 1e-5, 0.0)
+        _close(kf, trw._forward_plain(hu, nterms, hist, _wide(fields), (), (), _wide(consts)), 1e-5, 0.0)
+
+
+@pytest.mark.parametrize("name", ["heat_lane", "wave"])
+@pytest.mark.parametrize("shape", [(18, 64), (258, 1024)])
+def test_traced_1d_masked_kernels_match_plain_and_hand(cuda, traced2d_builds, name, shape):
+    """A bare heat or wave row function on a shard's block: the masked 1-D
+    traced kernels (the global row and row count, the masks) at two row
+    offsets against the plain version of the wrapped function in fp64 and
+    the hand masked kernel; the 1-D masked wrappers count them."""
+    user, hand, call = _traced_case(name, cuda, *shape)
+    nterms, hist, fields, params, data, consts = call
+    T, N = shape
+    mask = torch.ones(N, device=cuda)
+    mask[:2] = 0.0
+    g = torch.linspace(0.5, 1.5, nterms, device=cuda) / fields[0].numel()
+    wide = (nterms, hist, _wide(fields), _wide(params), _wide(data), _wide(consts))
+    for off, Tg, lo, hi in ((-1, 4 * T, 1, T - 1), (3 * T - 7, 4 * T, 2, T)):
+        hu, hh = trw.halo_model(user, mask, off, Tg, lo, hi), trw.halo_model(hand, mask, off, Tg, lo, hi)
+        assert trw._halo_kernels(hu, call) == (trw.forward_halo_rows1d_cuda, trw.backward_halo_rows1d_cuda)
+        before = trw.backward_halo_rows1d_cuda.launches
+        kd, kp, ks = trw.backward_halo_rows1d_cuda(hu, *call, g, True)
+        assert trw.backward_halo_rows1d_cuda.launches == before + 1
+        hd, hp, hs = trw.backward_halo_rows1d_cuda(hh, *call, g, True)
+        pd, pp, ps = trw._backward_plain(hu, *wide, g.double(), True)
+        for a, b, c in zip(list(kd) + list(kp), list(pd) + list(pp), list(hd) + list(hp)):
+            _close(a, b, 1e-4, 1e-6)
+            _close(a, c, 1e-4, 1e-6)
+        _close(ks, ps, 1e-5, 0.0)
+        _close(ks, hs, 1e-5, 0.0)
+        _close(trw.forward_halo_rows1d_cuda(hu, *call), trw._forward_plain(hu, *wide), 1e-5, 0.0)
+
+
+@pytest.mark.parametrize("shape", [(65, 256, 256), (34, 130, 256)])
+def test_traced_2d_kernels_repeat_their_bits(cuda, traced2d_builds, shape):
+    """No atomics: the traced 2-D backward+sums gives the same bits call
+    after call, the streaming launch the slabbed one's, and the masked form
+    its own bits again."""
+    user, _, call = _traced2d_case(cuda, *shape)
+    g = torch.full((6,), 1.0 / call[2][0].numel(), device=cuda)
+    outs = []
+    for bwd in (trw.backward_cuda, trw.backward_cuda, trw.backward_stream_cuda):
+        kd, kp, ks = bwd(user, *call, g, True)
+        outs.append(_digest(list(kd) + [ks]))
+    assert outs[0] == outs[1] == outs[2]
+    T, X, Y = shape
+    hu = trw.halo_model(user, _shard_mask(X, Y, cuda), -1, 2 * T - 3, 1, T)
+    masked = [_digest(list(trw.backward_halo_cuda(hu, *call, g, True)[0])) for _ in range(2)]
+    assert masked[0] == masked[1]

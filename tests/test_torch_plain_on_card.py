@@ -1,8 +1,9 @@
 """Row models without a CUDA counterpart on the card: the route is chosen
-from the model's declaration (``cuda_model``), never from an exception.  A
-model that names none runs its plain version on the card's tensors through
-``rowwise.plain_on_card`` (its own launch counter); a model that names one
-launches that kernel.  On the CPU a tensor subclass that reports
+from the model's declaration (``cuda_model``) and, for a user row function,
+the tracer's verdict, never from an exception.  A model that names none and
+whose row function the tracer refuses runs its plain version on the card's
+tensors through ``rowwise.plain_on_card`` (its own launch counter); a
+traced one and a model that names a kernel launch that kernel.  On the CPU a tensor subclass that reports
 ``is_cuda`` stands for a card tensor, and the CUDA wrappers are replaced by
 recorders.  Heat with ``keep_init=0`` and with a [1, 8, 1] conductivity net
 declares the heat CUDA model with its hand adjoint (every heat
@@ -48,6 +49,13 @@ def _row_fn(it, T, rows, data_rows, params, consts):
     return (u - um + v * consts[0], (v - vm) * 2.0 + torch.roll(u, 1, -1))
 
 
+def _refused_row_fn(it, T, rows, data_rows, params, consts):
+    """``_row_fn`` reading u two cells along the plane: past the traced
+    kernels' reach, so it has no CUDA counterpart."""
+    (u, um), (v, vm) = rows
+    return (u - um + v * consts[0], (v - vm) * 2.0 + torch.roll(u, 2, -1))
+
+
 def _record(monkeypatch, module, names):
     calls = []
     for name in names:
@@ -64,16 +72,16 @@ def test_route_follows_the_declaration(cuda_model, on_card):
 
 
 def test_model_without_cuda_counterpart_runs_plain_on_card(monkeypatch):
-    """Forward, backward and the one-pass call of a user row function on
-    card tensors: the plain versions, counted by plain_on_card, no kernel
-    wrapper reached; the CPU route's numbers."""
+    """Forward, backward and the one-pass call of a user row function that
+    the tracer refuses, on card tensors: the plain versions, counted by
+    plain_on_card, no kernel wrapper reached; the CPU route's numbers."""
     calls = _record(monkeypatch, trw, ["forward_cuda", "backward_cuda", "forward_stream_cuda", "backward_stream_cuda",
                                        "forward_halo_cuda", "backward_halo_cuda"])
     rng = np.random.default_rng(4)
     mk = lambda *shape: torch.as_tensor(rng.normal(size=shape), dtype=torch.float32)
     fields = (mk(6, 5, 4), mk(6, 5, 4))
     consts = (mk(5, 4),)
-    model = trw.RowModel(_row_fn)
+    model = trw.RowModel(_refused_row_fn)
     g = torch.tensor([0.3, 0.7])
     before = trw.plain_on_card.launches
     card = trw._forward(model, 2, 1, _card(fields), (), (), consts)
@@ -89,6 +97,29 @@ def test_model_without_cuda_counterpart_runs_plain_on_card(monkeypatch):
     assert calls == []
     assert torch.equal(sums.as_subclass(torch.Tensor), trw.rowwise_loss_and_grads(model, fields, consts=consts,
                                                                                   nterms=2)[0])
+
+
+def test_traceable_2d_row_function_takes_the_traced_route(monkeypatch):
+    """``_row_fn`` on 2-D planes is within the tracer's set: on card tensors
+    its forward, backward and streaming calls reach the kernel wrappers
+    (the traced 2-D row model, ``rowwise._Rows2DCuda``) and plain_on_card
+    does not move; on CPU tensors it runs the plain version."""
+    calls = _record(monkeypatch, trw, ["forward_cuda", "backward_cuda", "forward_stream_cuda", "backward_stream_cuda"])
+    rng = np.random.default_rng(4)
+    mk = lambda *shape: torch.as_tensor(rng.normal(size=shape), dtype=torch.float32)
+    fields, consts = (mk(6, 5, 4), mk(6, 5, 4)), (mk(5, 4),)
+    model = trw.RowModel(_row_fn)
+    g = torch.tensor([0.3, 0.7])
+    before = trw.plain_on_card.launches
+    call = (2, 1, _card(fields), (), (), _card(consts))
+    assert isinstance(trw._traced(model, *call)[0], trw._Rows2DCuda)
+    trw._forward(model, *call)
+    trw._backward(model, *call, g, True)
+    trw._forward(model, *call, stream=True)
+    trw._backward(model, *call, g, False, stream=True)
+    assert calls == ["forward_cuda", "backward_cuda", "forward_stream_cuda", "backward_stream_cuda"]
+    assert trw.plain_on_card.launches == before
+    assert not trw._kernel_route(model, fields[0], (2, 1, fields, (), (), consts))
 
 
 def test_model_naming_a_kernel_never_takes_plain_on_card(monkeypatch):

@@ -15,8 +15,9 @@
   The heat cases with a keep flag off are held against the JAX package's
   XLA route (its plain reference off the TPU, ``rowwise_loss_terms``)
   instead of interpret mode, whose trace of the net takes ~5 s a case;
-- the refusals (a field read at x+2, 2-D planes, 49 params, a Python branch
-  on a value, a captured tensor, shapes the kernels do not take): each
+- the refusals (a field read at x+2, a 2-D plane read at y+2, 49 params, a
+  Python branch on a value, a captured tensor, shapes the kernels do not
+  take): each
   names its reason, starts no build and takes ``plain_on_card``;
 - the operation count: an expression computed at two shifts (a net at
   both faces) counts once;
@@ -555,7 +556,7 @@ def _captured(it, T_, rows, data_rows, params, consts):
 
 REFUSALS = {
     "reach_2": (_reach2, (9, 16), (), "x-2"),
-    "plane_2d": (_plain_diffusion, (9, 4, 4), (), "2-D planes"),
+    "plane_2d": (_reach2, (9, 4, 4), (), "y-2"),  # a 2-D plane read past the reach
     "params_49": (_many_params, (9, 16), ((49,),), "49 param elements"),
     "python_branch": (_branch, (9, 16), (), "Python branch"),
     "captured_tensor": (_captured, (9, 16), (), "Tensor of shape \\(1,\\) captured"),

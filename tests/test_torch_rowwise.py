@@ -216,11 +216,19 @@ def test_stream_raises_and_block_rows_changes_nothing():
 
 
 def test_cuda_wrappers_refuse_cpu_and_unknown_models():
-    """The CUDA wrappers take only the veltracer model, its 3 fields and 2
-    const planes, float32 CUDA tensors: no fallback."""
+    """The CUDA wrappers take the veltracer model with its 3 fields and 2
+    const planes, or a row function the tracer takes, on float32 CUDA
+    tensors: no fallback.  A row function the tracer refuses (a read two
+    cells along y) has no CUDA kernel."""
     _, model, nterms, hist, (fields, _, _, consts) = _case("all_terms/hand", 8, np.float32)
     f, c = _torch(fields), _torch(consts)
+
+    def reach2(it, T_, rows, data_rows, params, consts_):
+        return tuple(rows[0][0] - torch.roll(rows[0][1], 2, -1) for _ in range(nterms))
+
     with pytest.raises(NotImplementedError):
+        trw.forward_cuda(trw.RowModel(reach2), nterms, hist, f, (), (), c)
+    with pytest.raises(TypeError):  # traced, but on CPU tensors
         trw.forward_cuda(model, nterms, hist, f, (), (), c)
     cuda_model = trw.RowModel(model.row_fn, cuda_model="veltracer")
     with pytest.raises(TypeError):
