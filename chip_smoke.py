@@ -11,9 +11,9 @@ Phases, any failure exits non-zero and prints no result:
 1. Build: the CUDA libraries of ``odil_torch/csrc/`` (``rowwise_mg.cu``,
    ``rowwise.cu``, ``probes.cu``, the two ablation builds of
    ``rowwise_mg.cu`` (``ODIL_MG_ABLATION``), ``heat_net.cu`` for each of
-   phase u's conductivity nets, and phase l's traced row models: the row
-   functions of heat and wave traced at the start, before any kernel runs,
-   their generated sources) compile with nvcc for sm_90a into
+   phase u's conductivity nets, and phases l, w and x's traced row models:
+   the row functions traced at the start, before any kernel runs, their
+   generated sources) compile with nvcc for sm_90a into
    ``build/odil_torch/``, one nvcc per source, variant, net or trace,
    started together; all but the first two are waited for before phase l.
 2. Kernels vs their plain PyTorch versions, on seeded random fields and the
@@ -175,6 +175,41 @@ Phases, any failure exits non-zero and prints no result:
       every 10-epoch row within 1% of the plain operator trained the same
       way, and its loss-only path; the generic case W_BIG_EPOCHS gradient
       steps through ``rowwise_loss_and_grads``.
+   x. A user's row function on the mg route on the traced walk
+      (``csrc/mg_rows2d.cuh``: the hand walk's rebuild and in-walk dP,
+      ``csrc/mg_common.cuh``, with ``rows2d.cuh``'s model evaluation;
+      ``Trace.mg_source``, built with the others at the start).  Builds:
+      phase w's veltracer row function at 256^2 (also depth 2 and the
+      shards') and 512^2 and its generic case, each library's build
+      seconds, ptxas registers and spills, shared memory a block by form
+      against ``rowtrace.mg2d_smem``, blocks an SM.
+      Kernels: forward, backward+sums and backward at t0 (65,256,256)x3
+      with P (33,128,128)x3; backward+sums at (65,512,512)x3; depth 2 with
+      and without the sums (t1 (33,128,128)x3, P2 (17,64,64)x3); the local
+      block of shard (1, 1) of t:2,x:2 at 256^2 and 512^2; the generic case
+      with its params and data over a seeded level-1 partial -- each
+      against the plain version in fp64 (``close_floor``) and the hand walk
+      on the same inputs, its bits call after call, the launches on the
+      built-in mg wrappers' counters and none on ``plain_on_card``.  Host:
+      the median host time of X_HOST_CALLS backward+sums calls at 256^2
+      from the dispatcher to its return, traced and hand route, and of the
+      traced route's decision alone (not gated).  Paths,
+      the row function bare through ``bare_row_model`` (a stand-in for
+      ``vt._row_model`` within the phase): ``kernel="pallas_mg"`` at
+      (64,256,256) for X_EPOCHS epochs, one traced backward+sums an epoch
+      and no other kernel of the mg, row-wise or plain routes (the kernels
+      of an epoch by name: the walk, no ``mg_rows_kernel``), epoch 0 within
+      1e-5 and every row within 15% of ``ref_velt_256.csv``, every 10-epoch
+      row within 1% of phase a's hand route, its ms/epoch beside a.'s, and
+      its loss-only path; at 512^2, X_BIG_EPOCHS epochs, epoch 0 within 1e-5
+      of the plain operator; at depth 2, X_HALO_EPOCHS epochs, every row
+      within 1% of the depth-1 run; the halo mg route on t:2,x:2 at 256^2
+      (X_HALO_EPOCHS epochs, four traced local walks an epoch, every row
+      within 1% of the unsharded run) and 512^2 (X_HALO512_EPOCHS, epoch 0
+      against the plain operator); the generic case X_BIG_EPOCHS Adam steps
+      over its t0 terms, partial and params through
+      ``rowwise_mg_loss_and_grads``; a refused row function (a read at x+2)
+      on the mg route runs ``plain_on_card`` once with its reason.
    m. The training harness: the command-line examples run as a user runs
       them, through ``util.optimize``, ``make_callback`` and ``History``,
       each in a new directory under ``build/`` (the working directory and
@@ -456,6 +491,7 @@ The line before the last is the kernel table as JSON; the last line is
 
 import argparse
 import concurrent.futures
+import contextlib
 import csv
 import json
 import os
@@ -3773,6 +3809,472 @@ def user2d_phase(torch, np, counters, cases, builds, report, launches, loops, pa
     return timed, hand_calls, slabbed
 
 
+# X_EPOCHS: the bare veltracer on kernel="pallas_mg" at 256^2 (phase a's
+# route); X_BIG_EPOCHS its 512^2 run and the generic case's Adam loop;
+# X_HALO_EPOCHS its halo mg route on t:2,x:2 and its depth-2 run at 256^2;
+# X_HALO512_EPOCHS the halo mg route at 512^2.
+X_EPOCHS, X_BIG_EPOCHS, X_HALO_EPOCHS, X_HALO512_EPOCHS = 100, 10, 20, 10
+X_HOST_CALLS = 200  # the calls that time the mg route's host work
+X_F0, X_F1 = (0.7, 1.1, 0.9), (0.8, 1.2, 0.6)  # the level factors of the kernel checks' inputs
+
+
+def x_reach2_row_fn(it, T_, rows, data_rows, params, consts):
+    """A row function on the veltracer's fields that reads u two cells away
+    along x: past the traced kernels' reach (phase x's refused function)."""
+    import torch
+
+    (u, up), _, _ = rows
+    return (u - torch.roll(up, 2, -2),) * 6
+
+
+def x_cases(torch, rw, rmg, w, dev):
+    """Phase x's traced mg cases, traced here before any build so that their
+    libraries build with the others: {name: (form, the bare model, the hand
+    model or None, the call's inputs, its traced counterpart)} -- the
+    veltracer's row function at 256^2 and 512^2 on the whole plane (the
+    models and const planes of phase w's cases), at depth 2 at 256^2, on
+    shard (1, 1) of t:2,x:2 at 256^2 and 512^2 (the local blocks of
+    ``halo_inputs``), and phase w's generic case (``w_net_row_fn``: hist 2,
+    params, data) over a level-1 partial."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    rand = lambda *shape: 0.3 * torch.randn(shape, generator=gen, device=dev)
+    cases = {}
+    for size in ("256", "512"):
+        user, hand, (nt_, h, fs, _, _, cs), _ = w[f"velt_{size}"]
+        T, X, Y = fs[0].shape
+        t0s = tuple(rand(T, X, Y) for _ in range(3))
+        coarse = tuple(rand(T // 2 + 1, X // 2, Y // 2) for _ in range(3))
+        inputs = dict(nterms=nt_, hist=h, f0s=X_F0, t0s=t0s, coarse=coarse, consts=cs, params=(), data=())
+        cases[f"velt_{size}"] = ("whole", user, hand, inputs)
+        if size == "256":
+            Tc = T // 2 + 1
+            t1s = tuple(rand(Tc, X // 2, Y // 2) for _ in range(3))
+            P2 = tuple(rand(Tc // 2 + 1, X // 4, Y // 4) for _ in range(3))
+            cases["velt_lvl2"] = ("lvl2", user, hand, dict(inputs, coarse=P2, t1s=t1s, f1s=X_F1))
+        _, shards = halo_inputs(torch, rw, rmg, hand, cs, SIZES[size], rand, dev)
+        meta, _, _, hcs, mm, mt0, mP, mh = shards[3]
+        cases["velt_shard" if size == "256" else "velt_shard_512"] = (
+            "local", rw.halo_model(user, *mm.halo), mm,
+            dict(inputs, t0s=mt0, coarse=mP, heads=mh, x0=meta["x0"], consts=hcs))
+    user, _, (nt_, h, fs, ps, ds, cs), _ = w["net"]
+    T, X, Y = fs[0].shape
+    coarse = tuple(rand(T // 2 + 1, X // 2, Y // 2) for _ in fs)
+    cases["net"] = ("whole", user, None, dict(nterms=nt_, hist=h, f0s=X_F0[:2], t0s=fs, coarse=coarse, consts=cs,
+                                               params=ps, data=ds))
+    out = {}
+    for name, (form, user, hand, a) in cases.items():
+        call = (a["nterms"], a["hist"], a["t0s"], a["params"], a["data"], a["consts"])
+        spec, reason = rmg._traced_mg(user, call, form, a["coarse"][0].shape[1] if form == "local" else None)
+        if spec is None:
+            fail(f"phase x: the {name} row function has no traced mg walk: {reason}")
+        out[name] = (form, user, hand, a, spec)
+    return out
+
+
+def x_builds(cases):
+    """The build jobs of phase x's traced mg libraries (one a source)."""
+    jobs = {}
+    for name, (_, _, _, _, spec) in cases.items():
+        src = spec.trace.mg_source
+        jobs.setdefault(src, ("generated", "mg2d_traced", src, f"x_{name}"))
+    return list(jobs.values())
+
+
+@contextlib.contextmanager
+def bare_row_model(vt, rw):
+    """Within the block, ``vt._row_model`` gives the veltracer's row function
+    bare (no CUDA model, no hand adjoint), as a user's variant of the
+    flagship's residual reaches the mg route (``operator_fused_mg``, its
+    ``loss_and_grads`` and the halo mg route's declaration)."""
+    hand = vt._row_model
+
+    def bare(ctx):
+        model, nterms = hand(ctx)
+        return rw.RowModel(model.row_fn), nterms
+
+    vt._row_model = bare
+    try:
+        yield
+    finally:
+        vt._row_model = hand
+
+
+def x_calls(rmg, form, model, a, g, sums):
+    """The kernel wrapper's call of a phase x case's form on `model` (the
+    bare one, or the hand one on the same inputs)."""
+    nt_, h, f0s, t0s, coarse, cs, ps, ds = (a[k] for k in ("nterms", "hist", "f0s", "t0s", "coarse", "consts",
+                                                             "params", "data"))
+    if form == "lvl2":
+        return rmg.backward_mg2_cuda(model, nt_, h, f0s, a["f1s"], t0s, a["t1s"], coarse, cs, g, sums, ps, ds)
+    if form == "local":
+        return rmg.backward_mg_local_cuda(model, nt_, h, f0s, t0s, coarse, a["heads"], a["x0"], cs, g, ps, ds)
+    if g is None:
+        return rmg.forward_mg_cuda(model, nt_, h, f0s, t0s, coarse, cs, ps, ds)
+    return rmg.backward_mg_cuda(model, nt_, h, f0s, t0s, coarse, cs, g, sums, ps, ds)
+
+
+def x_plain(torch, rmg, rw, form, model, a, g, sums, wide):
+    """The plain version of a phase x case's form (in fp64 where `wide`):
+    (cotangents..., sums); the forward's sums alone where g is None."""
+    cast = (lambda ts: tuple(t.double() for t in ts)) if wide else tuple
+    nt_, h, f0s = a["nterms"], a["hist"], a["f0s"]
+    t0s, coarse, cs, ps, ds = (cast(a[k]) for k in ("t0s", "coarse", "consts", "params", "data"))
+    g = g.double() if wide and g is not None else g
+    if g is None:
+        return (rmg._forward_mg_plain(model, nt_, h, f0s, t0s, coarse, cs, ps, ds),)
+    if form == "lvl2":
+        t1s = cast(a["t1s"])
+        d0, dP1, dpar, s = rmg._backward_mg_plain(model, nt_, h, f0s, t0s, coarse, cs, g, sums, (t1s, a["f1s"]), ps,
+                                                  ds)
+        W1x, W1y = rmg._interp_matrices(*coarse[0].shape[1:], t0s[0].dtype, t0s[0].device)
+        return (d0,) + rmg._split_dp1(dP1, a["f1s"], W1x, W1y) + (dpar, s)
+    if form == "local":
+        if wide:
+            model = rw.halo_model(model.inner, model.halo[0].double(), *model.halo[1:])
+        return rmg._backward_mg_local_plain(model, nt_, h, f0s, t0s, coarse, cast(a["heads"]), a["x0"], cs, g, ps, ds)
+    return rmg._backward_mg_plain(model, nt_, h, f0s, t0s, coarse, cs, g, sums, None, ps, ds)
+
+
+def mg_user_phase(torch, np, counters, cases, builds, report, launches, loops, losses_mg, zero_512, tag):
+    """Phase x (the module docstring): a user's row function on the mg route
+    on the traced walk.  `cases`: x_cases's; `losses_mg`: phase a's rows;
+    `zero_512`: the plain operator's loss at 512^2 on the zero state.  Fills
+    `report`, `launches` and `loops` and returns its timing entries (as
+    main's `timed`), those of the forms no path runs, their errors, and the
+    hand kernels' calls on the same inputs."""
+    from odil_torch import parallel
+    from odil_torch.models import veltracer as vt
+    from odil_torch.ops import _build
+    from odil_torch.ops import rowwise as rw
+    from odil_torch.ops import rowwise_mg as rmg
+    from odil_torch.optim import Adam
+
+    dev = torch.device(DEVICE)
+    none = {name: 0 for name in counters.wrappers}
+    nbytes = lambda ts: 4 * sum(t.numel() for t in ts)
+    source = "odil_torch/csrc/mg_rows2d.cuh"
+    timed, unlisted, off_path, hand_calls = {}, {}, {}, {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    seen = set()
+    for name, (form, user, hand, a, spec) in cases.items():
+        tr = spec.trace
+        src = tr.mg_source
+        if src in seen:
+            continue
+        seen.add(src)
+        _, seconds, log = next(b for b in builds.values() if b[0].endswith(f"_{_build.generated_digest(src)}.so"))
+        lib = rmg._mg_library(src)
+        smem = {f: lib.odil_mg2d_smem(rmg._MG_FORM[f], 3) for f in ("whole", "lvl2", "local")}
+        reckoned = {f: rowtrace_smem(tr, f) for f in smem}
+        per_sm = {k: n / sms for k, n in lib._odil_mg2d_resident.items()}
+        regs = re.findall(r"Used (\d+) registers", log)
+        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+        print(f"traced mg walk ({name}, {tr.name}): {tr.nfields} fields, hist {tr.hist}, {tr.nterms} terms, "
+              f"{tr.nparams} params, {tr.nstaged} staged cotangent planes, {tr.ops_forward}/{tr.ops_backward} fp32 "
+              f"operations a cell, shared memory a backward block {smem} B (rowtrace.mg2d_smem {reckoned}), built "
+              f"in {seconds:.1f} s; ptxas registers {regs}, spill stores/loads {spills}; blocks an SM by (form, mode) "
+              f"{per_sm} {tag}")
+        if smem != reckoned:
+            fail(f"phase x: rowtrace.mg2d_smem reckons other bytes than the walk's Smem for {name}")
+
+    # x, kernels: each case's forms against the plain version in fp64 (with
+    # the fp32 floor) and the hand kernel on the same inputs; their bits
+    # call after call; the launches on the built-in wrappers' counters.
+    table = {  # name: {form: (entry name, the TPU kernel it replaces, on a path)}
+        "velt_256": {"sums": ("backward_mg_sums_traced_velt_256", "odil_tpu/ops/rowwise_mg.py:766", True),
+                     "backward": ("backward_mg_traced_velt_256", "odil_tpu/ops/rowwise_mg.py:766", True),
+                     "forward": ("forward_mg_traced_velt_256", "odil_tpu/ops/rowwise_mg.py:336", True)},
+        "velt_512": {"sums": ("backward_mg_sums_traced_velt_512", "odil_tpu/ops/rowwise_mg_tiled.py:490", True)},
+        "velt_lvl2": {"sums": ("backward_mg2_sums_traced_velt_256", "odil_tpu/ops/rowwise_mg.py:766", True),
+                      "backward": ("backward_mg2_traced_velt_256", "odil_tpu/ops/rowwise_mg.py:766", False)},
+        "velt_shard": {"sums": ("backward_mg_local_sums_traced_velt_shard", "odil_tpu/ops/rowwise_mg.py:766", True)},
+        "velt_shard_512": {"sums": ("backward_mg_local_sums_traced_velt_shard_512",
+                                    "odil_tpu/ops/rowwise_mg_local_tiled.py:565", True)},
+        "net": {"sums": ("backward_mg_sums_traced_net", "odil_tpu/ops/rowwise_mg.py:766", True)},
+    }
+    wrapper = {"whole": "backward_mg", "lvl2": "backward_mg2", "local": "backward_mg_local"}
+    for name, (form, user, hand, a, spec) in cases.items():
+        tr = spec.trace
+        nt_ = a["nterms"]
+        g = torch.linspace(0.5, 1.5, nt_, device=dev) / a["t0s"][0].numel()
+        forms = {"sums": True} if form == "local" else {"sums": True, "backward": False}
+        if form == "whole":
+            forms["forward"] = None
+        # (every name the calls take bound now: the timing calls them after the loop)
+        run = lambda m, f, form=form, a=a, g=g, forms=forms: x_calls(rmg, form, m, a, None if forms[f] is None else g,
+                                                                      bool(forms[f]))
+        counters.zero()
+        first = {f: run(user, f) for f in forms}
+        again = {f: run(user, f) for f in forms}
+        torch.cuda.synchronize()
+        counts = counters.read()
+        bits = same_bits(torch, list(first.values()), list(again.values()))
+        want = dict(none, **{wrapper[form]: 2 * sum(f != "forward" for f in forms)})
+        if form == "whole":
+            want.update(forward_mg=2, backward_mg_with_sums=2)
+        expect_counts(counts, want, f"phase x's kernel checks ({name})")
+        errs, oks, texts, p64s = {}, [], [], {}
+        flat = lambda out: [t for x in out[:-1] for t in (x if isinstance(x, tuple) else (x,))]
+        for f, sums in forms.items():
+            gf = None if sums is None else g
+            k = first[f]
+            p64 = p64s[f] = x_plain(torch, rmg, rw, form, user, a, gf, bool(sums), True)
+            p32 = x_plain(torch, rmg, rw, form, user, a, gf, bool(sums), False)
+            if sums is None:
+                e, ok = close(k.double(), p64[0], TERMS_RTOL, 0.0)
+                errs[f], texts = e, texts + [f"forward max|d sums| {e:.3e}"]
+                oks.append(ok)
+                continue
+            e, ok, w_ = close_floor(flat(k), flat(p32), flat(p64))
+            errs[f] = e
+            oks.append(ok)
+            text = f"{f} max|d grads| {e:.3e} ({worst_text(w_)})"
+            if sums:
+                e_s, ok_s = close(k[-1].double(), p64[-1], TERMS_RTOL, 0.0)
+                oks.append(ok_s)
+                text += f", max|d sums| {e_s:.3e}"
+            texts.append(text)
+        ok_h, text_h = True, "no hand kernel (a user's own function)"
+        if hand is not None:
+            ks = {f: first[f] for f in forms}
+            hs = {f: run(hand, f) for f in forms}
+            torch.cuda.synchronize()
+            parts = []
+            for f, sums in forms.items():
+                if sums is None:
+                    e, ok = close(ks[f], hs[f], TERMS_RTOL, 0.0)
+                else:
+                    e, ok, _ = close_floor(flat(ks[f]), flat(hs[f]), flat(p64s[f]))
+                ok_h = ok_h and ok
+                parts.append(f"{f} {e:.3e}")
+            text_h = "the hand kernel: " + ", ".join(parts)
+        print(f"traced mg walk ({name}, {form}) at {tuple(a['t0s'][0].shape)} against the plain version in fp64: "
+              + "; ".join(texts) + f"; against {text_h}; the same bits call after call: {bits} {tag}")
+        if not (all(oks) and ok_h and bits):
+            fail(f"a traced mg kernel ({name}) disagrees: plain {oks}, hand {ok_h}, bits {bits}")
+        del first, again, p64s
+        t0s, coarse, cs, ps, ds = (a[k] for k in ("t0s", "coarse", "consts", "params", "data"))
+        n_cells = t0s[0].numel()
+        ops_f, ops_b = min(tr.ops_forward, OPS_FORWARD) * n_cells, min(tr.ops_backward, OPS_BACKWARD) * n_cells
+        if name == "net":
+            ops_f, ops_b = tr.ops_forward * n_cells, tr.ops_backward * n_cells
+        ins = t0s + coarse + cs + ps + ds + tuple(a.get("t1s", ())) + tuple(a.get("heads", ()))
+        ins += (user.halo[0],) if form == "local" else ()
+        outs = t0s + coarse + ps + tuple(a.get("t1s", ())) + tuple(a.get("heads", ()))
+        if form == "lvl2":
+            ops_b += OPS_LVL2_PER_COARSE * a["t1s"][0].numel()
+        for f, sums in forms.items():
+            ename, replaced, on_path = table[name].get(f, (f"{f}_traced_{name}", None, False))
+            gf = None if sums is None else g
+            nb = nbytes(ins) + 4 * nt_ if sums is None else nbytes(ins) + nbytes(outs) + 4 * nt_ * (2 if sums else 1)
+            entry = (lambda f=f, run=run, user=user: run(user, f),
+                     lambda gf=gf, s=bool(sums), form=form, user=user, a=a: x_plain(torch, rmg, rw, form, user, a, gf, s,
+                                                                                    False),
+                     nb, ops_f if sums is None else ops_b, replaced or "odil_tpu/ops/rowwise_mg.py:766", source)
+            if on_path:
+                timed[ename], report[ename] = entry, errs[f]
+                if hand is not None:
+                    hand_calls[ename] = lambda f=f, run=run, hm=hand: run(hm, f)
+            else:
+                unlisted[ename], off_path[ename] = entry, errs[f]
+
+    # x, host: the host time of one mg call from the dispatcher to its
+    # return (kernels queued, not waited for), the traced route against the
+    # hand route on the same inputs, and the traced route's decision alone
+    # (the trace's fingerprint, its cache and the walk's refusals).
+    _, user, hand, a, _ = cases["velt_256"]
+    g = torch.full((a["nterms"],), 1.0 / a["t0s"][0].numel(), device=dev)
+    args = (a["nterms"], a["hist"], a["f0s"], a["t0s"], a["coarse"], a["consts"], g, True)
+    call = (a["nterms"], a["hist"], a["t0s"], (), (), a["consts"])
+    host = {}
+    for what, fn in (("traced route", lambda: rmg._backward_mg(user, *args)),
+                     ("hand route", lambda: rmg._backward_mg(hand, *args)),
+                     ("traced route's decision", lambda: rmg._mg_kernel(user, call))):
+        fn()
+        torch.cuda.synchronize()
+        per = []
+        for _ in range(X_HOST_CALLS):
+            t = time.perf_counter()
+            fn()
+            per.append(1e3 * (time.perf_counter() - t))
+        torch.cuda.synchronize()
+        host[what] = statistics.median(per)
+    print("host ms a call of _backward_mg at (65, 256, 256), dispatch to return, median of "
+          f"{X_HOST_CALLS}: " + ", ".join(f"{k} {v:.4f}" for k, v in host.items()) + f" {tag}")
+
+    def rel_rows(losses, base, every):
+        rel = {e: abs(losses[max(e - 1, 0)] - base[max(e - 1, 0)]) / abs(base[max(e - 1, 0)])
+               for e in range(0, len(losses) + 1, every)}
+        return rel, max(rel, key=rel.get)
+
+    def loss_only(problem, state, x, grad_fn, what, want):
+        """The loss-only path at x (make_loss_fn + autograd): its launches
+        against `want`, its loss and gradients against grad_fn's."""
+        loss_fn, _ = problem.make_loss_fn(state)
+        xs = [t.detach().clone().requires_grad_(True) for t in x]
+        counters.zero()
+        loss_e, _ = loss_fn(xs, problem.tracers)
+        grads_e = torch.autograd.grad(loss_e, xs)
+        torch.cuda.synchronize()
+        expect_counts(counters.read(), dict(none, **want), f"{what} loss-only path")
+        (loss_t, _), grads_t = grad_fn(x, problem.tracers)
+        e, ok = close_all(grads_e, grads_t)
+        print(f"{what} loss-only vs one-pass route: loss {float(loss_e)!r} vs {float(loss_t)!r}, max|dgrad| {e:.3e} "
+              f"{tag}")
+        if abs(float(loss_e) - float(loss_t)) > TERMS_RTOL * abs(float(loss_t)) or not ok:
+            fail(f"{what}: the loss-only path and the one-pass route disagree")
+
+    def walked(fn, what):
+        """The kernels of one call of fn by name: the traced walk's, not the
+        hand walk's."""
+        _, _, names = kernel_split(torch, fn, reps=3)
+        if not any("walk_kernel" in n for n in names) or any("mg_rows_kernel" in n for n in names):
+            fail(f"{what}: a call launched {sorted(names)}, not the traced mg walk")
+        return sorted(names)
+
+    ref256 = read_ref("ref_velt_256.csv")
+    with bare_row_model(vt, rw):
+        what = "the veltracer's row function bare, 256^2 pallas_mg (traced mg walk)"
+        problem_b, state_b, _ = vt.build(*SIZES["256"], kernel="pallas_mg", device=dev)
+        grad_b = problem_b.make_loss_grad_fn(state_b)
+        if grad_b is None:
+            fail(f"{what}: make_loss_grad_fn declined the fused route")
+        counters.zero()
+        opt_b, losses_b, chunk_ms = train(torch, Adam, grad_b, problem_b.domain.arrays_from_state(state_b), X_EPOCHS)
+        n = len(losses_b)
+        expect_counts(counters.read(), dict(none, backward_mg=n), what)
+        launches["backward_mg_sums_traced_velt_256"] = n
+        rows = trajectory_rows(losses_b)
+        rel = {e: abs(rows[e] - ref256[e]) / abs(ref256[e]) for e in rows if e in ref256}
+        worst = max(rel, key=rel.get)
+        rel_b, worst_b = rel_rows(losses_b, losses_mg, CHUNK)
+        names = walked(lambda: grad_b(opt_b.x, problem_b.tracers), what)
+        ms_b = steady_ms(chunk_ms)
+        print(f"training ({what}): {n} epochs, epoch-0 loss {rows[0]!r} (ref_velt_256.csv {ref256[0]!r}, rel "
+              f"{rel[0]:.2e}); worst reference row epoch {worst} ({100 * rel[worst]:.2f}%); worst {CHUNK}-epoch row "
+              f"against phase a's hand route epoch {worst_b} ({100 * rel_b[worst_b]:.4f}%); {ms_b[0]:.4f} ms/epoch "
+              f"against the hand route's {loops['pallas_mg 256'][1][0]:.4f}; the kernels of an epoch {names} {tag}")
+        if rel[0] > 1e-5 or rel[worst] > 0.15 or rel_b[worst_b] > 0.01:
+            fail(f"{what}: epoch 0 rel {rel[0]:.2e} (limit 1e-5), epoch {worst} {100 * rel[worst]:.2f}% from the "
+                 f"reference (limit 15%), epoch {worst_b} {100 * rel_b[worst_b]:.3f}% from phase a (limit 1%)")
+        loss_only(problem_b, state_b, opt_b.x, grad_b, what, dict(forward_mg=1, backward_mg=1))
+        launches["forward_mg_traced_velt_256"] = launches["backward_mg_traced_velt_256"] = 1
+        loops["pallas_mg 256, the veltracer's row function bare (traced mg walk)"] = (opt_b, ms_b)
+        del problem_b, state_b, grad_b
+
+        what = "the veltracer's row function bare, 512^2 pallas_mg (traced mg walk)"
+        problem5, state5, _ = vt.build(*SIZES["512"], kernel="pallas_mg", device=dev)
+        grad5 = problem5.make_loss_grad_fn(state5)
+        counters.zero()
+        opt5, losses, chunk_ms = train(torch, Adam, grad5, problem5.domain.arrays_from_state(state5), X_BIG_EPOCHS)
+        expect_counts(counters.read(), dict(none, backward_mg=len(losses)), what)
+        launches["backward_mg_sums_traced_velt_512"] = len(losses)
+        rel0 = abs(losses[0] - zero_512) / abs(zero_512)
+        print(f"training ({what}): {len(losses)} epochs, epoch-0 loss {losses[0]!r} vs the plain operator's "
+              f"{zero_512!r} (rel {rel0:.2e}); {steady_ms(chunk_ms)[0]:.4f} ms/epoch {tag}")
+        if rel0 > 1e-5:
+            fail(f"{what}: epoch 0 rel {rel0:.2e} (limit 1e-5)")
+        del problem5, state5, grad5, opt5
+
+        what = "the veltracer's row function bare, 256^2 pallas_mg at depth 2 (traced two-level walk)"
+        problem2, state2, _ = vt.build(*SIZES["256"], kernel="pallas_mg", device=dev)
+        hook = vt._mg_loss_and_grads.partial_depth
+        vt._mg_loss_and_grads.partial_depth = lambda t0_shapes, dtype: 2
+        try:
+            grad2 = problem2.make_loss_grad_fn(state2)
+        finally:
+            vt._mg_loss_and_grads.partial_depth = hook
+        counters.zero()
+        opt2, losses, chunk_ms = train(torch, Adam, grad2, problem2.domain.arrays_from_state(state2), X_HALO_EPOCHS)
+        expect_counts(counters.read(), dict(none, backward_mg2=len(losses)), what)
+        launches["backward_mg2_sums_traced_velt_256"] = len(losses)
+        rel2, worst2 = rel_rows(losses, losses_b, CHUNK)
+        names = walked(lambda: grad2(opt2.x, problem2.tracers), what)
+        print(f"training ({what}): {len(losses)} epochs, epoch-0 loss {losses[0]!r} vs the depth-1 run's "
+              f"{losses_b[0]!r} (rel {rel2[0]:.2e}); worst {CHUNK}-epoch row epoch {worst2} "
+              f"({100 * rel2[worst2]:.4f}%); {steady_ms(chunk_ms)[0]:.4f} ms/epoch; the kernels of an epoch {names} "
+              f"{tag}")
+        if rel2[0] > 1e-5 or rel2[worst2] > 0.01:
+            fail(f"{what}: epoch 0 rel {rel2[0]:.2e} (limit 1e-5), epoch {worst2} {100 * rel2[worst2]:.3f}% from "
+                 f"the depth-1 run (limit 1%)")
+        del problem2, state2, grad2, opt2
+
+        mesh = parallel.mesh_from_spec(HALO_SPEC, devices=[dev] * HALO_SHARDS)
+        for size, epochs, key in (("256", X_HALO_EPOCHS, "velt_shard"), ("512", X_HALO512_EPOCHS, "velt_shard_512")):
+            what = f"the veltracer's row function bare, halo mg on {HALO_SPEC} at {size}^2 (traced local walk)"
+            problem_q, state_q, _ = vt.build(*SIZES[size], kernel="pallas_mg", device=dev, mesh=mesh,
+                                             partition=HALO_PART)
+            grad_q = problem_q.make_loss_grad_fn(state_q, halo=True, halo_fuse="mg")
+            if grad_q is None or grad_q.route != "mg":
+                fail(f"{what}: the route is {getattr(grad_q, 'route', None)}")
+            counters.zero()
+            opt_q, losses, chunk_ms = train(torch, Adam, grad_q, problem_q.domain.arrays_from_state(state_q), epochs)
+            expect_counts(counters.read(), dict(none, backward_mg_local=HALO_SHARDS * len(losses)), what)
+            launches[f"backward_mg_local_sums_traced_{key}"] = HALO_SHARDS * len(losses)
+            if size == "256":
+                rel_q, worst_q = rel_rows(losses, losses_b, CHUNK)
+                text = (f"vs the unsharded traced run's {losses_b[0]!r} (rel {rel_q[0]:.2e}); worst {CHUNK}-epoch row "
+                        f"epoch {worst_q} ({100 * rel_q[worst_q]:.4f}%)")
+                bad = rel_q[0] > 1e-5 or rel_q[worst_q] > 0.01
+            else:
+                rel0 = abs(losses[0] - zero_512) / abs(zero_512)
+                text, bad = f"vs the plain operator's {zero_512!r} (rel {rel0:.2e})", rel0 > 1e-5
+            print(f"training ({what}): {len(losses)} epochs, epoch-0 loss {losses[0]!r} {text}; "
+                  f"{steady_ms(chunk_ms)[0]:.4f} ms/epoch {tag}")
+            if bad:
+                fail(f"{what}: leaves its reference ({text})")
+            del problem_q, state_q, grad_q, opt_q
+
+    # The generic case's t0 terms, coarse partial and params trained by Adam
+    # through rowwise_mg_loss_and_grads, the public one-pass entry.
+    form, user, _, a, _ = cases["net"]
+    nt_, h, f0s, ds = a["nterms"], a["hist"], a["f0s"], a["data"]
+
+    def grad_net(x, tracers):
+        terms, (dt0, dP, dparams) = rmg.rowwise_mg_loss_and_grads(user, x[:2], x[2:4], f0s, params=x[4:], data=ds,
+                                                                  nterms=nt_, hist=h)
+        total = sum(terms)
+        return (total, (list(terms), [total])), list(dt0) + list(dP) + list(dparams)
+
+    counters.zero()
+    _, losses, _ = train(torch, Adam, grad_net, [t.clone() for t in a["t0s"] + a["coarse"] + a["params"]],
+                         X_BIG_EPOCHS, lr=1e-3)
+    expect_counts(counters.read(), dict(none, backward_mg=X_BIG_EPOCHS), "the generic mg case's training")
+    launches["backward_mg_sums_traced_net"] = X_BIG_EPOCHS
+    plain = float(x_plain(torch, rmg, rw, "whole", user, a, None, True, True)[0].sum()) / a["t0s"][0].numel()
+    rel0 = abs(losses[0] - plain) / abs(plain)
+    print(f"the generic mg case (hist 2, params, data) at {tuple(a['t0s'][0].shape)}: {X_BIG_EPOCHS} Adam epochs "
+          f"through rowwise_mg_loss_and_grads, loss {losses[0]!r} -> {losses[-1]!r}, epoch 0 against the plain version "
+          f"in fp64 rel {rel0:.2e} {tag}")
+    if rel0 > 1e-5 or not losses[-1] < losses[0]:
+        fail(f"the generic mg case: epoch 0 rel {rel0:.2e} (limit 1e-5), losses {losses}")
+
+    # A refused row function on the mg route: plain torch on the card, its
+    # reason counted; no kernel wrapper moves.
+    _, _, _, a, _ = cases["velt_256"]
+    refused = rw.RowModel(x_reach2_row_fn)
+    reasons = dict(rw.plain_on_card.reasons)
+    counters.zero()
+    terms, _ = rmg.rowwise_mg_loss_and_grads(refused, a["t0s"], a["coarse"], a["f0s"], consts=a["consts"],
+                                             nterms=a["nterms"], hist=1)
+    torch.cuda.synchronize()
+    new = {r: n - reasons.get(r, 0) for r, n in rw.plain_on_card.reasons.items() if n != reasons.get(r, 0)}
+    print(f"a refused row function on the mg route (reach x+2): plain_on_card with {new}, loss {float(sum(terms))!r} "
+          f"{tag}")
+    expect_counts(counters.read(), dict(none, plain_on_card=1), "phase x's refused function")
+    if len(new) != 1 or "reach" not in next(iter(new)):
+        fail(f"phase x: the refused function's reason is not counted: {new}")
+    return timed, unlisted, off_path, hand_calls
+
+
+def rowtrace_smem(tr, form):
+    """rowtrace.mg2d_smem of a trace's backward block of `form`."""
+    from odil_torch.ops import rowtrace
+
+    return rowtrace.mg2d_smem(tr.nfields, tr.hist, tr.nterms, tr.nparams, tr.nstaged, True, form)
+
+
 # The mesh routes of phase q: the mesh of four shards of the card, the
 # evaluations of the global ladder, multi_start's starts and epochs, and the
 # GSPMD CLIs' epochs.
@@ -4511,6 +5013,9 @@ def main():
     with open(HEAT_DATA) as fh:
         w_traced = w_cases(torch, np, th, tw, vt, rw, json.load(fh), torch.device(DEVICE))
     traced += [job for job in w_builds(w_traced) if job[2] not in {j[2] for j in traced}]
+    # Phase x's traced mg walks (phase w's row functions on the mg route).
+    x_traced = x_cases(torch, rw, rmg, w_traced, torch.device(DEVICE))
+    traced += x_builds(x_traced)
     pending = start_builds(_build, ["rowwise_mg", "rowwise", "probes"] + ablations
                            + [rw.heat_net_source(w) for w in heat_nets] + traced)
     builds = report_builds({k: pending.pop(k) for k in ("rowwise_mg", "rowwise")})
@@ -4570,8 +5075,8 @@ def main():
     Wx, Wy = rmg._interp_matrices(X // 2, Y // 2, torch.float32, dev)
     g = torch.full((nterms,), 1.0 / cells, device=dev)
 
-    kd0, kP, ksums = rmg.backward_mg_cuda(model, nterms, 1, f0s, t0s, coarse, consts, g, True)
-    pd0, pP, psums = rmg._backward_mg_plain(model, nterms, 1, f0s, t0s, coarse, consts, g, True)
+    kd0, kP, _, ksums = rmg.backward_mg_cuda(model, nterms, 1, f0s, t0s, coarse, consts, g, True)
+    pd0, pP, _, psums = rmg._backward_mg_plain(model, nterms, 1, f0s, t0s, coarse, consts, g, True)
     torch.cuda.synchronize()
     e_s, ok_s = close(ksums.double() / cells, psums.double() / cells, TERMS_RTOL, 0.0)
     e_g, ok_g = close_all(kd0 + kP, pd0 + pP)
@@ -4591,7 +5096,7 @@ def main():
     report["forward_mg"] = e_f
 
     leaves_k = [t.clone().requires_grad_(True) for t in t0s + coarse]
-    terms_k = rmg.rowwise_loss_terms_mg(model, leaves_k[:3], leaves_k[3:], f0s, consts, nterms, 1)
+    terms_k = rmg.rowwise_loss_terms_mg(model, leaves_k[:3], leaves_k[3:], f0s, consts=consts, nterms=nterms, hist=1)
     grads_k = torch.autograd.grad(sum(terms_k), leaves_k)
     leaves_p = [t.clone().requires_grad_(True) for t in t0s + coarse]
     with torch.enable_grad():
@@ -4617,7 +5122,8 @@ def main():
     W1x, W1y = rmg._interp_matrices(X // 4, Y // 4, torch.float32, dev)
 
     def lvl2_plain(with_sums):
-        d0, dP1, sums = rmg._backward_mg_plain(model, nterms, 1, f0s, t0s, P2s, consts, g, with_sums, lvl2=(t1s, f1s))
+        d0, dP1, _, sums = rmg._backward_mg_plain(model, nterms, 1, f0s, t0s, P2s, consts, g, with_sums,
+                                                  lvl2=(t1s, f1s))
         return (d0,) + rmg._split_dp1(dP1, f1s, W1x, W1y) + (sums,)
 
     for with_sums, name in ((True, "backward_mg2_sums"), (False, "backward_mg2")):
@@ -4626,7 +5132,7 @@ def main():
         torch.cuda.synchronize()
         bits = same_bits(torch, k, k2)
         e_g, ok_g = close_all(k[0] + k[1] + k[2], p[0] + p[1] + p[2])
-        e_s, ok_s = close(k[3].double(), p[3].double(), TERMS_RTOL, 0.0) if with_sums else (0.0, True)
+        e_s, ok_s = close(k[4].double(), p[3].double(), TERMS_RTOL, 0.0) if with_sums else (0.0, True)
         print(f"two-level backward{'+sums' if with_sums else ''}: max|d sums| {e_s:.3e}, max|d(dt0,dt1,dP2)| "
               f"{e_g:.3e}; the same bits call after call: {bits} {tag}")
         if not (ok_g and ok_s and bits):
@@ -4668,7 +5174,7 @@ def main():
             "backward_mg_local_sums": close_floor(km[0] + km[1] + km[2], pm[0] + pm[1] + pm[2], qm[0] + qm[1] + qm[2]),
         }
         e_s, ok_s = close(ks.double(), ps.double(), TERMS_RTOL, 0.0)
-        e_ms, ok_ms = close(km[3].double(), pm[3].double(), TERMS_RTOL, 0.0)
+        e_ms, ok_ms = close(km[4].double(), pm[4].double(), TERMS_RTOL, 0.0)
         print(f"per-shard kernels, shard {meta['shard']} (row offset {meta['off']}, own rows {meta['r_lo']}.."
               f"{meta['r_hi'] - 1}, x0 {meta['x0']}): masked forward max|d sums| {checks['forward_halo'][0]:.3e}, "
               f"backward+sums max|d sums| {e_s:.3e} max|d dfields| {checks['backward_halo_sums'][0]:.3e}, backward "
@@ -4695,7 +5201,7 @@ def main():
                                      g512h.double())
     torch.cuda.synchronize()
     e_g, ok_g, w_g = close_floor(k[0] + k[1] + k[2], p[0] + p[1] + p[2], q[0] + q[1] + q[2])
-    e_s, ok_s = close(k[3].double(), p[3].double(), TERMS_RTOL, 0.0)
+    e_s, ok_s = close(k[4].double(), p[4].double(), TERMS_RTOL, 0.0)
     print(f"local mg backward at {tuple(mt512[0].shape)}, shard {meta['shard']}: max|d sums| {e_s:.3e}, "
           f"max|d (dt0, dP, dheads)| {e_g:.3e}; {worst_text(w_g)} {tag}")
     if not (ok_g and ok_s):
@@ -4713,7 +5219,7 @@ def main():
     k = rmg.backward_mg_cuda(model512, nterms512, 1, f0s, t0s512, coarse512, consts512, g512, True)
     p = rmg._backward_mg_plain(model512, nterms512, 1, f0s, t0s512, coarse512, consts512, g512, True)
     torch.cuda.synchronize()
-    e_s, ok_s = close(k[2].double(), p[2].double(), TERMS_RTOL, 0.0)
+    e_s, ok_s = close(k[3].double(), p[3].double(), TERMS_RTOL, 0.0)
     e_g, ok_g = close_all(k[0] + k[1], p[0] + p[1])
     print(f"backward+sums at {tuple(t0s512[0].shape)}: max|d terms| {e_s:.3e}, max|d(dt0,dP)| {e_g:.3e} {tag}")
     if not (ok_s and ok_g):
@@ -5343,6 +5849,13 @@ def main():
                                               pallas_losses, zero_loss, heat_ref, tag)
     t_w = time.perf_counter() - t_w
 
+    # x. A user's row function on the mg route: the traced mg walk (its
+    # libraries built with the others).
+    t_x = time.perf_counter()
+    x_timed, x_unlisted, x_off, x_hand = mg_user_phase(torch, np, counters, x_traced, builds, report, launches, loops,
+                                                       losses_unsharded, zero_loss, tag)
+    t_x = time.perf_counter() - t_x
+
     # m. The training harness: the two command-line examples through
     # util.optimize, each in a directory of its own under build/.
     m_launches, vt_rows, vt_ms = harness_phase(torch, counters, args.epochs, losses_unsharded,
@@ -5576,11 +6089,15 @@ def main():
     timed.update(l_timed)
     timed.update(u_timed)
     timed.update(w_timed)
+    timed.update(x_timed)
     timed.update(v_timed)
+    unlisted.update(x_unlisted)
+    off_path.update(x_off)
     slabbed.update(l_slabbed)
     slabbed.update(u_slabbed)
     slabbed.update(w_slabbed)
     hand_calls.update(w_hand)
+    hand_calls.update(x_hand)
     edge.update(u_edge)
     row_cases.update(u_cases)
 
@@ -5645,7 +6162,7 @@ def main():
             "library_ms": library_ms, "hand_ms": hand_ms,
         })
 
-    print(f"seconds: phase v {t_v:.1f}, phase l {t_l:.1f}, phase u {t_u:.1f}, phase w {t_w:.1f}, phase p {t_p:.1f}, phase q {t_q:.1f}, phase r {t_r:.1f}, phase s {t_s:.1f}, phase t {t_t:.1f}, the "
+    print(f"seconds: phase v {t_v:.1f}, phase l {t_l:.1f}, phase u {t_u:.1f}, phase w {t_w:.1f}, phase x {t_x:.1f}, phase p {t_p:.1f}, phase q {t_q:.1f}, phase r {t_r:.1f}, phase s {t_s:.1f}, phase t {t_t:.1f}, the "
           f"script from its "
           f"start (the kernels' build included) "
           f"{time.perf_counter() - t_main:.1f} {tag}")

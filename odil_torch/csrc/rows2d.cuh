@@ -208,6 +208,71 @@ constexpr size_t smem_bytes() {
   return sizeof(Smem<M, (MODE & MODE_GRADS) != 0>);
 }
 
+// The sums of the terms and the param cotangents of a launch (internal
+// index k: the terms, then the params; column c of A.partials: the live
+// terms, then the params), as rows1d.cuh reduces them: fp64 block sums
+// (warp shuffles, then the warps in order) into the block's column of
+// A.partials; the last block to finish reduces the columns in block order.
+// s, pacc: this thread's terms and param cotangents (owned cells); red: the
+// block's warp sums (shared memory).  Every thread of the block calls it.
+template <class M, int NRED16>
+__device__ __forceinline__ void reduce_terms(const Rows2DArgs& A, const float* s, const float* pacc,
+                                             double (*red)[NRED16], bool sums, bool infer, int tid) {
+  constexpr int NT = M::MAXT, NRED = M::MAXT + (M::NP > 0 ? M::NP : 1);
+  __shared__ bool last;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int c0 = sums ? 0 : A.nterms, c1 = infer ? A.stride : A.nterms;
+  if (c0 >= c1) return;
+  const unsigned nblocks = gridDim.x * gridDim.y * gridDim.z;
+  const unsigned blk = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  auto col = [&](int k) { return k < NT ? (k < A.nterms ? k : -1) : (k - NT < A.nparams ? A.nterms + k - NT : -1); };
+  auto live = [&](int k) { return k < NRED && col(k) >= c0 && col(k) < c1; };
+#pragma unroll
+  for (int base = 0; base < NRED16; base += 16) {
+    double v[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {  // (the index guards keep unrolled dead branches in range)
+      const int k = base + j;
+      v[j] = k < NT ? (double)s[k < NT ? k : 0] : (k < NRED ? (double)pacc[k < NRED ? k - NT : 0] : 0.0);
+    }
+    rows1d::warp_sums16(v, lane, red[warp] + base);
+  }
+  __syncthreads();
+  if (tid < NRED && live(tid)) {
+    double a = red[0][tid];
+    for (int w = 1; w < NWARPS; ++w) a += red[w][tid];
+    A.partials[(size_t)col(tid) * nblocks + blk] = a;
+    __threadfence();
+  }
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(A.ticket, 1u) == nblocks - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+#pragma unroll
+  for (int base = 0; base < NRED16; base += 16) {
+    double v[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) v[j] = 0.0;
+    for (unsigned b = tid; b < nblocks; b += NTHREADS) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        if (live(base + j)) v[j] += __ldcg(A.partials + (size_t)col(base + j) * nblocks + b);
+      }
+    }
+    rows1d::warp_sums16(v, lane, red[warp] + base);
+  }
+  __syncthreads();
+  if (tid < NRED && live(tid)) {
+    double a = red[0][tid];
+    for (int w = 1; w < NWARPS; ++w) a += red[w][tid];
+    const int c = col(tid);
+    if (c < A.nterms) A.sums[c] = (float)a;
+    else A.dparams[c - A.nterms] = (float)a;
+  }
+  if (tid == 0) *A.ticket = 0u;
+}
+
 template <class M, int MODE, bool MASKED = false>
 __global__ void __launch_bounds__(NTHREADS, M::BLOCKS_PER_SM) rows2d_kernel(const ArgsOf<MASKED> A) {
   constexpr int H = M::HIST, NF = M::NF, NT = M::MAXT;
@@ -215,12 +280,11 @@ __global__ void __launch_bounds__(NTHREADS, M::BLOCKS_PER_SM) rows2d_kernel(cons
   constexpr bool grads = (MODE & MODE_GRADS) != 0;
   constexpr bool sums = (MODE & MODE_SUMS) != 0;
   using S = Smem<M, grads>;
-  constexpr int NSLOT = S::NSLOT, NRED = S::NRED;
+  constexpr int NSLOT = S::NSLOT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   S& sm = *reinterpret_cast<S*>(smem_raw);
-  __shared__ bool last;
 
-  const int tid = threadIdx.y * TILE_Y + threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.y * TILE_Y + threadIdx.x;
   const int T = A.T, X = A.X, Y = A.Y;
   const int x0 = blockIdx.y * TILE_X, y0 = blockIdx.x * TILE_Y;
   const int ts = blockIdx.z * A.slab, te = min(ts + A.slab, T);
@@ -427,59 +491,7 @@ __global__ void __launch_bounds__(NTHREADS, M::BLOCKS_PER_SM) rows2d_kernel(cons
     }
   }
 
-  // The sums of the terms and the param cotangents (internal index k: the
-  // terms, then the params; column c of A.partials: the live terms, then
-  // the params), as rows1d.cuh reduces them.
-  const int c0 = sums ? 0 : A.nterms, c1 = infer ? A.stride : A.nterms;
-  if (c0 >= c1) return;
-  const unsigned nblocks = gridDim.x * gridDim.y * gridDim.z;
-  const unsigned blk = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
-  auto col = [&](int k) { return k < NT ? (k < A.nterms ? k : -1) : (k - NT < A.nparams ? A.nterms + k - NT : -1); };
-  auto live = [&](int k) { return k < NRED && col(k) >= c0 && col(k) < c1; };
-#pragma unroll
-  for (int base = 0; base < S::NRED16; base += 16) {
-    double v[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {  // (the index guards keep unrolled dead branches in range)
-      const int k = base + j;
-      v[j] = k < NT ? (double)s[k < NT ? k : 0] : (k < NRED ? (double)pacc[k < NRED ? k - NT : 0] : 0.0);
-    }
-    rows1d::warp_sums16(v, lane, sm.red[warp] + base);
-  }
-  __syncthreads();
-  if (tid < NRED && live(tid)) {
-    double a = sm.red[0][tid];
-    for (int w = 1; w < NWARPS; ++w) a += sm.red[w][tid];
-    A.partials[(size_t)col(tid) * nblocks + blk] = a;
-    __threadfence();
-  }
-  __syncthreads();
-  if (tid == 0) last = atomicAdd(A.ticket, 1u) == nblocks - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-#pragma unroll
-  for (int base = 0; base < S::NRED16; base += 16) {
-    double v[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) v[j] = 0.0;
-    for (unsigned b = tid; b < nblocks; b += NTHREADS) {
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        if (live(base + j)) v[j] += __ldcg(A.partials + (size_t)col(base + j) * nblocks + b);
-      }
-    }
-    rows1d::warp_sums16(v, lane, sm.red[warp] + base);
-  }
-  __syncthreads();
-  if (tid < NRED && live(tid)) {
-    double a = sm.red[0][tid];
-    for (int w = 1; w < NWARPS; ++w) a += sm.red[w][tid];
-    const int c = col(tid);
-    if (c < A.nterms) A.sums[c] = (float)a;
-    else A.dparams[c - A.nterms] = (float)a;
-  }
-  if (tid == 0) *A.ticket = 0u;
+  reduce_terms<M, S::NRED16>(A, s, pacc, sm.red, sums, infer, tid);
 }
 
 template <class M, int MODE, bool MASKED>

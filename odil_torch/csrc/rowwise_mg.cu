@@ -144,14 +144,36 @@
 #include "veltracer_row.cuh"
 #endif
 
+// The device code this walk shares with the generic mg walk over a traced
+// row model (mg_rows2d.cuh), templated on the field count: the window's and
+// the dP stages' types, the taps, the close and flush of dP's coarse rows,
+// the level-1 rebuild, the loads and staging of the coarse window, a fine
+// cell's rebuild and the dP2 kernel's body.  The rest -- init_taps,
+// init_dp_taps, dp_step/dp_finish and the dP gather -- stays a copy here:
+// shared, each moved this file's SASS (its pin in tests/test_torch_gpu.py),
+// which these parts keep instruction for instruction.
+#include "mg_common.cuh"
+
 namespace {
 
-constexpr int CT = 16;            // coarse tile of the level-2 dP kernel
-constexpr int FW = 2 * CT + 4;    // fine window covering a coarse tile's taps
-// The coarse window of one tile's dP partial: the coarse columns and rows
-// that the taps of its TILE_X x TILE_Y owned fine cells reach.
-constexpr int DWA = TILE_X / 2 + 2, DWB = TILE_Y / 2 + 2;
+using mgc::CT;
+using mgc::DPR;
+using mgc::DWA;
+using mgc::DWB;
+using mgc::FW;
+using mgc::GATHER_B;
+using mgc::WX;
+using mgc::WX2;
+using mgc::WY;
+using mgc::WY2;
 constexpr int DWIN = NF * DWA * DWB;
+using RowStage = mgc::RowStage<NF>;
+using Lvl2Stage = mgc::Lvl2Stage<NF>;
+using DpStage = mgc::DpStage<NF>;
+using mgc::taps;
+using mgc::tap_weight;
+using mgc::close_dp_row;
+using mgc::flush_dp;
 
 }  // namespace
 
@@ -207,43 +229,6 @@ struct MgLocalArgs : MgArgs {
 };
 
 namespace {
-
-// The two coarse taps (index, weight) of fine index x along a cell axis with
-// n coarse cells: fine[2i] = (c[i-1] + 3c[i])/4, fine[2i+1] = (3c[i] + c[i+1])/4,
-// linear-extrapolation ghosts at both ends (transfer._interp_axis).
-__device__ __forceinline__ void taps(int x, int n, int& a0, float& w0, int& a1, float& w1) {
-  const int i = x >> 1;
-  if ((x & 1) == 0) {
-    if (i == 0) { a0 = 0; w0 = 1.25f; a1 = 1; w1 = -0.25f; }
-    else { a0 = i - 1; w0 = 0.25f; a1 = i; w1 = 0.75f; }
-  } else {
-    if (i == n - 1) { a0 = n - 1; w0 = 1.25f; a1 = n - 2; w1 = -0.25f; }
-    else { a0 = i; w0 = 0.75f; a1 = i + 1; w1 = 0.25f; }
-  }
-}
-
-// Weight of coarse index a in fine index x (the prolongation matrix entry).
-__device__ __forceinline__ float tap_weight(int x, int a, int n) {
-  int a0, a1;
-  float w0, w1;
-  taps(x, n, a0, w0, a1, w1);
-  return (a0 == a ? w0 : 0.0f) + (a1 == a ? w1 : 0.0f);
-}
-
-// The blended coarse window a tile's fine rows read: coarse x indices
-// ax0 .. ax0+WX-1 and y indices by0 .. by0+WY-1 (periodic), with
-// ax0 = x0/2 - 2, by0 = y0/2 - 2.  Every coarse tap of the tile's fine cells,
-// halo and edge extrapolation included, lies in it.
-constexpr int WX = TILE_X / 2 + 4, WY = TILE_Y / 2 + 4;
-
-struct RowStage {
-  float CB[NF][WX][WY];  // blend_t of P's two coarse rows over the window
-  int ta[HX][2];         // x taps of each tile row: window indices and weights
-  float tw[HX][2];
-  int tb[HY][2];
-  float sw[HY][2];
-  int xi[HX], yi[HY];    // plane x and y of each tile row and column (periodic)
-};
 
 // Window index of coarse index a (0 <= a < n) for a window starting at a0.
 __device__ __forceinline__ int win(int a, int a0, int n) { return pmod(a - a0, n); }
@@ -301,16 +286,7 @@ __device__ __forceinline__ void dp_rows(const Args& A, int z, int& c_lo, int& c_
 // column, so that a local block's window may straddle the periodic seam;
 // window y index wb is coarse row y0/2 - 1 + wb) as the block's partial of
 // that coarse row.
-constexpr int DPR = 4;
 static_assert(TILE_Y == 32, "the dP y taps take one warp per tile row");
-
-struct DpStage {
-  float acc[NF][TILE_X][TILE_Y];  // each thread's open coarse row (shared memory, not registers: the walk
-                                  // runs at its register bound)
-  float E[DPR][NF][TILE_X][DWB];  // the ring of closed coarse rows after the y taps
-  float yw[TILE_Y][3];            // tap weights of each tile column toward coarse y/2 - 1, y/2, y/2 + 1
-  float xw[TILE_X][3];            // the same for each tile row (unwrapped global columns)
-};
 
 // The dP tap weights of the tile's owned columns and rows (once per block;
 // zero where the tile owns no cell).  x0: the tile's first local column.
@@ -335,49 +311,6 @@ __device__ void init_dp_taps(DpStage& Q, const Args& A, int x0, int y0) {
       }
       for (int k = 0; k < 3; ++k) Q.yw[c][k] = q[k];
     }
-  }
-}
-
-// The closed coarse row's y taps of tile row `row` into ring slot `slot`:
-// lane 2q writes window index q + 1, lane 0 index 0 and lane 31 index
-// DWB - 1.  No barrier.
-__device__ __forceinline__ void close_dp_row(DpStage& Q, const float (&acc)[NF], int slot, int row) {
-  constexpr unsigned FULL = 0xffffffffu;
-  const int lane = threadIdx.x;
-  const float wm = Q.yw[lane][0], wc = Q.yw[lane][1], wp = Q.yw[lane][2];
-#pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    float vm = wm * acc[f], vc = wc * acc[f], vp = wp * acc[f];
-    vm += __shfl_xor_sync(FULL, vm, 1);  // the pair's weights toward its q - 1, q, q + 1
-    vc += __shfl_xor_sync(FULL, vc, 1);
-    vp += __shfl_xor_sync(FULL, vp, 1);
-    const float up = __shfl_up_sync(FULL, vp, 2), dn = __shfl_down_sync(FULL, vm, 2);
-    const float e = ((lane >= 2 ? up : 0.0f) + vc) + (lane < 30 ? dn : 0.0f);
-    if ((lane & 1) == 0) Q.E[slot][f][row][(lane >> 1) + 1] = e;
-    if (lane == 0) Q.E[slot][f][row][0] = vm;
-    if (lane == TILE_Y - 1) Q.E[slot][f][row][DWB - 1] = vp;
-  }
-}
-
-// The x taps of the ring's first n rows, stored at out + k * stride for
-// ring slot k (DWIN floats: field, window x, window y).  Every thread of the
-// block calls it; it starts with a barrier, and the row loop's barrier
-// follows before the ring is written again.
-__device__ void flush_dp(const DpStage& Q, int n, float* out, size_t stride) {
-  __syncthreads();
-  out += (size_t)(blockIdx.y * gridDim.x + blockIdx.x) * DWIN;
-  for (int idx = threadIdx.y * TILE_Y + threadIdx.x; idx < n * DWIN; idx += NTHREADS) {
-    const int k = idx / DWIN, rem = idx % DWIN;
-    const int f = rem / (DWA * DWB), wa = (rem / DWB) % DWA, wb = rem % DWB;
-    float v = 0.0f;
-    // Window index wa takes tile rows r = 2 wa - 4 + m (m < 6) with r / 2 in
-    // wa - 2 .. wa: their weight toward coarse r/2 - 1 + (wa - r/2).
-#pragma unroll
-    for (int m = 0; m < 6; ++m) {
-      const int r = 2 * wa - 4 + m;
-      if (r >= 0 && r < TILE_X) v += Q.xw[r][2 - (m >> 1)] * Q.E[k][f][r][wb];
-    }
-    out[k * stride + rem] = v;
   }
 }
 
@@ -507,81 +440,13 @@ __device__ void init_taps(RowStage& S, const Args& A, int x0, int y0) {
   }
 }
 
-// Two-level fusion: the level-2 window that the level-1 window's taps read,
-// x indices (ax0 >> 1) - 1 .. + WX2-1 and y likewise (periodic); every tap of
-// the level-1 window, edge extrapolation included, lies in it.
-constexpr int WX2 = WX / 2 + 2, WY2 = WY / 2 + 2;
-
-struct Lvl2Stage {
-  float P1[2][NF][WX][WY];  // level-1 rows over the coarse window; row c in slot c & 1
-  float CB2[NF][WX2][WY2];  // blend_t of P2's two rows over the level-2 window
-  int ta[WX][2];            // level-2 taps of each level-1 window row and column
-  float tw[WX][2];
-  int tb[WY][2];
-  float sw[WY][2];
-};
-
 struct NoStage {};
-
-// The level-1 window's taps into the level-2 window (once per block).
-__device__ void init_taps2(Lvl2Stage& S2, const Mg2Args& A, int x0, int y0) {
-  const int ax0 = (x0 >> 1) - 2, by0 = (y0 >> 1) - 2;
-  const int ax2 = (ax0 >> 1) - 1, by2 = (by0 >> 1) - 1;
-  for (int idx = threadIdx.y * TILE_Y + threadIdx.x; idx < WX + WY; idx += NTHREADS) {
-    int a0, a1;
-    float w0, w1;
-    if (idx < WX) {
-      taps(pmod(ax0 + idx, A.CX), A.CX2, a0, w0, a1, w1);
-      S2.ta[idx][0] = win(a0, ax2, A.CX2);
-      S2.ta[idx][1] = win(a1, ax2, A.CX2);
-      S2.tw[idx][0] = w0;
-      S2.tw[idx][1] = w1;
-    } else {
-      const int k = idx - WX;
-      taps(pmod(by0 + k, A.CY), A.CY2, a0, w0, a1, w1);
-      S2.tb[k][0] = win(a0, by2, A.CY2);
-      S2.tb[k][1] = win(a1, by2, A.CY2);
-      S2.sw[k][0] = w0;
-      S2.sw[k][1] = w1;
-    }
-  }
-}
-
-// Rebuilds level-1 row c over the coarse window into its ring slot:
-// P1[c] = f1 * t1[c] + W1x . blend_t(P2[c/2], P2[c/2+1]) . W1y^T, in the
-// order of the depth-1 fine rebuild.  Every thread of the block calls it; it
-// ends with a barrier.
-__device__ void build_p1(Lvl2Stage& S2, const Mg2Args& A, int c, int x0, int y0) {
-  const int tid = threadIdx.y * TILE_Y + threadIdx.x;
-  const int ax0 = (x0 >> 1) - 2, by0 = (y0 >> 1) - 2;
-  const int ax2 = (ax0 >> 1) - 1, by2 = (by0 >> 1) - 1;
-  const int c0 = c >> 1, c1 = min(c0 + 1, A.Tc2 - 1);
-  const float w = (c & 1) ? 0.5f : 0.0f;
-  const size_t plane2 = (size_t)A.CX2 * A.CY2;
-  for (int idx = tid; idx < NF * WX2 * WY2; idx += NTHREADS) {
-    const int f = idx / (WX2 * WY2), la = (idx / WY2) % WX2, lb = idx % WY2;
-    const size_t o = (size_t)pmod(ax2 + la, A.CX2) * A.CY2 + pmod(by2 + lb, A.CY2);
-    S2.CB2[f][la][lb] = (1.0f - w) * __ldg(A.P[f] + c0 * plane2 + o) + w * __ldg(A.P[f] + c1 * plane2 + o);
-  }
-  __syncthreads();
-  const size_t plane1 = (size_t)A.CX * A.CY;
-  float(*out)[WX][WY] = S2.P1[c & 1];
-  for (int idx = tid; idx < NF * WX * WY; idx += NTHREADS) {
-    const int f = idx / (WX * WY), la = (idx / WY) % WX, lb = idx % WY;
-    const size_t o = (size_t)pmod(ax0 + la, A.CX) * A.CY + pmod(by0 + lb, A.CY);
-    const int a0 = S2.ta[la][0], a1 = S2.ta[la][1], b0 = S2.tb[lb][0], b1 = S2.tb[lb][1];
-    const float in0 = S2.CB2[f][a0][b0] * S2.sw[lb][0] + S2.CB2[f][a0][b1] * S2.sw[lb][1];
-    const float in1 = S2.CB2[f][a1][b0] * S2.sw[lb][0] + S2.CB2[f][a1][b1] * S2.sw[lb][1];
-    out[f][la][lb] = A.f1[f] * __ldg(A.t1[f] + c * plane1 + o) + (S2.tw[la][0] * in0 + S2.tw[la][1] * in1);
-  }
-  __syncthreads();
-}
 
 // The global loads of one fine row, held in registers so that they are in
 // flight while the block works on the previous row: this thread's share of
 // the coarse window (two coarse rows; at depth 2 the coarse rows come from
 // the P1 ring instead) and of the tile's t0 values.
-constexpr int NCB = (NF * WX * WY + NTHREADS - 1) / NTHREADS;
+constexpr int NCB = mgc::window_share<NF>;
 constexpr int NPOS = (HX * HY + NTHREADS - 1) / NTHREADS;
 
 struct RowLoads {
@@ -648,23 +513,7 @@ __device__ __forceinline__ void fetch_row(RowLoads& L, const RowStage& S, const 
 #if ODIL_MG_ABLATION == 2
   if constexpr (!LVL2) fetch_tiled(L, S, A, rr);
 #else
-  if constexpr (!LVL2) {
-    const int c0 = rr >> 1;
-    const int c1 = min(c0 + 1, A.Tc - 1);
-    const int ax0 = (x0 >> 1) - 2, by0 = (y0 >> 1) - 2;
-    const size_t cplane = (size_t)A.CX * A.CY;
-#pragma unroll
-    for (int k = 0; k < NCB; ++k) {
-      const int idx = tid + k * NTHREADS;
-      if (idx < NF * WX * WY) {
-        const int f = idx / (WX * WY), la = (idx / WY) % WX, lb = idx % WY;
-        const int a = pmod(ax0 + la, A.CX), b = pmod(by0 + lb, A.CY);
-        const size_t o = (size_t)a * A.CY + b;
-        L.p0[k] = __ldg(A.P[f] + c0 * cplane + o);
-        L.p1[k] = __ldg(A.P[f] + c1 * cplane + o);
-      }
-    }
-  }
+  if constexpr (!LVL2) mgc::fetch_window<NF>(L.p0, L.p1, A, rr, x0, y0);
 #endif
 #pragma unroll
   for (int k = 0; k < NPOS; ++k) {
@@ -684,17 +533,7 @@ __device__ __forceinline__ void rebuild_fine(Plane* F, const RowStage& S, const 
 #pragma unroll
   for (int k = 0; k < NPOS; ++k) {
     const int idx = tid + k * NTHREADS;
-    if (idx < HX * HY) {
-      const int hx = idx / HY, hy = idx % HY;
-      const int a0 = S.ta[hx][0], a1 = S.ta[hx][1], b0 = S.tb[hy][0], b1 = S.tb[hy][1];
-      const float wa0 = S.tw[hx][0], wa1 = S.tw[hx][1], wb0 = S.sw[hy][0], wb1 = S.sw[hy][1];
-#pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        const float in0 = S.CB[f][a0][b0] * wb0 + S.CB[f][a0][b1] * wb1;
-        const float in1 = S.CB[f][a1][b0] * wb0 + S.CB[f][a1][b1] * wb1;
-        F[f][hx][hy] = A.f0[f] * L.t0[k][f] + (wa0 * in0 + wa1 * in1);
-      }
-    }
+    if (idx < HX * HY) mgc::rebuild_at(F, S, A.f0, L.t0[k], idx / HY, idx % HY);
   }
 }
 
@@ -720,13 +559,7 @@ __device__ void build_row(Plane* F, RowStage&, const MgArgs& A, const RowLoads& 
 }
 #else
 __device__ void build_row(Plane* F, RowStage& S, const MgArgs& A, const RowLoads& L) {
-  const int tid = threadIdx.y * TILE_Y + threadIdx.x;
-  const float w = (L.rr & 1) ? 0.5f : 0.0f;
-#pragma unroll
-  for (int k = 0; k < NCB; ++k) {
-    const int idx = tid + k * NTHREADS;
-    if (idx < NF * WX * WY) (&S.CB[0][0][0])[idx] = (1.0f - w) * L.p0[k] + w * L.p1[k];
-  }
+  mgc::stage_window(S, L.p0, L.p1, L.rr);
   __syncthreads();
   rebuild_fine(F, S, A, L);
   __syncthreads();
@@ -738,20 +571,7 @@ __device__ void build_row(Plane* F, RowStage& S, const MgArgs& A, const RowLoads
 // slots, the same in every thread).
 __device__ void build_row2(Plane* F, RowStage& S, Lvl2Stage& S2, const Mg2Args& A, const RowLoads& L,
                            int (&p1_rows)[2], int x0, int y0) {
-  const int tid = threadIdx.y * TILE_Y + threadIdx.x;
-  const float w = (L.rr & 1) ? 0.5f : 0.0f;
-  const int c0 = L.rr >> 1, c1 = min(c0 + 1, A.Tc - 1);
-  if (p1_rows[c0 & 1] != c0) {
-    build_p1(S2, A, c0, x0, y0);
-    p1_rows[c0 & 1] = c0;
-  }
-  if (p1_rows[c1 & 1] != c1) {
-    build_p1(S2, A, c1, x0, y0);
-    p1_rows[c1 & 1] = c1;
-  }
-  const float* q0 = &S2.P1[c0 & 1][0][0][0];
-  const float* q1 = &S2.P1[c1 & 1][0][0][0];
-  for (int idx = tid; idx < NF * WX * WY; idx += NTHREADS) (&S.CB[0][0][0])[idx] = (1.0f - w) * q0[idx] + w * q1[idx];
+  mgc::stage_window2(S, S2, A, A, L.rr, p1_rows, x0, y0);
   __syncthreads();
   rebuild_fine(F, S, A, L);
   __syncthreads();
@@ -877,7 +697,7 @@ __global__ void __launch_bounds__(NTHREADS, WALK_BLOCKS_PER_SM) mg_rows_kernel(c
   }
 
   init_taps(S, A, x0, y0);
-  if constexpr (LVL2) init_taps2(S2, A, x0, y0);
+  if constexpr (LVL2) mgc::init_taps2(S2, A, A, x0, y0);
   __syncthreads();
   RowLoads L;
   fetch_row<LVL2>(L, S, A, ts - 1, xg0, y0);
@@ -939,7 +759,6 @@ __global__ void __launch_bounds__(NTHREADS, WALK_BLOCKS_PER_SM) mg_rows_kernel(c
 // cells no window holds are 0 (the rest of a local block's coarse plane).
 // Grid: (CY / GATHER_B, CX, Tc) blocks of GATHER_B threads along b, each
 // thread all NF fields (independent sums in flight together).
-constexpr int GATHER_B = 128;
 
 template <class Args>
 __global__ void __launch_bounds__(GATHER_B) mg_dp_gather_kernel(const Args A) {
@@ -1010,46 +829,7 @@ __global__ void __launch_bounds__(GATHER_B) mg_dp_slice_gather_kernel(const MgAr
 // W1y, gathered per level-2 cell from dP1 (dt0 here: the level-1 plane, X, Y
 // its size, CX, CY, Tc the level-2 ones; a coarse tile staged in shared
 // memory).  It reads 1/8 of the bytes the row walk reads.
-__global__ void __launch_bounds__(CT * CT) mg_coarse_grad_kernel(const MgArgs A) {
-  __shared__ float S1[FW][FW + 1];
-  __shared__ float S2[FW][CT + 1];
-  const int f = blockIdx.z % NF, c = blockIdx.z / NF;
-  const int a0 = blockIdx.y * CT, b0 = blockIdx.x * CT;
-  const int xs = 2 * a0 - 2, ys = 2 * b0 - 2;
-  const int tid = threadIdx.y * CT + threadIdx.x;
-  const float* d = A.dt0[f];
-  const size_t plane = (size_t)A.X * A.Y;
-
-  for (int idx = tid; idx < FW * FW; idx += CT * CT) {
-    const int i = idx / FW, j = idx % FW;
-    const int x = xs + i, y = ys + j;
-    float v = 0.0f;
-    if (x >= 0 && x < A.X && y >= 0 && y < A.Y) {
-      const size_t o = (size_t)x * A.Y + y;
-      const int r = 2 * c;
-      v = (c >= 1 ? 0.5f * d[(size_t)(r - 1) * plane + o] : 0.0f) + d[(size_t)r * plane + o];
-      if (r + 1 < A.T) v = v + 0.5f * d[(size_t)(r + 1) * plane + o];
-    }
-    S1[i][j] = v;
-  }
-  __syncthreads();
-  for (int idx = tid; idx < FW * CT; idx += CT * CT) {
-    const int i = idx / CT, bb = idx % CT;
-    const int b = b0 + bb;
-    float acc = 0.0f;
-    if (b < A.CY) {
-      for (int y = max(2 * b - 2, 0); y <= min(2 * b + 3, A.Y - 1); ++y) acc += tap_weight(y, b, A.CY) * S1[i][y - ys];
-    }
-    S2[i][bb] = acc;
-  }
-  __syncthreads();
-  const int a = a0 + threadIdx.y, b = b0 + threadIdx.x;
-  if (a < A.CX && b < A.CY) {
-    float acc = 0.0f;
-    for (int x = max(2 * a - 2, 0); x <= min(2 * a + 3, A.X - 1); ++x) acc += tap_weight(x, a, A.CX) * S2[x - xs][threadIdx.x];
-    A.dP[f][((size_t)c * A.CX + a) * A.CY + b] = acc;
-  }
-}
+__global__ void __launch_bounds__(CT * CT) mg_coarse_grad_kernel(const MgArgs A) { mgc::coarse_grad<NF>(A); }
 
 // The row walk (MODE) and, with the gradients, the dP gather.
 // The walk's dynamic shared memory, allowed once per form.

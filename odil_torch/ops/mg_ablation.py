@@ -58,7 +58,8 @@ _TRIVIAL = RowModel(trivial_row_fn)  # autograd for the adjoint
 def _backward_trivial_row_plain(model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums):
     """Plain version of the trivial-row kernel: ``_backward_mg_plain`` with
     the trivial row (``model`` only carries the kernel's scalars)."""
-    return rmg._backward_mg_plain(_TRIVIAL, nterms, hist, f0s, t0s, coarse, consts, g, with_sums)
+    dt0, dP, _, sums = rmg._backward_mg_plain(_TRIVIAL, nterms, hist, f0s, t0s, coarse, consts, g, with_sums)
+    return dt0, dP, sums
 
 
 def _blend_rows(P, T):
@@ -145,12 +146,25 @@ def backward(variant, model, nterms, hist, f0s, t0s, coarse, consts, g, with_sum
     return plain(model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums)
 
 
+def _as_backward_mg(variant):
+    """``backward`` of ``variant`` in ``rowwise_mg._backward_mg``'s call and
+    return: (dt0, dP, dparams, sums or None), no params and no data."""
+
+    def run(model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums=False, params=(), data=()):
+        if params or data:
+            raise ValueError("the ablation builds of the mg kernel take no params and no data")
+        dt0, dP, sums = backward(variant, model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums)
+        return dt0, dP, (), sums
+
+    return run
+
+
 @contextlib.contextmanager
 def ablated(variant):
     """Within the block, the mg one-pass route (``rowwise_mg._backward_mg``)
     runs ``variant``."""
     saved = rmg._backward_mg
-    rmg._backward_mg = lambda *args, **kw: backward(variant, *args, **kw)
+    rmg._backward_mg = _as_backward_mg(variant)
     try:
         yield
     finally:

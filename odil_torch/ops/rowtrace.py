@@ -46,7 +46,10 @@ body is generated:
    for heat.  On a masked launch ``it`` and ``T`` are the global row and row
    count.  Literals are exact fp32 hex floats.  ``ops/rowwise.py`` builds it
    with ``_build.compile_generated`` at first use (one library per source,
-   keyed on its digest).
+   keyed on its digest).  On 2-D planes ``Trace.mg_source`` is the same row
+   model in a unit of the multigrid-fused walk (``csrc/mg_rows2d.cuh``, the
+   ``odil_mg2d_*`` entry points), which ``ops/rowwise_mg.py`` builds apart
+   at first use.
 
 The function's fp32 operations per cell (``ops_forward``, ``ops_backward``:
 a transcendental as one, a sigmoid as three; an expression that the body
@@ -54,6 +57,7 @@ computes at two shifts, as heat's conductivity net at both faces of a cell,
 counted once) give the kernels' bound.
 """
 
+import functools
 import struct
 import types
 
@@ -556,6 +560,19 @@ class Trace:
         self.body = self.body.replace("@BLOCKS_PER_SM@", str(self.blocks_per_sm))
         self.source = _unit(self)
 
+    @property
+    def nstaged(self):
+        """The D entries that the 2-D kernels stage in shared memory."""
+        return _staged(self.dused)
+
+    @functools.cached_property
+    def mg_source(self):
+        """The .cu unit of the multigrid-fused walk over this 2-D row model
+        (``csrc/mg_rows2d.cuh``; the ``odil_mg2d_*`` entry points), made
+        once: every mg launch looks its library up by it."""
+        assert self.rank == 2, "the mg walk takes 2-D planes"
+        return _unit_mg(self)
+
 
 # The shared memory of an SM (H100: 228 KB, of which a block takes at most
 # SMEM_LIMIT).
@@ -583,6 +600,36 @@ def rows2d_smem(nfields, hist, nterms, nparams, nstaged, grads):
     size = -(-size // 8) * 8
     size += 8 * _R2_WARPS * (-(-(nterms + max(nparams, 1)) // 16) * 16)
     size += 4 * (_R2_HX + _R2_HYS)
+    return -(-size // 8) * 8
+
+
+# mg_rows2d.cuh's walk: a rebuilt row's window of 20 x 36 cells, the coarse
+# window of 12 x 20 (level 2: 8 x 12), a dP window of 10 x 18 cells and a ring
+# of 4 closed coarse rows.
+_MG_HX, _MG_HY, _MG_WX, _MG_WY, _MG_WX2, _MG_WY2, _MG_DWB, _MG_DPR = 20, 36, 12, 20, 8, 12, 18, 4
+MG_FORMS = ("whole", "lvl2", "local")
+
+
+def mg2d_smem(nfields, hist, nterms, nparams, nstaged, grads, form="whole"):
+    """The bytes of ``mg_rows2d.cuh``'s ``Smem<M, GRADS, LVL2>`` (its
+    layout: the fp64 warp sums, the ring of HIST + 1 rebuilt rows, the staged
+    D planes, the params, the rebuild's stage, the level-1 stage at depth 2
+    and the dP stage with the gradients; an unused stage takes one float)."""
+    assert form in MG_FORMS, form
+    size = 8 * _R2_WARPS * (-(-(nterms + max(nparams, 1)) // 16) * 16)
+    floats = (hist + 1) * nfields * _MG_HX * _MG_HY
+    floats += (max(nstaged, 1) * _R2_RX * _R2_RY) if grads else 1
+    floats += max(nparams, 1)
+    floats += nfields * _MG_WX * _MG_WY + 2 * 2 * _MG_HX + 2 * 2 * _MG_HY + _MG_HX + _MG_HY
+    if form == "lvl2":
+        floats += 2 * nfields * _MG_WX * _MG_WY + nfields * _MG_WX2 * _MG_WY2 + 2 * 2 * _MG_WX + 2 * 2 * _MG_WY
+    else:
+        floats += 1
+    if grads:
+        floats += nfields * 16 * 32 + _MG_DPR * nfields * 16 * _MG_DWB + 32 * 3 + 16 * 3
+    else:
+        floats += 1
+    size += 4 * floats
     return -(-size // 8) * 8
 
 
@@ -1114,6 +1161,81 @@ int odil_rows2d_halo_forward(int model, const rows2d::Rows2DHaloArgs* a, void* s
 int odil_rows2d_halo_backward(int model, const rows2d::Rows2DHaloArgs* a, int with_sums, void* stream) {{
   if (model != 0) return (int)cudaErrorInvalidValue;
   return rows2d::backward<TracedRow, true>(*a, with_sums, (cudaStream_t)stream);
+}}
+
+}}  // extern "C"
+"""
+
+
+def _unit_mg(tr):
+    return f"""// A row model of the multigrid-fused walk (mg_rows2d.cuh), generated by
+// odil_torch/ops/rowtrace.py from the row function {tr.name}
+// ({tr.nfields} fields, hist {tr.hist}, {tr.nterms} terms, {tr.nparams} params).
+// Replaces, for this row function, the TPU kernels that trace it into their
+// bodies on the multigrid route: _forward_mg (odil_tpu/ops/rowwise_mg.py:257),
+// _backward_mg (:350) with and without the sums, with lvl2 (the two-level
+// fusion) and with wraps_in/emit_dwraps (a shard's local block), and their
+// tiled forms past the TPU's VMEM (rowwise_mg_tiled._loss_and_grads_tiled
+// :145, rowwise_mg_local_tiled._loss_and_grads_local_tiled :259).
+
+#include <cuda_runtime.h>
+
+#include "mg_rows2d.cuh"
+#include "rows1d_traced.cuh"
+
+namespace {{
+
+{tr.body}
+}}  // namespace
+
+extern "C" {{
+
+// The argument structs' sizes (form: 0 the whole plane, 1 depth 2, 2 the
+// local block).
+int odil_mg2d_args_size(int form) {{
+  return form == 0 ? (int)sizeof(mg2d::Mg2DArgs)
+                   : form == 1 ? (int)sizeof(mg2d::Mg2DLvl2Args) : (int)sizeof(mg2d::Mg2DLocalArgs);
+}}
+
+// The walk's tile: its rows (axis 0), columns (1) and threads (2).
+int odil_mg2d_tile(int axis) {{ return axis == 0 ? mg2d::TILE_X : axis == 1 ? mg2d::TILE_Y : mg2d::NTHREADS; }}
+
+// The blocks the card holds at once and the dynamic shared memory of a
+// block of a form's launch (mode: 1 the sums, 2 the gradients, 3 both).
+int odil_mg2d_resident_blocks(int form, int mode) {{ return mg2d::resident<TracedRow>(form, mode); }}
+
+int odil_mg2d_smem(int form, int mode) {{ return mg2d::smem<TracedRow>(form, mode); }}
+
+// The floats of the dP windows of a launch over T rows, X (+ the local tile
+// shift) and Y columns in slabs of `slab` rows.
+long long odil_mg2d_dp_floats(int T, int X, int Y, int slab) {{
+  return mg2d::dp_floats<TracedRow::NF>(T, X, Y, slab);
+}}
+
+const char* odil_cuda_error_string(int err) {{ return cudaGetErrorString((cudaError_t)err); }}
+
+// Loss-only pass (_forward_mg): the per-term sums into A->sums.
+int odil_mg2d_forward(const mg2d::Mg2DArgs* a, void* stream) {{
+  return mg2d::launch<TracedRow, mg2d::MODE_SUMS>(*a, (cudaStream_t)stream);
+}}
+
+// Gradient pass (_backward_mg): dt0, dP and the param cotangents, plus the
+// sums when with_sums.
+int odil_mg2d_backward(const mg2d::Mg2DArgs* a, int with_sums, void* stream) {{
+  return mg2d::backward<TracedRow>(*a, with_sums, (cudaStream_t)stream);
+}}
+
+// Two-level gradient pass (_backward_mg with lvl2): dt0, dP1, dP2 and the
+// param cotangents, plus the sums when with_sums.
+int odil_mg2d_backward2(const mg2d::Mg2DLvl2Args* a, int with_sums, void* stream) {{
+  return mg2d::backward<TracedRow>(*a, with_sums, (cudaStream_t)stream);
+}}
+
+// The local-block gradient pass with the sums (_backward_mg with wraps_in /
+// emit_dwraps): dt0, dP over the window, dheads and the param cotangents.
+int odil_mg2d_backward_local(const mg2d::Mg2DLocalArgs* a, int with_sums, void* stream) {{
+  if (!with_sums) return (int)cudaErrorInvalidValue;
+  return mg2d::launch<TracedRow, mg2d::MODE_SUMS | mg2d::MODE_GRADS>(*a, (cudaStream_t)stream);
 }}
 
 }}  // extern "C"

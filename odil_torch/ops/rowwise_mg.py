@@ -31,9 +31,19 @@ plain version, ``mg_coarse_grad_kernel`` run once more on the card.
 Each entry point dispatches on the device of its tensors and on the row
 model's declaration, by the rule of ``ops/rowwise.py``: a CUDA tensor of a
 model that names a CUDA counterpart launches the hand-written kernel of
-``csrc/rowwise_mg.cu`` (veltracer; another named model raises), one of a
-model that names none runs the plain PyTorch version on the card
-(``rowwise.plain_on_card``), a CPU tensor runs the plain version.
+``csrc/rowwise_mg.cu`` (veltracer; another named model raises); one of a
+user's row function (``cuda_model is None``) whose call ``rowtrace`` traces
+and whose shapes the walk takes launches the generic walk of
+``csrc/mg_rows2d.cuh`` over the traced 2-D row model (``Trace.mg_source``,
+built at first use; ``_mg_kernel`` decides before any build), and any other
+runs the plain PyTorch version on the card (``rowwise.plain_on_card``, its
+reason counted); a CPU tensor runs the plain version.  The traced launches
+count on the built-in wrappers' counters.
+
+The row function's params and data (``params``/``data`` of the entry
+points, as in the JAX package) reach the row model as in ``ops/rowwise.py``:
+the params are differentiated (``dparams``), the data rows are read at
+offset 0 (a local block's data rows are the block's).
 
 Local-block form (``rowwise_mg_local_loss_and_grads``, the ``--halo``
 per-shard route of ``halo.py``; the JAX package's ``_backward_mg`` with
@@ -60,19 +70,28 @@ import torch
 
 from ..transfer import _interp_matrix
 from . import _build
+from . import rowtrace
 from .rowwise import (
+    _MAXD,
+    _MAXC,
+    _MAXF2,
+    _MAXP,
     _MAXTERMS,
     RowModel,
+    _Rows2DArgs,
+    _Rows2DHaloArgs,
     _as_model,
     _backward_plain,
     _check_cuda_tensors,
     _check_veltracer_model,
     _contig,
+    _cuda_stream,
     _forward_plain,
-    _kernel_route,
     _plain,
+    _ptrs,
     _raise_on,
     _ticket,
+    _traced,
     _veltracer_scalars,
     _wave_slab,
     halo_model,
@@ -176,25 +195,26 @@ def _fines(t0s, coarse, f0s, lvl2=None):
     return fines, Wx, Wy
 
 
-def _forward_mg_plain(model, nterms, hist, f0s, t0s, coarse, consts):
+def _forward_mg_plain(model, nterms, hist, f0s, t0s, coarse, consts, params=(), data=()):
     """Plain version of the forward kernel: (nterms,) sums of squares."""
     fines, _, _ = _fines(t0s, coarse, f0s)
-    return _forward_plain(model, nterms, hist, fines, (), (), consts)
+    return _forward_plain(model, nterms, hist, fines, params, data, consts)
 
 
-def _backward_mg_plain(model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums, lvl2=None):
-    """Plain version of the backward kernel: gradients of sum_k g[k] * S[k]
-    w.r.t. (t0s, coarse), and the sums S when ``with_sums``.  With lvl2 =
-    (t1s, f1s), ``coarse`` is the level-2 partial and the coarse cotangent
-    returned is the level-1 one, dP1 (the TPU kernel's ``dc`` output)."""
+def _backward_mg_plain(model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums, lvl2=None, params=(), data=()):
+    """Plain version of the backward kernel: (dt0, dP, dparams, sums or
+    None), the gradients of sum_k g[k] * S[k] w.r.t. (t0s, coarse, params)
+    and the sums S when ``with_sums``.  With lvl2 = (t1s, f1s), ``coarse`` is
+    the level-2 partial and the coarse cotangent returned is the level-1
+    one, dP1 (the TPU kernel's ``dc`` output)."""
     with torch.no_grad():
         fines, Wx, Wy = _fines(t0s, coarse, f0s, lvl2)
-    dfines, _, sums = _backward_plain(model, nterms, hist, fines, (), (), consts, g, with_sums)
+    dfines, dparams, sums = _backward_plain(model, nterms, hist, fines, params, data, consts, g, with_sums)
     Tc = (fines[0].shape[0] - 1) // 2 + 1
     with torch.no_grad():
         dt0 = tuple(f * d for f, d in zip(f0s, dfines))
         dP = tuple(_down_rows(d, Wx, Wy, Tc) for d in dfines)
-    return dt0, dP, sums
+    return dt0, dP, dparams, sums
 
 
 def _local_wx(CX, Xe, x0, dtype, device):
@@ -211,21 +231,25 @@ def _stacked_model(model, hist):
     return halo_model(model.inner, mask, off - hist, T, max(r_lo, 0) + hist, r_hi + hist)
 
 
-def _backward_mg_local_plain(model, nterms, hist, f0s, t0s, coarse, heads, x0, consts, g):
+def _backward_mg_local_plain(model, nterms, hist, f0s, t0s, coarse, heads, x0, consts, g, params=(), data=()):
     """Plain version of the local-block backward kernel: (dt0, dP, dheads,
-    sums) of sum_k g[k] * S[k] over the block's masked residual rows."""
+    dparams, sums) of sum_k g[k] * S[k] over the block's masked residual
+    rows.  The block's data rows (Tl, ...) stand under the stack's block
+    rows; the heads' rows take the block's last (their residuals are
+    masked out)."""
     Tl, Xe, _ = t0s[0].shape
     Tcw, CX, CY = coarse[0].shape
     with torch.no_grad():
         Wx = _local_wx(CX, Xe, x0, t0s[0].dtype, t0s[0].device)
         _, Wy = _interp_matrices(CY, CY, t0s[0].dtype, t0s[0].device)
         rows = [torch.cat([h, _recon_rows(t, c, range(Tl), Wx, Wy, f)]) for t, c, h, f in zip(t0s, coarse, heads, f0s)]
-    d, _, sums = _backward_plain(_stacked_model(model, hist), nterms, hist, rows, (), (), consts, g, True)
+        data = tuple(torch.cat([dr[Tl - hist:], dr]) for dr in data)
+    d, dparams, sums = _backward_plain(_stacked_model(model, hist), nterms, hist, rows, params, data, consts, g, True)
     with torch.no_grad():
         dt0 = tuple(f * x[hist:] for f, x in zip(f0s, d))
         dP = tuple(_down_rows(x[hist:], Wx, Wy, Tcw) for x in d)
         dheads = tuple(x[:hist].clone() for x in d)
-    return dt0, dP, dheads, sums
+    return dt0, dP, dheads, dparams, sums
 
 
 # -- Plain version of the kernels' dP route -------------------------------------
@@ -432,6 +456,11 @@ def _typed(lib):
     return lib
 
 
+def _check_hand_group(params, data):
+    if params or data:
+        raise ValueError("the veltracer CUDA mg kernels take no params and no data")
+
+
 def _check_cuda_inputs(model, t0s, coarse, consts, hist):
     _check_veltracer_model(model, hist)
     if len(t0s) != 3 or len(consts) != 2:
@@ -490,27 +519,48 @@ def _launch_plan(lib, T, X, Y, dev, grads=True):
     return slab, (partials, sums, dp_part, _ticket(dev, stream)), stream
 
 
-def forward_mg_cuda(model, nterms, hist, f0s, t0s, coarse, consts):
+def _check_g(g, nterms):
+    g = g.to(torch.float32).contiguous()
+    if not g.is_cuda or g.numel() < nterms:
+        raise ValueError("g must hold nterms weights on the card")
+    return g
+
+
+def forward_mg_cuda(model, nterms, hist, f0s, t0s, coarse, consts, params=(), data=(), spec=None):
     """CUDA forward kernel (replaces ``_forward_mg``): (nterms,) sums of
-    squares of the residual rows, on the current stream."""
-    _check_cuda_inputs(model, t0s, coarse, consts, hist)
-    lib = _library()
-    T, X, Y = t0s[0].shape
-    slab, scratch, stream = _launch_plan(lib, T, X, Y, t0s[0].device, grads=False)
-    args = _launch_args(model, f0s, t0s, coarse, consts, None, None, None, scratch, nterms, slab)
-    err = lib.odil_mg_forward(ctypes.byref(args), stream)
-    _raise_on(lib, err, "odil_mg_forward")
+    squares of the residual rows, on the current stream: the veltracer's
+    hand kernel, or for a user's row function the traced walk."""
+    if model.cuda_model is None:
+        sums = _launch_traced("whole", model, nterms, hist, f0s, t0s, coarse, params, data, consts, None, True,
+                              spec=spec)[0]
+    else:
+        _check_hand_group(params, data)
+        _check_cuda_inputs(model, t0s, coarse, consts, hist)
+        lib = _library()
+        T, X, Y = t0s[0].shape
+        slab, scratch, stream = _launch_plan(lib, T, X, Y, t0s[0].device, grads=False)
+        args = _launch_args(model, f0s, t0s, coarse, consts, None, None, None, scratch, nterms, slab)
+        err = lib.odil_mg_forward(ctypes.byref(args), stream)
+        _raise_on(lib, err, "odil_mg_forward")
+        sums = scratch[1][:nterms]
     forward_mg_cuda.launches += 1
-    return scratch[1][:nterms]
+    return sums
 
 
 forward_mg_cuda.launches = 0
 
 
-def backward_mg_cuda(model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums):
-    """CUDA backward kernel (replaces ``_backward_mg``): (dt0, dP, sums or
-    None) for the loss sum_k g[k] * S[k], on the current stream."""
-    out = _launch_backward(_library(), model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums)
+def backward_mg_cuda(model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums, params=(), data=(), spec=None):
+    """CUDA backward kernel (replaces ``_backward_mg``): (dt0, dP, dparams,
+    sums or None) for the loss sum_k g[k] * S[k], on the current stream: the
+    veltracer's hand kernel, or for a user's row function the traced walk."""
+    if model.cuda_model is None:
+        out = _launch_traced("whole", model, nterms, hist, f0s, t0s, coarse, params, data, consts, g, with_sums,
+                             spec=spec)
+    else:
+        _check_hand_group(params, data)
+        dt0, dP, sums = _launch_backward(_library(), model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums)
+        out = (dt0, dP, (), sums)
     backward_mg_cuda.launches += 1
     backward_mg_cuda.launches_with_sums += bool(with_sums)
     return out
@@ -522,13 +572,12 @@ backward_mg_cuda.launches_with_sums = 0  # the launches that also formed the sum
 
 def _launch_backward(lib, model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums):
     """The backward walk of ``lib`` (the library of every path, or an
-    ablation build of ``ops/mg_ablation.py``) on checked inputs."""
+    ablation build of ``ops/mg_ablation.py``) on checked inputs: (dt0, dP,
+    sums or None)."""
     _check_cuda_inputs(model, t0s, coarse, consts, hist)
     if any(f == 0.0 for f in f0s):
         raise ValueError("the CUDA mg kernel needs nonzero level-0 factors")
-    g = g.to(torch.float32).contiguous()
-    if not g.is_cuda or g.numel() < nterms:
-        raise ValueError("g must hold nterms weights on the card")
+    g = _check_g(g, nterms)
     T, X, Y = t0s[0].shape
     slab, scratch, stream = _launch_plan(lib, T, X, Y, t0s[0].device)
     dt0 = tuple(torch.empty_like(t) for t in t0s)
@@ -555,28 +604,34 @@ def _check_cuda_inputs2(model, t0s, t1s, P2, consts, hist):
         raise ValueError(f"the two-level CUDA mg kernel takes shapes {want}, got {got}")
 
 
-def backward_mg2_cuda(model, nterms, hist, f0s, f1s, t0s, t1s, P2, consts, g, with_sums):
+def backward_mg2_cuda(model, nterms, hist, f0s, f1s, t0s, t1s, P2, consts, g, with_sums, params=(), data=(),
+                      spec=None):
     """CUDA two-level backward kernel (replaces ``_backward_mg`` with
-    ``lvl2``, and the split of its dP1 output): (dt0, dt1, dP2, sums or None)
-    for the loss sum_k g[k] * S[k], on the current stream."""
-    _check_cuda_inputs2(model, t0s, t1s, P2, consts, hist)
-    if any(f == 0.0 for f in f0s):
-        raise ValueError("the CUDA mg kernel needs nonzero level-0 factors")
-    g = g.to(torch.float32).contiguous()
-    if not g.is_cuda or g.numel() < nterms:
-        raise ValueError("g must hold nterms weights on the card")
-    lib = _library()
-    T, X, Y = t0s[0].shape
-    slab, scratch, stream = _launch_plan(lib, T, X, Y, t0s[0].device)
-    dt0 = tuple(torch.empty_like(t) for t in t0s)
-    dP1 = tuple(torch.empty_like(t) for t in t1s)
-    dP2 = tuple(torch.empty_like(c) for c in P2)
-    args = _launch_args(model, f0s, t0s, P2, consts, g, dt0, dP1, scratch, nterms, slab, lvl2=(t1s, f1s, dP2))
-    err = lib.odil_mg_backward2(ctypes.byref(args), int(bool(with_sums)), stream)
-    _raise_on(lib, err, "odil_mg_backward2")
+    ``lvl2``, and the split of its dP1 output): (dt0, dt1, dP2, dparams, sums
+    or None) for the loss sum_k g[k] * S[k], on the current stream: the
+    veltracer's hand kernel, or for a user's row function the traced walk."""
+    if model.cuda_model is None:
+        dt0, dP1, dP2, dparams, sums = _launch_traced("lvl2", model, nterms, hist, f0s, t0s, P2, params, data, consts,
+                                                      g, with_sums, lvl2=(t1s, f1s), spec=spec)
+    else:
+        _check_hand_group(params, data)
+        _check_cuda_inputs2(model, t0s, t1s, P2, consts, hist)
+        if any(f == 0.0 for f in f0s):
+            raise ValueError("the CUDA mg kernel needs nonzero level-0 factors")
+        g = _check_g(g, nterms)
+        lib = _library()
+        T, X, Y = t0s[0].shape
+        slab, scratch, stream = _launch_plan(lib, T, X, Y, t0s[0].device)
+        dt0 = tuple(torch.empty_like(t) for t in t0s)
+        dP1 = tuple(torch.empty_like(t) for t in t1s)
+        dP2 = tuple(torch.empty_like(c) for c in P2)
+        args = _launch_args(model, f0s, t0s, P2, consts, g, dt0, dP1, scratch, nterms, slab, lvl2=(t1s, f1s, dP2))
+        err = lib.odil_mg_backward2(ctypes.byref(args), int(bool(with_sums)), stream)
+        _raise_on(lib, err, "odil_mg_backward2")
+        dparams, sums = (), (scratch[1][:nterms] if with_sums else None)
     backward_mg2_cuda.launches += 1
     dt1 = tuple(f * d for f, d in zip(f1s, dP1))
-    return dt0, dt1, dP2, (scratch[1][:nterms] if with_sums else None)
+    return dt0, dt1, dP2, dparams, sums
 
 
 backward_mg2_cuda.launches = 0
@@ -601,114 +656,367 @@ def _check_local_inputs(model, t0s, coarse, heads, consts, hist):
         raise ValueError(f"the local-block mg kernel takes shapes {want}, got {got}")
 
 
-def backward_mg_local_cuda(model, nterms, hist, f0s, t0s, coarse, heads, x0, consts, g):
+def backward_mg_local_cuda(model, nterms, hist, f0s, t0s, coarse, heads, x0, consts, g, params=(), data=(),
+                           spec=None):
     """CUDA local-block backward kernel with the sums (replaces
     ``_backward_mg`` with ``wraps_in``/``emit_dwraps``, and serves
     ``rowwise_mg_local_tiled._loss_and_grads_local_tiled``): (dt0, dP,
-    dheads, sums) for the loss sum_k g[k] * S[k] of a ``halo_model``, on the
-    current stream."""
-    _check_local_inputs(model, t0s, coarse, heads, consts, hist)
-    if any(f == 0.0 for f in f0s):
-        raise ValueError("the CUDA mg kernel needs nonzero level-0 factors")
-    g = g.to(torch.float32).contiguous()
-    if not g.is_cuda or g.numel() < nterms:
-        raise ValueError("g must hold nterms weights on the card")
-    lib = _library()
-    Tl, Xe, Y = t0s[0].shape
-    dev = t0s[0].device
-    # Xe + (x0 & 1): the kernel's tiles start at even global columns (one
-    # more column when x0 is odd).
-    slab, scratch, stream = _launch_plan(lib, Tl + hist, Xe + (int(x0) & 1), Y, dev)
-    dt0 = tuple(torch.empty_like(t) for t in t0s)
-    dP = tuple(torch.empty_like(c) for c in coarse)
-    dheads = tuple(torch.empty_like(h) for h in heads)
-    base = _launch_args(model, f0s, t0s, coarse, consts, g, dt0, dP, scratch, nterms, slab)
-    mask, off, Tg, r_lo, r_hi = model.halo
-    ptr = lambda ts: (ctypes.c_void_p * 3)(*[t.data_ptr() for t in ts])
-    args = _MgLocalArgs(base=base, heads=ptr(heads), dheads=ptr(dheads), mask=mask.data_ptr(), x0=int(x0),
-                        Xg=2 * coarse[0].shape[1], off=off, Tg=Tg, r_lo=max(r_lo, 0), r_hi=r_hi)
-    err = lib.odil_mg_backward_local(ctypes.byref(args), 1, stream)
-    _raise_on(lib, err, "odil_mg_backward_local")
+    dheads, dparams, sums) for the loss sum_k g[k] * S[k] of a
+    ``halo_model``, on the current stream: the veltracer's hand kernel, or
+    for a user's row function the traced walk."""
+    if model.cuda_model is None:
+        out = _launch_traced("local", model, nterms, hist, f0s, t0s, coarse, params, data, consts, g, True,
+                             heads=heads, x0=x0, spec=spec)
+    else:
+        _check_hand_group(params, data)
+        _check_local_inputs(model, t0s, coarse, heads, consts, hist)
+        if any(f == 0.0 for f in f0s):
+            raise ValueError("the CUDA mg kernel needs nonzero level-0 factors")
+        g = _check_g(g, nterms)
+        lib = _library()
+        Tl, Xe, Y = t0s[0].shape
+        dev = t0s[0].device
+        # Xe + (x0 & 1): the kernel's tiles start at even global columns (one
+        # more column when x0 is odd).
+        slab, scratch, stream = _launch_plan(lib, Tl + hist, Xe + (int(x0) & 1), Y, dev)
+        dt0 = tuple(torch.empty_like(t) for t in t0s)
+        dP = tuple(torch.empty_like(c) for c in coarse)
+        dheads = tuple(torch.empty_like(h) for h in heads)
+        base = _launch_args(model, f0s, t0s, coarse, consts, g, dt0, dP, scratch, nterms, slab)
+        mask, off, Tg, r_lo, r_hi = model.halo
+        ptr = lambda ts: (ctypes.c_void_p * 3)(*[t.data_ptr() for t in ts])
+        args = _MgLocalArgs(base=base, heads=ptr(heads), dheads=ptr(dheads), mask=mask.data_ptr(), x0=int(x0),
+                            Xg=2 * coarse[0].shape[1], off=off, Tg=Tg, r_lo=max(r_lo, 0), r_hi=r_hi)
+        err = lib.odil_mg_backward_local(ctypes.byref(args), 1, stream)
+        _raise_on(lib, err, "odil_mg_backward_local")
+        out = (dt0, dP, dheads, (), scratch[1][:nterms])
     backward_mg_local_cuda.launches += 1
-    return dt0, dP, dheads, scratch[1][:nterms]
+    return out
 
 
 backward_mg_local_cuda.launches = 0
 
 
+# -- The traced walk (csrc/mg_rows2d.cuh) ---------------------------------------
+#
+# A user's row function on the mg route: the traced 2-D row model of
+# ``rowwise._traced`` in the unit of the generic walk (``Trace.mg_source``),
+# one library per source, built at first use.
+
+
+class _MgPart(ctypes.Structure):
+    """Mirror of ``struct MgPart`` in csrc/mg_rows2d.cuh."""
+
+    _fields_ = [
+        ("P", ctypes.c_void_p * _MAXF2),
+        ("dP", ctypes.c_void_p * _MAXF2),
+        ("dp_part", ctypes.c_void_p),
+        ("Tc", ctypes.c_int),
+        ("CX", ctypes.c_int),
+        ("CY", ctypes.c_int),
+        ("f0", ctypes.c_float * _MAXF2),
+    ]
+
+
+class _Mg2DArgs(ctypes.Structure):
+    """Mirror of ``struct Mg2DArgs`` (the whole-plane walk): Rows2DArgs over
+    the fine grid (f: t0, df: dt0) and the mg part."""
+
+    _fields_ = [("base", _Rows2DArgs), ("mg", _MgPart)]
+
+
+class _Mg2DLvl2Args(ctypes.Structure):
+    """Mirror of ``struct Mg2DLvl2Args`` (the two-level fusion)."""
+
+    _fields_ = [("base", _Mg2DArgs), ("t1", ctypes.c_void_p * _MAXF2), ("dP2", ctypes.c_void_p * _MAXF2)] + [
+        (n, ctypes.c_int) for n in ("Tc2", "CX2", "CY2")
+    ] + [("f1", ctypes.c_float * _MAXF2)]
+
+
+class _Mg2DLocalArgs(ctypes.Structure):
+    """Mirror of ``struct Mg2DLocalArgs`` (a shard's local block)."""
+
+    _fields_ = [("base", _Rows2DHaloArgs), ("mg", _MgPart), ("heads", ctypes.c_void_p * _MAXF2),
+                ("dheads", ctypes.c_void_p * _MAXF2), ("x0", ctypes.c_int), ("Xg", ctypes.c_int)]
+
+
+_MG_FORM = {"whole": 0, "lvl2": 1, "local": 2}
+_MG_STRUCTS = {"whole": _Mg2DArgs, "lvl2": _Mg2DLvl2Args, "local": _Mg2DLocalArgs}
+
+
+@functools.lru_cache(maxsize=None)
+def _mg_library(source):
+    """The library of a traced row model's mg walk (``Trace.mg_source``,
+    built at first use), its entry points typed, its argument structs
+    checked against the mirrors here, its tile and the blocks the card holds
+    of each form read once."""
+    lib = _build.load_generated("mg2d_traced", source)
+    for name, n in (("odil_mg2d_args_size", 1), ("odil_mg2d_tile", 1), ("odil_mg2d_resident_blocks", 2),
+                    ("odil_mg2d_smem", 2)):
+        getattr(lib, name).argtypes = [ctypes.c_int] * n
+        getattr(lib, name).restype = ctypes.c_int
+    lib.odil_mg2d_dp_floats.argtypes = [ctypes.c_int] * 4
+    lib.odil_mg2d_dp_floats.restype = ctypes.c_longlong
+    lib.odil_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.odil_cuda_error_string.restype = ctypes.c_char_p
+    lib.odil_mg2d_forward.argtypes = [ctypes.POINTER(_Mg2DArgs), ctypes.c_void_p]
+    lib.odil_mg2d_forward.restype = ctypes.c_int
+    for name, form in (("odil_mg2d_backward", "whole"), ("odil_mg2d_backward2", "lvl2"),
+                       ("odil_mg2d_backward_local", "local")):
+        getattr(lib, name).argtypes = [ctypes.POINTER(_MG_STRUCTS[form]), ctypes.c_int, ctypes.c_void_p]
+        getattr(lib, name).restype = ctypes.c_int
+    for form, struct in _MG_STRUCTS.items():
+        size = lib.odil_mg2d_args_size(_MG_FORM[form])
+        if size != ctypes.sizeof(struct):
+            raise RuntimeError(f"{struct.__name__} layout mismatch: C {size} vs ctypes {ctypes.sizeof(struct)} bytes")
+    lib._odil_mg2d_tile = (int(lib.odil_mg2d_tile(0)), int(lib.odil_mg2d_tile(1)))
+    lib._odil_mg2d_resident = {(form, mode): max(int(lib.odil_mg2d_resident_blocks(_MG_FORM[form], mode)), 1)
+                               for form, modes in (("whole", (1, 2, 3)), ("lvl2", (2, 3)), ("local", (3,)))
+                               for mode in modes}
+    return lib
+
+
+def _mg_refusal(trace, shape, form, coarse_x=None):
+    """Why the traced walk does not take a call of ``form`` on fine (or a
+    local block's) planes of ``shape``, or None: odd T > 2 * hist; even X, Y
+    >= 4 (at depth 2 T = 4k + 1 and X, Y multiples of 4, >= 8; a local block
+    even Y >= 4 and a global X = 2 * coarse_x >= 4); a block's shared memory
+    (``rowtrace.mg2d_smem``) within what a block may take."""
+    T, X, Y = shape
+    hist = trace.hist
+    if T % 2 == 0 or T <= 2 * hist:
+        return f"T={T}: the mg walk takes an odd T > 2 * hist = {2 * hist}"
+    if form == "lvl2":
+        if T % 4 != 1 or X % 4 or Y % 4 or X < 8 or Y < 8:
+            return f"fine planes {(T, X, Y)}: the two-level mg walk takes T = 4k+1 and X, Y multiples of 4, >= 8"
+    elif form == "local":
+        if Y % 2 or Y < 4 or coarse_x is None or coarse_x < 2:
+            return f"a block {(T, X, Y)} of global X {None if coarse_x is None else 2 * coarse_x}: the local mg walk " \
+                   f"takes an even Y >= 4 and a global X >= 4"
+    elif X % 2 or Y % 2 or X < 4 or Y < 4:
+        return f"fine planes {(X, Y)}: the mg walk takes even X, Y >= 4"
+    smem = rowtrace.mg2d_smem(trace.nfields, hist, trace.nterms, trace.nparams, trace.nstaged, True, form)
+    if smem > rowtrace.SMEM_LIMIT:
+        return (f"a block of the mg walk needs {smem} bytes of shared memory ({hist + 1} rebuilt rows of "
+                f"{trace.nfields} fields, {trace.nstaged} staged cotangent planes), over the {rowtrace.SMEM_LIMIT} "
+                f"bytes a block may take")
+    return None
+
+
+def _traced_mg(model, call, form, coarse_x=None):
+    """(the traced 2-D row model of a user row function's mg call ``(nterms,
+    hist, t0s, params, data, consts)`` of ``form``, None), or (None, the
+    reason it has none): a trace that ``rowtrace`` takes (``rowwise._traced``)
+    and shapes and shared memory that the traced walk takes
+    (``_mg_refusal``).  Decided before any build."""
+    spec, reason = _traced(model, *call)
+    if spec is not None:
+        reason = _mg_refusal(spec.trace, tuple(call[2][0].shape), form, coarse_x)
+    return (spec, None) if reason is None else (None, reason)
+
+
+def _mg_kernel(model, call, form="whole", coarse_x=None):
+    """(whether an mg call of ``form`` launches a CUDA kernel, the traced
+    row model it launches or None, the reason it launches none): a CUDA
+    tensor of a model that names a CUDA counterpart (the hand kernels), or
+    of a user's row function that ``_traced_mg`` takes.  The dispatchers
+    hand the traced model to the wrappers, so that a call is traced and
+    refused once."""
+    if not call[2][0].is_cuda:
+        return False, None, None
+    if model.cuda_model is not None:
+        return True, None, None
+    spec, reason = _traced_mg(model, call, form, coarse_x)
+    return spec is not None, spec, reason
+
+
+def _launch_traced(form, model, nterms, hist, f0s, t0s, coarse, params, data, consts, g, with_sums, lvl2=None,
+                   heads=None, x0=0, spec=None):
+    """One launch of a traced row model's mg walk of ``form`` ("whole",
+    "lvl2" or "local") on the current stream, after the checks of the
+    traced 2-D kernels (``rowwise._Rows2DCuda.check``) and of the mg inputs.
+    ``g`` None: the forward (the sums alone).  Returns (sums,) for the
+    forward; (dt0, dP, dparams, sums or None) with the gradients; at depth 2
+    (dt0, dP1, dP2, dparams, sums or None), ``coarse`` being P2 and lvl2 =
+    (t1s, f1s); on a local block (dt0, dP, dheads, dparams, sums).  spec:
+    the call's traced row model where the dispatcher has it (else traced
+    here)."""
+    grads = g is not None
+    if spec is None:
+        call = (nterms, hist, t0s, params, data, consts)
+        spec, reason = _traced_mg(model, call, form, coarse[0].shape[1] if form == "local" else None)
+        if spec is None:
+            raise NotImplementedError(f"the row function has no traced CUDA mg walk: {reason}")
+    spec.check(model, nterms, hist, t0s, params, data, consts)
+    T, X, Y = t0s[0].shape
+    levels = (lvl2[0], coarse) if form == "lvl2" else (coarse,)
+    want = [(T // 2 + 1, X // 2, Y // 2)] if form != "local" else [(T // 2 + 1, coarse[0].shape[1], Y // 2)]
+    if form == "lvl2":
+        want.append((T // 4 + 1, X // 4, Y // 4))
+    extra = tuple(heads) if form == "local" else ()
+    _check_cuda_tensors(sum(levels, ()) + extra, "mg")
+    got = [tuple(t.shape) for level in levels for t in level]
+    want = [w for w in want for _ in range(len(t0s))]
+    if form == "local":
+        got += [tuple(h.shape) for h in heads]
+        want += [(hist, X, Y)] * len(t0s)
+    if got != want:
+        raise ValueError(f"the traced mg walk takes coarse (and head) shapes {want}, got {got}")
+    if form == "local" and model.halo is None:
+        raise ValueError("the local-block mg walk takes a halo_model")
+    if grads:
+        g = _check_g(g, nterms)
+    lib = _mg_library(spec.trace.mg_source)
+    dev = t0s[0].device
+    cs = _cuda_stream(t0s[0])
+    shift = int(x0) & 1 if form == "local" else 0
+    mode = int(bool(with_sums)) | 2 * int(grads)
+    tile_x, tile_y = lib._odil_mg2d_tile
+    tiles = -(-Y // tile_y) * -(-(X + shift) // tile_x)
+    # The slab: whole waves of the resident blocks, a block rebuilding the
+    # hist rows before its slab (and with the gradients walking hist rows past it).
+    slab = _wave_slab(T, tiles, lib._odil_mg2d_resident[(form, mode)], hist * (2 if grads else 1))
+    nblocks = tiles * -(-T // slab)
+    nparams = sum(p.numel() for p in params)
+    stride = nterms + nparams
+    partials = torch.empty((max(stride, 1), nblocks), dtype=torch.float64, device=dev)
+    out = torch.empty((max(stride, 1),), dtype=torch.float32, device=dev)  # the sums, then dparams
+    dparams, pos = [], nterms
+    for p in params:
+        dparams.append(out[pos : pos + p.numel()].view(p.shape))
+        pos += p.numel()
+    Tc, CX, CY = levels[0][0].shape
+    dt0 = tuple(torch.empty_like(t) for t in t0s) if grads else ()
+    dP = tuple(torch.empty((Tc, CX, CY), dtype=torch.float32, device=dev) for _ in t0s) if grads else ()
+    dp_part = torch.empty((lib.odil_mg2d_dp_floats(T, X + shift, Y, slab) if grads else 1,), dtype=torch.float32,
+                          device=dev)
+    base = _Rows2DArgs(
+        f=_ptrs(t0s, _MAXF2), data=_ptrs(data, _MAXD), consts=_ptrs(consts, _MAXC), params=_ptrs(params, _MAXP),
+        g=g.data_ptr() if grads else None, df=_ptrs(dt0, _MAXF2), dparams=out.data_ptr() + 4 * nterms,
+        partials=partials.data_ptr(), sums=out.data_ptr(), ticket=_ticket(dev, cs).data_ptr(),
+        data_stride=(ctypes.c_int * _MAXD)(*[d[0].numel() for d in data]),
+        param_size=(ctypes.c_int * _MAXP)(*[p.numel() for p in params]), T=T, X=X, Y=Y, slab=slab,
+        nterms=nterms, nparams=nparams, stride=stride,
+    )
+    mg = _MgPart(P=_ptrs(coarse, _MAXF2), dP=_ptrs(dP, _MAXF2), dp_part=dp_part.data_ptr(), Tc=Tc, CX=CX, CY=CY,
+                 f0=(ctypes.c_float * _MAXF2)(*f0s))
+    sums = out[:nterms] if with_sums else None
+    if form == "local":
+        mask, off, Tg, r_lo, r_hi = model.halo
+        dheads = tuple(torch.empty_like(h) for h in heads)
+        args = _Mg2DLocalArgs(base=_Rows2DHaloArgs(base=base, mask=mask.data_ptr(), off=off, Tg=Tg, r_lo=max(r_lo, 0),
+                                                   r_hi=r_hi),
+                              mg=mg, heads=_ptrs(heads, _MAXF2), dheads=_ptrs(dheads, _MAXF2), x0=int(x0), Xg=2 * CX)
+        _raise_on(lib, lib.odil_mg2d_backward_local(ctypes.byref(args), 1, cs), "odil_mg2d_backward_local")
+        return dt0, dP, dheads, tuple(dparams), sums
+    args = _Mg2DArgs(base=base, mg=mg)
+    if not grads:
+        _raise_on(lib, lib.odil_mg2d_forward(ctypes.byref(args), cs), "odil_mg2d_forward")
+        return (sums,)
+    if form == "lvl2":
+        t1s, f1s = lvl2
+        Tc2, CX2, CY2 = coarse[0].shape
+        dP2 = tuple(torch.empty_like(c) for c in coarse)
+        args2 = _Mg2DLvl2Args(base=args, t1=_ptrs(t1s, _MAXF2), dP2=_ptrs(dP2, _MAXF2), Tc2=Tc2, CX2=CX2, CY2=CY2,
+                              f1=(ctypes.c_float * _MAXF2)(*f1s))
+        _raise_on(lib, lib.odil_mg2d_backward2(ctypes.byref(args2), int(bool(with_sums)), cs), "odil_mg2d_backward2")
+        return dt0, dP, dP2, tuple(dparams), sums
+    _raise_on(lib, lib.odil_mg2d_backward(ctypes.byref(args), int(bool(with_sums)), cs), "odil_mg2d_backward")
+    return dt0, dP, tuple(dparams), sums
+
+
 # -- Dispatch ------------------------------------------------------------------
 
 
-def _forward_mg(model, nterms, hist, f0s, t0s, coarse, consts):
-    if _kernel_route(model, t0s[0]):
-        return forward_mg_cuda(model, nterms, hist, f0s, _contig(t0s), _contig(coarse), _contig(consts))
-    return _plain(_forward_mg_plain, t0s[0], model, nterms, hist, f0s, t0s, coarse, consts)
+def _forward_mg(model, nterms, hist, f0s, t0s, coarse, consts, params=(), data=()):
+    call = (nterms, hist, t0s, params, data, consts)
+    kernel, spec, reason = _mg_kernel(model, call)
+    if kernel:
+        return forward_mg_cuda(model, nterms, hist, f0s, _contig(t0s), _contig(coarse), _contig(consts),
+                               _contig(params), _contig(data), spec)
+    return _plain(_forward_mg_plain, t0s[0], model, nterms, hist, f0s, t0s, coarse, consts, params, data,
+                  reason=reason)
 
 
-def _backward_mg(model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums=False):
-    if _kernel_route(model, t0s[0]):
-        return backward_mg_cuda(
-            model, nterms, hist, f0s, _contig(t0s), _contig(coarse), _contig(consts), g, with_sums
-        )
-    return _plain(_backward_mg_plain, t0s[0], model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums)
+def _backward_mg(model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums=False, params=(), data=()):
+    """(dt0, dP, dparams, sums or None)."""
+    call = (nterms, hist, t0s, params, data, consts)
+    kernel, spec, reason = _mg_kernel(model, call)
+    if kernel:
+        return backward_mg_cuda(model, nterms, hist, f0s, _contig(t0s), _contig(coarse), _contig(consts), g,
+                                with_sums, _contig(params), _contig(data), spec)
+    return _plain(_backward_mg_plain, t0s[0], model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums, None,
+                  params, data, reason=reason)
 
 
-def _backward_mg2(model, nterms, hist, f0s, f1s, t0s, t1s, P2, consts, g, with_sums=False):
-    """(dt0, dt1, dP2, sums or None) of the two-level fusion."""
-    if _kernel_route(model, t0s[0]):
-        return backward_mg2_cuda(
-            model, nterms, hist, f0s, f1s, _contig(t0s), _contig(t1s), _contig(P2), _contig(consts), g, with_sums
-        )
-    dt0, dP1, sums = _plain(_backward_mg_plain, t0s[0], model, nterms, hist, f0s, t0s, P2, consts, g, with_sums,
-                            (t1s, f1s))
+def _backward_mg2(model, nterms, hist, f0s, f1s, t0s, t1s, P2, consts, g, with_sums=False, params=(), data=()):
+    """(dt0, dt1, dP2, dparams, sums or None) of the two-level fusion."""
+    call = (nterms, hist, t0s, params, data, consts)
+    kernel, spec, reason = _mg_kernel(model, call, "lvl2")
+    if kernel:
+        return backward_mg2_cuda(model, nterms, hist, f0s, f1s, _contig(t0s), _contig(t1s), _contig(P2),
+                                 _contig(consts), g, with_sums, _contig(params), _contig(data), spec)
+    dt0, dP1, dparams, sums = _plain(_backward_mg_plain, t0s[0], model, nterms, hist, f0s, t0s, P2, consts, g,
+                                     with_sums, (t1s, f1s), params, data, reason=reason)
     with torch.no_grad():
         W1x, W1y = _interp_matrices(*P2[0].shape[1:], P2[0].dtype, P2[0].device)
         dt1, dP2 = _split_dp1(dP1, f1s, W1x, W1y)
-    return dt0, dt1, dP2, sums
+    return dt0, dt1, dP2, dparams, sums
 
 
-def _backward_mg_local(model, nterms, hist, f0s, t0s, coarse, heads, x0, consts, g):
-    if _kernel_route(model, t0s[0]):
-        return backward_mg_local_cuda(
-            model, nterms, hist, f0s, _contig(t0s), _contig(coarse), _contig(heads), x0, _contig(consts), g
-        )
-    return _plain(_backward_mg_local_plain, t0s[0], model, nterms, hist, f0s, t0s, coarse, heads, x0, consts, g)
+def _backward_mg_local(model, nterms, hist, f0s, t0s, coarse, heads, x0, consts, g, params=(), data=()):
+    """(dt0, dP, dheads, dparams, sums)."""
+    call = (nterms, hist, t0s, params, data, consts)
+    kernel, spec, reason = _mg_kernel(model, call, "local", coarse[0].shape[1])
+    if kernel:
+        return backward_mg_local_cuda(model, nterms, hist, f0s, _contig(t0s), _contig(coarse), _contig(heads), x0,
+                                      _contig(consts), g, _contig(params), _contig(data), spec)
+    return _plain(_backward_mg_local_plain, t0s[0], model, nterms, hist, f0s, t0s, coarse, heads, x0, consts, g,
+                  params, data, reason=reason)
 
 
 class _SumsqMG(torch.autograd.Function):
     """Per-term sums of squares with the finest Horner step fused in; the
-    backward runs the backward kernel with the sums off."""
+    backward runs the backward kernel with the sums off.  data and consts get
+    no gradient."""
 
     @staticmethod
     def forward(ctx, cfg, *tensors):
-        model, nterms, hist, f0s, nf = cfg
-        t0s, coarse, consts = tensors[:nf], tensors[nf : 2 * nf], tensors[2 * nf :]
+        model, nterms, hist, f0s, nf, np_, nd = cfg
+        t0s, coarse, params = tensors[:nf], tensors[nf : 2 * nf], tensors[2 * nf : 2 * nf + np_]
+        data, consts = tensors[2 * nf + np_ : 2 * nf + np_ + nd], tensors[2 * nf + np_ + nd :]
         ctx.cfg = cfg
         ctx.save_for_backward(*tensors)
-        return _forward_mg(model, nterms, hist, f0s, t0s, coarse, consts)
+        return _forward_mg(model, nterms, hist, f0s, t0s, coarse, consts, params, data)
 
     @staticmethod
     def backward(ctx, grad_sums):
-        model, nterms, hist, f0s, nf = ctx.cfg
+        model, nterms, hist, f0s, nf, np_, nd = ctx.cfg
         tensors = ctx.saved_tensors
-        t0s, coarse, consts = tensors[:nf], tensors[nf : 2 * nf], tensors[2 * nf :]
-        dt0, dP, _ = _backward_mg(model, nterms, hist, f0s, t0s, coarse, consts, grad_sums)
-        return (None,) + tuple(dt0) + tuple(dP) + (None,) * len(consts)
+        t0s, coarse, params = tensors[:nf], tensors[nf : 2 * nf], tensors[2 * nf : 2 * nf + np_]
+        data, consts = tensors[2 * nf + np_ : 2 * nf + np_ + nd], tensors[2 * nf + np_ + nd :]
+        dt0, dP, dparams, _ = _backward_mg(model, nterms, hist, f0s, t0s, coarse, consts, grad_sums, False, params,
+                                           data)
+        return (None,) + tuple(dt0) + tuple(dP) + tuple(dparams) + (None,) * (len(data) + len(consts))
 
 
 # -- Entry points --------------------------------------------------------------
 
 
-def rowwise_mg_loss_and_grads(row_fn, t0s, coarse, factors0, consts=(), nterms=1, hist=1, t1s=None, factors1=None):
+def rowwise_mg_loss_and_grads(row_fn, t0s, coarse, factors0, params=(), data=(), consts=(), nterms=1, hist=1,
+                              t1s=None, factors1=None):
     """One-pass fused loss AND gradients for the training step.
 
-    Returns (terms, (dt0, dcoarse, ())) where terms[k] = mean(residual_k^2)
-    and the gradients are of ``sum_k terms[k]``.  Not differentiable (it IS
-    the gradient); for a differentiable loss use ``rowwise_loss_terms_mg``.
+    Returns (terms, (dt0, dcoarse, dparams)) where terms[k] =
+    mean(residual_k^2) and the gradients are of ``sum_k terms[k]``.  Not
+    differentiable (it IS the gradient); for a differentiable loss use
+    ``rowwise_loss_terms_mg``.  params are differentiated, data (T, X, Y) or
+    (T, 1, 1) rows read at offset 0 are not (the JAX package's groups).
 
     t1s/factors1 (with ``coarse`` the level-2 partial P2) switch on the
-    two-level fusion: returns (terms, (dt0, dt1, dP2, ()))."""
+    two-level fusion: returns (terms, (dt0, dt1, dP2, dparams))."""
     model = _as_model(row_fn)
+    params, data, consts = tuple(params), tuple(data), tuple(consts)
     if t1s is not None:
         t0s, t1s, P2 = tuple(t0s), tuple(t1s), tuple(coarse)
         T, X, Y = t0s[0].shape
@@ -719,26 +1027,30 @@ def rowwise_mg_loss_and_grads(row_fn, t0s, coarse, factors0, consts=(), nterms=1
         assert T > 2 * hist
         f0s, f1s, cells = tuple(float(f) for f in factors0), tuple(float(f) for f in factors1), T * X * Y
         g = torch.full((nterms,), 1.0 / cells, dtype=t0s[0].dtype, device=t0s[0].device)
-        dt0, dt1, dP2, sums = _backward_mg2(model, nterms, hist, f0s, f1s, t0s, t1s, P2, consts, g, with_sums=True)
-        return tuple((sums / cells).unbind()), (dt0, dt1, dP2, ())
+        dt0, dt1, dP2, dparams, sums = _backward_mg2(model, nterms, hist, f0s, f1s, t0s, t1s, P2, consts, g,
+                                                     with_sums=True, params=params, data=data)
+        return tuple((sums / cells).unbind()), (dt0, dt1, dP2, dparams)
     t0s, coarse, f0s, cells = _prepare_mg(t0s, coarse, factors0, hist)
     g = torch.full((nterms,), 1.0 / cells, dtype=t0s[0].dtype, device=t0s[0].device)
-    dt0, dcoarse, sums = _backward_mg(model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums=True)
-    return tuple((sums / cells).unbind()), (dt0, dcoarse, ())
+    dt0, dcoarse, dparams, sums = _backward_mg(model, nterms, hist, f0s, t0s, coarse, consts, g, with_sums=True,
+                                               params=params, data=data)
+    return tuple((sums / cells).unbind()), (dt0, dcoarse, dparams)
 
 
-def rowwise_loss_terms_mg(row_fn, t0s, coarse, factors0, consts=(), nterms=1, hist=1):
+def rowwise_loss_terms_mg(row_fn, t0s, coarse, factors0, params=(), data=(), consts=(), nterms=1, hist=1):
     """Mean-squared loss terms with the finest MG Horner step fused in,
-    differentiable with respect to ``t0s`` and ``coarse`` by autograd."""
+    differentiable with respect to ``t0s``, ``coarse`` and ``params`` by
+    autograd."""
     model = _as_model(row_fn)
     t0s, coarse, f0s, cells = _prepare_mg(t0s, coarse, factors0, hist)
-    cfg = (model, nterms, hist, f0s, len(t0s))
-    sums = _SumsqMG.apply(cfg, *t0s, *coarse, *consts)
+    params, data, consts = tuple(params), tuple(data), tuple(consts)
+    cfg = (model, nterms, hist, f0s, len(t0s), len(params), len(data))
+    sums = _SumsqMG.apply(cfg, *t0s, *coarse, *params, *data, *consts)
     return tuple((sums / cells).unbind())
 
 
-def rowwise_mg_local_loss_and_grads(row_fn, t0s, coarse, factors0, heads, x0=0, consts=(), nterms=1, hist=1,
-                                    gscale=1.0):
+def rowwise_mg_local_loss_and_grads(row_fn, t0s, coarse, factors0, heads, x0=0, params=(), data=(), consts=(),
+                                    nterms=1, hist=1, gscale=1.0):
     """One-pass fused loss sums AND gradients on ONE shard's local block --
     the ``--halo`` form of ``rowwise_mg_loss_and_grads`` (``halo.py`` builds
     the localization around it; ``odil_tpu/ops/rowwise_mg.py:965``).
@@ -753,6 +1065,8 @@ def rowwise_mg_local_loss_and_grads(row_fn, t0s, coarse, factors0, heads, x0=0, 
             package passes the gathered rows ``Wx`` of the prolongation
             matrix instead, and ``Wy`` whole -- both follow from x0 and the
             coarse shape.
+    params, data: the row function's groups; data is the block's, (Tl, Xe,
+            Y) or (Tl, 1, 1).
     gscale: the 1/cells_global loss weight.
 
     Returns ``(sums, (dt0, dcoarse, dheads, dparams))``: local per-term sums
@@ -769,5 +1083,6 @@ def rowwise_mg_local_loss_and_grads(row_fn, t0s, coarse, factors0, heads, x0=0, 
         assert tuple(h.shape) == (hist,) + tuple(t0s[0].shape[1:]), (tuple(h.shape),)
     f0s = tuple(float(f) for f in factors0)
     g = torch.full((nterms,), gscale, dtype=t0s[0].dtype, device=t0s[0].device)
-    dt0, dP, dheads, sums = _backward_mg_local(model, nterms, hist, f0s, t0s, coarse, heads, x0, tuple(consts), g)
-    return sums, (dt0, dP, dheads, ())
+    dt0, dP, dheads, dparams, sums = _backward_mg_local(model, nterms, hist, f0s, t0s, coarse, heads, x0,
+                                                        tuple(consts), g, tuple(params), tuple(data))
+    return sums, (dt0, dP, dheads, dparams)

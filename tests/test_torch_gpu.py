@@ -77,6 +77,13 @@ def _model(flags):
     )
 
 
+def _reach2_mg_row_fn(it, T_, rows, data_rows, params, consts):
+    """A row function on the veltracer's fields that reads u two cells away:
+    past the traced kernels' reach, so it has no CUDA counterpart."""
+    (u, up), _, _ = rows
+    return (u - torch.roll(up, 2, -2),) * 6
+
+
 def _inputs(device, T=17, X=64, Y=48, seed=11):
     rng = np.random.default_rng(seed)
     mk = lambda *shape: torch.as_tensor((0.3 * rng.normal(size=shape)).astype(np.float32), device=device)
@@ -100,7 +107,7 @@ def test_cuda_kernels_match_plain(cuda, with_sums, flags):
     for a, b in zip(k[0] + k[1], p[0] + p[1]):
         _close(a, b, 1e-4, 1e-6)
     if with_sums:
-        _close(k[2], p[2], 1e-5, 0.0)
+        _close(k[3], p[3], 1e-5, 0.0)
     fk = trmg.forward_mg_cuda(model, nterms, 1, f0s, t0s, coarse, consts)
     fp = trmg._forward_mg_plain(model, nterms, 1, f0s, t0s, coarse, consts)
     _close(fk, fp, 1e-5, 0.0)
@@ -118,7 +125,7 @@ def test_cuda_kernels_match_plain_small_planes(cuda, shape):
     p = trmg._backward_mg_plain(model, 6, 1, f0s, t0s, coarse, consts, g, True)
     for a, b in zip(k[0] + k[1], p[0] + p[1]):
         _close(a, b, 1e-4, 1e-6)
-    _close(k[2], p[2], 1e-5, 0.0)
+    _close(k[3], p[3], 1e-5, 0.0)
     _close(trmg.forward_mg_cuda(model, 6, 1, f0s, t0s, coarse, consts),
            trmg._forward_mg_plain(model, 6, 1, f0s, t0s, coarse, consts), 1e-5, 0.0)
 
@@ -131,7 +138,7 @@ def test_cuda_loss_terms_autograd_match_plain(cuda):
     for device in (cuda, torch.device("cpu")):
         t0s, coarse, consts = _inputs(device, seed=3)
         leaves = [t.clone().requires_grad_(True) for t in t0s + coarse]
-        terms = trmg.rowwise_loss_terms_mg(model, leaves[:3], leaves[3:], (1.0, 0.5, 2.0), consts, nterms=6, hist=1)
+        terms = trmg.rowwise_loss_terms_mg(model, leaves[:3], leaves[3:], (1.0, 0.5, 2.0), consts=consts, nterms=6, hist=1)
         loss = sum(w * t for w, t in zip((1.0, 0.5, 2.0, 1.0, 0.3, 0.7), terms))
         results.append((terms, torch.autograd.grad(loss, leaves)))
     (kt, kg), (pt, pg) = results
@@ -142,9 +149,12 @@ def test_cuda_loss_terms_autograd_match_plain(cuda):
 
 
 def test_cuda_wrappers_refuse_other_models_and_types(cuda):
+    """A row function without a CUDA counterpart (one the tracer refuses:
+    a read two cells along x) raises in the wrapper; the hand kernel
+    refuses float64 and planes narrower than its tile's taps."""
     t0s, coarse, consts = _inputs(cuda)
     with pytest.raises(NotImplementedError):
-        trmg.forward_mg_cuda(trmg.RowModel(_model(K).row_fn), 6, 1, (1.0,) * 3, t0s, coarse, consts)
+        trmg.forward_mg_cuda(trmg.RowModel(_reach2_mg_row_fn), 6, 1, (1.0,) * 3, t0s, coarse, consts)
     with pytest.raises(TypeError):
         trmg.forward_mg_cuda(_model(K), 6, 1, (1.0,) * 3, tuple(t.double() for t in t0s), coarse, consts)
     t0s, coarse, consts = _inputs(cuda, 5, 2, 4)
@@ -334,9 +344,9 @@ def test_mg_kernels_unchanged_by_header_split(cuda, flags):
     f0s = (0.7, 1.1, 0.9)
     g = torch.linspace(0.5, 1.5, nterms, device=cuda) / t0s[0].numel()
     want = MG_DIGESTS["all_terms" if flags["kxreg"] else "no_reg"]
-    dt0, dP, sums = trmg.backward_mg_cuda(model, nterms, 1, f0s, t0s, coarse, consts, g, True)
+    dt0, dP, _, sums = trmg.backward_mg_cuda(model, nterms, 1, f0s, t0s, coarse, consts, g, True)
     assert _digest(list(dt0) + list(dP) + [sums]) == want["backward_sums"]
-    dt0, dP, _ = trmg.backward_mg_cuda(model, nterms, 1, f0s, t0s, coarse, consts, g, False)
+    dt0, dP, _, _ = trmg.backward_mg_cuda(model, nterms, 1, f0s, t0s, coarse, consts, g, False)
     assert _digest(list(dt0) + list(dP)) == want["backward"]
     assert _digest([trmg.forward_mg_cuda(model, nterms, 1, f0s, t0s, coarse, consts)]) == want["forward"]
 
@@ -646,15 +656,16 @@ def test_lvl2_kernel_matches_plain(cuda, shape, flags):
         before = (trmg.backward_mg2_cuda.launches, trmg.backward_mg_cuda.launches)
         k = trmg.backward_mg2_cuda(model, nterms, 1, f0s, F1, t0s, t1s, P2, consts, g, with_sums)
         assert (trmg.backward_mg2_cuda.launches, trmg.backward_mg_cuda.launches) == (before[0] + 1, before[1])
-        d0, dP1, ps = trmg._backward_mg_plain(model, nterms, 1, f0s, t0s, P2, consts, g, with_sums, lvl2=(t1s, F1))
+        d0, dP1, _, ps = trmg._backward_mg_plain(model, nterms, 1, f0s, t0s, P2, consts, g, with_sums,
+                                                 lvl2=(t1s, F1))
         W1x, W1y = trmg._interp_matrices(shape[1] // 4, shape[2] // 4, torch.float32, cuda)
         d1, d2 = trmg._split_dp1(dP1, F1, W1x, W1y)
         for a, b in zip(k[0] + k[1] + k[2], d0 + d1 + d2):
             _close(a, b, 1e-4, 1e-6)
         if with_sums:
-            _close(k[3], ps, 1e-5, 0.0)
+            _close(k[4], ps, 1e-5, 0.0)
         else:
-            assert k[3] is None
+            assert k[4] is None
 
 
 def test_lvl2_kernel_repeats_its_bits(cuda):
@@ -662,7 +673,8 @@ def test_lvl2_kernel_repeats_its_bits(cuda):
     g = torch.full((6,), 1.0 / t0s[0].numel(), device=cuda)
     outs = []
     for _ in range(3):
-        d0, d1, d2, s = trmg.backward_mg2_cuda(_model(K), 6, 1, (0.7, 1.1, 0.9), F1, t0s, t1s, P2, consts, g, True)
+        d0, d1, d2, _, s = trmg.backward_mg2_cuda(_model(K), 6, 1, (0.7, 1.1, 0.9), F1, t0s, t1s, P2, consts, g,
+                                                  True)
         outs.append(_digest(list(d0) + list(d1) + list(d2) + [s]))
     assert outs[0] == outs[1] == outs[2]
 
@@ -677,8 +689,8 @@ def test_lvl2_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(TypeError):
         trmg.backward_mg2_cuda(_model(K), 6, 1, (0.7,) * 3, F1, t0s, tuple(t.double() for t in t1s), P2, consts, g,
                                True)
-    with pytest.raises(NotImplementedError):
-        trmg.backward_mg2_cuda(trmg.RowModel(_model(K).row_fn), 6, 1, (0.7,) * 3, F1, t0s, t1s, P2, consts, g, True)
+    with pytest.raises(NotImplementedError):  # a row function past the traced walk's reach
+        trmg.backward_mg2_cuda(trmg.RowModel(_reach2_mg_row_fn), 6, 1, (0.7,) * 3, F1, t0s, t1s, P2, consts, g, True)
 
 
 def test_cuda_depth2_route_matches_cpu_route(cuda, monkeypatch):
@@ -800,7 +812,7 @@ def test_mg_local_kernel_matches_plain(cuda, name):
                                       g.double())
     for a, b, c in zip(k[0] + k[1] + k[2], p[0] + p[1] + p[2], q[0] + q[1] + q[2]):
         _close_floor(a, b, c)
-    _close(k[3], p[3], 1e-5, 0.0)
+    _close(k[4], p[4], 1e-5, 0.0)
     assert (trmg.backward_mg_local_cuda.launches, trmg.backward_mg_cuda.launches) == (before[0] + 1, before[1])
 
 
@@ -972,7 +984,7 @@ def test_mg_local_kernel_keeps_its_bits(cuda, name):
     model, t0s, coarse, heads, consts, x0 = _mg_local_case(cuda, name)
     g = torch.linspace(0.5, 1.5, 6, device=cuda) / t0s[0].numel()
     k = trmg.backward_mg_local_cuda(model, 6, 1, (0.7, 1.1, 0.9), t0s, coarse, heads, x0, consts, g)
-    assert _digest(list(k[0]) + list(k[1]) + list(k[2]) + [k[3]]) == MG_LOCAL_DIGESTS[name]
+    assert _digest(list(k[0]) + list(k[1]) + list(k[2]) + [k[4]]) == MG_LOCAL_DIGESTS[name]
 
 
 # -- The mg backward at the main path's shapes: dP inside the walk ----------------
@@ -1007,9 +1019,9 @@ def test_mg_kernel_matches_plain_at_main_path_shapes(cuda, shape):
         for a, b in zip(k[0] + k[1], p[0] + p[1]):
             _close_max(a, b)
         if with_sums:
-            _close(k[2], p[2], 1e-5, 0.0)
+            _close(k[3], p[3], 1e-5, 0.0)
             again = trmg.backward_mg_cuda(model, 6, 1, f0s, t0s, coarse, consts, g, True)
-            assert _digest(list(k[0]) + list(k[1]) + [k[2]]) == _digest(list(again[0]) + list(again[1]) + [again[2]])
+            assert _digest(list(k[0]) + list(k[1]) + [k[3]]) == _digest(list(again[0]) + list(again[1]) + [again[3]])
     _close(trmg.forward_mg_cuda(model, 6, 1, f0s, t0s, coarse, consts),
            trmg._forward_mg_plain(model, 6, 1, f0s, t0s, coarse, consts), 1e-5, 0.0)
 
@@ -1036,10 +1048,10 @@ def test_mg_local_kernel_matches_plain_at_shard_shapes(cuda, name, monkeypatch):
                                       g.double())
     for a, b, c in zip(k[0] + k[1] + k[2], p[0] + p[1] + p[2], q[0] + q[1] + q[2]):
         _close_floor(a, b, c)
-    _close(k[3], p[3], 1e-5, 0.0)
+    _close(k[4], p[4], 1e-5, 0.0)
     again = trmg.backward_mg_local_cuda(model, 6, 1, f0s, t0s, coarse, heads, x0, consts, g)
-    assert _digest(list(k[0]) + list(k[1]) + list(k[2]) + [k[3]]) == _digest(
-        list(again[0]) + list(again[1]) + list(again[2]) + [again[3]])
+    assert _digest(list(k[0]) + list(k[1]) + list(k[2]) + [k[4]]) == _digest(
+        list(again[0]) + list(again[1]) + list(again[2]) + [again[4]])
 
 
 def test_mg_backward_forms_dp_in_the_walk(cuda):
@@ -1938,3 +1950,196 @@ def test_traced_2d_kernels_repeat_their_bits(cuda, traced2d_builds, shape):
     hu = trw.halo_model(user, _shard_mask(X, Y, cuda), -1, 2 * T - 3, 1, T)
     masked = [_digest(list(trw.backward_halo_cuda(hu, *call, g, True)[0])) for _ in range(2)]
     assert masked[0] == masked[1]
+
+
+# -- A user's row function on the mg route: the traced walk (mg_rows2d.cuh) ------
+
+# Whole planes (the veltracer's steps follow the grid: a library a shape),
+# planes narrower than a tile among them; the two-level and local forms at
+# STEP's model (one library).
+MG2D_SHAPES = [(65, 256, 256), (9, 16, 16), (17, 40, 72), (9, 4, 6)]
+MG2D_LVL2_SHAPES = [(9, 16, 16), (17, 64, 48)]
+MG2D_NET_SHAPES = [(9, 16, 16), (17, 40, 24)]
+
+
+def _mg2d_case(device, T, X, Y, seed=31):
+    """The veltracer's row function bare and its hand model at (T, X, Y)
+    (``_traced2d_case``), its fields as the level-0 terms and a seeded
+    level-1 partial."""
+    user, hand, (nterms, hist, t0s, _, _, consts) = _traced2d_case(device, T, X, Y, seed)
+    rng = np.random.default_rng(seed + 1)
+    coarse = tuple(torch.as_tensor((0.3 * rng.normal(size=(T // 2 + 1, X // 2, Y // 2))).astype(np.float32),
+                                   device=device) for _ in range(3))
+    return user, hand, t0s, coarse, consts
+
+
+def _mg2d_net_case(device, T, X, Y):
+    user, (nterms, hist, t0s, params, data, consts) = _net2d_case(device, T, X, Y)
+    rng = np.random.default_rng(37)
+    coarse = tuple(torch.as_tensor((0.3 * rng.normal(size=(T // 2 + 1, X // 2, Y // 2))).astype(np.float32),
+                                   device=device) for _ in range(2))
+    return user, t0s, coarse, params, data
+
+
+def _mg_counts():
+    return dict(fwd=trmg.forward_mg_cuda.launches, bwd=trmg.backward_mg_cuda.launches,
+                bwd2=trmg.backward_mg2_cuda.launches, local=trmg.backward_mg_local_cuda.launches,
+                plain=trw.plain_on_card.launches)
+
+
+@pytest.fixture(scope="module")
+def mg2d_builds():
+    """Every traced mg case's library, built together (one nvcc each)."""
+    import concurrent.futures
+
+    from odil_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    calls = []
+    for shape in MG2D_SHAPES:
+        user, _, t0s, _, consts = _mg2d_case("cuda", *shape)
+        calls.append((user, (6, 1, t0s, (), (), consts)))
+    t0s, _, _, consts = _inputs2("cuda", *MG2D_LVL2_SHAPES[0])
+    calls.append((trw.RowModel(_model(K).row_fn), (6, 1, t0s, (), (), consts)))
+    for shape in MG2D_NET_SHAPES:
+        user, t0s, _, params, data = _mg2d_net_case("cuda", *shape)
+        calls.append((user, (2, 2, t0s, params, data, ())))
+    sources = {trw._traced(user, *call)[0].trace.mg_source for user, call in calls}
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
+        list(ex.map(lambda src: _build.compile_generated("mg2d_traced", src), sources))
+
+
+@pytest.mark.parametrize("shape", MG2D_SHAPES)
+def test_traced_mg_kernels_match_plain_and_hand(cuda, mg2d_builds, shape):
+    """The veltracer's row function bare on the mg route takes the traced
+    walk: forward and backward with and without the sums against the plain
+    version in fp64 and the hand walk (rowwise_mg.cu) on the same inputs,
+    counted on the built-in wrappers; no plain_on_card."""
+    user, hand, t0s, coarse, consts = _mg2d_case(cuda, *shape)
+    f0s = (0.7, 1.1, 0.9)
+    g = torch.linspace(0.5, 1.5, 6, device=cuda) / t0s[0].numel()
+    kernel, spec, reason = trmg._mg_kernel(user, (6, 1, t0s, (), (), consts))
+    assert kernel and spec is not None and reason is None
+    wide = (_wide(t0s), _wide(coarse), _wide(consts))
+    before = _mg_counts()
+    for with_sums in (True, False):
+        kd, kP, kp, ks = trmg.backward_mg_cuda(user, 6, 1, f0s, t0s, coarse, consts, g, with_sums)
+        hd, hP, _, hs = trmg.backward_mg_cuda(hand, 6, 1, f0s, t0s, coarse, consts, g, with_sums)
+        pd, pP, _, ps = trmg._backward_mg_plain(user, 6, 1, f0s, *wide, g.double(), with_sums)
+        assert kp == ()
+        for a, b, c in zip(kd + kP, pd + pP, hd + hP):
+            _close_max(a, b)
+            _close_max(a, c)
+        if with_sums:
+            _close(ks, ps, 1e-5, 0.0)
+            _close(ks, hs, 1e-5, 0.0)
+        else:
+            assert ks is None
+    kf = trmg.forward_mg_cuda(user, 6, 1, f0s, t0s, coarse, consts)
+    _close(kf, trmg._forward_mg_plain(user, 6, 1, f0s, *wide), 1e-5, 0.0)
+    _close(kf, trmg.forward_mg_cuda(hand, 6, 1, f0s, t0s, coarse, consts), 1e-5, 0.0)
+    after = _mg_counts()
+    assert {k: after[k] - before[k] for k in after} == dict(fwd=2, bwd=4, bwd2=0, local=0, plain=0)
+
+
+@pytest.mark.parametrize("shape", MG2D_LVL2_SHAPES)
+def test_traced_mg_two_level_matches_plain_and_hand(cuda, mg2d_builds, shape):
+    """The two-level form (level-1 rows rebuilt in the walk, dP2 one level
+    down) against the plain version with the split of dP1 in fp64 and the
+    hand two-level walk."""
+    hand = _model(K)
+    user = trw.RowModel(hand.row_fn)
+    t0s, t1s, P2, consts = _inputs2(cuda, *shape)
+    f0s = (0.7, 1.1, 0.9)
+    g = torch.linspace(0.5, 1.5, 6, device=cuda) / t0s[0].numel()
+    W1x, W1y = trmg._interp_matrices(shape[1] // 4, shape[2] // 4, torch.float64, cuda)
+    for with_sums in (True, False):
+        before = _mg_counts()
+        k = trmg.backward_mg2_cuda(user, 6, 1, f0s, F1, t0s, t1s, P2, consts, g, with_sums)
+        after = _mg_counts()
+        assert {n: after[n] - before[n] for n in after} == dict(fwd=0, bwd=0, bwd2=1, local=0, plain=0)
+        h = trmg.backward_mg2_cuda(hand, 6, 1, f0s, F1, t0s, t1s, P2, consts, g, with_sums)
+        d0, dP1, _, ps = trmg._backward_mg_plain(user, 6, 1, f0s, _wide(t0s), _wide(P2), _wide(consts), g.double(),
+                                                 with_sums, lvl2=(_wide(t1s), F1))
+        d1, d2 = trmg._split_dp1(dP1, F1, W1x, W1y)
+        for a, b, c in zip(k[0] + k[1] + k[2], d0 + d1 + d2, h[0] + h[1] + h[2]):
+            _close_max(a, b)
+            _close_max(a, c)
+        if with_sums:
+            _close(k[4], ps, 1e-5, 0.0)
+            _close(k[4], h[4], 1e-5, 0.0)
+
+
+@pytest.mark.parametrize("name", list(MG_LOCAL_CASES))
+def test_traced_mg_local_matches_plain_and_hand(cuda, mg2d_builds, name):
+    """The local-block form on a shard's block (the seam, odd and even x0, a
+    whole-x block, the flagship's shard) against the plain version of the
+    wrapped function in fp64 with the fp32 floor and the hand local walk."""
+    hm, t0s, coarse, heads, consts, x0 = _mg_local_case(cuda, name)
+    user = trw.halo_model(trw.RowModel(hm.inner.row_fn), *hm.halo)
+    f0s = (0.7, 1.1, 0.9)
+    g = torch.linspace(0.5, 1.5, 6, device=cuda) / t0s[0].numel()
+    before = _mg_counts()
+    k = trmg.backward_mg_local_cuda(user, 6, 1, f0s, t0s, coarse, heads, x0, consts, g)
+    after = _mg_counts()
+    assert {n: after[n] - before[n] for n in after} == dict(fwd=0, bwd=0, bwd2=0, local=1, plain=0)
+    h = trmg.backward_mg_local_cuda(hm, 6, 1, f0s, t0s, coarse, heads, x0, consts, g)
+    p = trmg._backward_mg_local_plain(user, 6, 1, f0s, t0s, coarse, heads, x0, consts, g)
+    u64 = trw.halo_model(user.inner, user.halo[0].double(), *user.halo[1:])
+    q = trmg._backward_mg_local_plain(u64, 6, 1, f0s, _wide(t0s), _wide(coarse), _wide(heads), x0, _wide(consts),
+                                      g.double())
+    for a, b, c, e in zip(k[0] + k[1] + k[2], p[0] + p[1] + p[2], q[0] + q[1] + q[2], h[0] + h[1] + h[2]):
+        _close_floor(a, b, c)
+        _close_floor(a, e, c)
+    _close(k[4], p[4], 1e-5, 0.0)
+    _close(k[4], h[4], 1e-5, 0.0)
+
+
+@pytest.mark.parametrize("shape", MG2D_NET_SHAPES)
+def test_traced_mg_kernels_with_params_and_data(cuda, mg2d_builds, shape):
+    """A hist-2 row function with params, (T, X, Y) and (T, 1, 1) data on the
+    mg route: forward and backward (sums on and off) against the plain
+    version in fp64, the param cotangents too."""
+    user, t0s, coarse, params, data = _mg2d_net_case(cuda, *shape)
+    f0s = (0.7, 1.1)
+    g = torch.linspace(0.5, 1.5, 2, device=cuda) / t0s[0].numel()
+    wide = (_wide(t0s), _wide(coarse), ())
+    for with_sums in (True, False):
+        kd, kP, kp, ks = trmg.backward_mg_cuda(user, 2, 2, f0s, t0s, coarse, (), g, with_sums, params, data)
+        pd, pP, pp, ps = trmg._backward_mg_plain(user, 2, 2, f0s, *wide, g.double(), with_sums, None, _wide(params),
+                                                 _wide(data))
+        assert len(kp) == len(params)
+        for a, b in zip(kd + kP + kp, pd + pP + pp):
+            _close_max(a, b)
+        if with_sums:
+            _close(ks, ps, 1e-5, 0.0)
+    _close(trmg.forward_mg_cuda(user, 2, 2, f0s, t0s, coarse, (), params, data),
+           trmg._forward_mg_plain(user, 2, 2, f0s, *wide, _wide(params), _wide(data)), 1e-5, 0.0)
+
+
+def test_traced_mg_kernels_repeat_their_bits(cuda, mg2d_builds):
+    """No atomics on a float: the traced walk's backward+sums gives the same
+    bits call after call at depth 1, depth 2 and on a shard's block."""
+    user, _, t0s, coarse, consts = _mg2d_case(cuda, 65, 256, 256)
+    g = torch.full((6,), 1.0 / t0s[0].numel(), device=cuda)
+    f0s = (0.7, 1.1, 0.9)
+    outs = [_digest(_flat(trmg.backward_mg_cuda(user, 6, 1, f0s, t0s, coarse, consts, g, True))) for _ in range(2)]
+    assert outs[0] == outs[1]
+    t0s, t1s, P2, consts = _inputs2(cuda, *MG2D_LVL2_SHAPES[1])
+    user = trw.RowModel(_model(K).row_fn)
+    outs = [_digest(_flat(trmg.backward_mg2_cuda(user, 6, 1, f0s, F1, t0s, t1s, P2, consts, g, True)))
+            for _ in range(2)]
+    assert outs[0] == outs[1]
+    hm, t0s, coarse, heads, consts, x0 = _mg_local_case(cuda, "flagship")
+    user = trw.halo_model(trw.RowModel(hm.inner.row_fn), *hm.halo)
+    outs = [_digest(_flat(trmg.backward_mg_local_cuda(user, 6, 1, f0s, t0s, coarse, heads, x0, consts, g)))
+            for _ in range(2)]
+    assert outs[0] == outs[1]
+
+
+def _flat(x):
+    """The tensors of nested tuples, in order (None and empty groups left out)."""
+    if isinstance(x, (tuple, list)):
+        return [t for y in x for t in _flat(y)]
+    return [] if x is None else [x]

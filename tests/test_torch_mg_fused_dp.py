@@ -61,8 +61,8 @@ def test_fused_dp_whole_plane(depth):
     slab = 9  # two slabs of the 17 rows
     fused = [trmg._dp_fused_plain(d, Tc, slab) for d in dfines]
     assert trmg._dp_partials(dfines[0], Tc, slab).shape[:4] == (2, 6, 2, 2)
-    _, dP, _ = trmg._backward_mg_plain(model, 6, 1, F0, tt(t0s), tt(coarse), tt(consts), torch.as_tensor(g), False,
-                                       lvl2=lvl2)
+    _, dP, _, _ = trmg._backward_mg_plain(model, 6, 1, F0, tt(t0s), tt(coarse), tt(consts), torch.as_tensor(g), False,
+                                          lvl2=lvl2)
     for a, b in zip(fused, dP):
         _close(a.numpy(), b.numpy(), 1e-12)
     j = lambda xs: tuple(jnp.asarray(a) for a in xs)
@@ -100,7 +100,7 @@ def test_fused_dp_local_block_odd_x0():
     slab = 9  # two slabs of the Tl + 1 rows of the stack
     fused = [trmg._dp_fused_plain(x[1:], Tcw, slab, x0, X, local=True) for x in d]
     assert trmg._dp_partials(d[0][1:], Tcw, slab, x0, X, local=True).shape[:4] == (2, 6, 2, 2)
-    _, dP, _, _ = trmg._backward_mg_local_plain(hm, 6, 1, F0, tt(t0s), tt(coarse), tt(heads), x0, tt(consts), g)
+    _, dP, _, _, _ = trmg._backward_mg_local_plain(hm, 6, 1, F0, tt(t0s), tt(coarse), tt(heads), x0, tt(consts), g)
     for a, b in zip(fused, dP):
         _close(a.numpy(), b.numpy(), 1e-12)
 

@@ -158,7 +158,8 @@ def test_mg_model_without_cuda_counterpart_runs_plain_on_card():
     k = trmg._backward_mg(model, 2, 1, (0.5, 2.0), _card(t0s), _card(coarse), consts, g, True)
     p = trmg._backward_mg(model, 2, 1, (0.5, 2.0), t0s, coarse, consts, g, True)
     assert trw.plain_on_card.launches == before + 1
-    for a, b in zip(k[0] + k[1] + (k[2],), p[0] + p[1] + (p[2],)):
+    assert k[2] == p[2] == ()
+    for a, b in zip(k[0] + k[1] + (k[3],), p[0] + p[1] + (p[3],)):
         assert torch.equal(a.as_subclass(torch.Tensor), b)
 
 

@@ -139,8 +139,8 @@ def test_loss_terms_autograd_match_jax_grad(kind, hand_vjp, dtype):
         [jnp.asarray(a) for a in t0s], [jnp.asarray(a) for a in coarse]
     )
     leaves = [torch.as_tensor(a).requires_grad_(True) for a in t0s + coarse]
-    terms = trmg.rowwise_loss_terms_mg(model, leaves[:3], leaves[3:], FACTORS0, [torch.as_tensor(a) for a in consts],
-                                       nterms=nterms, hist=1)
+    terms = trmg.rowwise_loss_terms_mg(model, leaves[:3], leaves[3:], FACTORS0,
+                                       consts=[torch.as_tensor(a) for a in consts], nterms=nterms, hist=1)
     loss = sum(w * t for w, t in zip((1.0, 0.5, 2.0, 1.0, 0.3, 0.7), terms))
     grads = torch.autograd.grad(loss, leaves)
     rt, rg, ag = TOL[dtype]
@@ -172,12 +172,23 @@ def test_recon_rows_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=1e-12)
 
 
+def _reach2_row_fn(it, T_, rows, data_rows, params, consts_v):
+    """A row function that reads a field two cells away: past the traced
+    kernels' reach, so it has no CUDA counterpart."""
+    (u_r, _, _) = rows
+    return (u_r[0] - torch.roll(u_r[1], 2, -2),) * 4
+
+
 def test_cuda_route_refuses_cpu_and_unknown_models():
     """A row model without a CUDA counterpart, or a tensor that is not a
-    float32 CUDA tensor, is refused by the CUDA wrappers (no fallback)."""
+    float32 CUDA tensor, is refused by the CUDA wrappers (no fallback).  A
+    user row function that the tracer takes has one (the traced mg walk), so
+    its CPU tensors are what is refused."""
     t0s, coarse, consts = _inputs(np.float32)
     tt = lambda xs: tuple(torch.as_tensor(a) for a in xs)
     with pytest.raises(NotImplementedError):
+        trmg.forward_mg_cuda(trmg.RowModel(_reach2_row_fn), 4, 1, FACTORS0, tt(t0s), tt(coarse), tt(consts))
+    with pytest.raises(TypeError):
         trmg.forward_mg_cuda(trmg.RowModel(_torch_row_fn), 4, 1, FACTORS0, tt(t0s), tt(coarse), tt(consts))
     model = trmg.RowModel(_torch_row_fn, cuda_model="veltracer")
     with pytest.raises(TypeError):

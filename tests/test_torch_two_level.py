@@ -110,8 +110,8 @@ def test_plain_lvl2_backward_and_split_match_jax():
         jfn, 6, 1, F0, True, j(t0s), j(P2), W[X // 2], W[X // 2], (), (), j(consts), jnp.asarray(g),
         with_sums=True, lvl2=(j(t1s), F1, W[X // 4], W[X // 4]),
     )
-    dt0, dP1, sums = trmg._backward_mg_plain(model, 6, 1, F0, tt(t0s), tt(P2), tt(consts), torch.as_tensor(g), True,
-                                             lvl2=(tt(t1s), F1))
+    dt0, dP1, _, sums = trmg._backward_mg_plain(model, 6, 1, F0, tt(t0s), tt(P2), tt(consts), torch.as_tensor(g),
+                                                True, lvl2=(tt(t1s), F1))
     _close(sums.numpy(), jsums, 1e-10)
     for a, b in zip(dt0 + dP1, jdt0 + jdP1):
         _close(a.numpy(), b, 1e-10, 1e-10)
